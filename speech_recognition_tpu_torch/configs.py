@@ -8,5 +8,6 @@ does reach JAX, ``DataConfig.make_audio_feature_fn``, is replaced by
 
 from speech_recognition_tpu.configs.data_config import ConfigValidationError, DataConfig, SpecAugmentConfig
 from speech_recognition_tpu.configs.model_config import LASConfig, get_model_config
+from speech_recognition_tpu.configs.train_config import TrainConfig
 
-__all__ = ["ConfigValidationError", "DataConfig", "LASConfig", "SpecAugmentConfig", "get_model_config"]
+__all__ = ["ConfigValidationError", "DataConfig", "LASConfig", "SpecAugmentConfig", "TrainConfig", "get_model_config"]

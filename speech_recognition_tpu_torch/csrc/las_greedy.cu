@@ -8,11 +8,13 @@
 //     threaded LSTM cell stack with pad gating (a thread per gate column).
 //     Every vector lives in shared memory; every matvec is the block's own
 //     loop, float32 accumulation.  Values are rounded to T where the TPU
-//     kernel rounds them; h and c stay float32 across steps.
+//     kernel rounds them; h and c stay float32 across steps.  The step's
+//     device code is in las_step.cuh, shared with the decoder forward (K2).
 //  2. K5's vocab_tile_kernel over the step's hidden rows, k = 1, one bf16
 //     rounding of (dot + float32 bias) under bf16, none under float32.
 //  3. greedy_merge_kernel: K5's merge (top-1 and logsumexp) plus the EOS
 //     bookkeeping: a row that has ended emits pad and stops adding logP.
+#include "las_step.cuh"
 #include "vocab_topk.cuh"
 
 #define STEP_THREADS 1024
@@ -45,7 +47,6 @@ __global__ void __launch_bounds__(STEP_THREADS)
   float* red = sc + S;      // [33] reduction scratch
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
   const int tok = prev_tok[b];
   const bool m = tok != pad_id;  // pad-token gating: state frozen, output zero
 
@@ -57,74 +58,14 @@ __global__ void __launch_bounds__(STEP_THREADS)
   for (int j = tid; j < He; j += nt) x[j] = to_f(emb[(size_t)tok * He + j]);
   __syncthreads();
 
-  // q = h @ qw + qb
-  for (int j = tid; j < H; j += nt) {
-    float acc = 0.0f;
-    for (int i = 0; i < H; ++i) acc = fmaf(hq[i], to_f(qw[(size_t)i * H + j]), acc);
-    q[j] = acc + to_f(qb[j]);
-  }
-  __syncthreads();
+  attend<T>(hq, qw, qb, pk + (size_t)b * S * H, value + (size_t)b * S * Dv, attn_bias + (size_t)b * S, S, H, Dv, q,
+            sc, red, x + He);
 
-  // scores[s] = q . pk[b, s] + bias[b, s]
-  const T* pkb = pk + (size_t)b * S * H;
-  for (int s = warp; s < S; s += n_warps) {
-    float acc = 0.0f;
-    for (int i = lane; i < H; i += 32) acc = fmaf(q[i], to_f(pkb[(size_t)s * H + i]), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) sc[s] = acc + attn_bias[(size_t)b * S + s];
-  }
-  __syncthreads();
-
-  // float32 softmax over the key frames
-  float mx = -INFINITY;
-  for (int s = tid; s < S; s += nt) mx = fmaxf(mx, sc[s]);
-  mx = block_reduce(mx, red, true);
-  float sum = 0.0f;
-  for (int s = tid; s < S; s += nt) {
-    const float e = expf(sc[s] - mx);
-    sc[s] = e;
-    sum += e;
-  }
-  sum = block_reduce(sum, red, false);
-  for (int s = tid; s < S; s += nt) sc[s] = sc[s] / sum;
-  __syncthreads();
-
-  // context = probs @ value[b]
-  const T* vb = value + (size_t)b * S * Dv;
-  for (int d = tid; d < Dv; d += nt) {
-    float acc = 0.0f;
-    for (int s = 0; s < S; ++s) acc = fmaf(sc[s], to_f(vb[(size_t)s * Dv + d]), acc);
-    x[He + d] = rnd<T>(acc);
-  }
-  __syncthreads();
-
-  // threaded LSTM cell stack (gates i, f, c, o)
+  // threaded LSTM cell stack
   int in_dim = He + Dv;
-  const int G = 4 * H;
   for (int ci = 0; ci < cells.n; ++ci) {
-    const T* K = cells.kernel[ci];
-    const T* Rk = cells.recurrent[ci];
-    const T* Bc = cells.bias[ci];
-    for (int j = tid; j < G; j += nt) {
-      float a1 = 0.0f, a2 = 0.0f;
-      for (int a = 0; a < in_dim; ++a) a1 = fmaf(x[a], to_f(K[(size_t)a * G + j]), a1);
-      for (int a = 0; a < H; ++a) a2 = fmaf(hq[a], to_f(Rk[(size_t)a * G + j]), a2);
-      z[j] = a1 + to_f(Bc[j]) + a2;
-    }
-    __syncthreads();
-    for (int j = tid; j < H; j += nt) {
-      const float gi = sigmoidf(z[j]), gf = sigmoidf(z[H + j]);
-      const float gg = tanhf(z[2 * H + j]), go = sigmoidf(z[3 * H + j]);
-      const float cp = gf * cc[j] + gi * gg;
-      const float hp = go * tanhf(cp);
-      if (m) {
-        hc[j] = hp;
-        cc[j] = cp;
-      }
-      hq[j] = rnd<T>(hc[j]);
-      x[j] = m ? rnd<T>(hp) : 0.0f;
-    }
-    __syncthreads();
+    cell_gates<T>(x, in_dim, hq, cells.kernel[ci], cells.recurrent[ci], cells.bias[ci], H, z);
+    cell_update<T>(z, hc, cc, hq, x, H, m, nullptr, nullptr);
     in_dim = H;
   }
 

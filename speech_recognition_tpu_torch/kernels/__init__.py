@@ -2,7 +2,8 @@
 
 The kernels have a plain C interface, so they compile with ``nvcc`` alone
 (no PyTorch headers: seconds, not minutes) into one shared library that is
-loaded with ``ctypes``.  The build happens at first use, from the package's
+loaded with ``ctypes``.  Each ``.cu`` source compiles in its own ``nvcc``
+process, all started together, and one more call links the objects.  The build happens at first use, from the package's
 own sources, into ``build/torch_kernels/`` beside the package; the library's
 file name carries a hash of the sources, so an edited source is rebuilt.
 Target: ``sm_90a`` (H100).  Nothing here runs at import time: the CPU tests
@@ -43,6 +44,16 @@ _SIGNATURES = {
     # h, c, prev_tok, ended, logp_sum, tokens, step, L, hidden,
     # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, stream
     "las_greedy_step": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    # dtype_bf16, emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs, cps,
+    # out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H, He, Dv, stream
+    "las_decoder_fwd": [_I] + [_P] * 7 + [_I] + [_P] * 6 + [_P] * 8 + [_I] * 6 + [_P],
+    # dtype_bf16, dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells,
+    # kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv, stream
+    "las_decoder_bwd": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
+    # dtype_bf16, hid, W, b, y, R, H, V, part_val, part_idx, part_max, part_sum, lse, lab, pred, stream
+    "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 8,
+    # dtype_bf16, hid, W, b, y, lse, dnll, R, H, V, dhid, dW, db, stream
+    "ce_vocab_bwd": [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
 }
 
 
@@ -71,13 +82,29 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, *[p for p in _sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{out}.{os.getpid()}"
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{tag}.{os.path.basename(src)}.o"
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
+        jobs.append((src, obj, subprocess.Popen(cmd, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err[-8000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{tag}.tmp"
+    proc = subprocess.run([_nvcc(), *flags, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]],
+                          capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    build_log = proc.stderr
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    build_log = "".join(logs)
     os.replace(tmp, out)
     return out
 

@@ -31,22 +31,25 @@ def compute_dtype(mixed_precision: bool) -> torch.dtype:
     return torch.bfloat16 if mixed_precision else torch.float32
 
 
-def create_model(model_config, data_config, dtype: torch.dtype, device: torch.device, generator=None) -> LAS:
-    """The port's model for a ``ModelConfig``; LAS is the only family ported so far."""
+def create_model(model_config, data_config, dtype: torch.dtype, device: torch.device, generator=None,
+                 train: bool = False) -> LAS:
+    """The port's model for a ``ModelConfig``; LAS is the only family ported so far.
+    ``train`` only sets the module mode: the forward takes ``training`` explicitly."""
     if model_config.model_name.lower() != "las":
         raise NotImplementedError(f"model {model_config.model_name!r} is not ported to torch yet (LAS only)")
     model = LAS(model_config, data_config.frequency_dim, data_config.feature_dim, dtype=dtype, generator=generator)
-    return model.to(device).eval()
+    return model.to(device).train(train)
+
+
+def count_params(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
 
 
 def load_weights(model: LAS, path: str) -> LAS:
-    """Load a ``.pt`` state_dict written by ``torch.save(model.state_dict(), path)``."""
-    from speech_recognition_tpu.utils import open_file
+    """Load a ``.pt`` state_dict written by ``train.save_weights`` or ``torch.save(model.state_dict(), path)``."""
+    from ..train.checkpoint import restore_weights
 
-    with open_file(path, "rb") as f:
-        state = torch.load(f, map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
-    return model
+    return restore_weights(path, model)
 
 
 def pipelined_decode(batches, decode_fn, depth=2):

@@ -41,8 +41,8 @@ def cuda_ms(fn, reps=3):
     return statistics.median(times)
 
 
-def profile(fn):
-    """(wall ms, device-busy ms, top kernels by device time) of one call of fn."""
+def profile(fn, top_n=12):
+    """(wall ms, device-busy ms, the ``top_n`` kernels by device time, all when None) of one call of fn."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -55,15 +55,16 @@ def profile(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side kernel events only: the aten ops that launched them carry
-    # the same device time and would count it twice
+    # the same device time and would count it twice, and a GPU-side range
+    # annotation (the optimizer's step) spans kernels counted on their own
     kernels = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             ms, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     rows = sorted(((k, ms, n) for k, (ms, n) in kernels.items()), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return wall, busy, [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:12]]
+    return wall, busy, [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top_n]]
 
 
 def main():
