@@ -6,10 +6,14 @@
 Phases, in order; any failure exits non-zero without printing a result:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA/nvcc versions,
-   and the build of every CUDA kernel of the decode path from ``csrc/``;
+   and the build of every CUDA kernel from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, in
-   bf16 at LAS-small shapes, with the tolerances stated in ``check_*``, and
-   both times (CUDA events, plain/kernel/kernel/plain turns);
+   bf16 at LAS-small's shapes (K1-K5) and DeepSpeech2's (K6, also float32),
+   with the tolerances stated in ``check_*``; both times (CUDA events,
+   plain/kernel/kernel/plain turns), the time of the one PyTorch call that
+   does the kernel's main work where there is one (``F.linear`` producing the
+   full logits: K1, K5, K6), and the kernel's bound computed from its shapes
+   (``bound``);
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, after the kernels'
@@ -21,7 +25,14 @@ Phases, in order; any failure exits non-zero without printing a result:
    slice`` for a few steps of one epoch and a dev pass, after the training
    kernels' counters are set to 0; the checkpoint is decoded by
    ``run.inference``; then ms per train step and utterances/s, and one
-   float32 step on 8 clips with the kernels against the plain versions.
+   float32 step on 8 clips with the kernels against the plain versions;
+5. DeepSpeech2 (``resources/configs/deepspeech.yml``) through ``run.train``:
+   the same 256 clips with transcripts of at most 48 tokens (so every CTC
+   row is feasible at T' = 108), ``--mixed-precision --device GPU
+   --batch-size 128`` for a few steps and a dev pass, after K6's counters are
+   set to 0; the checkpoint is decoded by ``run.inference``, greedy and
+   beam-8; then ms per train step and utterances/s, decode ms per batch and
+   RTF, and one float32 step on 8 clips with K6 against its plain version.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the repository,
@@ -46,6 +57,9 @@ N_DEC, S_ENC = L - 1, 255  # decoder positions and listener frames at 1024 input
 TRAIN_CLIPS, TRAIN_STEPS, TIMED_STEPS = 256, 4, 5
 FRAMES = 1024
 SAMPLES = (FRAMES - 1) * 160 + 320  # 1024 frames of the libri config (frame 320, step 160) at 16 kHz
+T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 -> 492 -> 236 -> 108); label cap
+# published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 failures = []
 
 
@@ -85,6 +99,48 @@ def timed_pair(kernel_fn, plain_fn, iters):
     torch.cuda.synchronize()
     p1, k1, k2, p2 = run(plain_fn), run(kernel_fn), run(kernel_fn), run(plain_fn)
     return min(k1, k2), min(p1, p2)
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors (nested tuples and lists included), each counted once."""
+    total = 0
+    for t in tensors:
+        total += nbytes(*t) if isinstance(t, (tuple, list)) else t.numel() * t.element_size()
+    return total
+
+
+def bound(flops, n_bytes):
+    """(ms, "operations" | "bytes"): the least time the H100 could take for work
+    of ``flops`` matrix-product operations in bf16 and ``n_bytes`` of inputs read
+    once and outputs written once, the larger of flops / 989 TFLOP/s and bytes /
+    3.35 TB/s (the published SXM peaks at 700 W)."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def linear_ms(hid, W, b, iters=20):
+    """CUDA-event ms of cuBLAS's ``F.linear`` producing the full logits
+    ``hid @ W + b`` [R, V] in hid's type: the one PyTorch call that does the
+    vocab kernels' main work (timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    weight = W.t().contiguous()  # [V, H], F.linear's layout, made outside the timing
+    bias = b.to(hid.dtype)
+    F.linear(hid, weight, bias)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        F.linear(hid, weight, bias)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cell_flops(Bsz, cells, H):
+    """2 x multiply-adds of one step of the LSTM cells: [B, in + H] x [in + H, 4H] each."""
+    return sum(2 * Bsz * (k.shape[0] + H) * 4 * H for k in cells)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -141,8 +197,10 @@ def check_vocab_topk(R, H, V, k, rounding, bias_f32, gen):
           f"{(idx == pi[:, :k]).float().mean().item():.4f} equal overall)")
     k_ms, p_ms = timed_pair(lambda: vocab_topk(hid, W, b, k, rounding),
                             lambda: vocab_topk_plain(hid, W, b, k, rounding), 20)
-    print(f"  {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return err.max().item(), k_ms, p_ms
+    lib_ms = linear_ms(hid, W, b)
+    b_ms, b_by = bound(2 * R * H * V, nbytes(hid, W, b, vals, idx.int(), lse))  # indices stored as int32
+    print(f"  {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, F.linear {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return err.max().item(), k_ms, p_ms, b_ms, b_by, lib_ms
 
 
 def las_small(dtype, device, gen, vocab_scale=1.0):
@@ -211,8 +269,14 @@ def check_greedy(gen):
     check(torch.allclose(kppl[same_rows], pppl[same_rows], rtol=1e-2, atol=0),
           f"las_greedy perplexity rtol 1e-2 on the {int(same_rows.sum())} identical rows")
     k_ms, p_ms = timed_pair(lambda: greedy_search(*args), lambda: greedy_search_plain(*args), 3)
-    print(f"  las_greedy B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode")
-    return max(h_err, c_err), k_ms, p_ms
+    # every one of the L-1 steps runs for every row: attention (scores, context,
+    # query projection), the cells and the vocab projection
+    H, Dv, V = qw.shape[0], value.shape[2], vw.shape[1]
+    step_flops = 2 * B * (S * H + S * Dv + H * H + H * V) + cell_flops(B, [k for k, _, _ in cells], H)
+    b_ms, b_by = bound((L - 1) * step_flops, nbytes(args[:11], ktok, kppl))
+    print(f"  las_greedy B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return max(h_err, c_err), k_ms, p_ms, b_ms, b_by, None
 
 
 def check_ce(gen):
@@ -255,9 +319,13 @@ def check_ce(gen):
               f"{want.float().abs().max().item():.3g})")
     f_ms, pf_ms = timed_pair(lambda: ce_fwd(hid, W, b, y), lambda: ce_fwd_plain(hid, W, b, y), 5)
     b_ms, pb_ms = timed_pair(lambda: ce_bwd(hid, W, b, y, plse, dnll), lambda: ce_bwd_plain(hid, W, b, y, plse, dnll), 3)
-    print(f"  ce_vocab R={R} H={H} V={V}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms; "
-          f"bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms")
-    return (fwd_err, f_ms, pf_ms), (max(errs.values()), b_ms, pb_ms)
+    lib_ms = linear_ms(hid, W, b)
+    # forward: one product; backward: the logits recompute, dhid and dW
+    fb = bound(2 * R * H * V, nbytes(hid, W, b, y, lse, lab, pred.int()))
+    bb = bound(3 * 2 * R * H * V, nbytes(hid, W, b, y, plse, dnll, dhid, dW, db))
+    print(f"  ce_vocab R={R} H={H} V={V}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms; "
+          f"bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms; F.linear {lib_ms:.3f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (max(errs.values()), b_ms, pb_ms, *bb, lib_ms)
 
 
 def decoder_operands(gen, dtype, N, Bsz, S, H, He, Dv, device="cuda"):
@@ -322,9 +390,81 @@ def check_decoder(gen):
                   f"(max abs err {err:.3g})")
     f_ms, pf_ms = timed_pair(lambda: decoder_fwd(*ops), lambda: decoder_fwd_plain(*ops), 3)
     b_ms, pb_ms = timed_pair(lambda: decoder_bwd(*args), lambda: decoder_bwd_plain(*args), 3)
-    print(f"  las_decoder N={N_DEC} B={B} S={S_ENC}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms; "
-          f"bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms")
-    return (fwd_err, f_ms, pf_ms), (bwd_err, b_ms, pb_ms)
+    # per step and row: attention (scores, context, query projection) and the
+    # cells; the backward runs the same products transposed
+    H, Dv = 256, 512
+    loop_flops = N_DEC * (2 * B * (S_ENC * H + S_ENC * Dv + H * H) + cell_flops(B, ks, H))
+    fb = bound(loop_flops, nbytes(ops, hl, cl, hid, hs, ci, zs, cps))
+    bb = bound(loop_flops, nbytes(args[:-1], got))
+    print(f"  las_decoder N={N_DEC} B={B} S={S_ENC}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound "
+          f"{fb[0]:.4f} ms; bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, None), (bwd_err, b_ms, pb_ms, *bb, None)
+
+
+def check_emissions(gen):
+    """K6 vs plain at DeepSpeech2's loss shapes: B=128, T'=108, H=256, V=16000,
+    K=129 ids per row (128 padded labels with repeats and the pad id many times,
+    then the blank).  bf16: the emissions within 2e-2 absolute, each gradient
+    within 3e-2 x max|ref| (float32 sums in another order than cuBLAS's, and a
+    float32 difference can move dlog's bf16 rounding by a step).  float32 on 8
+    rows: lse, the gathered logits and the emissions rtol 1e-5 (atol 1e-5),
+    each gradient within 1e-5 x max|ref| (nothing rounds; sums in another order)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.ctc_emissions import (
+        ctc_emissions_bwd, ctc_emissions_bwd_plain, ctc_emissions_fwd, ctc_emissions_fwd_plain)
+
+    dev, T, H, V, K = "cuda", T_DS2, 256, 16000, L + 1
+    hid = (torch.randn(B, T, H, generator=gen) * 0.5).to(dev, torch.bfloat16)
+    W = (torch.randn(H, V, generator=gen) / 4).to(dev, torch.bfloat16)
+    b = (torch.randn(V, generator=gen) * 0.1).to(dev, torch.bfloat16)
+    labels = torch.randint(1, V, (B, L), generator=gen)
+    labels[:, 1] = labels[:, 0]  # a repeated label
+    n_lab = torch.randint(4, DS2_MAX_TOKENS + 1, (B,), generator=gen)
+    labels[torch.arange(L)[None, :] >= n_lab[:, None]] = 0  # the pad id
+    ids = torch.cat([labels, torch.full((B, 1), 14)], dim=1).to(dev, torch.int32)
+    dvals = (torch.randn(B, T, K, generator=gen) / (T * 8)).to(dev)
+
+    def emission_and_grads(fwd, bwd, hid, W, b, ids, dvals):
+        lse, vals = fwd(hid, W, b, ids)
+        return lse, vals, vals - lse[..., None], bwd(hid, W, b, ids, lse, dvals)
+
+    kl, kv, ke, kg = emission_and_grads(ctc_emissions_fwd, ctc_emissions_bwd, hid, W, b, ids, dvals)
+    pl, pv, pe, pg = emission_and_grads(ctc_emissions_fwd_plain, ctc_emissions_bwd_plain, hid, W, b, ids, dvals)
+    torch.cuda.synchronize()
+    tag = f"ctc_emissions B={B} T={T} H={H} V={V} K={K}"
+    fwd_err = (ke - pe).abs().max().item()
+    check(fwd_err <= 2e-2, f"{tag} bf16: emissions within 2e-2 (max abs err {fwd_err:.3g})")
+    bwd_err = 0.0
+    for name, got, want in zip(("dhid", "dW", "db"), kg, pg):
+        err = (got.float() - want.float()).abs().max().item()
+        bwd_err = max(bwd_err, err)
+        check(got.dtype == want.dtype and err <= 3e-2 * want.float().abs().max().item(),
+              f"{tag} bf16: {name} within 3e-2 x max|ref| (max abs err {err:.3g}, "
+              f"max|ref| {want.float().abs().max().item():.3g})")
+
+    f32 = [t[:8].float() if t.dim() == 3 else t.float() for t in (hid, W, b)]
+    kl8, kv8, ke8, kg8 = emission_and_grads(ctc_emissions_fwd, ctc_emissions_bwd, *f32, ids[:8], dvals[:8])
+    pl8, pv8, pe8, pg8 = emission_and_grads(ctc_emissions_fwd_plain, ctc_emissions_bwd_plain, *f32, ids[:8],
+                                            dvals[:8])
+    close = all(torch.allclose(a, c, rtol=1e-5, atol=1e-5) for a, c in ((kl8, pl8), (kv8, pv8), (ke8, pe8)))
+    check(close, f"ctc_emissions float32 on 8 rows: lse, gathered logits and emissions rtol 1e-5 "
+                 f"(max abs err {(ke8 - pe8).abs().max().item():.3g})")
+    worst = max((g - w).abs().max().item() / w.abs().max().item() for g, w in zip(kg8, pg8))
+    check(worst <= 1e-5, f"ctc_emissions float32 on 8 rows: dhid, dW, db within 1e-5 x max|ref| ({worst:.3g})")
+
+    f_ms, pf_ms = timed_pair(lambda: ctc_emissions_fwd(hid, W, b, ids),
+                             lambda: ctc_emissions_fwd_plain(hid, W, b, ids), 5)
+    b_ms, pb_ms = timed_pair(lambda: ctc_emissions_bwd(hid, W, b, ids, pl, dvals),
+                             lambda: ctc_emissions_bwd_plain(hid, W, b, ids, pl, dvals), 3)
+    R = B * T
+    lib_ms = linear_ms(hid.reshape(R, H), W, b)
+    # forward: one product; backward: the logits recompute, dhid and dW
+    fb = bound(2 * R * H * V, nbytes(hid, W, b, ids, kl, kv))
+    bb = bound(3 * 2 * R * H * V, nbytes(hid, W, b, ids, pl, dvals, kg))
+    print(f"  {tag}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms; bwd kernel {b_ms:.3f} "
+          f"ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms; F.linear {lib_ms:.3f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -462,7 +602,7 @@ def write_train_inputs(tmp, gen_np):
     and for the first 128 (dev)."""
     wav_dir = os.path.join(tmp, "train_wavs")
     write_clips(wav_dir, TRAIN_CLIPS, gen_np)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))  # upper case: the libri model has no lower-case pieces
     rows = []
     for i in range(TRAIN_CLIPS):
         words = ["".join(gen_np.choice(letters, gen_np.integers(2, 9))) for _ in range(gen_np.integers(10, 31))]
@@ -475,11 +615,11 @@ def write_train_inputs(tmp, gen_np):
     return wav_dir, paths
 
 
-def train_args(tmp, paths, data_config):
-    return ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
+def train_args(tmp, paths, data_config, model_config="las_small.yml", out="train_out"):
+    return ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
             "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
             "--train-dataset-paths", paths["train"], "--dev-dataset-paths", paths["dev"],
-            "--train-dataset-size", str(TRAIN_CLIPS), "--output-path", os.path.join(tmp, "train_out"),
+            "--train-dataset-size", str(TRAIN_CLIPS), "--output-path", os.path.join(tmp, out),
             "--epochs", "1", "--steps-per-epoch", str(TRAIN_STEPS), "--learning-rate", "1e-3",
             "--warmup-steps", "2", "--batch-size", str(B), "--dev-batch-size", str(B),
             "--shuffle-buffer-size", "64", "--max-over-policy", "slice", "--mixed-precision", "--device", "GPU",
@@ -522,6 +662,13 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     return launches, cfg
 
 
+def token_conditioned(cfg):
+    """LAS takes the tokens as decoder inputs; a CTC model (DeepSpeech2) does not."""
+    from speech_recognition_tpu_torch.configs import LASConfig
+
+    return isinstance(cfg.model_config, LASConfig)
+
+
 def one_batch(cfg, n_rows):
     """The first training batch of ``n_rows`` rows, as run.train builds it, on the card."""
     import torch
@@ -535,13 +682,15 @@ def one_batch(cfg, n_rows):
     audio, lengths, tokens = next(padded_batch(stream, n_rows, cfg.audio_pad_length, cfg.token_pad_length,
                                                pad_to_batch=True, with_lengths=True))
     audio, lengths, tokens = (torch.from_numpy(a).cuda() for a in (audio, lengths, tokens))
-    return ((audio, lengths), tokens[:, :-1].long()), tokens[:, 1:]
+    if token_conditioned(cfg):
+        return ((audio, lengths), tokens[:, :-1].long()), tokens[:, 1:]
+    return (audio, lengths), tokens
 
 
-def time_train_step(cfg):
-    """ms per bf16 train step at B=128, 1024 frames, N=127 (teacher-forced
-    branch): CUDA events around each of TIMED_STEPS steps after 2 warm-up
-    steps, median; utterances/s = B / step seconds."""
+def time_train_step(cfg, what):
+    """ms per bf16 train step at B=128 and 1024 frames (LAS: N=127, the
+    teacher-forced branch): CUDA events around each of TIMED_STEPS steps after
+    2 warm-up steps, median; utterances/s = B / step seconds."""
     import torch
 
     from speech_recognition_tpu_torch.run.common import create_model
@@ -564,48 +713,44 @@ def time_train_step(cfg):
         times.append(start.elapsed_time(end))
     ms = float(np.median(times[2:]))
     check(bool(torch.isfinite(metrics["loss"])), f"timed train steps' loss finite ({metrics['loss'].item():.4f})")
-    print(f"  train step bf16 B={B} T={FRAMES} N={N_DEC}: {ms:.2f} ms (median of {TIMED_STEPS}: "
+    print(f"  {what} train step bf16 B={B} T={FRAMES}: {ms:.2f} ms (median of {TIMED_STEPS}: "
           f"{', '.join(f'{t:.2f}' for t in times[2:])}), {B / (ms / 1000):.1f} utterances/s")
     return ms, B / (ms / 1000)
 
 
-def check_train_f32(cfg):
+def check_train_f32(cfg, plain, what):
     """One float32 train step's loss and every parameter gradient on 8 clips,
-    kernels (K1, K2, K3) vs plain versions, same weights, same dropout masks:
-    loss rtol 1e-5; each gradient within 1e-3 x max|ref| (float32 sums in
-    another order, through 127 decoder steps and 3 listener layers), where
-    a bias with a zero true gradient takes its weight's max|ref|."""
+    kernels vs plain versions (``plain``: [(module, name, plain function)]),
+    same weights, same dropout masks: loss rtol 1e-5; each gradient within
+    1e-3 x max|ref| (float32 sums in another order, through the recurrent
+    loops), where a bias with a zero true gradient takes its weight's max|ref|."""
     import torch
 
-    import speech_recognition_tpu_torch.ops.ce_vocab as ce_mod
-    import speech_recognition_tpu_torch.ops.decoder as dec_mod
     from speech_recognition_tpu_torch.run.common import create_model
 
     inputs, y = one_batch(cfg, 8)
+    if token_conditioned(cfg):
+        y = y.t()  # LAS's loss takes time-major labels
 
     def loss_and_grads():
         model = create_model(cfg.model_config, cfg.data_config, torch.float32, torch.device("cuda"),
                              generator=torch.Generator().manual_seed(3), train=True)
         hid = model.hidden_states(inputs, True, torch.Generator(device="cuda").manual_seed(4))
-        loss, _ = model.loss_from_hidden(hid, y.t())
+        loss, _ = model.loss_from_hidden(hid, y)
         loss.backward()
         return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
 
     k_loss, k_grads = loss_and_grads()
-    patched = [(dec_mod, "decoder_fwd", dec_mod.decoder_fwd), (dec_mod, "decoder_bwd", dec_mod.decoder_bwd),
-               (ce_mod, "ce_fwd", ce_mod.ce_fwd), (ce_mod, "ce_bwd", ce_mod.ce_bwd)]
-    from speech_recognition_tpu_torch.ops import decoder_kernel as dk
-
-    plain = {"decoder_fwd": dk.decoder_fwd_plain, "decoder_bwd": dk.decoder_bwd_plain,
-             "ce_fwd": ce_mod.ce_fwd_plain, "ce_bwd": ce_mod.ce_bwd_plain}
-    for mod, name, _ in patched:
-        setattr(mod, name, plain[name])
+    kernels = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+    for mod, name, fn in plain:
+        setattr(mod, name, fn)
     try:
         p_loss, p_grads = loss_and_grads()
     finally:
-        for mod, name, fn in patched:
+        for mod, name, fn in kernels:
             setattr(mod, name, fn)
-    check(abs(k_loss - p_loss) <= 1e-5 * abs(p_loss), f"float32 step loss kernels {k_loss:.6f} vs plain {p_loss:.6f}")
+    check(abs(k_loss - p_loss) <= 1e-5 * abs(p_loss),
+          f"{what} float32 step loss kernels {k_loss:.6f} vs plain {p_loss:.6f}")
 
     def scale(k):
         # biases whose true gradient is zero (ahead of a batch norm, and the key
@@ -616,8 +761,136 @@ def check_train_f32(cfg):
         return p_grads[k].abs().max().item() + 1e-30
 
     worst = max(((k_grads[k] - p_grads[k]).abs().max().item() / scale(k), k) for k in p_grads)
-    check(worst[0] <= 1e-3, f"float32 step: every gradient within 1e-3 x max|ref| ({len(p_grads)} tensors; "
+    check(worst[0] <= 1e-3, f"{what} float32 step: every gradient within 1e-3 x max|ref| ({len(p_grads)} tensors; "
           f"worst {worst[0]:.3g} on {worst[1]})")
+
+
+# ---------------------------------------------------------------- phase 5
+def write_ds2_tsvs(tmp, gen_np):
+    """Seeded transcripts of at most DS2_MAX_TOKENS tokens (bos/eos included) for
+    the 256 training clips (train) and the first 128 (dev)."""
+    from speech_recognition_tpu_torch.data import SentencePieceTokenizer
+
+    with open(os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"), "rb") as f:
+        tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))  # upper case: the libri model has no lower-case pieces
+    rows, longest = [], 0
+    for i in range(TRAIN_CLIPS):
+        words = ["".join(gen_np.choice(letters, gen_np.integers(2, 7))) for _ in range(gen_np.integers(2, 13))]
+        while len(words) > 1 and len(tokenizer.tokenize(" ".join(words))) > DS2_MAX_TOKENS:
+            words.pop()
+        longest = max(longest, len(tokenizer.tokenize(" ".join(words))))
+        rows.append(f"train_wavs/clip{i:03d}.wav\t{' '.join(words)}\n")
+    check(longest <= DS2_MAX_TOKENS, f"DS2 transcripts carry at most {longest} <= {DS2_MAX_TOKENS} tokens")
+    paths = {}
+    for name, n in (("train", TRAIN_CLIPS), ("dev", B)):
+        paths[name] = os.path.join(tmp, f"ds2_{name}.tsv")
+        with open(paths[name], "w") as f:
+            f.write("FilePath\tText\n" + "".join(rows[:n]))
+    return paths
+
+
+def decode_args(data_config, model_config, audio_files, weights, out, beam):
+    return ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
+            "--audio-files", audio_files, "--model-path", weights,
+            "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
+            "--output-path", out, "--mixed-precision", "--device", "GPU", "--batch-size", str(B),
+            "--beam-size", str(beam)]
+
+
+def run_ds2_train_path(tmp, wav_dir, paths, data_config):
+    """run.train.main trains DeepSpeech2 on the 256 clips with K6's counters set
+    to 0 just before and read just after (each step's loss recorded); then
+    run.inference decodes clips 000-099 with the checkpoint, greedy and beam-8."""
+    import torch
+
+    import speech_recognition_tpu_torch.train as train_pkg
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.ops.ctc_emissions import ctc_emissions_bwd, ctc_emissions_fwd
+    from speech_recognition_tpu_torch.run import inference, train
+
+    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, "deepspeech.yml",
+                                                                "ds2_train_out"))))
+    losses, make_step = [], train_pkg.make_train_step
+
+    def recording_train_step(*args, **kwargs):  # the real step, each loss kept on the card
+        step = make_step(*args, **kwargs)
+
+        def run(*a, **kw):
+            metrics = step(*a, **kw)
+            losses.append(metrics["loss"])
+            return metrics
+
+        return run
+
+    train_pkg.make_train_step = recording_train_step
+    ctc_emissions_fwd.launches = ctc_emissions_bwd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        records = train.main(cfg)
+    finally:
+        train_pkg.make_train_step = make_step
+    wall = time.perf_counter() - t0
+    launches = {"ctc_emissions_fwd": ctc_emissions_fwd.launches, "ctc_emissions_bwd": ctc_emissions_bwd.launches}
+    print(f"  run.train (DS2): {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
+    dev_batches = -(-B // B)
+    check(launches == {"ctc_emissions_fwd": TRAIN_STEPS + dev_batches, "ctc_emissions_bwd": TRAIN_STEPS},
+          f"K6 launched {launches} times in the DS2 training run ({TRAIN_STEPS} steps + {dev_batches} dev batch)")
+    (rec,) = records
+    step_losses = torch.stack(losses).tolist() if losses else []
+    check(rec["steps"] == TRAIN_STEPS and len(step_losses) == TRAIN_STEPS
+          and all(np.isfinite(x) and x < 1e4 for x in step_losses + [rec["val_loss"]]),
+          f"DS2 {rec['steps']} train steps; step losses {[round(x, 4) for x in step_losses]} and dev loss "
+          f"{rec['val_loss']:.4f} finite and below 1e4")
+    check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), "the DS2 .pt checkpoint exists")
+    for name, beam in (("greedy", 0), ("beam8", BEAM)):
+        out = os.path.join(tmp, f"ds2_{name}.tsv")
+        inference.main(inference.parser.parse_args(decode_args(
+            data_config, "deepspeech.yml", os.path.join(wav_dir, "clip0*.wav"), rec["checkpoint"], out, beam)))
+        with open(out) as f:
+            n_rows = len(f.read().splitlines()) - 1
+        check(n_rows == 100, f"run.inference (DS2, {name}) decoded {n_rows} clips (clip000-099) with the checkpoint")
+    return launches, cfg, rec["checkpoint"]
+
+
+def time_ds2_decode(wav_dir, data_config, weights):
+    """DS2 decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA
+    events around one whole ``DeepSpeechSearcher`` call after a warm-up call),
+    with the outputs' shapes, ranges and probabilities checked."""
+    import torch
+
+    from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
+    from speech_recognition_tpu_torch.data import load_audio_file
+    from speech_recognition_tpu_torch.ops.features import make_feature_fn
+    from speech_recognition_tpu_torch.run.common import create_model, load_weights
+    from speech_recognition_tpu_torch.search import DeepSpeechSearcher
+
+    config = DataConfig.from_yaml(data_config)
+    model_config = get_model_config(os.path.join(REPO, "resources/configs/deepspeech.yml"))
+    load, feat = load_audio_file(16000, "wav", 16000), make_feature_fn(config)
+    files = sorted(os.listdir(wav_dir))[:B]
+    audio = torch.from_numpy(np.stack([feat(load(os.path.join(wav_dir, f))) for f in files])).cuda()
+    audio_s = B * SAMPLES / 16000.0
+    model = create_model(model_config, config, torch.bfloat16, torch.device("cuda"))
+    load_weights(model, weights)
+    searcher = DeepSpeechSearcher(model, model_config.blank_index)
+    timings = {}
+    for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
+                     ("beam8", lambda: searcher.beam_search(audio, BEAM))):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tok, prob = fn()
+        end.record()
+        end.synchronize()
+        timings[name] = ms = start.elapsed_time(end)
+        shape = (B, T_DS2) if name == "greedy" else (B, BEAM, T_DS2)
+        check(tuple(tok.shape) == shape and bool(((tok >= 0) & (tok < model_config.vocab_size)).all())
+              and bool(((prob >= 0) & (prob <= 1)).all()),
+              f"DS2 {name} output shape {tuple(tok.shape)}, tokens in vocab, probabilities in [0, 1]")
+        print(f"  DS2 decode {name} bf16 B={B}: {ms:.2f} ms per batch, RTF {ms / 1000 / audio_s:.3e}")
+    return timings
 
 
 def main():
@@ -633,32 +906,34 @@ def main():
 
     from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_ONCE, ROUND_TWICE
 
-    src = "speech_recognition_tpu_torch/csrc/"
-    kernels = {
-        "vocab_topk": {"name": "vocab_topk", "route": "cuda", "source": src + "vocab_topk.cu",
-                       "replaces": "speech_recognition_tpu/ops/pallas/topk_kernel.py:176"},
-        "las_greedy": {"name": "las_greedy", "route": "cuda", "source": src + "las_greedy.cu",
-                       "replaces": "speech_recognition_tpu/ops/pallas/search_kernel.py:237"},
-        "ce_vocab_fwd": {"name": "ce_vocab_fwd", "route": "cuda", "source": src + "ce_vocab.cu",
-                         "replaces": "speech_recognition_tpu/ops/pallas/ce_kernel.py:201"},
-        "ce_vocab_bwd": {"name": "ce_vocab_bwd", "route": "cuda", "source": src + "ce_vocab.cu",
-                         "replaces": "speech_recognition_tpu/ops/pallas/ce_kernel.py:201"},
-        "las_decoder_fwd": {"name": "las_decoder_fwd", "route": "cuda", "source": src + "las_decoder.cu",
-                            "replaces": "speech_recognition_tpu/ops/pallas/decoder_kernel.py:238"},
-        "las_decoder_bwd": {"name": "las_decoder_bwd", "route": "cuda", "source": src + "las_decoder.cu",
-                            "replaces": "speech_recognition_tpu/ops/pallas/decoder_kernel.py:477"},
-    }
+    src, tpu = "speech_recognition_tpu_torch/csrc/", "speech_recognition_tpu/ops/pallas/"
+    kernels = {name: {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces}
+               for name, source, replaces in (
+                   ("vocab_topk", "vocab_topk.cu", "topk_kernel.py:176"),
+                   ("las_greedy", "las_greedy.cu", "search_kernel.py:237"),
+                   ("ce_vocab_fwd", "ce_vocab.cu", "ce_kernel.py:201"),
+                   ("ce_vocab_bwd", "ctc_emissions.cu", "ce_kernel.py:201"),  # K6's backward with one id per row
+                   ("las_decoder_fwd", "las_decoder.cu", "decoder_kernel.py:238"),
+                   ("las_decoder_bwd", "las_decoder.cu", "decoder_kernel.py:477"),
+                   ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
+                   ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"))}
 
-    def record(name, err_ms_plain):
-        err, ms, plain_ms = err_ms_plain
-        kernels[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    def record(name, measured):
+        err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
+        kernels[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+
+    import speech_recognition_tpu_torch.ops.ce_vocab as ce_mod
+    import speech_recognition_tpu_torch.ops.ctc_emissions as em_mod
+    import speech_recognition_tpu_torch.ops.decoder as dec_mod
+    from speech_recognition_tpu_torch.ops import decoder_kernel as dk
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         print("== phase 1: card and build")
         phase_setup()
         gen = torch.Generator().manual_seed(1234)
-        print("== phase 2: kernels vs plain PyTorch (bf16)")
+        print("== phase 2: kernels vs plain PyTorch (bf16; K6 also float32)")
         record("vocab_topk", check_vocab_topk(1024, 256, 16000, BEAM, ROUND_TWICE, False, gen))
         check_vocab_topk(128, 256, 16000, 1, ROUND_ONCE, True, gen)
         record("las_greedy", check_greedy(gen))
@@ -668,6 +943,9 @@ def main():
         fwd, bwd = check_decoder(gen)
         record("las_decoder_fwd", fwd)
         record("las_decoder_bwd", bwd)
+        fwd, bwd = check_emissions(gen)
+        record("ctc_emissions_fwd", fwd)
+        record("ctc_emissions_bwd", bwd)
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
@@ -678,8 +956,21 @@ def main():
         train_wavs, paths = write_train_inputs(tmp, np.random.default_rng(1))
         train_launches, cfg = run_train_path(tmp, train_wavs, paths, data_config)
         launches.update(train_launches)
-        time_train_step(cfg)
-        check_train_f32(cfg)
+        time_train_step(cfg, "LAS-small (N=127)")
+        check_train_f32(cfg, [(dec_mod, "decoder_fwd", dk.decoder_fwd_plain),
+                              (dec_mod, "decoder_bwd", dk.decoder_bwd_plain),
+                              (ce_mod, "ce_fwd", ce_mod.ce_fwd_plain), (ce_mod, "ce_bwd", ce_mod.ce_bwd_plain)],
+                        "LAS-small")
+        print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
+        ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
+        ds2_launches, ds2_cfg, ds2_weights = run_ds2_train_path(tmp, train_wavs, ds2_paths, data_config)
+        launches.update(ds2_launches)
+        time_train_step(ds2_cfg, f"DS2 (T'={T_DS2})")
+        timings = time_ds2_decode(wav_dir, data_config, ds2_weights)
+        print(f"  DS2 decode per batch of {B} ({audio_s:.2f} s of audio): greedy {timings['greedy']:.2f} ms, "
+              f"beam-8 {timings['beam8']:.2f} ms")
+        check_train_f32(ds2_cfg, [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
+                                  (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)], "DS2")
         for name, n in launches.items():
             kernels[name]["launches"] = n
     except Exception:

@@ -6,8 +6,9 @@ mirrors the JAX package (``ops/``, ``models/``, ``search.py``, ``run/``).
 Hand-written CUDA kernels live under ``csrc/``; ``kernels/`` builds them
 with ``nvcc`` at first use and binds their C interface with ``ctypes``.
 
-This package imports ``torch`` and never ``jax``.  It reuses the JAX
-package's modules that import no JAX (``data``, ``configs``, ``utils``).
+This package imports ``torch`` and never ``jax``, nor anything of the JAX
+package: its host modules (``configs/``, ``data/``, ``utils/``) are its own
+copies of the JAX package's, each naming the module it mirrors.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,143 @@
+"""Model configuration registry: the port's copy of
+speech_recognition_tpu/configs/model_config.py.
+
+The same YAML schema: the ``model_name`` key dispatches to ``LASConfig`` or
+``DeepSpeechConfig``.  The JAX module's ``create_model`` methods build Flax
+models; the port builds its models in ``run/common.create_model``.  The
+Conformer and Transducer configs are not ported yet: their YAMLs raise.
+"""
+
+from dataclasses import dataclass
+from typing import List
+
+import yaml
+
+from .data_config import ConfigValidationError, _check_literal, _check_type
+
+_RNN_TYPES = ("rnn", "lstm", "gru")
+_NOT_PORTED = ("conformer", "transducer", "rnnt", "rnn-t")
+
+
+def get_model_config(model_config_path: str):
+    """Load a model config yaml and return the matching config instance
+    (``ds2``/``deepspeech2`` -> DeepSpeechConfig, ``las`` -> LASConfig)."""
+    from ..utils.io import open_file
+
+    with open_file(model_config_path) as f:
+        model_config_dict = yaml.safe_load(f)
+
+    model_name = model_config_dict["model_name"].lower()
+    if model_name in ("ds2", "deepspeech2"):
+        return DeepSpeechConfig(**model_config_dict)
+    if model_name == "las":
+        return LASConfig(**model_config_dict)
+    if model_name in _NOT_PORTED:
+        raise NotImplementedError(f"model {model_name!r} is not ported yet to torch (LAS and DeepSpeech2 are)")
+    raise ConfigValidationError(f"Model Name: {model_name} is invalid!")
+
+
+@dataclass
+class LASConfig:
+    """Config for the LAS model."""
+
+    # RNN Type: one of ['rnn', 'lstm', 'gru']
+    rnn_type: str
+    # Vocab Size
+    vocab_size: int
+    # Encoder Hidden Dimension
+    encoder_hidden_dim: int
+    # Decoder Hidden Dimension
+    decoder_hidden_dim: int
+    # Encoder Layers
+    num_encoder_layers: int
+    # Decoder Layers
+    num_decoder_layers: int
+    # Dropout Rate
+    dropout: float
+    # Teacher forcing rate
+    teacher_forcing_rate: float
+    # Pad Token ID
+    pad_id: int
+
+    model_name: str = "LAS"
+
+    def __post_init__(self):
+        _check_literal("rnn_type", self.rnn_type, _RNN_TYPES)
+        _check_type(
+            self,
+            "vocab_size",
+            "encoder_hidden_dim",
+            "decoder_hidden_dim",
+            "num_encoder_layers",
+            "num_decoder_layers",
+            "dropout",
+            "teacher_forcing_rate",
+            "pad_id",
+        )
+
+
+@dataclass
+class DeepSpeechConfig:
+    """Config for the DeepSpeech2 model."""
+
+    # number of convolution layers
+    num_conv_layers: int
+    # number of channels for each layer
+    channels: List[int]
+    # filter size for each layer
+    kernel_sizes: List[List[int]]
+    # stride for each layer
+    strides: List[List[int]]
+    # type of rnn, one of ['rnn', 'lstm', 'gru']
+    rnn_type: str
+    # number of recurrent layers
+    num_reccurent_layers: int
+    # hidden dimension size of rnn
+    hidden_dim: int
+    # dropout rate
+    dropout: float
+    # recurrent dropout rate
+    recurrent_dropout: float
+    # size of vocabulary
+    vocab_size: int
+    # the index of the CTC blank token
+    blank_index: int
+    # the index of the pad token
+    pad_index: int
+    # number of Switch-routed MoE experts per recurrent layer (0 = dense trunk)
+    moe_experts: int = 0
+    # expert FFN hidden width (0 = 4x the trunk width)
+    moe_hidden_dim: int = 0
+    # experts per token (top-k routing)
+    moe_k: int = 1
+    # per-expert buffer headroom over the even-load token share
+    moe_capacity_factor: float = 1.25
+    # weight of the load-balancing auxiliary loss
+    moe_aux_weight: float = 0.01
+
+    model_name: str = "DeepSpeech2"
+
+    def __post_init__(self):
+        _check_literal("rnn_type", self.rnn_type, _RNN_TYPES)
+        _check_type(
+            self,
+            "num_conv_layers",
+            "num_reccurent_layers",
+            "hidden_dim",
+            "dropout",
+            "recurrent_dropout",
+            "vocab_size",
+            "blank_index",
+            "pad_index",
+            "moe_experts",
+            "moe_hidden_dim",
+            "moe_k",
+            "moe_capacity_factor",
+            "moe_aux_weight",
+        )
+        if self.moe_experts and self.moe_k not in (1, 2):
+            raise ConfigValidationError("'moe_k' must be 1 or 2")
+        if not (
+            self.num_conv_layers == len(self.channels) == len(self.kernel_sizes) == len(self.strides)
+        ):
+            raise ConfigValidationError("Convolution parameter number is invalid!")

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "las_decoder_bwd": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
     # dtype_bf16, hid, W, b, y, R, H, V, part_val, part_idx, part_max, part_sum, lse, lab, pred, stream
     "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 8,
-    # dtype_bf16, hid, W, b, y, lse, dnll, R, H, V, dhid, dW, db, stream
-    "ce_vocab_bwd": [_I] + [_P] * 6 + [_I] * 3 + [_P] * 4,
+    # dtype_bf16, hid, W, b, ids, R, T, K, H, V, part_val, part_idx, part_max, part_sum, lse, vals, stream
+    "ctc_emissions_fwd": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 7,
+    # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, merged, ids_first, dlse, dhid, dW, db, stream
+    "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 5 + [_P] * 7,
 }
 
 

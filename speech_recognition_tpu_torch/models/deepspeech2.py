@@ -1,0 +1,160 @@
+"""DeepSpeech2 (counterpart of speech_recognition_tpu/models/deepspeech2.py).
+
+Module and parameter names follow the Flax tree (``convolution.conv0``,
+``recurrent.reccurent_layer0.forward_rnn.cell``, the reference's spelling,
+``recurrent.batch_normalization0``, ``fully_connected``), so
+``weights.params_from_jax`` maps one onto the other by name.  Parameters
+stay float32 and are cast to ``compute_dtype`` at use.  Reference semantics
+carried over from JAX:
+
+- N VALID Conv2D layers (no activation) over [B, T, F, C], flattened to
+  ``F' * C`` with the channels minor (JAX's NHWC reshape); the phase-split
+  TPU conv of ``ops/s2d_conv.py`` is a plain ``F.conv2d`` here;
+- the mask is ceil(L / prod(time strides)) clamped to T' (PARITY #19);
+- N x (BiRNN -> BatchNorm), each layer's final states threading into the
+  next layer as its initial states; batch norm's training statistics
+  include the zeroed pad frames;
+- the hidden states are masked before the vocab projection, while CTC
+  takes the full padded T' as every row's logit length;
+- training: Keras input dropout in every BiRNN, batch statistics.
+
+The loss goes through ``measure.ctc_loss_from_hidden`` (kernel K6).  MoE
+trunks (``moe_experts > 0``), ``rnn_type: rnn`` and recurrent dropout are not
+ported yet.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..measure import ctc_loss, ctc_loss_from_hidden
+from ..ops.rnn import BiGRU, BiLSTM
+from .layers import BatchNorm, audio_frame_lengths, dense, init_weights
+
+
+class Convolution(nn.Module):
+    """VALID Conv2D frontend (JAX ``Convolution``, deepspeech2.py:28-67)."""
+
+    def __init__(self, feature_dim: int, channels, kernel_sizes, strides):
+        super().__init__()
+        self.strides = [tuple(s) for s in strides]
+        in_ch = feature_dim
+        for i, (ch, kernel) in enumerate(zip(channels, kernel_sizes)):
+            self.add_module(f"conv{i}", nn.Conv2d(in_ch, ch, tuple(kernel), stride=self.strides[i]))
+            in_ch = ch
+
+    def output_frequency(self, frequency_dim: int) -> int:
+        for i, stride in enumerate(self.strides):
+            frequency_dim = (frequency_dim - getattr(self, f"conv{i}").kernel_size[1]) // stride[1] + 1
+        return frequency_dim
+
+    def forward(self, audio: torch.Tensor, dtype: torch.dtype, lengths: Optional[torch.Tensor] = None):
+        """[B, T, F, C] -> ([B, T', F' * ch], mask [B, T'] bool)."""
+        if lengths is None:
+            lengths = audio_frame_lengths(audio)
+        x = audio.to(dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        reduction = 1
+        for i, stride in enumerate(self.strides):
+            conv = getattr(self, f"conv{i}")
+            x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), stride=stride)
+            reduction *= stride[0]
+        B, _, T2, _ = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(B, T2, -1)  # channels fastest, as JAX's NHWC flatten
+        lengths = torch.clamp((lengths.to(x.device) + reduction - 1) // reduction, max=T2)
+        return x, torch.arange(T2, device=x.device)[None, :] < lengths[:, None]
+
+
+class Recurrent(nn.Module):
+    """N x (BiRNN -> BatchNorm) with final-state threading (JAX ``Recurrent``, deepspeech2.py:70-121)."""
+
+    def __init__(self, rnn_type: str, in_dim: int, num_layers: int, units: int):
+        super().__init__()
+        self.num_layers = num_layers
+        birnn = {"gru": BiGRU, "lstm": BiLSTM}[rnn_type]
+        for i in range(num_layers):
+            self.add_module(f"reccurent_layer{i}", birnn(in_dim, units))
+            self.add_module(f"batch_normalization{i}", BatchNorm(2 * units))
+            in_dim = 2 * units
+
+    def forward(self, x, mask, dtype, training: bool = False, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        states = None
+        for i in range(self.num_layers):
+            output, *states = getattr(self, f"reccurent_layer{i}")(x, mask, states, dtype, dropout_rate, generator)
+            x = getattr(self, f"batch_normalization{i}")(output, training)
+        return x
+
+
+class DeepSpeech2(nn.Module):
+    """DeepSpeech2 (JAX ``DeepSpeech2``, deepspeech2.py:124-215), from a ``DeepSpeechConfig``.
+
+    Model inputs follow the JAX batcher: features [B,T,F,C] or a (features,
+    frame lengths [B]) pair.
+    """
+
+    # the train / eval steps route the loss through hidden_states +
+    # loss_from_hidden, the fused vocab-projection + CTC emissions (kernel K6)
+    fused_loss_supported = True
+
+    def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        unported = [(config.moe_experts > 0, "moe_experts > 0"), (config.rnn_type == "rnn", "rnn_type 'rnn'"),
+                    (config.recurrent_dropout > 0, "recurrent_dropout > 0")]
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(f"DeepSpeech2 with {what} is not ported yet to torch")
+        self.compute_dtype = dtype
+        self.vocab_size = config.vocab_size
+        self.blank_index = config.blank_index
+        self.pad_index = config.pad_index
+        self.dropout_rate = config.dropout
+        self.convolution = Convolution(feature_dim, config.channels, config.kernel_sizes, config.strides)
+        rnn_in = self.convolution.output_frequency(frequency_dim) * config.channels[-1]
+        self.recurrent = Recurrent(config.rnn_type, rnn_in, config.num_reccurent_layers, config.hidden_dim)
+        self.fully_connected = nn.Linear(2 * config.hidden_dim, config.vocab_size)
+        init_weights(self, generator)
+
+    def hidden_states(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
+        """Forward up to the vocab projection: [B, T', 2H], zero on masked frames.
+
+        :param generator: draws the dropout masks (on the inputs' device)
+        """
+        audio, lengths = inputs if isinstance(inputs, (tuple, list)) else (inputs, None)
+        dt = self.compute_dtype
+        x, mask = self.convolution(audio, dt, lengths)
+        rate = self.dropout_rate if training else 0.0
+        x = self.recurrent(x, mask, dt, training, rate, generator)
+        return x * mask[:, :, None].to(x.dtype)
+
+    def forward(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
+        """Logits [B, T', V]."""
+        return dense(self.fully_connected, self.hidden_states(inputs, training, generator), self.compute_dtype)
+
+    def loss_from_hidden(self, hid, y_true):
+        """CTC loss from hidden states [B, T', 2H] against ``y_true`` [B, N]
+        through the fused emissions (kernel K6): (loss, None), as DS2 has no
+        logits-consuming metrics."""
+        fc = self.fully_connected
+        return ctc_loss_from_hidden(y_true, hid, fc.weight.t(), fc.bias, self.blank_index, self.pad_index), None
+
+    def get_loss_fn(self):
+        blank, pad = self.blank_index, self.pad_index
+        return lambda y_true, logits: ctc_loss(y_true, logits, blank, pad)
+
+    def get_metrics(self):
+        return []
+
+    @staticmethod
+    def get_batching_shape(audio_pad_length, token_pad_length, frequency_dim, feature_dim):
+        return ([audio_pad_length, frequency_dim, feature_dim], [token_pad_length])
+
+    @staticmethod
+    def make_example(audio, tokens):
+        return audio, tokens
+
+    @property
+    def model_checkpoint_name(self) -> str:
+        return "model-{epoch}epoch-{val_loss:.4f}loss"

@@ -22,7 +22,6 @@ Random draws come from explicit ``torch.Generator``s: the JAX package's
 threefry streams cannot be reproduced, so tests compare at dropout 0.
 """
 
-import math
 from typing import Optional
 
 import torch
@@ -33,58 +32,7 @@ from ..measure import sparse_categorical_accuracy, sparse_categorical_crossentro
 from ..ops.ce_vocab import fused_ce_vocab
 from ..ops.decoder import decoder_scan_lstm
 from ..ops.rnn import BiLSTM, LSTMCellParams, lstm_cell
-
-
-def audio_frame_lengths(audio: torch.Tensor) -> torch.Tensor:
-    """[B, T, F, C] -> [B] int64: index of the last frame with any non-zero value, + 1."""
-    nonzero = (audio.reshape(audio.shape[0], audio.shape[1], -1) != 0).any(dim=2)
-    positions = torch.arange(1, audio.shape[1] + 1, device=audio.device)
-    return torch.where(nonzero, positions, 0).amax(dim=1)
-
-
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
-
-
-class BatchNorm(nn.Module):
-    """Batch norm over the last axis (Flax ``nn.BatchNorm``, epsilon 1e-3, momentum 0.99).
-
-    In training the statistics are taken over every other axis, padded
-    frames included, in float32: mean, and the biased variance
-    ``max(E[x^2] - E[x]^2, 0)``; the running averages move as
-    ``ra = 0.99 * ra + 0.01 * batch`` (Flax's convention, not
-    ``nn.BatchNorm1d``'s).  In eval the running averages are used.
-    """
-
-    def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.99):
-        super().__init__()
-        self.eps = eps
-        self.momentum = momentum
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        xf = x.float()
-        if training:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
-                self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(x.dtype)
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Elementwise dropout as Flax's ``nn.Dropout``: x / keep where kept, else 0."""
-    keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+from .layers import BatchNorm, audio_frame_lengths, dense, dropout, init_weights
 
 
 def _conv_out(n: int) -> int:
@@ -306,8 +254,10 @@ class LAS(nn.Module):
     """
 
     # the train / eval steps route the loss through hidden_states +
-    # loss_from_hidden, the fused vocab-projection + CE pair (kernel K1)
+    # loss_from_hidden, the fused vocab-projection + CE pair (kernel K1), with
+    # time-major labels [N, B]
     fused_ce_supported = True
+    logits_time_major_supported = True
 
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -422,32 +372,3 @@ class LAS(nn.Module):
     @property
     def model_checkpoint_name(self) -> str:
         return "model-{epoch}epoch-{val_loss:.4f}loss_{val_accuracy:.4f}acc"
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """Fresh weights with the JAX package's initializer families: Glorot-uniform
-    input kernels, orthogonal recurrent kernels, forget-gate bias 1, LeCun-normal
-    dense and conv kernels, U(-0.05, 0.05) embeddings, zero biases."""
-
-    def normal_(t, std):
-        t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-    for module in model.modules():
-        if isinstance(module, LSTMCellParams):
-            fan_in, fan_out = module.kernel.shape
-            limit = math.sqrt(6.0 / (fan_in + fan_out))
-            module.kernel.copy_((torch.rand(module.kernel.shape, generator=generator) * 2 - 1) * limit)
-            H = module.units
-            q, _ = torch.linalg.qr(torch.randn(4 * H, H, generator=generator))
-            module.recurrent_kernel.copy_(q.T)
-            module.bias.zero_()
-            module.bias[H : 2 * H] = 1.0
-        elif isinstance(module, nn.Linear):
-            normal_(module.weight, 1.0 / math.sqrt(module.weight.shape[1]))
-            module.bias.zero_()
-        elif isinstance(module, nn.Conv2d):
-            normal_(module.weight, 1.0 / math.sqrt(module.weight[0].numel()))
-            module.bias.zero_()
-        elif isinstance(module, nn.Embedding):
-            module.weight.copy_((torch.rand(module.weight.shape, generator=generator) * 2 - 1) * 0.05)

@@ -16,11 +16,12 @@ gradients come back in their own type without a rounding to ``hid``'s.
 
 On the H100 (``csrc/ce_vocab.cu``) the forward is kernel K5's two passes with
 k = 1 and no rounding, plus a label gather summed in the same order; the
-backward is two kernels that each recompute their logits tiles, one over row
-blocks for dhid and one over vocab tiles for dW / db (each block owns its
-columns: no atomics).  At R = N*B = 16256 rows, V = 16000, H = 256 that is
-four 133 GFLOP products on the CUDA cores in float32; tensor-core tiles are
-later work.
+backward is kernel K6's (``ops/ctc_emissions.py``) with one id per row, the
+label, and emission cotangent ``-dnll``: two kernels that each recompute
+their logits tiles, one over row blocks for dhid and one over vocab tiles
+for dW / db (each block owns its columns: no atomics).  At R = N*B = 16256
+rows, V = 16000, H = 256 that is four 133 GFLOP products on the CUDA cores
+in float32; tensor-core tiles are later work.
 """
 
 import torch
@@ -95,24 +96,14 @@ def ce_bwd(hid, W, b, y, lse, dnll):
     """
     if hid.device.type == "cpu":
         return ce_bwd_plain(hid, W, b, y, lse, dnll)
-    from ..kernels import check_operands, error_string, library, stream
+    from .ctc_emissions import launch_emissions_bwd
 
     _check(hid, W, b, y)
-    check_operands(torch.float32, hid.device, lse=lse, dnll=dnll)
     R, H = hid.shape
-    V = W.shape[1]
-    dev = hid.device
-    dhid = torch.empty(R, H, dtype=hid.dtype, device=dev)
-    dW = torch.empty(H, V, dtype=torch.float32, device=dev)
-    db = torch.empty(V, dtype=torch.float32, device=dev)
-    err = library().ce_vocab_bwd(
-        int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), y.data_ptr(), lse.data_ptr(),
-        dnll.data_ptr(), R, H, V, dhid.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"ce_vocab_bwd kernel launch failed: {error_string(err)}")
+    # K6's backward with one id per row: emission cotangent -dnll at the label
+    dhid, dW, db = launch_emissions_bwd(hid.view(R, 1, H), W, b, y.view(R, 1), lse.view(R, 1), (-dnll).view(R, 1, 1))
     ce_bwd.launches += 1
-    return dhid, dW, db
+    return dhid.view(R, H), dW, db
 
 
 ce_fwd.launches = 0

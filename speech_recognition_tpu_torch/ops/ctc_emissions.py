@@ -1,0 +1,173 @@
+"""Vocab projection fused with CTC's emission log-probs (kernel K6).
+
+Replaces ``fused_vocab_emissions`` (speech_recognition_tpu/ops/pallas/ctc_kernel.py:210,
+bodies ``_fwd_kernel`` :64 and ``_bwd_kernel`` :82): ``log_softmax(hid @ W + b)``
+gathered at ``ids [B, K]`` (each example's labels, then the blank), the
+``[B, T, K]`` emissions that CTC's dynamic programme reads.  ``logits`` are
+formed in float32 tile by tile and never stored:
+
+- forward: per row the logsumexp and the K gathered logits; ``emission =
+  vals - lse`` is a small op on those streams;
+- backward: the logits are recomputed, ``dlog = sum_k dvals[k] onehot(ids[k])
+  + softmax * dlse`` with ``dlse = -sum_k dvals``, where duplicate ids
+  (repeated labels, the pad id) sum their cotangents, in k order; ``dlog`` is
+  rounded to the compute type, ``dhid = rnd(dlog) @ W^T`` (stored in the
+  compute type), ``dW = hid^T @ rnd(dlog)`` and ``db = sum(dlog)`` in float32.
+
+``W`` and ``b`` are cast to ``hid``'s type first, as in JAX; their gradients
+come back in their own type.  In float32 nothing rounds: the XLA route's
+math (projection + ``measure._emission_logprobs``).
+
+On the H100 (``csrc/ctc_emissions.cu``) the forward is K5's tile pass with
+k = 1 for the lse plus a gather kernel that sums the K logits in the tile
+pass's order; the backward is a fold of duplicate ids and two kernels that
+each recompute their logits tiles, one over row blocks for dhid and one over
+vocab tiles for dW / db (each block owns its columns: no atomics).  K1's
+backward (``ops/ce_vocab.py``) is the same launch with one id per row.  At
+B=128, T=108, H=256, V=16000 that is 113 GFLOP forward and 340 backward:
+bound by operations at the bf16 tensor-core peak; these first tiles run on
+the CUDA cores in float32.
+"""
+
+import torch
+
+from .vocab_topk import ROUND_NONE, vocab_logits_plain
+
+
+def ctc_emissions_fwd_plain(hid, W, b, ids):
+    """Plain PyTorch K6 forward: (lse [B,T] f32, vals [B,T,K] f32)."""
+    B, T, H = hid.shape
+    logits = vocab_logits_plain(hid.reshape(B * T, H), W, b, ROUND_NONE).reshape(B, T, -1)
+    vals = logits.gather(2, ids.long()[:, None, :].expand(B, T, ids.shape[1]))
+    return torch.logsumexp(logits, dim=-1), vals
+
+
+def ctc_emissions_bwd_plain(hid, W, b, ids, lse, dvals):
+    """Plain PyTorch K6 backward: (dhid [B,T,H] in hid's type, dW [H,V] f32, db [V] f32)."""
+    B, T, H = hid.shape
+    logits = vocab_logits_plain(hid.reshape(B * T, H), W, b, ROUND_NONE).reshape(B, T, -1)
+    index = ids.long()[:, None, :].expand(B, T, ids.shape[1])
+    dlog = torch.zeros_like(logits).scatter_add_(2, index, dvals)
+    dlog = dlog + torch.exp(logits - lse[..., None]) * (-dvals.sum(dim=-1))[..., None]
+    dlog_r = dlog.to(hid.dtype).float().reshape(B * T, -1)
+    dhid = (dlog_r @ W.float().T).to(hid.dtype).reshape(B, T, H)
+    return dhid, hid.reshape(B * T, H).float().T @ dlog_r, dlog.sum(dim=(0, 1))
+
+
+def _check(hid, W, b, ids):
+    from ..kernels import check_operands
+
+    B, T, H = hid.shape
+    check_operands((torch.float32, torch.bfloat16), hid=hid)
+    check_operands(hid.dtype, hid.device, W=W, b=b)
+    check_operands(torch.int32, hid.device, ids=ids)
+    if W.shape[0] != H or b.shape != (W.shape[1],) or ids.dim() != 2 or ids.shape[0] != B:
+        raise ValueError(f"ctc_emissions: bad shapes hid {tuple(hid.shape)} W {tuple(W.shape)} b {tuple(b.shape)} "
+                         f"ids {tuple(ids.shape)}")
+
+
+def ctc_emissions_fwd(hid, W, b, ids):
+    """(lse [B,T] f32, gathered logits [B,T,K] f32) of ``hid @ W + b``.
+
+    :param hid: [B,T,H]; ``W`` [H,V] and ``b`` [V] in hid's type; ``ids`` [B,K] int32
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if hid.device.type == "cpu":
+        return ctc_emissions_fwd_plain(hid, W, b, ids)
+    from ..kernels import VOCAB_TILE, error_string, library, stream
+
+    _check(hid, W, b, ids)
+    B, T, H = hid.shape
+    K, V, R = ids.shape[1], W.shape[1], B * T
+    dev = hid.device
+    n_tiles = -(-V // VOCAB_TILE)
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
+    part_val, part_max, part_sum = f32(R, n_tiles), f32(R, n_tiles), f32(R, n_tiles)
+    part_idx = torch.empty(R, n_tiles, dtype=torch.int32, device=dev)
+    lse, vals = f32(B, T), f32(B, T, K)
+    err = library().ctc_emissions_fwd(
+        int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), R, T, K, H, V,
+        part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(), lse.data_ptr(),
+        vals.data_ptr(), stream(dev),
+    )
+    if err:
+        raise RuntimeError(f"ctc_emissions_fwd kernel launch failed: {error_string(err)}")
+    ctc_emissions_fwd.launches += 1
+    return lse, vals
+
+
+def launch_emissions_bwd(hid, W, b, ids, lse, dvals):
+    """Launch K6's backward on CUDA operands (also K1's, with one id per row).
+
+    :param hid: [B,T,H]; ``ids`` [B,K] int32; ``lse`` [B,T] and ``dvals`` [B,T,K] float32
+    :return: (dhid [B,T,H] in hid's type, dW [H,V] f32, db [V] f32)
+    """
+    from ..kernels import check_operands, error_string, library, stream
+
+    _check(hid, W, b, ids)
+    check_operands(torch.float32, hid.device, lse=lse, dvals=dvals)
+    B, T, H = hid.shape
+    K, V, R = ids.shape[1], W.shape[1], B * T
+    if lse.shape != (B, T) or dvals.shape != (B, T, K):
+        raise ValueError(f"ctc_emissions_bwd: bad shapes lse {tuple(lse.shape)} dvals {tuple(dvals.shape)}")
+    dev = hid.device
+    merged = torch.empty(R, K, dtype=torch.float32, device=dev)
+    ids_first = torch.empty(B, K, dtype=torch.int32, device=dev)
+    dlse = torch.empty(R, dtype=torch.float32, device=dev)
+    dhid = torch.empty(B, T, H, dtype=hid.dtype, device=dev)
+    dW = torch.empty(H, V, dtype=torch.float32, device=dev)
+    db = torch.empty(V, dtype=torch.float32, device=dev)
+    err = library().ctc_emissions_bwd(
+        int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), lse.data_ptr(),
+        dvals.data_ptr(), R, T, K, H, V, merged.data_ptr(), ids_first.data_ptr(), dlse.data_ptr(), dhid.data_ptr(),
+        dW.data_ptr(), db.data_ptr(), stream(dev),
+    )
+    if err:
+        raise RuntimeError(f"ctc_emissions_bwd kernel launch failed: {error_string(err)}")
+    return dhid, dW, db
+
+
+def ctc_emissions_bwd(hid, W, b, ids, lse, dvals):
+    """(dhid [B,T,H] in hid's type, dW [H,V] f32, db [V] f32) for emission cotangents ``dvals`` [B,T,K] f32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernels.
+    """
+    if hid.device.type == "cpu":
+        return ctc_emissions_bwd_plain(hid, W, b, ids, lse, dvals)
+    out = launch_emissions_bwd(hid, W, b, ids, lse, dvals)
+    ctc_emissions_bwd.launches += 1
+    return out
+
+
+ctc_emissions_fwd.launches = 0
+ctc_emissions_bwd.launches = 0
+
+
+class _FusedEmissions(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hid, W, b, ids):
+        hc = hid.contiguous()
+        Wc = W.to(hid.dtype).contiguous()
+        bc = b.to(hid.dtype).contiguous()
+        idc = ids.to(torch.int32).contiguous()
+        lse, vals = ctc_emissions_fwd(hc, Wc, bc, idc)
+        ctx.save_for_backward(hc, Wc, bc, idc, lse)
+        ctx.dtypes = (W.dtype, b.dtype)
+        return vals - lse[..., None]
+
+    @staticmethod
+    def backward(ctx, demission):
+        hid, Wc, bc, ids, lse = ctx.saved_tensors
+        w_dtype, b_dtype = ctx.dtypes
+        dhid, dW, db = ctc_emissions_bwd(hid, Wc, bc, ids, lse, demission.float().contiguous())
+        return dhid, dW.to(w_dtype), db.to(b_dtype), None
+
+
+def fused_ctc_emissions(hid, W, b, ids):
+    """``log_softmax(hid @ W + b)`` gathered at ``ids``: the CTC emissions [B,T,K] float32.
+
+    :param hid: [B,T,H] (bf16 or float32); ``W`` [H,V] and ``b`` [V] in any float type;
+        ``ids`` [B,K] int (no gradient)
+    """
+    return _FusedEmissions.apply(hid, W, b, ids)

@@ -1,22 +1,25 @@
-"""Masked LSTM recurrences (counterpart of speech_recognition_tpu/ops/rnn.py).
+"""Masked LSTM and GRU recurrences (counterpart of speech_recognition_tpu/ops/rnn.py).
 
-Parameters keep the Keras layout of the JAX package: ``kernel [in, 4H]``,
-``recurrent_kernel [H, 4H]``, ``bias [4H]``, gates in i,f,c,o order, so the
-weight bridge copies them unchanged.  As in JAX:
+Parameters keep the Keras layout of the JAX package, so the weight bridge
+copies them unchanged: LSTM ``kernel [in, 4H]``, ``recurrent_kernel [H, 4H]``,
+``bias [4H]``, gates in i,f,c,o order; GRU (reset_after) ``kernel [in, 3H]``,
+``recurrent_kernel [H, 3H]``, ``bias [2, 3H]`` (input bias, then recurrent
+bias), gates in z,r,h order.  As in JAX:
 
 - the input projection ``x @ kernel + bias`` is hoisted out of the time loop;
 - at a masked step the state is frozen and the output is zero, which makes
   the reverse direction start at each sequence's last valid frame;
 - in training, Keras input dropout: one ``[B, 1, D]`` mask per sequence and
   per direction, shared across time (ops/rnn.py:352-356);
-- the gradient is ``_lstm_scan``'s custom VJP (ops/rnn.py:145-227) as a
-  ``torch.autograd.Function``: the backward loop emits only the gate
-  gradients ``dz`` and the dh chain, and ``dR`` is one product over the
-  saved trajectory after the loop.
+- the gradient is ``_lstm_scan``'s / ``_gru_scan``'s custom VJP
+  (ops/rnn.py:145-304) as a ``torch.autograd.Function``: the backward loop
+  emits only the gate gradients (``dz``; the GRU's ``d_inner``) and the dh
+  chain, and ``dR`` (and the GRU's recurrent bias gradient) is one product
+  over the saved trajectory after the loop.
 
-The time loop is plain PyTorch: one ``[2, B, H] x [2, H, 4H]`` batched matmul
-per step runs the forward and the (time-flipped) backward direction
-together.  The JAX package computes the same loop as a ``lax.scan`` outside
+The time loop is plain PyTorch: one ``[2, B, H] x [2, H, G*H]`` batched
+matmul per step runs the forward and the (time-flipped) backward direction
+together.  ``rnn_type: rnn`` and recurrent dropout are not ported yet.  The JAX package computes the same loop as a ``lax.scan`` outside
 any Pallas kernel.
 """
 
@@ -28,7 +31,7 @@ from torch import nn
 
 class LSTMCellParams(nn.Module):
     """Keras-layout parameters of one LSTM direction or decoder cell
-    (initialized by ``models.las.init_weights``)."""
+    (initialized by ``models.layers.init_weights``)."""
 
     def __init__(self, in_dim: int, units: int):
         super().__init__()
@@ -36,6 +39,19 @@ class LSTMCellParams(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(in_dim, 4 * units))
         self.recurrent_kernel = nn.Parameter(torch.zeros(units, 4 * units))
         self.bias = nn.Parameter(torch.zeros(4 * units))
+
+
+class GRUCellParams(nn.Module):
+    """Keras-layout (reset_after) parameters of one GRU direction: ``bias [2, 3H]``
+    holds the input bias, then the recurrent bias (initialized by
+    ``models.layers.init_weights``)."""
+
+    def __init__(self, in_dim: int, units: int):
+        super().__init__()
+        self.units = units
+        self.kernel = nn.Parameter(torch.zeros(in_dim, 3 * units))
+        self.recurrent_kernel = nn.Parameter(torch.zeros(units, 3 * units))
+        self.bias = nn.Parameter(torch.zeros(2, 3 * units))
 
 
 def lstm_cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,26 +134,97 @@ def lstm_scan(x_proj, mask, rk, h0, c0):
     return _lstm_scan_core(x_proj, mask, rk, h0, c0, save=False)[:3]
 
 
-class BiLSTM(nn.Module):
-    """Bidirectional masked LSTM (JAX ``BiRNN`` with rnn_type="lstm").
+def _gru_scan_core(x_proj, mask, rk, rb, h0, save: bool):
+    """Forward loop over time-major ``x_proj [T, D, B, 3H]`` (input bias
+    included; D directions, each in its own time order), ``mask [T, D, B, 1]``
+    bool, ``rk [D, H, 3H]``, ``rb [D, 1, 3H]``, ``h0 [D, B, H]``.  Returns
+    (out [T, D, B, H], h_last, residuals); the residuals (z, r, hh, the
+    recurrent h-gate pre-activation rh, and the h trajectory) only when ``save``."""
+    T, D, B, G = x_proj.shape
+    H = G // 3
+    kw = dict(dtype=x_proj.dtype, device=x_proj.device)
+    out = torch.empty(T, D, B, H, **kw)
+    hs = torch.empty(T + 1, D, B, H, **kw)
+    hs[0] = h0
+    res = [torch.empty(T, D, B, H, **kw) for _ in range(4)] if save else None
+    m_f = mask.to(x_proj.dtype)
+    for t in range(T):
+        h, x = hs[t], x_proj[t]
+        inner = torch.baddbmm(rb, h, rk)
+        z = torch.sigmoid(x[..., :H] + inner[..., :H])
+        r = torch.sigmoid(x[..., H:2 * H] + inner[..., H:2 * H])
+        rh = inner[..., 2 * H:]
+        hh = torch.tanh(x[..., 2 * H:] + r * rh)
+        h_p = z * h + (1.0 - z) * hh
+        if save:
+            for buf, value in zip(res, (z, r, hh, rh)):
+                buf[t] = value
+        torch.where(mask[t], h_p, h, out=hs[t + 1])
+        torch.mul(h_p, m_f[t], out=out[t])
+    residuals = (*res, hs[:-1]) if save else None
+    return out, hs[T], residuals
 
-    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (fwd_h, fwd_c,
-    bwd_h, bwd_c) or None) -> (outputs [B,T,2H], fwd_h, fwd_c, bwd_h, bwd_c).
-    """
+
+class _GRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_proj, mask, rk, rb, h0):
+        out, h_last, (z, r, hh, rh, h_prev) = _gru_scan_core(x_proj, mask, rk, rb, h0, save=True)
+        ctx.save_for_backward(mask, rk, z, r, hh, rh, h_prev)
+        return out, h_last.clone()
+
+    @staticmethod
+    def backward(ctx, dout, dh):
+        mask, rk, z, r, hh, rh, h_prev = ctx.saved_tensors
+        T = z.shape[0]
+        m_f = mask.to(z.dtype)
+        rk_t = rk.transpose(1, 2)
+        d_inner = torch.empty(*z.shape[:3], 3 * z.shape[-1], dtype=z.dtype, device=z.device)
+        dx = torch.empty_like(d_inner)
+        for t in range(T - 1, -1, -1):
+            m, z_t, r_t, hh_t = m_f[t], z[t], r[t], hh[t]
+            dh_p = m * dout[t] + m * dh
+            dz = dh_p * (h_prev[t] - hh_t)
+            da = dh_p * (1.0 - z_t) * (1.0 - hh_t * hh_t)  # through hh = tanh(xh + r * rh)
+            dr = da * rh[t] * r_t * (1.0 - r_t)
+            dzz = dz * z_t * (1.0 - z_t)
+            torch.cat([dzz, dr, da * r_t], dim=-1, out=d_inner[t])
+            torch.cat([dzz, dr, da], dim=-1, out=dx[t])
+            dh = torch.baddbmm((1.0 - m) * dh + dh_p * z_t, d_inner[t], rk_t)
+        drk = torch.einsum("tdbh,tdbg->dhg", h_prev, d_inner)
+        drb = d_inner.sum(dim=(0, 2))[:, None, :]
+        return dx, None, drk, drb, dh
+
+
+def gru_scan(x_proj, mask, rk, rb, h0):
+    """Masked GRU over time-major inputs (see ``_gru_scan_core``): (out, h_last).
+    Differentiable through ``_GRUScan`` when autograd needs it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, rk, rb, h0)):
+        return _GRUScan.apply(x_proj, mask, rk, rb, h0)
+    return _gru_scan_core(x_proj, mask, rk, rb, h0, save=False)[:2]
+
+
+class _BiRNN(nn.Module):
+    """Bidirectional masked recurrence (JAX ``BiRNN``): a ``forward_rnn`` and a
+    ``backward_rnn``, each holding its ``cell``; the backward direction runs
+    on the time-flipped sequence, batched with the forward one."""
+
+    cell_type = None
 
     def __init__(self, in_dim: int, units: int):
         super().__init__()
         self.units = units
         self.forward_rnn = nn.Module()
-        self.forward_rnn.cell = LSTMCellParams(in_dim, units)
+        self.forward_rnn.cell = self.cell_type(in_dim, units)
         self.backward_rnn = nn.Module()
-        self.backward_rnn.cell = LSTMCellParams(in_dim, units)
+        self.backward_rnn.cell = self.cell_type(in_dim, units)
 
-    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
-                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
-        """``dropout`` > 0 applies the training input dropout, drawn from ``generator``."""
+    def _stacked_inputs(self, inputs, mask, dtype, dropout, generator, input_bias):
+        """Hoisted input projections, time-major ``[T, 2, B, G*H]`` with direction 1
+        time-flipped (loop step t reads frame t forward and frame T-1-t
+        backward), the matching mask ``[T, 2, B, 1]`` and ``rk [2, H, G*H]``.
+        ``dropout`` > 0 applies Keras input dropout: one ``[B, 1, D]`` mask per
+        direction, drawn from ``generator``."""
         B, T, D = inputs.shape
-        H = self.units
         cells = (self.forward_rnn.cell, self.backward_rnn.cell)
         x = inputs.to(dtype)
         xs = [x, x]
@@ -146,18 +233,58 @@ class BiLSTM(nn.Module):
             for d in range(2):
                 drop = torch.rand(B, 1, D, generator=generator, device=x.device) < keep
                 xs[d] = x * drop.to(dtype) / keep
-        # hoisted input projections, time-major [T, 2, B, 4H]; direction 1 is
-        # time-flipped so that loop step t reads frame t forward and frame
-        # T-1-t backward
-        proj = [xs[d] @ c.kernel.to(dtype) + c.bias.to(dtype) for d, c in enumerate(cells)]
+        proj = [xs[d] @ c.kernel.to(dtype) + input_bias(c).to(dtype) for d, c in enumerate(cells)]
         x_proj = torch.stack([proj[0], proj[1].flip(1)]).permute(2, 0, 1, 3).contiguous()
-        m_all = torch.stack([mask, mask.flip(1)]).permute(2, 0, 1)[..., None]  # [T, 2, B, 1]
-        rk = torch.stack([c.recurrent_kernel.to(dtype) for c in cells])  # [2, H, 4H]
+        m_all = torch.stack([mask, mask.flip(1)]).permute(2, 0, 1)[..., None]
+        rk = torch.stack([c.recurrent_kernel.to(dtype) for c in cells])
+        return x_proj, m_all, rk
+
+    @staticmethod
+    def _outputs(out):
+        """[T, 2, B, H] (direction 1 time-flipped) -> [B, T, 2H]."""
+        return torch.cat([out[:, 0].transpose(0, 1), out[:, 1].flip(0).transpose(0, 1)], dim=-1)
+
+
+class BiLSTM(_BiRNN):
+    """Bidirectional masked LSTM (JAX ``BiRNN`` with rnn_type="lstm").
+
+    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (fwd_h, fwd_c,
+    bwd_h, bwd_c) or None) -> (outputs [B,T,2H], fwd_h, fwd_c, bwd_h, bwd_c).
+    """
+
+    cell_type = LSTMCellParams
+
+    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        """``dropout`` > 0 applies the training input dropout, drawn from ``generator``."""
+        x_proj, m_all, rk = self._stacked_inputs(inputs, mask, dtype, dropout, generator, lambda c: c.bias)
         if initial_state is None:
-            h = torch.zeros(2, B, H, dtype=dtype, device=x.device)
+            h = torch.zeros(2, inputs.shape[0], self.units, dtype=dtype, device=inputs.device)
             c = torch.zeros_like(h)
         else:
             fh, fc, bh, bc = (s.to(dtype) for s in initial_state)
             h, c = torch.stack([fh, bh]), torch.stack([fc, bc])
         out, h, c = lstm_scan(x_proj, m_all, rk, h, c)
-        return torch.cat([out[:, 0].transpose(0, 1), out[:, 1].flip(0).transpose(0, 1)], dim=-1), h[0], c[0], h[1], c[1]
+        return self._outputs(out), h[0], c[0], h[1], c[1]
+
+
+class BiGRU(_BiRNN):
+    """Bidirectional masked GRU (JAX ``BiRNN`` with rnn_type="gru").
+
+    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (fwd_h, bwd_h) or
+    None) -> (outputs [B,T,2H], fwd_h, bwd_h).
+    """
+
+    cell_type = GRUCellParams
+
+    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        """``dropout`` > 0 applies the training input dropout, drawn from ``generator``."""
+        x_proj, m_all, rk = self._stacked_inputs(inputs, mask, dtype, dropout, generator, lambda c: c.bias[0])
+        rb = torch.stack([self.forward_rnn.cell.bias[1], self.backward_rnn.cell.bias[1]]).to(dtype)[:, None, :]
+        if initial_state is None:
+            h = torch.zeros(2, inputs.shape[0], self.units, dtype=dtype, device=inputs.device)
+        else:
+            h = torch.stack([s.to(dtype) for s in initial_state])
+        out, h = gru_scan(x_proj, m_all, rk, rb, h)
+        return self._outputs(out), h[0], h[1]

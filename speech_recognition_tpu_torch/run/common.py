@@ -5,7 +5,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..models import LAS
+from ..configs import DeepSpeechConfig, LASConfig
+from ..models import LAS, DeepSpeech2
 
 
 def select_device(device: str) -> torch.device:
@@ -31,13 +32,17 @@ def compute_dtype(mixed_precision: bool) -> torch.dtype:
     return torch.bfloat16 if mixed_precision else torch.float32
 
 
+_MODELS = {LASConfig: LAS, DeepSpeechConfig: DeepSpeech2}
+
+
 def create_model(model_config, data_config, dtype: torch.dtype, device: torch.device, generator=None,
-                 train: bool = False) -> LAS:
-    """The port's model for a ``ModelConfig``; LAS is the only family ported so far.
+                 train: bool = False) -> torch.nn.Module:
+    """The port's model for a model config: LAS or DeepSpeech2.
     ``train`` only sets the module mode: the forward takes ``training`` explicitly."""
-    if model_config.model_name.lower() != "las":
-        raise NotImplementedError(f"model {model_config.model_name!r} is not ported to torch yet (LAS only)")
-    model = LAS(model_config, data_config.frequency_dim, data_config.feature_dim, dtype=dtype, generator=generator)
+    family = _MODELS.get(type(model_config))
+    if family is None:
+        raise NotImplementedError(f"{type(model_config).__name__} is not ported to torch yet (LAS, DeepSpeech2)")
+    model = family(model_config, data_config.frequency_dim, data_config.feature_dim, dtype=dtype, generator=generator)
     return model.to(device).train(train)
 
 
@@ -45,7 +50,7 @@ def count_params(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def load_weights(model: LAS, path: str) -> LAS:
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a ``.pt`` state_dict written by ``train.save_weights`` or ``torch.save(model.state_dict(), path)``."""
     from ..train.checkpoint import restore_weights
 

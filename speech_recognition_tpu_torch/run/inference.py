@@ -1,20 +1,22 @@
 """Inference entry point of the port: decode bare audio files into sentences.
 
 Same flags and the same TSV as ``speech_recognition_tpu.run.inference``.
-Audio decoding, batching, the tokenizer and the configs are the JAX
-package's own modules (they import no JAX); features are the port's host
-numpy chain; the model and the search are the port's.  Weights are a
-``.pt`` state_dict (``weights.params_from_jax`` converts a Flax tree).
+Audio decoding, batching, the tokenizer and the configs are the port's
+copies of the JAX package's host modules; features are the port's host
+numpy chain.  An LAS model decodes through ``LASSearcher`` (kernels K4 /
+K5), a CTC model (DeepSpeech2) through ``DeepSpeechSearcher``.  Weights are
+a ``.pt`` state_dict (``weights.params_from_jax`` converts a Flax tree).
+Runs on the GPU unless ``--device CPU`` is given.
 
     python -m speech_recognition_tpu_torch.run.inference --data-config ... --model-config ... \
-        --audio-files "*.wav" --model-path las.pt --sp-model-path sp.model --device GPU --mixed-precision
+        --audio-files "*.wav" --model-path model.pt --sp-model-path sp.model --mixed-precision
 """
 
 import argparse
 import csv
 import sys
 
-from speech_recognition_tpu.utils import get_logger, glob, open_file
+from ..utils import get_logger, glob, open_file
 
 # fmt: off
 parser = argparse.ArgumentParser("This is script to inference (generate sentence) with a trained model")
@@ -27,7 +29,7 @@ parser.add_argument("--sp-model-path", type=str, required=True, help="sentencepi
 parser.add_argument("--batch-size", type=int, default=512)
 parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
-parser.add_argument("--device", type=str, default="CPU", help="device to run on (CPU | GPU)")
+parser.add_argument("--device", type=str, default="GPU", help="device to run on (GPU | CPU)")
 parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
 # fmt: on
 
@@ -41,7 +43,8 @@ def main(args: argparse.Namespace):
     from ..data import (
         SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream, quantized_padded_batch)
     from ..ops.features import make_feature_fn
-    from ..search import LASSearcher
+    from ..models import LAS
+    from ..search import DeepSpeechSearcher, LASSearcher
     from .common import compute_dtype, create_model, load_weights, pipelined_decode, select_device, to_device
 
     if args.on_device_frontend:
@@ -68,7 +71,10 @@ def main(args: argparse.Namespace):
     model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
     load_weights(model, args.model_path)
     logger.info(f"Loaded weights of model from {args.model_path}")
-    searcher = LASSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_id)
+    if isinstance(model, LAS):
+        searcher = LASSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_id)
+    else:  # a CTC model: the searcher needs its logits and the blank index
+        searcher = DeepSpeechSearcher(model, model_config.blank_index)
 
     logger.info("Start Inference")
     features = parallel_map_stream(dataset_files, lambda path: feature_fn(load_fn(path)))

@@ -1,18 +1,21 @@
-"""Training entry point of the port: train a LAS model on one GPU (or the CPU).
+"""Training entry point of the port: train a LAS or DeepSpeech2 model on one GPU
+(or, with ``--device CPU``, on the CPU).
 
 Same flags and the same ``--from-file`` YAML (CLI keys override file keys) as
 ``speech_recognition_tpu.run.train``.  Audio decoding, tokenizing, length
-policies, shuffling, batching and prefetching are the JAX package's own
-host modules (they import no JAX); features are the port's host numpy chain;
-the model, the train step and Adam are the port's.  Each epoch ends with a
-dev pass and a ``.pt`` checkpoint named as the JAX package names its
+policies, shuffling, batching and prefetching are the port's copies of the
+JAX package's host modules; features are the port's host numpy chain; the
+model, the train step and Adam are the port's.  LAS is fed
+``((audio, lengths), tokens[:, :-1])`` against ``tokens[:, 1:]``; a CTC model
+(DeepSpeech2) ``(audio, lengths)`` against the full tokens.  Each epoch ends
+with a dev pass and a ``.pt`` checkpoint named as the JAX package names its
 checkpoints, which ``--pretrained-model-path`` and the port's
 ``run.inference --model-path`` load.
 
     python -m speech_recognition_tpu_torch.run.train --data-config ... --model-config ... \\
         --sp-model-path sp.model --train-dataset-paths train.tsv --dev-dataset-paths dev.tsv \\
         --train-dataset-size N --output-path out --epochs 1 --learning-rate 1e-3 --batch-size 128 \\
-        --dev-batch-size 128 --max-over-policy slice --mixed-precision --device GPU
+        --dev-batch-size 128 --max-over-policy slice --mixed-precision
 """
 
 import argparse
@@ -21,7 +24,7 @@ import time
 
 import yaml
 
-from speech_recognition_tpu.utils import get_logger, makedirs, open_file, path_join, set_random_seed
+from ..utils import get_logger, makedirs, open_file, path_join, set_random_seed
 
 from ..configs import TrainConfig
 
@@ -54,7 +57,7 @@ parser.add_argument("--tensorboard-update-freq", type=int)
 parser.add_argument("--mixed-precision", action="store_true", help="use mixed precision (bfloat16)")
 parser.add_argument("--seed", type=int, help="Set random seed")
 parser.add_argument("--skip-epochs", type=int, help="skip first N epochs and start N + 1 epoch")
-parser.add_argument("--device", type=str, choices=["CPU", "GPU", "TPU"], help="device to use (GPU or CPU; TPU is the JAX package's)")
+parser.add_argument("--device", type=str, choices=["CPU", "GPU", "TPU"], help="device to use (GPU, the default, or CPU; TPU is the JAX package's)")
 parser.add_argument("--profile-steps", type=int, help="profile N training steps (not ported yet)")
 parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
 parser.add_argument("--bucket-boundaries", type=str, help="audio-length bucket boundaries (not ported yet)")
@@ -120,7 +123,7 @@ def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
 
 def _summary_writer(log_dir: str, logger):
     """A TensorBoard writer when ``torch.utils.tensorboard`` works here, else None."""
-    from speech_recognition_tpu.utils.io import is_remote
+    from ..utils import is_remote
 
     if is_remote(log_dir):
         logger.info("[!] TensorBoard logs to a remote path are not ported yet; not writing them")
@@ -140,9 +143,10 @@ def main(cfg: TrainConfig):
     import numpy as np
     import torch
 
-    from speech_recognition_tpu.utils import copy as copy_file
+    from ..utils import copy as copy_file
 
     from ..data import SentencePieceTokenizer, padded_batch, prefetch_stream, repeat_stream, shuffle_stream
+    from ..models import LAS
     from ..train import (AsyncMetricAccumulator, TrainState, checkpoint_path, linear_warmup_decay, make_adam,
                          make_eval_step, make_train_step, save_weights)
     from .common import compute_dtype, count_params, create_model, load_weights, select_device
@@ -201,6 +205,7 @@ def main(cfg: TrainConfig):
         skip_count %= cfg.train_dataset_size
     skip_examples = {"count": skip_count}
     pin = device.type == "cuda"
+    token_conditioned = isinstance(model, LAS)
 
     def batch_iterator(factory, batch_size, train: bool, epoch: int = 0):
         skip = skip_examples.pop("count", 0) if train else 0
@@ -212,11 +217,17 @@ def main(cfg: TrainConfig):
             audio, lengths, tokens = (torch.from_numpy(np.ascontiguousarray(a)) for a in (audio, lengths, tokens))
             if pin:  # in the prefetch thread, so the copy to the card can be asynchronous
                 audio, lengths, tokens = audio.pin_memory(), lengths.pin_memory(), tokens.pin_memory()
-            yield ((audio, lengths), tokens[:, :-1]), tokens[:, 1:]
+            if token_conditioned:
+                yield ((audio, lengths), tokens[:, :-1]), tokens[:, 1:]
+            else:
+                yield (audio, lengths), tokens
 
     def to_device(model_input, y_true):
-        (audio, lengths), dec_in = model_input
         put = lambda t: t.to(device, non_blocking=True)
+        if not token_conditioned:
+            audio, lengths = model_input
+            return (put(audio), put(lengths)), put(y_true)
+        (audio, lengths), dec_in = model_input
         return ((put(audio), put(lengths)), put(dec_in).long()), put(y_true)
 
     logger.info("[+] Start training")

@@ -1,6 +1,6 @@
-"""LAS greedy and beam search (counterpart of ``LASSearcher``, speech_recognition_tpu/search.py:62-333).
+"""LAS and CTC searches (counterpart of speech_recognition_tpu/search.py).
 
-Scoring follows the JAX package (and through it the reference):
+``LASSearcher`` (search.py:62-333): scoring follows the JAX package (and through it the reference):
 
 - beam score = cumulative logP x ((1 + len) / (1 + beta))^alpha; a finished
   beam adds 0; perplexity = exp(logP)^(-1/len);
@@ -13,6 +13,11 @@ Scoring follows the JAX package (and through it the reference):
 Greedy runs kernel K4 (``ops/greedy_search.py``).  Beam runs the decoder
 step in plain PyTorch and kernel K5 (``ops/vocab_topk.py``) for the vocab
 projection, top-k and logsumexp of every step, the first included.
+
+``DeepSpeechSearcher`` (search.py:336-512) decodes a CTC model's log-softmax
+outputs in plain PyTorch, as the JAX package does it outside any Pallas
+kernel: greedy path collapse, and the prefix beam with P = min(max(2K, 8),
+V) candidate tokens per frame and the cross-beam merge.
 """
 
 from typing import Tuple
@@ -125,3 +130,118 @@ class LASSearcher:
         pos = torch.arange(L, device=dev)[None, None, :]
         tokens = torch.where(pos < lens[:, :, None], tokens, self.pad_id)
         return tokens, torch.exp(logp) ** (-1.0 / lens.float())
+
+
+def ctc_greedy_decode(log_probs: torch.Tensor, blank_index: int):
+    """Greedy CTC path decode (search.py:336-353): argmax per frame (the first
+    maximum on ties), collapse repeats, drop blanks.
+
+    :param log_probs: [B, T, V] log-softmax outputs
+    :return: (tokens [B, T] left-compacted, 0-padded; path log-prob [B])
+    """
+    B, T, _ = log_probs.shape
+    best, path = log_probs.max(dim=-1)
+    prev = torch.cat([torch.full((B, 1), -1, dtype=path.dtype, device=path.device), path[:, :-1]], dim=1)
+    keep = (path != prev) & (path != blank_index)
+    pos = torch.where(keep, torch.cumsum(keep, dim=1) - 1, T)
+    out = torch.zeros(B, T + 1, dtype=path.dtype, device=path.device)
+    out.scatter_(1, pos, torch.where(keep, path, 0))
+    return out[:, :T], best.sum(dim=-1)
+
+
+def ctc_beam_decode(log_probs: torch.Tensor, blank_index: int, beam_size: int):
+    """CTC prefix beam search over log-softmax outputs (search.py:393-512).
+
+    Per frame each beam may stay (blank, or its repeated last token, masses
+    merged) or grow by one of the top-P non-blank tokens; the K best
+    candidates survive.  An expand candidate whose prefix equals a live beam
+    folds its mass into that beam's stay candidate (TF's CPU decoder's merge).
+
+    :param log_probs: [B, T, V] float32
+    :return: (tokens [B, beam, T] 0-padded, total log-prob [B, beam])
+    """
+    B, T, V = log_probs.shape
+    K = beam_size
+    P = min(max(2 * K, 8), V)
+    NEG = -1e30
+    dev = log_probs.device
+    prefixes = torch.zeros(B, K, T, dtype=torch.long, device=dev)
+    lengths = torch.zeros(B, K, dtype=torch.long, device=dev)
+    pb = torch.where(torch.arange(K, device=dev) == 0, 0.0, NEG).expand(B, K).contiguous()  # only beam 0 alive
+    pnb = torch.full((B, K), NEG, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    t_idx = torch.arange(T, device=dev)
+    blank = torch.tensor([blank_index], device=dev)
+    for t in range(T):
+        lp_t = log_probs[:, t]
+        blank_lp = lp_t[:, blank_index]
+        non_blank = lp_t.index_fill(1, blank, NEG)
+        top_tok = _topk_stable(non_blank, P)  # [B, P] best non-blank tokens
+        top_lp = non_blank.gather(1, top_tok)
+
+        total = torch.logaddexp(pb, pnb)
+        last = prefixes.gather(2, (lengths - 1).clamp_min(0)[:, :, None])[:, :, 0]
+        has_last = lengths > 0
+        # stay candidates: blank from anywhere, the repeated last token from pnb
+        stay_pb = total + blank_lp[:, None]
+        stay_pnb = torch.where(has_last, pnb + lp_t.gather(1, torch.where(has_last, last, 0)), NEG)
+        # expand candidates: token c appended -> [B, K, P]
+        tok = top_tok[:, None, :].expand(B, K, P)
+        same_as_last = has_last[:, :, None] & (tok == last[:, :, None])
+        exp_pnb = torch.where(same_as_last, pb[:, :, None], total[:, :, None]) + top_lp[:, None, :]
+
+        # cross-beam merge: beam k extended by c equals live beam m
+        alive = total > NEG / 2
+        pref_eq = ((prefixes[:, :, None, :] == prefixes[:, None, :, :])
+                   | (t_idx >= lengths[:, :, None, None])).all(dim=-1)  # [B, k, m]
+        len_ok = lengths[:, None, :] == lengths[:, :, None] + 1
+        at_len_k = lengths.clamp(0, T - 1)[:, :, None, None].expand(B, K, K, 1)
+        tok_at_lenk = prefixes[:, None, :, :].expand(B, K, K, T).gather(3, at_len_k)[..., 0]  # prefix_m[len_k]
+        eq_km = pref_eq & len_ok & alive[:, None, :] & alive[:, :, None]
+        eq_kpm = eq_km[:, :, None, :] & (tok[:, :, :, None] == tok_at_lenk[:, :, None, :])  # [B, k, p, m]
+        contrib = torch.logsumexp(torch.where(eq_kpm, exp_pnb[..., None], NEG), dim=(1, 2))  # [B, m]
+        stay_pnb = torch.logaddexp(stay_pnb, contrib)
+        exp_pnb = torch.where(eq_kpm.any(dim=3), NEG, exp_pnb)
+
+        scores = torch.cat([torch.logaddexp(stay_pb, stay_pnb), exp_pnb.reshape(B, K * P)], dim=1)
+        sel = _topk_stable(scores, K)
+        is_stay = sel < K
+        stay_idx = torch.where(is_stay, sel, 0)
+        exp_flat = torch.where(is_stay, 0, sel - K)
+        exp_beam, exp_tok_i = exp_flat // P, exp_flat % P
+        src_beam = torch.where(is_stay, stay_idx, exp_beam)
+        new_prefixes = prefixes[bidx, src_beam]
+        new_lengths = lengths[bidx, src_beam]
+        onehot = torch.nn.functional.one_hot(new_lengths.clamp(0, T - 1), T)
+        appended = new_prefixes * (1 - onehot) + top_tok[bidx, exp_tok_i][:, :, None] * onehot
+        prefixes = torch.where(is_stay[:, :, None], new_prefixes, appended)
+        lengths = torch.where(is_stay, new_lengths, (new_lengths + 1).clamp_max(T))
+        pb = torch.where(is_stay, stay_pb[bidx, stay_idx], NEG)
+        pnb = torch.where(is_stay, stay_pnb[bidx, stay_idx], exp_pnb[bidx, exp_beam, exp_tok_i])
+
+    prefixes = torch.where(t_idx < lengths[:, :, None], prefixes, 0)
+    return prefixes, torch.logaddexp(pb, pnb)
+
+
+class DeepSpeechSearcher:
+    """CTC greedy / beam search over a model whose forward maps features to
+    [B, T', V] logits (JAX ``DeepSpeechSearcher``, search.py:356-390)."""
+
+    def __init__(self, model, blank_index: int):
+        self.model = model
+        self.blank_index = blank_index
+
+    def _log_probs(self, audio):
+        return torch.log_softmax(self.model(audio).float(), dim=-1)
+
+    @torch.no_grad()
+    def greedy_search(self, audio: torch.Tensor):
+        """audio [B,T,F,C] -> (tokens [B, T'], probability [B])."""
+        tokens, path_logp = ctc_greedy_decode(self._log_probs(audio), self.blank_index)
+        return tokens, torch.exp(path_logp)
+
+    @torch.no_grad()
+    def beam_search(self, audio: torch.Tensor, beam_size: int):
+        """audio [B,T,F,C] -> (tokens [B, beam, T'], probability [B, beam])."""
+        tokens, total = ctc_beam_decode(self._log_probs(audio), self.blank_index, int(beam_size))
+        return tokens, torch.exp(total)

@@ -8,7 +8,7 @@ import io
 
 import torch
 
-from speech_recognition_tpu.utils import makedirs, open_file, path_join
+from ..utils import makedirs, open_file, path_join
 
 
 def checkpoint_path(output_path: str, model, epoch: int, val_loss: float, val_accuracy: float) -> str:

@@ -2,10 +2,14 @@
 
 One train step: forward (batch-norm running statistics updated in place, as
 Flax's mutable ``batch_stats``) -> loss -> backward -> Adam.  The loss goes
-through ``model.hidden_states`` + ``model.loss_from_hidden`` (the fused
-vocab-projection + CE, kernel K1) for models that support it
-(``fused_ce_supported``), as JAX's ``_fused_loss_wanted`` takes it; a model
-without that pair goes through full logits and ``loss_fn``.
+through ``model.hidden_states`` + ``model.loss_from_hidden`` as JAX's
+``_fused_loss_wanted`` takes it: LAS's fused vocab-projection + CE (kernel
+K1, ``fused_ce_supported``), and DeepSpeech2's fused CTC emissions (kernel
+K6, ``fused_loss_supported``) when the model has no metric functions, since
+that route returns no outputs.  Any other model goes through full logits
+and ``loss_fn``.  Labels are transposed to time-major only for a model with
+``logits_time_major_supported`` (LAS), as in JAX; only such a
+token-conditioned model takes the teacher-forcing coin.
 
 Adam follows ``optax.adam(schedule, eps=1e-7)``: b1 0.9, b2 0.999, epsilon
 outside the square root, bias-corrected moments (``torch.optim.Adam``'s
@@ -34,17 +38,26 @@ def make_adam(model: torch.nn.Module, schedule: Callable[[int], float]) -> torch
     return torch.optim.Adam(model.parameters(), lr=schedule(0), betas=(0.9, 0.999), eps=1e-7)
 
 
-def _fused_loss_wanted(model) -> bool:
-    """The fused CE route (state.py:118-131): every model that supports it."""
-    return bool(getattr(model, "fused_ce_supported", False))
+def _fused_loss_wanted(model, metric_fns=()) -> bool:
+    """The fused loss route (state.py:118-131): every model with the fused CE
+    pair; a model with the loss-only pair when it has no metric functions."""
+    if getattr(model, "fused_ce_supported", False):
+        return True
+    return bool(getattr(model, "fused_loss_supported", False)) and not metric_fns
+
+
+def _time_major(model) -> bool:
+    return bool(getattr(model, "logits_time_major_supported", False))
 
 
 def _forward_loss(model, model_input, y_true, loss_fn, fused, training, generator=None, coin_generator=None):
+    kwargs = {"coin_generator": coin_generator} if _time_major(model) else {}
     if fused:
-        hid = model.hidden_states(model_input, training, generator, coin_generator)
+        hid = model.hidden_states(model_input, training, generator, **kwargs)
         return model.loss_from_hidden(hid, y_true)
-    outputs = model(model_input, training, time_major_logits=True, generator=generator,
-                    coin_generator=coin_generator)
+    if _time_major(model):
+        kwargs["time_major_logits"] = True
+    outputs = model(model_input, training, generator=generator, **kwargs)
     return loss_fn(y_true, outputs), outputs
 
 
@@ -55,11 +68,13 @@ def make_train_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
     (CPU) draws the per-batch teacher-forcing coin.  Metrics are device
     scalars: no step waits for the card.
     """
-    fused = _fused_loss_wanted(model)
+    fused = _fused_loss_wanted(model, metric_fns)
+    time_major = _time_major(model)
 
     def train_step(state: TrainState, model_input, y_true, generator: Optional[torch.Generator] = None,
                    coin_generator: Optional[torch.Generator] = None):
-        y_true = y_true.t()  # time-major [N, B]
+        if time_major:
+            y_true = y_true.t()  # [N, B]
         loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, True, generator, coin_generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -69,7 +84,8 @@ def make_train_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
         state.optimizer.step()
         state.step += 1
         metrics = {"loss": loss.detach()}
-        _add_metrics(metrics, metric_fns, y_true, outputs.detach(), fused, getattr(model, "pad_id", 0))
+        if outputs is not None:
+            _add_metrics(metrics, metric_fns, y_true, outputs.detach(), fused, getattr(model, "pad_id", 0))
         return metrics
 
     return train_step
@@ -92,14 +108,17 @@ def _add_metrics(metrics, metric_fns, y_true, outputs, fused, pad_id=0):
 
 def make_eval_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
     """Build the eval step: (state, model_input, y_true) -> metrics (running batch-norm statistics)."""
-    fused = _fused_loss_wanted(model)
+    fused = _fused_loss_wanted(model, metric_fns)
+    time_major = _time_major(model)
 
     @torch.no_grad()
     def eval_step(state: TrainState, model_input, y_true):
-        y_true = y_true.t()
+        if time_major:
+            y_true = y_true.t()
         loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, False)
         metrics = {"loss": loss}
-        _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
+        if outputs is not None:
+            _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
         return metrics
 
     return eval_step

@@ -13,12 +13,21 @@ float32 within rtol 1e-4 / atol 1e-5 x max|ref| (sums in another order);
 bf16 streams within 2e-2 x max|ref| (K2) and 3e-2 x max|ref| (K3), the
 tolerances of tests/test_pallas_decoder.py, since a float32 sum in another
 order can move a stored value by one bf16 step and the loop carries it on.
+
+K6 (fused CTC emissions) at ragged shapes (T below and above the 32-row
+block, V not a multiple of the tiles, K up to 129 with repeated ids and the
+pad id many times): lse and the gathered logits rtol 1e-5 / atol 1e-5;
+gradients within 1e-5 x max|ref| in float32, and in bf16 dhid within 2e-2 x
+max|ref| and dW / db within 1e-2 x max|ref| (K1's tolerances: both sides
+round dlog to bf16).
 """
 
 import pytest
 import torch
 
 from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_bwd_plain, ce_fwd, ce_fwd_plain
+from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, ctc_emissions_bwd_plain,
+                                                            ctc_emissions_fwd, ctc_emissions_fwd_plain)
 from speech_recognition_tpu_torch.ops.decoder_kernel import (
     decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
 from speech_recognition_tpu_torch.ops.greedy_search import greedy_search, greedy_search_plain
@@ -128,6 +137,32 @@ def test_ce_vocab_argmax_ties_take_the_lower_index(cuda):
     b = (torch.arange(V, device=cuda) % 9).float()
     _, _, pred = ce_fwd(hid, W, b, torch.zeros(R, dtype=torch.int32, device=cuda))
     assert pred.tolist() == [8] * R
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, H, V, K", [(3, 20, 48, 1000, 7), (2, 37, 256, 2000, 33), (5, 5, 64, 300, 129)])
+def test_ctc_emissions_kernels_match_plain(cuda, dtype, B, T, H, V, K):
+    g = torch.Generator().manual_seed(T + V)
+    hid = (torch.randn(B, T, H, generator=g) * 0.5).to(cuda, dtype)
+    W = (torch.randn(H, V, generator=g) * 0.3 * min(1.0, (256 / H) ** 0.5)).to(cuda, dtype)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda, dtype)
+    ids = torch.randint(1, V, (B, K), generator=g)
+    ids[:, 1] = ids[:, 0]  # a repeated label
+    ids[0, K // 2:-1] = 0  # the pad id, many times
+    ids[:, -1] = 14  # the blank
+    ids = ids.to(cuda, torch.int32)
+    lse, vals = ctc_emissions_fwd(hid, W, b, ids)
+    plse, pvals = ctc_emissions_fwd_plain(hid, W, b, ids)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(vals, pvals, rtol=1e-5, atol=1e-5)
+    dvals = (torch.randn(B, T, K, generator=g) / (T * K)).to(cuda)
+    dhid, dW, db = ctc_emissions_bwd(hid, W, b, ids, plse, dvals)
+    pdhid, pdW, pdb = ctc_emissions_bwd_plain(hid, W, b, ids, plse, dvals)
+    assert dhid.dtype == dtype and dW.dtype == db.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _close(dhid, pdhid, tol if dtype == torch.float32 else 2e-2)
+    _close(dW, pdW, tol)
+    _close(db, pdb, tol)
 
 
 def _decoder_operands(cuda, dtype, N, B, S, H, He, Dv, n_cells, seed):

@@ -22,7 +22,7 @@ from speech_recognition_tpu_torch.configs import LASConfig
 from speech_recognition_tpu_torch.models import LAS
 from speech_recognition_tpu_torch.weights import params_from_jax
 
-from .const import REPO_ROOT
+from .const import REPO_ROOT, SP_MODEL_LIBRI, TEST_DATA_DIR, TEST_LAS_CONFIG, WAV_DATASET_PATH
 
 V, H, ENC_LAYERS, DEC_LAYERS, FREQ, CHANNELS = 64, 16, 1, 2, 10, 3
 BOS, EOS = 2, 3
@@ -80,25 +80,55 @@ def las_twins(vocab=V, seed=0, dtype=jnp.float32, vocab_scale=1.0):
     return model, variables, port
 
 
-def test_port_imports_no_jax():
-    """Every module of the port imports with jax/flax/optax/orbax blocked."""
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the port imports with jax/flax/optax/orbax and the JAX
+    package (``speech_recognition_tpu``) blocked, and so do the imports that
+    happen inside functions: the same process decodes the wav fixture through
+    ``run.inference`` with a LAS mini checkpoint and trains one step through
+    ``run.train``, both on the CPU."""
     code = r"""
 import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "speech_recognition_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
+import torch
 import speech_recognition_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+
+from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
+from speech_recognition_tpu_torch.run import inference, train
+from speech_recognition_tpu_torch.run.common import create_model
+
+out, data_config, las_config, sp_model, tsv, wav = sys.argv[1:]
+model = create_model(get_model_config(las_config), DataConfig.from_yaml(data_config), torch.float32,
+                     torch.device("cpu"), generator=torch.Generator().manual_seed(0))
+torch.save(model.state_dict(), out + "/las.pt")
+inference.main(inference.parser.parse_args([
+    "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
+    out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded.tsv", "--batch-size", "2",
+    "--device", "CPU"]))
+records = train.main(TrainConfig(
+    data_config=data_config, model_config=las_config, sp_model_path=sp_model, train_dataset_paths=tsv,
+    dev_dataset_paths=tsv, train_dataset_size=2, output_path=out + "/train", epochs=1, steps_per_epoch=1,
+    learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
+    device="CPU", seed=1))
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print(len(names), records[0]["steps"])
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True)
+    args = [str(tmp_path), f"{TEST_DATA_DIR}/mini_data_config.yml", TEST_LAS_CONFIG, SP_MODEL_LIBRI,
+            WAV_DATASET_PATH, f"{TEST_DATA_DIR}/audio_files/test.wav"]
+    out = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 10
+    n_modules, steps = out.stdout.split()[-2:]
+    assert int(n_modules) >= 30 and int(steps) == 1
+    assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
 
 
 def test_select_device_gpu_raises_without_cuda(monkeypatch):

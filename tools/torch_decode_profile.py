@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the decode time goes in the PyTorch port (LAS-small, one CUDA GPU).
+"""Where the decode time goes in the PyTorch port (LAS or DeepSpeech2, one CUDA GPU).
 
-    python3 tools/torch_decode_profile.py [--batch 128] [--out build/decode_profile.json]
+    python3 tools/torch_decode_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
+        [--out build/decode_profile.json]
 
-Random LAS-small weights (seeded) and random non-zero features of 1024
-frames, bf16.  Times, with CUDA events after a warm-up (median of 3):
-the listener (``encode`` + key projection), the greedy decode loop (kernel
-K4) and the beam-8 decode loop (plain decoder step + kernel K5 + score
-selection) on the same encoder outputs, and the whole ``greedy_search`` /
-``beam_search``.  Then ``torch.profiler`` over one whole search of each
+Random seeded weights of the model config and random non-zero features of
+1024 frames, bf16.  Times, with CUDA events after a warm-up (median of 3).
+LAS (``las_small.yml``): the listener (``encode`` + key projection), the
+greedy decode loop (kernel K4) and the beam-8 decode loop (plain decoder
+step + kernel K5 + score selection) on the same encoder outputs, and the
+whole ``greedy_search`` / ``beam_search``.  DeepSpeech2
+(``deepspeech.yml``): the model's log-probs (convs, BiGRUs, vocab
+projection, log-softmax), and the whole CTC greedy / prefix beam-8 search;
+each loop's time is the search's less the log-probs'.  Then ``torch.profiler`` over one whole search of each
 kind: device time by kernel name and the device's busy share of the wall
 time.  Prints the card's name and power limit first; writes everything to
 ``--out`` as JSON.
@@ -69,6 +73,8 @@ def profile(fn, top_n=12):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model-config", default="resources/configs/las_small.yml",
+                        help="las_small.yml or deepspeech.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/decode_profile.json")
     args = parser.parse_args()
@@ -77,10 +83,10 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
-    from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
+    from speech_recognition_tpu_torch.configs import DataConfig, LASConfig, get_model_config
     from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
     from speech_recognition_tpu_torch.run.common import create_model, select_device
-    from speech_recognition_tpu_torch.search import LASSearcher
+    from speech_recognition_tpu_torch.search import DeepSpeechSearcher, LASSearcher
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -88,24 +94,33 @@ def main():
     dev = select_device("GPU")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     data_config = DataConfig.from_yaml(os.path.join(root, "resources/configs/libri_config.yml"))
-    model_config = get_model_config(os.path.join(root, "resources/configs/las_small.yml"))
+    model_config = get_model_config(os.path.join(root, args.model_config))
     model = create_model(model_config, data_config, torch.bfloat16, torch.device("cpu"),
                          generator=torch.Generator().manual_seed(0)).to(dev)
     B, L = args.batch, data_config.max_token_length
     g = torch.Generator().manual_seed(1)
     audio = (torch.randn(B, 1024, 80, 3, generator=g) + 5.0).to(dev)
-    searcher = LASSearcher(model, L, bos_id=1, eos_id=2)
+    result = {"card": card, "model_config": args.model_config, "batch": B, "frames": 1024, "dtype": "bfloat16"}
 
     with torch.no_grad():
-        enc_out, keys, mask, (h, c) = searcher._encode(audio)
-        emb, qw, qb, cells, vw, vb = searcher.decoder_params()
-        greedy_args = (keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells, h, c, L, 1, 2, 0)
-        result = {"card": card, "batch": B, "frames": 1024, "max_token_length": L, "dtype": "bfloat16"}
-        result["encode_ms"] = cuda_ms(lambda: searcher._encode(audio))
-        result["greedy_loop_ms"] = cuda_ms(lambda: greedy_search(*greedy_args))
-        result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))
-        result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
-        result["beam8_loop_ms"] = result["beam8_search_ms"] - result["encode_ms"]
+        if not isinstance(model_config, LASConfig):
+            searcher = DeepSpeechSearcher(model, model_config.blank_index)
+            result["log_probs_ms"] = cuda_ms(lambda: searcher._log_probs(audio))
+            result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))
+            result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
+            result["greedy_loop_ms"] = result["greedy_search_ms"] - result["log_probs_ms"]
+            result["beam8_loop_ms"] = result["beam8_search_ms"] - result["log_probs_ms"]
+        else:
+            searcher = LASSearcher(model, L, bos_id=1, eos_id=2)
+            enc_out, keys, mask, (h, c) = searcher._encode(audio)
+            emb, qw, qb, cells, vw, vb = searcher.decoder_params()
+            greedy_args = (keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells, h, c, L, 1, 2,
+                           0)
+            result["encode_ms"] = cuda_ms(lambda: searcher._encode(audio))
+            result["greedy_loop_ms"] = cuda_ms(lambda: greedy_search(*greedy_args))
+            result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))
+            result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
+            result["beam8_loop_ms"] = result["beam8_search_ms"] - result["encode_ms"]
         for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
                          ("beam8", lambda: searcher.beam_search(audio, 8))):
             wall, busy, top = profile(fn)

@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Where the training step's time goes in the PyTorch port (LAS-small, one CUDA GPU).
+"""Where the training step's time goes in the PyTorch port (LAS or DeepSpeech2, one CUDA GPU).
 
-    python3 tools/torch_train_profile.py [--batch 128] [--out build/train_profile.json]
+    python3 tools/torch_train_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
+        [--out build/train_profile.json]
 
-Random LAS-small weights (seeded, dropout 0.15 as configured), random
+Random seeded weights of the model config (dropout as configured), random
 non-zero features of 1024 frames with true lengths, and random tokens of
-128 positions with pad tails (N = 127 decoder positions), bf16, on the
-teacher-forced branch.
+128 positions with pad tails, bf16.  LAS (``las_small.yml``): N = 127
+decoder positions, the teacher-forced branch.  DeepSpeech2
+(``deepspeech.yml``): labels of at most 48 tokens, so every CTC row is
+feasible at T' = 108.
 
 1. The whole ``make_train_step`` step, CUDA events after two warm-up steps
    (median of 3).
 2. The same step cut into stages, each forward stage fed the previous
    one's outputs as detached leaves so that each backward runs on its own
-   (the gradients are the same): listener forward / backward (convs,
+   (the gradients are the same).  LAS: listener forward / backward (convs,
    BiLSTMs, key projection), decoder forward (step 0 + K2) / backward (K3,
    the attention recompute, the weight-gradient tail, step 0), K1 forward /
+   backward, and Adam.  DS2: trunk forward / backward (convs, BiGRUs, batch
+   norms), K6 forward / backward, the CTC dynamic programme forward /
    backward, and Adam.  CUDA events around each stage, median of 3.
 3. ``torch.profiler`` over one whole step: device time by kernel name, the
    device's idle share of the profiled wall time and of the unprofiled step
-   time, and the time of each port kernel (K1 forward / backward, K2, K3).
+   time, and the time of each port kernel (LAS: K1 forward / backward, K2,
+   K3; DS2: K6 forward / backward).
 
 Prints the card's name and power limit first; writes everything to
 ``--out`` as JSON.
@@ -35,16 +41,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from torch_decode_profile import profile  # noqa: E402  (tools/ is the script's own directory)
 
-# kernel-name prefixes of the port's training kernels (csrc/ce_vocab.cu, csrc/las_decoder.cu)
+# kernel-name prefixes of the port's training kernels (csrc/ce_vocab.cu, csrc/ctc_emissions.cu,
+# csrc/las_decoder.cu); K1's backward is K6's backward kernels with one id per row
+K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel")
 PORT_KERNELS = {
-    "K1 fwd": ("void srt::vocab_tile_kernel", "srt::ce_merge_kernel", "void srt::ce_label_kernel"),
-    "K1 bwd": ("void srt::ce_dhid_kernel", "void srt::ce_dw_kernel"),
-    "K2": ("void srt::decoder_fwd_kernel",),
-    "K3": ("void srt::decoder_bwd_kernel",),
+    "las": {
+        "K1 fwd": ("void srt::vocab_tile_kernel", "srt::ce_merge_kernel", "void srt::ce_label_kernel"),
+        "K1 bwd": K6_BWD,
+        "K2": ("void srt::decoder_fwd_kernel",),
+        "K3": ("void srt::decoder_bwd_kernel",),
+    },
+    "ds2": {
+        "K6 fwd": ("void srt::vocab_tile_kernel", "srt::emission_lse_kernel", "void srt::emission_gather_kernel"),
+        "K6 bwd": K6_BWD,
+    },
 }
 
 
-def make_batch(B, frames, L, gen, dev):
+def make_batch(B, frames, L, gen, dev, las):
+    """LAS: ((audio, lengths), decoder inputs), targets; DS2: (audio, lengths), labels of <= 48 tokens."""
     import torch
 
     audio = torch.randn(B, frames, 80, 3, generator=gen) + 5.0
@@ -52,13 +67,15 @@ def make_batch(B, frames, L, gen, dev):
     audio *= (torch.arange(frames)[None, :] < lengths[:, None]).float()[..., None, None]
     tokens = torch.randint(3, 16000, (B, L), generator=gen)
     tokens[:, 0] = 1
-    n_tok = torch.randint(L // 4, L + 1, (B,), generator=gen)
+    n_tok = torch.randint(L // 4, L + 1, (B,), generator=gen) if las else torch.randint(8, 49, (B,), generator=gen)
     tokens[torch.arange(L)[None, :] >= n_tok[:, None]] = 0
-    return ((audio.to(dev), lengths.to(dev)), tokens[:, :-1].to(dev)), tokens[:, 1:].to(dev)
+    if las:
+        return ((audio.to(dev), lengths.to(dev)), tokens[:, :-1].to(dev)), tokens[:, 1:].to(dev)
+    return (audio.to(dev), lengths.to(dev)), tokens.to(dev)
 
 
 def staged_step(model, state, inputs, y_true, gen):
-    """One train step in stages; returns {stage: ms} from CUDA events."""
+    """One LAS train step in stages; returns {stage: ms} from CUDA events."""
     import torch
 
     (audio, lengths), dec_in = inputs
@@ -97,8 +114,48 @@ def staged_step(model, state, inputs, y_true, gen):
     return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
 
 
+def staged_step_ds2(model, state, inputs, y_true, gen):
+    """One DeepSpeech2 train step in stages; returns {stage: ms} from CUDA events."""
+    import torch
+
+    from speech_recognition_tpu_torch.measure import _ctc_ids, _ctc_nll_from_emission, _ctc_normalize
+    from speech_recognition_tpu_torch.ops.ctc_emissions import fused_ctc_emissions
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    leaf = lambda t: t.detach().requires_grad_(True)
+    y = y_true.long()
+    fc = model.fully_connected
+
+    events[0].record()
+    hid = model.hidden_states(inputs, True, gen)
+    events[1].record()
+    hid_l = leaf(hid)
+    emission = fused_ctc_emissions(hid_l, fc.weight.t(), fc.bias, _ctc_ids(y, model.blank_index))
+    events[2].record()
+    em_l = leaf(emission)
+    loss = _ctc_normalize(*_ctc_nll_from_emission(y, em_l, model.pad_index))
+    events[3].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    events[4].record()
+    emission.backward(em_l.grad)
+    events[5].record()
+    hid.backward(hid_l.grad)
+    events[6].record()
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.optimizer.step()
+    state.step += 1
+    events[7].record()
+    events[7].synchronize()
+    names = ["trunk_fwd", "k6_fwd", "ctc_dp_fwd", "ctc_dp_bwd", "k6_bwd", "trunk_bwd", "adam"]
+    return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model-config", default="resources/configs/las_small.yml",
+                        help="las_small.yml or deepspeech.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/train_profile.json")
     args = parser.parse_args()
@@ -107,7 +164,7 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
-    from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
+    from speech_recognition_tpu_torch.configs import DataConfig, LASConfig, get_model_config
     from speech_recognition_tpu_torch.run.common import create_model, select_device
     from speech_recognition_tpu_torch.train import TrainState, linear_warmup_decay, make_adam, make_train_step
 
@@ -117,16 +174,17 @@ def main():
     dev = select_device("GPU")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     data_config = DataConfig.from_yaml(os.path.join(root, "resources/configs/libri_config.yml"))
-    model_config = get_model_config(os.path.join(root, "resources/configs/las_small.yml"))
+    model_config = get_model_config(os.path.join(root, args.model_config))
+    las = isinstance(model_config, LASConfig)
     model = create_model(model_config, data_config, torch.bfloat16, dev, generator=torch.Generator().manual_seed(0),
                          train=True)
     schedule = linear_warmup_decay(1000, 1e-3, 1e-5, 0.0, 10)
     state = TrainState(model, make_adam(model, schedule), schedule)
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
     B, L, frames = args.batch, data_config.max_token_length, 1024
-    inputs, y_true = make_batch(B, frames, L, torch.Generator().manual_seed(1), dev)
+    inputs, y_true = make_batch(B, frames, L, torch.Generator().manual_seed(1), dev, las)
     gen = torch.Generator(device=dev).manual_seed(2)
-    result = {"card": card, "batch": B, "frames": frames, "decoder_positions": L - 1, "dtype": "bfloat16"}
+    result = {"card": card, "model_config": args.model_config, "batch": B, "frames": frames, "dtype": "bfloat16"}
 
     times = []
     for k in range(5):
@@ -139,13 +197,14 @@ def main():
     result["step_ms"] = statistics.median(times[2:])
     result["utterances_per_s"] = B / (result["step_ms"] / 1e3)
 
-    stages = [staged_step(model, state, inputs, y_true, gen) for _ in range(4)][1:]
+    staged = staged_step if las else staged_step_ds2
+    stages = [staged(model, state, inputs, y_true, gen) for _ in range(4)][1:]
     result["stages_ms"] = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
     result["stages_sum_ms"] = sum(result["stages_ms"].values())
 
     wall, busy, top = profile(lambda: step(state, inputs, y_true, gen), top_n=None)
     port = {name: sum(r["ms"] for r in top if r["kernel"].startswith(prefixes))
-            for name, prefixes in PORT_KERNELS.items()}
+            for name, prefixes in PORT_KERNELS["las" if las else "ds2"].items()}
     # the profiler slows the host, so its wall time overstates the idle share;
     # the unprofiled step time (CUDA events) gives the tighter estimate
     result["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
