@@ -32,7 +32,18 @@ Phases, in order; any failure exits non-zero without printing a result:
    --batch-size 128`` for a few steps and a dev pass, after K6's counters are
    set to 0; the checkpoint is decoded by ``run.inference``, greedy and
    beam-8; then ms per train step and utterances/s, decode ms per batch and
-   RTF, and one float32 step on 8 clips with K6 against its plain version.
+   RTF, and one float32 step on 8 clips with K6 against its plain version;
+6. Conformer-S (``resources/configs/conformer_small.yml``) through
+   ``run.train`` on the same clips and transcripts, ``--mixed-precision
+   --device GPU --batch-size 128`` for a few steps and a dev pass, after K7's
+   and K6's counters are set to 0 (K7: 16 forward launches per train step
+   and per dev batch, 16 backward per step); the checkpoint is decoded by
+   ``run.inference``, greedy and beam-8, with K7 firing 16 times per batch;
+   then ms per train step, utterances/s and peak memory, decode ms per batch
+   and RTF, and one float32 step on 8 clips with K7 and K6 against their
+   plain versions.  Phase 2 holds K7 (``check_mhsa``) against its plain
+   version at the main path's shapes, in float32, at a ragged T, and its
+   dropout mask bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the repository,
@@ -58,6 +69,7 @@ TRAIN_CLIPS, TRAIN_STEPS, TIMED_STEPS = 256, 4, 5
 FRAMES = 1024
 SAMPLES = (FRAMES - 1) * 160 + 320  # 1024 frames of the libri config (frame 320, step 160) at 16 kHz
 T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 -> 492 -> 236 -> 108); label cap
+T_CONF, CONF_BLOCKS = 255, 16  # Conformer-S: frames after its stem (1024 -> 511 -> 255; blocks at 256), depth
 # published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 failures = []
@@ -467,6 +479,126 @@ def check_emissions(gen):
     return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
 
 
+def mhsa_operands(gen, dtype, Bsz, T, H, d, min_len):
+    """Seeded q, k, v, dout [Bsz, T, H*d], a ragged key bias (lengths min_len..T) and seeds from ``gen``."""
+    import torch
+
+    dev = "cuda"
+    q, k, v, dout = ((torch.randn(Bsz, T, H * d, generator=gen) * 0.5).to(dev, dtype) for _ in range(4))
+    n = torch.randint(min_len, T + 1, (Bsz,), generator=gen)
+    n[0] = T
+    bias = torch.where(torch.arange(T)[None, :] < n[:, None], 0.0, -1e9).to(dev)
+    seeds = torch.randint(0, 2**31 - 1, (Bsz,), generator=gen, dtype=torch.int32).to(dev)
+    return q, k, v, bias, seeds, dout
+
+
+def sdpa_ms(q, k, v, bias, dout, H, iters=20):
+    """CUDA-event ms of ``F.scaled_dot_product_attention`` at p=0 with the same
+    additive key mask, forward alone and its backward alone (autograd on one
+    saved graph): the one PyTorch call that computes K7's function without
+    dropout (timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    Bsz, T, D = q.shape
+    heads = lambda t: t.view(Bsz, T, H, D // H).transpose(1, 2).contiguous().requires_grad_(True)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    mask = bias.to(q.dtype)[:, None, None, :]
+    doh = dout.view(Bsz, T, H, D // H).transpose(1, 2).contiguous()
+
+    def run(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    with torch.no_grad():
+        fwd = run(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    bwd = run(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+    return fwd, bwd
+
+
+def check_mhsa(gen):
+    """K7 vs plain at the Conformer's main path: B=128, T=256, H=4, d=64, bf16,
+    p=0.1, seeds from the generator, key lengths 128..256.  Tolerances (the
+    JAX pins of tests/test_pallas_attention.py): bf16 outputs and dq / dk / dv
+    within 2e-2 x max|ref| (float32 sums in another order can move one
+    rounding of the probs or ds by a step); float32 (B=8) within 1e-4 x
+    max|ref|; the row statistics rtol 1e-5.  A ragged T=255 (B=16, bf16) the
+    same.  The keep mask, read back through one-hot values (q = k = 0, so
+    every prob is 1/T), equals ``keep_mask`` bit for bit at every (b, h, i, j)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.attention import (
+        keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain)
+
+    T, H, d, p = T_CONF + 1, 4, 64, 0.1
+    scale = d ** -0.5
+
+    def compare(tag, dtype, Bsz, T_len, tol):
+        """Checks one case; returns its operands, the plain statistics and the max abs errors (ctx; grads)."""
+        q, k, v, bias, seeds, dout = mhsa_operands(gen, dtype, Bsz, T_len, H, d, T_len // 2)
+        out, m, l = mhsa_fwd(q, k, v, bias, seeds, H, scale, p)
+        pout, pm, pl = mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, p)
+        grads = mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+        pgrads = mhsa_bwd_plain(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+        torch.cuda.synchronize()
+        stats = torch.allclose(m, pm, rtol=1e-5, atol=1e-5) and torch.allclose(l, pl, rtol=1e-5, atol=0)
+        check(stats, f"mhsa {tag}: row max / sum of exp rtol 1e-5")
+        errs = []
+        for name, got, want in (("ctx", out, pout), *zip(("dq", "dk", "dv"), grads, pgrads)):
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            errs.append(err)
+            check(got.dtype == dtype and err <= tol * ref,
+                  f"mhsa {tag}: {name} within {tol:g} x max|ref| (max abs err {err:.3g}, max|ref| {ref:.3g})")
+        return (q, k, v, bias, seeds, dout, pm, pl), errs[0], max(errs[1:])
+
+    ops, fwd_err, bwd_err = compare(f"bf16 B={B} T={T} H={H} d={d} p={p}", torch.bfloat16, B, T, 2e-2)
+    compare(f"float32 B=8 T={T}", torch.float32, 8, T, 1e-4)
+    compare(f"bf16 ragged B=16 T={T_CONF}", torch.bfloat16, 16, T_CONF, 2e-2)
+
+    seeds = ops[4]
+    zeros = torch.zeros(B, T, H * d, dtype=torch.bfloat16, device="cuda")
+    bias0 = torch.zeros(B, T, device="cuda")
+    i = torch.arange(T, device="cuda")
+    want = keep_mask(seeds.view(B, 1, 1, 1), torch.arange(H, device="cuda").view(1, H, 1, 1), i.view(1, 1, T, 1),
+                     i.view(1, 1, 1, T), p)
+    kept = torch.empty_like(want)
+    cols = torch.arange(d, device="cuda")
+    for o in range(0, T, d):
+        v = zeros.clone().view(B, T, H, d)
+        v[:, o + cols, :, cols] = 1.0
+        out, _, _ = mhsa_fwd(zeros, zeros, v.view(B, T, H * d), bias0, seeds, H, scale, p)
+        kept[..., o:o + d] = out.view(B, T, H, d).permute(0, 2, 1, 3) > 0
+    torch.cuda.synchronize()
+    zeroed_k, zeroed_p = int((~kept[0, 0]).sum()), int((~want[0, 0]).sum())
+    check(torch.equal(kept, want), f"mhsa dropout mask bit-identical at all {want.numel()} (b, h, i, j); zeroed at "
+                                   f"(0, 0): kernel {zeroed_k}, plain {zeroed_p} of {T * T}")
+
+    q, k, v, bias, seeds, dout, pm, pl = ops
+    f_ms, pf_ms = timed_pair(lambda: mhsa_fwd(q, k, v, bias, seeds, H, scale, p),
+                             lambda: mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, p), 10)
+    b_ms, pb_ms = timed_pair(lambda: mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p),
+                             lambda: mhsa_bwd_plain(q, k, v, bias, seeds, pm, pl, dout, H, scale, p), 10)
+    lib_f, lib_b = sdpa_ms(q, k, v, bias, dout, H)
+    product = 2 * B * H * T * T * d
+    # the function's inputs read once and outputs written once (the row
+    # statistics are this design's residual, not counted)
+    fb = bound(2 * product, nbytes(q, k, v, bias, seeds, q))
+    bb = bound(5 * product, nbytes(q, k, v, bias, seeds, dout, q, k, v))
+    print(f"  mhsa B={B} T={T} H={H} d={d} p={p}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.4f} ms, bound "
+          f"{fb[0]:.4f} ms ({fb[1]}), SDPA {lib_f:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.4f} ms, bound "
+          f"{bb[0]:.4f} ms ({bb[1]}), SDPA backward {lib_b:.4f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_f), (bwd_err, b_ms, pb_ms, *bb, lib_b)
+
+
 # ---------------------------------------------------------------- phase 3
 def write_clips(wav_dir, n, gen_np):
     """n seeded 16 kHz mono wav clips of 1024 frames (sums of tones and noise)."""
@@ -798,19 +930,22 @@ def decode_args(data_config, model_config, audio_files, weights, out, beam):
             "--beam-size", str(beam)]
 
 
-def run_ds2_train_path(tmp, wav_dir, paths, data_config):
-    """run.train.main trains DeepSpeech2 on the 256 clips with K6's counters set
-    to 0 just before and read just after (each step's loss recorded); then
-    run.inference decodes clips 000-099 with the checkpoint, greedy and beam-8."""
+def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, counted, expected, per_decode=None):
+    """run.train.main trains a CTC model on the 256 clips with the counters of
+    ``counted`` ({name: wrapper}) set to 0 just before and read just after,
+    held to ``expected`` ({name: launches}), each step's loss recorded; then
+    run.inference decodes clips 000-099 with the checkpoint, greedy and
+    beam-8, each decode with the counters of ``per_decode`` ({name: launches
+    per decode}) set to 0 before and checked after.  Returns the launches of
+    the training run plus the decodes."""
     import torch
 
     import speech_recognition_tpu_torch.train as train_pkg
     from speech_recognition_tpu_torch.configs import TrainConfig
-    from speech_recognition_tpu_torch.ops.ctc_emissions import ctc_emissions_bwd, ctc_emissions_fwd
     from speech_recognition_tpu_torch.run import inference, train
 
-    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, "deepspeech.yml",
-                                                                "ds2_train_out"))))
+    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, model_config,
+                                                                f"{tag.lower()}_train_out"))))
     losses, make_step = [], train_pkg.make_train_step
 
     def recording_train_step(*args, **kwargs):  # the real step, each loss kept on the card
@@ -824,37 +959,43 @@ def run_ds2_train_path(tmp, wav_dir, paths, data_config):
         return run
 
     train_pkg.make_train_step = recording_train_step
-    ctc_emissions_fwd.launches = ctc_emissions_bwd.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     try:
         records = train.main(cfg)
     finally:
         train_pkg.make_train_step = make_step
     wall = time.perf_counter() - t0
-    launches = {"ctc_emissions_fwd": ctc_emissions_fwd.launches, "ctc_emissions_bwd": ctc_emissions_bwd.launches}
-    print(f"  run.train (DS2): {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
-    dev_batches = -(-B // B)
-    check(launches == {"ctc_emissions_fwd": TRAIN_STEPS + dev_batches, "ctc_emissions_bwd": TRAIN_STEPS},
-          f"K6 launched {launches} times in the DS2 training run ({TRAIN_STEPS} steps + {dev_batches} dev batch)")
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"  run.train ({tag}): {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
+    check(launches == expected, f"{tag} kernels launched {launches} times in the training run ({TRAIN_STEPS} steps "
+                                f"+ 1 dev batch; expected {expected})")
     (rec,) = records
     step_losses = torch.stack(losses).tolist() if losses else []
     check(rec["steps"] == TRAIN_STEPS and len(step_losses) == TRAIN_STEPS
           and all(np.isfinite(x) and x < 1e4 for x in step_losses + [rec["val_loss"]]),
-          f"DS2 {rec['steps']} train steps; step losses {[round(x, 4) for x in step_losses]} and dev loss "
+          f"{tag} {rec['steps']} train steps; step losses {[round(x, 4) for x in step_losses]} and dev loss "
           f"{rec['val_loss']:.4f} finite and below 1e4")
-    check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), "the DS2 .pt checkpoint exists")
+    check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), f"the {tag} .pt checkpoint exists")
     for name, beam in (("greedy", 0), ("beam8", BEAM)):
-        out = os.path.join(tmp, f"ds2_{name}.tsv")
+        for kernel in per_decode or {}:
+            counted[kernel].launches = 0
+        out = os.path.join(tmp, f"{tag.lower()}_{name}.tsv")
         inference.main(inference.parser.parse_args(decode_args(
-            data_config, "deepspeech.yml", os.path.join(wav_dir, "clip0*.wav"), rec["checkpoint"], out, beam)))
+            data_config, model_config, os.path.join(wav_dir, "clip0*.wav"), rec["checkpoint"], out, beam)))
         with open(out) as f:
             n_rows = len(f.read().splitlines()) - 1
-        check(n_rows == 100, f"run.inference (DS2, {name}) decoded {n_rows} clips (clip000-099) with the checkpoint")
+        check(n_rows == 100, f"run.inference ({tag}, {name}) decoded {n_rows} clips (clip000-099) with the checkpoint")
+        for kernel, n in (per_decode or {}).items():
+            got = counted[kernel].launches
+            check(got == n, f"{kernel} launched {got} times in the {tag} {name} decode of one batch (expected {n})")
+            launches[kernel] += got
     return launches, cfg, rec["checkpoint"]
 
 
-def time_ds2_decode(wav_dir, data_config, weights):
-    """DS2 decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA
+def time_ctc_decode(wav_dir, data_config, weights, model_config, T_out, tag):
+    """CTC decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA
     events around one whole ``DeepSpeechSearcher`` call after a warm-up call),
     with the outputs' shapes, ranges and probabilities checked."""
     import torch
@@ -866,7 +1007,7 @@ def time_ds2_decode(wav_dir, data_config, weights):
     from speech_recognition_tpu_torch.search import DeepSpeechSearcher
 
     config = DataConfig.from_yaml(data_config)
-    model_config = get_model_config(os.path.join(REPO, "resources/configs/deepspeech.yml"))
+    model_config = get_model_config(os.path.join(REPO, "resources/configs", model_config))
     load, feat = load_audio_file(16000, "wav", 16000), make_feature_fn(config)
     files = sorted(os.listdir(wav_dir))[:B]
     audio = torch.from_numpy(np.stack([feat(load(os.path.join(wav_dir, f))) for f in files])).cuda()
@@ -885,11 +1026,13 @@ def time_ds2_decode(wav_dir, data_config, weights):
         end.record()
         end.synchronize()
         timings[name] = ms = start.elapsed_time(end)
-        shape = (B, T_DS2) if name == "greedy" else (B, BEAM, T_DS2)
+        shape = (B, T_out) if name == "greedy" else (B, BEAM, T_out)
         check(tuple(tok.shape) == shape and bool(((tok >= 0) & (tok < model_config.vocab_size)).all())
               and bool(((prob >= 0) & (prob <= 1)).all()),
-              f"DS2 {name} output shape {tuple(tok.shape)}, tokens in vocab, probabilities in [0, 1]")
-        print(f"  DS2 decode {name} bf16 B={B}: {ms:.2f} ms per batch, RTF {ms / 1000 / audio_s:.3e}")
+              f"{tag} {name} output shape {tuple(tok.shape)}, tokens in vocab, probabilities in [0, 1]")
+        print(f"  {tag} decode {name} bf16 B={B}: {ms:.2f} ms per batch, RTF {ms / 1000 / audio_s:.3e}")
+    print(f"  {tag} decode per batch of {B} ({audio_s:.2f} s of audio): greedy {timings['greedy']:.2f} ms, "
+          f"beam-8 {timings['beam8']:.2f} ms")
     return timings
 
 
@@ -916,13 +1059,16 @@ def main():
                    ("las_decoder_fwd", "las_decoder.cu", "decoder_kernel.py:238"),
                    ("las_decoder_bwd", "las_decoder.cu", "decoder_kernel.py:477"),
                    ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
-                   ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"))}
+                   ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
+                   ("mhsa_fwd", "attention.cu", "attention_kernel.py:217"),
+                   ("mhsa_bwd", "attention.cu", "attention_kernel.py:217"))}
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
         kernels[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
 
+    import speech_recognition_tpu_torch.ops.attention as attn_mod
     import speech_recognition_tpu_torch.ops.ce_vocab as ce_mod
     import speech_recognition_tpu_torch.ops.ctc_emissions as em_mod
     import speech_recognition_tpu_torch.ops.decoder as dec_mod
@@ -933,7 +1079,7 @@ def main():
         print("== phase 1: card and build")
         phase_setup()
         gen = torch.Generator().manual_seed(1234)
-        print("== phase 2: kernels vs plain PyTorch (bf16; K6 also float32)")
+        print("== phase 2: kernels vs plain PyTorch (bf16; K6 and K7 also float32)")
         record("vocab_topk", check_vocab_topk(1024, 256, 16000, BEAM, ROUND_TWICE, False, gen))
         check_vocab_topk(128, 256, 16000, 1, ROUND_ONCE, True, gen)
         record("las_greedy", check_greedy(gen))
@@ -946,6 +1092,9 @@ def main():
         fwd, bwd = check_emissions(gen)
         record("ctc_emissions_fwd", fwd)
         record("ctc_emissions_bwd", bwd)
+        fwd, bwd = check_mhsa(gen)
+        record("mhsa_fwd", fwd)
+        record("mhsa_bwd", bwd)
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
@@ -963,14 +1112,30 @@ def main():
                         "LAS-small")
         print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
-        ds2_launches, ds2_cfg, ds2_weights = run_ds2_train_path(tmp, train_wavs, ds2_paths, data_config)
+        k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}
+        k6_expected = {"ctc_emissions_fwd": TRAIN_STEPS + 1, "ctc_emissions_bwd": TRAIN_STEPS}
+        ds2_launches, ds2_cfg, ds2_weights = run_ctc_train_path(tmp, train_wavs, ds2_paths, data_config,
+                                                                "deepspeech.yml", "DS2", k6, k6_expected)
         launches.update(ds2_launches)
         time_train_step(ds2_cfg, f"DS2 (T'={T_DS2})")
-        timings = time_ds2_decode(wav_dir, data_config, ds2_weights)
-        print(f"  DS2 decode per batch of {B} ({audio_s:.2f} s of audio): greedy {timings['greedy']:.2f} ms, "
-              f"beam-8 {timings['beam8']:.2f} ms")
-        check_train_f32(ds2_cfg, [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
-                                  (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)], "DS2")
+        time_ctc_decode(wav_dir, data_config, ds2_weights, "deepspeech.yml", T_DS2, "DS2")
+        k6_plain = [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
+                    (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)]
+        check_train_f32(ds2_cfg, k6_plain, "DS2")
+        print("== phase 6: Conformer-CTC through run.train and run.inference (bf16, B=128)")
+        k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
+        k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
+        torch.cuda.reset_peak_memory_stats()
+        conf_launches, conf_cfg, conf_weights = run_ctc_train_path(
+            tmp, train_wavs, ds2_paths, data_config, "conformer_small.yml", "Conformer", {**k7, **k6},
+            {**k7_expected, **k6_expected}, {"mhsa_fwd": CONF_BLOCKS})
+        print(f"  peak device memory of the Conformer run.train + decodes: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches.update({"mhsa_fwd": conf_launches["mhsa_fwd"], "mhsa_bwd": conf_launches["mhsa_bwd"]})
+        time_train_step(conf_cfg, f"Conformer-S (T'={T_CONF})")
+        time_ctc_decode(wav_dir, data_config, conf_weights, "conformer_small.yml", T_CONF, "Conformer")
+        check_train_f32(conf_cfg, [(attn_mod, "mhsa_fwd", attn_mod.mhsa_fwd_plain),
+                                   (attn_mod, "mhsa_bwd", attn_mod.mhsa_bwd_plain), *k6_plain], "Conformer-S")
         for name, n in launches.items():
             kernels[name]["launches"] = n
     except Exception:

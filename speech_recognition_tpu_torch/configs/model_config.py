@@ -1,10 +1,11 @@
 """Model configuration registry: the port's copy of
 speech_recognition_tpu/configs/model_config.py.
 
-The same YAML schema: the ``model_name`` key dispatches to ``LASConfig`` or
-``DeepSpeechConfig``.  The JAX module's ``create_model`` methods build Flax
-models; the port builds its models in ``run/common.create_model``.  The
-Conformer and Transducer configs are not ported yet: their YAMLs raise.
+The same YAML schema: the ``model_name`` key dispatches to ``LASConfig``,
+``DeepSpeechConfig`` or ``ConformerConfig``.  The JAX module's
+``create_model`` methods build Flax models; the port builds its models in
+``run/common.create_model``.  The Transducer config is not ported yet: its
+YAMLs raise.
 """
 
 from dataclasses import dataclass
@@ -15,12 +16,13 @@ import yaml
 from .data_config import ConfigValidationError, _check_literal, _check_type
 
 _RNN_TYPES = ("rnn", "lstm", "gru")
-_NOT_PORTED = ("conformer", "transducer", "rnnt", "rnn-t")
+_NOT_PORTED = ("transducer", "rnnt", "rnn-t")
 
 
 def get_model_config(model_config_path: str):
     """Load a model config yaml and return the matching config instance
-    (``ds2``/``deepspeech2`` -> DeepSpeechConfig, ``las`` -> LASConfig)."""
+    (``ds2``/``deepspeech2`` -> DeepSpeechConfig, ``las`` -> LASConfig,
+    ``conformer`` -> ConformerConfig)."""
     from ..utils.io import open_file
 
     with open_file(model_config_path) as f:
@@ -31,8 +33,11 @@ def get_model_config(model_config_path: str):
         return DeepSpeechConfig(**model_config_dict)
     if model_name == "las":
         return LASConfig(**model_config_dict)
+    if model_name == "conformer":
+        return ConformerConfig(**model_config_dict)
     if model_name in _NOT_PORTED:
-        raise NotImplementedError(f"model {model_name!r} is not ported yet to torch (LAS and DeepSpeech2 are)")
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet to torch (LAS, DeepSpeech2 and Conformer are)")
     raise ConfigValidationError(f"Model Name: {model_name} is invalid!")
 
 
@@ -141,3 +146,59 @@ class DeepSpeechConfig:
             self.num_conv_layers == len(self.channels) == len(self.kernel_sizes) == len(self.strides)
         ):
             raise ConfigValidationError("Convolution parameter number is invalid!")
+
+
+@dataclass
+class ConformerConfig:
+    """Config for the Conformer-CTC model.  Shares the DS2 CTC contract:
+    ``blank_index``/``pad_index`` drive the loss and the CTC decoders."""
+
+    # size of vocabulary
+    vocab_size: int
+    # encoder width (model dim of every block)
+    encoder_dim: int
+    # number of conformer blocks
+    num_layers: int
+    # attention heads (head dim = encoder_dim / heads must be even for RoPE)
+    num_attention_heads: int
+    # depthwise conv kernel width inside each block
+    conv_kernel_size: int
+    # feed-forward expansion factor
+    ffn_expansion: int
+    # dropout rate
+    dropout: float
+    # channels of the stride-2 conv subsampling stem (one entry per 2x layer)
+    subsample_channels: List[int]
+    # the index of the CTC blank token
+    blank_index: int
+    # the index of the pad token
+    pad_index: int
+    # rematerialize block activations in the backward pass (not ported yet: raises)
+    remat: bool = False
+    # the JAX package's stacked-parameter layout; the port builds the same
+    # unrolled model and ``weights.params_from_jax`` splits the stacked tree
+    scan_layers: bool = False
+
+    model_name: str = "Conformer"
+
+    def __post_init__(self):
+        _check_type(
+            self,
+            "vocab_size",
+            "encoder_dim",
+            "num_layers",
+            "num_attention_heads",
+            "conv_kernel_size",
+            "ffn_expansion",
+            "dropout",
+            "blank_index",
+            "pad_index",
+            "remat",
+            "scan_layers",
+        )
+        if self.encoder_dim % self.num_attention_heads:
+            raise ConfigValidationError("'encoder_dim' must divide by 'num_attention_heads'")
+        if (self.encoder_dim // self.num_attention_heads) % 2:
+            raise ConfigValidationError("attention head dim must be even (RoPE pairs)")
+        if not self.subsample_channels:
+            raise ConfigValidationError("'subsample_channels' must be non-empty")

@@ -35,7 +35,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # ptxas report of the last build (registers, shared memory, spills)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # dtype_bf16, bias_f32, hid, W, b, R, H, V, k, rounding,
     # part_val, part_idx, part_max, part_sum, vals, idx, lse, stream
@@ -56,6 +56,10 @@ _SIGNATURES = {
     "ctc_emissions_fwd": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 7,
     # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, merged, ids_first, dlse, dhid, dW, db, stream
     "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 5 + [_P] * 7,
+    # dtype_bf16, q, k, v, bias, seeds, B, T, H, d, scale, p_drop, inv_keep, out, m, l, stream
+    "mhsa_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P] * 4,
+    # dtype_bf16, q, k, v, bias, seeds, m, l, dout, B, T, H, d, scale, p_drop, inv_keep, rowterm, dq, dk, dv, stream
+    "mhsa_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
 }
 
 

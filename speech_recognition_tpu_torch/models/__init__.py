@@ -1,6 +1,7 @@
-"""The port's models: LAS and DeepSpeech2."""
+"""The port's models: LAS, DeepSpeech2 and the Conformer."""
 
+from .conformer import Conformer
 from .deepspeech2 import DeepSpeech2
 from .las import LAS
 
-__all__ = ["DeepSpeech2", "LAS"]
+__all__ = ["Conformer", "DeepSpeech2", "LAS"]

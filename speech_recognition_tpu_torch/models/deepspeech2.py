@@ -18,7 +18,8 @@ carried over from JAX:
   takes the full padded T' as every row's logit length;
 - training: Keras input dropout in every BiRNN, batch statistics.
 
-The loss goes through ``measure.ctc_loss_from_hidden`` (kernel K6).  MoE
+The loss goes through ``measure.ctc_loss_from_hidden`` (kernel K6, in
+``models/ctc.py``, shared with the Conformer).  MoE
 trunks (``moe_experts > 0``), ``rnn_type: rnn`` and recurrent dropout are not
 ported yet.
 """
@@ -29,9 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..measure import ctc_loss, ctc_loss_from_hidden
 from ..ops.rnn import BiGRU, BiLSTM
-from .layers import BatchNorm, audio_frame_lengths, dense, init_weights
+from .ctc import CTCModel
+from .layers import BatchNorm, audio_frame_lengths, init_weights
 
 
 class Convolution(nn.Module):
@@ -87,16 +88,13 @@ class Recurrent(nn.Module):
         return x
 
 
-class DeepSpeech2(nn.Module):
+class DeepSpeech2(CTCModel):
     """DeepSpeech2 (JAX ``DeepSpeech2``, deepspeech2.py:124-215), from a ``DeepSpeechConfig``.
 
     Model inputs follow the JAX batcher: features [B,T,F,C] or a (features,
-    frame lengths [B]) pair.
+    frame lengths [B]) pair.  Logits, the fused CTC loss and the batching
+    contract come from ``CTCModel``.
     """
-
-    # the train / eval steps route the loss through hidden_states +
-    # loss_from_hidden, the fused vocab-projection + CTC emissions (kernel K6)
-    fused_loss_supported = True
 
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -128,33 +126,3 @@ class DeepSpeech2(nn.Module):
         rate = self.dropout_rate if training else 0.0
         x = self.recurrent(x, mask, dt, training, rate, generator)
         return x * mask[:, :, None].to(x.dtype)
-
-    def forward(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
-        """Logits [B, T', V]."""
-        return dense(self.fully_connected, self.hidden_states(inputs, training, generator), self.compute_dtype)
-
-    def loss_from_hidden(self, hid, y_true):
-        """CTC loss from hidden states [B, T', 2H] against ``y_true`` [B, N]
-        through the fused emissions (kernel K6): (loss, None), as DS2 has no
-        logits-consuming metrics."""
-        fc = self.fully_connected
-        return ctc_loss_from_hidden(y_true, hid, fc.weight.t(), fc.bias, self.blank_index, self.pad_index), None
-
-    def get_loss_fn(self):
-        blank, pad = self.blank_index, self.pad_index
-        return lambda y_true, logits: ctc_loss(y_true, logits, blank, pad)
-
-    def get_metrics(self):
-        return []
-
-    @staticmethod
-    def get_batching_shape(audio_pad_length, token_pad_length, frequency_dim, feature_dim):
-        return ([audio_pad_length, frequency_dim, feature_dim], [token_pad_length])
-
-    @staticmethod
-    def make_example(audio, tokens):
-        return audio, tokens
-
-    @property
-    def model_checkpoint_name(self) -> str:
-        return "model-{epoch}epoch-{val_loss:.4f}loss"

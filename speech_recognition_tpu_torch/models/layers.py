@@ -1,6 +1,6 @@
-"""Layers shared by the port's models (LAS and DeepSpeech2): frame lengths, a
-Dense in the compute type, Flax-convention batch norm, elementwise dropout
-and the JAX package's initializer families."""
+"""Layers shared by the port's models (LAS, DeepSpeech2 and the Conformer):
+frame lengths, a Dense in the compute type, Flax-convention batch and layer
+norms, elementwise dropout and the JAX package's initializer families."""
 
 import math
 from typing import Optional
@@ -57,6 +57,30 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis with Flax ``nn.LayerNorm``'s conventions.
+
+    epsilon 1e-6; float32 statistics with the fast variance
+    ``max(E[x^2] - E[x]^2, 0)`` (``flax.linen.normalization._compute_stats``);
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, returned in
+    ``dtype``.  Not ``nn.LayerNorm``: its epsilon is 1e-5 and its variance
+    two-pass.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(dtype)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Elementwise dropout as Flax's ``nn.Dropout``: x / keep where kept, else 0."""
     keep = 1.0 - rate
@@ -68,7 +92,8 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Fresh weights with the JAX package's initializer families: Glorot-uniform
     input kernels, orthogonal recurrent kernels, LSTM forget-gate bias 1, LeCun-normal
-    dense and conv kernels, U(-0.05, 0.05) embeddings, zero biases."""
+    dense, conv and depthwise kernels (``depthwise_kernel`` [K, 1, C]: fan-in K),
+    U(-0.05, 0.05) embeddings, zero biases (norm layers start at scale 1, bias 0)."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -92,3 +117,6 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) 
             module.bias.zero_()
         elif isinstance(module, nn.Embedding):
             module.weight.copy_((torch.rand(module.weight.shape, generator=generator) * 2 - 1) * 0.05)
+        kernel = getattr(module, "depthwise_kernel", None)
+        if isinstance(kernel, nn.Parameter):
+            normal_(kernel, 1.0 / math.sqrt(kernel.shape[0] * kernel.shape[1]))

@@ -5,8 +5,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..configs import DeepSpeechConfig, LASConfig
-from ..models import LAS, DeepSpeech2
+from ..configs import ConformerConfig, DeepSpeechConfig, LASConfig
+from ..models import LAS, Conformer, DeepSpeech2
 
 
 def select_device(device: str) -> torch.device:
@@ -32,16 +32,17 @@ def compute_dtype(mixed_precision: bool) -> torch.dtype:
     return torch.bfloat16 if mixed_precision else torch.float32
 
 
-_MODELS = {LASConfig: LAS, DeepSpeechConfig: DeepSpeech2}
+_MODELS = {LASConfig: LAS, DeepSpeechConfig: DeepSpeech2, ConformerConfig: Conformer}
 
 
 def create_model(model_config, data_config, dtype: torch.dtype, device: torch.device, generator=None,
                  train: bool = False) -> torch.nn.Module:
-    """The port's model for a model config: LAS or DeepSpeech2.
+    """The port's model for a model config: LAS, DeepSpeech2 or the Conformer.
     ``train`` only sets the module mode: the forward takes ``training`` explicitly."""
     family = _MODELS.get(type(model_config))
     if family is None:
-        raise NotImplementedError(f"{type(model_config).__name__} is not ported to torch yet (LAS, DeepSpeech2)")
+        raise NotImplementedError(
+            f"{type(model_config).__name__} is not ported to torch yet (LAS, DeepSpeech2, Conformer)")
     model = family(model_config, data_config.frequency_dim, data_config.feature_dim, dtype=dtype, generator=generator)
     return model.to(device).train(train)
 

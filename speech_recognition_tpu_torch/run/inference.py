@@ -4,7 +4,7 @@ Same flags and the same TSV as ``speech_recognition_tpu.run.inference``.
 Audio decoding, batching, the tokenizer and the configs are the port's
 copies of the JAX package's host modules; features are the port's host
 numpy chain.  An LAS model decodes through ``LASSearcher`` (kernels K4 /
-K5), a CTC model (DeepSpeech2) through ``DeepSpeechSearcher``.  Weights are
+K5), a CTC model (DeepSpeech2, the Conformer) through ``DeepSpeechSearcher``.  Weights are
 a ``.pt`` state_dict (``weights.params_from_jax`` converts a Flax tree).
 Runs on the GPU unless ``--device CPU`` is given.
 

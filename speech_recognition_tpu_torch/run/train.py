@@ -1,4 +1,4 @@
-"""Training entry point of the port: train a LAS or DeepSpeech2 model on one GPU
+"""Training entry point of the port: train a LAS, DeepSpeech2 or Conformer-CTC model on one GPU
 (or, with ``--device CPU``, on the CPU).
 
 Same flags and the same ``--from-file`` YAML (CLI keys override file keys) as
@@ -7,7 +7,7 @@ policies, shuffling, batching and prefetching are the port's copies of the
 JAX package's host modules; features are the port's host numpy chain; the
 model, the train step and Adam are the port's.  LAS is fed
 ``((audio, lengths), tokens[:, :-1])`` against ``tokens[:, 1:]``; a CTC model
-(DeepSpeech2) ``(audio, lengths)`` against the full tokens.  Each epoch ends
+(DeepSpeech2, the Conformer) ``(audio, lengths)`` against the full tokens.  Each epoch ends
 with a dev pass and a ``.pt`` checkpoint named as the JAX package names its
 checkpoints, which ``--pretrained-model-path`` and the port's
 ``run.inference --model-path`` load.

@@ -13,8 +13,15 @@ renamed and the layout changed where PyTorch's modules differ:
 - LSTM cells keep ``kernel``/``recurrent_kernel``/``bias`` and the Keras gate
   order i,f,c,o: the port's cell uses that order, so nothing is reordered.
   (cuDNN's ``nn.LSTM`` would want i,f,g,o; the port does not use it.)
+- LayerNorm ``scale``/``bias`` <-> ``weight``/``bias`` (the batch-norm rule);
+- the Conformer's ``depthwise_kernel`` keeps Flax's [K, 1, C] layout and name;
+- the Conformer's ``scan_layers`` layout, ``blocks/block/...`` with a leading
+  [L] axis on every leaf, is split into ``block{i}`` subtrees on the way in
+  (numpy, as the JAX package's ``unstack_block_params``), and stacked back by
+  ``params_to_jax(..., scan_layers=True)``.
 """
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -33,10 +40,44 @@ def _walk(tree, prefix=()):
             yield prefix + (name,), np.asarray(value)
 
 
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def unstack_blocks(params):
+    """The ``scan_layers`` layout -> ``block0 .. block{L-1}`` (other entries pass through)."""
+    if "blocks" not in params:
+        return params
+    stacked = params["blocks"]["block"]
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(np.asarray(next(_leaves(stacked))).shape[0]):
+        out[f"block{i}"] = _map_leaves(lambda leaf: np.asarray(leaf)[i], stacked)
+    return out
+
+
+def stack_blocks(params):
+    """``block0 .. block{L-1}`` -> the ``scan_layers`` layout, every leaf stacked on a leading [L] axis."""
+    names = sorted((k for k in params if re.fullmatch(r"block\d+", k)), key=lambda k: int(k[5:]))
+    out = {k: v for k, v in params.items() if k not in names}
+
+    def stack(*trees):
+        first = trees[0]
+        return {k: stack(*(t[k] for t in trees)) if isinstance(first[k], dict) else np.stack([t[k] for t in trees])
+                for k in first}
+
+    out["blocks"] = {"block": stack(*(params[k] for k in names))}
+    return out
+
+
 def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch ``state_dict``."""
     out = {}
-    for path, value in _walk(variables.get("params", {})):
+    for path, value in _walk(unstack_blocks(variables.get("params", {}))):
         *mods, leaf = path
         parent = mods[-1] if mods else ""
         if _is_rnn_cell(parent):
@@ -57,8 +98,9 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor]):
-    """torch ``state_dict`` -> Flax ``{"params", "batch_stats"}`` of numpy arrays."""
+def params_to_jax(state_dict: Dict[str, torch.Tensor], scan_layers: bool = False):
+    """torch ``state_dict`` -> Flax ``{"params", "batch_stats"}`` of numpy arrays
+    (the Conformer's blocks stacked as ``scan_layers=True`` lays them out, when asked)."""
     params, stats = {}, {}
 
     def put(tree, mods, leaf, value):
@@ -84,7 +126,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]):
             put(params, mods, "scale", value)
         else:
             put(params, mods, name, value)
-    out = {"params": params}
+    out = {"params": stack_blocks(params) if scan_layers else params}
     if stats:
         out["batch_stats"] = stats
     return out

@@ -20,11 +20,20 @@ pad id many times): lse and the gathered logits rtol 1e-5 / atol 1e-5;
 gradients within 1e-5 x max|ref| in float32, and in bf16 dhid within 2e-2 x
 max|ref| and dW / db within 1e-2 x max|ref| (K1's tolerances: both sides
 round dlog to bf16).
+
+K7 (fused MHSA with hash dropout) at ragged T (1, 70, 100, 130, 255) and
+T=256, head dims 16-128, dropout 0 and above: float32 outputs and dq / dk /
+dv within 1e-4 x max|ref| and the row statistics rtol 1e-5 (the JAX pins of
+tests/test_pallas_attention.py: float32 sums in another order); bf16
+outputs and gradients within 2e-2 x max|ref| (the bf16 forward pin: a float32
+difference can move one rounding of the probs or ds by a step).  The keep
+mask read back through one-hot values equals ``keep_mask`` bit for bit.
 """
 
 import pytest
 import torch
 
+from speech_recognition_tpu_torch.ops.attention import keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain
 from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_bwd_plain, ce_fwd, ce_fwd_plain
 from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, ctc_emissions_bwd_plain,
                                                             ctc_emissions_fwd, ctc_emissions_fwd_plain)
@@ -210,3 +219,53 @@ def test_decoder_kernels_match_plain(cuda, dtype, N, B, S, H, He, Dv, n_cells):
         for a, b_ in (zip(g_, w_) if isinstance(g_, tuple) else [(g_, w_)]):
             assert a.dtype == dtype, i
             _close(a, b_, tol)
+
+
+def _mhsa_operands(cuda, dtype, B, T, H, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = ((torch.randn(B, T, H * d, generator=g) * 0.5).to(cuda, dtype) for _ in range(3))
+    n = torch.randint(1, T + 1, (B,), generator=g)
+    n[0] = T
+    bias = torch.where(torch.arange(T)[None, :] < n[:, None], 0.0, -1e9).to(cuda)
+    seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=g, dtype=torch.int32).to(cuda)
+    return q, k, v, bias, seeds, (torch.randn(B, T, H * d, generator=g)).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, H, d, p", [(2, 256, 4, 64, 0.1), (3, 100, 2, 64, 0.25), (2, 255, 4, 64, 0.0),
+                                           (2, 1, 2, 16, 0.1), (2, 70, 1, 128, 0.3), (2, 130, 3, 32, 0.0)])
+def test_mhsa_kernels_match_plain(cuda, dtype, B, T, H, d, p):
+    q, k, v, bias, seeds, dout = _mhsa_operands(cuda, dtype, B, T, H, d, seed=T * d)
+    scale = d ** -0.5
+    out, m, l = mhsa_fwd(q, k, v, bias, seeds, H, scale, p)
+    pout, pm, pl = mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, p)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype
+    _close(out, pout, tol)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+    got = mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+    want = mhsa_bwd_plain(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+    for a, b_ in zip(got, want):
+        assert a.dtype == dtype
+        _close(a, b_, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_kernel_keep_mask_bit_identical(cuda, dtype):
+    """q = k = 0 and bias 0 make every prob 1/T; one-hot values at key offset o
+    read the dropped probs of keys o .. o + d - 1 back through ctx."""
+    B, T, H, d, p = 2, 200, 2, 64, 0.3
+    seeds = torch.tensor([7, -123456], dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(B, T, H * d, dtype=dtype, device=cuda)
+    bias = torch.zeros(B, T, device=cuda)
+    i = torch.arange(T, device=cuda)
+    want = keep_mask(seeds.view(B, 1, 1, 1), torch.arange(H, device=cuda).view(1, H, 1, 1), i.view(1, 1, T, 1),
+                     i.view(1, 1, 1, T), p)
+    for o in range(0, T, d):
+        n = min(d, T - o)
+        v = zeros.clone().view(B, T, H, d)
+        v[:, o + torch.arange(n, device=cuda), :, torch.arange(n, device=cuda)] = 1.0
+        out, _, _ = mhsa_fwd(zeros, zeros, v.view(B, T, H * d), bias, seeds, H, 0.125, p)
+        kept = out.view(B, T, H, d)[..., :n].permute(0, 2, 1, 3) > 0  # [B, H, T, n]
+        assert torch.equal(kept, want[..., o:o + n])

@@ -46,10 +46,10 @@ def jax_ds2(tmp_path_factory):
     return config, model, variables, str(path)
 
 
-def _decode(tmp_path, weights, beam):
+def _decode(tmp_path, weights, beam, model_config=TEST_DS_CONFIG):
     out = tmp_path / f"out{beam}.tsv"
     inference.main(inference.parser.parse_args([
-        "--data-config", MINI_CONFIG, "--model-config", TEST_DS_CONFIG, "--audio-files", AUDIO,
+        "--data-config", MINI_CONFIG, "--model-config", model_config, "--audio-files", AUDIO,
         "--model-path", weights, "--sp-model-path", SP_MODEL_LIBRI, "--output-path", str(out),
         "--batch-size", "2", "--beam-size", str(beam), "--device", "CPU",
     ]))
@@ -59,11 +59,8 @@ def _decode(tmp_path, weights, beam):
     return rows[1][1]
 
 
-@pytest.mark.parametrize("beam", [0, 3])
-def test_cli_sentences_match_jax_searcher(tmp_path, jax_ds2, beam):
-    config, model, variables, weights = jax_ds2
-    got = _decode(tmp_path, weights, beam)
-
+def jax_sentence(config, model, variables, beam):
+    """The JAX ``DeepSpeechSearcher``'s sentence for the wav fixture (greedy, or the best beam)."""
     audio = load_audio_file(config.sample_rate, config.file_format, config.sample_rate)(AUDIO)
     feat = delta_accelerate(config.make_audio_feature_fn("numpy")(audio))
     batch, _, _ = next(quantized_padded_batch([(feat, np.zeros(1, np.int32))], 2))
@@ -71,7 +68,14 @@ def test_cli_sentences_match_jax_searcher(tmp_path, jax_ds2, beam):
     tokens = searcher.beam_search(batch, beam)[0][:, 0] if beam else searcher.greedy_search(batch)[0]
     with open(SP_MODEL_LIBRI, "rb") as f:
         tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
-    want = tokenizer.detokenize([int(t) for t in np.asarray(tokens)[0]])
+    return tokenizer.detokenize([int(t) for t in np.asarray(tokens)[0]])
+
+
+@pytest.mark.parametrize("beam", [0, 3])
+def test_cli_sentences_match_jax_searcher(tmp_path, jax_ds2, beam):
+    config, model, variables, weights = jax_ds2
+    got = _decode(tmp_path, weights, beam)
+    want = jax_sentence(config, model, variables, beam)
     assert got == want and want.strip()
 
 

@@ -22,10 +22,22 @@ from speech_recognition_tpu_torch.configs import LASConfig
 from speech_recognition_tpu_torch.models import LAS
 from speech_recognition_tpu_torch.weights import params_from_jax
 
-from .const import REPO_ROOT, SP_MODEL_LIBRI, TEST_DATA_DIR, TEST_LAS_CONFIG, WAV_DATASET_PATH
+from .const import REPO_ROOT, SP_MODEL_LIBRI, TEST_CONFORMER_CONFIG, TEST_DATA_DIR, TEST_LAS_CONFIG, WAV_DATASET_PATH
 
 V, H, ENC_LAYERS, DEC_LAYERS, FREQ, CHANNELS = 64, 16, 1, 2, 10, 3
 BOS, EOS = 2, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_registered_mesh():
+    """Start and end each port test module that imports this with no JAX mesh
+    registered, so that the JAX side of a comparison runs unsharded whatever
+    an earlier module on the same worker left registered."""
+    from speech_recognition_tpu.parallel.mesh import set_active_mesh
+
+    set_active_mesh(None)
+    yield
+    set_active_mesh(None)
 
 
 @pytest.fixture
@@ -104,7 +116,7 @@ from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_mo
 from speech_recognition_tpu_torch.run import inference, train
 from speech_recognition_tpu_torch.run.common import create_model
 
-out, data_config, las_config, sp_model, tsv, wav = sys.argv[1:]
+out, data_config, las_config, conformer_config, sp_model, tsv, wav = sys.argv[1:]
 model = create_model(get_model_config(las_config), DataConfig.from_yaml(data_config), torch.float32,
                      torch.device("cpu"), generator=torch.Generator().manual_seed(0))
 torch.save(model.state_dict(), out + "/las.pt")
@@ -112,22 +124,25 @@ inference.main(inference.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded.tsv", "--batch-size", "2",
     "--device", "CPU"]))
-records = train.main(TrainConfig(
-    data_config=data_config, model_config=las_config, sp_model_path=sp_model, train_dataset_paths=tsv,
-    dev_dataset_paths=tsv, train_dataset_size=2, output_path=out + "/train", epochs=1, steps_per_epoch=1,
-    learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
-    device="CPU", seed=1))
+steps = []
+for model_config in (las_config, conformer_config):
+    records = train.main(TrainConfig(
+        data_config=data_config, model_config=model_config, sp_model_path=sp_model, train_dataset_paths=tsv,
+        dev_dataset_paths=tsv, train_dataset_size=2, output_path=out + "/train", epochs=1, steps_per_epoch=1,
+        learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
+        device="CPU", seed=1))
+    steps.append(records[0]["steps"])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
-print(len(names), records[0]["steps"])
+print(len(names), sum(steps))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    args = [str(tmp_path), f"{TEST_DATA_DIR}/mini_data_config.yml", TEST_LAS_CONFIG, SP_MODEL_LIBRI,
-            WAV_DATASET_PATH, f"{TEST_DATA_DIR}/audio_files/test.wav"]
+    args = [str(tmp_path), f"{TEST_DATA_DIR}/mini_data_config.yml", TEST_LAS_CONFIG, TEST_CONFORMER_CONFIG,
+            SP_MODEL_LIBRI, WAV_DATASET_PATH, f"{TEST_DATA_DIR}/audio_files/test.wav"]
     out = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO_ROOT, env=env, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stderr
     n_modules, steps = out.stdout.split()[-2:]
-    assert int(n_modules) >= 30 and int(steps) == 1
+    assert int(n_modules) >= 30 and int(steps) == 2
     assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
 
 

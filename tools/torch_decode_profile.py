@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the decode time goes in the PyTorch port (LAS or DeepSpeech2, one CUDA GPU).
+"""Where the decode time goes in the PyTorch port (LAS, DeepSpeech2 or Conformer-CTC, one CUDA GPU).
 
     python3 tools/torch_decode_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
         [--out build/decode_profile.json]
@@ -10,7 +10,8 @@ LAS (``las_small.yml``): the listener (``encode`` + key projection), the
 greedy decode loop (kernel K4) and the beam-8 decode loop (plain decoder
 step + kernel K5 + score selection) on the same encoder outputs, and the
 whole ``greedy_search`` / ``beam_search``.  DeepSpeech2
-(``deepspeech.yml``): the model's log-probs (convs, BiGRUs, vocab
+(``deepspeech.yml``) and the Conformer (``conformer_small.yml``, its blocks'
+attention through kernel K7): the model's log-probs (trunk, vocab
 projection, log-softmax), and the whole CTC greedy / prefix beam-8 search;
 each loop's time is the search's less the log-probs'.  Then ``torch.profiler`` over one whole search of each
 kind: device time by kernel name and the device's busy share of the wall
@@ -74,7 +75,7 @@ def profile(fn, top_n=12):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-config", default="resources/configs/las_small.yml",
-                        help="las_small.yml or deepspeech.yml (relative to the repository root)")
+                        help="las_small.yml, deepspeech.yml or conformer_small.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/decode_profile.json")
     args = parser.parse_args()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the training step's time goes in the PyTorch port (LAS or DeepSpeech2, one CUDA GPU).
+"""Where the training step's time goes in the PyTorch port (LAS, DeepSpeech2 or Conformer-CTC, one CUDA GPU).
 
     python3 tools/torch_train_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
         [--out build/train_profile.json]
@@ -8,8 +8,8 @@ Random seeded weights of the model config (dropout as configured), random
 non-zero features of 1024 frames with true lengths, and random tokens of
 128 positions with pad tails, bf16.  LAS (``las_small.yml``): N = 127
 decoder positions, the teacher-forced branch.  DeepSpeech2
-(``deepspeech.yml``): labels of at most 48 tokens, so every CTC row is
-feasible at T' = 108.
+(``deepspeech.yml``) and the Conformer (``conformer_small.yml``): labels of
+at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.
 
 1. The whole ``make_train_step`` step, CUDA events after two warm-up steps
    (median of 3).
@@ -24,7 +24,7 @@ feasible at T' = 108.
 3. ``torch.profiler`` over one whole step: device time by kernel name, the
    device's idle share of the profiled wall time and of the unprofiled step
    time, and the time of each port kernel (LAS: K1 forward / backward, K2,
-   K3; DS2: K6 forward / backward).
+   K3; DS2: K6 forward / backward; Conformer: K6 and K7 forward / backward).
 
 Prints the card's name and power limit first; writes everything to
 ``--out`` as JSON.
@@ -39,7 +39,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_decode_profile import profile  # noqa: E402  (tools/ is the script's own directory)
+from torch_decode_profile import cuda_ms, profile  # noqa: E402  (tools/ is the script's own directory)
 
 # kernel-name prefixes of the port's training kernels (csrc/ce_vocab.cu, csrc/ctc_emissions.cu,
 # csrc/las_decoder.cu); K1's backward is K6's backward kernels with one id per row
@@ -56,6 +56,8 @@ PORT_KERNELS = {
         "K6 bwd": K6_BWD,
     },
 }
+PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], "K7 fwd": ("void srt::mhsa_fwd_kernel",),
+                             "K7 bwd": ("void srt::mhsa_bwd_dq_kernel", "void srt::mhsa_bwd_dkv_kernel")}
 
 
 def make_batch(B, frames, L, gen, dev, las):
@@ -114,8 +116,8 @@ def staged_step(model, state, inputs, y_true, gen):
     return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
 
 
-def staged_step_ds2(model, state, inputs, y_true, gen):
-    """One DeepSpeech2 train step in stages; returns {stage: ms} from CUDA events."""
+def staged_step_ctc(model, state, inputs, y_true, gen):
+    """One CTC model's (DeepSpeech2, Conformer) train step in stages; returns {stage: ms} from CUDA events."""
     import torch
 
     from speech_recognition_tpu_torch.measure import _ctc_ids, _ctc_nll_from_emission, _ctc_normalize
@@ -152,10 +154,43 @@ def staged_step_ds2(model, state, inputs, y_true, gen):
     return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
 
 
+def conformer_parts(model, B, T_out, gen):
+    """{part: ms} of the Conformer step's attention (K7 forward + backward, once
+    per block) and hash-dropout sites (6 per block on [B, T, 4D] x 2 and
+    [B, T, D] x 4, and the stem's [B, T', D], forward + backward), each alone
+    at the step's shapes (T = T' padded as ``hidden_states`` pads it)."""
+    import torch
+
+    from speech_recognition_tpu_torch.models import conformer
+    from speech_recognition_tpu_torch.ops.attention import fused_mhsa
+    from speech_recognition_tpu_torch.ops.dropout import fast_dropout
+
+    block = model.block0
+    D, H, L = block.mhsa.out.weight.shape[0], block.mhsa.num_heads, model.num_layers
+    T = T_out + (-T_out) % conformer.TIME_PAD_MULTIPLE
+    dt, dev, rate = model.compute_dtype, "cuda", model.dropout_rate
+    rand = lambda *s: torch.randn(*s, device=dev).to(dt).requires_grad_(True)
+    q, k, v, dout = rand(B, T, D), rand(B, T, D), rand(B, T, D), torch.randn(B, T, D, device=dev).to(dt)
+    bias = torch.zeros(B, T, device=dev)
+    seeds = torch.randint(0, 2**31 - 1, (B,), device=dev, dtype=torch.int32)
+
+    def attention():
+        for _ in range(L):
+            torch.autograd.backward(fused_mhsa(q, k, v, bias, seeds, H, (D // H) ** -0.5, rate), dout)
+
+    sites = [rand(B, T_out, D)] + [rand(B, T, n * D) for n in (4, 1, 1, 1, 4, 1)] * L
+
+    def dropout():
+        for x in sites:
+            torch.autograd.backward(fast_dropout(x, rate, True, gen), torch.ones_like(x))
+
+    return {"k7_attention": cuda_ms(attention), "hash_dropout": cuda_ms(dropout)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-config", default="resources/configs/las_small.yml",
-                        help="las_small.yml or deepspeech.yml (relative to the repository root)")
+                        help="las_small.yml, deepspeech.yml or conformer_small.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/train_profile.json")
     args = parser.parse_args()
@@ -164,7 +199,7 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
-    from speech_recognition_tpu_torch.configs import DataConfig, LASConfig, get_model_config
+    from speech_recognition_tpu_torch.configs import ConformerConfig, DataConfig, LASConfig, get_model_config
     from speech_recognition_tpu_torch.run.common import create_model, select_device
     from speech_recognition_tpu_torch.train import TrainState, linear_warmup_decay, make_adam, make_train_step
 
@@ -176,6 +211,7 @@ def main():
     data_config = DataConfig.from_yaml(os.path.join(root, "resources/configs/libri_config.yml"))
     model_config = get_model_config(os.path.join(root, args.model_config))
     las = isinstance(model_config, LASConfig)
+    family = "las" if las else "conformer" if isinstance(model_config, ConformerConfig) else "ds2"
     model = create_model(model_config, data_config, torch.bfloat16, dev, generator=torch.Generator().manual_seed(0),
                          train=True)
     schedule = linear_warmup_decay(1000, 1e-3, 1e-5, 0.0, 10)
@@ -197,14 +233,19 @@ def main():
     result["step_ms"] = statistics.median(times[2:])
     result["utterances_per_s"] = B / (result["step_ms"] / 1e3)
 
-    staged = staged_step if las else staged_step_ds2
+    staged = staged_step if las else staged_step_ctc
     stages = [staged(model, state, inputs, y_true, gen) for _ in range(4)][1:]
     result["stages_ms"] = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
     result["stages_sum_ms"] = sum(result["stages_ms"].values())
+    if family == "conformer":
+        T_out = frames
+        for _ in range(model.subsampler.n_convs):
+            T_out = (T_out - 3) // 2 + 1
+        result["conformer_parts_ms"] = conformer_parts(model, B, T_out, gen)
 
     wall, busy, top = profile(lambda: step(state, inputs, y_true, gen), top_n=None)
     port = {name: sum(r["ms"] for r in top if r["kernel"].startswith(prefixes))
-            for name, prefixes in PORT_KERNELS["las" if las else "ds2"].items()}
+            for name, prefixes in PORT_KERNELS[family].items()}
     # the profiler slows the host, so its wall time overstates the idle share;
     # the unprofiled step time (CUDA events) gives the tighter estimate
     result["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
