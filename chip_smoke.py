@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero without printing a result:
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA/nvcc versions,
    and the build of every CUDA kernel from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, in
-   bf16 at LAS-small's shapes (K1-K5) and DeepSpeech2's (K6, also float32),
+   bf16 at LAS-small's shapes (K1-K5; K5 also at the transducer's TSD-beam
+   shape: 1024 rows, J=320, k=11, a float32 bias) and DeepSpeech2's (K6,
+   also float32),
    with the tolerances stated in ``check_*``; both times (CUDA events,
    plain/kernel/kernel/plain turns), the time of the one PyTorch call that
    does the kernel's main work where there is one (``F.linear`` producing the
@@ -43,7 +45,19 @@ Phases, in order; any failure exits non-zero without printing a result:
    and RTF, and one float32 step on 8 clips with K7 and K6 against their
    plain versions.  Phase 2 holds K7 (``check_mhsa``) against its plain
    version at the main path's shapes, in float32, at a ragged T, and its
-   dropout mask bit for bit.
+   dropout mask bit for bit;
+7. the RNN-Transducer (Transducer-S: the Conformer-S encoder, a 1x320 LSTM
+   prediction net, J=320, V=16000) through ``run.train``: the shipped pruned
+   objective (``resources/configs/transducer_small.yml``, S=4) at B=128 with
+   K8's and K7's counters checked, its checkpoint decoded by ``run.inference``
+   greedy and beam-8 (K5 in the TSD beam's joint rounds), the step and decode
+   timed with peak memory, and a float32 step with K8 and K7 against their
+   plain versions; then the dense objective (``transducer_small_dense.yml``)
+   at B=32 with K9's counters, its step timed, and a float32 step with K9
+   against its plain version.  Phase 2 holds K8 (``check_joint_planes``,
+   banded: B=128, S=4 and 8 in bf16, S=4 in float32) and K9 (dense, B=32,
+   bf16 and float32) against their plain versions at T'=255, U+1=127, values
+   and the four gradients.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the repository,
@@ -70,6 +84,7 @@ FRAMES = 1024
 SAMPLES = (FRAMES - 1) * 160 + 320  # 1024 frames of the libri config (frame 320, step 160) at 16 kHz
 T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 -> 492 -> 236 -> 108); label cap
 T_CONF, CONF_BLOCKS = 255, 16  # Conformer-S: frames after its stem (1024 -> 511 -> 255; blocks at 256), depth
+U1_RNNT, J_RNNT, DENSE_B, MAX_SYMBOLS = L - 1, 320, 32, 4  # Transducer-S: label slots, joint width, dense batch, TSD rounds
 # published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 failures = []
@@ -599,6 +614,100 @@ def check_mhsa(gen):
     return (fwd_err, f_ms, pf_ms, *fb, lib_f), (bwd_err, b_ms, pb_ms, *bb, lib_b)
 
 
+def joint_operands(gen, dtype, Bsz):
+    """Joint-plane operands at Transducer-S's loss shapes (T'=255, U+1=127, J=320,
+    V=16000): enc, pred, W, b, ids, and ragged frame / label lengths with one row
+    whose labels outnumber what its frames carry in a band of 4 (row 1: 20
+    frames, 126 labels), and random plane cotangents."""
+    import torch
+
+    dev, T, U1, J, V = "cuda", T_CONF, U1_RNNT, J_RNNT, 16000
+    r = lambda *shape, scale: (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+    enc, pred, W, b = r(Bsz, T, J, scale=0.4), r(Bsz, U1, J, scale=0.4), r(J, V, scale=0.27), r(V, scale=0.1)
+    ids = torch.randint(1, V, (Bsz, U1 - 1), generator=gen).to(dev, torch.int32)
+    frame_lens = torch.randint(T // 2, T + 1, (Bsz,), generator=gen)
+    label_lens = torch.randint(1, U1, (Bsz,), generator=gen)
+    frame_lens[0], frame_lens[1], label_lens[1] = T, 20, U1 - 1
+    return enc, pred, W, b, ids, frame_lens.to(dev), label_lens.to(dev)
+
+
+def check_joint_planes(gen, dense):
+    """K8 (``dense`` False: the pruned band, B=128, S=4 and S=8 in bf16, S=4 in
+    float32) or K9 (dense, every node, B=32 in bf16 and float32) vs plain at
+    Transducer-S's shapes (``joint_operands``), values and the four gradients
+    for random cotangents on every slot.  Tolerances: lse and both planes rtol
+    1e-5 / atol 1e-4 (float32 logits summed in another order; h rounds alike);
+    gradients in float32: denc / dpred (sums over at most 255 frames) within
+    1e-5 x max|ref|, dW / db (sums over all R rows, 130,560 for K8 and
+    1,036,320 for K9, in another order) within 1e-4 x max|ref|; in bf16 denc /
+    dpred within 2e-2 and dW / db within 1e-2 x max|ref| (both sides round dz
+    to bf16, and a float32 difference can move one rounding by a step).  Kernel and plain
+    timed in turns at bf16, S=4 (K8) / B=32 (K9); the library time is cuBLAS's
+    ``F.linear`` producing the full bf16 logits of the same rows, timed on a
+    chunk of 16384 rows and scaled to all of them (the full logits would not
+    fit the card at K9's R)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops import joint_planes as jp
+    from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
+    from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
+                                                                    banded_planes_fwd_plain)
+
+    T, U1, J, V = T_CONF, U1_RNNT, J_RNNT, 16000
+    Bsz = DENSE_B if dense else B
+    cases = [("bf16", torch.bfloat16, U1 if dense else 4)]
+    cases += [("float32", torch.float32, U1 if dense else 4)] + ([] if dense else [("bf16", torch.bfloat16, 8)])
+    timed = None
+    for tname, dtype, S in cases:
+        enc, pred, W, b, ids, frame_lens, label_lens = joint_operands(gen, dtype, Bsz)
+        if dense:
+            p = None
+            fwd = lambda *o: jp.joint_planes_fwd(*o, 0)
+            bwd = lambda *o: jp.joint_planes_bwd(*o[:5], 0, *o[5:])
+            pfwd = lambda *o: joint_planes_fwd_plain(*o, 0)
+            pbwd = lambda *o: joint_planes_bwd_plain(*o[:5], 0, *o[5:])
+            ops = (enc, pred, W, b, ids)
+        else:
+            p = band_offsets(frame_lens, label_lens, T, S)
+            fwd = lambda *o, S=S: jp.banded_planes_fwd(*o, S, 0)
+            bwd = lambda *o, S=S: jp.banded_planes_bwd(*o[:6], S, 0, *o[6:])
+            pfwd = lambda *o, S=S: banded_planes_fwd_plain(*o, S, 0)
+            pbwd = lambda *o, S=S: banded_planes_bwd_plain(*o[:6], S, 0, *o[6:])
+            ops = (enc, pred, W, b, ids, p)
+        tag = f"{'joint_planes (K9)' if dense else 'banded_joint (K8)'} {tname} B={Bsz} T={T} U+1={U1} S={S} J={J} V={V}"
+        got, want = fwd(*ops), pfwd(*ops)
+        cots = tuple(torch.randn(Bsz, T, S, generator=gen).to("cuda") / T for _ in range(2))
+        grads, pgrads = bwd(*ops, want[2], *cots), pbwd(*ops, want[2], *cots)
+        torch.cuda.synchronize()
+        fwd_err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        check(all(torch.allclose(a, w, rtol=1e-5, atol=1e-4) for a, w in zip(got, want)),
+              f"{tag}: lp_blank, lp_emit and lse rtol 1e-5 / atol 1e-4 (max abs err {fwd_err:.3g})")
+        bwd_err = 0.0
+        tols = (1e-5, 1e-5, 1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2, 1e-2, 1e-2)
+        for name, a, w, tol in zip(("denc", "dpred", "dW", "db"), grads, pgrads, tols):
+            err, ref = (a.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+            bwd_err = max(bwd_err, err)
+            check(a.dtype == w.dtype and err <= tol * ref,
+                  f"{tag}: {name} within {tol:g} x max|ref| (max abs err {err:.3g}, max|ref| {ref:.3g})")
+        if timed is None:
+            timed = (ops, want, cots, fwd_err, bwd_err, tag, fwd, bwd, pfwd, pbwd)
+    ops, want, cots, fwd_err, bwd_err, tag, fwd, bwd, pfwd, pbwd = timed
+    iters = 1 if dense else 3
+    f_ms, pf_ms = timed_pair(lambda: fwd(*ops), lambda: pfwd(*ops), iters)
+    b_ms, pb_ms = timed_pair(lambda: bwd(*ops, want[2], *cots), lambda: pbwd(*ops, want[2], *cots), iters)
+    R = want[0].numel()
+    chunk = 16384
+    hrows = torch.randn(chunk, J, generator=gen).to("cuda", torch.bfloat16)
+    lib_ms = linear_ms(hrows, ops[2], ops[3]) * R / chunk
+    outs = fwd(*ops)
+    fb = bound(2 * R * J * V, nbytes(ops, outs))
+    bb = bound(3 * 2 * R * J * V, nbytes(ops, want[2], cots, bwd(*ops, want[2], *cots)))
+    print(f"  {tag}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); bwd kernel "
+          f"{b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}); F.linear {lib_ms:.3f} ms "
+          f"({R} rows, scaled from {chunk})")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
+
+
 # ---------------------------------------------------------------- phase 3
 def write_clips(wav_dir, n, gen_np):
     """n seeded 16 kHz mono wav clips of 1024 frames (sums of tones and noise)."""
@@ -747,13 +856,13 @@ def write_train_inputs(tmp, gen_np):
     return wav_dir, paths
 
 
-def train_args(tmp, paths, data_config, model_config="las_small.yml", out="train_out"):
+def train_args(tmp, paths, data_config, model_config="las_small.yml", out="train_out", batch=B):
     return ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
             "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
             "--train-dataset-paths", paths["train"], "--dev-dataset-paths", paths["dev"],
             "--train-dataset-size", str(TRAIN_CLIPS), "--output-path", os.path.join(tmp, out),
             "--epochs", "1", "--steps-per-epoch", str(TRAIN_STEPS), "--learning-rate", "1e-3",
-            "--warmup-steps", "2", "--batch-size", str(B), "--dev-batch-size", str(B),
+            "--warmup-steps", "2", "--batch-size", str(batch), "--dev-batch-size", str(batch),
             "--shuffle-buffer-size", "64", "--max-over-policy", "slice", "--mixed-precision", "--device", "GPU",
             "--seed", "7"]
 
@@ -795,10 +904,10 @@ def run_train_path(tmp, wav_dir, paths, data_config):
 
 
 def token_conditioned(cfg):
-    """LAS takes the tokens as decoder inputs; a CTC model (DeepSpeech2) does not."""
-    from speech_recognition_tpu_torch.configs import LASConfig
+    """LAS and the transducer take the tokens as decoder / prediction inputs; a CTC model does not."""
+    from speech_recognition_tpu_torch.configs import LASConfig, TransducerConfig
 
-    return isinstance(cfg.model_config, LASConfig)
+    return isinstance(cfg.model_config, (LASConfig, TransducerConfig))
 
 
 def one_batch(cfg, n_rows):
@@ -819,10 +928,10 @@ def one_batch(cfg, n_rows):
     return (audio, lengths), tokens
 
 
-def time_train_step(cfg, what):
-    """ms per bf16 train step at B=128 and 1024 frames (LAS: N=127, the
+def time_train_step(cfg, what, batch=B):
+    """ms per bf16 train step at ``batch`` (B=128) and 1024 frames (LAS: N=127, the
     teacher-forced branch): CUDA events around each of TIMED_STEPS steps after
-    2 warm-up steps, median; utterances/s = B / step seconds."""
+    2 warm-up steps, median; utterances/s = batch / step seconds."""
     import torch
 
     from speech_recognition_tpu_torch.run.common import create_model
@@ -833,7 +942,7 @@ def time_train_step(cfg, what):
     schedule = linear_warmup_decay(100, 1e-3, 1e-5, 0.0, 2)
     state = TrainState(model, make_adam(model, schedule), schedule)
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
-    inputs, y = one_batch(cfg, B)
+    inputs, y = one_batch(cfg, batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = []
     for k in range(2 + TIMED_STEPS):
@@ -845,9 +954,9 @@ def time_train_step(cfg, what):
         times.append(start.elapsed_time(end))
     ms = float(np.median(times[2:]))
     check(bool(torch.isfinite(metrics["loss"])), f"timed train steps' loss finite ({metrics['loss'].item():.4f})")
-    print(f"  {what} train step bf16 B={B} T={FRAMES}: {ms:.2f} ms (median of {TIMED_STEPS}: "
-          f"{', '.join(f'{t:.2f}' for t in times[2:])}), {B / (ms / 1000):.1f} utterances/s")
-    return ms, B / (ms / 1000)
+    print(f"  {what} train step bf16 B={batch} T={FRAMES}: {ms:.2f} ms (median of {TIMED_STEPS}: "
+          f"{', '.join(f'{t:.2f}' for t in times[2:])}), {batch / (ms / 1000):.1f} utterances/s")
+    return ms, batch / (ms / 1000)
 
 
 def check_train_f32(cfg, plain, what):
@@ -860,15 +969,20 @@ def check_train_f32(cfg, plain, what):
 
     from speech_recognition_tpu_torch.run.common import create_model
 
+    from speech_recognition_tpu_torch.configs import LASConfig
+
     inputs, y = one_batch(cfg, 8)
-    if token_conditioned(cfg):
+    if isinstance(cfg.model_config, LASConfig):
         y = y.t()  # LAS's loss takes time-major labels
 
     def loss_and_grads():
         model = create_model(cfg.model_config, cfg.data_config, torch.float32, torch.device("cuda"),
                              generator=torch.Generator().manual_seed(3), train=True)
-        hid = model.hidden_states(inputs, True, torch.Generator(device="cuda").manual_seed(4))
-        loss, _ = model.loss_from_hidden(hid, y)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        if hasattr(model, "hidden_states"):
+            loss, _ = model.loss_from_hidden(model.hidden_states(inputs, True, gen), y)
+        else:  # the transducer: its loss streams the forward's joint inputs
+            loss = model.get_loss_fn()(y, model(inputs, True, gen))
         loss.backward()
         return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
 
@@ -930,14 +1044,16 @@ def decode_args(data_config, model_config, audio_files, weights, out, beam):
             "--beam-size", str(beam)]
 
 
-def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, counted, expected, per_decode=None):
-    """run.train.main trains a CTC model on the 256 clips with the counters of
-    ``counted`` ({name: wrapper}) set to 0 just before and read just after,
-    held to ``expected`` ({name: launches}), each step's loss recorded; then
-    run.inference decodes clips 000-099 with the checkpoint, greedy and
-    beam-8, each decode with the counters of ``per_decode`` ({name: launches
-    per decode}) set to 0 before and checked after.  Returns the launches of
-    the training run plus the decodes."""
+def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, counted, expected, per_decode=None,
+                         batch=B, decode=True):
+    """run.train.main trains a CTC or transducer model on the 256 clips at
+    ``batch`` with the counters of ``counted`` ({name: wrapper}) set to 0 just
+    before and read just after, held to ``expected`` ({name: launches}), each
+    step's loss recorded; then (``decode``) run.inference decodes clips
+    000-099 with the checkpoint, greedy and beam-8, each decode with the
+    counters of ``per_decode`` ({name: {"greedy": n, "beam8": n}} launches per
+    decode) set to 0 before and checked after.  Returns the launches of the
+    training run plus the decodes."""
     import torch
 
     import speech_recognition_tpu_torch.train as train_pkg
@@ -945,7 +1061,7 @@ def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, coun
     from speech_recognition_tpu_torch.run import inference, train
 
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, model_config,
-                                                                f"{tag.lower()}_train_out"))))
+                                                                f"{tag.lower()}_train_out", batch))))
     losses, make_step = [], train_pkg.make_train_step
 
     def recording_train_step(*args, **kwargs):  # the real step, each loss kept on the card
@@ -970,7 +1086,7 @@ def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, coun
     launches = {name: fn.launches for name, fn in counted.items()}
     print(f"  run.train ({tag}): {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
     check(launches == expected, f"{tag} kernels launched {launches} times in the training run ({TRAIN_STEPS} steps "
-                                f"+ 1 dev batch; expected {expected})")
+                                f"+ {-(-B // batch)} dev batches; expected {expected})")
     (rec,) = records
     step_losses = torch.stack(losses).tolist() if losses else []
     check(rec["steps"] == TRAIN_STEPS and len(step_losses) == TRAIN_STEPS
@@ -978,7 +1094,7 @@ def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, coun
           f"{tag} {rec['steps']} train steps; step losses {[round(x, 4) for x in step_losses]} and dev loss "
           f"{rec['val_loss']:.4f} finite and below 1e4")
     check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), f"the {tag} .pt checkpoint exists")
-    for name, beam in (("greedy", 0), ("beam8", BEAM)):
+    for name, beam in (("greedy", 0), ("beam8", BEAM)) if decode else ():
         for kernel in per_decode or {}:
             counted[kernel].launches = 0
         out = os.path.join(tmp, f"{tag.lower()}_{name}.tsv")
@@ -987,24 +1103,25 @@ def run_ctc_train_path(tmp, wav_dir, paths, data_config, model_config, tag, coun
         with open(out) as f:
             n_rows = len(f.read().splitlines()) - 1
         check(n_rows == 100, f"run.inference ({tag}, {name}) decoded {n_rows} clips (clip000-099) with the checkpoint")
-        for kernel, n in (per_decode or {}).items():
-            got = counted[kernel].launches
+        for kernel, per in (per_decode or {}).items():
+            n, got = per[name], counted[kernel].launches
             check(got == n, f"{kernel} launched {got} times in the {tag} {name} decode of one batch (expected {n})")
             launches[kernel] += got
     return launches, cfg, rec["checkpoint"]
 
 
-def time_ctc_decode(wav_dir, data_config, weights, model_config, T_out, tag):
-    """CTC decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA
-    events around one whole ``DeepSpeechSearcher`` call after a warm-up call),
-    with the outputs' shapes, ranges and probabilities checked."""
+def time_decode(wav_dir, data_config, weights, model_config, T_out, tag):
+    """Decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA events
+    around one whole ``DeepSpeechSearcher`` or ``TransducerSearcher`` call after a
+    warm-up call), with the outputs' shapes, ranges and probabilities checked."""
     import torch
 
     from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
     from speech_recognition_tpu_torch.data import load_audio_file
     from speech_recognition_tpu_torch.ops.features import make_feature_fn
     from speech_recognition_tpu_torch.run.common import create_model, load_weights
-    from speech_recognition_tpu_torch.search import DeepSpeechSearcher
+    from speech_recognition_tpu_torch.models import Transducer
+    from speech_recognition_tpu_torch.search import DeepSpeechSearcher, TransducerSearcher
 
     config = DataConfig.from_yaml(data_config)
     model_config = get_model_config(os.path.join(REPO, "resources/configs", model_config))
@@ -1014,7 +1131,10 @@ def time_ctc_decode(wav_dir, data_config, weights, model_config, T_out, tag):
     audio_s = B * SAMPLES / 16000.0
     model = create_model(model_config, config, torch.bfloat16, torch.device("cuda"))
     load_weights(model, weights)
-    searcher = DeepSpeechSearcher(model, model_config.blank_index)
+    if isinstance(model, Transducer):  # the libri sentencepiece model's bos 1, eos 2
+        searcher = TransducerSearcher(model, T_out, 1, 2, model_config.pad_index)
+    else:
+        searcher = DeepSpeechSearcher(model, model_config.blank_index)
     timings = {}
     for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
                      ("beam8", lambda: searcher.beam_search(audio, BEAM))):
@@ -1052,7 +1172,8 @@ def main():
     src, tpu = "speech_recognition_tpu_torch/csrc/", "speech_recognition_tpu/ops/pallas/"
     kernels = {name: {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces}
                for name, source, replaces in (
-                   ("vocab_topk", "vocab_topk.cu", "topk_kernel.py:176"),
+                   ("vocab_topk", "vocab_topk.cu", "topk_kernel.py:176"),  # the LAS beam
+                   ("vocab_topk_tsd", "vocab_topk.cu", "topk_kernel.py:176"),  # the transducer's TSD beam
                    ("las_greedy", "las_greedy.cu", "search_kernel.py:237"),
                    ("ce_vocab_fwd", "ce_vocab.cu", "ce_kernel.py:201"),
                    ("ce_vocab_bwd", "ctc_emissions.cu", "ce_kernel.py:201"),  # K6's backward with one id per row
@@ -1061,7 +1182,11 @@ def main():
                    ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("mhsa_fwd", "attention.cu", "attention_kernel.py:217"),
-                   ("mhsa_bwd", "attention.cu", "attention_kernel.py:217"))}
+                   ("mhsa_bwd", "attention.cu", "attention_kernel.py:217"),
+                   ("banded_joint_fwd", "transducer_joint.cu", "band_kernel.py:354"),
+                   ("banded_joint_bwd", "transducer_joint.cu", "band_kernel.py:354"),
+                   ("joint_planes_fwd", "transducer_joint.cu", "transducer_kernel.py:326"),
+                   ("joint_planes_bwd", "transducer_joint.cu", "transducer_kernel.py:326"))}
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -1069,6 +1194,10 @@ def main():
                              library_ms=library_ms)
 
     import speech_recognition_tpu_torch.ops.attention as attn_mod
+    import speech_recognition_tpu_torch.ops.joint_planes as jp_mod
+    import speech_recognition_tpu_torch.ops.vocab_topk as vt_mod
+    from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
+    from speech_recognition_tpu_torch.ops.transducer_pruned import banded_planes_bwd_plain, banded_planes_fwd_plain
     import speech_recognition_tpu_torch.ops.ce_vocab as ce_mod
     import speech_recognition_tpu_torch.ops.ctc_emissions as em_mod
     import speech_recognition_tpu_torch.ops.decoder as dec_mod
@@ -1082,6 +1211,7 @@ def main():
         print("== phase 2: kernels vs plain PyTorch (bf16; K6 and K7 also float32)")
         record("vocab_topk", check_vocab_topk(1024, 256, 16000, BEAM, ROUND_TWICE, False, gen))
         check_vocab_topk(128, 256, 16000, 1, ROUND_ONCE, True, gen)
+        record("vocab_topk_tsd", check_vocab_topk(B * BEAM, J_RNNT, 16000, BEAM + 3, ROUND_TWICE, True, gen))
         record("las_greedy", check_greedy(gen))
         fwd, bwd = check_ce(gen)
         record("ce_vocab_fwd", fwd)
@@ -1095,6 +1225,12 @@ def main():
         fwd, bwd = check_mhsa(gen)
         record("mhsa_fwd", fwd)
         record("mhsa_bwd", bwd)
+        fwd, bwd = check_joint_planes(gen, dense=False)
+        record("banded_joint_fwd", fwd)
+        record("banded_joint_bwd", bwd)
+        fwd, bwd = check_joint_planes(gen, dense=True)
+        record("joint_planes_fwd", fwd)
+        record("joint_planes_bwd", bwd)
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
@@ -1114,11 +1250,11 @@ def main():
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
         k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}
         k6_expected = {"ctc_emissions_fwd": TRAIN_STEPS + 1, "ctc_emissions_bwd": TRAIN_STEPS}
-        ds2_launches, ds2_cfg, ds2_weights = run_ctc_train_path(tmp, train_wavs, ds2_paths, data_config,
+        ds2_launches, ds2_cfg, ds2_weights = run_model_train_path(tmp, train_wavs, ds2_paths, data_config,
                                                                 "deepspeech.yml", "DS2", k6, k6_expected)
         launches.update(ds2_launches)
         time_train_step(ds2_cfg, f"DS2 (T'={T_DS2})")
-        time_ctc_decode(wav_dir, data_config, ds2_weights, "deepspeech.yml", T_DS2, "DS2")
+        time_decode(wav_dir, data_config, ds2_weights, "deepspeech.yml", T_DS2, "DS2")
         k6_plain = [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
                     (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)]
         check_train_f32(ds2_cfg, k6_plain, "DS2")
@@ -1126,16 +1262,48 @@ def main():
         k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
         k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
         torch.cuda.reset_peak_memory_stats()
-        conf_launches, conf_cfg, conf_weights = run_ctc_train_path(
+        conf_launches, conf_cfg, conf_weights = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "conformer_small.yml", "Conformer", {**k7, **k6},
-            {**k7_expected, **k6_expected}, {"mhsa_fwd": CONF_BLOCKS})
+            {**k7_expected, **k6_expected}, {"mhsa_fwd": {"greedy": CONF_BLOCKS, "beam8": CONF_BLOCKS}})
         print(f"  peak device memory of the Conformer run.train + decodes: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         launches.update({"mhsa_fwd": conf_launches["mhsa_fwd"], "mhsa_bwd": conf_launches["mhsa_bwd"]})
         time_train_step(conf_cfg, f"Conformer-S (T'={T_CONF})")
-        time_ctc_decode(wav_dir, data_config, conf_weights, "conformer_small.yml", T_CONF, "Conformer")
+        time_decode(wav_dir, data_config, conf_weights, "conformer_small.yml", T_CONF, "Conformer")
         check_train_f32(conf_cfg, [(attn_mod, "mhsa_fwd", attn_mod.mhsa_fwd_plain),
                                    (attn_mod, "mhsa_bwd", attn_mod.mhsa_bwd_plain), *k6_plain], "Conformer-S")
+        print("== phase 7: RNN-Transducer through run.train and run.inference (bf16; pruned B=128, dense B=32)")
+        k5 = {"vocab_topk": vt_mod.vocab_topk}
+        k8 = {"banded_joint_fwd": jp_mod.banded_planes_fwd, "banded_joint_bwd": jp_mod.banded_planes_bwd}
+        k8_expected = {"banded_joint_fwd": TRAIN_STEPS + 1, "banded_joint_bwd": TRAIN_STEPS, "vocab_topk": 0}
+        torch.cuda.reset_peak_memory_stats()
+        rnnt_launches, rnnt_cfg, rnnt_weights = run_model_train_path(
+            tmp, train_wavs, ds2_paths, data_config, "transducer_small.yml", "Transducer", {**k7, **k8, **k5},
+            {**k7_expected, **k8_expected},
+            {"mhsa_fwd": {"greedy": CONF_BLOCKS, "beam8": CONF_BLOCKS},
+             "vocab_topk": {"greedy": 0, "beam8": T_CONF * MAX_SYMBOLS}})
+        print(f"  peak device memory of the Transducer run.train + decodes: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches.update({k: rnnt_launches[k] for k in k8})
+        launches["vocab_topk_tsd"] = rnnt_launches["vocab_topk"]
+        time_train_step(rnnt_cfg, "Transducer-S pruned (S=4)")
+        time_decode(wav_dir, data_config, rnnt_weights, "transducer_small.yml", L, "Transducer")
+        k7_plain = [(attn_mod, "mhsa_fwd", attn_mod.mhsa_fwd_plain), (attn_mod, "mhsa_bwd", attn_mod.mhsa_bwd_plain)]
+        check_train_f32(rnnt_cfg, [(jp_mod, "banded_planes_fwd", banded_planes_fwd_plain),
+                                   (jp_mod, "banded_planes_bwd", banded_planes_bwd_plain), *k7_plain],
+                        "Transducer-S pruned")
+        k9 = {"joint_planes_fwd": jp_mod.joint_planes_fwd, "joint_planes_bwd": jp_mod.joint_planes_bwd}
+        dev_batches = -(-B // DENSE_B)
+        dense_launches, dense_cfg, _ = run_model_train_path(
+            tmp, train_wavs, ds2_paths, data_config, "transducer_small_dense.yml", "Transducer-dense",
+            {**k7, **k9}, {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + dev_batches), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS,
+                           "joint_planes_fwd": TRAIN_STEPS + dev_batches, "joint_planes_bwd": TRAIN_STEPS},
+            batch=DENSE_B, decode=False)
+        launches.update({k: dense_launches[k] for k in k9})
+        time_train_step(dense_cfg, "Transducer-S dense", DENSE_B)
+        check_train_f32(dense_cfg, [(jp_mod, "joint_planes_fwd", joint_planes_fwd_plain),
+                                    (jp_mod, "joint_planes_bwd", joint_planes_bwd_plain), *k7_plain],
+                        "Transducer-S dense")
         for name, n in launches.items():
             kernels[name]["launches"] = n
     except Exception:

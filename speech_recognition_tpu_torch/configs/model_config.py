@@ -2,10 +2,9 @@
 speech_recognition_tpu/configs/model_config.py.
 
 The same YAML schema: the ``model_name`` key dispatches to ``LASConfig``,
-``DeepSpeechConfig`` or ``ConformerConfig``.  The JAX module's
-``create_model`` methods build Flax models; the port builds its models in
-``run/common.create_model``.  The Transducer config is not ported yet: its
-YAMLs raise.
+``DeepSpeechConfig``, ``ConformerConfig`` or ``TransducerConfig``.  The JAX
+module's ``create_model`` methods build Flax models; the port builds its
+models in ``run/common.create_model``.
 """
 
 from dataclasses import dataclass
@@ -16,13 +15,13 @@ import yaml
 from .data_config import ConfigValidationError, _check_literal, _check_type
 
 _RNN_TYPES = ("rnn", "lstm", "gru")
-_NOT_PORTED = ("transducer", "rnnt", "rnn-t")
 
 
 def get_model_config(model_config_path: str):
     """Load a model config yaml and return the matching config instance
     (``ds2``/``deepspeech2`` -> DeepSpeechConfig, ``las`` -> LASConfig,
-    ``conformer`` -> ConformerConfig)."""
+    ``conformer`` -> ConformerConfig, ``transducer``/``rnnt``/``rnn-t`` ->
+    TransducerConfig)."""
     from ..utils.io import open_file
 
     with open_file(model_config_path) as f:
@@ -35,9 +34,8 @@ def get_model_config(model_config_path: str):
         return LASConfig(**model_config_dict)
     if model_name == "conformer":
         return ConformerConfig(**model_config_dict)
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet to torch (LAS, DeepSpeech2 and Conformer are)")
+    if model_name in ("transducer", "rnnt", "rnn-t"):
+        return TransducerConfig(**model_config_dict)
     raise ConfigValidationError(f"Model Name: {model_name} is invalid!")
 
 
@@ -196,6 +194,75 @@ class ConformerConfig:
             "remat",
             "scan_layers",
         )
+        if self.encoder_dim % self.num_attention_heads:
+            raise ConfigValidationError("'encoder_dim' must divide by 'num_attention_heads'")
+        if (self.encoder_dim // self.num_attention_heads) % 2:
+            raise ConfigValidationError("attention head dim must be even (RoPE pairs)")
+        if not self.subsample_channels:
+            raise ConfigValidationError("'subsample_channels' must be non-empty")
+
+
+@dataclass
+class TransducerConfig:
+    """Config for the RNN-Transducer model: a Conformer encoder, an LSTM
+    prediction network and an additive joint, trained on the lattice loss.
+    ``blank_index`` is the transducer blank; ``pad_index`` pads token batches
+    (the two may coincide at 0)."""
+
+    # size of vocabulary
+    vocab_size: int
+    # encoder width (model dim of every conformer block)
+    encoder_dim: int
+    # number of conformer blocks in the encoder
+    num_encoder_layers: int
+    # attention heads (head dim = encoder_dim / heads must be even for RoPE)
+    num_attention_heads: int
+    # depthwise conv kernel width inside each block
+    conv_kernel_size: int
+    # feed-forward expansion factor
+    ffn_expansion: int
+    # channels of the stride-2 conv subsampling stem
+    subsample_channels: List[int]
+    # prediction-net LSTM width (and embedding dim)
+    pred_dim: int
+    # prediction-net LSTM layers
+    num_pred_layers: int
+    # joint-network width (additive combine -> tanh -> vocab)
+    joint_dim: int
+    # dropout rate
+    dropout: float
+    # the index of the transducer blank token
+    blank_index: int
+    # the index of the pad token
+    pad_index: int
+    # rematerialize encoder block activations in the backward pass (not ported yet: raises)
+    remat: bool = False
+    # pruned (banded) lattice: evaluate the joint only on a band of this many
+    # label slots per encoder frame (ops/transducer_pruned.py); 0 = the dense lattice
+    pruned_range: int = 0
+
+    model_name: str = "Transducer"
+
+    def __post_init__(self):
+        _check_type(
+            self,
+            "vocab_size",
+            "encoder_dim",
+            "num_encoder_layers",
+            "num_attention_heads",
+            "conv_kernel_size",
+            "ffn_expansion",
+            "pred_dim",
+            "num_pred_layers",
+            "joint_dim",
+            "dropout",
+            "blank_index",
+            "pad_index",
+            "remat",
+            "pruned_range",
+        )
+        if self.pruned_range < 0:
+            raise ConfigValidationError("'pruned_range' must be >= 0 (0 = dense)")
         if self.encoder_dim % self.num_attention_heads:
             raise ConfigValidationError("'encoder_dim' must divide by 'num_attention_heads'")
         if (self.encoder_dim // self.num_attention_heads) % 2:

@@ -1,0 +1,922 @@
+// Kernels K8 and K9: the RNN-Transducer joint network fused with the
+// log-softmax planes the lattice loss reads, forward and backward.  C
+// interface for ops/joint_planes.py (ctypes).
+// Replaces fused_banded_planes (K8, speech_recognition_tpu/ops/pallas/band_kernel.py:354;
+// bodies _fwd_kernel :168 and _bwd_kernel :260) and fused_joint_planes (K9,
+// speech_recognition_tpu/ops/pallas/transducer_kernel.py:326; bodies :162 and :251).
+//
+// Both compute one function over a different set of lattice nodes, the slot
+// map: row r = (b*T + t)*S + s is node (t, u) with u = p[b*T + t] + s (K8, the
+// pruned band; S = s_range) or u = s (K9, p = NULL, S = U+1).  The prediction
+// row is read at u clipped to [0, U]; the target id is ids[b, u] for u < U,
+// else V, which is never gathered (its logit counts as 0, as in the Pallas
+// kernels).  Per row: h = tanh(enc[b, t] + pred[b, u]) rounded to the compute
+// type T after the add and after the tanh, logits z = h @ W + b in float32,
+// and the planes lp_blank = z[blank] - lse, lp_emit = z[id] - lse.
+//
+// Forward, joint_fwd_kernel: a block owns 32 rows; it builds their h in shared
+// memory (never in device memory) and walks V in tiles of 256 columns, one
+// column per thread (K5's tile pass, csrc/vocab_topk.cuh).  Each tile of logits
+// goes to shared memory, where one warp per row reduces it and merges the
+// tile's (max, sum-exp) into the row's running pair, and picks the blank and
+// target logits on the way; lse, lp_blank and lp_emit [R] float32 are written
+// once.  lse is the backward's residual.
+//
+// Backward, dz = -softmax (dlpb + dlpe) + onehot(blank) dlpb + onehot(id) dlpe,
+// rounded to T before every product and before the bias sum, as the Pallas
+// kernels round it.  No atomics (K6's scheme, csrc/ctc_emissions.cu):
+//  - joint_dpre_kernel (row kernel), grid (32-row block, 320-column chunk of
+//    J): recomputes the logits tile by tile from lse, forms rnd(dz) in a
+//    transposed shared tile, accumulates dh = rnd(dz) @ W^T from staged chunks
+//    of W^T, and writes dpre = dh (1 - h^2) [R, J] float32; it also writes h
+//    [R, J] in T for the next kernel;
+//  - joint_dw_kernel (column kernel), grid (64-column vocab tile, J chunk,
+//    row split): each block owns its dW columns over its rows, recomputing
+//    their logits; dW = h^T rnd(dz) and db = sum rnd(dz) in float32; the
+//    row splits' partials are summed in order by joint_sum_kernel;
+//  - joint_denc_kernel: denc[b, t] = sum over s of dpre, in s order;
+//    joint_dpred_kernel: dpred[b, u] = sum over the (t, s) whose clipped node
+//    is u, walking t in order (p is monotone in t, but the walk does not rely
+//    on it).  Both round once to T.
+// Products: in bf16 on the tensor cores (wmma 16x16x16, float32 accumulators;
+// joint_fwd_kernel<bf16>, joint_dpre_tc_kernel, joint_dw_tc_kernel), with W
+// streamed through shared memory in chunks; in float32 on the CUDA cores in
+// float32 FMAs (joint_fwd_kernel<float>, joint_dpre_kernel, joint_dw_kernel).
+// What bounds it: at B=128, T'=255, S=4, J=320, V=16000 (K8, R = 130,560
+// rows) the forward is a 1.34 TFLOP product and the backward three (logits
+// recompute twice, dh, dW: 5.3 TFLOP), against ~43 MB of inputs: the
+// operations at the bf16 tensor-core peak bound it.
+#include <cuda_pipeline.h>
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+#define TJ_ROWS 32       // rows per block of the row kernels and per chunk of the dW kernel
+#define TJ_THREADS 256   // = TJ_TILE: one thread per vocab column of a tile
+#define TJ_TILE 256      // vocab columns per tile of the row kernels
+#define TJ_JCH 320       // J columns per block of the dpre and dW kernels (J = 320 on the main path)
+#define TJ_JPT 5         // dh columns per thread of the dpre kernel: 64 x 5 = TJ_JCH
+#define TJ_DLS 36        // row stride of the transposed dz tile (16-byte aligned, conflict-free float4 stores)
+#define TJ_WCH 16        // vocab columns per staged chunk of W^T
+#define TJ_DW_COLS 64    // vocab columns per block of the dW kernel
+#define TJ_DW_HPT 80     // dW rows per thread: 4 thread groups x 80 = TJ_JCH
+// bf16 tensor-core tiles (wmma 16x16x16, float32 accumulators)
+#define TC_WLD (TJ_TILE + 8)      // row stride of a staged [32 x TJ_TILE] chunk of W (and of the dz tile)
+#define TC_VCH 32                 // vocab columns per staged [TJ_JCH x 32] chunk of W^T (the dh product)
+#define TC_VLD (TC_VCH + 8)
+#define TC_FPW 5                  // dh fragments per warp: 2 x 20 of a 320-wide J chunk over 8 warps
+#define TC_DW_LD (TJ_DW_COLS + 8)  // row stride of the dW kernel's W columns and dz tile
+#define TC_DW_FPW 10              // dW fragments per warp: 20 x 4 of a 320 x 64 block over 8 warps
+
+namespace srt {
+
+// The slot map.  p == nullptr: u = s (every node, K9).
+struct Slots {
+  const int* p;
+  int n_frames, S, U1, U;
+};
+
+// Per row of the block: its encoder row (b*T + t), its prediction row
+// (b*(U+1) + clipped u) and its target id (V when the slot has none).
+__device__ __forceinline__ void stage_nodes(int r0, int rows, const Slots& sl, const int* __restrict__ ids, int V,
+                                            int* s_erow, int* s_prow, int* s_id) {
+  const int r = threadIdx.x;
+  if (r >= TJ_ROWS) return;
+  int erow = 0, prow = 0, id = V;
+  if (r < rows) {
+    const int row = r0 + r;
+    erow = row / sl.S;
+    const int s = row - erow * sl.S;
+    const int b = erow / sl.n_frames;
+    const int u = (sl.p ? sl.p[erow] : 0) + s;
+    prow = b * sl.U1 + min(max(u, 0), sl.U1 - 1);
+    if (u >= 0 && u < sl.U) id = ids[(size_t)b * sl.U + u];
+  }
+  s_erow[r] = erow;
+  s_prow[r] = prow;
+  s_id[r] = id;
+}
+
+// h of the block's rows, transposed: hs[j * TJ_ROWS + r] (0 beyond ``rows``)
+template <typename T>
+__device__ __forceinline__ float joint_h(const T* __restrict__ enc, const T* __restrict__ pred, int erow, int prow,
+                                         int J, int j) {
+  const float x = rnd<T>(to_f(enc[(size_t)erow * J + j]) + to_f(pred[(size_t)prow * J + j]));
+  return rnd<T>(tanhf(x));
+}
+
+// acc[r] += sum_j hs[j][r] * W[j][v] over the block's 32 rows (K5's inner loop)
+template <typename T>
+__device__ __forceinline__ void column_dots(const float* hs, const T* __restrict__ W, int J, int V, int v,
+                                            float (&acc)[TJ_ROWS]) {
+#pragma unroll
+  for (int r = 0; r < TJ_ROWS; ++r) acc[r] = 0.0f;
+  if (v >= V) return;
+  const T* wcol = W + v;
+  for (int j = 0; j < J; ++j) {
+    const float w = to_f(wcol[(size_t)j * V]);
+    const float4* hr = reinterpret_cast<const float4*>(hs + j * TJ_ROWS);
+#pragma unroll
+    for (int r4 = 0; r4 < TJ_ROWS / 4; ++r4) {
+      const float4 x = hr[r4];
+      acc[4 * r4 + 0] = fmaf(x.x, w, acc[4 * r4 + 0]);
+      acc[4 * r4 + 1] = fmaf(x.y, w, acc[4 * r4 + 1]);
+      acc[4 * r4 + 2] = fmaf(x.z, w, acc[4 * r4 + 2]);
+      acc[4 * r4 + 3] = fmaf(x.w, w, acc[4 * r4 + 3]);
+    }
+  }
+}
+
+// dz of one (row, column), before the rounding: the Pallas kernels' order of terms
+__device__ __forceinline__ float joint_dz(float z, float lse, float gb, float ge, int v, int blank, int id) {
+  float d = expf(z - lse) * (-(gb + ge));
+  if (v == blank) d += gb;
+  if (v == id) d += ge;
+  return d;
+}
+
+constexpr int RPW = TJ_ROWS / (TJ_THREADS / 32);  // rows reduced per warp: warp, warp + 8, ...
+
+// Merges a finished logits tile zt [TJ_ROWS][TJ_TILE] (bias added, -inf past V)
+// into the running (max, sum-exp) of the rows warp + 8k, and picks their blank
+// and target logits: the same floats the sums saw.
+__device__ __forceinline__ void merge_tile(const float* zt, int v0, int V, int blank, const int* s_id, float* s_zb,
+                                           float* s_zt, float (&run_m)[RPW], float (&run_s)[RPW]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int r = warp + k * (TJ_THREADS / 32);
+    const float* row = zt + r * TJ_TILE;
+    float m = -INFINITY;
+    for (int j = lane; j < TJ_TILE; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float s = 0.0f;
+    for (int j = lane; j < TJ_TILE; j += 32) s += expf(row[j] - m);
+    s = warp_sum(s);
+    const float mn = fmaxf(run_m[k], m);
+    run_s[k] = run_s[k] * expf(run_m[k] - mn) + s * expf(m - mn);
+    run_m[k] = mn;
+    if (lane == 0) {
+      if (blank >= v0 && blank < v0 + TJ_TILE) s_zb[r] = row[blank - v0];
+      const int id = s_id[r];
+      if (id >= v0 && id < v0 + TJ_TILE && id < V) s_zt[r] = row[id - v0];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- bf16 tensor-core helpers
+namespace wm = nvcuda::wmma;
+using Bf = __nv_bfloat16;
+using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, Bf>::value;
+
+__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ int h_ld(int J) { return pad16(J) + 8; }  // row stride of h in bf16
+
+// h of the block's rows in bf16, row-major hsb[r * h_ld(J) + j], zero past J (to
+// a multiple of 16) and past ``rows``
+__device__ __forceinline__ void stage_h_bf16(Bf* hsb, int rows, int J, const Bf* __restrict__ enc,
+                                             const Bf* __restrict__ pred, const int* s_erow, const int* s_prow) {
+  const int Jp = pad16(J), ld = h_ld(J);
+  for (int e = threadIdx.x; e < TJ_ROWS * Jp; e += blockDim.x) {
+    const int r = e / Jp, j = e - r * Jp;
+    hsb[r * ld + j] = __float2bfloat16_rn(r < rows && j < J ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f);
+  }
+}
+
+// dst[i * ld + c] = W[(j0 + i) * V + v0 + c] for i < n_rows, c < n_cols (a
+// multiple of 8), 0 outside W; 16-byte loads when V % 8 == 0
+__device__ __forceinline__ void stage_w(Bf* dst, int ld, const Bf* __restrict__ W, int J, int V, int j0, int n_rows,
+                                        int v0, int n_cols) {
+  if ((V & 7) == 0) {
+    const int groups = n_cols / 8;
+    for (int e = threadIdx.x; e < n_rows * groups; e += blockDim.x) {
+      const int i = e / groups, c = (e - i * groups) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (j0 + i < J && v0 + c < V) x = *reinterpret_cast<const uint4*>(W + (size_t)(j0 + i) * V + v0 + c);
+      *reinterpret_cast<uint4*>(dst + i * ld + c) = x;
+    }
+  } else {
+    for (int e = threadIdx.x; e < n_rows * n_cols; e += blockDim.x) {
+      const int i = e / n_cols, c = e - i * n_cols;
+      dst[i * ld + c] = (j0 + i < J && v0 + c < V) ? W[(size_t)(j0 + i) * V + v0 + c] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// stage_w without waiting when V % 8 == 0: 16-byte cp.async copies (zero-filled
+// outside W) that the caller commits and waits for; else stage_w itself
+__device__ __forceinline__ void stage_w_async(Bf* dst, int ld, const Bf* __restrict__ W, int J, int V, int j0,
+                                              int n_rows, int v0, int n_cols) {
+  if ((V & 7) != 0) {
+    stage_w(dst, ld, W, J, V, j0, n_rows, v0, n_cols);
+    return;
+  }
+  const int groups = n_cols / 8;
+  for (int e = threadIdx.x; e < n_rows * groups; e += blockDim.x) {
+    const int i = e / groups, c = (e - i * groups) * 8;
+    const bool inside = j0 + i < J && v0 + c < V;
+    __pipeline_memcpy_async(dst + i * ld + c, inside ? W + (size_t)(j0 + i) * V + v0 + c : W, 16, inside ? 0 : 16);
+  }
+}
+
+// The raw logits (no bias) of the block's 32 rows against vocab columns v0 ..
+// v0 + TJ_TILE - 1 into zt [TJ_ROWS][TJ_TILE]: W streams through two
+// [32][TC_WLD] buffers of ``ws`` in chunks of 32 rows of J, the next chunk's
+// copy in flight while the current one is multiplied; warp w owns columns
+// 32w .. 32w + 31 of both 16-row halves.  Every thread of the block must call
+// it; it begins and ends synchronised.
+__device__ __forceinline__ void tc_logits_tile(const Bf* hsb, Bf* ws, const Bf* __restrict__ W, int J, int V, int v0,
+                                               float* zt) {
+  const int warp = threadIdx.x >> 5, Jp = pad16(J), hld = h_ld(J);
+  const int n_chunks = (Jp + 31) / 32;
+  FragC acc[2][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) wm::fill_fragment(acc[m][q], 0.0f);
+  __syncthreads();  // the previous users of ws and zt are done
+  stage_w_async(ws, TC_WLD, W, J, V, 0, 32, v0, TJ_TILE);
+  __pipeline_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int j0 = 32 * ch;
+    const Bf* cur = ws + (ch & 1) * 32 * TC_WLD;
+    if (ch + 1 < n_chunks) stage_w_async(ws + ((ch + 1) & 1) * 32 * TC_WLD, TC_WLD, W, J, V, j0 + 32, 32, v0, TJ_TILE);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // every copy but the newest group has landed: chunk ch is in
+    __syncthreads();
+    for (int kk = 0; kk < 32 && j0 + kk < Jp; kk += 16) {
+      wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a[2];
+      wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) wm::load_matrix_sync(a[m], hsb + 16 * m * hld + j0 + kk, hld);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) wm::load_matrix_sync(b[q], cur + kk * TC_WLD + (2 * warp + q) * 16, TC_WLD);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) wm::mma_sync(acc[m][q], a[m], b[q], acc[m][q]);
+    }
+    __syncthreads();  // chunk ch is consumed before its buffer takes chunk ch + 2
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      wm::store_matrix_sync(zt + 16 * m * TJ_TILE + (2 * warp + q) * 16, acc[m][q], TJ_TILE, wm::mem_row_major);
+  __syncthreads();
+}
+
+// Shared memory of the forward: the logits tile, then h (float32, transposed
+// [J][TJ_ROWS]; bf16: row-major [TJ_ROWS][h_ld] and two [32][TC_WLD] chunks of W)
+template <typename T>
+size_t fwd_smem(int J) {
+  if (kTensorCores<T>) return sizeof(float) * TJ_ROWS * TJ_TILE + sizeof(Bf) * TJ_ROWS * (h_ld(J) + 2 * TC_WLD);
+  return sizeof(float) * ((size_t)J * TJ_ROWS + TJ_ROWS * TJ_TILE);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_fwd_kernel(const T* __restrict__ enc, const T* __restrict__ pred, const T* __restrict__ W,
+                     const T* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
+                     int blank, float* __restrict__ lpb, float* __restrict__ lpe, float* __restrict__ lse) {
+  extern __shared__ __align__(128) float smem[];
+  float* zt = smem;                  // [TJ_ROWS][TJ_TILE] logits tile
+  float* hs = zt + TJ_ROWS * TJ_TILE;  // float32: [J][TJ_ROWS]; bf16: h, then the W chunk
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  __shared__ float s_zb[TJ_ROWS], s_zt[TJ_ROWS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * TJ_ROWS, rows = min(TJ_ROWS, R - r0);
+  stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+  if (tid < TJ_ROWS) s_zb[tid] = s_zt[tid] = 0.0f;
+  __syncthreads();
+  Bf* hsb = reinterpret_cast<Bf*>(hs);
+  if constexpr (kTensorCores<T>) {
+    stage_h_bf16(hsb, rows, J, enc, pred, s_erow, s_prow);
+  } else {
+    for (int e = tid; e < TJ_ROWS * J; e += TJ_THREADS) {
+      const int r = e / J, j = e - r * J;
+      hs[j * TJ_ROWS + r] = r < rows ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  float run_m[RPW], run_s[RPW];
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    run_m[k] = -INFINITY;
+    run_s[k] = 0.0f;
+  }
+  const int n_tiles = (V + TJ_TILE - 1) / TJ_TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int v0 = tile * TJ_TILE, v = v0 + tid;
+    const float bv = v < V ? to_f(bias[v]) : 0.0f;
+    if constexpr (kTensorCores<T>) {
+      tc_logits_tile(hsb, hsb + TJ_ROWS * h_ld(J), W, J, V, v0, zt);
+#pragma unroll
+      for (int r = 0; r < TJ_ROWS; ++r) zt[r * TJ_TILE + tid] = v < V ? zt[r * TJ_TILE + tid] + bv : -INFINITY;
+    } else {
+      float acc[TJ_ROWS];
+      column_dots(hs, W, J, V, v, acc);
+#pragma unroll
+      for (int r = 0; r < TJ_ROWS; ++r) zt[r * TJ_TILE + tid] = v < V ? acc[r] + bv : -INFINITY;
+    }
+    __syncthreads();
+    merge_tile(zt, v0, V, blank, s_id, s_zb, s_zt, run_m, run_s);
+    __syncthreads();  // every warp is done with the tile
+  }
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int r = warp + k * (TJ_THREADS / 32);
+    if (lane == 0 && r < rows) {
+      const float l = run_m[k] + logf(run_s[k]);
+      lse[r0 + r] = l;
+      lpb[r0 + r] = s_zb[r] - l;
+      lpe[r0 + r] = s_zt[r] - l;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_dpre_kernel(const T* __restrict__ enc, const T* __restrict__ pred, const T* __restrict__ W,
+                      const T* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
+                      int blank, const float* __restrict__ lse, const float* __restrict__ dlpb,
+                      const float* __restrict__ dlpe, float* __restrict__ dpre, T* __restrict__ hbuf) {
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;                      // [J][TJ_ROWS] h, transposed
+  float* dl = hs + J * TJ_ROWS;          // [TJ_TILE][TJ_DLS] rnd(dz) tile, transposed
+  float* ws = dl + TJ_TILE * TJ_DLS;     // [TJ_WCH][TJ_JCH] chunk of W^T
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * TJ_ROWS, rows = min(TJ_ROWS, R - r0);
+  const int j0 = blockIdx.y * TJ_JCH, jc = min(TJ_JCH, J - j0);
+  stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+  if (tid < TJ_ROWS) {
+    const bool ok = tid < rows;
+    s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
+    s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
+    s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
+  }
+  __syncthreads();
+  for (int e = tid; e < TJ_ROWS * J; e += TJ_THREADS) {
+    const int r = e / J, j = e - r * J;
+    const float h = r < rows ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f;
+    hs[j * TJ_ROWS + r] = h;
+    if (blockIdx.y == 0 && r < rows) hbuf[(size_t)(r0 + r) * J + j] = from_f<T>(h);
+  }
+  __syncthreads();
+
+  const int rg = tid >> 6, jl = tid & 63;  // dh: rows rg*8 .. rg*8+7, columns j0 + jl + 64 k
+  float acc2[8][TJ_JPT];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < TJ_JPT; ++k) acc2[i][k] = 0.0f;
+  float4* col = reinterpret_cast<float4*>(dl + tid * TJ_DLS);  // this thread's column of the tile
+  const int n_tiles = (V + TJ_TILE - 1) / TJ_TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int v0 = tile * TJ_TILE, v = v0 + tid;
+    float acc[TJ_ROWS];
+    column_dots(hs, W, J, V, v, acc);
+    const float bv = v < V ? to_f(bias[v]) : 0.0f;
+#pragma unroll
+    for (int r4 = 0; r4 < TJ_ROWS / 4; ++r4) {
+      float d[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = 4 * r4 + k;
+        d[k] = (v < V && r < rows) ? rnd<T>(joint_dz(acc[r] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank, s_id[r]))
+                                   : 0.0f;
+      }
+      col[r4] = make_float4(d[0], d[1], d[2], d[3]);
+    }
+    __syncthreads();  // the dz tile is complete
+
+    for (int c0 = 0; c0 < TJ_TILE; c0 += TJ_WCH) {
+      for (int e = tid; e < TJ_WCH * TJ_JCH; e += TJ_THREADS) {
+        const int jj = e / TJ_WCH, c = e - jj * TJ_WCH;
+        const int vv = v0 + c0 + c;
+        ws[c * TJ_JCH + jj] = (jj < jc && vv < V) ? to_f(W[(size_t)(j0 + jj) * V + vv]) : 0.0f;
+      }
+      __syncthreads();
+      for (int c = 0; c < TJ_WCH; ++c) {
+        const float4* dr = reinterpret_cast<const float4*>(dl + (c0 + c) * TJ_DLS + rg * 8);
+        const float4 a = dr[0], bq = dr[1];
+        const float d[8] = {a.x, a.y, a.z, a.w, bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+        for (int k = 0; k < TJ_JPT; ++k) {
+          const float w = ws[c * TJ_JCH + jl + 64 * k];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc2[i][k] = fmaf(d[i], w, acc2[i][k]);
+        }
+      }
+      __syncthreads();  // done with this chunk of W^T (and, after the last, with the dz tile)
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = rg * 8 + i;
+#pragma unroll
+    for (int k = 0; k < TJ_JPT; ++k) {
+      const int jj = jl + 64 * k;
+      if (r < rows && jj < jc) {
+        const float h = hs[(j0 + jj) * TJ_ROWS + r];
+        dpre[(size_t)(r0 + r) * J + j0 + jj] = acc2[i][k] * (1.0f - h * h);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_dw_kernel(const T* __restrict__ hbuf, const T* __restrict__ W, const T* __restrict__ bias,
+                    const int* __restrict__ ids, Slots sl, int R, int rows_per_split, int J, int V, int blank,
+                    const float* __restrict__ lse, const float* __restrict__ dlpb, const float* __restrict__ dlpe,
+                    float* __restrict__ dW, float* __restrict__ db) {
+  extern __shared__ __align__(16) float smem[];
+  float* hsT = smem;                       // [J][TJ_ROWS] (the logits)
+  float* hs = hsT + J * TJ_ROWS;           // [TJ_ROWS][TJ_JCH] this block's J columns (dW), 0 beyond J
+  float* dl = hs + TJ_ROWS * TJ_JCH;       // [TJ_ROWS][TJ_DW_COLS] rnd(dz)
+  float* dbp = dl + TJ_ROWS * TJ_DW_COLS;  // [TJ_THREADS] db partials
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
+  const int tid = threadIdx.x;
+  const int c = tid % TJ_DW_COLS, g = tid / TJ_DW_COLS;  // g: 8 logits rows, then TJ_DW_HPT dW rows
+  const int v0 = blockIdx.x * TJ_DW_COLS, v = v0 + c;
+  const int j0 = blockIdx.y * TJ_JCH;
+  const int jb = j0 + g * TJ_DW_HPT;  // first dW row of this thread
+  const int rb = blockIdx.z * rows_per_split, re = min(R, rb + rows_per_split);
+  const float bv = v < V ? to_f(bias[v]) : 0.0f;
+
+  float accw[TJ_DW_HPT];
+#pragma unroll
+  for (int k = 0; k < TJ_DW_HPT; ++k) accw[k] = 0.0f;
+  float dbacc = 0.0f;
+  for (int r0 = rb; r0 < re; r0 += TJ_ROWS) {
+    const int rows = min(TJ_ROWS, re - r0);
+    __syncthreads();  // the previous chunk is done with the shared tiles
+    stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+    if (tid < TJ_ROWS) {
+      const bool ok = tid < rows;
+      s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
+      s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
+      s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
+    }
+    for (int e = tid; e < TJ_ROWS * J; e += TJ_THREADS) {
+      const int r = e / J, j = e - r * J;
+      hsT[j * TJ_ROWS + r] = r < rows ? to_f(hbuf[(size_t)(r0 + r) * J + j]) : 0.0f;
+    }
+    for (int e = tid; e < TJ_ROWS * TJ_JCH; e += TJ_THREADS) {
+      const int r = e / TJ_JCH, j = j0 + e - r * TJ_JCH;
+      hs[e] = (r < rows && j < J) ? to_f(hbuf[(size_t)(r0 + r) * J + j]) : 0.0f;
+    }
+    __syncthreads();
+
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
+    if (v < V) {
+      for (int j = 0; j < J; ++j) {
+        const float w = to_f(W[(size_t)j * V + v]);
+        const float4* hr = reinterpret_cast<const float4*>(hsT + j * TJ_ROWS + g * 8);
+        const float4 a = hr[0], bq = hr[1];
+        acc[0] = fmaf(a.x, w, acc[0]);
+        acc[1] = fmaf(a.y, w, acc[1]);
+        acc[2] = fmaf(a.z, w, acc[2]);
+        acc[3] = fmaf(a.w, w, acc[3]);
+        acc[4] = fmaf(bq.x, w, acc[4]);
+        acc[5] = fmaf(bq.y, w, acc[5]);
+        acc[6] = fmaf(bq.z, w, acc[6]);
+        acc[7] = fmaf(bq.w, w, acc[7]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = g * 8 + k;
+      const float d = (v < V && r < rows)
+                          ? rnd<T>(joint_dz(acc[k] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank, s_id[r]))
+                          : 0.0f;
+      dbacc += d;
+      dl[r * TJ_DW_COLS + c] = d;
+    }
+    __syncthreads();
+
+    for (int r = 0; r < rows; ++r) {
+      const float d = dl[r * TJ_DW_COLS + c];
+      const float4* hr = reinterpret_cast<const float4*>(hs + r * TJ_JCH + g * TJ_DW_HPT);
+#pragma unroll
+      for (int k4 = 0; k4 < TJ_DW_HPT / 4; ++k4) {
+        const float4 x = hr[k4];
+        accw[4 * k4 + 0] = fmaf(x.x, d, accw[4 * k4 + 0]);
+        accw[4 * k4 + 1] = fmaf(x.y, d, accw[4 * k4 + 1]);
+        accw[4 * k4 + 2] = fmaf(x.z, d, accw[4 * k4 + 2]);
+        accw[4 * k4 + 3] = fmaf(x.w, d, accw[4 * k4 + 3]);
+      }
+    }
+  }
+  float* dWz = dW + (size_t)blockIdx.z * J * V;
+  if (v < V) {
+#pragma unroll
+    for (int k = 0; k < TJ_DW_HPT; ++k)
+      if (jb + k < min(J, j0 + TJ_JCH)) dWz[(size_t)(jb + k) * V + v] = accw[k];
+  }
+  dbp[tid] = dbacc;
+  __syncthreads();
+  if (g == 0 && v < V && blockIdx.y == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < TJ_THREADS / TJ_DW_COLS; ++k) s += dbp[k * TJ_DW_COLS + c];
+    db[(size_t)blockIdx.z * V + v] = s;
+  }
+}
+
+// The row kernel on the bf16 tensor cores: the same work as joint_dpre_kernel.
+// Per vocab tile, the logits (tc_logits_tile), then rnd(dz) into a bf16 tile,
+// then dh += rnd(dz) @ W^T with W^T streaming through ``ws`` in [TJ_JCH x 32]
+// chunks; warp w accumulates dh fragments 5w .. 5w + 4 of the (16-row half,
+// 16-column tile) pairs of its J chunk.
+// Shared memory: zt float32 [TJ_ROWS][TJ_JCH] (the logits tile, then dh) | h
+// bf16 [TJ_ROWS][h_ld] | ws bf16 | dz bf16 [TJ_ROWS][TC_WLD].
+__host__ __device__ __forceinline__ int dpre_tc_ws(int) {
+  return TJ_JCH * TC_VLD > 64 * TC_WLD ? TJ_JCH * TC_VLD : 64 * TC_WLD;
+}
+
+size_t dpre_tc_smem(int J) {
+  return sizeof(float) * TJ_ROWS * TJ_JCH + sizeof(Bf) * ((size_t)TJ_ROWS * h_ld(J) + dpre_tc_ws(J) + TJ_ROWS * TC_WLD);
+}
+
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_dpre_tc_kernel(const Bf* __restrict__ enc, const Bf* __restrict__ pred, const Bf* __restrict__ W,
+                         const Bf* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
+                         int blank, const float* __restrict__ lse, const float* __restrict__ dlpb,
+                         const float* __restrict__ dlpe, float* __restrict__ dpre, Bf* __restrict__ hbuf) {
+  extern __shared__ __align__(128) float smem[];
+  float* zt = smem;
+  Bf* hsb = reinterpret_cast<Bf*>(zt + TJ_ROWS * TJ_JCH);
+  Bf* ws = hsb + TJ_ROWS * h_ld(J);
+  Bf* dzs = ws + dpre_tc_ws(J);
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
+  const int tid = threadIdx.x, warp = tid >> 5, hld = h_ld(J);
+  const int r0 = blockIdx.x * TJ_ROWS, rows = min(TJ_ROWS, R - r0);
+  const int j0 = blockIdx.y * TJ_JCH, jc = min(TJ_JCH, J - j0);
+  const int n_frag = 2 * ((jc + 15) / 16);
+  stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+  if (tid < TJ_ROWS) {
+    const bool ok = tid < rows;
+    s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
+    s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
+    s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
+  }
+  __syncthreads();
+  stage_h_bf16(hsb, rows, J, enc, pred, s_erow, s_prow);
+  __syncthreads();
+  if (blockIdx.y == 0)
+    for (int e = tid; e < rows * J; e += TJ_THREADS) {
+      const int r = e / J, j = e - r * J;
+      hbuf[(size_t)(r0 + r) * J + j] = hsb[r * hld + j];
+    }
+
+  FragC dh[TC_FPW];
+#pragma unroll
+  for (int i = 0; i < TC_FPW; ++i) wm::fill_fragment(dh[i], 0.0f);
+  const int n_tiles = (V + TJ_TILE - 1) / TJ_TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int v0 = tile * TJ_TILE, v = v0 + tid;
+    tc_logits_tile(hsb, ws, W, J, V, v0, zt);
+    const float bv = v < V ? to_f(bias[v]) : 0.0f;
+#pragma unroll 4
+    for (int r = 0; r < TJ_ROWS; ++r) {
+      const float d = (v < V && r < rows)
+                          ? joint_dz(zt[r * TJ_TILE + tid] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank, s_id[r])
+                          : 0.0f;
+      dzs[r * TC_WLD + tid] = __float2bfloat16_rn(d);
+    }
+    for (int vc = 0; vc < TJ_TILE; vc += TC_VCH) {
+      __syncthreads();  // the dz tile is complete; the previous chunk of W^T is consumed
+      stage_w(ws, TC_VLD, W, J, V, j0, TJ_JCH, v0 + vc, TC_VCH);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < TC_VCH; kk += 16) {
+        wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) wm::load_matrix_sync(a[m], dzs + 16 * m * TC_WLD + vc + kk, TC_WLD);
+#pragma unroll
+        for (int i = 0; i < TC_FPW; ++i) {
+          const int f = warp * TC_FPW + i;
+          if (f < n_frag) {  // warp-uniform
+            wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::col_major> b;
+            wm::load_matrix_sync(b, ws + (f >> 1) * 16 * TC_VLD + kk, TC_VLD);
+            wm::mma_sync(dh[i], a[f & 1], b, dh[i]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // zt is free for dh
+#pragma unroll
+  for (int i = 0; i < TC_FPW; ++i) {
+    const int f = warp * TC_FPW + i;
+    if (f < n_frag)
+      wm::store_matrix_sync(zt + 16 * (f & 1) * TJ_JCH + (f >> 1) * 16, dh[i], TJ_JCH, wm::mem_row_major);
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * jc; e += TJ_THREADS) {
+    const int r = e / jc, jj = e - r * jc;
+    const float h = __bfloat162float(hsb[r * hld + j0 + jj]);
+    dpre[(size_t)(r0 + r) * J + j0 + jj] = zt[r * TJ_JCH + jj] * (1.0f - h * h);
+  }
+}
+
+// The column kernel on the bf16 tensor cores: the same work as joint_dw_kernel.
+// The block stages its 64 columns of W (all of J) once; per chunk of 32 rows,
+// the logits [32 x 64] (warp w: one 16 x 16 fragment), rnd(dz) into a bf16
+// tile, and dW += h^T rnd(dz) with h^T read column-major from the row-major h
+// tile (warp w: fragments 10w .. 10w + 9 of the 20 x 4 tiles of its 320 x 64 block).
+// Shared memory: W bf16 [pad16(J)][TC_DW_LD] | h bf16 [TJ_ROWS][h_ld] | logits
+// float32 [TJ_ROWS][TJ_DW_COLS] | dz bf16 [TJ_ROWS][TC_DW_LD] | per-warp store
+// scratch float32 [8][256] | db partials float32 [TJ_THREADS].
+size_t dw_tc_smem(int J) {
+  return sizeof(Bf) * ((size_t)pad16(J) * TC_DW_LD + TJ_ROWS * h_ld(J) + TJ_ROWS * TC_DW_LD) +
+         sizeof(float) * (TJ_ROWS * TJ_DW_COLS + (TJ_THREADS / 32) * 256 + TJ_THREADS);
+}
+
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_dw_tc_kernel(const Bf* __restrict__ hbuf, const Bf* __restrict__ W, const Bf* __restrict__ bias,
+                       const int* __restrict__ ids, Slots sl, int R, int rows_per_split, int J, int V, int blank,
+                       const float* __restrict__ lse, const float* __restrict__ dlpb, const float* __restrict__ dlpe,
+                       float* __restrict__ dW, float* __restrict__ db) {
+  extern __shared__ __align__(128) float smem[];
+  const int Jp = pad16(J), hld = h_ld(J);
+  Bf* wcols = reinterpret_cast<Bf*>(smem);         // [Jp][TC_DW_LD]
+  Bf* hsb = wcols + Jp * TC_DW_LD;                  // [TJ_ROWS][hld]
+  Bf* dzs = hsb + TJ_ROWS * hld;                    // [TJ_ROWS][TC_DW_LD]
+  float* zt = reinterpret_cast<float*>(dzs + TJ_ROWS * TC_DW_LD);  // [TJ_ROWS][TJ_DW_COLS]
+  float* scratch = zt + TJ_ROWS * TJ_DW_COLS;        // [8][256]
+  float* dbp = scratch + (TJ_THREADS / 32) * 256;    // [TJ_THREADS]
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = tid % TJ_DW_COLS, g = tid / TJ_DW_COLS;  // dz: column c, rows 8g .. 8g + 7
+  const int v0 = blockIdx.x * TJ_DW_COLS, v = v0 + c;
+  const int j0 = blockIdx.y * TJ_JCH, jc = min(TJ_JCH, J - j0);
+  const int rb = blockIdx.z * rows_per_split, re = min(R, rb + rows_per_split);
+  const float bv = v < V ? to_f(bias[v]) : 0.0f;
+  stage_w(wcols, TC_DW_LD, W, J, V, 0, Jp, v0, TJ_DW_COLS);
+
+  FragC dw[TC_DW_FPW];
+#pragma unroll
+  for (int i = 0; i < TC_DW_FPW; ++i) wm::fill_fragment(dw[i], 0.0f);
+  float dbacc = 0.0f;
+  for (int r0 = rb; r0 < re; r0 += TJ_ROWS) {
+    const int rows = min(TJ_ROWS, re - r0);
+    __syncthreads();  // the previous chunk is done with the shared tiles
+    stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+    if (tid < TJ_ROWS) {
+      const bool ok = tid < rows;
+      s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
+      s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
+      s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
+    }
+    if ((J & 7) == 0) {
+      for (int e = tid; e < TJ_ROWS * (Jp / 8); e += TJ_THREADS) {
+        const int r = e / (Jp / 8), j = (e - r * (Jp / 8)) * 8;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rows && j < J) x = *reinterpret_cast<const uint4*>(hbuf + (size_t)(r0 + r) * J + j);
+        *reinterpret_cast<uint4*>(hsb + r * hld + j) = x;
+      }
+    } else {
+      for (int e = tid; e < TJ_ROWS * Jp; e += TJ_THREADS) {
+        const int r = e / Jp, j = e - r * Jp;
+        hsb[r * hld + j] = (r < rows && j < J) ? hbuf[(size_t)(r0 + r) * J + j] : __float2bfloat16_rn(0.0f);
+      }
+    }
+    __syncthreads();
+
+    {  // logits: warp w owns the fragment (rows 16 (w / 4), columns 16 (w % 4))
+      const int m = warp >> 2, n = warp & 3;
+      FragC acc;
+      wm::fill_fragment(acc, 0.0f);
+      for (int k0 = 0; k0 < Jp; k0 += 16) {
+        wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a;
+        wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b;
+        wm::load_matrix_sync(a, hsb + 16 * m * hld + k0, hld);
+        wm::load_matrix_sync(b, wcols + k0 * TC_DW_LD + 16 * n, TC_DW_LD);
+        wm::mma_sync(acc, a, b, acc);
+      }
+      wm::store_matrix_sync(zt + 16 * m * TJ_DW_COLS + 16 * n, acc, TJ_DW_COLS, wm::mem_row_major);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = g * 8 + k;
+      const float d = (v < V && r < rows)
+                          ? rnd<Bf>(joint_dz(zt[r * TJ_DW_COLS + c] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank,
+                                             s_id[r]))
+                          : 0.0f;
+      dbacc += d;
+      dzs[r * TC_DW_LD + c] = __float2bfloat16_rn(d);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TJ_ROWS; kk += 16) {
+      wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) wm::load_matrix_sync(b[n], dzs + kk * TC_DW_LD + 16 * n, TC_DW_LD);
+#pragma unroll
+      for (int i = 0; i < TC_DW_FPW; ++i) {
+        const int f = warp * TC_DW_FPW + i, mt = f >> 2;
+        if (16 * mt < jc) {  // warp-uniform
+          wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::col_major> a;
+          wm::load_matrix_sync(a, hsb + kk * hld + j0 + 16 * mt, hld);
+          wm::mma_sync(dw[i], a, b[f & 3], dw[i]);
+        }
+      }
+    }
+  }
+  float* dWz = dW + (size_t)blockIdx.z * J * V;
+  float* sc = scratch + warp * 256;
+#pragma unroll
+  for (int i = 0; i < TC_DW_FPW; ++i) {
+    const int f = warp * TC_DW_FPW + i, mt = f >> 2, nt = f & 3;
+    if (16 * mt < jc) {
+      wm::store_matrix_sync(sc, dw[i], 16, wm::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int j = j0 + 16 * mt + e / 16, vv = v0 + 16 * nt + e % 16;
+        if (j < J && vv < V) dWz[(size_t)j * V + vv] = sc[e];
+      }
+      __syncwarp();
+    }
+  }
+  dbp[tid] = dbacc;
+  __syncthreads();
+  if (g == 0 && v < V && blockIdx.y == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < TJ_THREADS / TJ_DW_COLS; ++k) s += dbp[k * TJ_DW_COLS + c];
+    db[(size_t)blockIdx.z * V + v] = s;
+  }
+}
+
+// out[i] = sum over z < n_parts of parts[z * n + i], in z order
+__global__ void joint_sum_kernel(const float* __restrict__ parts, int n_parts, size_t n, float* __restrict__ out) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int z = 0; z < n_parts; ++z) s += parts[(size_t)z * n + i];
+    out[i] = s;
+  }
+}
+
+// grid (B*T): denc[b, t, j] = rnd(sum over s of dpre[(b*T + t)*S + s, j])
+template <typename T>
+__global__ void joint_denc_kernel(const float* __restrict__ dpre, int S, int J, T* __restrict__ denc) {
+  const size_t bt = blockIdx.x;
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    float s = 0.0f;
+    for (int k = 0; k < S; ++k) s += dpre[(bt * S + k) * J + j];
+    denc[bt * J + j] = from_f<T>(s);
+  }
+}
+
+// grid (B*(U+1)): dpred[b, u, j] = rnd(sum over (t, s) with clip(p + s) == u of dpre), t then s ascending
+template <typename T>
+__global__ void joint_dpred_kernel(const float* __restrict__ dpre, Slots sl, int J, T* __restrict__ dpred) {
+  const int b = blockIdx.x / sl.U1, u = blockIdx.x - b * sl.U1;
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    float acc = 0.0f;
+    for (int t = 0; t < sl.n_frames; ++t) {
+      const int bt = b * sl.n_frames + t;
+      const int p = sl.p ? sl.p[bt] : 0;
+      const int s_first = max(u == 0 ? 0 : u - p, 0);
+      const int s_last = min(u == sl.U1 - 1 ? sl.S - 1 : u - p, sl.S - 1);
+      for (int s = s_first; s <= s_last; ++s) acc += dpre[((size_t)bt * sl.S + s) * J + j];
+    }
+    dpred[(size_t)blockIdx.x * J + j] = from_f<T>(acc);
+  }
+}
+
+template <typename Kernel>
+cudaError_t tj_set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+cudaError_t joint_fwd_impl(const void* enc, const void* pred, const void* W, const void* b, const int* ids, Slots sl,
+                           int R, int J, int V, int blank, float* lpb, float* lpe, float* lse, cudaStream_t stream) {
+  const size_t smem = fwd_smem<T>(J);
+  cudaError_t err = tj_set_smem(joint_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  joint_fwd_kernel<T><<<(R + TJ_ROWS - 1) / TJ_ROWS, TJ_THREADS, smem, stream>>>(
+      static_cast<const T*>(enc), static_cast<const T*>(pred), static_cast<const T*>(W), static_cast<const T*>(b),
+      ids, sl, R, J, V, blank, lpb, lpe, lse);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t joint_bwd_impl(const void* enc, const void* pred, const void* W, const void* b, const int* ids, Slots sl,
+                           int B, int R, int J, int V, int blank, const float* lse, const float* dlpb,
+                           const float* dlpe, int n_split, void* hbuf, float* dpre, float* dW_part, float* db_part,
+                           void* denc, void* dpred, float* dW, float* db, cudaStream_t stream) {
+  const int j_chunks = (J + TJ_JCH - 1) / TJ_JCH;
+  const dim3 row_grid((R + TJ_ROWS - 1) / TJ_ROWS, j_chunks);
+  const int rows_per_split = (R + n_split - 1) / n_split;
+  const dim3 col_grid((V + TJ_DW_COLS - 1) / TJ_DW_COLS, j_chunks, n_split);
+  float* dW_out = n_split > 1 ? dW_part : dW;
+  float* db_out = n_split > 1 ? db_part : db;
+  cudaError_t err;
+  if constexpr (kTensorCores<T>) {
+    err = tj_set_smem(joint_dpre_tc_kernel, dpre_tc_smem(J));
+    if (err != cudaSuccess) return err;
+    joint_dpre_tc_kernel<<<row_grid, TJ_THREADS, dpre_tc_smem(J), stream>>>(
+        static_cast<const Bf*>(enc), static_cast<const Bf*>(pred), static_cast<const Bf*>(W),
+        static_cast<const Bf*>(b), ids, sl, R, J, V, blank, lse, dlpb, dlpe, dpre, static_cast<Bf*>(hbuf));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = tj_set_smem(joint_dw_tc_kernel, dw_tc_smem(J));
+    if (err != cudaSuccess) return err;
+    joint_dw_tc_kernel<<<col_grid, TJ_THREADS, dw_tc_smem(J), stream>>>(
+        static_cast<const Bf*>(hbuf), static_cast<const Bf*>(W), static_cast<const Bf*>(b), ids, sl, R,
+        rows_per_split, J, V, blank, lse, dlpb, dlpe, dW_out, db_out);
+  } else {
+    const size_t smem1 = sizeof(float) * ((size_t)J * TJ_ROWS + TJ_TILE * TJ_DLS + TJ_WCH * TJ_JCH);
+    err = tj_set_smem(joint_dpre_kernel<T>, smem1);
+    if (err != cudaSuccess) return err;
+    joint_dpre_kernel<T><<<row_grid, TJ_THREADS, smem1, stream>>>(
+        static_cast<const T*>(enc), static_cast<const T*>(pred), static_cast<const T*>(W), static_cast<const T*>(b),
+        ids, sl, R, J, V, blank, lse, dlpb, dlpe, dpre, static_cast<T*>(hbuf));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem2 =
+        sizeof(float) * ((size_t)J * TJ_ROWS + TJ_ROWS * TJ_JCH + TJ_ROWS * TJ_DW_COLS + TJ_THREADS);
+    err = tj_set_smem(joint_dw_kernel<T>, smem2);
+    if (err != cudaSuccess) return err;
+    joint_dw_kernel<T><<<col_grid, TJ_THREADS, smem2, stream>>>(
+        static_cast<const T*>(hbuf), static_cast<const T*>(W), static_cast<const T*>(b), ids, sl, R, rows_per_split,
+        J, V, blank, lse, dlpb, dlpe, dW_out, db_out);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (n_split > 1) {
+    joint_sum_kernel<<<1024, 256, 0, stream>>>(dW_part, n_split, (size_t)J * V, dW);
+    joint_sum_kernel<<<64, 256, 0, stream>>>(db_part, n_split, (size_t)V, db);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  joint_denc_kernel<T><<<B * sl.n_frames, 128, 0, stream>>>(dpre, sl.S, J, static_cast<T*>(denc));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  joint_dpred_kernel<T><<<B * sl.U1, 128, 0, stream>>>(dpre, sl, J, static_cast<T*>(dpred));
+  return cudaGetLastError();
+}
+
+}  // namespace srt
+
+extern "C" {
+
+// Forward.  enc [B,T,J], pred [B,U1,J], W [J,V], b [V] in T (bf16 when
+// dtype_bf16, else float32); ids [B,U] int32 (U = U1 - 1); p [B,T] int32 band
+// starts, or NULL for every node (then S = U1).  Outputs lpb, lpe, lse
+// [B,T,S] float32.
+int transducer_joint_fwd(int dtype_bf16, const void* enc, const void* pred, const void* W, const void* b,
+                         const int* ids, const int* p, int B, int T, int U1, int S, int J, int V, int blank,
+                         float* lpb, float* lpe, float* lse, void* stream) {
+  const srt::Slots sl{p, T, S, U1, U1 - 1};
+  const int R = B * T * S;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype_bf16)
+    err = srt::joint_fwd_impl<__nv_bfloat16>(enc, pred, W, b, ids, sl, R, J, V, blank, lpb, lpe, lse, st);
+  else
+    err = srt::joint_fwd_impl<float>(enc, pred, W, b, ids, sl, R, J, V, blank, lpb, lpe, lse, st);
+  return static_cast<int>(err);
+}
+
+// Backward.  The forward's operands and lse, the plane cotangents dlpb, dlpe
+// [B,T,S] float32.  Scratch: hbuf [R,J] in T, dpre [R,J] float32, and for
+// n_split > 1 dW_part [n_split,J,V], db_part [n_split,V] float32.  Outputs
+// denc [B,T,J], dpred [B,U1,J] in T, dW [J,V], db [V] float32 (every element
+// written).
+int transducer_joint_bwd(int dtype_bf16, const void* enc, const void* pred, const void* W, const void* b,
+                         const int* ids, const int* p, int B, int T, int U1, int S, int J, int V, int blank,
+                         const float* lse, const float* dlpb, const float* dlpe, int n_split, void* hbuf, float* dpre,
+                         float* dW_part, float* db_part, void* denc, void* dpred, float* dW, float* db, void* stream) {
+  const srt::Slots sl{p, T, S, U1, U1 - 1};
+  const int R = B * T * S;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype_bf16)
+    err = srt::joint_bwd_impl<__nv_bfloat16>(enc, pred, W, b, ids, sl, B, R, J, V, blank, lse, dlpb, dlpe, n_split,
+                                             hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, st);
+  else
+    err = srt::joint_bwd_impl<float>(enc, pred, W, b, ids, sl, B, R, J, V, blank, lse, dlpb, dlpe, n_split, hbuf,
+                                     dpre, dW_part, db_part, denc, dpred, dW, db, st);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

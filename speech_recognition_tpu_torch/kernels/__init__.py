@@ -60,6 +60,11 @@ _SIGNATURES = {
     "mhsa_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P] * 4,
     # dtype_bf16, q, k, v, bias, seeds, m, l, dout, B, T, H, d, scale, p_drop, inv_keep, rowterm, dq, dk, dv, stream
     "mhsa_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
+    # dtype_bf16, enc, pred, W, b, ids, p (NULL: every node), B, T, U1, S, J, V, blank, lpb, lpe, lse, stream
+    "transducer_joint_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 4,
+    # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split,
+    # hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
+    "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 9,
 }
 
 

@@ -111,7 +111,8 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) 
                 module.bias[H : 2 * H] = 1.0
         elif isinstance(module, nn.Linear):
             normal_(module.weight, 1.0 / math.sqrt(module.weight.shape[1]))
-            module.bias.zero_()
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, nn.Conv2d):
             normal_(module.weight, 1.0 / math.sqrt(module.weight[0].numel()))
             module.bias.zero_()

@@ -1,0 +1,221 @@
+"""The RNN-Transducer joint fused with its log-softmax planes: kernels K8 (banded) and K9 (dense).
+
+K8 replaces ``fused_banded_planes`` (speech_recognition_tpu/ops/pallas/band_kernel.py:354),
+K9 ``fused_joint_planes`` (speech_recognition_tpu/ops/pallas/transducer_kernel.py:326).
+Per lattice node (t, u): ``log_softmax(tanh(enc[b, t] + pred[b, u]) @ W + b)``
+at the blank and at the target ``ids[b, u]``, without the ``[B, T, S, V]``
+logits ever reaching device memory.  K9 visits every node (u = s, s < U+1);
+K8 the ``s_range`` nodes of each frame's band (u = p[b, t] + s).  Both are one
+CUDA source, ``csrc/transducer_joint.cu``, with the slot map as a parameter:
+
+- forward: a block owns 32 joint rows, builds their ``h`` in shared memory
+  (rounded to the compute type after the add and after the tanh) and walks V
+  in tiles with an online row max and sum-exp, picking the blank and target
+  logits on the way; it writes ``lse`` (the backward's residual) and the two
+  planes ``z - lse``;
+- backward: a row kernel recomputes the logits, forms ``dz`` rounded to the
+  compute type and ``dpre = (dz @ W^T)(1 - h^2)``; a column kernel owns tiles
+  of V and sums ``dW = h^T dz``, ``db = sum dz`` over every row; ``denc`` and
+  ``dpred`` are ordered reductions of ``dpre``.  No atomics: every sum has a
+  fixed order, so a run repeats bit for bit;
+- in bf16 the four products run on the tensor cores (``wmma`` 16x16x16 tiles,
+  float32 accumulators: the bf16 operands' products are exact, as in a
+  float32 FMA); in float32 they run on the CUDA cores in float32, not TF32.
+
+The wrappers (``banded_planes_fwd`` / ``_bwd``, ``joint_planes_fwd`` / ``_bwd``)
+take the plain PyTorch twin for a CPU tensor (``ops/transducer_pruned.py``,
+``ops/transducer.py``) and launch the kernel for a CUDA tensor, counting the
+launch; a shape the kernel does not take raises with the reason, and a CUDA
+tensor never reaches the plain version.  Unlike the Pallas gates (V % 128,
+J % 8, U+1 <= 512, a VMEM budget, s_range <= 32) the kernels take any V, any
+U+1 >= 1 and any 1 <= S <= U+1; J up to ``MAX_J`` (shared memory).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from .transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
+from .transducer_pruned import banded_planes_bwd_plain, banded_planes_fwd_plain
+
+MAX_J = 1000  # the dW kernel keeps all of J x 64 columns of W and the h of 32 rows in one block's shared memory
+
+
+def _check(enc, pred, W, b, ids, p, S: int, blank: int):
+    from ..kernels import check_operands
+
+    check_operands((torch.float32, torch.bfloat16), enc=enc)
+    check_operands(enc.dtype, enc.device, pred=pred, W=W, b=b)
+    check_operands(torch.int32, enc.device, ids=ids)
+    if p is not None:
+        check_operands(torch.int32, enc.device, p=p)
+    B, T, J = enc.shape
+    U1, V = pred.shape[1], W.shape[1]
+    problems = [
+        (pred.dim() != 3 or pred.shape[0] != B or pred.shape[2] != J, f"pred {tuple(pred.shape)} is not [B, U+1, J]"),
+        (W.shape[0] != J or b.shape != (V,), f"W {tuple(W.shape)} / b {tuple(b.shape)} are not [J, V] / [V]"),
+        (ids.shape != (B, U1 - 1), f"ids {tuple(ids.shape)} is not [B, U] with U + 1 = {U1}"),
+        (p is not None and p.shape != (B, T), f"band starts {None if p is None else tuple(p.shape)} are not [B, T]"),
+        (U1 < 1, "no label slot (U + 1 = 0)"),
+        (not 1 <= S <= U1, f"band width {S} not in [1, U + 1 = {U1}]"),
+        (not 0 <= blank < V, f"blank index {blank} outside the vocab [0, {V})"),
+        (J > MAX_J, f"joint width {J} > {MAX_J} (shared memory of one block)"),
+        (B * T * S >= 2**31, f"{B * T * S} joint rows overflow int32"),
+    ]
+    for bad, reason in problems:
+        if bad:
+            raise ValueError(f"transducer joint kernel: {reason}")
+
+
+def _launch_fwd(enc, pred, W, b, ids, p, S: int, blank: int):
+    from ..kernels import error_string, library, stream
+
+    _check(enc, pred, W, b, ids, p, S, blank)
+    B, T, J = enc.shape
+    U1, V = pred.shape[1], W.shape[1]
+    lpb, lpe, lse = (torch.empty(B, T, S, dtype=torch.float32, device=enc.device) for _ in range(3))
+    err = library().transducer_joint_fwd(
+        int(enc.dtype == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(),
+        ids.data_ptr(), None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank,
+        lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), stream(enc.device),
+    )
+    if err:
+        raise RuntimeError(f"transducer_joint_fwd kernel launch failed: {error_string(err)}")
+    return lpb, lpe, lse
+
+
+def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
+    from ..kernels import check_operands, error_string, library, stream
+
+    _check(enc, pred, W, b, ids, p, S, blank)
+    check_operands(torch.float32, enc.device, lse=lse, dlpb=dlpb, dlpe=dlpe)
+    B, T, J = enc.shape
+    U1, V = pred.shape[1], W.shape[1]
+    if not lse.shape == dlpb.shape == dlpe.shape == (B, T, S):
+        raise ValueError(f"transducer joint kernel: lse / cotangents {tuple(lse.shape)} {tuple(dlpb.shape)} "
+                         f"{tuple(dlpe.shape)} are not [B, T, S] = {(B, T, S)}")
+    R, dev, dt = B * T * S, enc.device, enc.dtype
+    n_split = max(1, min(4, R // 2048))  # row splits of the dW kernel: more blocks than the V tiles alone
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
+    hbuf, dpre = torch.empty(R, J, dtype=dt, device=dev), f32(R, J)
+    dW, db = f32(J, V), f32(V)
+    dW_part, db_part = (f32(n_split, J, V), f32(n_split, V)) if n_split > 1 else (dW, db)
+    denc, dpred = torch.empty(B, T, J, dtype=dt, device=dev), torch.empty(B, U1, J, dtype=dt, device=dev)
+    err = library().transducer_joint_bwd(
+        int(dt == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(),
+        None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank, lse.data_ptr(), dlpb.data_ptr(),
+        dlpe.data_ptr(), n_split, hbuf.data_ptr(), dpre.data_ptr(), dW_part.data_ptr(), db_part.data_ptr(),
+        denc.data_ptr(), dpred.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
+    )
+    if err:
+        raise RuntimeError(f"transducer_joint_bwd kernel launch failed: {error_string(err)}")
+    return denc, dpred, dW, db
+
+
+def banded_planes_fwd(enc, pred, W, b, ids, p, s_range: int, blank: int):
+    """K8 forward: (lp_blank, lp_emit, lse) [B, T, S] float32 at the band nodes (t, p[b, t] + s).
+
+    :param enc: [B, T, J]; ``pred`` [B, U+1, J], ``W`` [J, V], ``b`` [V] in enc's type
+    :param ids: [B, U] int32; ``p`` [B, T] int32 band starts
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if enc.device.type == "cpu":
+        return banded_planes_fwd_plain(enc, pred, W, b, ids, p, s_range, blank)
+    out = _launch_fwd(enc, pred, W, b, ids, p, s_range, blank)
+    banded_planes_fwd.launches += 1
+    return out
+
+
+def banded_planes_bwd(enc, pred, W, b, ids, p, s_range: int, blank: int, lse, dlpb, dlpe):
+    """K8 backward for band cotangents [B, T, S] float32: (denc [B, T, J], dpred [B, U+1, J]
+    in enc's type, dW [J, V], db [V] float32)."""
+    if enc.device.type == "cpu":
+        return banded_planes_bwd_plain(enc, pred, W, b, ids, p, s_range, blank, lse, dlpb, dlpe)
+    out = _launch_bwd(enc, pred, W, b, ids, p, s_range, blank, lse, dlpb, dlpe)
+    banded_planes_bwd.launches += 1
+    return out
+
+
+def joint_planes_fwd(enc, pred, W, b, ids, blank: int):
+    """K9 forward: (lp_blank, lp_emit, lse) [B, T, U+1] float32 at every node; lp_emit's
+    column u = U has no target.  CPU: the plain version; CUDA: the kernel."""
+    if enc.device.type == "cpu":
+        return joint_planes_fwd_plain(enc, pred, W, b, ids, blank)
+    out = _launch_fwd(enc, pred, W, b, ids, None, pred.shape[1], blank)
+    joint_planes_fwd.launches += 1
+    return out
+
+
+def joint_planes_bwd(enc, pred, W, b, ids, blank: int, lse, dlpb, dlpe):
+    """K9 backward for cotangents [B, T, U+1] float32: (denc, dpred, dW, db) as K8's."""
+    if enc.device.type == "cpu":
+        return joint_planes_bwd_plain(enc, pred, W, b, ids, blank, lse, dlpb, dlpe)
+    out = _launch_bwd(enc, pred, W, b, ids, None, pred.shape[1], blank, lse, dlpb, dlpe)
+    joint_planes_bwd.launches += 1
+    return out
+
+
+for _fn in (banded_planes_fwd, banded_planes_bwd, joint_planes_fwd, joint_planes_bwd):
+    _fn.launches = 0
+
+
+def _operands(enc, pred, W, b, ids):
+    dt = enc.dtype
+    return (enc.contiguous(), pred.to(dt).contiguous(), W.to(dt).contiguous(), b.to(dt).contiguous(),
+            ids.to(torch.int32).contiguous())
+
+
+def _cotangent(g, like):
+    return torch.zeros_like(like) if g is None else g.float().contiguous()
+
+
+class _BandedPlanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, enc, pred, W, b, ids, p, s_range, blank):
+        ops = _operands(enc, pred, W, b, ids)
+        pc = p.to(torch.int32).contiguous()
+        lpb, lpe, lse = banded_planes_fwd(*ops, pc, s_range, blank)
+        ctx.save_for_backward(*ops, pc, lse)
+        ctx.meta = (s_range, blank, pred.dtype, W.dtype, b.dtype)
+        return lpb, lpe
+
+    @staticmethod
+    def backward(ctx, dlpb, dlpe):
+        enc, pred, W, b, ids, p, lse = ctx.saved_tensors
+        s_range, blank, pred_dtype, w_dtype, b_dtype = ctx.meta
+        denc, dpred, dW, db = banded_planes_bwd(enc, pred, W, b, ids, p, s_range, blank, lse,
+                                                _cotangent(dlpb, lse), _cotangent(dlpe, lse))
+        return denc, dpred.to(pred_dtype), dW.to(w_dtype), db.to(b_dtype), None, None, None, None
+
+
+class _JointPlanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, enc, pred, W, b, ids, blank):
+        ops = _operands(enc, pred, W, b, ids)
+        lpb, lpe, lse = joint_planes_fwd(*ops, blank)
+        ctx.save_for_backward(*ops, lse)
+        ctx.meta = (blank, pred.dtype, W.dtype, b.dtype)
+        return lpb, lpe[:, :, :-1]
+
+    @staticmethod
+    def backward(ctx, dlpb, dlpe):
+        enc, pred, W, b, ids, lse = ctx.saved_tensors
+        blank, pred_dtype, w_dtype, b_dtype = ctx.meta
+        dlpe = _cotangent(dlpe, lse[:, :, :-1])
+        denc, dpred, dW, db = joint_planes_bwd(enc, pred, W, b, ids, blank, lse, _cotangent(dlpb, lse),
+                                               F.pad(dlpe, (0, 1)).contiguous())
+        return denc, dpred.to(pred_dtype), dW.to(w_dtype), db.to(b_dtype), None, None
+
+
+def fused_banded_planes(blank_index: int, s_range: int, enc_proj, pred_proj, wo, bo, ids, p):
+    """Banded joint planes (lp_blank, lp_emit) [B, T, S] float32, differentiable in
+    ``enc_proj``, ``pred_proj``, ``wo`` and ``bo`` (JAX ``fused_banded_planes``'s contract).
+    ``wo``, ``bo`` and ``pred_proj`` are cast to ``enc_proj``'s type; slots past the
+    targets hold finite values that the dense scatter drops."""
+    return _BandedPlanes.apply(enc_proj, pred_proj, wo, bo, ids, p, s_range, blank_index)
+
+
+def fused_joint_planes(blank_index: int, enc_proj, pred_proj, wo, bo, ids):
+    """Dense joint planes (lp_blank [B, T, U+1], lp_emit [B, T, U]) float32
+    (JAX ``fused_joint_planes``' contract), differentiable as ``fused_banded_planes``."""
+    return _JointPlanes.apply(enc_proj, pred_proj, wo, bo, ids, blank_index)

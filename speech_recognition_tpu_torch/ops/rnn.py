@@ -19,14 +19,23 @@ bias), gates in z,r,h order.  As in JAX:
 
 The time loop is plain PyTorch: one ``[2, B, H] x [2, H, G*H]`` batched
 matmul per step runs the forward and the (time-flipped) backward direction
-together.  ``rnn_type: rnn`` and recurrent dropout are not ported yet.  The JAX package computes the same loop as a ``lax.scan`` outside
-any Pallas kernel.
+together.  On the card the LSTM's forward and backward loops replay as CUDA
+graphs (``GRAPHS``, ``ops/graphs.py``) once a shape repeats.  ``LSTM`` is the unidirectional layer (JAX ``RNN("lstm")``,
+ops/rnn.py:307-420: the transducer's prediction network) on the same scan,
+and ``cell_step`` (ops/rnn.py:100-135) one recurrence step for the
+decoders.  ``rnn_type: rnn`` and recurrent dropout are not ported yet.  The
+JAX package computes the same loop as a ``lax.scan`` outside any Pallas
+kernel.
 """
 
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from .graphs import CudaGraphs
+
+GRAPHS = CudaGraphs()  # the LSTM loops of CUDA tensors
 
 
 class LSTMCellParams(nn.Module):
@@ -59,6 +68,33 @@ def lstm_cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     zi, zf, zc, zo = z.chunk(4, dim=-1)
     c_new = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zc)
     return torch.sigmoid(zo) * torch.tanh(c_new), c_new
+
+
+def cell_step(rnn_type: str, x_proj_t, state, recurrent_kernel, recurrent_bias, units: int):
+    """One recurrence step (ops/rnn.py:100-135).  ``x_proj_t`` is the input
+    projection, input bias included; returns (output, new state tuple)."""
+    if rnn_type == "lstm":
+        h, c = state
+        z = x_proj_t + h @ recurrent_kernel
+        zi, zf, zc, zo = z.chunk(4, dim=-1)
+        c_new = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zc)
+        h_new = torch.sigmoid(zo) * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+    if rnn_type == "gru":
+        (h,) = state
+        inner = h @ recurrent_kernel
+        if recurrent_bias is not None:
+            inner = inner + recurrent_bias
+        xz, xr, xh = x_proj_t.chunk(3, dim=-1)
+        rz, rr, rh = inner.chunk(3, dim=-1)
+        z = torch.sigmoid(xz + rz)
+        r = torch.sigmoid(xr + rr)
+        hh = torch.tanh(xh + r * rh)
+        h_new = z * h + (1.0 - z) * hh
+        return h_new, (h_new,)
+    (h,) = state
+    h_new = torch.tanh(x_proj_t + h @ recurrent_kernel)
+    return h_new, (h_new,)
 
 
 def _lstm_scan_core(x_proj, mask, rk, h0, c0, save: bool):
@@ -94,44 +130,61 @@ def _lstm_scan_core(x_proj, mask, rk, h0, c0, save: bool):
     return out, hs[T], cs[T], residuals
 
 
+def _lstm_forward(x_proj, mask, rk, h0, c0):
+    """The forward loop without residuals: (out, h_last, c_last)."""
+    return _lstm_scan_core(x_proj, mask, rk, h0, c0, save=False)[:3]
+
+
+def _lstm_forward_saved(x_proj, mask, rk, h0, c0):
+    """The forward loop with residuals, flat: (out, h_last, c_last, sig, tg, cps, h_prev, c_prev)."""
+    out, h_last, c_last, residuals = _lstm_scan_core(x_proj, mask, rk, h0, c0, save=True)
+    return (out, h_last, c_last, *residuals)
+
+
+def _lstm_backward(dout, dh, dc, mask, rk, sig, tg, cps, h_prev, c_prev):
+    """The reverse loop: (dz [T, D, B, 4H], drk, dh0, dc0)."""
+    T = sig.shape[0]
+    H = tg.shape[-1]
+    m_f = mask.to(sig.dtype)
+    rk_t = rk.transpose(1, 2)
+    dz = torch.empty_like(sig)
+    for t in range(T - 1, -1, -1):
+        m = m_f[t]
+        s = sig[t]
+        i, f, o = s[..., :H], s[..., H:2 * H], s[..., 3 * H:]
+        g = tg[t]
+        tanh_cp = torch.tanh(cps[t])
+        dh_p = m * dout[t] + m * dh
+        dc_p = m * dc + dh_p * o * (1.0 - tanh_cp * tanh_cp)
+        dc_prev = (1.0 - m) * dc + dc_p * f
+        torch.cat([dc_p * g * i * (1.0 - i), dc_p * c_prev[t] * f * (1.0 - f), dc_p * i * (1.0 - g * g),
+                   dh_p * tanh_cp * o * (1.0 - o)], dim=-1, out=dz[t])
+        dh = torch.baddbmm((1.0 - m) * dh, dz[t], rk_t)
+        dc = dc_prev
+    return dz, torch.einsum("tdbh,tdbg->dhg", h_prev, dz), dh, dc
+
+
 class _LSTMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_proj, mask, rk, h0, c0):
-        out, h_last, c_last, (sig, tg, cps, h_prev, c_prev) = _lstm_scan_core(x_proj, mask, rk, h0, c0, save=True)
-        ctx.save_for_backward(mask, rk, sig, tg, cps, h_prev, c_prev)
+        out, h_last, c_last, *residuals = GRAPHS.run(_lstm_forward_saved, x_proj, mask, rk, h0, c0)
+        ctx.save_for_backward(mask, rk, *residuals)
         return out, h_last.clone(), c_last.clone()
 
     @staticmethod
     def backward(ctx, dout, dh, dc):
-        mask, rk, sig, tg, cps, h_prev, c_prev = ctx.saved_tensors
-        T = sig.shape[0]
-        H = tg.shape[-1]
-        m_f = mask.to(sig.dtype)
-        rk_t = rk.transpose(1, 2)
-        dz = torch.empty_like(sig)
-        for t in range(T - 1, -1, -1):
-            m = m_f[t]
-            s = sig[t]
-            i, f, o = s[..., :H], s[..., H:2 * H], s[..., 3 * H:]
-            g = tg[t]
-            tanh_cp = torch.tanh(cps[t])
-            dh_p = m * dout[t] + m * dh
-            dc_p = m * dc + dh_p * o * (1.0 - tanh_cp * tanh_cp)
-            dc_prev = (1.0 - m) * dc + dc_p * f
-            torch.cat([dc_p * g * i * (1.0 - i), dc_p * c_prev[t] * f * (1.0 - f), dc_p * i * (1.0 - g * g),
-                       dh_p * tanh_cp * o * (1.0 - o)], dim=-1, out=dz[t])
-            dh = torch.baddbmm((1.0 - m) * dh, dz[t], rk_t)
-            dc = dc_prev
-        drk = torch.einsum("tdbh,tdbg->dhg", h_prev, dz)
+        dz, drk, dh, dc = GRAPHS.run(_lstm_backward, dout.contiguous(), dh.contiguous(), dc.contiguous(),
+                                     *ctx.saved_tensors)
         return dz, None, drk, dh, dc
 
 
 def lstm_scan(x_proj, mask, rk, h0, c0):
     """Masked LSTM over time-major inputs (see ``_lstm_scan_core``): (out, h_last, c_last).
-    Differentiable through ``_LSTMScan`` when autograd needs it."""
+    Differentiable through ``_LSTMScan`` when autograd needs it; the loops of
+    CUDA tensors replay as CUDA graphs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, rk, h0, c0)):
         return _LSTMScan.apply(x_proj, mask, rk, h0, c0)
-    return _lstm_scan_core(x_proj, mask, rk, h0, c0, save=False)[:3]
+    return GRAPHS.run(_lstm_forward, x_proj, mask, rk, h0, c0)
 
 
 def _gru_scan_core(x_proj, mask, rk, rb, h0, save: bool):
@@ -288,3 +341,37 @@ class BiGRU(_BiRNN):
             h = torch.stack([s.to(dtype) for s in initial_state])
         out, h = gru_scan(x_proj, m_all, rk, rb, h)
         return self._outputs(out), h[0], h[1]
+
+
+class LSTM(nn.Module):
+    """Unidirectional masked LSTM (JAX ``RNN("lstm")``, ops/rnn.py:307-420), its
+    parameters under ``cell``.
+
+    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (h, c) or None) ->
+    (outputs [B,T,H], zero at masked steps; (h_last, c_last)).  ``dropout`` > 0
+    applies the training input dropout: one ``[B, 1, D]`` mask per sequence,
+    shared across time, drawn from ``generator``.
+    """
+
+    def __init__(self, in_dim: int, units: int):
+        super().__init__()
+        self.units = units
+        self.cell = LSTMCellParams(in_dim, units)
+
+    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        B, T, D = inputs.shape
+        x = inputs.to(dtype)
+        if dropout > 0.0:
+            keep = 1.0 - dropout
+            drop = torch.rand(B, 1, D, generator=generator, device=x.device) < keep
+            x = x * drop.to(dtype) / keep
+        x_proj = (x @ self.cell.kernel.to(dtype) + self.cell.bias.to(dtype)).transpose(0, 1)[:, None].contiguous()
+        if initial_state is None:
+            h = torch.zeros(1, B, self.units, dtype=dtype, device=inputs.device)
+            c = torch.zeros_like(h)
+        else:
+            h, c = (s.to(dtype)[None] for s in initial_state)
+        out, h, c = lstm_scan(x_proj, mask.t()[:, None, :, None].contiguous(), self.cell.recurrent_kernel.to(dtype)[None],
+                              h, c)
+        return out[:, 0].transpose(0, 1), (h[0], c[0])

@@ -5,8 +5,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..configs import ConformerConfig, DeepSpeechConfig, LASConfig
-from ..models import LAS, Conformer, DeepSpeech2
+from ..configs import ConformerConfig, DeepSpeechConfig, LASConfig, TransducerConfig
+from ..models import LAS, Conformer, DeepSpeech2, Transducer
 
 
 def select_device(device: str) -> torch.device:
@@ -32,17 +32,17 @@ def compute_dtype(mixed_precision: bool) -> torch.dtype:
     return torch.bfloat16 if mixed_precision else torch.float32
 
 
-_MODELS = {LASConfig: LAS, DeepSpeechConfig: DeepSpeech2, ConformerConfig: Conformer}
+_MODELS = {LASConfig: LAS, DeepSpeechConfig: DeepSpeech2, ConformerConfig: Conformer, TransducerConfig: Transducer}
 
 
 def create_model(model_config, data_config, dtype: torch.dtype, device: torch.device, generator=None,
                  train: bool = False) -> torch.nn.Module:
-    """The port's model for a model config: LAS, DeepSpeech2 or the Conformer.
+    """The port's model for a model config: LAS, DeepSpeech2, the Conformer or the RNN-Transducer.
     ``train`` only sets the module mode: the forward takes ``training`` explicitly."""
     family = _MODELS.get(type(model_config))
     if family is None:
         raise NotImplementedError(
-            f"{type(model_config).__name__} is not ported to torch yet (LAS, DeepSpeech2, Conformer)")
+            f"{type(model_config).__name__} is not ported to torch yet (LAS, DeepSpeech2, Conformer, Transducer)")
     model = family(model_config, data_config.frequency_dim, data_config.feature_dim, dtype=dtype, generator=generator)
     return model.to(device).train(train)
 

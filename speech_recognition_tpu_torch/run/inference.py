@@ -4,7 +4,8 @@ Same flags and the same TSV as ``speech_recognition_tpu.run.inference``.
 Audio decoding, batching, the tokenizer and the configs are the port's
 copies of the JAX package's host modules; features are the port's host
 numpy chain.  An LAS model decodes through ``LASSearcher`` (kernels K4 /
-K5), a CTC model (DeepSpeech2, the Conformer) through ``DeepSpeechSearcher``.  Weights are
+K5), an RNN-Transducer through ``TransducerSearcher`` (K7 in its encoder, K5
+in the beam), a CTC model (DeepSpeech2, the Conformer) through ``DeepSpeechSearcher``.  Weights are
 a ``.pt`` state_dict (``weights.params_from_jax`` converts a Flax tree).
 Runs on the GPU unless ``--device CPU`` is given.
 
@@ -43,8 +44,8 @@ def main(args: argparse.Namespace):
     from ..data import (
         SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream, quantized_padded_batch)
     from ..ops.features import make_feature_fn
-    from ..models import LAS
-    from ..search import DeepSpeechSearcher, LASSearcher
+    from ..models import LAS, Transducer
+    from ..search import DeepSpeechSearcher, LASSearcher, TransducerSearcher
     from .common import compute_dtype, create_model, load_weights, pipelined_decode, select_device, to_device
 
     if args.on_device_frontend:
@@ -73,6 +74,8 @@ def main(args: argparse.Namespace):
     logger.info(f"Loaded weights of model from {args.model_path}")
     if isinstance(model, LAS):
         searcher = LASSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_id)
+    elif isinstance(model, Transducer):
+        searcher = TransducerSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_index)
     else:  # a CTC model: the searcher needs its logits and the blank index
         searcher = DeepSpeechSearcher(model, model_config.blank_index)
 

@@ -1,12 +1,13 @@
-"""Training entry point of the port: train a LAS, DeepSpeech2 or Conformer-CTC model on one GPU
+"""Training entry point of the port: train a LAS, DeepSpeech2, Conformer-CTC or RNN-Transducer model on one GPU
 (or, with ``--device CPU``, on the CPU).
 
 Same flags and the same ``--from-file`` YAML (CLI keys override file keys) as
 ``speech_recognition_tpu.run.train``.  Audio decoding, tokenizing, length
 policies, shuffling, batching and prefetching are the port's copies of the
 JAX package's host modules; features are the port's host numpy chain; the
-model, the train step and Adam are the port's.  LAS is fed
-``((audio, lengths), tokens[:, :-1])`` against ``tokens[:, 1:]``; a CTC model
+model, the train step and Adam are the port's.  LAS and the transducer
+(token-conditioned models) are fed ``((audio, lengths), tokens[:, :-1])``
+against ``tokens[:, 1:]``; a CTC model
 (DeepSpeech2, the Conformer) ``(audio, lengths)`` against the full tokens.  Each epoch ends
 with a dev pass and a ``.pt`` checkpoint named as the JAX package names its
 checkpoints, which ``--pretrained-model-path`` and the port's
@@ -146,7 +147,7 @@ def main(cfg: TrainConfig):
     from ..utils import copy as copy_file
 
     from ..data import SentencePieceTokenizer, padded_batch, prefetch_stream, repeat_stream, shuffle_stream
-    from ..models import LAS
+    from ..models import LAS, Transducer
     from ..train import (AsyncMetricAccumulator, TrainState, checkpoint_path, linear_warmup_decay, make_adam,
                          make_eval_step, make_train_step, save_weights)
     from .common import compute_dtype, count_params, create_model, load_weights, select_device
@@ -205,7 +206,8 @@ def main(cfg: TrainConfig):
         skip_count %= cfg.train_dataset_size
     skip_examples = {"count": skip_count}
     pin = device.type == "cuda"
-    token_conditioned = isinstance(model, LAS)
+    # models whose input is (features, decoder / prediction tokens)
+    token_conditioned = isinstance(model, (LAS, Transducer))
 
     def batch_iterator(factory, batch_size, train: bool, epoch: int = 0):
         skip = skip_examples.pop("count", 0) if train else 0

@@ -1,4 +1,4 @@
-"""LAS and CTC searches (counterpart of speech_recognition_tpu/search.py).
+"""LAS, CTC and RNN-Transducer searches (counterpart of speech_recognition_tpu/search.py).
 
 ``LASSearcher`` (search.py:62-333): scoring follows the JAX package (and through it the reference):
 
@@ -18,6 +18,11 @@ projection, top-k and logsumexp of every step, the first included.
 outputs in plain PyTorch, as the JAX package does it outside any Pallas
 kernel: greedy path collapse, and the prefix beam with P = min(max(2K, 8),
 V) candidate tokens per frame and the cross-beam merge.
+
+``TransducerSearcher`` (search.py:515-849): greedy runs the JAX package's
+plain joint step (no Pallas kernel there either) in a host-driven loop; the
+time-synchronous beam (TSD, ``max_symbols`` joint evaluations per frame)
+scores each round's joint through kernel K5.
 """
 
 from typing import Tuple
@@ -26,6 +31,7 @@ import torch
 
 from .models.las import LAS
 from .ops.greedy_search import greedy_search, seq_lengths
+from .ops.rnn import cell_step
 from .ops.vocab_topk import ROUND_NONE, ROUND_TWICE, vocab_topk
 
 
@@ -245,3 +251,201 @@ class DeepSpeechSearcher:
         """audio [B,T,F,C] -> (tokens [B, beam, T'], probability [B, beam])."""
         tokens, total = ctc_beam_decode(self._log_probs(audio), self.blank_index, int(beam_size))
         return tokens, torch.exp(total)
+
+
+class TransducerSearcher:
+    """Greedy and time-synchronous beam search over an RNN-Transducer (JAX
+    ``TransducerSearcher``, search.py:515-849).  Prediction-net weights are cast
+    to the compute type once, at the first search.
+
+    Greedy (search.py:579-640): at node (t, u) take the joint's argmax (the
+    first maximum on ties); blank advances t, a label the prediction network,
+    EOS ends the lane, and once ``max_token_length`` labels are out every step
+    is a blank.  Each step advances t or u on every active lane, so the loop
+    ends within T' + L steps; it runs on the host and checks every 8 steps
+    whether a lane is still active.
+
+    TSD beam (search.py:642-849): per frame, ``max_symbols`` joint rounds over
+    the K live hypotheses; each round moves the blank / EOS continuations into
+    the frame's done pool, and every round but the last keeps the top-K label
+    extensions as the next live pool.  The joint's vocab projection, top-k and
+    logsumexp run in kernel K5 with ``k_ext = min(K, V) + 3`` candidates, so
+    that blank, EOS and pad can be masked afterwards; the blank and EOS logits
+    come from a ``[J, 2]`` side product rounded as K5 rounds (twice to bf16
+    under bf16).  Every top-k takes the lower index first on ties.  Scores are
+    raw single-alignment log-probabilities.
+    """
+
+    def __init__(self, model, max_token_length: int, bos_id: int, eos_id: int, pad_id: int = 0):
+        self.model = model
+        self.max_token_length = max_token_length
+        self.bos_id = bos_id
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self._params = None
+
+    @torch.no_grad()
+    def pred_params(self):
+        """(emb [V, P], cells [(kernel, recurrent_kernel, bias)], wp [P, J], wo [J, V] in the
+        compute type; bo [V] float32)."""
+        if self._params is None:
+            m = self.model
+
+            def cast(t):
+                return t.detach().to(m.compute_dtype).contiguous()
+
+            cells = [(cast(layer.cell.kernel), cast(layer.cell.recurrent_kernel), cast(layer.cell.bias))
+                     for layer in m.pred_layers()]
+            self._params = (cast(m.embedding.weight), cells, cast(m.pred_proj.weight.T), cast(m.joint_kernel),
+                            m.joint_bias.detach().float().contiguous())
+        return self._params
+
+    def pred_step(self, tok, states):
+        """One prediction-net step: tokens [N] and per-layer (h, c) -> (pred_proj [N, J], new states)."""
+        emb, cells, wp, _, _ = self.pred_params()
+        x = emb[tok]
+        new_states = []
+        for (k, rk, b), st in zip(cells, states):
+            x, st_new = cell_step("lstm", x @ k + b, st, rk, None, self.model.pred_dim)
+            new_states.append(st_new)
+        return x @ wp, new_states
+
+    def _start(self, B, dev, dt):
+        zeros = torch.zeros(B, self.model.pred_dim, dtype=dt, device=dev)
+        states = [(zeros, zeros) for _ in range(self.model.num_pred_layers)]
+        return self.pred_step(torch.full((B,), self.bos_id, dtype=torch.long, device=dev), states)
+
+    @torch.no_grad()
+    def greedy_search(self, audio):
+        """audio [B,T,F,C] (or (features, lengths)) -> (tokens [B, max_token_length] pad-padded, probability [B])."""
+        enc, frame_lens = self.model.encode(audio)
+        B, T, _ = enc.shape
+        L, dev = self.max_token_length, enc.device
+        _, _, _, wo, bo = self.pred_params()
+        g, states = self._start(B, dev, enc.dtype)
+        rows = torch.arange(B, device=dev)
+        t = torch.zeros(B, dtype=torch.long, device=dev)
+        u = torch.zeros_like(t)
+        tokens = torch.full((B, L), self.pad_id, dtype=torch.long, device=dev)
+        logp = torch.zeros(B, device=dev)
+        for step in range(T + L + 1):
+            if step % 8 == 0 and not bool((t < frame_lens).any()):
+                break
+            z = (torch.tanh(enc[rows, t.clamp(0, T - 1)] + g) @ wo).float() + bo
+            lsm = torch.log_softmax(z, dim=-1)
+            tok = lsm.argmax(dim=-1)
+            active = t < frame_lens
+            is_eos = tok == self.eos_id
+            emit = active & (u < L) & (tok != self.model.blank_index) & ~is_eos
+            logp = logp + torch.where(active, lsm.gather(1, tok[:, None])[:, 0], 0.0)
+            # EOS ends the lane outright; blank (or the cap) advances time
+            t = torch.where(active & is_eos, frame_lens, torch.where(active & ~emit, t + 1, t))
+            slot = u.clamp(max=L - 1)
+            tokens[rows, slot] = torch.where(emit, tok, tokens[rows, slot])
+            u = u + emit.long()
+            g_new, states_new = self.pred_step(tok, states)
+            keep = emit[:, None]
+            g = torch.where(keep, g_new, g)
+            states = [(torch.where(keep, hn, ho), torch.where(keep, cn, co))
+                      for (hn, cn), (ho, co) in zip(states_new, states)]
+        return tokens, torch.exp(logp)
+
+    @torch.no_grad()
+    def beam_search(self, audio, beam_size: int, max_symbols: int = 4):
+        """audio [B,T,F,C] (or (features, lengths)) -> (tokens [B, beam, max_token_length]
+        best first, probability [B, beam])."""
+        m = self.model
+        enc, frame_lens = m.encode(audio)
+        B, T, J = enc.shape
+        K, L, V = int(beam_size), self.max_token_length, m.vocab_size
+        dev, dt = enc.device, enc.dtype
+        NEG = -1e30
+        _, _, _, wo, bo = self.pred_params()
+        rounding = ROUND_TWICE if dt == torch.bfloat16 else ROUND_NONE
+        k_ext = min(min(K, V) + 3, V)
+        be = torch.tensor([m.blank_index, self.eos_id], device=dev)
+        wo_be, bo_be = wo[:, be].contiguous(), bo[be]
+        banned = [m.blank_index, self.eos_id] + ([self.pad_id] if self.pad_id != m.blank_index else [])
+        bidx = torch.arange(B, device=dev)[:, None]
+
+        def joint_scores(enc_t, c_g):
+            """One joint round for every hypothesis: (blank lp, eos lp [B, K], label lp, ids [B, K, k_ext])."""
+            rows = torch.tanh(enc_t[:, None, :] + c_g).reshape(B * K, J).contiguous()
+            vals, idx, lse = vocab_topk(rows, wo, bo, k_ext, rounding)
+            lse = lse.reshape(B, K)
+            zbe = (rows @ wo_be).float() + bo_be
+            if rounding == ROUND_TWICE:
+                zbe = zbe.to(torch.bfloat16).float()
+            zbe = zbe.reshape(B, K, 2)
+            ids = idx.reshape(B, K, k_ext)
+            ban = torch.zeros_like(ids, dtype=torch.bool)
+            for b in banned:
+                ban |= ids == b
+            lab = torch.where(ban, NEG, vals.reshape(B, K, k_ext) - lse[:, :, None])
+            return zbe[..., 0] - lse, zbe[..., 1] - lse, lab, ids
+
+        def gather(x, idx):
+            """Rows of x [B, K, ...] by idx [B, K']."""
+            return x[bidx, idx]
+
+        g0, st0 = self._start(B, dev, dt)
+        c_score = torch.where(torch.arange(K, device=dev) == 0, 0.0, NEG).expand(B, K).contiguous()
+        c_fin = torch.zeros(B, K, dtype=torch.bool, device=dev)
+        c_tokens = torch.full((B, K, L), self.pad_id, dtype=torch.long, device=dev)
+        c_u = torch.zeros(B, K, dtype=torch.long, device=dev)
+        c_g = g0[:, None, :].expand(B, K, J)
+        c_states = [(h[:, None, :].expand(B, K, -1), c[:, None, :].expand(B, K, -1)) for h, c in st0]
+        pos = torch.arange(L, device=dev)[None, None, :]
+        for t in range(T):
+            enc_t = enc[:, t]
+            frame_on = (t < frame_lens)[:, None]
+            d = None  # the frame's done pool: blank taken (or carried), or EOS
+            for e in range(max_symbols):
+                blank_lp, eos_lp, top_lp, top_id = joint_scores(enc_t, c_g)
+                live = frame_on & ~c_fin & (c_score > NEG / 2)
+                cand_score = torch.cat([c_score + torch.where(live, blank_lp, 0.0),
+                                        torch.where(live, c_score + eos_lp, NEG)], dim=1)  # [B, 2K]
+                cand_fin = torch.cat([c_fin, torch.ones_like(c_fin)], dim=1)
+                if d is not None:
+                    cand_score = torch.cat([d[0], cand_score], dim=1)
+                    cand_fin = torch.cat([d[1], cand_fin], dim=1)
+                d_idx = _topk_stable(cand_score, K)
+                new = (cand_score.gather(1, d_idx), cand_fin.gather(1, d_idx))
+                if d is None:  # the 2K candidates' parents are cur[idx % K]
+                    parent = d_idx % K
+                    d = (*new, gather(c_tokens, parent), gather(c_u, parent), gather(c_g, parent),
+                         [(gather(h, parent), gather(c, parent)) for h, c in c_states])
+                else:  # the first K candidates are the old pool, the rest map to cur
+                    from_pool = d_idx < K
+                    parent = torch.where(from_pool, d_idx, (d_idx - K) % K)
+
+                    def pick(pool_x, cur_x):
+                        sel = from_pool.reshape(from_pool.shape + (1,) * (cur_x.dim() - 2))
+                        return torch.where(sel, gather(pool_x, parent), gather(cur_x, parent))
+
+                    d = (*new, pick(d[2], c_tokens), pick(d[3], c_u), pick(d[4], c_g),
+                         [(pick(ph, ch), pick(pc, cc)) for (ph, pc), (ch, cc) in zip(d[5], c_states)])
+                if e == max_symbols - 1:
+                    break  # the budget is spent: the remaining hypotheses took the blank above
+
+                # label extensions -> the next live pool
+                kw = top_lp.shape[-1]
+                lab_sc = torch.where((live & (c_u < L))[:, :, None], c_score[:, :, None] + top_lp, NEG)
+                flat = _topk_stable(lab_sc.reshape(B, K * kw), K)
+                n_score = lab_sc.reshape(B, K * kw).gather(1, flat)
+                parent = flat // kw
+                n_tok = top_id.reshape(B, K * kw).gather(1, flat)
+                n_u = gather(c_u, parent)
+                alive = n_score > NEG / 2
+                write = (pos == n_u[:, :, None]) & alive[:, :, None]
+                c_tokens = torch.where(write, n_tok[:, :, None], gather(c_tokens, parent))
+                p_states = [(gather(h, parent).reshape(B * K, -1), gather(c, parent).reshape(B * K, -1))
+                            for h, c in c_states]
+                n_g, n_states = self.pred_step(n_tok.reshape(B * K), p_states)
+                c_score, c_fin = n_score, torch.zeros_like(c_fin)
+                c_u = n_u + alive.long()
+                c_g = n_g.reshape(B, K, J)
+                c_states = [(h.reshape(B, K, -1), c.reshape(B, K, -1)) for h, c in n_states]
+            c_score, c_fin, c_tokens, c_u, c_g, c_states = d
+        order = _topk_stable(c_score, K)
+        return gather(c_tokens, order), torch.exp(c_score.gather(1, order))

@@ -6,8 +6,9 @@ through ``model.hidden_states`` + ``model.loss_from_hidden`` as JAX's
 ``_fused_loss_wanted`` takes it: LAS's fused vocab-projection + CE (kernel
 K1, ``fused_ce_supported``), and DeepSpeech2's fused CTC emissions (kernel
 K6, ``fused_loss_supported``) when the model has no metric functions, since
-that route returns no outputs.  Any other model goes through full logits
-and ``loss_fn``.  Labels are transposed to time-major only for a model with
+that route returns no outputs.  Any other model goes through its forward's
+outputs and ``loss_fn``: full logits, or the RNN-Transducer's joint inputs
+(a dict the loss streams through kernel K8 or K9).  Labels are transposed to time-major only for a model with
 ``logits_time_major_supported`` (LAS), as in JAX; only such a
 token-conditioned model takes the teacher-forcing coin.
 
@@ -84,7 +85,7 @@ def make_train_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
         state.optimizer.step()
         state.step += 1
         metrics = {"loss": loss.detach()}
-        if outputs is not None:
+        if outputs is not None and metric_fns:
             _add_metrics(metrics, metric_fns, y_true, outputs.detach(), fused, getattr(model, "pad_id", 0))
         return metrics
 
@@ -117,7 +118,7 @@ def make_eval_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
             y_true = y_true.t()
         loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, False)
         metrics = {"loss": loss}
-        if outputs is not None:
+        if outputs is not None and metric_fns:
             _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
         return metrics
 

@@ -15,7 +15,10 @@ renamed and the layout changed where PyTorch's modules differ:
   (cuDNN's ``nn.LSTM`` would want i,f,g,o; the port does not use it.)
 - LayerNorm ``scale``/``bias`` <-> ``weight``/``bias`` (the batch-norm rule);
 - the Conformer's ``depthwise_kernel`` keeps Flax's [K, 1, C] layout and name;
-- the Conformer's ``scan_layers`` layout, ``blocks/block/...`` with a leading
+- the transducer's top-level ``joint_kernel`` [J, V] and ``joint_bias`` keep
+  their names and layout, its prediction net's ``pred_layer{i}/cell`` leaves
+  are LSTM cells, and ``pred_proj`` is a Dense without a bias;
+- the ``scan_layers`` layout (Conformer and transducer blocks), ``blocks/block/...`` with a leading
   [L] axis on every leaf, is split into ``block{i}`` subtrees on the way in
   (numpy, as the JAX package's ``unstack_block_params``), and stacked back by
   ``params_to_jax(..., scan_layers=True)``.

@@ -28,6 +28,19 @@ tests/test_pallas_attention.py: float32 sums in another order); bf16
 outputs and gradients within 2e-2 x max|ref| (the bf16 forward pin: a float32
 difference can move one rounding of the probs or ds by a step).  The keep
 mask read back through one-hot values equals ``keep_mask`` bit for bit.
+
+K8 (banded joint planes) and K9 (dense joint planes) at odd T, U+1 in {1, 2,
+127, 130}, band widths S in {1, 4, 8, 32}, J from 37 to 700 (two J chunks of
+the backward), V with and without a multiple of 8, blank 0 and nonzero, ragged frame
+and label lengths with a row of zero labels, and random cotangents on every
+slot: lse and both planes within rtol 1e-5 / atol 1e-4 (float32 logits summed
+in another order; h is rounded alike on both sides); gradients within 1e-5 x
+max|ref| in float32 (sums in another order), and in bf16 denc / dpred within
+2e-2 x max|ref| and dW / db within 1e-2 x max|ref| (both sides round dz to
+bf16, and a float32 difference can move one rounding by a step: K6's bf16
+tolerances).  The lattice DP's passes and the LSTM loops replayed as CUDA
+graphs equal the eager loops bit for bit, values and gradients, over replays
+with new inputs.
 """
 
 import pytest
@@ -40,6 +53,15 @@ from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, c
 from speech_recognition_tpu_torch.ops.decoder_kernel import (
     decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
 from speech_recognition_tpu_torch.ops.greedy_search import greedy_search, greedy_search_plain
+from speech_recognition_tpu_torch.ops.joint_planes import (banded_planes_bwd, banded_planes_fwd, joint_planes_bwd,
+                                                           joint_planes_fwd)
+from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+from speech_recognition_tpu_torch.ops import transducer as transducer_mod
+from speech_recognition_tpu_torch.ops.graphs import CudaGraphs
+from speech_recognition_tpu_torch.ops.rnn import lstm_scan
+from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain, transducer_loss
+from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
+                                                                banded_planes_fwd_plain)
 from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_NONE, ROUND_ONCE, ROUND_TWICE, vocab_topk, vocab_topk_plain
 
 pytestmark = pytest.mark.cuda
@@ -269,3 +291,103 @@ def test_mhsa_kernel_keep_mask_bit_identical(cuda, dtype):
         out, _, _ = mhsa_fwd(zeros, zeros, v.view(B, T, H * d), bias, seeds, H, 0.125, p)
         kept = out.view(B, T, H, d)[..., :n].permute(0, 2, 1, 3) > 0  # [B, H, T, n]
         assert torch.equal(kept, want[..., o:o + n])
+
+
+def _joint_operands(cuda, dtype, B, T, U1, J, V, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g) * scale).to(cuda, dtype)
+    enc, pred = r(B, T, J, scale=0.4), r(B, U1, J, scale=0.4)
+    W = r(J, V, scale=0.3 * min(1.0, (256 / J) ** 0.5))
+    b = r(V, scale=0.1)
+    ids = torch.randint(1, V, (B, U1 - 1), generator=g).to(cuda, torch.int32)
+    frame_lens = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g)
+    frame_lens[0] = T
+    label_lens = torch.randint(0, U1, (B,), generator=g)
+    label_lens[-1] = 0  # a row of zero labels
+    return enc, pred, W, b, ids, frame_lens.to(cuda), label_lens.to(cuda), g
+
+
+def _check_joint_grads(dtype, got, want):
+    assert got[0].dtype == got[1].dtype == dtype and got[2].dtype == got[3].dtype == torch.float32
+    for name, a, w, tol in zip(("denc", "dpred", "dW", "db"), got, want, (2e-2, 2e-2, 1e-2, 1e-2)):
+        _close(a, w, 1e-5 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, U1, S, J, V, blank", [
+    (3, 7, 1, 1, 48, 300, 0), (3, 9, 2, 1, 48, 1000, 5), (2, 255, 127, 4, 320, 2000, 0),
+    (2, 31, 130, 8, 64, 1000, 77), (2, 33, 127, 32, 320, 700, 3), (3, 17, 2, 1, 320, 16000, 0),
+    (2, 9, 5, 2, 37, 300, 1), (1, 5, 3, 2, 700, 136, 0)])
+def test_banded_joint_kernels_match_plain(cuda, dtype, B, T, U1, S, J, V, blank):
+    enc, pred, W, b, ids, frame_lens, label_lens, g = _joint_operands(cuda, dtype, B, T, U1, J, V, T + U1 + S)
+    p = band_offsets(frame_lens, label_lens, T, S)
+    got, want = banded_planes_fwd(enc, pred, W, b, ids, p, S, blank), banded_planes_fwd_plain(enc, pred, W, b, ids,
+                                                                                              p, S, blank)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+    dlpb, dlpe = (torch.randn(B, T, S, generator=g).to(cuda) for _ in range(2))
+    _check_joint_grads(dtype, banded_planes_bwd(enc, pred, W, b, ids, p, S, blank, want[2], dlpb, dlpe),
+                       banded_planes_bwd_plain(enc, pred, W, b, ids, p, S, blank, want[2], dlpb, dlpe))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, U1, J, V, blank", [
+    (2, 7, 1, 48, 300, 0), (2, 9, 2, 48, 1000, 5), (2, 13, 127, 320, 1000, 0), (1, 5, 130, 64, 2000, 77)])
+def test_dense_joint_kernels_match_plain(cuda, dtype, B, T, U1, J, V, blank):
+    enc, pred, W, b, ids, _, _, g = _joint_operands(cuda, dtype, B, T, U1, J, V, T * U1)
+    got, want = joint_planes_fwd(enc, pred, W, b, ids, blank), joint_planes_fwd_plain(enc, pred, W, b, ids, blank)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+    dlpb, dlpe = (torch.randn(B, T, U1, generator=g).to(cuda) for _ in range(2))
+    _check_joint_grads(dtype, joint_planes_bwd(enc, pred, W, b, ids, blank, want[2], dlpb, dlpe),
+                       joint_planes_bwd_plain(enc, pred, W, b, ids, blank, want[2], dlpb, dlpe))
+
+
+def test_joint_kernels_raise_on_shapes_they_do_not_take(cuda):
+    enc, pred, W, b, ids, frame_lens, label_lens, _ = _joint_operands(cuda, torch.float32, 2, 5, 3, 16, 100, 0)
+    p = band_offsets(frame_lens, label_lens, 5, 2)
+    with pytest.raises(ValueError, match="band width 4 not in"):
+        banded_planes_fwd(enc, pred, W, b, ids, p, 4, 0)
+    with pytest.raises(ValueError, match="blank index 100"):
+        joint_planes_fwd(enc, pred, W, b, ids, 100)
+
+
+def test_lattice_graphs_replay_the_eager_passes(cuda, monkeypatch):
+    graphs = CudaGraphs()
+    g = torch.Generator().manual_seed(0)
+    B, T, U = 3, 37, 9
+    for frames in ([37, 20, 5], [30, 37, 1], [2, 3, 37]):  # eager, captured, replayed
+        lpb, lpe = (torch.nn.functional.logsigmoid(torch.randn(B, T, n, generator=g)).to(cuda).requires_grad_(True)
+                    for n in (U + 1, U))
+        fl, ll = torch.tensor(frames, device=cuda), torch.tensor([9, 4, 0], device=cuda)
+        cot = torch.randn(B, generator=g).to(cuda)
+        runs = []
+        for cache in (CudaGraphs(), graphs):  # a new cache runs a shape eagerly
+            monkeypatch.setattr(transducer_mod, "GRAPHS", cache)
+            loss = transducer_loss(lpb, lpe, fl, ll)
+            runs.append((loss, *torch.autograd.grad(loss, (lpb, lpe), cot)))
+        assert torch.isfinite(runs[0][0]).all()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_graphs_replay_the_eager_loops(cuda, dtype, monkeypatch):
+    graphs = CudaGraphs()
+    g = torch.Generator().manual_seed(1)
+    T, B, H = 17, 5, 32
+    for lengths in ([17, 9, 1, 17, 4], [3, 17, 17, 8, 2], [1, 2, 17, 16, 17]):  # eager, captured, replayed
+        mask = (torch.arange(T)[:, None] < torch.tensor(lengths)[None, :])[:, None, :, None].to(cuda)
+        leaves = [(torch.randn(*s, generator=g) * 0.5).to(cuda, dtype).requires_grad_(True)
+                  for s in ((T, 1, B, 4 * H), (1, H, 4 * H), (1, B, H), (1, B, H))]
+        cots = [torch.randn(*s, generator=g).to(cuda, dtype) for s in ((T, 1, B, H), (1, B, H), (1, B, H))]
+        runs = []
+        for cache in (CudaGraphs(), graphs):  # a new cache runs a shape eagerly
+            monkeypatch.setattr(rnn_mod, "GRAPHS", cache)
+            out = lstm_scan(leaves[0], mask, *leaves[1:])
+            grads = torch.autograd.grad(out, leaves, cots)
+            with torch.no_grad():  # the loop without residuals
+                plain_out = lstm_scan(leaves[0], mask, *leaves[1:])
+            runs.append(out + grads + plain_out)
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)

@@ -2,8 +2,7 @@
 data/, utils/) against the originals, on the repository's fixtures.
 
 - Every YAML under resources/configs/ and tests/data/ loads into equal
-  config values, ``ConformerConfig`` included (the port refuses the model
-  family it has not ported, the transducer).
+  config values, ``ConformerConfig`` and ``TransducerConfig`` included.
   ``TrainConfig`` differs only where the port chose to: its ``device``
   default is GPU, and ``on_device_frontend`` stays None (off).
 - Audio decoding: the wav and pcm fixtures and two FLAC streams written
@@ -42,10 +41,6 @@ def test_configs_load_as_in_jax(path, monkeypatch):
         raw = yaml.safe_load(f)
     if "model_name" in raw:
         want = jconfigs.get_model_config(path)
-        if type(want).__name__ == "TransducerConfig":
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                configs.get_model_config(path)
-            return
         got = configs.get_model_config(path)
         assert type(got).__name__ == type(want).__name__
         assert dataclasses.asdict(got) == dataclasses.asdict(want)

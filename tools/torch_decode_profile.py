@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the decode time goes in the PyTorch port (LAS, DeepSpeech2 or Conformer-CTC, one CUDA GPU).
+"""Where the decode time goes in the PyTorch port (LAS, DeepSpeech2, Conformer-CTC or RNN-Transducer, one CUDA GPU).
 
     python3 tools/torch_decode_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
         [--out build/decode_profile.json]
@@ -13,7 +13,11 @@ whole ``greedy_search`` / ``beam_search``.  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``, its blocks'
 attention through kernel K7): the model's log-probs (trunk, vocab
 projection, log-softmax), and the whole CTC greedy / prefix beam-8 search;
-each loop's time is the search's less the log-probs'.  Then ``torch.profiler`` over one whole search of each
+each loop's time is the search's less the log-probs'.  The RNN-Transducer
+(``transducer_small.yml``): the encoder (``encode``: the Conformer blocks and
+``enc_proj``), the whole greedy search and TSD beam-8 search (4 joint rounds
+per frame through kernel K5), and each loop as the search less the encode.
+Then ``torch.profiler`` over one whole search of each
 kind: device time by kernel name and the device's busy share of the wall
 time.  Prints the card's name and power limit first; writes everything to
 ``--out`` as JSON.
@@ -75,7 +79,8 @@ def profile(fn, top_n=12):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-config", default="resources/configs/las_small.yml",
-                        help="las_small.yml, deepspeech.yml or conformer_small.yml (relative to the repository root)")
+                        help="las_small.yml, deepspeech.yml, conformer_small.yml or transducer_small.yml "
+                             "(relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/decode_profile.json")
     args = parser.parse_args()
@@ -84,10 +89,10 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
-    from speech_recognition_tpu_torch.configs import DataConfig, LASConfig, get_model_config
+    from speech_recognition_tpu_torch.configs import DataConfig, LASConfig, TransducerConfig, get_model_config
     from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
     from speech_recognition_tpu_torch.run.common import create_model, select_device
-    from speech_recognition_tpu_torch.search import DeepSpeechSearcher, LASSearcher
+    from speech_recognition_tpu_torch.search import DeepSpeechSearcher, LASSearcher, TransducerSearcher
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -104,7 +109,14 @@ def main():
     result = {"card": card, "model_config": args.model_config, "batch": B, "frames": 1024, "dtype": "bfloat16"}
 
     with torch.no_grad():
-        if not isinstance(model_config, LASConfig):
+        if isinstance(model_config, TransducerConfig):
+            searcher = TransducerSearcher(model, L, bos_id=1, eos_id=2, pad_id=model_config.pad_index)
+            result["encode_ms"] = cuda_ms(lambda: model.encode(audio))
+            result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))
+            result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
+            result["greedy_loop_ms"] = result["greedy_search_ms"] - result["encode_ms"]
+            result["beam8_loop_ms"] = result["beam8_search_ms"] - result["encode_ms"]
+        elif not isinstance(model_config, LASConfig):
             searcher = DeepSpeechSearcher(model, model_config.blank_index)
             result["log_probs_ms"] = cuda_ms(lambda: searcher._log_probs(audio))
             result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))

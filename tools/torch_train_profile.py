@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the training step's time goes in the PyTorch port (LAS, DeepSpeech2 or Conformer-CTC, one CUDA GPU).
+"""Where the training step's time goes in the PyTorch port (LAS, DeepSpeech2, Conformer-CTC or
+RNN-Transducer, one CUDA GPU).
 
     python3 tools/torch_train_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
         [--out build/train_profile.json]
@@ -9,7 +10,9 @@ non-zero features of 1024 frames with true lengths, and random tokens of
 128 positions with pad tails, bf16.  LAS (``las_small.yml``): N = 127
 decoder positions, the teacher-forced branch.  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``): labels of
-at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.
+at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.  The
+RNN-Transducer (``transducer_small.yml``, pruned S=4; or
+``transducer_small_dense.yml``, best with ``--batch 32``): LAS's tokens, T' = 255.
 
 1. The whole ``make_train_step`` step, CUDA events after two warm-up steps
    (median of 3).
@@ -20,11 +23,15 @@ at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.
    the attention recompute, the weight-gradient tail, step 0), K1 forward /
    backward, and Adam.  DS2: trunk forward / backward (convs, BiGRUs, batch
    norms), K6 forward / backward, the CTC dynamic programme forward /
-   backward, and Adam.  CUDA events around each stage, median of 3.
+   backward, and Adam.  The transducer: encoder forward / backward (stem,
+   blocks, ``enc_proj``), prediction net forward / backward, the joint planes
+   forward / backward (K8 with the band scatter, or K9), the lattice DP
+   forward / backward, and Adam.  CUDA events around each stage, median of 3.
 3. ``torch.profiler`` over one whole step: device time by kernel name, the
    device's idle share of the profiled wall time and of the unprofiled step
    time, and the time of each port kernel (LAS: K1 forward / backward, K2,
-   K3; DS2: K6 forward / backward; Conformer: K6 and K7 forward / backward).
+   K3; DS2: K6 forward / backward; Conformer: K6 and K7 forward / backward;
+   transducer: K7 and K8 or K9 forward / backward).
 
 Prints the card's name and power limit first; writes everything to
 ``--out`` as JSON.
@@ -56,12 +63,21 @@ PORT_KERNELS = {
         "K6 bwd": K6_BWD,
     },
 }
-PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], "K7 fwd": ("void srt::mhsa_fwd_kernel",),
-                             "K7 bwd": ("void srt::mhsa_bwd_dq_kernel", "void srt::mhsa_bwd_dkv_kernel")}
+K7 = {"K7 fwd": ("void srt::mhsa_fwd_kernel",),
+      "K7 bwd": ("void srt::mhsa_bwd_dq_kernel", "void srt::mhsa_bwd_dkv_kernel")}
+PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], **K7}
+# csrc/transducer_joint.cu: K8 (pruned) and K9 (dense) share their kernels
+JOINT = {"fwd": ("void srt::joint_fwd_kernel",),
+         "bwd": ("void srt::joint_dpre_kernel", "void srt::joint_dw_kernel", "srt::joint_dpre_tc_kernel",
+                 "srt::joint_dw_tc_kernel", "srt::joint_sum_kernel", "void srt::joint_denc_kernel",
+                 "void srt::joint_dpred_kernel")}
+PORT_KERNELS["transducer_pruned"] = {**K7, "K8 fwd": JOINT["fwd"], "K8 bwd": JOINT["bwd"]}
+PORT_KERNELS["transducer_dense"] = {**K7, "K9 fwd": JOINT["fwd"], "K9 bwd": JOINT["bwd"]}
 
 
 def make_batch(B, frames, L, gen, dev, las):
-    """LAS: ((audio, lengths), decoder inputs), targets; DS2: (audio, lengths), labels of <= 48 tokens."""
+    """LAS (``las``, also the transducer): ((audio, lengths), decoder inputs), targets;
+    DS2: (audio, lengths), labels of <= 48 tokens."""
     import torch
 
     audio = torch.randn(B, frames, 80, 3, generator=gen) + 5.0
@@ -154,6 +170,60 @@ def staged_step_ctc(model, state, inputs, y_true, gen):
     return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
 
 
+def staged_step_transducer(model, state, inputs, y_true, gen):
+    """One RNN-Transducer train step in stages; returns {stage: ms} from CUDA events."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.joint_planes import fused_joint_planes
+    from speech_recognition_tpu_torch.ops.transducer import transducer_loss
+    from speech_recognition_tpu_torch.ops.transducer_pruned import pruned_log_planes
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+    leaf = lambda t: t.detach().requires_grad_(True)
+    audio_input, tokens = inputs
+    dt, pad = model.compute_dtype, model.pad_index
+
+    events[0].record()
+    enc, frame_lens = model.encode(audio_input, True, gen)
+    events[1].record()
+    pred = model.predict_sequence(tokens, True, gen)
+    events[2].record()
+    enc_l, pred_l = leaf(enc), leaf(pred)
+    label_lens = torch.clamp((y_true != pad).sum(dim=-1) - 1, min=0)
+    ids = torch.where(y_true == pad, 0, y_true)[:, :-1]
+    frame_lens = torch.clamp(frame_lens, min=1)
+    args = (enc_l, pred_l, model.joint_kernel.to(dt), model.joint_bias.to(dt), ids)
+    if model.pruned_range:
+        planes = pruned_log_planes(model.blank_index, model.pruned_range, *args, frame_lens, label_lens)
+    else:
+        planes = fused_joint_planes(model.blank_index, *args)
+    events[3].record()
+    lpb_l, lpe_l = leaf(planes[0]), leaf(planes[1])
+    per_seq = transducer_loss(lpb_l, lpe_l, frame_lens, label_lens)
+    valid = (label_lens > 0) & (per_seq < 1e29)
+    loss = torch.where(valid, per_seq / label_lens.clamp(min=1), 0.0).sum() / valid.sum().clamp(min=1)
+    events[4].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    events[5].record()
+    torch.autograd.backward(planes, [lpb_l.grad, lpe_l.grad])
+    events[6].record()
+    pred.backward(pred_l.grad)
+    events[7].record()
+    enc.backward(enc_l.grad)
+    events[8].record()
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.optimizer.step()
+    state.step += 1
+    events[9].record()
+    events[9].synchronize()
+    joint = "k8" if model.pruned_range else "k9"
+    names = ["encoder_fwd", "pred_net_fwd", f"{joint}_fwd", "lattice_dp_fwd", "lattice_dp_bwd", f"{joint}_bwd",
+             "pred_net_bwd", "encoder_bwd", "adam"]
+    return {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(names)}
+
+
 def conformer_parts(model, B, T_out, gen):
     """{part: ms} of the Conformer step's attention (K7 forward + backward, once
     per block) and hash-dropout sites (6 per block on [B, T, 4D] x 2 and
@@ -190,7 +260,8 @@ def conformer_parts(model, B, T_out, gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-config", default="resources/configs/las_small.yml",
-                        help="las_small.yml, deepspeech.yml or conformer_small.yml (relative to the repository root)")
+                        help="las_small.yml, deepspeech.yml, conformer_small.yml, transducer_small.yml or "
+                             "transducer_small_dense.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/train_profile.json")
     args = parser.parse_args()
@@ -199,7 +270,8 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
-    from speech_recognition_tpu_torch.configs import ConformerConfig, DataConfig, LASConfig, get_model_config
+    from speech_recognition_tpu_torch.configs import (ConformerConfig, DataConfig, LASConfig, TransducerConfig,
+                                                      get_model_config)
     from speech_recognition_tpu_torch.run.common import create_model, select_device
     from speech_recognition_tpu_torch.train import TrainState, linear_warmup_decay, make_adam, make_train_step
 
@@ -212,13 +284,15 @@ def main():
     model_config = get_model_config(os.path.join(root, args.model_config))
     las = isinstance(model_config, LASConfig)
     family = "las" if las else "conformer" if isinstance(model_config, ConformerConfig) else "ds2"
+    if isinstance(model_config, TransducerConfig):
+        family = "transducer_pruned" if model_config.pruned_range else "transducer_dense"
     model = create_model(model_config, data_config, torch.bfloat16, dev, generator=torch.Generator().manual_seed(0),
                          train=True)
     schedule = linear_warmup_decay(1000, 1e-3, 1e-5, 0.0, 10)
     state = TrainState(model, make_adam(model, schedule), schedule)
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
     B, L, frames = args.batch, data_config.max_token_length, 1024
-    inputs, y_true = make_batch(B, frames, L, torch.Generator().manual_seed(1), dev, las)
+    inputs, y_true = make_batch(B, frames, L, torch.Generator().manual_seed(1), dev, las or "transducer" in family)
     gen = torch.Generator(device=dev).manual_seed(2)
     result = {"card": card, "model_config": args.model_config, "batch": B, "frames": frames, "dtype": "bfloat16"}
 
@@ -233,7 +307,7 @@ def main():
     result["step_ms"] = statistics.median(times[2:])
     result["utterances_per_s"] = B / (result["step_ms"] / 1e3)
 
-    staged = staged_step if las else staged_step_ctc
+    staged = staged_step_transducer if "transducer" in family else staged_step if las else staged_step_ctc
     stages = [staged(model, state, inputs, y_true, gen) for _ in range(4)][1:]
     result["stages_ms"] = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
     result["stages_sum_ms"] = sum(result["stages_ms"].values())
