@@ -57,7 +57,21 @@ Phases, in order; any failure exits non-zero without printing a result:
    against its plain version.  Phase 2 holds K8 (``check_joint_planes``,
    banded: B=128, S=4 and 8 in bf16, S=4 in float32) and K9 (dense, B=32,
    bf16 and float32) against their plain versions at T'=255, U+1=127, values
-   and the four gradients.
+   and the four gradients;
+8. ``run.evaluate`` on a TSV of the 128 dev clips with their seeded
+   transcripts, ``--mixed-precision --device GPU --batch-size 128``, greedy
+   for LAS-small, DeepSpeech2, Conformer-S and the pruned Transducer-S with
+   the checkpoints of phases 4-7 and beam-8 for DeepSpeech2: 128 rows, finite
+   WER / CER, the predictions equal to ``run.inference``'s on the same clips
+   and weights, K10's launches counted, and the decode ms of the batch.
+
+K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
+at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
+prediction net shapes, bf16 and float32, with cuDNN's ``torch.nn.GRU`` /
+``LSTM`` as its yardstick) runs every no-grad recurrent layer: its counter is
+held to one launch per layer per call in phases 3 (LAS decodes: 3), 4 (the
+LAS dev pass and decode: 3 each), 5 (DS2's dev pass and decodes: 7 each), 7
+(the prediction net in the transducers' dev passes: 1 per dev batch) and 8.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the repository,
@@ -85,6 +99,7 @@ SAMPLES = (FRAMES - 1) * 160 + 320  # 1024 frames of the libri config (frame 320
 T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 -> 492 -> 236 -> 108); label cap
 T_CONF, CONF_BLOCKS = 255, 16  # Conformer-S: frames after its stem (1024 -> 511 -> 255; blocks at 256), depth
 U1_RNNT, J_RNNT, DENSE_B, MAX_SYMBOLS = L - 1, 320, 32, 4  # Transducer-S: label slots, joint width, dense batch, TSD rounds
+LAS_LAYERS, DS2_LAYERS = 3, 7  # BiLSTM layers of las_small.yml's listener, BiGRU layers of deepspeech.yml
 # published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 failures = []
@@ -708,6 +723,120 @@ def check_joint_planes(gen, dense):
     return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
 
 
+def rnn_operands(gen, rnn_type, dtype, D, T, Bsz, H):
+    """Seeded K10 operands at a main-path shape: x_proj [T, D, B, G*H] ~ N(0, 1),
+    mask [T, D, B, 1] of lengths T/2..T with a full row and a length-1 row
+    (direction 1 time-flipped), rk ~ N(0, 1/H), the GRU's rb, nonzero h0 / c0."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.rnn_sequence import GATES
+
+    G, dev = GATES[rnn_type], "cuda"
+    r = lambda *s, scale: (torch.randn(*s, generator=gen) * scale).to(dev, dtype)
+    lengths = torch.randint(T // 2, T + 1, (Bsz,), generator=gen)
+    lengths[0], lengths[1] = T, 1
+    m = torch.arange(T)[:, None] < lengths[None, :]
+    mask = torch.stack([m, m.flip(0)], dim=1)[:, :D, :, None].contiguous().to(dev)
+    rb = r(D, 1, G * H, scale=0.1) if rnn_type == "gru" else None
+    c0 = r(D, Bsz, H, scale=0.5) if rnn_type == "lstm" else None
+    return r(T, D, Bsz, G * H, scale=1.0), mask, r(D, H, G * H, scale=H ** -0.5), rb, r(D, Bsz, H, scale=0.5), c0
+
+
+def cudnn_rnn_ms(rnn_type, ops, iters=5):
+    """(ms, type) of cuDNN's ``torch.nn.LSTM`` / ``GRU`` (bidirectional when D=2)
+    on a ``PackedSequence`` of the same lengths: x_proj enters through an
+    identity input weight (its [T*B, G*H] x [G*H, G*H] product is extra work
+    for cuDNN), R and the GRU's recurrent bias in cuDNN's gate order (GRU:
+    r, z, n).  In the kernel's type where cuDNN takes it, else float16 (in bf16
+    PyTorch does not flatten the weights, so each call also copies them into
+    one buffer: a few MB, microseconds).  Timed here only; the port never calls it."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    x, mask, rk, rb, h0, c0 = ops
+    T, D, Bsz, GH = x.shape
+    H = rk.shape[1]
+    lengths = mask[:, 0, :, 0].sum(0).cpu()
+    for dtype in dict.fromkeys((x.dtype, torch.float16)):
+        try:
+            net = (torch.nn.LSTM if rnn_type == "lstm" else torch.nn.GRU)(GH, H, bidirectional=D == 2)
+            net = net.to("cuda", dtype)
+            with torch.no_grad():
+                for d in range(D):
+                    sfx = "_reverse" if d else ""
+                    w_hh, b_hh = rk[d].t(), (rb[d, 0] if rb is not None else torch.zeros(GH, device="cuda"))
+                    if rnn_type == "gru":  # Keras (z, r, h) -> cuDNN (r, z, n)
+                        w_hh, b_hh = (torch.cat([t[H:2 * H], t[:H], t[2 * H:]]) for t in (w_hh, b_hh))
+                    getattr(net, f"weight_ih_l0{sfx}").copy_(torch.eye(GH))
+                    getattr(net, f"weight_hh_l0{sfx}").copy_(w_hh)
+                    getattr(net, f"bias_ih_l0{sfx}").zero_()
+                    getattr(net, f"bias_hh_l0{sfx}").copy_(b_hh)
+                packed = pack_padded_sequence(x[:, 0].to(dtype), lengths, enforce_sorted=False)
+                hx = (h0.to(dtype), c0.to(dtype)) if rnn_type == "lstm" else h0.to(dtype)
+                net(packed, hx)
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    net(packed, hx)
+                end.record()
+                end.synchronize()
+            return start.elapsed_time(end) / iters, str(dtype).replace("torch.", "")
+        except RuntimeError as e:
+            print(f"  cuDNN {rnn_type} in {dtype}: {str(e).splitlines()[0][:120]}")
+    return None, None
+
+
+def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
+    """K10 vs plain at a main-path shape, B=128 (``rnn_operands``), bf16 and float32:
+    the outputs and final states in bf16 within 2e-2 x max|ref| (a float32 sum
+    in another order can move one rounding, and the loop carries it on), in
+    float32 rtol 1e-5 / atol 1e-6 (sums in another order); masked steps emit
+    exact zeros.  Kernel and plain timed in turns in bf16; the library time is
+    cuDNN's (``cudnn_rnn_ms``).  The bound counts the recurrent product of the
+    valid (step, direction, row) triples only (a frozen step needs none), over
+    989 TFLOP/s, and the bytes of the inputs and outputs.  The latency floor of
+    the T dependent steps is K10's own time at H=8 (products and gates almost
+    nil: T x one step's barrier and exchange)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_sequence, rnn_sequence_plain
+
+    G = GATES[rnn_type]
+    timed = None
+    for dtype in (torch.bfloat16, torch.float32):
+        ops = rnn_operands(gen, rnn_type, dtype, D, T, B, H)
+        got, want = rnn_sequence(rnn_type, *ops), rnn_sequence_plain(rnn_type, *ops)
+        torch.cuda.synchronize()
+        name = f"{tag} {str(dtype).replace('torch.', '')} D={D} T={T} B={B} H={H}"
+        err = 0.0
+        for what, a, w in zip(("out", "h_last", "c_last"), got, want):
+            if w is None:
+                continue
+            e, ref = (a.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+            err = max(err, e)
+            if dtype == torch.bfloat16:
+                ok, tol = e <= 2e-2 * ref, "within 2e-2 x max|ref|"
+            else:
+                ok, tol = torch.allclose(a, w, rtol=1e-5, atol=1e-6), "rtol 1e-5 / atol 1e-6"
+            check(a.dtype == dtype and ok, f"{name}: {what} {tol} (max abs err {e:.3g}, max|ref| {ref:.3g})")
+        check(not got[0][~ops[1][..., 0]].any(), f"{name}: masked steps emit zeros")
+        if timed is None:
+            timed = (ops, err, got)
+    ops, err, got = timed
+    k_ms, p_ms = timed_pair(lambda: rnn_sequence(rnn_type, *ops), lambda: rnn_sequence_plain(rnn_type, *ops), 3)
+    lib_ms, lib_type = cudnn_rnn_ms(rnn_type, ops)
+    valid = int(ops[1].sum())
+    present = lambda ts: [t for t in ts if t is not None]
+    b_ms, b_by = bound(2 * valid * H * G * H, nbytes(present(ops), present(got)))
+    floor_ops = rnn_operands(gen, rnn_type, torch.bfloat16, D, T, B, 8)
+    floor_ms, _ = timed_pair(lambda: rnn_sequence(rnn_type, *floor_ops), lambda: None, 5)
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms ({lib_type})"
+    print(f"  {tag} bf16 D={D} T={T} B={B} H={H}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, cuDNN {lib}, bound "
+          f"{b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8) {floor_ms:.4f} ms = {T} x {floor_ms / T * 1e3:.2f} us")
+    return err, k_ms, p_ms, b_ms, b_by, lib_ms
+
+
 # ---------------------------------------------------------------- phase 3
 def write_clips(wav_dir, n, gen_np):
     """n seeded 16 kHz mono wav clips of 1024 frames (sums of tones and noise)."""
@@ -750,6 +879,7 @@ def write_inputs(tmp, gen_np):
 
 def run_main_path(tmp, wav_dir, data_config, weights):
     from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
     from speech_recognition_tpu_torch.ops.vocab_topk import vocab_topk
     from speech_recognition_tpu_torch.run import inference
 
@@ -759,16 +889,20 @@ def run_main_path(tmp, wav_dir, data_config, weights):
             "--mixed-precision", "--device", "GPU", "--batch-size", str(B)]
     greedy_search.launches = 0
     vocab_topk.launches = 0
-    rows = {}
+    rows, k10 = {}, 0
     for name, beam in (("greedy", 0), ("beam8", BEAM)):
         out = os.path.join(tmp, f"{name}.tsv")
+        rnn_sequence.launches = 0
         t0 = time.perf_counter()
         inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out]))
         with open(out) as f:
             rows[name] = f.read().splitlines()[1:]
         print(f"  run.inference {name}: {len(rows[name])} rows in {time.perf_counter() - t0:.1f} s; "
               f"first: {rows[name][0].split(chr(9))[-1][:60]!r}")
-    launches = {"las_greedy": greedy_search.launches, "vocab_topk": vocab_topk.launches}
+        check(rnn_sequence.launches == LAS_LAYERS,
+              f"rnn_sequence (K10) launched {rnn_sequence.launches} times in the {name} decode (expected {LAS_LAYERS})")
+        k10 += rnn_sequence.launches
+    launches = {"las_greedy": greedy_search.launches, "vocab_topk": vocab_topk.launches, "rnn_sequence_lstm": k10}
     for name in ("greedy", "beam8"):
         check(len(rows[name]) == B, f"{name} TSV has {B} rows ({len(rows[name])})")
     for name, n in launches.items():
@@ -822,18 +956,20 @@ def time_and_check_decode(wav_dir, data_config, weights):
     b_k, _ = searcher.beam_search(small, BEAM)
     plain_k5, plain_k4 = vt_mod.vocab_topk_plain, gs_mod.greedy_search_plain
     import speech_recognition_tpu_torch.search as search_mod
+    from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence_plain
 
-    orig = (search_mod.vocab_topk, search_mod.greedy_search)
-    search_mod.vocab_topk, search_mod.greedy_search = plain_k5, plain_k4
+    orig = (search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence)
+    search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence = plain_k5, plain_k4, rnn_sequence_plain
     try:
         g_p, _ = searcher.greedy_search(small)
         b_p, _ = searcher.beam_search(small, BEAM)
     finally:
-        search_mod.vocab_topk, search_mod.greedy_search = orig
+        search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence = orig
     g_eq = (g_k == g_p).float().mean().item()
     b_eq = (b_k == b_p).float().mean().item()
-    check(g_eq >= 0.99, f"float32 greedy (K4) vs plain on 8 clips: tokens equal {g_eq:.4f} >= 0.99")
-    check(b_eq >= 0.99, f"float32 beam-8 (K5) vs plain on 8 clips: tokens equal {b_eq:.4f} >= 0.99")
+    check(g_eq >= 0.99, f"float32 greedy (K10, K4) vs plain on 8 clips: tokens equal {g_eq:.4f} >= 0.99")
+    check(b_eq >= 0.99, f"float32 beam-8 (K10, K5) vs plain on 8 clips: tokens equal {b_eq:.4f} >= 0.99")
     return timings, audio_s
 
 
@@ -874,10 +1010,11 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     from speech_recognition_tpu_torch.configs import TrainConfig
     from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_fwd
     from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
     from speech_recognition_tpu_torch.run import inference, train
 
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config))))
-    for fn in (ce_fwd, ce_bwd, decoder_fwd, decoder_bwd):
+    for fn in (ce_fwd, ce_bwd, decoder_fwd, decoder_bwd, rnn_sequence):
         fn.launches = 0
     t0 = time.perf_counter()
     records = train.main(cfg)
@@ -887,11 +1024,15 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     print(f"  run.train: {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times in the training run")
+    k10 = rnn_sequence.launches
+    check(k10 == LAS_LAYERS, f"rnn_sequence (K10) launched {k10} times in the training run (the dev pass of one "
+                             f"batch; expected {LAS_LAYERS})")
     (rec,) = records
     check(rec["steps"] == TRAIN_STEPS and all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")),
           f"{rec['steps']} train steps; train loss {rec['loss']:.4f} and dev loss {rec['val_loss']:.4f} finite")
     check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), "the .pt checkpoint exists")
     out = os.path.join(tmp, "trained.tsv")
+    rnn_sequence.launches = 0
     inference.main(inference.parser.parse_args([
         "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
         "--audio-files", os.path.join(wav_dir, "clip0*.wav"), "--model-path", rec["checkpoint"],
@@ -900,7 +1041,10 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     with open(out) as f:
         n_rows = len(f.read().splitlines()) - 1
     check(n_rows == 100, f"run.inference decoded {n_rows} clips (clip000-099) with the trained checkpoint")
-    return launches, cfg
+    check(rnn_sequence.launches == LAS_LAYERS,
+          f"rnn_sequence (K10) launched {rnn_sequence.launches} times in that decode (expected {LAS_LAYERS})")
+    launches["rnn_sequence_lstm"] = k10 + rnn_sequence.launches
+    return launches, cfg, rec["checkpoint"]
 
 
 def token_conditioned(cfg):
@@ -1156,6 +1300,86 @@ def time_decode(wav_dir, data_config, weights, model_config, T_out, tag):
     return timings
 
 
+# ---------------------------------------------------------------- phase 8
+def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
+    """run.evaluate on the 128 dev clips of ``dev_tsv`` for each (tag, model config,
+    weights, beam, K10 launches per batch) of ``checkpoints``, K10's counter set to
+    0 just before and read just after; then run.inference decodes the same clips
+    with the same weights and must give the same sentences.  The decode ms is
+    the host clock around the one batch's searcher call, synchronised.  Returns
+    {tag: K10 launches}."""
+    import csv
+
+    import torch
+
+    import speech_recognition_tpu_torch.run.common as common_mod
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.run import evaluate, inference
+
+    # the dev clips alone in one directory, so run.inference's glob takes exactly them, in the TSV's order
+    eval_dir = os.path.join(tmp, "eval_wavs")
+    os.makedirs(eval_dir)
+    with open(dev_tsv) as f:
+        rows = list(csv.reader(f, delimiter="\t"))[1:]
+    for path, _ in rows:
+        os.symlink(os.path.join(os.path.dirname(wav_dir), path), os.path.join(eval_dir, os.path.basename(path)))
+    tsv = os.path.join(tmp, "eval.tsv")
+    with open(tsv, "w") as f:
+        f.write("FilePath\tText\n" + "".join(f"eval_wavs/{os.path.basename(p)}\t{t}\n" for p, t in rows))
+
+    times, pipelined = [], common_mod.pipelined_decode
+
+    def timed_decode(batches, decode_fn, depth=2):
+        def fn(audio):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode_fn(audio)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return pipelined(batches, fn, depth)
+
+    sp = os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model")
+    launches = {}
+    for tag, model_config, weights, beam, per_batch in checkpoints:
+        out = os.path.join(tmp, f"eval_{tag}_{beam}.tsv")
+        args = evaluate.parser.parse_args([
+            "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
+            "--dataset-paths", tsv, "--model-path", weights, "--sp-model-path", sp, "--output-path", out,
+            "--batch-size", str(B), "--beam-size", str(beam), "--mixed-precision", "--device", "GPU"])
+        times.clear()
+        rnn_sequence.launches = 0
+        common_mod.pipelined_decode = timed_decode
+        try:
+            rc = evaluate.main(args)
+        finally:
+            common_mod.pipelined_decode = pipelined
+        n = rnn_sequence.launches
+        launches[tag] = launches.get(tag, 0) + n
+        with open(out) as f:
+            scored = list(csv.reader(f, delimiter="\t"))
+        wer = [float(r[2]) for r in scored[1:]]
+        cer = [float(r[3]) for r in scored[1:]]
+        name = f"run.evaluate {tag} {'greedy' if beam == 0 else f'beam-{beam}'}"
+        check(rc == 0 and scored[0] == ["Prediction", "Target", "WER", "CER"] and len(scored) == B + 1,
+              f"{name}: exit 0, the header and {len(scored) - 1} rows (expected {B})")
+        check(all(np.isfinite(wer)) and all(np.isfinite(cer)),
+              f"{name}: WER {100 * np.mean(wer):.2f}%, CER {100 * np.mean(cer):.2f}%, every row finite")
+        check(n == per_batch, f"{name}: rnn_sequence (K10) launched {n} times for the one batch (expected {per_batch})")
+        decoded = os.path.join(tmp, f"infer_{tag}_{beam}.tsv")
+        inference.main(inference.parser.parse_args(decode_args(
+            data_config, model_config, os.path.join(eval_dir, "*.wav"), weights, decoded, beam)))
+        with open(decoded) as f:
+            sentences = [r[1] for r in list(csv.reader(f, delimiter="\t"))[1:]]
+        same = sum(a == r[0] for a, r in zip(sentences, scored[1:]))
+        check(len(sentences) == B and same == B, f"{name}: predictions equal run.inference's on the same clips "
+                                                 f"and weights ({same}/{len(sentences)})")
+        print(f"  {name}: decode {times[0]:.2f} ms for the batch of {B} (host clock, synchronised; "
+              f"{len(times)} batch)")
+    return launches
+
+
 def main():
     import torch
 
@@ -1168,6 +1392,7 @@ def main():
         fail_now(f"run from the repository root ({e})")
 
     from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_ONCE, ROUND_TWICE
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence, rnn_sequence_plain
 
     src, tpu = "speech_recognition_tpu_torch/csrc/", "speech_recognition_tpu/ops/pallas/"
     kernels = {name: {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces}
@@ -1186,7 +1411,10 @@ def main():
                    ("banded_joint_fwd", "transducer_joint.cu", "band_kernel.py:354"),
                    ("banded_joint_bwd", "transducer_joint.cu", "band_kernel.py:354"),
                    ("joint_planes_fwd", "transducer_joint.cu", "transducer_kernel.py:326"),
-                   ("joint_planes_bwd", "transducer_joint.cu", "transducer_kernel.py:326"))}
+                   ("joint_planes_bwd", "transducer_joint.cu", "transducer_kernel.py:326"),
+                   ("rnn_sequence_gru", "rnn_sequence.cu", "rnn_kernel.py:100"),  # DS2's BiGRU
+                   ("rnn_sequence_lstm", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-small's listener BiLSTM
+                   ("rnn_sequence_lstm_pred", "rnn_sequence.cu", "rnn_kernel.py:100"))}  # the prediction net
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -1202,6 +1430,8 @@ def main():
     import speech_recognition_tpu_torch.ops.ctc_emissions as em_mod
     import speech_recognition_tpu_torch.ops.decoder as dec_mod
     from speech_recognition_tpu_torch.ops import decoder_kernel as dk
+    from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+    k10_plain = (rnn_mod, "rnn_sequence", rnn_sequence_plain)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1231,6 +1461,10 @@ def main():
         fwd, bwd = check_joint_planes(gen, dense=True)
         record("joint_planes_fwd", fwd)
         record("joint_planes_bwd", bwd)
+        record("rnn_sequence_gru", check_rnn_sequence(gen, "gru", 2, T_DS2, 128, "rnn_sequence DS2 BiGRU layer"))
+        record("rnn_sequence_lstm", check_rnn_sequence(gen, "lstm", 2, S_ENC, 256, "rnn_sequence LAS listener layer"))
+        record("rnn_sequence_lstm_pred",
+               check_rnn_sequence(gen, "lstm", 1, U1_RNNT, J_RNNT, "rnn_sequence prediction net"))
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
@@ -1239,25 +1473,29 @@ def main():
               f"beam-8 {timings['beam8']:.2f} ms")
         print("== phase 4: training path through run.train (LAS-small, bf16, B=128)")
         train_wavs, paths = write_train_inputs(tmp, np.random.default_rng(1))
-        train_launches, cfg = run_train_path(tmp, train_wavs, paths, data_config)
+        train_launches, cfg, las_weights = run_train_path(tmp, train_wavs, paths, data_config)
+        train_launches["rnn_sequence_lstm"] += launches["rnn_sequence_lstm"]
         launches.update(train_launches)
         time_train_step(cfg, "LAS-small (N=127)")
         check_train_f32(cfg, [(dec_mod, "decoder_fwd", dk.decoder_fwd_plain),
                               (dec_mod, "decoder_bwd", dk.decoder_bwd_plain),
-                              (ce_mod, "ce_fwd", ce_mod.ce_fwd_plain), (ce_mod, "ce_bwd", ce_mod.ce_bwd_plain)],
-                        "LAS-small")
+                              (ce_mod, "ce_fwd", ce_mod.ce_fwd_plain), (ce_mod, "ce_bwd", ce_mod.ce_bwd_plain),
+                              k10_plain], "LAS-small")
         print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
         k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}
         k6_expected = {"ctc_emissions_fwd": TRAIN_STEPS + 1, "ctc_emissions_bwd": TRAIN_STEPS}
-        ds2_launches, ds2_cfg, ds2_weights = run_model_train_path(tmp, train_wavs, ds2_paths, data_config,
-                                                                "deepspeech.yml", "DS2", k6, k6_expected)
+        k10 = {"rnn_sequence": rnn_sequence}
+        ds2_launches, ds2_cfg, ds2_weights = run_model_train_path(
+            tmp, train_wavs, ds2_paths, data_config, "deepspeech.yml", "DS2", {**k6, **k10},
+            {**k6_expected, "rnn_sequence": DS2_LAYERS}, {"rnn_sequence": {"greedy": DS2_LAYERS, "beam8": DS2_LAYERS}})
+        launches["rnn_sequence_gru"] = ds2_launches.pop("rnn_sequence")
         launches.update(ds2_launches)
         time_train_step(ds2_cfg, f"DS2 (T'={T_DS2})")
         time_decode(wav_dir, data_config, ds2_weights, "deepspeech.yml", T_DS2, "DS2")
         k6_plain = [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
                     (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)]
-        check_train_f32(ds2_cfg, k6_plain, "DS2")
+        check_train_f32(ds2_cfg, [*k6_plain, k10_plain], "DS2")
         print("== phase 6: Conformer-CTC through run.train and run.inference (bf16, B=128)")
         k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
         k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
@@ -1278,10 +1516,10 @@ def main():
         k8_expected = {"banded_joint_fwd": TRAIN_STEPS + 1, "banded_joint_bwd": TRAIN_STEPS, "vocab_topk": 0}
         torch.cuda.reset_peak_memory_stats()
         rnnt_launches, rnnt_cfg, rnnt_weights = run_model_train_path(
-            tmp, train_wavs, ds2_paths, data_config, "transducer_small.yml", "Transducer", {**k7, **k8, **k5},
-            {**k7_expected, **k8_expected},
+            tmp, train_wavs, ds2_paths, data_config, "transducer_small.yml", "Transducer", {**k7, **k8, **k5, **k10},
+            {**k7_expected, **k8_expected, "rnn_sequence": 1},
             {"mhsa_fwd": {"greedy": CONF_BLOCKS, "beam8": CONF_BLOCKS},
-             "vocab_topk": {"greedy": 0, "beam8": T_CONF * MAX_SYMBOLS}})
+             "vocab_topk": {"greedy": 0, "beam8": T_CONF * MAX_SYMBOLS}, "rnn_sequence": {"greedy": 0, "beam8": 0}})
         print(f"  peak device memory of the Transducer run.train + decodes: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         launches.update({k: rnnt_launches[k] for k in k8})
@@ -1290,20 +1528,31 @@ def main():
         time_decode(wav_dir, data_config, rnnt_weights, "transducer_small.yml", L, "Transducer")
         k7_plain = [(attn_mod, "mhsa_fwd", attn_mod.mhsa_fwd_plain), (attn_mod, "mhsa_bwd", attn_mod.mhsa_bwd_plain)]
         check_train_f32(rnnt_cfg, [(jp_mod, "banded_planes_fwd", banded_planes_fwd_plain),
-                                   (jp_mod, "banded_planes_bwd", banded_planes_bwd_plain), *k7_plain],
+                                   (jp_mod, "banded_planes_bwd", banded_planes_bwd_plain), *k7_plain, k10_plain],
                         "Transducer-S pruned")
         k9 = {"joint_planes_fwd": jp_mod.joint_planes_fwd, "joint_planes_bwd": jp_mod.joint_planes_bwd}
         dev_batches = -(-B // DENSE_B)
         dense_launches, dense_cfg, _ = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "transducer_small_dense.yml", "Transducer-dense",
-            {**k7, **k9}, {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + dev_batches), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS,
-                           "joint_planes_fwd": TRAIN_STEPS + dev_batches, "joint_planes_bwd": TRAIN_STEPS},
-            batch=DENSE_B, decode=False)
+            {**k7, **k9, **k10},
+            {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + dev_batches), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS,
+             "joint_planes_fwd": TRAIN_STEPS + dev_batches, "joint_planes_bwd": TRAIN_STEPS,
+             "rnn_sequence": dev_batches}, batch=DENSE_B, decode=False)
         launches.update({k: dense_launches[k] for k in k9})
+        launches["rnn_sequence_lstm_pred"] = rnnt_launches["rnn_sequence"] + dense_launches["rnn_sequence"]
         time_train_step(dense_cfg, "Transducer-S dense", DENSE_B)
         check_train_f32(dense_cfg, [(jp_mod, "joint_planes_fwd", joint_planes_fwd_plain),
-                                    (jp_mod, "joint_planes_bwd", joint_planes_bwd_plain), *k7_plain],
+                                    (jp_mod, "joint_planes_bwd", joint_planes_bwd_plain), *k7_plain, k10_plain],
                         "Transducer-S dense")
+        print("== phase 8: run.evaluate on the 128 dev clips (LAS-small, DS2, Conformer-S, Transducer-S; bf16)")
+        eval_launches = run_evaluate_path(tmp, train_wavs, ds2_paths["dev"], data_config, (
+            ("LAS-small", "las_small.yml", las_weights, 0, LAS_LAYERS),
+            ("DS2", "deepspeech.yml", ds2_weights, 0, DS2_LAYERS),
+            ("DS2", "deepspeech.yml", ds2_weights, BEAM, DS2_LAYERS),
+            ("Conformer-S", "conformer_small.yml", conf_weights, 0, 0),
+            ("Transducer-S", "transducer_small.yml", rnnt_weights, 0, 0)))
+        launches["rnn_sequence_lstm"] += eval_launches["LAS-small"]
+        launches["rnn_sequence_gru"] += eval_launches["DS2"]
         for name, n in launches.items():
             kernels[name]["launches"] = n
     except Exception:

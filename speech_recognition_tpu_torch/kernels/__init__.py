@@ -65,6 +65,8 @@ _SIGNATURES = {
     # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split,
     # hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
     "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 9,
+    # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, stream
+    "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

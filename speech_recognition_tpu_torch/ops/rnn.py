@@ -17,10 +17,13 @@ bias), gates in z,r,h order.  As in JAX:
   chain, and ``dR`` (and the GRU's recurrent bias gradient) is one product
   over the saved trajectory after the loop.
 
-The time loop is plain PyTorch: one ``[2, B, H] x [2, H, G*H]`` batched
-matmul per step runs the forward and the (time-flipped) backward direction
-together.  On the card the LSTM's forward and backward loops replay as CUDA
-graphs (``GRAPHS``, ``ops/graphs.py``) once a shape repeats.  ``LSTM`` is the unidirectional layer (JAX ``RNN("lstm")``,
+Without autograd, a CUDA tensor's whole sequence runs in one launch of
+kernel K10 (``ops/rnn_sequence.py``, every direction together).  The
+training loops, and every loop of a CPU tensor, are plain PyTorch: one
+``[2, B, H] x [2, H, G*H]`` batched matmul per step runs the forward and the
+(time-flipped) backward direction together.  On the card the training
+loops, forward and backward, replay as CUDA graphs (``GRAPHS``,
+``ops/graphs.py``) once a shape repeats.  ``LSTM`` is the unidirectional layer (JAX ``RNN("lstm")``,
 ops/rnn.py:307-420: the transducer's prediction network) on the same scan,
 and ``cell_step`` (ops/rnn.py:100-135) one recurrence step for the
 decoders.  ``rnn_type: rnn`` and recurrent dropout are not ported yet.  The
@@ -34,8 +37,9 @@ import torch
 from torch import nn
 
 from .graphs import CudaGraphs
+from .rnn_sequence import rnn_sequence
 
-GRAPHS = CudaGraphs()  # the LSTM loops of CUDA tensors
+GRAPHS = CudaGraphs()  # the training loops of CUDA tensors
 
 
 class LSTMCellParams(nn.Module):
@@ -180,11 +184,14 @@ class _LSTMScan(torch.autograd.Function):
 
 def lstm_scan(x_proj, mask, rk, h0, c0):
     """Masked LSTM over time-major inputs (see ``_lstm_scan_core``): (out, h_last, c_last).
-    Differentiable through ``_LSTMScan`` when autograd needs it; the loops of
-    CUDA tensors replay as CUDA graphs."""
+    Differentiable through ``_LSTMScan`` when autograd needs it; otherwise a
+    CUDA tensor launches K10 and a CPU tensor runs the plain loop."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, rk, h0, c0)):
         return _LSTMScan.apply(x_proj, mask, rk, h0, c0)
-    return GRAPHS.run(_lstm_forward, x_proj, mask, rk, h0, c0)
+    if x_proj.device.type == "cuda":
+        return rnn_sequence("lstm", x_proj.contiguous(), mask.contiguous(), rk.contiguous(), None, h0.contiguous(),
+                            c0.contiguous())
+    return _lstm_forward(x_proj, mask, rk, h0, c0)
 
 
 def _gru_scan_core(x_proj, mask, rk, rb, h0, save: bool):
@@ -218,41 +225,57 @@ def _gru_scan_core(x_proj, mask, rk, rb, h0, save: bool):
     return out, hs[T], residuals
 
 
+def _gru_forward_saved(x_proj, mask, rk, rb, h0):
+    """The forward loop with residuals, flat: (out, h_last, z, r, hh, rh, h_prev)."""
+    out, h_last, residuals = _gru_scan_core(x_proj, mask, rk, rb, h0, save=True)
+    return (out, h_last, *residuals)
+
+
+def _gru_backward(dout, dh, mask, rk, z, r, hh, rh, h_prev):
+    """The reverse loop: (dx [T, D, B, 3H], drk, drb, dh0)."""
+    T = z.shape[0]
+    m_f = mask.to(z.dtype)
+    rk_t = rk.transpose(1, 2)
+    d_inner = torch.empty(*z.shape[:3], 3 * z.shape[-1], dtype=z.dtype, device=z.device)
+    dx = torch.empty_like(d_inner)
+    for t in range(T - 1, -1, -1):
+        m, z_t, r_t, hh_t = m_f[t], z[t], r[t], hh[t]
+        dh_p = m * dout[t] + m * dh
+        dz = dh_p * (h_prev[t] - hh_t)
+        da = dh_p * (1.0 - z_t) * (1.0 - hh_t * hh_t)  # through hh = tanh(xh + r * rh)
+        dr = da * rh[t] * r_t * (1.0 - r_t)
+        dzz = dz * z_t * (1.0 - z_t)
+        torch.cat([dzz, dr, da * r_t], dim=-1, out=d_inner[t])
+        torch.cat([dzz, dr, da], dim=-1, out=dx[t])
+        dh = torch.baddbmm((1.0 - m) * dh + dh_p * z_t, d_inner[t], rk_t)
+    drk = torch.einsum("tdbh,tdbg->dhg", h_prev, d_inner)
+    drb = d_inner.sum(dim=(0, 2))[:, None, :]
+    return dx, drk, drb, dh
+
+
 class _GRUScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_proj, mask, rk, rb, h0):
-        out, h_last, (z, r, hh, rh, h_prev) = _gru_scan_core(x_proj, mask, rk, rb, h0, save=True)
-        ctx.save_for_backward(mask, rk, z, r, hh, rh, h_prev)
+        out, h_last, *residuals = GRAPHS.run(_gru_forward_saved, x_proj, mask, rk, rb, h0)
+        ctx.save_for_backward(mask, rk, *residuals)
         return out, h_last.clone()
 
     @staticmethod
     def backward(ctx, dout, dh):
-        mask, rk, z, r, hh, rh, h_prev = ctx.saved_tensors
-        T = z.shape[0]
-        m_f = mask.to(z.dtype)
-        rk_t = rk.transpose(1, 2)
-        d_inner = torch.empty(*z.shape[:3], 3 * z.shape[-1], dtype=z.dtype, device=z.device)
-        dx = torch.empty_like(d_inner)
-        for t in range(T - 1, -1, -1):
-            m, z_t, r_t, hh_t = m_f[t], z[t], r[t], hh[t]
-            dh_p = m * dout[t] + m * dh
-            dz = dh_p * (h_prev[t] - hh_t)
-            da = dh_p * (1.0 - z_t) * (1.0 - hh_t * hh_t)  # through hh = tanh(xh + r * rh)
-            dr = da * rh[t] * r_t * (1.0 - r_t)
-            dzz = dz * z_t * (1.0 - z_t)
-            torch.cat([dzz, dr, da * r_t], dim=-1, out=d_inner[t])
-            torch.cat([dzz, dr, da], dim=-1, out=dx[t])
-            dh = torch.baddbmm((1.0 - m) * dh + dh_p * z_t, d_inner[t], rk_t)
-        drk = torch.einsum("tdbh,tdbg->dhg", h_prev, d_inner)
-        drb = d_inner.sum(dim=(0, 2))[:, None, :]
+        dx, drk, drb, dh = GRAPHS.run(_gru_backward, dout.contiguous(), dh.contiguous(), *ctx.saved_tensors)
         return dx, None, drk, drb, dh
 
 
 def gru_scan(x_proj, mask, rk, rb, h0):
     """Masked GRU over time-major inputs (see ``_gru_scan_core``): (out, h_last).
-    Differentiable through ``_GRUScan`` when autograd needs it."""
+    Differentiable through ``_GRUScan`` when autograd needs it; otherwise a
+    CUDA tensor launches K10 and a CPU tensor runs the plain loop."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, rk, rb, h0)):
         return _GRUScan.apply(x_proj, mask, rk, rb, h0)
+    if x_proj.device.type == "cuda":
+        out, h, _ = rnn_sequence("gru", x_proj.contiguous(), mask.contiguous(), rk.contiguous(), rb.contiguous(),
+                                 h0.contiguous(), None)
+        return out, h
     return _gru_scan_core(x_proj, mask, rk, rb, h0, save=False)[:2]
 
 

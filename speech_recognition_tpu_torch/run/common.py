@@ -47,6 +47,19 @@ def create_model(model_config, data_config, dtype: torch.dtype, device: torch.de
     return model.to(device).train(train)
 
 
+def make_searcher(model: torch.nn.Module, model_config, data_config, bos_id: int, eos_id: int):
+    """The searcher of a model's family: ``LASSearcher`` (K4 greedy, K5 beam),
+    ``TransducerSearcher``, or ``DeepSpeechSearcher`` for a CTC model
+    (DeepSpeech2, the Conformer), which needs only its logits and the blank index."""
+    from ..search import DeepSpeechSearcher, LASSearcher, TransducerSearcher
+
+    if isinstance(model, LAS):
+        return LASSearcher(model, data_config.max_token_length, bos_id, eos_id, model_config.pad_id)
+    if isinstance(model, Transducer):
+        return TransducerSearcher(model, data_config.max_token_length, bos_id, eos_id, model_config.pad_index)
+    return DeepSpeechSearcher(model, model_config.blank_index)
+
+
 def count_params(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 

@@ -1,0 +1,105 @@
+"""Evaluation entry point of the port: decode a TSV dataset, report WER / CER.
+
+Same flags, the same log lines and the same TSV (``Prediction, Target, WER,
+CER``) as ``speech_recognition_tpu.run.evaluate``.  Rows are read, decoded,
+tokenized and turned into features by the port's host pipeline, batched with
+``quantized_padded_batch`` (the JAX CLI's non-TPU shapes) and decoded
+through the family's searcher (``run/common.py make_searcher``): LAS,
+DeepSpeech2, the Conformer and the RNN-Transducer.  Weights are a ``.pt``
+state_dict (``weights.params_from_jax`` converts a Flax tree).  Runs on the
+GPU unless ``--device CPU`` is given; returns 0 when the set produced
+outputs, 1 when it produced none.
+
+    python -m speech_recognition_tpu_torch.run.evaluate --data-config ... --model-config ... \
+        --dataset-paths dev.tsv --model-path model.pt --sp-model-path sp.model --output-path eval.tsv
+"""
+
+import argparse
+import csv
+import sys
+
+from ..utils import get_logger, levenshtein_distance, open_file
+
+# fmt: off
+parser = argparse.ArgumentParser("This is script to evaluate (decode and score) a trained model")
+parser.add_argument("--data-config", type=str, required=True, help="data processing config file")
+parser.add_argument("--model-config", type=str, required=True, help="model config file")
+parser.add_argument("--dataset-paths", required=True, help="a tsv dataset file or multiple files ex) *.tsv")
+parser.add_argument("--model-path", type=str, required=True, help="pretrained model weights (.pt state_dict)")
+parser.add_argument("--sp-model-path", type=str, required=True, help="sentencepiece model path")
+parser.add_argument("--output-path", help="output tsv file path to save generated sentences")
+parser.add_argument("--batch-size", type=int, default=512)
+parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
+parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset (not ported yet)")
+parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
+parser.add_argument("--device", type=str, default="GPU", help="device to run on (GPU | CPU)")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
+# fmt: on
+
+
+def main(args: argparse.Namespace):
+    logger = get_logger("evaluate")
+
+    from ..configs import DataConfig, get_model_config
+    from ..data import SentencePieceTokenizer, get_dataset, prefetch_stream, quantized_padded_batch
+    from ..ops.features import make_feature_fn
+    from .common import (compute_dtype, create_model, load_weights, make_searcher, pipelined_decode, select_device,
+                         to_device)
+
+    if args.use_tfrecord:
+        raise NotImplementedError("--use-tfrecord is not ported yet: the port reads tsv datasets")
+    if args.on_device_frontend:
+        raise NotImplementedError("--on-device-frontend is not ported yet: features are computed on the host")
+    device = select_device(args.device)
+    if args.mixed_precision:
+        logger.info("[+] Use Mixed Precision (bfloat16)")
+
+    logger.info(f"[+] Load Tokenizer from {args.sp_model_path}")
+    with open_file(args.sp_model_path, "rb") as f:
+        tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
+    bos_id, eos_id = tokenizer.tokenize("")
+
+    logger.info(f"[+] Load Data Config from {args.data_config}")
+    config = DataConfig.from_yaml(args.data_config)
+    logger.info(f"[+] Load dataset from {args.dataset_paths}")
+    feature_fn = make_feature_fn(config)  # delta and accel included when the config asks for them
+    stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer,
+                         map_fn=lambda audio, tokens: (feature_fn(audio), tokens))
+
+    model_config = get_model_config(args.model_config)
+    model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
+    logger.info(f"[+] Load weights of model from {args.model_path}")
+    load_weights(model, args.model_path)
+    searcher = make_searcher(model, model_config, config, bos_id, eos_id)
+
+    logger.info("[+] Start Inference")
+    batches = prefetch_stream(quantized_padded_batch(stream, args.batch_size), size=2)
+    if args.beam_size > 0:
+        decode_fn = lambda audio: searcher.beam_search(to_device(audio, device), args.beam_size)[0][:, 0, :]
+    else:
+        decode_fn = lambda audio: searcher.greedy_search(to_device(audio, device))[0]
+    outputs = []
+    for batch_output, batch_tokens, n_valid in pipelined_decode(batches, decode_fn):
+        outputs.extend(zip(batch_output[:n_valid], batch_tokens[:n_valid]))
+    logger.info("[+] Ended Inference")
+
+    to_str = lambda tokens: tokenizer.detokenize([int(t) for t in tokens])
+    outputs = [(to_str(pred), to_str(target)) for pred, target in outputs]
+    wers = [levenshtein_distance(target.split(), pred.split(), True) for pred, target in outputs]
+    cers = [levenshtein_distance(target, pred, True) for pred, target in outputs]
+    if outputs:
+        logger.info(f"[+] Average WER: {sum(wers) / len(wers) * 100:.4f}%")
+        logger.info(f"[+] Average CER: {sum(cers) / len(cers) * 100:.4f}%")
+
+    if args.output_path:
+        with open_file(args.output_path, "w") as fout:
+            wtr = csv.writer(fout, delimiter="\t")
+            wtr.writerow(["Prediction", "Target", "WER", "CER"])
+            for (pred, target), wer, cer in zip(outputs, wers, cers):
+                wtr.writerow((pred, target, wer, cer))
+        logger.info(f"[+] Saved (Prediction, Target) pairs to {args.output_path}")
+    return 0 if outputs else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(parser.parse_args()))

@@ -44,9 +44,8 @@ def main(args: argparse.Namespace):
     from ..data import (
         SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream, quantized_padded_batch)
     from ..ops.features import make_feature_fn
-    from ..models import LAS, Transducer
-    from ..search import DeepSpeechSearcher, LASSearcher, TransducerSearcher
-    from .common import compute_dtype, create_model, load_weights, pipelined_decode, select_device, to_device
+    from .common import (compute_dtype, create_model, load_weights, make_searcher, pipelined_decode, select_device,
+                         to_device)
 
     if args.on_device_frontend:
         raise NotImplementedError("--on-device-frontend is not ported yet: features are computed on the host")
@@ -72,12 +71,7 @@ def main(args: argparse.Namespace):
     model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
     load_weights(model, args.model_path)
     logger.info(f"Loaded weights of model from {args.model_path}")
-    if isinstance(model, LAS):
-        searcher = LASSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_id)
-    elif isinstance(model, Transducer):
-        searcher = TransducerSearcher(model, config.max_token_length, bos_id, eos_id, model_config.pad_index)
-    else:  # a CTC model: the searcher needs its logits and the blank index
-        searcher = DeepSpeechSearcher(model, model_config.blank_index)
+    searcher = make_searcher(model, model_config, config, bos_id, eos_id)
 
     logger.info("Start Inference")
     features = parallel_map_stream(dataset_files, lambda path: feature_fn(load_fn(path)))

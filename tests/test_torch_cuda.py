@@ -38,9 +38,16 @@ in another order; h is rounded alike on both sides); gradients within 1e-5 x
 max|ref| in float32 (sums in another order), and in bf16 denc / dpred within
 2e-2 x max|ref| and dW / db within 1e-2 x max|ref| (both sides round dz to
 bf16, and a float32 difference can move one rounding by a step: K6's bf16
-tolerances).  The lattice DP's passes and the LSTM loops replayed as CUDA
-graphs equal the eager loops bit for bit, values and gradients, over replays
-with new inputs.
+tolerances).  The lattice DP's passes and the LSTM and GRU training loops
+replayed as CUDA graphs equal the eager loops bit for bit, values and
+gradients, over replays with new inputs.
+
+K10 (whole masked LSTM / GRU sequence) at B=5 (rows past B idle in the batch
+tile), T in {1, 17, 108}, H in {8, 20, 128, 256, 320}, one and two directions,
+rows of lengths T, 1, ceil(T/2), 0 and T - 1, nonzero initial states: float32
+rtol 1e-5 / atol 1e-6 (sums in another order), bf16 within 2e-2 x max|ref|
+(a float32 sum in another order can move one rounding, and the loop carries
+it on); a no-grad ``lstm_scan`` / ``gru_scan`` of CUDA tensors launches it.
 """
 
 import pytest
@@ -58,7 +65,8 @@ from speech_recognition_tpu_torch.ops.joint_planes import (banded_planes_bwd, ba
 from speech_recognition_tpu_torch.ops import rnn as rnn_mod
 from speech_recognition_tpu_torch.ops import transducer as transducer_mod
 from speech_recognition_tpu_torch.ops.graphs import CudaGraphs
-from speech_recognition_tpu_torch.ops.rnn import lstm_scan
+from speech_recognition_tpu_torch.ops.rnn import gru_scan, lstm_scan
+from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_sequence, rnn_sequence_plain
 from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain, transducer_loss
 from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
                                                                 banded_planes_fwd_plain)
@@ -386,8 +394,99 @@ def test_lstm_graphs_replay_the_eager_loops(cuda, dtype, monkeypatch):
             monkeypatch.setattr(rnn_mod, "GRAPHS", cache)
             out = lstm_scan(leaves[0], mask, *leaves[1:])
             grads = torch.autograd.grad(out, leaves, cots)
-            with torch.no_grad():  # the loop without residuals
-                plain_out = lstm_scan(leaves[0], mask, *leaves[1:])
+            with torch.no_grad():  # the loop without residuals (a no-grad lstm_scan launches K10)
+                plain_out = cache.run(rnn_mod._lstm_forward, leaves[0], mask, *leaves[1:])
             runs.append(out + grads + plain_out)
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_graphs_replay_the_eager_loops(cuda, dtype, monkeypatch):
+    """The GRU's training loops (``_GRUScan`` forward and backward) replayed as CUDA
+    graphs equal the eager loops bit for bit, values and gradients, over replays."""
+    graphs = CudaGraphs()
+    g = torch.Generator().manual_seed(2)
+    T, B, H = 17, 5, 32
+    for lengths in ([17, 9, 1, 17, 4], [3, 17, 17, 8, 2], [1, 2, 17, 16, 17]):  # eager, captured, replayed
+        mask = (torch.arange(T)[:, None] < torch.tensor(lengths)[None, :])[:, None, :, None].to(cuda)
+        mask = torch.cat([mask, mask.flip(0)], dim=1)
+        leaves = [(torch.randn(*s, generator=g) * 0.5).to(cuda, dtype).requires_grad_(True)
+                  for s in ((T, 2, B, 3 * H), (2, H, 3 * H), (2, 1, 3 * H), (2, B, H))]
+        cots = [torch.randn(*s, generator=g).to(cuda, dtype) for s in ((T, 2, B, H), (2, B, H))]
+        runs = []
+        for cache in (CudaGraphs(), graphs):  # a new cache runs a shape eagerly
+            monkeypatch.setattr(rnn_mod, "GRAPHS", cache)
+            out = gru_scan(leaves[0], mask, *leaves[1:])
+            runs.append(out + torch.autograd.grad(out, leaves, cots))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+def rnn_operands(rnn_type, dtype, D, T, B, H, seed, device):
+    """Seeded K10 operands in the port's layout: x_proj [T, D, B, G*H], mask [T, D, B, 1]
+    with rows of length T, 1 (all but one step masked), ceil(T/2), 0 and T - 1
+    (direction 1 time-flipped), rk [D, H, G*H] ~ N(0, 1/H), rb [D, 1, G*H], and
+    nonzero h0 / c0 [D, B, H]."""
+    gates = GATES[rnn_type]
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g) * scale).to(device, dtype)
+    lengths = torch.tensor([T, 1, -(-T // 2), 0, max(T - 1, 0)] * B)[:B]
+    m = torch.arange(T)[:, None] < lengths[None, :]
+    mask = torch.stack([m, m.flip(0)], dim=1)[:, :D, :, None].contiguous().to(device)
+    rb = r(D, 1, gates * H, scale=0.1) if rnn_type == "gru" else None
+    c0 = r(D, B, H, scale=0.5) if rnn_type == "lstm" else None
+    return (r(T, D, B, gates * H, scale=1.0), mask, r(D, H, gates * H, scale=H ** -0.5), rb, r(D, B, H, scale=0.5),
+            c0)
+
+
+@pytest.mark.parametrize("D, T, H", [(2, 1, 8), (2, 17, 8), (2, 17, 128), (2, 108, 128), (2, 17, 256), (2, 108, 256),
+                                     (1, 17, 320), (1, 108, 320), (2, 17, 320), (2, 108, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_rnn_sequence_kernel_matches_plain(cuda, rnn_type, dtype, D, T, H):
+    """K10 vs its plain version at B=5 (one batch tile, rows past B idle) with ragged
+    lengths: float32 rtol 1e-5 / atol 1e-6 (sums in another order), bf16 within
+    2e-2 x max|ref| (a float32 sum in another order can move one rounding, and
+    the loop carries it on); masked steps emit exact zeros."""
+    ops = rnn_operands(rnn_type, dtype, D, T, 5, H, T + H, cuda)
+    before = rnn_sequence.launches
+    got = rnn_sequence(rnn_type, *ops)
+    want = rnn_sequence_plain(rnn_type, *ops)
+    torch.cuda.synchronize()
+    assert rnn_sequence.launches == before + 1
+    for a, w in zip(got, want):
+        if w is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
+        else:
+            assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+    assert not got[0][~ops[1][..., 0]].any()
+
+
+def test_rnn_sequence_kernel_raises_on_what_it_does_not_take(cuda):
+    x, mask, rk, rb, h0, c0 = rnn_operands("lstm", torch.float32, 2, 4, 3, 8, 0, cuda)
+    with pytest.raises(ValueError, match="bad shapes"):  # H above 512
+        rnn_sequence("lstm", *rnn_operands("lstm", torch.float32, 1, 2, 3, 520, 0, cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        rnn_sequence("lstm", x.half(), mask, rk.half(), None, h0.half(), c0.half())
+    with pytest.raises(ValueError, match="dtype"):
+        rnn_sequence("lstm", x, mask.float(), rk, None, h0, c0)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_no_grad_scans_launch_k10(cuda, rnn_type):
+    """Without autograd, ``lstm_scan`` / ``gru_scan`` of CUDA tensors run K10, one launch
+    per call, on the layout ``_BiRNN`` builds (a permuted, non-contiguous mask)."""
+    x, mask, rk, rb, h0, c0 = rnn_operands(rnn_type, torch.float32, 2, 17, 5, 32, 3, cuda)
+    mask = mask.permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)  # same values, other strides
+    before = rnn_sequence.launches
+    with torch.no_grad():
+        got = lstm_scan(x, mask, rk, h0, c0) if rnn_type == "lstm" else gru_scan(x, mask, rk, rb, h0)
+    assert rnn_sequence.launches == before + 1
+    want = rnn_sequence_plain(rnn_type, x, mask, rk, rb, h0, c0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)

@@ -1,0 +1,101 @@
+"""The port's evaluation CLI (speech_recognition_tpu_torch.run.evaluate) against the JAX
+package's (speech_recognition_tpu.run.evaluate) on the CPU fixtures.
+
+Weights are initialized by the JAX package and saved twice: as a JAX
+checkpoint (``speech_recognition_tpu.train.save_weights``) for the JAX CLI and
+through ``weights.params_from_jax`` as a ``.pt`` for the port's.  The vocab
+projection is scaled x8 (LAS, DeepSpeech2, the Conformer) and the
+transducer's joint kernel x16, so no token sits on a near-tie of the
+random-init logits.  Both CLIs decode tests/data/wav_dataset.tsv in float32
+with ``--device CPU`` and must write the same TSV: header and every row
+(prediction, target, WER, CER).  LAS and DeepSpeech2 greedy and beam-2, the
+Conformer and the transducer greedy.
+"""
+
+import csv
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speech_recognition_tpu.configs import DataConfig, get_model_config
+from speech_recognition_tpu.run import evaluate as jax_evaluate
+from speech_recognition_tpu.run.common import build_variables, create_model
+from speech_recognition_tpu.train import save_weights
+from speech_recognition_tpu_torch.run import evaluate
+from speech_recognition_tpu_torch.weights import params_from_jax
+
+from .const import (SP_MODEL_LIBRI, TEST_CONFORMER_CONFIG, TEST_DATA_DIR, TEST_DS_CONFIG, TEST_LAS_CONFIG,
+                    TEST_TRANSDUCER_CONFIG, WAV_DATASET_PATH)
+from .test_torch_twins import no_registered_mesh  # noqa: F401  (autouse fixture)
+
+MINI_CONFIG = f"{TEST_DATA_DIR}/mini_data_config.yml"
+# the output projection of each family and its scale
+SCALED = {TEST_LAS_CONFIG: (("attend_and_speller", "feedforward", "kernel"), 8.0),
+          TEST_DS_CONFIG: (("fully_connected", "kernel"), 8.0),
+          TEST_CONFORMER_CONFIG: (("fully_connected", "kernel"), 8.0),
+          TEST_TRANSDUCER_CONFIG: (("joint_kernel",), 16.0)}
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory):
+    """{model config: (JAX checkpoint dir, .pt path)} with the same seeded weights."""
+    made = {}
+    data_config = DataConfig.from_yaml(MINI_CONFIG)
+    for i, (model_config_path, (path, scale)) in enumerate(SCALED.items()):
+        model_config = get_model_config(model_config_path)
+        model = create_model(model_config, jnp.float32)
+        variables = jax.tree_util.tree_map(
+            np.asarray, dict(build_variables(model, model_config, data_config, jax.random.PRNGKey(11 + i))))
+        node = variables["params"]
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = node[path[-1]] * np.float32(scale)
+        out = tmp_path_factory.mktemp(f"weights{i}")
+        save_weights(str(out / "ckpt"), variables)
+        torch.save(params_from_jax(variables), out / "model.pt")
+        made[model_config_path] = (str(out / "ckpt"), str(out / "model.pt"))
+    return made
+
+
+def _args(model_config, weights, out, beam):
+    return ["--data-config", MINI_CONFIG, "--model-config", model_config, "--dataset-paths", WAV_DATASET_PATH,
+            "--model-path", weights, "--sp-model-path", SP_MODEL_LIBRI, "--output-path", str(out),
+            "--batch-size", "2", "--beam-size", str(beam), "--device", "CPU"]
+
+
+def _rows(path):
+    with open(path) as f:
+        return list(csv.reader(f, delimiter="\t"))
+
+
+@pytest.mark.parametrize("model_config, beam", [(TEST_LAS_CONFIG, 0), (TEST_LAS_CONFIG, 2), (TEST_DS_CONFIG, 0),
+                                                (TEST_DS_CONFIG, 2), (TEST_CONFORMER_CONFIG, 0),
+                                                (TEST_TRANSDUCER_CONFIG, 0)])
+def test_tsv_rows_match_the_jax_cli(tmp_path, checkpoints, model_config, beam):
+    jax_ckpt, pt = checkpoints[model_config]
+    jax_evaluate.main(jax_evaluate.parser.parse_args(_args(model_config, jax_ckpt, tmp_path / "jax.tsv", beam)))
+    rc = evaluate.main(evaluate.parser.parse_args(_args(model_config, pt, tmp_path / "port.tsv", beam)))
+    want, got = _rows(tmp_path / "jax.tsv"), _rows(tmp_path / "port.tsv")
+    assert rc == 0
+    assert got[0] == want[0] == ["Prediction", "Target", "WER", "CER"]
+    assert len(got) == 3  # header + the 2 rows of the tsv
+    assert got == want
+    assert any(row[0].strip() for row in got[1:])  # something was decoded
+    assert all(0.0 <= float(row[2]) and 0.0 <= float(row[3]) for row in got[1:])
+
+
+@pytest.mark.parametrize("flag", ["--use-tfrecord", "--on-device-frontend"])
+def test_unported_flags_raise(tmp_path, checkpoints, flag):
+    args = evaluate.parser.parse_args(_args(TEST_DS_CONFIG, checkpoints[TEST_DS_CONFIG][1], tmp_path / "x.tsv", 0)
+                                      + [flag])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        evaluate.main(args)
+
+
+def test_device_defaults_to_the_gpu():
+    args = evaluate.parser.parse_args(["--data-config", "d", "--model-config", "m", "--dataset-paths", "p",
+                                       "--model-path", "w", "--sp-model-path", "s"])
+    assert args.device == "GPU" and args.output_path is None and args.batch_size == 512

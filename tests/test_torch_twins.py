@@ -97,7 +97,8 @@ def test_port_imports_no_jax(tmp_path):
     """Every module of the port imports with jax/flax/optax/orbax and the JAX
     package (``speech_recognition_tpu``) blocked, and so do the imports that
     happen inside functions: the same process decodes the wav fixture through
-    ``run.inference`` with a LAS mini checkpoint and trains one step through
+    ``run.inference`` and scores the tsv fixture through ``run.evaluate`` with a
+    LAS mini checkpoint, and trains one step through
     ``run.train`` of the LAS, Conformer and pruned RNN-Transducer mini configs,
     all on the CPU.  The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
@@ -114,11 +115,12 @@ import speech_recognition_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes"):
+for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
+             "run.evaluate"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
-from speech_recognition_tpu_torch.run import inference, train
+from speech_recognition_tpu_torch.run import evaluate, inference, train
 from speech_recognition_tpu_torch.run.common import create_model
 
 out, data_config, las_config, conformer_config, transducer_config, sp_model, tsv, wav = sys.argv[1:]
@@ -129,6 +131,10 @@ inference.main(inference.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded.tsv", "--batch-size", "2",
     "--device", "CPU"]))
+assert evaluate.main(evaluate.parser.parse_args([
+    "--data-config", data_config, "--model-config", las_config, "--dataset-paths", tsv, "--model-path",
+    out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/scored.tsv", "--batch-size", "2",
+    "--device", "CPU"])) == 0
 steps = []
 for model_config in (las_config, conformer_config, transducer_config):
     records = train.main(TrainConfig(
@@ -149,6 +155,7 @@ print(len(names), sum(steps))
     n_modules, steps = out.stdout.split()[-2:]
     assert int(n_modules) >= 30 and int(steps) == 3
     assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
+    assert (tmp_path / "scored.tsv").read_text().startswith("Prediction\tTarget\tWER\tCER")
 
 
 def test_select_device_gpu_raises_without_cuda(monkeypatch):
