@@ -18,9 +18,15 @@ Phases, in order; any failure exits non-zero without printing a result:
    (``bound``);
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
-   ``--mixed-precision --device GPU --batch-size 128``, after the kernels'
-   launch counters are set to 0; then the decode time per batch and the RTF,
-   and a float32 check of both searches against the plain kernels on 8 clips;
+   ``--mixed-precision --device GPU --batch-size 128``, the features computed
+   on the card from the raw audio (the on-device frontend, the GPU default),
+   then greedy once more with ``--no-on-device-frontend``, after the kernels'
+   launch counters are set to 0 (the beam-8 decode: K5 once for its first
+   step, K11 once for steps 2..L-1); then the card's features of the 128
+   clips against the host's, the decode time per batch and the RTF, and a
+   float32 check of both searches against the plain kernels on 8 clips.
+   Phase 2 holds K11 (``check_las_beam``) against its plain version at the
+   beam-8 decode's shapes, bf16 and float32;
 4. the training path: 256 seeded 1024-frame wav clips with seeded
    transcripts, LAS-small trained by the port's ``run.train.main`` with
    ``--mixed-precision --device GPU --batch-size 128 --max-over-policy
@@ -61,9 +67,10 @@ Phases, in order; any failure exits non-zero without printing a result:
 8. ``run.evaluate`` on a TSV of the 128 dev clips with their seeded
    transcripts, ``--mixed-precision --device GPU --batch-size 128``, greedy
    for LAS-small, DeepSpeech2, Conformer-S and the pruned Transducer-S with
-   the checkpoints of phases 4-7 and beam-8 for DeepSpeech2: 128 rows, finite
-   WER / CER, the predictions equal to ``run.inference``'s on the same clips
-   and weights, K10's launches counted, and the decode ms of the batch.
+   the checkpoints of phases 4-7 and beam-8 for LAS-small (K11 once) and
+   DeepSpeech2: 128 rows, finite WER / CER, the predictions equal to
+   ``run.inference``'s on the same clips and weights, K10's and K11's
+   launches counted, and the decode ms of the batch.
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
@@ -319,6 +326,110 @@ def check_greedy(gen):
     print(f"  las_greedy B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode, "
           f"bound {b_ms:.4f} ms ({b_by})")
     return max(h_err, c_err), k_ms, p_ms, b_ms, b_by, None
+
+
+def check_las_beam(gen):
+    """K11 vs plain at LAS-small's beam-8 decode: B=128, K=8, S=255, H=He=256,
+    Dv=512, V=16000, L=128, random weights with the vocab projection x8 (peaked
+    logits), a ragged mask, the beams seeded by the first step from BOS (plain
+    step and plain K5), bf16 and float32.
+
+    Per step, the plain step runs from the kernel's own state (one-step calls of
+    both, ``step0`` = n): >= 99% of the slots keep the same history (a flip needs
+    two candidates within float32 error of each other, or one bf16 rounding
+    moved by it); h / c within atol 2e-2 in bf16 (one rounding of the carried
+    state) and 1e-4 in float32 (sums in another order); logP within rtol 2e-2 /
+    atol 0.25 in bf16 (a logit near 50 moved by one bf16 step) and rtol 1e-4 /
+    atol 1e-3 in float32 on the slots that agree.  Then both run free: a flip
+    changes the rest of its row, and over 126 steps most rows meet one (0.84 to
+    0.97 of the bf16 slots equal on two seeded data sets), so the share is
+    printed, not held to a bound; logP within the same tolerances on the rows
+    that stay identical.  Kernel and plain timed in turns in bf16.  The bound counts the steps this run's loop makes (it stops once
+    every beam has ended), each step's products over B*K rows: query, scores,
+    context, the cells and the vocab projection."""
+    import torch
+
+    import speech_recognition_tpu_torch.ops.beam_search as bs_mod
+    from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_NONE, ROUND_TWICE, vocab_topk_plain
+    from speech_recognition_tpu_torch.search import LASSearcher
+
+    S, dev, timed = S_ENC, "cuda", None
+    for dt in (torch.bfloat16, torch.float32):
+        model, _, _ = las_small(dt, dev, gen, vocab_scale=8.0)
+        emb, qw, qb, cells, vw, vb = LASSearcher(model, L, bos_id=1, eos_id=2).decoder_params()
+        vb = vb.to(dt)  # the beam path's bias is in the compute type
+        value = torch.relu(torch.randn(B, S, 512, generator=gen)).to(dev, dt)
+        lengths = torch.randint(64, S + 1, (B,), generator=gen).to(dev)
+        mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+        h, c = ((torch.randn(B, 256, generator=gen) * 0.5).to(dev, dt) for _ in range(2))
+        with torch.no_grad():
+            pk = model.project_keys(value).contiguous()
+            bos = torch.full((B,), 1, dtype=torch.long, device=dev)
+            hidden, (h0, c0) = model.decode_step_hidden(value, pk, bos, mask, (h, c))
+            top, first, lse = vocab_topk_plain(hidden, vw, vb, BEAM, ROUND_TWICE if dt == torch.bfloat16 else ROUND_NONE)
+        tokens = torch.zeros(B, BEAM, L, dtype=torch.long, device=dev)
+        tokens[:, :, 0], tokens[:, :, 1] = 1, first
+        ops = (pk, value, mask, qw, qb, emb, vw, vb, cells)
+        h0, c0 = (s.repeat_interleave(BEAM, 0).contiguous() for s in (h0, c0))
+        args = (*ops, h0, c0, tokens, top - lse[:, None], 2, 0)
+        name = f"las_beam {str(dt).replace('torch.', '')} B={B} K={BEAM} S={S} L={L}"
+        bf = dt == torch.bfloat16
+        rtol, atol, state_atol = (2e-2, 0.25, 2e-2) if bf else (1e-4, 1e-3, 1e-4)
+
+        state, kept, h_err, c_err, lp_err, lp_ok = (h0.float(), c0.float(), tokens, args[12]), 0, 0.0, 0.0, 0.0, True
+        for n in range(2, L):
+            kt, kl, kh, kc = bs_mod.beam_search(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
+                                                return_states=True)
+            pt, pl, ph, pc = bs_mod.beam_loop_plain(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
+                                                    return_states=True)
+            same = (kt == pt).all(dim=-1)
+            kept += int(same.sum())
+            h_err, c_err = max(h_err, (kh - ph).abs().max().item()), max(c_err, (kc - pc).abs().max().item())
+            if bool(same.any()):
+                lp_err = max(lp_err, (kl - pl)[same].abs().max().item())
+                lp_ok &= torch.allclose(kl[same], pl[same], rtol=rtol, atol=atol)
+            state = (kh, kc, kt, kl)
+        torch.cuda.synchronize()
+        share = kept / (B * BEAM * (L - 2))
+        check(share >= 0.99, f"{name} per step: slots with the plain step's history {share:.5f} >= 0.99")
+        check(h_err <= state_atol and c_err <= state_atol,
+              f"{name} per step: h / c atol {state_atol} (max {h_err:.3g} / {c_err:.3g})")
+        check(lp_ok, f"{name} per step: logP rtol {rtol} / atol {atol} where the slots agree (max abs err {lp_err:.3g})")
+
+        ktok, klogp = bs_mod.beam_search(*args)
+        steps, step_plain = [0], bs_mod.beam_step_plain
+
+        def counted_step(*a, **kw):
+            steps[0] += 1
+            return step_plain(*a, **kw)
+
+        bs_mod.beam_step_plain = counted_step
+        try:
+            ptok, plogp = bs_mod.beam_loop_plain(*args)
+        finally:
+            bs_mod.beam_step_plain = step_plain
+        torch.cuda.synchronize()
+        eq = (ktok == ptok).float().mean().item()
+        same = (ktok == ptok).all(dim=2).all(dim=1)
+        err = (klogp - plogp)[same].abs().max().item() if bool(same.any()) else 0.0
+        print(f"  {name} free-running: token slots equal {eq:.5f} ({int(same.sum())}/{B} rows identical; the loop "
+              f"ran {steps[0]} of {L - 2} steps)")
+        check(torch.allclose(klogp[same], plogp[same], rtol=rtol, atol=atol),
+              f"{name} free-running: logP rtol {rtol} / atol {atol} on the {int(same.sum())} identical rows "
+              f"(max abs err {err:.3g})")
+        check(bool(torch.isfinite(klogp).all()) and bool(((ktok >= 0) & (ktok < 16000)).all()),
+              f"{name}: logP finite, tokens in the vocab")
+        if timed is None:
+            timed = (args, steps[0], max(err, lp_err), ktok, klogp)
+    args, n_steps, err, ktok, klogp = timed
+    k_ms, p_ms = timed_pair(lambda: bs_mod.beam_search(*args), lambda: bs_mod.beam_loop_plain(*args), 2)
+    R, H, Dv, V = B * BEAM, 256, 512, 16000
+    step_flops = 2 * R * (H * H + S * H + S * Dv + H * V) + cell_flops(R, [k for k, _, _ in args[8]], H)
+    # tokens move as int32 inside the kernel: histories in, histories and log-probs out
+    b_ms, b_by = bound(n_steps * step_flops, nbytes(args[:11], args[11].int(), args[12], ktok.int(), klogp))
+    print(f"  las_beam bf16 B={B} K={BEAM} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per loop of "
+          f"{n_steps} steps, bound {b_ms:.4f} ms ({b_by}); library none (no one PyTorch call runs a beam loop)")
+    return err, k_ms, p_ms, b_ms, b_by, None
 
 
 def check_ce(gen):
@@ -878,6 +989,11 @@ def write_inputs(tmp, gen_np):
 
 
 def run_main_path(tmp, wav_dir, data_config, weights):
+    """run.inference on the 128 clips, greedy and beam-8 with the on-device
+    frontend (the GPU default), then greedy with ``--no-on-device-frontend``
+    (host features), each with K10's counter set to 0 just before; the beam-8
+    decode's K5 (its first step) and K11 (steps 2..L-1) held to one launch."""
+    from speech_recognition_tpu_torch.ops.beam_search import beam_search
     from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
     from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
     from speech_recognition_tpu_torch.ops.vocab_topk import vocab_topk
@@ -889,12 +1005,15 @@ def run_main_path(tmp, wav_dir, data_config, weights):
             "--mixed-precision", "--device", "GPU", "--batch-size", str(B)]
     greedy_search.launches = 0
     vocab_topk.launches = 0
+    beam_search.launches = 0
     rows, k10 = {}, 0
-    for name, beam in (("greedy", 0), ("beam8", BEAM)):
-        out = os.path.join(tmp, f"{name}.tsv")
+    for name, beam, flags in (("greedy", 0, []), ("beam8", BEAM, []),
+                              ("greedy host features", 0, ["--no-on-device-frontend"])):
+        out = os.path.join(tmp, f"{name.replace(' ', '_')}.tsv")
         rnn_sequence.launches = 0
+        k5, k11 = vocab_topk.launches, beam_search.launches
         t0 = time.perf_counter()
-        inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out]))
+        inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out] + flags))
         with open(out) as f:
             rows[name] = f.read().splitlines()[1:]
         print(f"  run.inference {name}: {len(rows[name])} rows in {time.perf_counter() - t0:.1f} s; "
@@ -902,32 +1021,69 @@ def run_main_path(tmp, wav_dir, data_config, weights):
         check(rnn_sequence.launches == LAS_LAYERS,
               f"rnn_sequence (K10) launched {rnn_sequence.launches} times in the {name} decode (expected {LAS_LAYERS})")
         k10 += rnn_sequence.launches
-    launches = {"las_greedy": greedy_search.launches, "vocab_topk": vocab_topk.launches, "rnn_sequence_lstm": k10}
-    for name in ("greedy", "beam8"):
+        if beam:
+            k5, k11 = vocab_topk.launches - k5, beam_search.launches - k11
+            check(k5 == 1 and k11 == 1, f"the {name} decode of one batch launched vocab_topk (K5) {k5} times (the "
+                                        f"first step) and las_beam (K11) {k11} times (steps 2..L-1); expected 1 and 1")
+    launches = {"las_greedy": greedy_search.launches, "vocab_topk": vocab_topk.launches,
+                "las_beam": beam_search.launches, "rnn_sequence_lstm": k10}
+    for name in rows:
         check(len(rows[name]) == B, f"{name} TSV has {B} rows ({len(rows[name])})")
+    same = sum(a == b for a, b in zip(rows["greedy"], rows["greedy host features"]))
+    print(f"  greedy sentences from the card's features equal to those from the host's: {same}/{B} (bf16 decode)")
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times in the main path")
     return launches
 
 
 def time_and_check_decode(wav_dir, data_config, weights):
-    """Decode ms per batch and RTF on the 128 clips (CUDA events after a warm-up
-    call), then float32 searches vs the plain kernels on 8 clips."""
+    """The on-device frontend's features of the 128 clips vs the host's: rtol and
+    atol 2e-3 (float32 DFT products against the host's FFT, then a log), pad
+    frames exactly zero, and its ms per batch.  Decode ms per batch and RTF on
+    the host features (CUDA events after a warm-up call), then float32 searches
+    vs the plain kernels on 8 clips."""
     import torch
 
     from speech_recognition_tpu_torch.configs import DataConfig
     from speech_recognition_tpu_torch.data import load_audio_file
+    from speech_recognition_tpu_torch.ops import beam_search as bs_mod
     from speech_recognition_tpu_torch.ops import greedy_search as gs_mod
     from speech_recognition_tpu_torch.ops import vocab_topk as vt_mod
     from speech_recognition_tpu_torch.ops.features import make_feature_fn
+    from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend, pad_audio_batch
     from speech_recognition_tpu_torch.run.common import load_weights
     from speech_recognition_tpu_torch.search import LASSearcher
 
     config = DataConfig.from_yaml(data_config)
     load, feat = load_audio_file(16000, "wav", 16000), make_feature_fn(config)
     files = sorted(os.listdir(wav_dir))
-    audio = torch.from_numpy(np.stack([feat(load(os.path.join(wav_dir, f))) for f in files])).cuda()
+    clips = [load(os.path.join(wav_dir, f)) for f in files]
+    host = np.stack([feat(a) for a in clips])
+    audio = torch.from_numpy(host).cuda()
     audio_s = B * SAMPLES / 16000.0
+
+    raw, lengths = pad_audio_batch(clips, SAMPLES)
+    raw, lengths = torch.from_numpy(raw).cuda(), torch.from_numpy(lengths).cuda()
+    frontend = make_batch_frontend(config)
+    frontend(raw, lengths)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    card, frames = frontend(raw, lengths)
+    end.record()
+    end.synchronize()
+    card, frames = card.cpu().numpy(), frames.cpu().numpy()
+    err = np.abs(card[:, :host.shape[1]] - host).max()
+    check(card.shape == host.shape and (frames == host.shape[1]).all()
+          and np.allclose(card, host, rtol=2e-3, atol=2e-3),
+          f"on-device frontend vs host features on the {B} clips {host.shape[1:]}: rtol / atol 2e-3 "
+          f"(max abs err {err:.3g}), {int(frames[0])} frames each")
+    pad_raw, pad_len = pad_audio_batch([a[: len(a) // 2] for a in clips[:4]], SAMPLES)
+    half, n_half = frontend(torch.from_numpy(pad_raw).cuda(), torch.from_numpy(pad_len).cuda())
+    check(all(bool((half[i, n:] == 0).all()) for i, n in enumerate(n_half.tolist())),
+          "on-device frontend: frames past each clip's valid length are exactly 0")
+    print(f"  on-device frontend (log-mel x 3, float32) for {B} clips of {SAMPLES} samples: "
+          f"{start.elapsed_time(end):.3f} ms")
     timings = {}
     model, _, _ = las_small(torch.bfloat16, "cuda", torch.Generator().manual_seed(0))
     load_weights(model, weights)
@@ -954,22 +1110,23 @@ def time_and_check_decode(wav_dir, data_config, weights):
     searcher = LASSearcher(model, L, 1, 2)
     g_k, _ = searcher.greedy_search(small)
     b_k, _ = searcher.beam_search(small, BEAM)
-    plain_k5, plain_k4 = vt_mod.vocab_topk_plain, gs_mod.greedy_search_plain
+    plain = (vt_mod.vocab_topk_plain, gs_mod.greedy_search_plain, bs_mod.beam_loop_plain)
     import speech_recognition_tpu_torch.search as search_mod
     from speech_recognition_tpu_torch.ops import rnn as rnn_mod
     from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence_plain
 
-    orig = (search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence)
-    search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence = plain_k5, plain_k4, rnn_sequence_plain
+    orig = (search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search, rnn_mod.rnn_sequence)
+    search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search = plain
+    rnn_mod.rnn_sequence = rnn_sequence_plain
     try:
         g_p, _ = searcher.greedy_search(small)
         b_p, _ = searcher.beam_search(small, BEAM)
     finally:
-        search_mod.vocab_topk, search_mod.greedy_search, rnn_mod.rnn_sequence = orig
+        search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search, rnn_mod.rnn_sequence = orig
     g_eq = (g_k == g_p).float().mean().item()
     b_eq = (b_k == b_p).float().mean().item()
     check(g_eq >= 0.99, f"float32 greedy (K10, K4) vs plain on 8 clips: tokens equal {g_eq:.4f} >= 0.99")
-    check(b_eq >= 0.99, f"float32 beam-8 (K10, K5) vs plain on 8 clips: tokens equal {b_eq:.4f} >= 0.99")
+    check(b_eq >= 0.99, f"float32 beam-8 (K10, K5, K11) vs plain on 8 clips: tokens equal {b_eq:.4f} >= 0.99")
     return timings, audio_s
 
 
@@ -1303,16 +1460,18 @@ def time_decode(wav_dir, data_config, weights, model_config, T_out, tag):
 # ---------------------------------------------------------------- phase 8
 def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
     """run.evaluate on the 128 dev clips of ``dev_tsv`` for each (tag, model config,
-    weights, beam, K10 launches per batch) of ``checkpoints``, K10's counter set to
-    0 just before and read just after; then run.inference decodes the same clips
-    with the same weights and must give the same sentences.  The decode ms is
-    the host clock around the one batch's searcher call, synchronised.  Returns
-    {tag: K10 launches}."""
+    weights, beam, K10 launches per batch) of ``checkpoints``, K10's and K11's
+    counters set to 0 just before and read just after (K11: one launch in an LAS
+    beam decode of the one batch, none elsewhere); then run.inference decodes the
+    same clips with the same weights and must give the same sentences.  The
+    decode ms is the host clock around the one batch's searcher call,
+    synchronised.  Returns ({tag: K10 launches}, K11 launches)."""
     import csv
 
     import torch
 
     import speech_recognition_tpu_torch.run.common as common_mod
+    from speech_recognition_tpu_torch.ops.beam_search import beam_search
     from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
     from speech_recognition_tpu_torch.run import evaluate, inference
 
@@ -1341,7 +1500,7 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
         return pipelined(batches, fn, depth)
 
     sp = os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model")
-    launches = {}
+    launches, k11 = {}, 0
     for tag, model_config, weights, beam, per_batch in checkpoints:
         out = os.path.join(tmp, f"eval_{tag}_{beam}.tsv")
         args = evaluate.parser.parse_args([
@@ -1349,14 +1508,15 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
             "--dataset-paths", tsv, "--model-path", weights, "--sp-model-path", sp, "--output-path", out,
             "--batch-size", str(B), "--beam-size", str(beam), "--mixed-precision", "--device", "GPU"])
         times.clear()
-        rnn_sequence.launches = 0
+        rnn_sequence.launches = beam_search.launches = 0
         common_mod.pipelined_decode = timed_decode
         try:
             rc = evaluate.main(args)
         finally:
             common_mod.pipelined_decode = pipelined
-        n = rnn_sequence.launches
+        n, n11 = rnn_sequence.launches, beam_search.launches
         launches[tag] = launches.get(tag, 0) + n
+        k11 += n11
         with open(out) as f:
             scored = list(csv.reader(f, delimiter="\t"))
         wer = [float(r[2]) for r in scored[1:]]
@@ -1367,6 +1527,8 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
         check(all(np.isfinite(wer)) and all(np.isfinite(cer)),
               f"{name}: WER {100 * np.mean(wer):.2f}%, CER {100 * np.mean(cer):.2f}%, every row finite")
         check(n == per_batch, f"{name}: rnn_sequence (K10) launched {n} times for the one batch (expected {per_batch})")
+        want11 = int(beam > 0 and model_config == "las_small.yml")
+        check(n11 == want11, f"{name}: las_beam (K11) launched {n11} times for the one batch (expected {want11})")
         decoded = os.path.join(tmp, f"infer_{tag}_{beam}.tsv")
         inference.main(inference.parser.parse_args(decode_args(
             data_config, model_config, os.path.join(eval_dir, "*.wav"), weights, decoded, beam)))
@@ -1377,7 +1539,7 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
                                                  f"and weights ({same}/{len(sentences)})")
         print(f"  {name}: decode {times[0]:.2f} ms for the batch of {B} (host clock, synchronised; "
               f"{len(times)} batch)")
-    return launches
+    return launches, k11
 
 
 def main():
@@ -1400,6 +1562,7 @@ def main():
                    ("vocab_topk", "vocab_topk.cu", "topk_kernel.py:176"),  # the LAS beam
                    ("vocab_topk_tsd", "vocab_topk.cu", "topk_kernel.py:176"),  # the transducer's TSD beam
                    ("las_greedy", "las_greedy.cu", "search_kernel.py:237"),
+                   ("las_beam", "las_beam.cu", "beam_kernel.py:415"),
                    ("ce_vocab_fwd", "ce_vocab.cu", "ce_kernel.py:201"),
                    ("ce_vocab_bwd", "ctc_emissions.cu", "ce_kernel.py:201"),  # K6's backward with one id per row
                    ("las_decoder_fwd", "las_decoder.cu", "decoder_kernel.py:238"),
@@ -1443,6 +1606,7 @@ def main():
         check_vocab_topk(128, 256, 16000, 1, ROUND_ONCE, True, gen)
         record("vocab_topk_tsd", check_vocab_topk(B * BEAM, J_RNNT, 16000, BEAM + 3, ROUND_TWICE, True, gen))
         record("las_greedy", check_greedy(gen))
+        record("las_beam", check_las_beam(gen))
         fwd, bwd = check_ce(gen)
         record("ce_vocab_fwd", fwd)
         record("ce_vocab_bwd", bwd)
@@ -1465,7 +1629,7 @@ def main():
         record("rnn_sequence_lstm", check_rnn_sequence(gen, "lstm", 2, S_ENC, 256, "rnn_sequence LAS listener layer"))
         record("rnn_sequence_lstm_pred",
                check_rnn_sequence(gen, "lstm", 1, U1_RNNT, J_RNNT, "rnn_sequence prediction net"))
-        print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128)")
+        print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128, on-device frontend)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
         timings, audio_s = time_and_check_decode(wav_dir, data_config, weights)
@@ -1545,13 +1709,15 @@ def main():
                                     (jp_mod, "joint_planes_bwd", joint_planes_bwd_plain), *k7_plain, k10_plain],
                         "Transducer-S dense")
         print("== phase 8: run.evaluate on the 128 dev clips (LAS-small, DS2, Conformer-S, Transducer-S; bf16)")
-        eval_launches = run_evaluate_path(tmp, train_wavs, ds2_paths["dev"], data_config, (
+        eval_launches, eval_k11 = run_evaluate_path(tmp, train_wavs, ds2_paths["dev"], data_config, (
             ("LAS-small", "las_small.yml", las_weights, 0, LAS_LAYERS),
+            ("LAS-small", "las_small.yml", las_weights, BEAM, LAS_LAYERS),
             ("DS2", "deepspeech.yml", ds2_weights, 0, DS2_LAYERS),
             ("DS2", "deepspeech.yml", ds2_weights, BEAM, DS2_LAYERS),
             ("Conformer-S", "conformer_small.yml", conf_weights, 0, 0),
             ("Transducer-S", "transducer_small.yml", rnnt_weights, 0, 0)))
         launches["rnn_sequence_lstm"] += eval_launches["LAS-small"]
+        launches["las_beam"] += eval_k11
         launches["rnn_sequence_gru"] += eval_launches["DS2"]
         for name, n in launches.items():
             kernels[name]["launches"] = n

@@ -3,9 +3,12 @@ speech_recognition_tpu/configs/data_config.py.
 
 The same YAML schema, dataclasses and validation, so every
 ``resources/configs/*.yml`` data config loads unchanged.  The JAX module's
-``make_audio_feature_fn`` (and its two properties), which reach JAX, are
-left out: the port's features come from
-:func:`speech_recognition_tpu_torch.ops.features.make_feature_fn`.
+``make_audio_feature_fn`` builds its jnp (device) or numpy (host) chain;
+here it builds the torch device chain
+(:func:`speech_recognition_tpu_torch.ops.features.make_device_feature_fn`),
+and the host chain is
+:func:`speech_recognition_tpu_torch.ops.features.make_feature_fn`.  The two
+properties around it are left out.
 """
 
 from dataclasses import dataclass, fields
@@ -129,6 +132,13 @@ class DataConfig:
         if self.audio_feature_type == "log-mel-spectrogram":
             return self.num_mel_bins
         return self.num_mfcc
+
+    def make_audio_feature_fn(self):
+        """``fn(audio [..., NumSamples] tensor) -> [..., NumFrame, FrequencyDim, 1]``:
+        the device feature chain of the fused on-device frontend (ops/frontend.py)."""
+        from ..ops.features import make_device_feature_fn
+
+        return make_device_feature_fn(self)
 
     def asdict(self) -> dict:
         from dataclasses import asdict

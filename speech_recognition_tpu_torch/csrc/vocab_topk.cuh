@@ -15,7 +15,8 @@
 //
 // Pass 2, merge_row: one warp per row merges the n_tiles partials the same
 // way into the row's top-k and logsumexp.  The greedy kernel (K4) reuses
-// both passes with k = 1 and its own epilogue.
+// both passes with k = 1 and its own epilogue, the beam loop (K11) with
+// k = K, a run flag (the pass returns at once where it is 0) and its own.
 #pragma once
 
 #include "common.cuh"
@@ -32,7 +33,8 @@ template <typename T, typename BT>
 __global__ void __launch_bounds__(TILE_THREADS)
     vocab_tile_kernel(const T* __restrict__ hid, const T* __restrict__ W, const BT* __restrict__ bias, int R, int H,
                       int V, int k, int rounding, float* __restrict__ part_val, int* __restrict__ part_idx,
-                      float* __restrict__ part_max, float* __restrict__ part_sum) {
+                      float* __restrict__ part_max, float* __restrict__ part_sum, const int* __restrict__ run_flag) {
+  if (run_flag != nullptr && *run_flag == 0) return;  // the beam loop (K11) has ended
   extern __shared__ __align__(16) float smem[];  // VOCAB_ROWS * max(H, VOCAB_TILE) floats
   const int tile = blockIdx.x, n_tiles = gridDim.x;
   const int r0 = blockIdx.y * VOCAB_ROWS;
@@ -161,7 +163,8 @@ __device__ __forceinline__ float merge_row(size_t row, int n_tiles, int k, const
 
 template <typename T, typename BT>
 cudaError_t launch_vocab_tiles(const T* hid, const T* W, const BT* bias, int R, int H, int V, int k, int rounding,
-                               float* part_val, int* part_idx, float* part_max, float* part_sum, cudaStream_t stream) {
+                               float* part_val, int* part_idx, float* part_max, float* part_sum, cudaStream_t stream,
+                               const int* run_flag = nullptr) {
   const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
   const dim3 grid(n_tiles, (R + VOCAB_ROWS - 1) / VOCAB_ROWS);
   const size_t smem = sizeof(float) * VOCAB_ROWS * (H > VOCAB_TILE ? H : VOCAB_TILE);
@@ -171,7 +174,7 @@ cudaError_t launch_vocab_tiles(const T* hid, const T* W, const BT* bias, int R, 
     if (err != cudaSuccess) return err;
   }
   vocab_tile_kernel<T, BT><<<grid, TILE_THREADS, smem, stream>>>(hid, W, bias, R, H, V, k, rounding, part_val,
-                                                                  part_idx, part_max, part_sum);
+                                                                  part_idx, part_max, part_sum, run_flag);
   return cudaGetLastError();
 }
 

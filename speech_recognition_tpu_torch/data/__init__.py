@@ -10,6 +10,7 @@ from .dataset import (
     parallel_map_stream,
     prefetch_stream,
     quantized_padded_batch,
+    quantized_padded_raw_batch,
     read_tsv_rows,
     repeat_stream,
     shuffle_stream,
@@ -28,6 +29,7 @@ __all__ = [
     "parallel_map_stream",
     "prefetch_stream",
     "quantized_padded_batch",
+    "quantized_padded_raw_batch",
     "read_tsv_rows",
     "repeat_stream",
     "shuffle_stream",

@@ -3,8 +3,9 @@ speech_recognition_tpu/data/dataset.py that the port runs.
 
 tsv readers, the length policies, padded batching (static shapes when pad
 lengths are given) and the streams around them: parallel audio decode +
-tokenize on the host, shuffle, repeat and prefetch.  TFRecord reading,
-length bucketing and the raw-audio batcher are not ported.
+tokenize on the host, shuffle, repeat and prefetch, and the raw-audio
+batcher of the on-device frontend.  TFRecord reading and length bucketing
+are not ported.
 """
 
 import csv
@@ -217,6 +218,54 @@ def quantized_padded_batch(
         audio = _stack_padded([a for a, _ in batch], a_len, audio_dtype, batch_size)
         tokens = _stack_padded([t for _, t in batch], t_len, np.int32, batch_size)
         return audio, tokens, n_valid
+
+    for item in dataset:
+        batch.append(item)
+        if len(batch) == batch_size:
+            yield _emit(batch)
+            batch = []
+    if batch:
+        yield _emit(batch)
+
+
+def quantized_padded_raw_batch(
+    dataset: Iterable,
+    batch_size: int,
+    frame_length: int,
+    frame_step: int,
+    frame_quantum: int = 128,
+    max_frames: Optional[int] = None,
+) -> Iterator[Tuple[Tuple[np.ndarray, np.ndarray], np.ndarray, int]]:
+    """Raw-sample analog of ``quantized_padded_batch`` for the on-device
+    frontend (ops/frontend.py): yields ((audio [B, S] f32, sample_lengths [B]
+    i32), tokens, n_valid).
+
+    S is quantized in FRAME units so the frontend and the decode loop see a
+    bounded shape set; with ``max_frames`` the shape is static:
+    S = (frames - 1) * frame_step + frame_length.  Audio longer than the
+    static S is sliced (the reference's TPU slice policy, data.py:347-354).
+    """
+    batch: List[Tuple[np.ndarray, np.ndarray]] = []
+
+    def _samples_for(frames: int) -> int:
+        return (frames - 1) * frame_step + frame_length
+
+    def _emit(batch):
+        n_valid = len(batch)
+        if max_frames is not None:
+            frames = max_frames
+        else:
+            most = max(a.shape[0] for a, _ in batch)
+            most_f = max((most - frame_length) // frame_step + 1, 1)
+            frames = ((most_f + frame_quantum - 1) // frame_quantum) * frame_quantum
+        s_len = _samples_for(frames)
+        clipped = [a[:s_len] for a, _ in batch]
+        audio = _stack_padded(clipped, s_len, np.float32, batch_size)
+        lengths = np.zeros(batch_size, np.int32)
+        lengths[:n_valid] = [a.shape[0] for a in clipped]
+        t_len = max(t.shape[0] for _, t in batch)
+        tokens = _stack_padded([t for _, t in batch], t_len, np.int32, batch_size)
+        return (audio, lengths), tokens, n_valid
 
     for item in dataset:
         batch.append(item)

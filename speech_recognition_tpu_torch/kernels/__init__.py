@@ -67,6 +67,10 @@ _SIGNATURES = {
     "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 9,
     # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, stream
     "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
+    # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
+    # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
+    # eos_id, pad_id, alpha, beta_den, stream
+    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_P],
 }
 
 

@@ -1,17 +1,24 @@
-"""Host audio features in numpy (counterpart of speech_recognition_tpu/ops/features.py).
+"""Audio features (counterpart of speech_recognition_tpu/ops/features.py).
 
 The JAX module serves two backends from one source and imports JAX at module
-top; its host path (``xp=np``) is what the inference CLI runs per example.
-This module is that host path alone, so the port never imports JAX.  The
-conventions are tf.signal's, as in the JAX module: pad_end=False framing,
-periodic Hann window, HTK mel scale with the DC bin zeroed, orthonormally
-scaled DCT-II for the MFCC.
+top.  Here its host path (``xp=np``, what the CLIs run per example) is numpy,
+and its device path (``xp=jnp``, what the on-device frontend runs for a
+batch, ``ops/frontend.py``) is torch: ``power_stft`` computes |STFT|^2 as
+float32 matrix products with the Hann-windowed real-DFT basis, as the JAX
+device path does, and the spectrogram, log-mel, MFCC and delta-accelerate
+functions follow it on tensors of any leading shape.  The port never imports
+JAX.  The conventions are tf.signal's, as in the JAX module: pad_end=False
+framing, periodic Hann window, HTK mel scale with the DC bin zeroed,
+orthonormally scaled DCT-II for the MFCC.  The products sit outside any
+Pallas kernel in JAX, so here they are ``torch.matmul`` (full float32 on the
+card: the CLIs turn TF32 off).
 """
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 _MEL_BREAK_FREQUENCY_HERTZ = 700.0
 _MEL_HIGH_FREQUENCY_Q = 1127.0
@@ -169,3 +176,108 @@ def make_feature_fn(config):
     if not config.use_delta_accelerate:
         return lambda audio: base(audio).astype(np.float32)
     return lambda audio: delta_accelerate(base(audio)).astype(np.float32)
+
+
+# ---------------------------------------------------------------- on the device (torch)
+@functools.lru_cache(maxsize=32)
+def windowed_rdft_basis(frame_length: int, fft_length: int) -> np.ndarray:
+    """Hann window fused into a real-DFT basis: [L, 2 (fft_length // 2 + 1)] float32,
+    L = min(frame_length, fft_length), columns [Re | -Im], computed in float64.
+    As tf.signal.stft, only the first L windowed samples of a frame contribute."""
+    L = min(frame_length, fft_length)
+    n = np.arange(L, dtype=np.float64)[:, None]
+    k = np.arange(fft_length // 2 + 1, dtype=np.float64)[None, :]
+    angle = 2.0 * np.pi * n * k / fft_length
+    w = hann_window(frame_length, np.float64)[:L, None]
+    return np.concatenate([np.cos(angle) * w, -np.sin(angle) * w], axis=1).astype(np.float32)
+
+
+def power_stft(audio: torch.Tensor, frame_length: int, frame_step: int,
+               fft_length: Optional[int] = None) -> torch.Tensor:
+    """|STFT|^2 of ``audio [..., NumSamples]``: [..., NumFrames, fft_length // 2 + 1] float32.
+
+    When the frame is a whole number m of steps, frame t is m consecutive
+    step blocks, so the projection is the sum of m products of contiguous
+    block views with the basis rows of each block (no framed copy), in the
+    JAX device path's order; otherwise the frames are gathered first."""
+    if fft_length is None:
+        fft_length = int(2 ** np.ceil(np.log2(frame_length)))
+    L = min(frame_length, fft_length)
+    basis = windowed_rdft_basis(frame_length, fft_length)
+    num_samples = audio.shape[-1]
+    num_frames = (num_samples - frame_length) // frame_step + 1
+    m, rem = divmod(frame_length, frame_step)
+    audio = audio.float()
+    if rem == 0 and num_frames > 0:
+        full = np.zeros((frame_length, basis.shape[1]), np.float32)
+        full[:L] = basis
+        full = torch.from_numpy(full).to(audio.device)
+        nblocks = num_samples // frame_step
+        blocks = audio[..., : nblocks * frame_step].reshape(*audio.shape[:-1], nblocks, frame_step)
+        proj = None
+        for i in range(m):
+            term = blocks[..., i:i + num_frames, :] @ full[i * frame_step:(i + 1) * frame_step]
+            proj = term if proj is None else proj + term
+    else:
+        n = max(num_frames, 0)
+        idx = (torch.arange(n, device=audio.device) * frame_step)[:, None] + torch.arange(L, device=audio.device)
+        proj = audio[..., idx] @ torch.from_numpy(basis).to(audio.device)
+    bins = fft_length // 2 + 1
+    re, im = proj[..., :bins], proj[..., bins:]
+    return re * re + im * im
+
+
+def make_spectrogram_device(frame_length: int, frame_step: int, fft_length: Optional[int] = None) -> Callable:
+    """fn(audio [..., NumSamples]) -> [..., NumFrames, fft_length // 2 + 1, 1] magnitude spectrogram."""
+    return lambda audio: torch.sqrt(power_stft(audio, frame_length, frame_step, fft_length))[..., None]
+
+
+def make_log_mel_spectrogram_device(sample_rate: int, frame_length: int, frame_step: int, fft_length: int,
+                                    num_mel_bins: int = 80, lower_edge_hertz: float = 80.0,
+                                    upper_edge_hertz: float = 7600.0, epsilon: float = 1e-12) -> Callable:
+    """fn(audio [..., NumSamples]) -> [..., NumFrames, num_mel_bins, 1]: log(|STFT|^2 @ mel + eps)."""
+    mel = linear_to_mel_weight_matrix(num_mel_bins, fft_length // 2 + 1, sample_rate, lower_edge_hertz,
+                                      upper_edge_hertz)
+
+    def _fn(audio):
+        power = power_stft(audio, frame_length, frame_step, fft_length)
+        return torch.log(power @ torch.from_numpy(mel).to(power.device) + epsilon)[..., None]
+
+    return _fn
+
+
+def make_mfcc_device(sample_rate: int, frame_length: int, frame_step: int, fft_length: int, num_mel_bins: int = 80,
+                     num_mfcc: int = 40, lower_edge_hertz: float = 80.0, upper_edge_hertz: float = 7600.0,
+                     epsilon: float = 1e-12) -> Callable:
+    """fn(audio [..., NumSamples]) -> [..., NumFrames, num_mfcc, 1]: DCT-II(log-mel) * rsqrt(2N)."""
+    log_mel_fn = make_log_mel_spectrogram_device(sample_rate, frame_length, frame_step, fft_length, num_mel_bins,
+                                                 lower_edge_hertz, upper_edge_hertz, epsilon)
+    # float32, as the JAX device path hands its float64 matrix to the device
+    dct = (_dct2_matrix(num_mel_bins)[:, :num_mfcc] / np.sqrt(num_mel_bins * 2.0)).astype(np.float32)
+
+    def _fn(audio):
+        log_mel = log_mel_fn(audio)[..., 0]
+        return (log_mel @ torch.from_numpy(dct).to(log_mel.device))[..., None]
+
+    return _fn
+
+
+def delta_accelerate_device(feats: torch.Tensor) -> torch.Tensor:
+    """[..., TimeStep, FrequencyDim, 1] -> [..., TimeStep, FrequencyDim, 3] (feature, delta, delta-delta)."""
+    zero_head = torch.zeros_like(feats[..., :1, :, :])
+    delta = feats - torch.cat([zero_head, feats[..., :-1, :, :]], dim=-3)
+    accel = delta - torch.cat([zero_head, delta[..., :-1, :, :]], dim=-3)
+    return torch.cat([feats, delta, accel], dim=-1)
+
+
+def make_device_feature_fn(config) -> Callable:
+    """The device feature chain a ``DataConfig`` asks for, without delta / accel:
+    fn(audio [..., NumSamples] tensor) -> [..., NumFrame, frequency_dim, 1] float32."""
+    if config.audio_feature_type == "spectrogram":
+        return make_spectrogram_device(config.frame_length, config.frame_step, config.fft_length)
+    if config.audio_feature_type == "log-mel-spectrogram":
+        return make_log_mel_spectrogram_device(config.sample_rate, config.frame_length, config.frame_step,
+                                               config.fft_length, config.num_mel_bins, config.lower_edge_hertz,
+                                               config.upper_edge_hertz)
+    return make_mfcc_device(config.sample_rate, config.frame_length, config.frame_step, config.fft_length,
+                            config.num_mel_bins, config.num_mfcc, config.lower_edge_hertz, config.upper_edge_hertz)

@@ -48,7 +48,7 @@ def create_model(model_config, data_config, dtype: torch.dtype, device: torch.de
 
 
 def make_searcher(model: torch.nn.Module, model_config, data_config, bos_id: int, eos_id: int):
-    """The searcher of a model's family: ``LASSearcher`` (K4 greedy, K5 beam),
+    """The searcher of a model's family: ``LASSearcher`` (K4 greedy; K5 and K11 beam),
     ``TransducerSearcher``, or ``DeepSpeechSearcher`` for a CTC model
     (DeepSpeech2, the Conformer), which needs only its logits and the blank index."""
     from ..search import DeepSpeechSearcher, LASSearcher, TransducerSearcher
@@ -92,3 +92,32 @@ def pipelined_decode(batches, decode_fn, depth=2):
 
 def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(batch)).to(device, non_blocking=True)
+
+
+def use_raw_frontend(on_device_frontend, device: str, use_tfrecord: bool) -> bool:
+    """Resolve the ``--on-device-frontend`` tri-state of the decode CLIs: an
+    explicit flag wins; None means on for ``--device GPU`` (the counterpart of
+    the JAX package's TPU default) and off for the CPU.  TFRecords hold
+    precomputed features, so raw mode never applies to them."""
+    if use_tfrecord:
+        return False
+    if on_device_frontend is None:
+        return device.upper() == "GPU"
+    return bool(on_device_frontend)
+
+
+def frontend_decode_fn(data_config, decode_fn, device: torch.device):
+    """Wrap a feature-domain ``decode_fn(features tensor)`` for raw
+    ``(audio, sample_lengths)`` numpy batches: both go to ``device``, where the
+    on-device frontend (ops/frontend.py) computes the features that feed the
+    decode.  Pad frames come out exactly zero, which the models' masks key on."""
+    from ..ops.frontend import make_batch_frontend
+
+    frontend = make_batch_frontend(data_config, spec_augment=False)
+
+    def _fn(batch):
+        audio, lengths = batch
+        feats, _ = frontend(to_device(audio, device), to_device(lengths, device))
+        return decode_fn(feats)
+
+    return _fn

@@ -1,10 +1,13 @@
 """Evaluation entry point of the port: decode a TSV dataset, report WER / CER.
 
 Same flags, the same log lines and the same TSV (``Prediction, Target, WER,
-CER``) as ``speech_recognition_tpu.run.evaluate``.  Rows are read, decoded,
-tokenized and turned into features by the port's host pipeline, batched with
-``quantized_padded_batch`` (the JAX CLI's non-TPU shapes) and decoded
-through the family's searcher (``run/common.py make_searcher``): LAS,
+CER``) as ``speech_recognition_tpu.run.evaluate``.  Rows are read, decoded and
+tokenized by the port's host pipeline.  With ``--on-device-frontend`` (the
+default for ``--device GPU``) the raw audio is batched with
+``quantized_padded_raw_batch`` and the card computes the features
+(``ops/frontend.py``); otherwise the host computes them and they are batched
+with ``quantized_padded_batch`` (the JAX CLI's non-TPU shapes).  Batches are
+decoded through the family's searcher (``run/common.py make_searcher``): LAS,
 DeepSpeech2, the Conformer and the RNN-Transducer.  Weights are a ``.pt``
 state_dict (``weights.params_from_jax`` converts a Flax tree).  Runs on the
 GPU unless ``--device CPU`` is given; returns 0 when the set produced
@@ -33,7 +36,7 @@ parser.add_argument("--beam-size", type=int, default=0, help="not given, use gre
 parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset (not ported yet)")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
 parser.add_argument("--device", type=str, default="GPU", help="device to run on (GPU | CPU)")
-parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for GPU tsv runs)")
 # fmt: on
 
 
@@ -41,16 +44,16 @@ def main(args: argparse.Namespace):
     logger = get_logger("evaluate")
 
     from ..configs import DataConfig, get_model_config
-    from ..data import SentencePieceTokenizer, get_dataset, prefetch_stream, quantized_padded_batch
+    from ..data import (SentencePieceTokenizer, get_dataset, prefetch_stream, quantized_padded_batch,
+                        quantized_padded_raw_batch)
     from ..ops.features import make_feature_fn
-    from .common import (compute_dtype, create_model, load_weights, make_searcher, pipelined_decode, select_device,
-                         to_device)
+    from .common import (compute_dtype, create_model, frontend_decode_fn, load_weights, make_searcher,
+                         pipelined_decode, select_device, to_device, use_raw_frontend)
 
     if args.use_tfrecord:
         raise NotImplementedError("--use-tfrecord is not ported yet: the port reads tsv datasets")
-    if args.on_device_frontend:
-        raise NotImplementedError("--on-device-frontend is not ported yet: features are computed on the host")
     device = select_device(args.device)
+    raw_mode = use_raw_frontend(args.on_device_frontend, args.device, args.use_tfrecord)
     if args.mixed_precision:
         logger.info("[+] Use Mixed Precision (bfloat16)")
 
@@ -62,9 +65,13 @@ def main(args: argparse.Namespace):
     logger.info(f"[+] Load Data Config from {args.data_config}")
     config = DataConfig.from_yaml(args.data_config)
     logger.info(f"[+] Load dataset from {args.dataset_paths}")
-    feature_fn = make_feature_fn(config)  # delta and accel included when the config asks for them
-    stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer,
-                         map_fn=lambda audio, tokens: (feature_fn(audio), tokens))
+    if raw_mode:
+        logger.info("[+] Fused on-device audio frontend")
+        stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer)
+    else:
+        feature_fn = make_feature_fn(config)  # delta and accel included when the config asks for them
+        stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer,
+                             map_fn=lambda audio, tokens: (feature_fn(audio), tokens))
 
     model_config = get_model_config(args.model_config)
     model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
@@ -73,11 +80,17 @@ def main(args: argparse.Namespace):
     searcher = make_searcher(model, model_config, config, bos_id, eos_id)
 
     logger.info("[+] Start Inference")
-    batches = prefetch_stream(quantized_padded_batch(stream, args.batch_size), size=2)
     if args.beam_size > 0:
-        decode_fn = lambda audio: searcher.beam_search(to_device(audio, device), args.beam_size)[0][:, 0, :]
+        search = lambda features: searcher.beam_search(features, args.beam_size)[0][:, 0, :]
     else:
-        decode_fn = lambda audio: searcher.greedy_search(to_device(audio, device))[0]
+        search = lambda features: searcher.greedy_search(features)[0]
+    if raw_mode:
+        batches = prefetch_stream(
+            quantized_padded_raw_batch(stream, args.batch_size, config.frame_length, config.frame_step), size=2)
+        decode_fn = frontend_decode_fn(config, search, device)
+    else:
+        batches = prefetch_stream(quantized_padded_batch(stream, args.batch_size), size=2)
+        decode_fn = lambda features: search(to_device(features, device))
     outputs = []
     for batch_output, batch_tokens, n_valid in pipelined_decode(batches, decode_fn):
         outputs.extend(zip(batch_output[:n_valid], batch_tokens[:n_valid]))

@@ -2,11 +2,15 @@
 
 Same flags and the same TSV as ``speech_recognition_tpu.run.inference``.
 Audio decoding, batching, the tokenizer and the configs are the port's
-copies of the JAX package's host modules; features are the port's host
-numpy chain.  An LAS model decodes through ``LASSearcher`` (kernels K4 /
-K5), an RNN-Transducer through ``TransducerSearcher`` (K7 in its encoder, K5
-in the beam), a CTC model (DeepSpeech2, the Conformer) through ``DeepSpeechSearcher``.  Weights are
-a ``.pt`` state_dict (``weights.params_from_jax`` converts a Flax tree).
+copies of the JAX package's host modules.  Features are computed on the card
+from the raw audio (``--on-device-frontend``, the default for ``--device
+GPU``: ``ops/frontend.py``) or on the host by the port's numpy chain (the
+default for ``--device CPU``, or ``--no-on-device-frontend``).  An LAS model
+decodes through ``LASSearcher`` (kernels K4 greedy; K5 and K11 beam), an
+RNN-Transducer through ``TransducerSearcher`` (K7 in its encoder, K5 in the
+beam), a CTC model (DeepSpeech2, the Conformer) through
+``DeepSpeechSearcher``.  Weights are a ``.pt`` state_dict
+(``weights.params_from_jax`` converts a Flax tree).
 Runs on the GPU unless ``--device CPU`` is given.
 
     python -m speech_recognition_tpu_torch.run.inference --data-config ... --model-config ... \
@@ -31,7 +35,7 @@ parser.add_argument("--batch-size", type=int, default=512)
 parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
 parser.add_argument("--device", type=str, default="GPU", help="device to run on (GPU | CPU)")
-parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for GPU runs)")
 # fmt: on
 
 
@@ -41,15 +45,14 @@ def main(args: argparse.Namespace):
     import numpy as np
 
     from ..configs import DataConfig, get_model_config
-    from ..data import (
-        SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream, quantized_padded_batch)
+    from ..data import (SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream,
+                        quantized_padded_batch, quantized_padded_raw_batch)
     from ..ops.features import make_feature_fn
-    from .common import (compute_dtype, create_model, load_weights, make_searcher, pipelined_decode, select_device,
-                         to_device)
+    from .common import (compute_dtype, create_model, frontend_decode_fn, load_weights, make_searcher,
+                         pipelined_decode, select_device, to_device, use_raw_frontend)
 
-    if args.on_device_frontend:
-        raise NotImplementedError("--on-device-frontend is not ported yet: features are computed on the host")
     device = select_device(args.device)
+    raw_mode = use_raw_frontend(args.on_device_frontend, args.device, False)
     if args.mixed_precision:
         logger.info("[+] Use Mixed Precision (bfloat16)")
 
@@ -74,13 +77,21 @@ def main(args: argparse.Namespace):
     searcher = make_searcher(model, model_config, config, bos_id, eos_id)
 
     logger.info("Start Inference")
-    features = parallel_map_stream(dataset_files, lambda path: feature_fn(load_fn(path)))
-    dummy_tokens = ((feat, np.zeros(1, np.int32)) for feat in features)
-    batches = prefetch_stream(quantized_padded_batch(dummy_tokens, args.batch_size), size=2)
+    # decode (and the host features, unless the card computes them) in a thread pool
+    examples = parallel_map_stream(dataset_files, load_fn if raw_mode else lambda path: feature_fn(load_fn(path)))
+    dummy_tokens = ((x, np.zeros(1, np.int32)) for x in examples)
     if args.beam_size > 0:
-        decode_fn = lambda audio: searcher.beam_search(to_device(audio, device), args.beam_size)[0][:, 0, :]
+        search = lambda features: searcher.beam_search(features, args.beam_size)[0][:, 0, :]
     else:
-        decode_fn = lambda audio: searcher.greedy_search(to_device(audio, device))[0]
+        search = lambda features: searcher.greedy_search(features)[0]
+    if raw_mode:
+        logger.info("[+] Fused on-device audio frontend")
+        batches = prefetch_stream(
+            quantized_padded_raw_batch(dummy_tokens, args.batch_size, config.frame_length, config.frame_step), size=2)
+        decode_fn = frontend_decode_fn(config, search, device)
+    else:
+        batches = prefetch_stream(quantized_padded_batch(dummy_tokens, args.batch_size), size=2)
+        decode_fn = lambda features: search(to_device(features, device))
 
     outputs = []
     for decoded, _, n_valid in pipelined_decode(batches, decode_fn):

@@ -10,9 +10,14 @@
   search.py:322-329), while tokens and scores are re-gathered;
 - every top-k breaks value ties by the lower index, as ``lax.top_k`` does.
 
-Greedy runs kernel K4 (``ops/greedy_search.py``).  Beam runs the decoder
-step in plain PyTorch and kernel K5 (``ops/vocab_topk.py``) for the vocab
-projection, top-k and logsumexp of every step, the first included.
+Greedy runs kernel K4 (``ops/greedy_search.py``).  Beam runs its first step
+from BOS as the model's plain decoder step with kernel K5
+(``ops/vocab_topk.py``) for the vocab projection, top-k and logsumexp, then
+steps 2..L-1 as one call of kernel K11 (``ops/beam_search.py``), whose
+arithmetic is that of the TPU beam kernel (``beam_kernel.py
+_beam_step_math``; the same as the XLA loop's in float32, bf16 rounded at
+other places) and which stops once every beam has ended, as the XLA loop
+does.  The speller is LSTM only, as the TPU kernel requires.
 
 ``DeepSpeechSearcher`` (search.py:336-512) decodes a CTC model's log-softmax
 outputs in plain PyTorch, as the JAX package does it outside any Pallas
@@ -30,6 +35,7 @@ from typing import Tuple
 import torch
 
 from .models.las import LAS
+from .ops.beam_search import beam_search
 from .ops.greedy_search import greedy_search, seq_lengths
 from .ops.rnn import cell_step
 from .ops.vocab_topk import ROUND_NONE, ROUND_TWICE, vocab_topk
@@ -92,7 +98,7 @@ class LASSearcher:
         B, K, L = audio.shape[0], int(beam_size), self.max_token_length
         dt = self.model.compute_dtype
         rounding = ROUND_TWICE if dt == torch.bfloat16 else ROUND_NONE
-        _, _, _, _, vw, vb = self.decoder_params()
+        emb, qw, qb, cells, vw, vb = self.decoder_params()
         vb = vb.to(dt)  # the beam path's Dense bias lives in the compute type (search.py:271)
         enc_out, keys, mask, states = self._encode(audio)
         dev = enc_out.device
@@ -105,33 +111,11 @@ class LASSearcher:
         tokens = torch.full((B, K, L), self.pad_id, dtype=torch.long, device=dev)
         tokens[:, :, 0] = self.bos_id
         tokens[:, :, 1] = top_tokens
-        states = tuple(s.repeat_interleave(K, dim=0) for s in states0)  # [B*K, H], beam-major rows
-        batch_idx = torch.arange(B, device=dev)[:, None]
+        h0, c0 = (s.repeat_interleave(K, dim=0) for s in states0)  # [B*K, H], beam-major rows
 
-        for step in range(2, L):
-            ended = (tokens == self.eos_id).any(dim=-1)  # [B, K]
-            if bool(ended.all()):
-                break
-            last = tokens[:, :, step - 1]
-            hidden, new_states = self.model.decode_step_beam_hidden(enc_out, keys, last, mask, states)
-            top_raw, cand_tokens, lse = vocab_topk(hidden.contiguous(), vw, vb, K, rounding)
-            step_lp = (top_raw - lse[:, None]).reshape(B, K, K)
-            cand_tokens = cand_tokens.reshape(B, K, K)
-            step_lp = torch.where(ended[:, :, None], 0.0, step_lp)
-            cand_logp = logp[:, :, None] + step_lp  # [B, K, K]
-
-            cand_len = seq_lengths(tokens, step + 1, self.eos_id).float()[:, :, None]
-            penalty = ((1.0 + cand_len) / (1.0 + beta)) ** alpha
-            top_idx = _topk_stable((cand_logp * penalty).reshape(B, K * K), K)
-            beam_idx, tok_idx = top_idx // K, top_idx % K
-
-            new_tok = cand_tokens[batch_idx, beam_idx, tok_idx]
-            new_tok = torch.where(ended[batch_idx, beam_idx], self.pad_id, new_tok)
-            tokens = tokens[batch_idx, beam_idx]
-            tokens[:, :, step] = new_tok
-            logp = cand_logp[batch_idx, beam_idx, tok_idx]
-            states = new_states  # reference semantics: no re-gather by ancestry
-
+        # steps 2..L-1: one call, kernel K11 on the card (ops/beam_search.py)
+        tokens, logp = beam_search(keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells, h0, c0,
+                                   tokens, logp, self.eos_id, self.pad_id, alpha, beta)
         lens = seq_lengths(tokens, L, self.eos_id)
         pos = torch.arange(L, device=dev)[None, None, :]
         tokens = torch.where(pos < lens[:, :, None], tokens, self.pad_id)

@@ -48,17 +48,33 @@ rows of lengths T, 1, ceil(T/2), 0 and T - 1, nonzero initial states: float32
 rtol 1e-5 / atol 1e-6 (sums in another order), bf16 within 2e-2 x max|ref|
 (a float32 sum in another order can move one rounding, and the loop carries
 it on); a no-grad ``lstm_scan`` / ``gru_scan`` of CUDA tensors launches it.
+
+K11 (the whole LAS beam loop) at B=6, S=37 (a row of one frame), V=500, L=12,
+K in {1, 2, 3, 4, 8, 16}, one and two cells, the default and other length
+penalties, an EOS bias under which every row ends before L: float32 tokens
+equal and logP rtol 1e-5 (sums in another order); bf16 >= 95% of the token
+slots equal and logP rtol 2e-2 on the rows that agree (a float32 sum in
+another order can move one bf16 rounding of h or the context, and a
+near-tie then swaps two candidates).  The all-ended state comes back
+unchanged; ``LASSearcher.beam_search`` launches K5 once and K11 once.  The
+on-device frontend on the card matches the CPU within rtol and atol 2e-3.
 """
+
+import os
 
 import pytest
 import torch
 
+from speech_recognition_tpu_torch.configs import DataConfig, LASConfig
+from speech_recognition_tpu_torch.models import LAS
 from speech_recognition_tpu_torch.ops.attention import keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain
+from speech_recognition_tpu_torch.ops.beam_search import beam_loop_plain, beam_search
 from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_bwd_plain, ce_fwd, ce_fwd_plain
 from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, ctc_emissions_bwd_plain,
                                                             ctc_emissions_fwd, ctc_emissions_fwd_plain)
 from speech_recognition_tpu_torch.ops.decoder_kernel import (
     decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
+from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend
 from speech_recognition_tpu_torch.ops.greedy_search import greedy_search, greedy_search_plain
 from speech_recognition_tpu_torch.ops.joint_planes import (banded_planes_bwd, banded_planes_fwd, joint_planes_bwd,
                                                            joint_planes_fwd)
@@ -71,6 +87,7 @@ from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, 
 from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
                                                                 banded_planes_fwd_plain)
 from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_NONE, ROUND_ONCE, ROUND_TWICE, vocab_topk, vocab_topk_plain
+from speech_recognition_tpu_torch.search import LASSearcher
 
 pytestmark = pytest.mark.cuda
 
@@ -490,3 +507,135 @@ def test_no_grad_scans_launch_k10(cuda, rnn_type):
     want = rnn_sequence_plain(rnn_type, x, mask, rk, rb, h0, c0)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
+
+
+def _beam_operands(cuda, dtype, B, K, S, H, He, Dv, V, L, n_cells, seed, eos_bias=0.0, all_ended=False):
+    """K11's operands on the card: a ragged mask (row 0 full, one row of 1 frame),
+    peaked logits (vocab kernel x8 / sqrt(H)), beams seeded with BOS and a first
+    token (EOS for two beams, or for every beam with ``all_ended``)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda, dtype)
+
+    lengths = torch.randint(1, S + 1, (B,), generator=g)
+    lengths[0], lengths[-1] = S, 1
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).to(cuda)
+    vb = torch.randn(V, generator=g) * 0.5
+    vb[2] += eos_bias
+    cells, in_dim = [], He + Dv
+    for _ in range(n_cells):
+        cells.append((rand(in_dim, 4 * H, scale=in_dim ** -0.5), rand(H, 4 * H, scale=H ** -0.5), rand(4 * H, scale=0.1)))
+        in_dim = H
+    tokens = torch.zeros(B, K, L, dtype=torch.long)
+    tokens[:, :, 0] = 1
+    tokens[:, :, 1] = torch.randint(3, V, (B, K), generator=g)
+    tokens[1 % B, 0, 1] = tokens[B - 1, K - 1, 1] = 2
+    if all_ended:
+        tokens[:, :, 1] = 2
+    logp = -torch.sort(torch.rand(B, K, generator=g) * 4 + 0.1, dim=1).values
+    return (rand(B, S, H), torch.relu(rand(B, S, Dv)), mask, rand(H, H, scale=H ** -0.5), rand(H, scale=0.1),
+            rand(V, He), rand(H, V, scale=8 * H ** -0.5), vb.to(cuda, dtype), cells, rand(B * K, H, scale=0.5),
+            rand(B * K, H, scale=0.5), tokens.to(cuda), logp.to(cuda), 2, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, n_cells, alpha, beta, eos_bias", [
+    (1, 1, 1.0, 32.0, 0.0), (4, 2, 1.0, 32.0, 0.0), (8, 2, 0.6, 5.0, 0.0), (4, 1, 2.0, 0.0, 0.0),
+    (8, 2, 1.0, 32.0, 40.0), (3, 2, 1.0, 32.0, 0.0), (2, 2, 1.0, 32.0, 0.0), (16, 2, 1.0, 32.0, 0.0)])
+def test_beam_kernel_matches_plain(cuda, dtype, K, n_cells, alpha, beta, eos_bias):
+    """K11 (csrc/las_beam.cu) vs beam_loop_plain.  float32: tokens equal, logP rtol
+    1e-5 (sums in another order).  bf16: >= 95% of the token slots equal (a float32
+    sum in another order can move one bf16 rounding of h or the context, and a
+    near-tie of two candidates then swaps), logP rtol 2e-2 on rows whose tokens
+    are all equal.  The EOS-biased case ends every row before L (the device's
+    early exit)."""
+    args = _beam_operands(cuda, dtype, 6, K, 37, 64, 48, 96, 500, 12, n_cells, K + n_cells, eos_bias)
+    tok, logp = beam_search(*args, alpha=alpha, beta=beta)
+    ptok, plogp = beam_loop_plain(*args, alpha=alpha, beta=beta)
+    assert tok.dtype == torch.long and tok.shape == ptok.shape and logp.shape == plogp.shape
+    if dtype == torch.float32:
+        assert torch.equal(tok, ptok)
+        torch.testing.assert_close(logp, plogp, rtol=1e-5, atol=0)
+    else:
+        assert (tok == ptok).float().mean().item() >= 0.95
+        same = (tok == ptok).all(dim=2).all(dim=1)
+        torch.testing.assert_close(logp[same], plogp[same], rtol=2e-2, atol=0)
+    if eos_bias:
+        assert bool((tok == 2).any(dim=-1).all()) and bool((tok[:, :, -1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_kernel_returns_the_all_ended_state_unchanged(cuda, dtype):
+    """Every beam ended before step 2: no kernel of the loop changes anything (the
+    XLA loop's condition is false at once), whatever the log-probs."""
+    args = _beam_operands(cuda, dtype, 5, 4, 20, 32, 32, 64, 300, 9, 2, 7, all_ended=True)
+    tok, logp = beam_search(*args)
+    assert torch.equal(tok, args[11]) and torch.equal(logp, args[12])
+
+
+def test_beam_kernel_raises_on_what_it_does_not_take(cuda):
+    args = list(_beam_operands(cuda, torch.float32, 3, 4, 20, 32, 32, 64, 300, 9, 2, 0))
+    with pytest.raises(ValueError, match="K="):  # K above 16
+        bad = list(args)
+        bad[11], bad[12] = args[11].repeat(1, 5, 1), args[12].repeat(1, 5)
+        bad[9], bad[10] = args[9].repeat(5, 1), args[10].repeat(5, 1)
+        beam_search(*bad)
+    with pytest.raises(ValueError, match="L >= 3"):
+        beam_search(*args[:11], args[11][:, :, :2].contiguous(), *args[12:])
+    with pytest.raises(ValueError, match="dtype"):
+        beam_search(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="cells"):
+        beam_search(*args[:8], args[8] * 5, *args[9:])
+    with pytest.raises(ValueError, match="shared memory"):  # S too long for the block's shared memory
+        long = list(_beam_operands(cuda, torch.float32, 2, 16, 4000, 32, 32, 64, 300, 9, 1, 0))
+        beam_search(*long)
+
+
+def test_las_beam_search_launches_k11_once(cuda):
+    """``LASSearcher.beam_search`` on the card: K5 once (the first step from BOS),
+    then K11 once for steps 2..L-1."""
+    config = LASConfig(rnn_type="lstm", vocab_size=300, encoder_hidden_dim=32, decoder_hidden_dim=64,
+                       num_encoder_layers=1, num_decoder_layers=2, dropout=0.0, teacher_forcing_rate=1.0, pad_id=0)
+    model = LAS(config, 10, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    audio = torch.rand(4, 40, 10, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    k11, k5 = beam_search.launches, vocab_topk.launches
+    tok, ppl = LASSearcher(model, 10, 1, 2).beam_search(audio, 4)
+    assert beam_search.launches == k11 + 1 and vocab_topk.launches == k5 + 1
+    assert tok.shape == (4, 4, 10) and bool(torch.isfinite(ppl).all())
+
+
+@pytest.mark.parametrize("path", ["resources/configs/libri_config.yml", "resources/configs/kspon_config.yml"])
+def test_frontend_on_the_card_matches_the_cpu(cuda, path):
+    """The on-device frontend on the card vs the CPU (float32, TF32 off): rtol and
+    atol 2e-3 (DFT products summed in another order, then a log); pad frames
+    exactly zero; equal frame lengths."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DataConfig.from_yaml(os.path.join(os.path.dirname(os.path.dirname(__file__)), path))
+    g = torch.Generator().manual_seed(0)
+    audio = torch.randn(4, 16000, generator=g) * 0.3
+    lengths = torch.tensor([16000, 9000, 12345, 200], dtype=torch.int32)
+    audio[torch.arange(16000)[None, :] >= lengths[:, None].long()] = 0.0
+    frontend = make_batch_frontend(cfg)
+    want, want_len = frontend(audio, lengths)
+    got, got_len = frontend(audio.to(cuda), lengths.to(cuda))
+    assert torch.equal(got_len.cpu(), want_len)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    for i, n in enumerate(want_len.tolist()):
+        assert bool((got[i, n:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_kernel_in_parts_equals_the_whole_loop(cuda, dtype):
+    """``step0`` / ``n_steps``: K11 run one step a call, each from the last call's
+    histories, log-probs and states, gives the whole loop's results bit for bit
+    (the same kernels in the same order)."""
+    args = _beam_operands(cuda, dtype, 4, 4, 20, 32, 32, 64, 300, 9, 2, 3, eos_bias=3.0)
+    whole = beam_search(*args, return_states=True)
+    h, c, tok, lp = args[9], args[10], args[11], args[12]
+    for n in range(2, tok.shape[2]):
+        tok, lp, h, c = beam_search(*args[:9], h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
+    for got, want in zip((tok, lp, h, c), whole):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="step0"):
+        beam_search(*args, step0=1)

@@ -87,7 +87,7 @@ def test_tsv_rows_match_the_jax_cli(tmp_path, checkpoints, model_config, beam):
     assert all(0.0 <= float(row[2]) and 0.0 <= float(row[3]) for row in got[1:])
 
 
-@pytest.mark.parametrize("flag", ["--use-tfrecord", "--on-device-frontend"])
+@pytest.mark.parametrize("flag", ["--use-tfrecord"])
 def test_unported_flags_raise(tmp_path, checkpoints, flag):
     args = evaluate.parser.parse_args(_args(TEST_DS_CONFIG, checkpoints[TEST_DS_CONFIG][1], tmp_path / "x.tsv", 0)
                                       + [flag])

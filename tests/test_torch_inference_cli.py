@@ -75,7 +75,17 @@ def test_cli_sentences_match_jax_searcher(tmp_path, jax_las, beam):
 
 
 def test_cli_refuses_on_device_frontend(tmp_path, jax_las):
-    args = _args(tmp_path, jax_las[3], 0, _tsv_audio_paths()[0])
-    args.on_device_frontend = True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The CLI refused ``--on-device-frontend`` until the frontend was ported; it
+    now takes it: features computed from the raw audio by ops/frontend.py give
+    the sentences of the host features (tests/test_torch_frontend.py holds the
+    raw mode against the JAX CLI's)."""
+    audio_path = _tsv_audio_paths()[0]
+    sentences = []
+    for raw in (False, True):
+        args = _args(tmp_path, jax_las[3], 3, audio_path)
+        args.on_device_frontend = raw
         inference.main(args)
+        with open(tmp_path / "out.tsv") as f:
+            sentences.append(list(csv.reader(f, delimiter="\t")))
+    assert sentences[1] == sentences[0]
+    assert sentences[1][1][1].strip()

@@ -7,9 +7,9 @@
 Random seeded weights of the model config and random non-zero features of
 1024 frames, bf16.  Times, with CUDA events after a warm-up (median of 3).
 LAS (``las_small.yml``): the listener (``encode`` + key projection), the
-greedy decode loop (kernel K4) and the beam-8 decode loop (plain decoder
-step + kernel K5 + score selection) on the same encoder outputs, and the
-whole ``greedy_search`` / ``beam_search``.  DeepSpeech2
+greedy decode loop (kernel K4) on the same encoder outputs, and the whole
+``greedy_search`` / ``beam_search`` (its first step a plain decoder step +
+kernel K5, steps 2..L-1 one call of kernel K11).  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``, its blocks'
 attention through kernel K7): the model's log-probs (trunk, vocab
 projection, log-softmax), and the whole CTC greedy / prefix beam-8 search;
