@@ -13,9 +13,13 @@ Phases, in order; any failure exits non-zero without printing a result:
    also float32),
    with the tolerances stated in ``check_*``; both times (CUDA events,
    plain/kernel/kernel/plain turns), the time of the one PyTorch call that
-   does the kernel's main work where there is one (``F.linear`` producing the
-   full logits: K1, K5, K6), and the kernel's bound computed from its shapes
-   (``bound``);
+   does the kernel's main work where there is one (the forwards of K1, K5,
+   K6, K8, K9: ``F.linear`` producing the full logits; their backwards:
+   ``torch.autograd.grad`` of the unfused ``F.linear`` -> ``log_softmax`` ->
+   gather, ``autograd_bwd_ms``), and the kernel's bound computed from its
+   shapes (``bound``); the bf16 backwards of K1, K6, K8 and K9 return the
+   same bits in two calls, and ptxas reports no spill for the bf16 backward
+   engine's kernels;
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, the features computed
@@ -187,12 +191,69 @@ def linear_ms(hid, W, b, iters=20):
     return start.elapsed_time(end) / iters
 
 
+AUTOGRAD_YARDSTICK = "autograd of F.linear (bf16) -> log_softmax (float32) -> gather"
+
+
+def autograd_bwd_ms(fn, inputs, cotangent, iters=5):
+    """CUDA-event ms of PyTorch's autograd backward of the unfused function
+    ``fn(*inputs)``, the yardstick of the fused backward kernels (K1, K6, K8,
+    K9): the forward's graph is built first, outside the timing, and each timed
+    call is one ``torch.autograd.grad`` over all the inputs (timed here only;
+    the port never calls it)."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    torch.autograd.grad(out, leaves, cotangent, retain_graph=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        torch.autograd.grad(out, leaves, cotangent, retain_graph=True)
+    end.record()
+    end.synchronize()
+    del out
+    return start.elapsed_time(end) / iters
+
+
+def vocab_logprobs(hid, weight, bias):
+    """The unfused function the backward yardstick differentiates: bf16 logits of
+    ``F.linear``, a float32 log-softmax over the vocab."""
+    import torch.nn.functional as F
+
+    return F.log_softmax(F.linear(hid, weight, bias).float(), dim=-1)
+
+
+def repeats_bit_for_bit(fn, what):
+    """Two calls of a backward return the same bits (no atomics, fixed sum orders)."""
+    import torch
+
+    first, second = fn(), fn()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), f"{what}: two calls return the same bits")
+
+
 def cell_flops(Bsz, cells, H):
     """2 x multiply-adds of one step of the LSTM cells: [B, in + H] x [in + H, 4H] each."""
     return sum(2 * Bsz * (k.shape[0] + H) * 4 * H for k in cells)
 
 
 # ---------------------------------------------------------------- phase 1
+def engine_spills(build_log):
+    """{kernel: spill bytes (stores + loads)} of the vocab backward engine's row and column
+    kernels (csrc/vocab_bwd.cuh, one per policy) from ptxas' -v report."""
+    import re
+
+    spills, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and ("vb_row_kernel" in fn or "vb_col_kernel" in fn):
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+    return spills
+
+
 def phase_setup():
     import torch
 
@@ -211,6 +272,10 @@ def phase_setup():
     for line in kernels.build_log.splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  ptxas:", line.strip())
+    spills = engine_spills(kernels.build_log)
+    # row and column kernel, tile and panel mode, for each policy (K1/K6, K8/K9)
+    check(len(spills) == 8 and not any(spills.values()),
+          f"ptxas: the bf16 backward engine's 8 kernels spill no register ({spills})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -470,15 +535,20 @@ def check_ce(gen):
         check(err <= tol * want.float().abs().max().item(),
               f"ce_vocab bwd {name} within {tol:g} x max|ref| (max abs err {err:.3g}, max|ref| "
               f"{want.float().abs().max().item():.3g})")
+    repeats_bit_for_bit(lambda: ce_bwd(hid, W, b, y, plse, dnll), f"ce_vocab bwd R={R} bf16")
     f_ms, pf_ms = timed_pair(lambda: ce_fwd(hid, W, b, y), lambda: ce_fwd_plain(hid, W, b, y), 5)
     b_ms, pb_ms = timed_pair(lambda: ce_bwd(hid, W, b, y, plse, dnll), lambda: ce_bwd_plain(hid, W, b, y, plse, dnll), 3)
     lib_ms = linear_ms(hid, W, b)
+    weight = W.t().contiguous()
+    lib_b = autograd_bwd_ms(lambda h, w, c: vocab_logprobs(h, w, c).gather(1, y.long()[:, None]),
+                            (hid, weight, b), (-dnll)[:, None])
     # forward: one product; backward: the logits recompute, dhid and dW
     fb = bound(2 * R * H * V, nbytes(hid, W, b, y, lse, lab, pred.int()))
     bb = bound(3 * 2 * R * H * V, nbytes(hid, W, b, y, plse, dnll, dhid, dW, db))
-    print(f"  ce_vocab R={R} H={H} V={V}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms; "
-          f"bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms; F.linear {lib_ms:.3f} ms")
-    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (max(errs.values()), b_ms, pb_ms, *bb, lib_ms)
+    print(f"  ce_vocab R={R} H={H} V={V}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms, "
+          f"F.linear {lib_ms:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms, "
+          f"{AUTOGRAD_YARDSTICK} {lib_b:.4f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (max(errs.values()), b_ms, pb_ms, *bb, lib_b)
 
 
 def decoder_operands(gen, dtype, N, Bsz, S, H, He, Dv, device="cuda"):
@@ -606,18 +676,22 @@ def check_emissions(gen):
     worst = max((g - w).abs().max().item() / w.abs().max().item() for g, w in zip(kg8, pg8))
     check(worst <= 1e-5, f"ctc_emissions float32 on 8 rows: dhid, dW, db within 1e-5 x max|ref| ({worst:.3g})")
 
+    repeats_bit_for_bit(lambda: ctc_emissions_bwd(hid, W, b, ids, pl, dvals), f"{tag} bf16 bwd")
     f_ms, pf_ms = timed_pair(lambda: ctc_emissions_fwd(hid, W, b, ids),
                              lambda: ctc_emissions_fwd_plain(hid, W, b, ids), 5)
     b_ms, pb_ms = timed_pair(lambda: ctc_emissions_bwd(hid, W, b, ids, pl, dvals),
                              lambda: ctc_emissions_bwd_plain(hid, W, b, ids, pl, dvals), 3)
     R = B * T
     lib_ms = linear_ms(hid.reshape(R, H), W, b)
+    index = ids.long()[:, None, :].expand(B, T, K)
+    lib_b = autograd_bwd_ms(lambda h, w, c: vocab_logprobs(h, w, c).view(B, T, V).gather(2, index),
+                            (hid.reshape(R, H), W.t().contiguous(), b), dvals)
     # forward: one product; backward: the logits recompute, dhid and dW
     fb = bound(2 * R * H * V, nbytes(hid, W, b, ids, kl, kv))
     bb = bound(3 * 2 * R * H * V, nbytes(hid, W, b, ids, pl, dvals, kg))
-    print(f"  {tag}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms; bwd kernel {b_ms:.3f} "
-          f"ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms; F.linear {lib_ms:.3f} ms")
-    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
+    print(f"  {tag}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms, F.linear {lib_ms:.4f} ms; "
+          f"bwd kernel {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms, {AUTOGRAD_YARDSTICK} {lib_b:.4f} ms")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_b)
 
 
 def mhsa_operands(gen, dtype, Bsz, T, H, d, min_len):
@@ -768,10 +842,11 @@ def check_joint_planes(gen, dense):
     1,036,320 for K9, in another order) within 1e-4 x max|ref|; in bf16 denc /
     dpred within 2e-2 and dW / db within 1e-2 x max|ref| (both sides round dz
     to bf16, and a float32 difference can move one rounding by a step).  Kernel and plain
-    timed in turns at bf16, S=4 (K8) / B=32 (K9); the library time is cuBLAS's
-    ``F.linear`` producing the full bf16 logits of the same rows, timed on a
-    chunk of 16384 rows and scaled to all of them (the full logits would not
-    fit the card at K9's R)."""
+    timed in turns at bf16, S=4 (K8) / B=32 (K9); the forward's library time is cuBLAS's
+    ``F.linear`` producing the full bf16 logits of the same rows, the backward's
+    autograd of ``tanh(enc + pred)`` -> ``F.linear`` -> ``log_softmax`` -> the blank and
+    target columns, each timed on a chunk of 16384 rows and scaled to all of them (the
+    full logits would not fit the card at K9's R)."""
     import torch
 
     from speech_recognition_tpu_torch.ops import joint_planes as jp
@@ -816,6 +891,7 @@ def check_joint_planes(gen, dense):
             check(a.dtype == w.dtype and err <= tol * ref,
                   f"{tag}: {name} within {tol:g} x max|ref| (max abs err {err:.3g}, max|ref| {ref:.3g})")
         if timed is None:
+            repeats_bit_for_bit(lambda: bwd(*ops, want[2], *cots), f"{tag} bwd")
             timed = (ops, want, cots, fwd_err, bwd_err, tag, fwd, bwd, pfwd, pbwd)
     ops, want, cots, fwd_err, bwd_err, tag, fwd, bwd, pfwd, pbwd = timed
     iters = 1 if dense else 3
@@ -825,13 +901,19 @@ def check_joint_planes(gen, dense):
     chunk = 16384
     hrows = torch.randn(chunk, J, generator=gen).to("cuda", torch.bfloat16)
     lib_ms = linear_ms(hrows, ops[2], ops[3]) * R / chunk
+    # the backward's yardstick on a chunk of rows: h = tanh(enc + pred), the log-probs at the blank and a target
+    enc_rows, pred_rows = (torch.randn(chunk, J, generator=gen).mul(0.4).to("cuda", torch.bfloat16) for _ in range(2))
+    cols = torch.stack([torch.zeros(chunk, dtype=torch.long), torch.randint(1, V, (chunk,), generator=gen)], 1)
+    cols, cot = cols.to("cuda"), (torch.randn(chunk, 2, generator=gen) / T).to("cuda")
+    lib_b = autograd_bwd_ms(lambda e, pr, w, c: vocab_logprobs(torch.tanh(e + pr), w, c).gather(1, cols),
+                            (enc_rows, pred_rows, ops[2].t().contiguous(), ops[3]), cot, iters=3) * R / chunk
     outs = fwd(*ops)
     fb = bound(2 * R * J * V, nbytes(ops, outs))
     bb = bound(3 * 2 * R * J * V, nbytes(ops, want[2], cots, bwd(*ops, want[2], *cots)))
-    print(f"  {tag}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); bwd kernel "
-          f"{b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}); F.linear {lib_ms:.3f} ms "
-          f"({R} rows, scaled from {chunk})")
-    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_ms)
+    print(f"  {tag}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}), F.linear "
+          f"{lib_ms:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}), "
+          f"{AUTOGRAD_YARDSTICK} from tanh(enc + pred) {lib_b:.4f} ms ({R} rows, both yardsticks scaled from {chunk})")
+    return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_b)
 
 
 def rnn_operands(gen, rnn_type, dtype, D, T, Bsz, H):

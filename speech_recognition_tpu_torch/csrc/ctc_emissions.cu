@@ -16,21 +16,30 @@
 // Backward: dlog[r, v] = sum_k dvals[r, k] [ids[b, k] == v] + softmax[r, v] dlse[r],
 // dlse = -sum_k dvals.  emission_fold_kernel folds duplicate ids (repeated
 // labels, the pad id) into their first occurrence, summing in k order, and
-// writes dlse; then two kernels each recompute their logits tiles:
-//  - emission_dhid_kernel, grid (32-row block, 256-column h chunk): loops
-//    over the vocab tiles; per tile the folded label terms are scattered into
-//    a zeroed tile in shared memory (each cell written at most once, so no
-//    order between threads matters), dlog is rounded to T and each thread adds
-//    its h column's share of rnd(dlog) @ W^T from staged W^T chunks.
-//  - emission_dw_kernel, grid (64-column vocab tile, 256-row h chunk): loops
-//    over all rows in blocks of 32, so each block owns its dW columns and
-//    needs no atomics: dW += hid^T @ rnd(dlog), db += dlog (unrounded).
+// writes dlse; in bf16 it also lists each batch row's distinct ids in
+// ascending order with their first k.  Then the logits are recomputed:
+//  - bf16: the tensor-core engine of csrc/vocab_bwd.cuh (wgmma, cp.async
+//    rings), with EmissionRows as its policy: per row lse and c = dlse; the
+//    label terms come from the sorted list (a cursor per row in the row
+//    kernel, which walks V in order; a binary search per row block in the
+//    column kernel), each cell receiving at most one folded label, added
+//    before dlog is rounded; dhid = rnd(dlog) @ W^T is stored in bf16, dW =
+//    hid^T @ rnd(dlog) and db = sum dlog (unrounded, ctc_kernel.py:119) in
+//    float32.  What bounds it at B=128, T=108, H=256, V=16000: three 113 GFLOP
+//    products (recompute, dhid, dW) at the bf16 tensor-core peak; the engine
+//    keeps every product on the tensor cores and the logits out of memory.
+//  - float32: two kernels on the CUDA cores (tensor cores would mean TF32,
+//    and the float32 path is held to 1e-5 x max|ref|):
+//    emission_dhid_kernel, grid (32-row block, 256-column h chunk), loops over
+//    the vocab tiles; per tile the folded label terms are scattered into a
+//    zeroed tile in shared memory (each cell written at most once, so no
+//    order between threads matters) and each thread adds its h column's share
+//    of dlog @ W^T from staged W^T chunks; emission_dw_kernel, grid (64-column
+//    vocab tile, 256-row h chunk), loops over all rows in blocks of 32, so
+//    each block owns its dW columns and needs no atomics.
 // K1's backward (ops/ce_vocab.py) is this backward with one id per row
 // (T = 1, K = 1, dvals = -dnll).
-// What bounds it: at B=128, T=108, H=256, V=16000 the forward is a 113 GFLOP
-// product and the backward three (recompute, dhid, dW), 340 GFLOP: the
-// operations at the bf16 tensor-core peak, not the bytes, bound it.  These
-// tiles run on the CUDA cores in float32; tensor-core tiles are later work.
+#include "vocab_bwd.cuh"
 #include "vocab_topk.cuh"
 
 #define EM_ROWS 32      // rows per block of the dhid kernel and per chunk of the dW kernel
@@ -87,9 +96,11 @@ __global__ void __launch_bounds__(256)
 // first occurrence in the row (else -1); merged[r, k] = the sum, in k order,
 // of dvals[r, k'] over the k' that share k's id (0 off first occurrences);
 // dlse[r] = -sum_k dvals[r, k].
+// With ``lab`` (bf16): lab[b][0][i] = the row's i-th smallest distinct id in
+// [0, V) (INT_MAX past the last), lab[b][1][i] = its first k.
 __global__ void emission_fold_kernel(const int* __restrict__ ids, const float* __restrict__ dvals, int T_rows, int K,
                                      int V, float* __restrict__ merged, int* __restrict__ ids_first,
-                                     float* __restrict__ dlse) {
+                                     float* __restrict__ dlse, int* __restrict__ lab) {
   extern __shared__ int s_fold[];  // s_ids[K], s_first[K]
   int* s_ids = s_fold;
   int* s_first = s_fold + K;
@@ -108,6 +119,21 @@ __global__ void emission_fold_kernel(const int* __restrict__ ids, const float* _
     ids_first[(size_t)b * K + k] = (f == k && id >= 0 && id < V) ? id : -1;
   }
   __syncthreads();
+  if (lab) {
+    int* lab_ids = lab + (size_t)b * 2 * K;
+    int count = 0;
+    for (int k = 0; k < K; ++k) count += s_first[k] == k && s_ids[k] >= 0 && s_ids[k] < V;
+    for (int k = tid; k < K; k += blockDim.x) {
+      const int id = s_ids[k];
+      if (s_first[k] == k && id >= 0 && id < V) {
+        int rank = 0;
+        for (int k2 = 0; k2 < K; ++k2) rank += s_first[k2] == k2 && s_ids[k2] >= 0 && s_ids[k2] < id;
+        lab_ids[rank] = id;
+        lab_ids[K + rank] = k;
+      }
+      if (k >= count) lab_ids[k] = INT_MAX;
+    }
+  }
   for (int t = tid; t < T_rows; t += blockDim.x) {
     const size_t r = (size_t)b * T_rows + t;
     float* m = merged + r * K;
@@ -369,33 +395,96 @@ cudaError_t emission_fwd_impl(const void* hid, const void* W, const void* b, con
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t emission_bwd_impl(const void* hid, const void* W, const void* b, const int* ids, const float* lse,
-                              const float* dvals, int R, int T_rows, int K, int H, int V, float* merged,
-                              int* ids_first, float* dlse, void* dhid, float* dW, float* db, cudaStream_t stream) {
+// The float32 backward: the fold, then the two CUDA-core kernels.
+cudaError_t emission_bwd_f32(const float* hid, const float* W, const float* b, const int* ids, const float* lse,
+                             const float* dvals, int R, int T_rows, int K, int H, int V, float* merged, int* ids_first,
+                             float* dlse, float* dhid, float* dW, float* db, cudaStream_t stream) {
   emission_fold_kernel<<<R / T_rows, 128, sizeof(int) * 2 * K, stream>>>(ids, dvals, T_rows, K, V, merged,
-                                                                          ids_first, dlse);
+                                                                          ids_first, dlse, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int h_chunks = (H + EM_HCHUNK - 1) / EM_HCHUNK;
   const size_t smem1 = sizeof(float) * ((size_t)H * EM_ROWS + VOCAB_TILE * EM_DLS + EM_WCH * (EM_HCHUNK + 1));
-  err = em_set_smem(emission_dhid_kernel<T>, smem1);
+  err = em_set_smem(emission_dhid_kernel<float>, smem1);
   if (err != cudaSuccess) return err;
-  emission_dhid_kernel<T><<<dim3((R + EM_ROWS - 1) / EM_ROWS, h_chunks), EM_THREADS, smem1, stream>>>(
-      static_cast<const T*>(hid), static_cast<const T*>(W), static_cast<const T*>(b), ids_first, merged, lse, dlse, R,
-      T_rows, K, H, V, static_cast<T*>(dhid));
+  emission_dhid_kernel<float><<<dim3((R + EM_ROWS - 1) / EM_ROWS, h_chunks), EM_THREADS, smem1, stream>>>(
+      hid, W, b, ids_first, merged, lse, dlse, R, T_rows, K, H, V, dhid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   // the full hid chunk (for the logits) plus this block's h columns: 169 KB at H=1024
   const size_t smem2 = sizeof(float) * ((size_t)H * EM_ROWS + EM_ROWS * EM_HCHUNK + EM_ROWS * EM_DW_COLS + EM_THREADS);
-  err = em_set_smem(emission_dw_kernel<T>, smem2);
+  err = em_set_smem(emission_dw_kernel<float>, smem2);
   if (err != cudaSuccess) return err;
-  emission_dw_kernel<T><<<dim3((V + EM_DW_COLS - 1) / EM_DW_COLS, h_chunks), EM_THREADS, smem2, stream>>>(
-      static_cast<const T*>(hid), static_cast<const T*>(W), static_cast<const T*>(b), ids_first, merged, lse, dlse, R,
-      T_rows, K, H, V, dW, db);
+  emission_dw_kernel<float><<<dim3((V + EM_DW_COLS - 1) / EM_DW_COLS, h_chunks), EM_THREADS, smem2, stream>>>(
+      hid, W, b, ids_first, merged, lse, dlse, R, T_rows, K, H, V, dW, db);
   return cudaGetLastError();
+}
+
+// The engine's policy for K1/K6 (csrc/vocab_bwd.cuh): c = dlse, the folded
+// label terms from the sorted list ``lab``, db unrounded, dhid stored in bf16.
+struct EmissionRows {
+  const float* lse;
+  const float* dlse;
+  const int* lab;  // [B][2][K]: sorted distinct ids (INT_MAX past the last), their first k
+  const float* merged;
+  __nv_bfloat16* dhid;
+  int T_rows, K, H;
+  static constexpr bool kDbRounded = false;
+
+  struct Row {
+    float lse, c;
+    size_t row, list;
+    int pos;
+    bool valid;
+  };
+
+  // the row's data, and its list position at the first id >= v0
+  __device__ __forceinline__ Row row(size_t r, bool valid, int v0) const {
+    Row o{0.0f, 0.0f, r, 0, 0, valid};
+    if (!valid) return o;
+    o.lse = lse[r];
+    o.c = dlse[r];
+    o.list = r / T_rows * 2 * K;
+    int lo = 0, hi = K;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lab[o.list + mid] < v0) lo = mid + 1;
+      else hi = mid;
+    }
+    o.pos = lo;
+    return o;
+  }
+
+  // adds the labels of columns v0 .. v0 + 63 to the thread's cells, and moves the row's cursor past them
+  __device__ __forceinline__ void add_labels(Row& r, int v0, int q, float (&d)[16]) const {
+    if (!r.valid) return;
+    for (; r.pos < K; ++r.pos) {
+      const int id = lab[r.list + r.pos];
+      if (id >= v0 + vb::PANEL) break;
+      const int idx = vb::cell_of(id - v0, q);
+      if (idx >= 0) vb::add_at(d, idx, merged[r.row * K + lab[r.list + K + r.pos]]);
+    }
+  }
+
+  __device__ __forceinline__ void store_dh(size_t r, int col, float v) const {
+    dhid[r * H + col] = __float2bfloat16_rn(v);
+  }
+};
+
+// The bf16 backward: the fold with the sorted label lists, then the engine.
+cudaError_t emission_bwd_bf16(const __nv_bfloat16* hid, const __nv_bfloat16* W, const __nv_bfloat16* b, const int* ids,
+                              const float* lse, const float* dvals, int R, int T_rows, int K, int H, int V,
+                              const vb::Plan& plan, float* merged, int* ids_first, float* dlse, int* lab,
+                              float* dW_part, float* db_part, __nv_bfloat16* dhid, float* dW, float* db,
+                              cudaStream_t stream) {
+  emission_fold_kernel<<<R / T_rows, 128, sizeof(int) * 2 * K, stream>>>(ids, dvals, T_rows, K, V, merged,
+                                                                          ids_first, dlse, lab);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const EmissionRows pol{lse, dlse, lab, merged, dhid, T_rows, K, H};
+  return vb::launch(pol, hid, (size_t)H, H, W, V, b, R, plan, dW_part, db_part, dW, db, stream);
 }
 
 }  // namespace srt
@@ -422,18 +511,27 @@ int ctc_emissions_fwd(int dtype_bf16, const void* hid, const void* W, const void
 // Backward.  Same hid/W/b/ids, the forward's lse [R] and the emission
 // cotangents dvals [R,K] float32.  Scratch: merged [R,K] float32, ids_first
 // [B,K] int32, dlse [R] float32.  Outputs dhid [R,H] in T, dW [H,V] and db
-// [V] float32 (every element written).
+// [V] float32 (every element written).  bf16 only: the engine's plan
+// (n_split, row_wgs, tile, chunk_panels, rows_per_split
+// from ops/vocab_bwd.py bwd_plan) and scratch lab [B,2,K] int32, dW_part
+// [2 n_split,H,V], db_part [2 n_split,V] float32 (float32 ignores them).
 int ctc_emissions_bwd(int dtype_bf16, const void* hid, const void* W, const void* b, const int* ids, const float* lse,
-                      const float* dvals, int R, int T_rows, int K, int H, int V, float* merged, int* ids_first,
-                      float* dlse, void* dhid, float* dW, float* db, void* stream) {
+                      const float* dvals, int R, int T_rows, int K, int H, int V, int n_split, int row_wgs,
+                      int tile, int chunk_panels, int rows_per_split, float* merged,
+                      int* ids_first, float* dlse, int* lab, float* dW_part, float* db_part, void* dhid, float* dW,
+                      float* db, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_bf16)
-    err = srt::emission_bwd_impl<__nv_bfloat16>(hid, W, b, ids, lse, dvals, R, T_rows, K, H, V, merged, ids_first,
-                                                dlse, dhid, dW, db, st);
+    err = srt::emission_bwd_bf16(static_cast<const __nv_bfloat16*>(hid), static_cast<const __nv_bfloat16*>(W),
+                                 static_cast<const __nv_bfloat16*>(b), ids, lse, dvals, R, T_rows, K, H, V,
+                                 {row_wgs, tile, chunk_panels, n_split, rows_per_split}, merged,
+                                 ids_first, dlse, lab, dW_part, db_part, static_cast<__nv_bfloat16*>(dhid), dW, db,
+                                 st);
   else
-    err = srt::emission_bwd_impl<float>(hid, W, b, ids, lse, dvals, R, T_rows, K, H, V, merged, ids_first, dlse,
-                                        dhid, dW, db, st);
+    err = srt::emission_bwd_f32(static_cast<const float*>(hid), static_cast<const float*>(W),
+                                static_cast<const float*>(b), ids, lse, dvals, R, T_rows, K, H, V, merged, ids_first,
+                                dlse, static_cast<float*>(dhid), dW, db, st);
   return static_cast<int>(err);
 }
 

@@ -24,34 +24,41 @@
 //
 // Backward, dz = -softmax (dlpb + dlpe) + onehot(blank) dlpb + onehot(id) dlpe,
 // rounded to T before every product and before the bias sum, as the Pallas
-// kernels round it.  No atomics (K6's scheme, csrc/ctc_emissions.cu):
-//  - joint_dpre_kernel (row kernel), grid (32-row block, 320-column chunk of
-//    J): recomputes the logits tile by tile from lse, forms rnd(dz) in a
-//    transposed shared tile, accumulates dh = rnd(dz) @ W^T from staged chunks
-//    of W^T, and writes dpre = dh (1 - h^2) [R, J] float32; it also writes h
-//    [R, J] in T for the next kernel;
-//  - joint_dw_kernel (column kernel), grid (64-column vocab tile, J chunk,
-//    row split): each block owns its dW columns over its rows, recomputing
-//    their logits; dW = h^T rnd(dz) and db = sum rnd(dz) in float32; the
-//    row splits' partials are summed in order by joint_sum_kernel;
-//  - joint_denc_kernel: denc[b, t] = sum over s of dpre, in s order;
+// kernels round it.  No atomics: every sum has a fixed order, so a run
+// repeats bit for bit.
+//  - bf16: joint_h_kernel writes h [R, pad64(J)] (zero past J) once; then the
+//    tensor-core engine of csrc/vocab_bwd.cuh (wgmma, cp.async rings) with
+//    JointRows as its policy: per row lse, c = -(dlpb + dlpe) and the blank
+//    and target columns, compared in registers; its row kernel writes dpre =
+//    (rnd(dz) @ W^T)(1 - h^2) [R, J] float32, its column kernel dW = h^T
+//    rnd(dz) and db = sum rnd(dz) as partials summed in order.  What bounds
+//    it at B=128, T'=255, S=4, J=320, V=16000 (K8, R = 130,560 rows): three
+//    1.34 TFLOP products (recompute, dh, dW) against ~43 MB of inputs, the
+//    bf16 tensor-core peak; the engine keeps all three on the tensor cores,
+//    J=320 in one block (no recompute per J chunk), and the logits out of
+//    memory.
+//  - float32, on the CUDA cores (tensor cores would mean TF32, and the float32
+//    path is held to 1e-5 x max|ref|): joint_dpre_kernel (row kernel), grid
+//    (32-row block, 320-column chunk of J), recomputes the logits tile by tile
+//    from lse, forms dz in a transposed shared tile, accumulates dh = dz @ W^T
+//    from staged chunks of W^T, and writes dpre and h [R, J]; joint_dw_kernel
+//    (column kernel), grid (64-column vocab tile, J chunk, row split): each
+//    block owns its dW columns over its rows, recomputing their logits; the
+//    row splits' partials are summed in order.
+//  - then joint_denc_kernel: denc[b, t] = sum over s of dpre, in s order;
 //    joint_dpred_kernel: dpred[b, u] = sum over the (t, s) whose clipped node
 //    is u, walking t in order (p is monotone in t, but the walk does not rely
 //    on it).  Both round once to T.
-// Products: in bf16 on the tensor cores (wmma 16x16x16, float32 accumulators;
-// joint_fwd_kernel<bf16>, joint_dpre_tc_kernel, joint_dw_tc_kernel), with W
-// streamed through shared memory in chunks; in float32 on the CUDA cores in
-// float32 FMAs (joint_fwd_kernel<float>, joint_dpre_kernel, joint_dw_kernel).
-// What bounds it: at B=128, T'=255, S=4, J=320, V=16000 (K8, R = 130,560
-// rows) the forward is a 1.34 TFLOP product and the backward three (logits
-// recompute twice, dh, dW: 5.3 TFLOP), against ~43 MB of inputs: the
-// operations at the bf16 tensor-core peak bound it.
+// The forward's products: in bf16 on the tensor cores (wmma 16x16x16, float32
+// accumulators) with W streamed through shared memory in chunks; in float32 on
+// the CUDA cores.
 #include <cuda_pipeline.h>
 #include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "vocab_bwd.cuh"
 
 #define TJ_ROWS 32       // rows per block of the row kernels and per chunk of the dW kernel
 #define TJ_THREADS 256   // = TJ_TILE: one thread per vocab column of a tile
@@ -63,12 +70,7 @@
 #define TJ_DW_COLS 64    // vocab columns per block of the dW kernel
 #define TJ_DW_HPT 80     // dW rows per thread: 4 thread groups x 80 = TJ_JCH
 // bf16 tensor-core tiles (wmma 16x16x16, float32 accumulators)
-#define TC_WLD (TJ_TILE + 8)      // row stride of a staged [32 x TJ_TILE] chunk of W (and of the dz tile)
-#define TC_VCH 32                 // vocab columns per staged [TJ_JCH x 32] chunk of W^T (the dh product)
-#define TC_VLD (TC_VCH + 8)
-#define TC_FPW 5                  // dh fragments per warp: 2 x 20 of a 320-wide J chunk over 8 warps
-#define TC_DW_LD (TJ_DW_COLS + 8)  // row stride of the dW kernel's W columns and dz tile
-#define TC_DW_FPW 10              // dW fragments per warp: 20 x 4 of a 320 x 64 block over 8 warps
+#define TC_WLD (TJ_TILE + 8)      // row stride of a staged [32 x TJ_TILE] chunk of W
 
 namespace srt {
 
@@ -78,22 +80,25 @@ struct Slots {
   int n_frames, S, U1, U;
 };
 
-// Per row of the block: its encoder row (b*T + t), its prediction row
-// (b*(U+1) + clipped u) and its target id (V when the slot has none).
+// Row ``row``'s encoder row (b*T + t), prediction row (b*(U+1) + clipped u)
+// and target id (V when the slot has none).
+__device__ __forceinline__ void node_of(int row, const Slots& sl, const int* __restrict__ ids, int V, int& erow,
+                                        int& prow, int& id) {
+  erow = row / sl.S;
+  const int s = row - erow * sl.S;
+  const int b = erow / sl.n_frames;
+  const int u = (sl.p ? sl.p[erow] : 0) + s;
+  prow = b * sl.U1 + min(max(u, 0), sl.U1 - 1);
+  id = (u >= 0 && u < sl.U) ? ids[(size_t)b * sl.U + u] : V;
+}
+
+// node_of for each row of the block
 __device__ __forceinline__ void stage_nodes(int r0, int rows, const Slots& sl, const int* __restrict__ ids, int V,
                                             int* s_erow, int* s_prow, int* s_id) {
   const int r = threadIdx.x;
   if (r >= TJ_ROWS) return;
   int erow = 0, prow = 0, id = V;
-  if (r < rows) {
-    const int row = r0 + r;
-    erow = row / sl.S;
-    const int s = row - erow * sl.S;
-    const int b = erow / sl.n_frames;
-    const int u = (sl.p ? sl.p[erow] : 0) + s;
-    prow = b * sl.U1 + min(max(u, 0), sl.U1 - 1);
-    if (u >= 0 && u < sl.U) id = ids[(size_t)b * sl.U + u];
-  }
+  if (r < rows) node_of(r0 + r, sl, ids, V, erow, prow, id);
   s_erow[r] = erow;
   s_prow[r] = prow;
   s_id[r] = id;
@@ -535,243 +540,6 @@ __global__ void __launch_bounds__(TJ_THREADS)
   }
 }
 
-// The row kernel on the bf16 tensor cores: the same work as joint_dpre_kernel.
-// Per vocab tile, the logits (tc_logits_tile), then rnd(dz) into a bf16 tile,
-// then dh += rnd(dz) @ W^T with W^T streaming through ``ws`` in [TJ_JCH x 32]
-// chunks; warp w accumulates dh fragments 5w .. 5w + 4 of the (16-row half,
-// 16-column tile) pairs of its J chunk.
-// Shared memory: zt float32 [TJ_ROWS][TJ_JCH] (the logits tile, then dh) | h
-// bf16 [TJ_ROWS][h_ld] | ws bf16 | dz bf16 [TJ_ROWS][TC_WLD].
-__host__ __device__ __forceinline__ int dpre_tc_ws(int) {
-  return TJ_JCH * TC_VLD > 64 * TC_WLD ? TJ_JCH * TC_VLD : 64 * TC_WLD;
-}
-
-size_t dpre_tc_smem(int J) {
-  return sizeof(float) * TJ_ROWS * TJ_JCH + sizeof(Bf) * ((size_t)TJ_ROWS * h_ld(J) + dpre_tc_ws(J) + TJ_ROWS * TC_WLD);
-}
-
-__global__ void __launch_bounds__(TJ_THREADS)
-    joint_dpre_tc_kernel(const Bf* __restrict__ enc, const Bf* __restrict__ pred, const Bf* __restrict__ W,
-                         const Bf* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
-                         int blank, const float* __restrict__ lse, const float* __restrict__ dlpb,
-                         const float* __restrict__ dlpe, float* __restrict__ dpre, Bf* __restrict__ hbuf) {
-  extern __shared__ __align__(128) float smem[];
-  float* zt = smem;
-  Bf* hsb = reinterpret_cast<Bf*>(zt + TJ_ROWS * TJ_JCH);
-  Bf* ws = hsb + TJ_ROWS * h_ld(J);
-  Bf* dzs = ws + dpre_tc_ws(J);
-  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
-  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
-  const int tid = threadIdx.x, warp = tid >> 5, hld = h_ld(J);
-  const int r0 = blockIdx.x * TJ_ROWS, rows = min(TJ_ROWS, R - r0);
-  const int j0 = blockIdx.y * TJ_JCH, jc = min(TJ_JCH, J - j0);
-  const int n_frag = 2 * ((jc + 15) / 16);
-  stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
-  if (tid < TJ_ROWS) {
-    const bool ok = tid < rows;
-    s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
-    s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
-    s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
-  }
-  __syncthreads();
-  stage_h_bf16(hsb, rows, J, enc, pred, s_erow, s_prow);
-  __syncthreads();
-  if (blockIdx.y == 0)
-    for (int e = tid; e < rows * J; e += TJ_THREADS) {
-      const int r = e / J, j = e - r * J;
-      hbuf[(size_t)(r0 + r) * J + j] = hsb[r * hld + j];
-    }
-
-  FragC dh[TC_FPW];
-#pragma unroll
-  for (int i = 0; i < TC_FPW; ++i) wm::fill_fragment(dh[i], 0.0f);
-  const int n_tiles = (V + TJ_TILE - 1) / TJ_TILE;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int v0 = tile * TJ_TILE, v = v0 + tid;
-    tc_logits_tile(hsb, ws, W, J, V, v0, zt);
-    const float bv = v < V ? to_f(bias[v]) : 0.0f;
-#pragma unroll 4
-    for (int r = 0; r < TJ_ROWS; ++r) {
-      const float d = (v < V && r < rows)
-                          ? joint_dz(zt[r * TJ_TILE + tid] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank, s_id[r])
-                          : 0.0f;
-      dzs[r * TC_WLD + tid] = __float2bfloat16_rn(d);
-    }
-    for (int vc = 0; vc < TJ_TILE; vc += TC_VCH) {
-      __syncthreads();  // the dz tile is complete; the previous chunk of W^T is consumed
-      stage_w(ws, TC_VLD, W, J, V, j0, TJ_JCH, v0 + vc, TC_VCH);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_VCH; kk += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a[2];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) wm::load_matrix_sync(a[m], dzs + 16 * m * TC_WLD + vc + kk, TC_WLD);
-#pragma unroll
-        for (int i = 0; i < TC_FPW; ++i) {
-          const int f = warp * TC_FPW + i;
-          if (f < n_frag) {  // warp-uniform
-            wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::col_major> b;
-            wm::load_matrix_sync(b, ws + (f >> 1) * 16 * TC_VLD + kk, TC_VLD);
-            wm::mma_sync(dh[i], a[f & 1], b, dh[i]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // zt is free for dh
-#pragma unroll
-  for (int i = 0; i < TC_FPW; ++i) {
-    const int f = warp * TC_FPW + i;
-    if (f < n_frag)
-      wm::store_matrix_sync(zt + 16 * (f & 1) * TJ_JCH + (f >> 1) * 16, dh[i], TJ_JCH, wm::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = tid; e < rows * jc; e += TJ_THREADS) {
-    const int r = e / jc, jj = e - r * jc;
-    const float h = __bfloat162float(hsb[r * hld + j0 + jj]);
-    dpre[(size_t)(r0 + r) * J + j0 + jj] = zt[r * TJ_JCH + jj] * (1.0f - h * h);
-  }
-}
-
-// The column kernel on the bf16 tensor cores: the same work as joint_dw_kernel.
-// The block stages its 64 columns of W (all of J) once; per chunk of 32 rows,
-// the logits [32 x 64] (warp w: one 16 x 16 fragment), rnd(dz) into a bf16
-// tile, and dW += h^T rnd(dz) with h^T read column-major from the row-major h
-// tile (warp w: fragments 10w .. 10w + 9 of the 20 x 4 tiles of its 320 x 64 block).
-// Shared memory: W bf16 [pad16(J)][TC_DW_LD] | h bf16 [TJ_ROWS][h_ld] | logits
-// float32 [TJ_ROWS][TJ_DW_COLS] | dz bf16 [TJ_ROWS][TC_DW_LD] | per-warp store
-// scratch float32 [8][256] | db partials float32 [TJ_THREADS].
-size_t dw_tc_smem(int J) {
-  return sizeof(Bf) * ((size_t)pad16(J) * TC_DW_LD + TJ_ROWS * h_ld(J) + TJ_ROWS * TC_DW_LD) +
-         sizeof(float) * (TJ_ROWS * TJ_DW_COLS + (TJ_THREADS / 32) * 256 + TJ_THREADS);
-}
-
-__global__ void __launch_bounds__(TJ_THREADS)
-    joint_dw_tc_kernel(const Bf* __restrict__ hbuf, const Bf* __restrict__ W, const Bf* __restrict__ bias,
-                       const int* __restrict__ ids, Slots sl, int R, int rows_per_split, int J, int V, int blank,
-                       const float* __restrict__ lse, const float* __restrict__ dlpb, const float* __restrict__ dlpe,
-                       float* __restrict__ dW, float* __restrict__ db) {
-  extern __shared__ __align__(128) float smem[];
-  const int Jp = pad16(J), hld = h_ld(J);
-  Bf* wcols = reinterpret_cast<Bf*>(smem);         // [Jp][TC_DW_LD]
-  Bf* hsb = wcols + Jp * TC_DW_LD;                  // [TJ_ROWS][hld]
-  Bf* dzs = hsb + TJ_ROWS * hld;                    // [TJ_ROWS][TC_DW_LD]
-  float* zt = reinterpret_cast<float*>(dzs + TJ_ROWS * TC_DW_LD);  // [TJ_ROWS][TJ_DW_COLS]
-  float* scratch = zt + TJ_ROWS * TJ_DW_COLS;        // [8][256]
-  float* dbp = scratch + (TJ_THREADS / 32) * 256;    // [TJ_THREADS]
-  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
-  __shared__ float s_lse[TJ_ROWS], s_gb[TJ_ROWS], s_ge[TJ_ROWS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int c = tid % TJ_DW_COLS, g = tid / TJ_DW_COLS;  // dz: column c, rows 8g .. 8g + 7
-  const int v0 = blockIdx.x * TJ_DW_COLS, v = v0 + c;
-  const int j0 = blockIdx.y * TJ_JCH, jc = min(TJ_JCH, J - j0);
-  const int rb = blockIdx.z * rows_per_split, re = min(R, rb + rows_per_split);
-  const float bv = v < V ? to_f(bias[v]) : 0.0f;
-  stage_w(wcols, TC_DW_LD, W, J, V, 0, Jp, v0, TJ_DW_COLS);
-
-  FragC dw[TC_DW_FPW];
-#pragma unroll
-  for (int i = 0; i < TC_DW_FPW; ++i) wm::fill_fragment(dw[i], 0.0f);
-  float dbacc = 0.0f;
-  for (int r0 = rb; r0 < re; r0 += TJ_ROWS) {
-    const int rows = min(TJ_ROWS, re - r0);
-    __syncthreads();  // the previous chunk is done with the shared tiles
-    stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
-    if (tid < TJ_ROWS) {
-      const bool ok = tid < rows;
-      s_lse[tid] = ok ? lse[r0 + tid] : 0.0f;
-      s_gb[tid] = ok ? dlpb[r0 + tid] : 0.0f;
-      s_ge[tid] = ok ? dlpe[r0 + tid] : 0.0f;
-    }
-    if ((J & 7) == 0) {
-      for (int e = tid; e < TJ_ROWS * (Jp / 8); e += TJ_THREADS) {
-        const int r = e / (Jp / 8), j = (e - r * (Jp / 8)) * 8;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows && j < J) x = *reinterpret_cast<const uint4*>(hbuf + (size_t)(r0 + r) * J + j);
-        *reinterpret_cast<uint4*>(hsb + r * hld + j) = x;
-      }
-    } else {
-      for (int e = tid; e < TJ_ROWS * Jp; e += TJ_THREADS) {
-        const int r = e / Jp, j = e - r * Jp;
-        hsb[r * hld + j] = (r < rows && j < J) ? hbuf[(size_t)(r0 + r) * J + j] : __float2bfloat16_rn(0.0f);
-      }
-    }
-    __syncthreads();
-
-    {  // logits: warp w owns the fragment (rows 16 (w / 4), columns 16 (w % 4))
-      const int m = warp >> 2, n = warp & 3;
-      FragC acc;
-      wm::fill_fragment(acc, 0.0f);
-      for (int k0 = 0; k0 < Jp; k0 += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a;
-        wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b;
-        wm::load_matrix_sync(a, hsb + 16 * m * hld + k0, hld);
-        wm::load_matrix_sync(b, wcols + k0 * TC_DW_LD + 16 * n, TC_DW_LD);
-        wm::mma_sync(acc, a, b, acc);
-      }
-      wm::store_matrix_sync(zt + 16 * m * TJ_DW_COLS + 16 * n, acc, TJ_DW_COLS, wm::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int r = g * 8 + k;
-      const float d = (v < V && r < rows)
-                          ? rnd<Bf>(joint_dz(zt[r * TJ_DW_COLS + c] + bv, s_lse[r], s_gb[r], s_ge[r], v, blank,
-                                             s_id[r]))
-                          : 0.0f;
-      dbacc += d;
-      dzs[r * TC_DW_LD + c] = __float2bfloat16_rn(d);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TJ_ROWS; kk += 16) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b[4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) wm::load_matrix_sync(b[n], dzs + kk * TC_DW_LD + 16 * n, TC_DW_LD);
-#pragma unroll
-      for (int i = 0; i < TC_DW_FPW; ++i) {
-        const int f = warp * TC_DW_FPW + i, mt = f >> 2;
-        if (16 * mt < jc) {  // warp-uniform
-          wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::col_major> a;
-          wm::load_matrix_sync(a, hsb + kk * hld + j0 + 16 * mt, hld);
-          wm::mma_sync(dw[i], a, b[f & 3], dw[i]);
-        }
-      }
-    }
-  }
-  float* dWz = dW + (size_t)blockIdx.z * J * V;
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < TC_DW_FPW; ++i) {
-    const int f = warp * TC_DW_FPW + i, mt = f >> 2, nt = f & 3;
-    if (16 * mt < jc) {
-      wm::store_matrix_sync(sc, dw[i], 16, wm::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int j = j0 + 16 * mt + e / 16, vv = v0 + 16 * nt + e % 16;
-        if (j < J && vv < V) dWz[(size_t)j * V + vv] = sc[e];
-      }
-      __syncwarp();
-    }
-  }
-  dbp[tid] = dbacc;
-  __syncthreads();
-  if (g == 0 && v < V && blockIdx.y == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < TJ_THREADS / TJ_DW_COLS; ++k) s += dbp[k * TJ_DW_COLS + c];
-    db[(size_t)blockIdx.z * V + v] = s;
-  }
-}
-
-// out[i] = sum over z < n_parts of parts[z * n + i], in z order
-__global__ void joint_sum_kernel(const float* __restrict__ parts, int n_parts, size_t n, float* __restrict__ out) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int z = 0; z < n_parts; ++z) s += parts[(size_t)z * n + i];
-    out[i] = s;
-  }
-}
-
 // grid (B*T): denc[b, t, j] = rnd(sum over s of dpre[(b*T + t)*S + s, j])
 template <typename T>
 __global__ void joint_denc_kernel(const float* __restrict__ dpre, int S, int J, T* __restrict__ denc) {
@@ -818,32 +586,93 @@ cudaError_t joint_fwd_impl(const void* enc, const void* pred, const void* W, con
   return cudaGetLastError();
 }
 
+// grid (ceil(R / TJ_ROWS)): the bf16 backward's prologue, hbuf[r, j] = h of
+// row r for j < J and 0 for J <= j < Jp (the engine's padded width)
+__global__ void __launch_bounds__(TJ_THREADS)
+    joint_h_kernel(const Bf* __restrict__ enc, const Bf* __restrict__ pred, const int* __restrict__ ids, Slots sl,
+                   int R, int J, int Jp, int V, Bf* __restrict__ hbuf) {
+  __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
+  const int r0 = blockIdx.x * TJ_ROWS, rows = min(TJ_ROWS, R - r0);
+  stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * Jp; e += TJ_THREADS) {
+    const int r = e / Jp, j = e - r * Jp;
+    hbuf[(size_t)(r0 + r) * Jp + j] =
+        __float2bfloat16_rn(j < J ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f);
+  }
+}
+
+// The engine's policy for K8/K9 (csrc/vocab_bwd.cuh): c = -(dlpb + dlpe), the
+// blank and target columns compared in registers (the Pallas order of terms:
+// softmax term, + dlpb at the blank, + dlpe at the target), db of the rounded
+// dz, and dpre = dh (1 - h^2) in float32.
+struct JointRows {
+  const float* lse;
+  const float* dlpb;
+  const float* dlpe;
+  const int* ids;
+  Slots sl;
+  const Bf* hbuf;  // [R, Jp]
+  float* dpre;     // [R, J]
+  int V, J, Jp, blank;
+  static constexpr bool kDbRounded = true;
+
+  struct Row {
+    float lse, c, gb, ge;
+    int id;
+    bool valid;
+  };
+
+  __device__ __forceinline__ Row row(size_t r, bool valid, int) const {
+    Row o{0.0f, 0.0f, 0.0f, 0.0f, V, valid};
+    if (!valid) return o;
+    int erow, prow;
+    node_of((int)r, sl, ids, V, erow, prow, o.id);
+    o.lse = lse[r];
+    o.gb = dlpb[r];
+    o.ge = dlpe[r];
+    o.c = -(o.gb + o.ge);
+    return o;
+  }
+
+  __device__ __forceinline__ void add_labels(Row& r, int v0, int q, float (&d)[16]) const {
+    if (!r.valid) return;
+    const int ib = vb::cell_of(blank - v0, q), it = vb::cell_of(r.id - v0, q);
+    if (ib >= 0) vb::add_at(d, ib, r.gb);
+    if (it >= 0) vb::add_at(d, it, r.ge);
+  }
+
+  __device__ __forceinline__ void store_dh(size_t r, int col, float v) const {
+    const float h = __bfloat162float(hbuf[r * Jp + col]);
+    dpre[r * J + col] = v * (1.0f - h * h);
+  }
+};
+
 template <typename T>
 cudaError_t joint_bwd_impl(const void* enc, const void* pred, const void* W, const void* b, const int* ids, Slots sl,
                            int B, int R, int J, int V, int blank, const float* lse, const float* dlpb,
-                           const float* dlpe, int n_split, void* hbuf, float* dpre, float* dW_part, float* db_part,
-                           void* denc, void* dpred, float* dW, float* db, cudaStream_t stream) {
-  const int j_chunks = (J + TJ_JCH - 1) / TJ_JCH;
-  const dim3 row_grid((R + TJ_ROWS - 1) / TJ_ROWS, j_chunks);
-  const int rows_per_split = (R + n_split - 1) / n_split;
-  const dim3 col_grid((V + TJ_DW_COLS - 1) / TJ_DW_COLS, j_chunks, n_split);
-  float* dW_out = n_split > 1 ? dW_part : dW;
-  float* db_out = n_split > 1 ? db_part : db;
+                           const float* dlpe, int n_split, const vb::Plan& plan, void* hbuf, float* dpre,
+                           float* dW_part, float* db_part, void* denc, void* dpred, float* dW, float* db,
+                           cudaStream_t stream) {
   cudaError_t err;
   if constexpr (kTensorCores<T>) {
-    err = tj_set_smem(joint_dpre_tc_kernel, dpre_tc_smem(J));
-    if (err != cudaSuccess) return err;
-    joint_dpre_tc_kernel<<<row_grid, TJ_THREADS, dpre_tc_smem(J), stream>>>(
-        static_cast<const Bf*>(enc), static_cast<const Bf*>(pred), static_cast<const Bf*>(W),
-        static_cast<const Bf*>(b), ids, sl, R, J, V, blank, lse, dlpb, dlpe, dpre, static_cast<Bf*>(hbuf));
+    const int Jp = (J + vb::PANEL - 1) / vb::PANEL * vb::PANEL;
+    Bf* h = static_cast<Bf*>(hbuf);
+    joint_h_kernel<<<(R + TJ_ROWS - 1) / TJ_ROWS, TJ_THREADS, 0, stream>>>(
+        static_cast<const Bf*>(enc), static_cast<const Bf*>(pred), ids, sl, R, J, Jp, V, h);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = tj_set_smem(joint_dw_tc_kernel, dw_tc_smem(J));
+    const JointRows pol{lse, dlpb, dlpe, ids, sl, h, dpre, V, J, Jp, blank};
+    err = vb::launch(pol, h, (size_t)Jp, J, static_cast<const Bf*>(W), V, static_cast<const Bf*>(b), R, plan, dW_part,
+                     db_part, dW, db, stream);
     if (err != cudaSuccess) return err;
-    joint_dw_tc_kernel<<<col_grid, TJ_THREADS, dw_tc_smem(J), stream>>>(
-        static_cast<const Bf*>(hbuf), static_cast<const Bf*>(W), static_cast<const Bf*>(b), ids, sl, R,
-        rows_per_split, J, V, blank, lse, dlpb, dlpe, dW_out, db_out);
   } else {
+    const int j_chunks = (J + TJ_JCH - 1) / TJ_JCH;
+    const dim3 row_grid((R + TJ_ROWS - 1) / TJ_ROWS, j_chunks);
+    const dim3 col_grid((V + TJ_DW_COLS - 1) / TJ_DW_COLS, j_chunks, n_split);
+    const int rows_per_split = (R + n_split - 1) / n_split;
+    float* dW_out = n_split > 1 ? dW_part : dW;
+    float* db_out = n_split > 1 ? db_part : db;
     const size_t smem1 = sizeof(float) * ((size_t)J * TJ_ROWS + TJ_TILE * TJ_DLS + TJ_WCH * TJ_JCH);
     err = tj_set_smem(joint_dpre_kernel<T>, smem1);
     if (err != cudaSuccess) return err;
@@ -859,14 +688,14 @@ cudaError_t joint_bwd_impl(const void* enc, const void* pred, const void* W, con
     joint_dw_kernel<T><<<col_grid, TJ_THREADS, smem2, stream>>>(
         static_cast<const T*>(hbuf), static_cast<const T*>(W), static_cast<const T*>(b), ids, sl, R, rows_per_split,
         J, V, blank, lse, dlpb, dlpe, dW_out, db_out);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (n_split > 1) {
-    joint_sum_kernel<<<1024, 256, 0, stream>>>(dW_part, n_split, (size_t)J * V, dW);
-    joint_sum_kernel<<<64, 256, 0, stream>>>(db_part, n_split, (size_t)V, db);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    if (n_split > 1) {
+      vb::part_sum_kernel<<<1024, 256, 0, stream>>>(dW_part, n_split, (size_t)J * V, dW);
+      vb::part_sum_kernel<<<64, 256, 0, stream>>>(db_part, n_split, (size_t)V, db);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   joint_denc_kernel<T><<<B * sl.n_frames, 128, 0, stream>>>(dpre, sl.S, J, static_cast<T*>(denc));
   err = cudaGetLastError();
@@ -898,24 +727,29 @@ int transducer_joint_fwd(int dtype_bf16, const void* enc, const void* pred, cons
 }
 
 // Backward.  The forward's operands and lse, the plane cotangents dlpb, dlpe
-// [B,T,S] float32.  Scratch: hbuf [R,J] in T, dpre [R,J] float32, and for
-// n_split > 1 dW_part [n_split,J,V], db_part [n_split,V] float32.  Outputs
-// denc [B,T,J], dpred [B,U1,J] in T, dW [J,V], db [V] float32 (every element
-// written).
+// [B,T,S] float32.  Scratch: hbuf [R,J] in T (bf16: [R, pad64(J)]), dpre
+// [R,J] float32, dW_part [n_parts,J,V] and db_part [n_parts,V] float32
+// (bf16: n_parts = 2 n_split; float32: n_split, used when n_split > 1).
+// bf16 also takes the engine's plan (row_wgs, tile, chunk_panels,
+// rows_per_split from ops/vocab_bwd.py bwd_plan; float32 ignores
+// them and splits the rows evenly).  Outputs denc [B,T,J], dpred [B,U1,J] in
+// T, dW [J,V], db [V] float32 (every element written).
 int transducer_joint_bwd(int dtype_bf16, const void* enc, const void* pred, const void* W, const void* b,
                          const int* ids, const int* p, int B, int T, int U1, int S, int J, int V, int blank,
-                         const float* lse, const float* dlpb, const float* dlpe, int n_split, void* hbuf, float* dpre,
+                         const float* lse, const float* dlpb, const float* dlpe, int n_split, int row_wgs,
+                         int tile, int chunk_panels, int rows_per_split, void* hbuf, float* dpre,
                          float* dW_part, float* db_part, void* denc, void* dpred, float* dW, float* db, void* stream) {
   const srt::Slots sl{p, T, S, U1, U1 - 1};
   const int R = B * T * S;
+  const srt::vb::Plan plan{row_wgs, tile, chunk_panels, n_split, rows_per_split};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_bf16)
     err = srt::joint_bwd_impl<__nv_bfloat16>(enc, pred, W, b, ids, sl, B, R, J, V, blank, lse, dlpb, dlpe, n_split,
-                                             hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, st);
+                                             plan, hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, st);
   else
-    err = srt::joint_bwd_impl<float>(enc, pred, W, b, ids, sl, B, R, J, V, blank, lse, dlpb, dlpe, n_split, hbuf,
-                                     dpre, dW_part, db_part, denc, dpred, dW, db, st);
+    err = srt::joint_bwd_impl<float>(enc, pred, W, b, ids, sl, B, R, J, V, blank, lse, dlpb, dlpe, n_split, plan,
+                                     hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, st);
   return static_cast<int>(err);
 }
 

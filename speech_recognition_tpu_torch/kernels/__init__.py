@@ -54,17 +54,18 @@ _SIGNATURES = {
     "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 8,
     # dtype_bf16, hid, W, b, ids, R, T, K, H, V, part_val, part_idx, part_max, part_sum, lse, vals, stream
     "ctc_emissions_fwd": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 7,
-    # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, merged, ids_first, dlse, dhid, dW, db, stream
-    "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 5 + [_P] * 7,
+    # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, n_split, row_wgs, tile, chunk_panels,
+    # rows_per_split, merged, ids_first, dlse, lab, dW_part, db_part, dhid, dW, db, stream
+    "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_P] * 10,
     # dtype_bf16, q, k, v, bias, seeds, B, T, H, d, scale, p_drop, inv_keep, out, m, l, stream
     "mhsa_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P] * 4,
     # dtype_bf16, q, k, v, bias, seeds, m, l, dout, B, T, H, d, scale, p_drop, inv_keep, rowterm, dq, dk, dv, stream
     "mhsa_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
     # dtype_bf16, enc, pred, W, b, ids, p (NULL: every node), B, T, U1, S, J, V, blank, lpb, lpe, lse, stream
     "transducer_joint_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 4,
-    # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split,
-    # hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
-    "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 9,
+    # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split, row_wgs,
+    # tile, chunk_panels, rows_per_split, hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
+    "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] * 5 + [_P] * 9,
     # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, stream
     "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
     # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,

@@ -17,11 +17,10 @@ gradients come back in their own type without a rounding to ``hid``'s.
 On the H100 (``csrc/ce_vocab.cu``) the forward is kernel K5's two passes with
 k = 1 and no rounding, plus a label gather summed in the same order; the
 backward is kernel K6's (``ops/ctc_emissions.py``) with one id per row, the
-label, and emission cotangent ``-dnll``: two kernels that each recompute
-their logits tiles, one over row blocks for dhid and one over vocab tiles
-for dW / db (each block owns its columns: no atomics).  At R = N*B = 16256
-rows, V = 16000, H = 256 that is four 133 GFLOP products on the CUDA cores
-in float32; tensor-core tiles are later work.
+label, and emission cotangent ``-dnll``: in bf16 the tensor-core engine of
+``csrc/vocab_bwd.cuh`` (a row kernel for dhid, a column kernel for dW / db,
+no atomics), in float32 two CUDA-core kernels.  At R = N*B = 16256 rows,
+V = 16000, H = 256 the backward is three 133 GFLOP products.
 """
 
 import torch

@@ -20,13 +20,15 @@ math (projection + ``measure._emission_logprobs``).
 
 On the H100 (``csrc/ctc_emissions.cu``) the forward is K5's tile pass with
 k = 1 for the lse plus a gather kernel that sums the K logits in the tile
-pass's order; the backward is a fold of duplicate ids and two kernels that
-each recompute their logits tiles, one over row blocks for dhid and one over
-vocab tiles for dW / db (each block owns its columns: no atomics).  K1's
+pass's order.  The backward folds duplicate ids, then recomputes the logits:
+in bf16 on the tensor-core engine of ``csrc/vocab_bwd.cuh`` (wgmma products
+fed by cp.async rings; a row kernel for dhid, a column kernel for dW / db
+whose row splits write partials summed in a fixed order: no atomics), with
+the launch plan of ``ops/vocab_bwd.py``; in float32 on two CUDA-core kernels,
+one over row blocks for dhid and one over vocab tiles for dW / db.  K1's
 backward (``ops/ce_vocab.py``) is the same launch with one id per row.  At
 B=128, T=108, H=256, V=16000 that is 113 GFLOP forward and 340 backward:
-bound by operations at the bf16 tensor-core peak; these first tiles run on
-the CUDA cores in float32.
+bound by operations at the bf16 tensor-core peak.
 """
 
 import torch
@@ -104,6 +106,7 @@ def launch_emissions_bwd(hid, W, b, ids, lse, dvals):
     :return: (dhid [B,T,H] in hid's type, dW [H,V] f32, db [V] f32)
     """
     from ..kernels import check_operands, error_string, library, stream
+    from .vocab_bwd import bwd_plan, engine_args, sm_count
 
     _check(hid, W, b, ids)
     check_operands(torch.float32, hid.device, lse=lse, dvals=dvals)
@@ -111,17 +114,22 @@ def launch_emissions_bwd(hid, W, b, ids, lse, dvals):
     K, V, R = ids.shape[1], W.shape[1], B * T
     if lse.shape != (B, T) or dvals.shape != (B, T, K):
         raise ValueError(f"ctc_emissions_bwd: bad shapes lse {tuple(lse.shape)} dvals {tuple(dvals.shape)}")
-    dev = hid.device
-    merged = torch.empty(R, K, dtype=torch.float32, device=dev)
+    dev, bf16 = hid.device, hid.dtype == torch.bfloat16
+    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
+    merged, dlse, dW, db = f32(R, K), f32(R), f32(H, V), f32(V)
     ids_first = torch.empty(B, K, dtype=torch.int32, device=dev)
-    dlse = torch.empty(R, dtype=torch.float32, device=dev)
     dhid = torch.empty(B, T, H, dtype=hid.dtype, device=dev)
-    dW = torch.empty(H, V, dtype=torch.float32, device=dev)
-    db = torch.empty(V, dtype=torch.float32, device=dev)
+    plan, lab, dW_part, db_part = None, None, None, None
+    if bf16:  # the tensor-core engine: sorted label lists and one dW / db partial per warpgroup and row split
+        plan = bwd_plan(R, H, V, sm_count(dev))
+        lab = torch.empty(B, 2, K, dtype=torch.int32, device=dev)
+        dW_part, db_part = f32(plan.n_parts, H, V), f32(plan.n_parts, V)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = library().ctc_emissions_bwd(
-        int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), lse.data_ptr(),
-        dvals.data_ptr(), R, T, K, H, V, merged.data_ptr(), ids_first.data_ptr(), dlse.data_ptr(), dhid.data_ptr(),
-        dW.data_ptr(), db.data_ptr(), stream(dev),
+        int(bf16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), lse.data_ptr(), dvals.data_ptr(),
+        R, T, K, H, V, *(engine_args(plan) if plan else (0,) * 5),
+        merged.data_ptr(), ids_first.data_ptr(), dlse.data_ptr(), ptr(lab), ptr(dW_part), ptr(db_part),
+        dhid.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
     )
     if err:
         raise RuntimeError(f"ctc_emissions_bwd kernel launch failed: {error_string(err)}")

@@ -15,12 +15,16 @@ CUDA source, ``csrc/transducer_joint.cu``, with the slot map as a parameter:
   planes ``z - lse``;
 - backward: a row kernel recomputes the logits, forms ``dz`` rounded to the
   compute type and ``dpre = (dz @ W^T)(1 - h^2)``; a column kernel owns tiles
-  of V and sums ``dW = h^T dz``, ``db = sum dz`` over every row; ``denc`` and
-  ``dpred`` are ordered reductions of ``dpre``.  No atomics: every sum has a
-  fixed order, so a run repeats bit for bit;
-- in bf16 the four products run on the tensor cores (``wmma`` 16x16x16 tiles,
-  float32 accumulators: the bf16 operands' products are exact, as in a
-  float32 FMA); in float32 they run on the CUDA cores in float32, not TF32.
+  of V and sums ``dW = h^T dz``, ``db = sum dz`` over its rows, as partials
+  summed in a fixed order; ``denc`` and ``dpred`` are ordered reductions of
+  ``dpre``.  No atomics: every sum has a fixed order, so a run repeats bit for
+  bit;
+- in bf16 the forward's product runs on the tensor cores in ``wmma`` 16x16x16
+  tiles, and the backward is the tensor-core engine of ``csrc/vocab_bwd.cuh``
+  (wgmma fed by cp.async rings; ``h`` written once, padded to whole panels,
+  by a prologue kernel) with the launch plan of ``ops/vocab_bwd.py``; float32
+  accumulators throughout (the bf16 operands' products are exact, as in a
+  float32 FMA); in float32 the products run on the CUDA cores, not TF32.
 
 The wrappers (``banded_planes_fwd`` / ``_bwd``, ``joint_planes_fwd`` / ``_bwd``)
 take the plain PyTorch twin for a CPU tensor (``ops/transducer_pruned.py``,
@@ -85,6 +89,7 @@ def _launch_fwd(enc, pred, W, b, ids, p, S: int, blank: int):
 
 def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
     from ..kernels import check_operands, error_string, library, stream
+    from .vocab_bwd import bwd_plan, engine_args, f32_row_splits, sm_count
 
     _check(enc, pred, W, b, ids, p, S, blank)
     check_operands(torch.float32, enc.device, lse=lse, dlpb=dlpb, dlpe=dlpe)
@@ -94,16 +99,21 @@ def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
         raise ValueError(f"transducer joint kernel: lse / cotangents {tuple(lse.shape)} {tuple(dlpb.shape)} "
                          f"{tuple(dlpe.shape)} are not [B, T, S] = {(B, T, S)}")
     R, dev, dt = B * T * S, enc.device, enc.dtype
-    n_split = max(1, min(4, R // 2048))  # row splits of the dW kernel: more blocks than the V tiles alone
     f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
-    hbuf, dpre = torch.empty(R, J, dtype=dt, device=dev), f32(R, J)
-    dW, db = f32(J, V), f32(V)
-    dW_part, db_part = (f32(n_split, J, V), f32(n_split, V)) if n_split > 1 else (dW, db)
+    dpre, dW, db = f32(R, J), f32(J, V), f32(V)
+    if dt == torch.bfloat16:  # the tensor-core engine: h padded to whole panels, a partial per warpgroup and split
+        plan = bwd_plan(R, J, V, sm_count(dev))
+        hbuf = torch.empty(R, plan.hp, dtype=dt, device=dev)
+        n_split, engine = plan.n_split, engine_args(plan)[1:]
+        dW_part, db_part = f32(plan.n_parts, J, V), f32(plan.n_parts, V)
+    else:
+        hbuf, n_split, engine = torch.empty(R, J, dtype=dt, device=dev), f32_row_splits(R), (0,) * 4
+        dW_part, db_part = (f32(n_split, J, V), f32(n_split, V)) if n_split > 1 else (dW, db)
     denc, dpred = torch.empty(B, T, J, dtype=dt, device=dev), torch.empty(B, U1, J, dtype=dt, device=dev)
     err = library().transducer_joint_bwd(
         int(dt == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(),
         None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank, lse.data_ptr(), dlpb.data_ptr(),
-        dlpe.data_ptr(), n_split, hbuf.data_ptr(), dpre.data_ptr(), dW_part.data_ptr(), db_part.data_ptr(),
+        dlpe.data_ptr(), n_split, *engine, hbuf.data_ptr(), dpre.data_ptr(), dW_part.data_ptr(), db_part.data_ptr(),
         denc.data_ptr(), dpred.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
     )
     if err:

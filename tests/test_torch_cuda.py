@@ -19,7 +19,11 @@ block, V not a multiple of the tiles, K up to 129 with repeated ids and the
 pad id many times): lse and the gathered logits rtol 1e-5 / atol 1e-5;
 gradients within 1e-5 x max|ref| in float32, and in bf16 dhid within 2e-2 x
 max|ref| and dW / db within 1e-2 x max|ref| (K1's tolerances: both sides
-round dlog to bf16).
+round dlog to bf16).  The bf16 backward of K1/K6 and K8/K9 (the tensor-core
+engine of csrc/vocab_bwd.cuh) also at its edges, with the same tolerances:
+rows not a multiple of its 128-row blocks and blocks that straddle batch rows,
+V % 8 != 0 (the staged copy), H = 1024 and J = 1000 (chunks of H, 64-row
+blocks), several row splits at a small R; and two calls return the same bits.
 
 K7 (fused MHSA with hash dropout) at ragged T (1, 70, 100, 130, 255) and
 T=256, head dims 16-128, dropout 0 and above: float32 outputs and dq / dk /
@@ -86,6 +90,7 @@ from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_sequence, r
 from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain, transducer_loss
 from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
                                                                 banded_planes_fwd_plain)
+from speech_recognition_tpu_torch.ops.vocab_bwd import bwd_plan, sm_count
 from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_NONE, ROUND_ONCE, ROUND_TWICE, vocab_topk, vocab_topk_plain
 from speech_recognition_tpu_torch.search import LASSearcher
 
@@ -366,6 +371,96 @@ def test_dense_joint_kernels_match_plain(cuda, dtype, B, T, U1, J, V, blank):
     dlpb, dlpe = (torch.randn(B, T, U1, generator=g).to(cuda) for _ in range(2))
     _check_joint_grads(dtype, joint_planes_bwd(enc, pred, W, b, ids, blank, want[2], dlpb, dlpe),
                        joint_planes_bwd_plain(enc, pred, W, b, ids, blank, want[2], dlpb, dlpe))
+
+
+def _ce_case(cuda, R, H, V, seed):
+    g = torch.Generator().manual_seed(seed)
+    hid = (torch.randn(R, H, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    W = (torch.randn(H, V, generator=g) * 0.3 * min(1.0, (256 / H) ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    y = torch.randint(0, V, (R,), generator=g).to(cuda, torch.int32)
+    dnll = torch.rand(R, generator=g).to(cuda) / R
+    lse = ce_fwd_plain(hid, W, b, y)[0]
+    return lambda fn: fn(hid, W, b, y, lse, dnll)
+
+
+def _ctc_case(cuda, B, T, H, V, K, seed):
+    g = torch.Generator().manual_seed(seed)
+    hid = (torch.randn(B, T, H, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    W = (torch.randn(H, V, generator=g) * 0.3 * min(1.0, (256 / H) ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    ids = torch.randint(1, V, (B, K), generator=g)
+    ids[:, 1] = ids[:, 0]
+    ids[0, K // 2:-1] = 0
+    ids[:, -1] = min(14, V - 1)
+    ids = ids.to(cuda, torch.int32)
+    lse = ctc_emissions_fwd_plain(hid, W, b, ids)[0]
+    dvals = (torch.randn(B, T, K, generator=g) / (T * K)).to(cuda)
+    return lambda fn: fn(hid, W, b, ids, lse, dvals)
+
+
+def _joint_case(cuda, banded, B, T, U1, S, J, V, blank, seed):
+    enc, pred, W, b, ids, frame_lens, label_lens, g = _joint_operands(cuda, torch.bfloat16, B, T, U1, J, V, seed)
+    if banded:
+        p = band_offsets(frame_lens, label_lens, T, S)
+        lse = banded_planes_fwd_plain(enc, pred, W, b, ids, p, S, blank)[2]
+        dl = [torch.randn(B, T, S, generator=g).to(cuda) for _ in range(2)]
+        return lambda fn: fn(enc, pred, W, b, ids, p, S, blank, lse, *dl)
+    lse = joint_planes_fwd_plain(enc, pred, W, b, ids, blank)[2]
+    dl = [torch.randn(B, T, U1, generator=g).to(cuda) for _ in range(2)]
+    return lambda fn: fn(enc, pred, W, b, ids, blank, lse, *dl)
+
+
+@pytest.mark.parametrize("family", ["ce", "ctc", "banded", "dense"])
+def test_vocab_bwd_bf16_repeats_bit_for_bit(cuda, family):
+    """The bf16 backward engine (csrc/vocab_bwd.cuh) sums in a fixed order: no atomics."""
+    if family == "ce":
+        case, fn = _ce_case(cuda, 300, 256, 2000, 1), ce_bwd
+    elif family == "ctc":
+        case, fn = _ctc_case(cuda, 3, 50, 256, 1003, 33, 2), ctc_emissions_bwd
+    elif family == "banded":
+        case, fn = _joint_case(cuda, True, 3, 45, 10, 4, 320, 1003, 0, 3), banded_planes_bwd
+    else:
+        case, fn = _joint_case(cuda, False, 2, 13, 17, 17, 320, 1000, 0, 4), joint_planes_bwd
+    first, second = case(fn), case(fn)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B, T, H, V, K", [
+    (3, 50, 256, 1003, 33),  # R = 150: a partial 128-row block, blocks straddle batch rows, V % 8 != 0
+    (2, 70, 1024, 520, 17),  # H = 1024: four chunks of H, 64-row blocks
+    (4, 100, 64, 2048, 129)])  # R = 400 against 32 vocab tiles: four row splits of the column kernel
+def test_ctc_emissions_bf16_bwd_engine_edges(cuda, B, T, H, V, K):
+    plan = bwd_plan(B * T, H, V, sm_count(cuda))
+    assert (plan.n_chunks, plan.row_wgs) == ((4, 1) if H == 1024 else (1, 2))
+    assert plan.n_split == 4 or B * T != 400
+    case = _ctc_case(cuda, B, T, H, V, K, B + T + H)
+    got, want = case(ctc_emissions_bwd), case(ctc_emissions_bwd_plain)
+    for name, a, w, tol in zip(("dhid", "dW", "db"), got, want, (2e-2, 1e-2, 1e-2)):
+        _close(a, w, tol)
+
+
+@pytest.mark.parametrize("R, H, V", [(150, 256, 1003), (1000, 256, 520)])
+def test_ce_vocab_bf16_bwd_engine_edges(cuda, R, H, V):
+    """A partial 128-row block with V % 8 != 0; and R = 1000 rows in eight row splits."""
+    case = _ce_case(cuda, R, H, V, R)
+    got, want = case(ce_bwd), case(ce_bwd_plain)
+    for a, w, tol in zip(got, want, (2e-2, 1e-2, 1e-2)):
+        _close(a, w, tol)
+
+
+@pytest.mark.parametrize("banded, B, T, U1, S, J, V, blank", [
+    (True, 3, 45, 10, 4, 320, 1003, 7),  # R = 540: a partial block, V % 8 != 0, five row splits
+    (True, 2, 9, 5, 2, 1000, 300, 0),  # J = 1000: four chunks of J, 64-row blocks, V % 8 != 0
+    (False, 3, 11, 9, 9, 64, 2000, 3)])  # dense, R = 297 in three row splits
+def test_joint_bf16_bwd_engine_edges(cuda, banded, B, T, U1, S, J, V, blank):
+    case = _joint_case(cuda, banded, B, T, U1, S, J, V, blank, B * T + J)
+    if banded:
+        got, want = case(banded_planes_bwd), case(banded_planes_bwd_plain)
+    else:
+        got, want = case(joint_planes_bwd), case(joint_planes_bwd_plain)
+    _check_joint_grads(torch.bfloat16, got, want)
 
 
 def test_joint_kernels_raise_on_shapes_they_do_not_take(cuda):

@@ -49,8 +49,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from torch_decode_profile import cuda_ms, profile  # noqa: E402  (tools/ is the script's own directory)
 
 # kernel-name prefixes of the port's training kernels (csrc/ce_vocab.cu, csrc/ctc_emissions.cu,
-# csrc/las_decoder.cu); K1's backward is K6's backward kernels with one id per row
-K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel")
+# csrc/las_decoder.cu); K1's backward is K6's backward kernels with one id per row; in bf16 K6's and
+# K8 / K9's backwards run the engine of csrc/vocab_bwd.cuh, named by its policy
+K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel",
+          "void srt::vb::vb_row_kernel<srt::EmissionRows", "void srt::vb::vb_col_kernel<srt::EmissionRows",
+          "srt::vb::part_sum_kernel")
 PORT_KERNELS = {
     "las": {
         "K1 fwd": ("void srt::vocab_tile_kernel", "srt::ce_merge_kernel", "void srt::ce_label_kernel"),
@@ -68,9 +71,9 @@ K7 = {"K7 fwd": ("void srt::mhsa_fwd_kernel",),
 PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], **K7}
 # csrc/transducer_joint.cu: K8 (pruned) and K9 (dense) share their kernels
 JOINT = {"fwd": ("void srt::joint_fwd_kernel",),
-         "bwd": ("void srt::joint_dpre_kernel", "void srt::joint_dw_kernel", "srt::joint_dpre_tc_kernel",
-                 "srt::joint_dw_tc_kernel", "srt::joint_sum_kernel", "void srt::joint_denc_kernel",
-                 "void srt::joint_dpred_kernel")}
+         "bwd": ("void srt::joint_dpre_kernel", "void srt::joint_dw_kernel", "srt::joint_h_kernel",
+                 "void srt::vb::vb_row_kernel<srt::JointRows", "void srt::vb::vb_col_kernel<srt::JointRows",
+                 "srt::vb::part_sum_kernel", "void srt::joint_denc_kernel", "void srt::joint_dpred_kernel")}
 PORT_KERNELS["transducer_pruned"] = {**K7, "K8 fwd": JOINT["fwd"], "K8 bwd": JOINT["bwd"]}
 PORT_KERNELS["transducer_dense"] = {**K7, "K9 fwd": JOINT["fwd"], "K9 bwd": JOINT["bwd"]}
 
