@@ -7,11 +7,14 @@
 // the K ids of batch row b (its labels, then the blank).  The logits never
 // reach device memory (0.9 GB in float32 at B=128, T=108, V=16000).
 //
-// Forward: K5's tile pass (vocab_topk.cuh) with k = 1 and no rounding gives
-// per-tile (max, sum-exp); emission_lse_kernel merges them into each row's
-// logsumexp; emission_gather_kernel computes the K gathered logits with the
-// tile kernel's float32 sum order, so they are the same floats the lse saw.
-// emission = vals - lse is a small PyTorch op, as in the TPU wrapper.
+// Forward: the vocab tile pass (vocab_topk.cuh) with k = 1, no rounding and
+// the ids as its gather hook: per-tile (max, sum-exp) and the K logits of
+// each row's ids, copied out of the tiles that hold them, so they are the
+// same floats the lse saw (id_sort_kernel first lists each batch row's ids in
+// (id, k) order; duplicates and the pad id each get their value, an id
+// outside [0, V) gets 0); emission_lse_kernel merges the partials into each
+// row's logsumexp.  emission = vals - lse is a small PyTorch op, as in the
+// TPU wrapper.
 //
 // Backward: dlog[r, v] = sum_k dvals[r, k] [ids[b, k] == v] + softmax[r, v] dlse[r],
 // dlse = -sum_k dvals.  emission_fold_kernel folds duplicate ids (repeated
@@ -42,14 +45,14 @@
 #include "vocab_bwd.cuh"
 #include "vocab_topk.cuh"
 
+#define EM_TILE 256     // vocab columns per tile of the float32 dhid kernel
 #define EM_ROWS 32      // rows per block of the dhid kernel and per chunk of the dW kernel
 #define EM_DLS 36       // row stride of the transposed dlog tile (16-byte aligned, conflict-free float4 stores)
-#define EM_THREADS 256  // = VOCAB_TILE: one thread per vocab column of a tile
+#define EM_THREADS 256  // = EM_TILE: one thread per vocab column of a tile
 #define EM_HCHUNK 256   // h columns per block (grid.y)
 #define EM_WCH 32       // vocab columns per staged chunk of W^T
 #define EM_DW_COLS 64   // vocab columns per block of the dW kernel
 #define EM_DW_HPT 64    // dW rows per thread: 4 thread groups x 64 = EM_HCHUNK
-#define EM_GATHER_K 32  // ids per block of the gather kernel (one per lane)
 
 namespace srt {
 
@@ -61,35 +64,6 @@ __global__ void emission_lse_kernel(int R, int n_tiles, const float* __restrict_
   if (row >= R) return;
   const float l = merge_row((size_t)row, n_tiles, 1, part_val, part_idx, part_max, part_sum, [](int, float, int) {});
   if (lane == 0) lse[row] = l;
-}
-
-// grid (B, ceil(K / 32)), 8 warps: the block stages W's columns for its 32 ids
-// in shared memory as float; lane k of each warp walks the batch row's T rows.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    emission_gather_kernel(const T* __restrict__ hid, const T* __restrict__ W, const T* __restrict__ bias,
-                           const int* __restrict__ ids, int T_rows, int K, int H, int V, float* __restrict__ vals) {
-  extern __shared__ __align__(16) float wg[];  // [H][EM_GATHER_K]
-  const int b = blockIdx.x, k0 = blockIdx.y * EM_GATHER_K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < H * EM_GATHER_K; e += blockDim.x) {
-    const int h = e / EM_GATHER_K, c = e - h * EM_GATHER_K;
-    const int id = k0 + c < K ? ids[(size_t)b * K + k0 + c] : -1;
-    wg[e] = (id >= 0 && id < V) ? to_f(W[(size_t)h * V + id]) : 0.0f;
-  }
-  __syncthreads();
-  const int k = k0 + lane;
-  if (k >= K) return;
-  const int id = ids[(size_t)b * K + k];
-  const bool valid = id >= 0 && id < V;
-  const float bv = valid ? to_f(bias[id]) : 0.0f;
-  for (int t = warp; t < T_rows; t += blockDim.x >> 5) {
-    const size_t r = (size_t)b * T_rows + t;
-    const T* hr = hid + r * H;
-    float acc = 0.0f;
-    for (int h = 0; h < H; ++h) acc = fmaf(to_f(hr[h]), wg[h * EM_GATHER_K + lane], acc);  // the tile kernel's order
-    vals[r * K + k] = valid ? acc + bv : 0.0f;
-  }
 }
 
 // grid (B), one block per batch row: ids_first[b, k] = ids[b, k] at an id's
@@ -177,8 +151,8 @@ __global__ void __launch_bounds__(EM_THREADS)
                          int H, int V, T* __restrict__ dhid) {
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;                      // [H][EM_ROWS] hid rows, transposed
-  float* dl = hs + H * EM_ROWS;          // [VOCAB_TILE][EM_DLS] rnd(dlog) tile, transposed
-  float* ws = dl + VOCAB_TILE * EM_DLS;  // [EM_WCH][EM_HCHUNK + 1] chunk of W^T
+  float* dl = hs + H * EM_ROWS;       // [EM_TILE][EM_DLS] rnd(dlog) tile, transposed
+  float* ws = dl + EM_TILE * EM_DLS;  // [EM_WCH][EM_HCHUNK + 1] chunk of W^T
   __shared__ float s_lse[EM_ROWS], s_dlse[EM_ROWS];
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * EM_ROWS, rows = min(EM_ROWS, R - r0);
@@ -197,10 +171,10 @@ __global__ void __launch_bounds__(EM_THREADS)
   float acc2[EM_ROWS];  // dhid[r0 + r][h0 + tid]
 #pragma unroll
   for (int r = 0; r < EM_ROWS; ++r) acc2[r] = 0.0f;
-  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
+  const int n_tiles = (V + EM_TILE - 1) / EM_TILE;
   float4* col = reinterpret_cast<float4*>(dl + tid * EM_DLS);  // this thread's column of the tile
   for (int t = 0; t < n_tiles; ++t) {
-    const int v0 = t * VOCAB_TILE, v = v0 + tid;
+    const int v0 = t * EM_TILE, v = v0 + tid;
 #pragma unroll
     for (int r4 = 0; r4 < EM_ROWS / 4; ++r4) col[r4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float acc[EM_ROWS];
@@ -223,7 +197,7 @@ __global__ void __launch_bounds__(EM_THREADS)
     }
     const float bv = v < V ? to_f(bias[v]) : 0.0f;
     __syncthreads();  // the tile is zeroed
-    scatter_labels(dl, EM_DLS, 1, v0, VOCAB_TILE, r0, rows, T_rows, K, ids_first, merged);
+    scatter_labels(dl, EM_DLS, 1, v0, EM_TILE, r0, rows, T_rows, K, ids_first, merged);
     __syncthreads();
 #pragma unroll
     for (int r4 = 0; r4 < EM_ROWS / 4; ++r4) {
@@ -239,7 +213,7 @@ __global__ void __launch_bounds__(EM_THREADS)
     }
     __syncthreads();
 
-    for (int c0 = 0; c0 < VOCAB_TILE; c0 += EM_WCH) {
+    for (int c0 = 0; c0 < EM_TILE; c0 += EM_WCH) {
       for (int e = tid; e < EM_WCH * EM_HCHUNK; e += EM_THREADS) {
         const int h = e / EM_WCH, c = e - h * EM_WCH;
         const int vv = v0 + c0 + c;
@@ -376,22 +350,21 @@ cudaError_t em_set_smem(Kernel kernel, size_t smem) {
 
 template <typename T>
 cudaError_t emission_fwd_impl(const void* hid, const void* W, const void* b, const int* ids, int R, int T_rows, int K,
-                              int H, int V, float* part_val, int* part_idx, float* part_max, float* part_sum,
-                              float* lse, float* vals, cudaStream_t stream) {
+                              int H, int V, const TilePlan& plan, int* id_list, float* part_val, int* part_idx,
+                              float* part_max, float* part_sum, float* lse, float* vals, cudaStream_t stream) {
+  if (K > 1) {
+    id_sort_kernel<<<R / T_rows, 128, 0, stream>>>(ids, K, id_list);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   cudaError_t err = launch_vocab_tiles<T, T>(static_cast<const T*>(hid), static_cast<const T*>(W),
-                                             static_cast<const T*>(b), R, H, V, 1, ROUND_NONE, part_val, part_idx,
-                                             part_max, part_sum, stream);
+                                             static_cast<const T*>(b), R, H, V, 1, ROUND_NONE, plan, part_val,
+                                             part_idx, part_max, part_sum, stream, nullptr,
+                                             Gather{K > 1 ? id_list : ids, vals, T_rows, K});
   if (err != cudaSuccess) return err;
   const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
   emission_lse_kernel<<<(int)(((size_t)R * 32 + 255) / 256), 256, 0, stream>>>(R, n_tiles, part_val, part_idx,
                                                                                 part_max, part_sum, lse);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (size_t)H * EM_GATHER_K;
-  err = em_set_smem(emission_gather_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  emission_gather_kernel<T><<<dim3(R / T_rows, (K + EM_GATHER_K - 1) / EM_GATHER_K), 256, smem, stream>>>(
-      static_cast<const T*>(hid), static_cast<const T*>(W), static_cast<const T*>(b), ids, T_rows, K, H, V, vals);
   return cudaGetLastError();
 }
 
@@ -405,7 +378,7 @@ cudaError_t emission_bwd_f32(const float* hid, const float* W, const float* b, c
   if (err != cudaSuccess) return err;
 
   const int h_chunks = (H + EM_HCHUNK - 1) / EM_HCHUNK;
-  const size_t smem1 = sizeof(float) * ((size_t)H * EM_ROWS + VOCAB_TILE * EM_DLS + EM_WCH * (EM_HCHUNK + 1));
+  const size_t smem1 = sizeof(float) * ((size_t)H * EM_ROWS + EM_TILE * EM_DLS + EM_WCH * (EM_HCHUNK + 1));
   err = em_set_smem(emission_dhid_kernel<float>, smem1);
   if (err != cudaSuccess) return err;
   emission_dhid_kernel<float><<<dim3((R + EM_ROWS - 1) / EM_ROWS, h_chunks), EM_THREADS, smem1, stream>>>(
@@ -493,18 +466,21 @@ extern "C" {
 
 // Forward.  hid [R,H] (R = B*T rows, batch-major), W [H,V], b [V] in T (bf16
 // when dtype_bf16, else float32); ids [B,K] int32.  Outputs lse [R] and
-// vals [R,K] float32; part_* are [R, ceil(V/VOCAB_TILE)] scratch.
+// vals [R,K] float32; part_* are [R, ceil(V/VOCAB_TILE)] scratch, id_list
+// [B,2,K] int32 scratch; wgs, stage_k, tiles_per_block: the bf16 plan of the
+// tile pass (ops/vocab_topk.py tile_plan).
 int ctc_emissions_fwd(int dtype_bf16, const void* hid, const void* W, const void* b, const int* ids, int R, int T_rows,
-                      int K, int H, int V, float* part_val, int* part_idx, float* part_max, float* part_sum,
-                      float* lse, float* vals, void* stream) {
+                      int K, int H, int V, int wgs, int stage_k, int tiles_per_block, int* id_list, float* part_val,
+                      int* part_idx, float* part_max, float* part_sum, float* lse, float* vals, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
   cudaError_t err;
   if (dtype_bf16)
-    err = srt::emission_fwd_impl<__nv_bfloat16>(hid, W, b, ids, R, T_rows, K, H, V, part_val, part_idx, part_max,
-                                                part_sum, lse, vals, st);
+    err = srt::emission_fwd_impl<__nv_bfloat16>(hid, W, b, ids, R, T_rows, K, H, V, plan, id_list, part_val,
+                                                part_idx, part_max, part_sum, lse, vals, st);
   else
-    err = srt::emission_fwd_impl<float>(hid, W, b, ids, R, T_rows, K, H, V, part_val, part_idx, part_max, part_sum,
-                                        lse, vals, st);
+    err = srt::emission_fwd_impl<float>(hid, W, b, ids, R, T_rows, K, H, V, plan, id_list, part_val, part_idx,
+                                        part_max, part_sum, lse, vals, st);
   return static_cast<int>(err);
 }
 

@@ -15,8 +15,9 @@
 //     h and c stay float32; values are rounded to T where _beam_step_math
 //     rounds them (the query and recurrent inputs, the context, each cell's
 //     output).
-//  2. K5's vocab_tile_kernel over the B*K hidden rows with k = K and
-//     bf16(bf16(dot) + b) under bf16 (the beam path's bias is bf16).
+//  2. the vocab tile pass (vocab_topk.cuh) over the B*K hidden rows with
+//     k = K and bf16(bf16(dot) + b) under bf16 (the beam path's bias is bf16):
+//     wgmma under bf16, CUDA-core FMAs under float32.
 //  3. beam_select_kernel: one block per batch row.  K5's merge of each beam
 //     row's partials (a warp per beam), the K*K candidate scores with the
 //     length penalty, the top-K in lax.top_k order (rank by rank, value
@@ -31,9 +32,10 @@
 //
 // What bounds it: the operations, ~12.1 GFLOP a step at LAS-small's beam-8
 // (B=128, S=255, V=16000), 1.55 ms for the 126 steps at the tensor cores'
-// rate.  This first design runs every product as float32 FMAs on the CUDA
-// cores, and each block reads the ~3 MB of cell weights from L2 every step;
-// tensor-core tiles and a persistent loop are later work.
+// rate.  The vocab projection (8.4 of the 12.1 GFLOP) runs on wgmma in the
+// tile pass; the step kernel's products run as float32 FMAs on the CUDA
+// cores, each block reading the ~3 MB of cell weights from L2 every step;
+// tensor-core step products and a persistent loop are later work.
 #include "vocab_topk.cuh"
 
 #define BEAM_THREADS 512
@@ -367,7 +369,7 @@ cudaError_t beam_loop(const T* pk, const T* value, const float* attn_bias, const
                       float* logp, int* ended, float* eoslen, int* live, T* hidden, float* part_val, int* part_idx,
                       float* part_max, float* part_sum, int B, int K, int S, int H, int He, int Dv, int V, int L,
                       int step0, int n_steps, int eos_id, int pad_id, float alpha, float beta_den,
-                      cudaStream_t stream) {
+                      const TilePlan& plan, cudaStream_t stream) {
   const size_t smem = sizeof(float) * KB * (size_t)step_smem_floats(S, H, He, Dv);
   cudaError_t err = cudaFuncSetAttribute(beam_step_kernel<T, KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -380,8 +382,8 @@ cudaError_t beam_loop(const T* pk, const T* value, const float* attn_bias, const
                                                                pad_id);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = launch_vocab_tiles<T, T>(hidden, vw, vb, B * K, H, V, K, rounding, part_val, part_idx, part_max, part_sum,
-                                   stream, live + step - 1);
+    err = launch_vocab_tiles<T, T>(hidden, vw, vb, B * K, H, V, K, rounding, plan, part_val, part_idx, part_max,
+                                   part_sum, stream, live + step - 1);
     if (err != cudaSuccess) return err;
     beam_select_kernel<KB><<<B, BEAM_THREADS, 0, stream>>>(K, n_tiles, part_val, part_idx, part_max, part_sum,
                                                            tokens, logp, ended, eoslen, live, L, step, eos_id,
@@ -398,7 +400,8 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
                              void** rs, void** bs, float* h, float* c, int* tokens, float* logp, int* ended,
                              float* eoslen, int* live, void* hidden, float* part_val, int* part_idx, float* part_max,
                              float* part_sum, int B, int K, int S, int H, int He, int Dv, int V, int L, int step0,
-                             int n_steps, int eos_id, int pad_id, float alpha, float beta_den, cudaStream_t stream) {
+                             int n_steps, int eos_id, int pad_id, float alpha, float beta_den, const TilePlan& plan,
+                             cudaStream_t stream) {
   if (n_cells < 1 || n_cells > BEAM_MAX_CELLS || K < 1 || K > BEAM_MAX_K || step0 < 2 || n_steps < 0 ||
       step0 + n_steps > L)
     return cudaErrorInvalidValue;
@@ -414,7 +417,7 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
                           static_cast<const T*>(qw), static_cast<const T*>(qb), static_cast<const T*>(emb),      \
                           static_cast<const T*>(vw), static_cast<const T*>(vb), cells, h, c, tokens, logp, ended, \
                           eoslen, live, static_cast<T*>(hidden), part_val, part_idx, part_max, part_sum, B, K, S, H, \
-                          He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, stream)
+                          He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, plan, stream)
   if (K <= 1) SRT_BEAM_LOOP(1);
   if (K <= 2) SRT_BEAM_LOOP(2);
   if (K <= 4) SRT_BEAM_LOOP(4);
@@ -430,24 +433,28 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
 // [B, K] float32 (first EOS position + 1) are updated in place, as are h / c
 // [B*K, H] float32.  live [L] int32 holds live[step0 - 1] = (any beam live at
 // the start) and zeros.  hidden [B*K, H] and part_* ([B*K, ceil(V/VOCAB_TILE),
-// K] and [B*K, ceil(V/VOCAB_TILE)]) are scratch.  beta_den = 1 + beta.
+// K] and [B*K, ceil(V/VOCAB_TILE)]) are scratch.  beta_den = 1 + beta.  wgs,
+// stage_k, tiles_per_block: the bf16 plan of the vocab tile pass over the B*K
+// rows (ops/vocab_topk.py tile_plan).
 extern "C" int las_beam_search(int dtype_bf16, const void* pk, const void* value, const float* attn_bias,
                                const void* qw, const void* qb, const void* emb, const void* vw, const void* vb,
                                int n_cells, void** ks, void** rs, void** bs, float* h, float* c, int* tokens,
                                float* logp, int* ended, float* eoslen, int* live, void* hidden, float* part_val,
                                int* part_idx, float* part_max, float* part_sum, int B, int K, int S, int H, int He,
                                int Dv, int V, int L, int step0, int n_steps, int eos_id, int pad_id, float alpha,
-                               float beta_den, void* stream) {
+                               float beta_den, int wgs, int stage_k, int tiles_per_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
   cudaError_t err;
   if (dtype_bf16)
     err = srt::beam_search_impl<__nv_bfloat16>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
                                                tokens, logp, ended, eoslen, live, hidden, part_val, part_idx,
                                                part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps, eos_id,
-                                               pad_id, alpha, beta_den, st);
+                                               pad_id, alpha, beta_den, plan, st);
   else
     err = srt::beam_search_impl<float>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens,
                                        logp, ended, eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B,
-                                       K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, st);
+                                       K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, plan,
+                                       st);
   return static_cast<int>(err);
 }

@@ -10,8 +10,9 @@
 //     loop, float32 accumulation.  Values are rounded to T where the TPU
 //     kernel rounds them; h and c stay float32 across steps.  The step's
 //     device code is in las_step.cuh, shared with the decoder forward (K2).
-//  2. K5's vocab_tile_kernel over the step's hidden rows, k = 1, one bf16
-//     rounding of (dot + float32 bias) under bf16, none under float32.
+//  2. the vocab tile pass (vocab_topk.cuh) over the step's hidden rows, k = 1,
+//     one bf16 rounding of (dot + float32 bias) under bf16 (wgmma), none under
+//     float32 (CUDA-core FMAs).
 //  3. greedy_merge_kernel: K5's merge (top-1 and logsumexp) plus the EOS
 //     bookkeeping: a row that has ended emits pad and stops adding logP.
 #include "las_step.cuh"
@@ -107,7 +108,7 @@ cudaError_t greedy_step_impl(const void* pk, const void* value, const float* att
                              void** ks, void** rs, void** bs, float* h, float* c, int* prev_tok, int* ended,
                              float* logp_sum, int* tokens, int step, int L, void* hidden, float* part_val,
                              int* part_idx, float* part_max, float* part_sum, int B, int S, int H, int He, int Dv,
-                             int V, int eos_id, int pad_id, cudaStream_t stream) {
+                             int V, int eos_id, int pad_id, const TilePlan& plan, cudaStream_t stream) {
   if (n_cells < 1 || n_cells > MAX_CELLS) return cudaErrorInvalidValue;
   Cells<T> cells;
   cells.n = n_cells;
@@ -131,8 +132,8 @@ cudaError_t greedy_step_impl(const void* pk, const void* value, const float* att
 
   const bool is_bf16 = sizeof(T) == 2;
   err = launch_vocab_tiles<T, float>(static_cast<const T*>(hidden), static_cast<const T*>(vw), vb, B, H, V, 1,
-                                     is_bf16 ? ROUND_ONCE : ROUND_NONE, part_val, part_idx, part_max, part_sum,
-                                     stream);
+                                     is_bf16 ? ROUND_ONCE : ROUND_NONE, plan, part_val, part_idx, part_max,
+                                     part_sum, stream);
   if (err != cudaSuccess) return err;
 
   const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
@@ -150,16 +151,18 @@ extern "C" int las_greedy_step(int dtype_bf16, const void* pk, const void* value
                                int n_cells, void** ks, void** rs, void** bs, float* h, float* c, int* prev_tok,
                                int* ended, float* logp_sum, int* tokens, int step, int L, void* hidden,
                                float* part_val, int* part_idx, float* part_max, float* part_sum, int B, int S, int H,
-                               int He, int Dv, int V, int eos_id, int pad_id, void* stream) {
+                               int He, int Dv, int V, int eos_id, int pad_id, int wgs, int stage_k,
+                               int tiles_per_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
   cudaError_t err;
   if (dtype_bf16)
     err = srt::greedy_step_impl<__nv_bfloat16>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
                                                prev_tok, ended, logp_sum, tokens, step, L, hidden, part_val, part_idx,
-                                               part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, st);
+                                               part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, plan, st);
   else
     err = srt::greedy_step_impl<float>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
                                        prev_tok, ended, logp_sum, tokens, step, L, hidden, part_val, part_idx,
-                                       part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, st);
+                                       part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, plan, st);
   return static_cast<int>(err);
 }

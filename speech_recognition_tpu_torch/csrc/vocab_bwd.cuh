@@ -17,7 +17,9 @@
 //    128-byte row per data row, 16-byte chunks swizzled by (row % 8): the
 //    layout the wgmma descriptors name as 128-byte swizzle, usable both
 //    K-major and MN-major, so one W panel is the B operand of z = h W
-//    (MN-major) and of dh = dz W^T (K-major) without a transposed copy;
+//    (MN-major) and of dh = dz W^T (K-major) without a transposed copy (the
+//    panels, descriptors and PTX wrappers are csrc/wgmma.cuh, shared with the
+//    forward vocab tile pass of csrc/vocab_topk.cuh);
 //  - operands arrive by cp.async (16 bytes a thread, zero-filled past the
 //    edges) into a ring of stages, the next stages' copies in flight while
 //    the current one is multiplied; a row pitch that is not 16-byte aligned
@@ -48,20 +50,14 @@
 // db sums it unrounded (K1/K6) or rounded (K8/K9).
 #pragma once
 
-#include <cuda_bf16.h>
-
-#include <cstdint>
-
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace srt {
 namespace vb {
 
+using namespace wg;  // PANEL, ROW_BYTES, WG_ROWS, W_PANEL, ALIGN and the PTX helpers (csrc/wgmma.cuh)
 using Bf = __nv_bfloat16;
 
-constexpr int PANEL = 64;         // bf16 columns of a panel: one 128-byte swizzle row
-constexpr int ROW_BYTES = 128;
-constexpr int WG_ROWS = 64;       // rows of one warpgroup: the wgmma M
 constexpr int MAX_CHUNK = 5;      // panels of dh (row kernel) or dW (column kernel) a block keeps in registers
 // Stages of the two rings.  Tile mode (H of at most MAX_CHUNK panels: one
 // chunk): a stage holds a whole W tile [H x 64] (row kernel) or row block of
@@ -70,9 +66,7 @@ constexpr int MAX_CHUNK = 5;      // panels of dh (row kernel) or dW (column ker
 constexpr int ROW_TILE_STAGES = 3, ROW_STAGES = 6;
 constexpr int COL_TILE_STAGES = 2, COL_STAGES = 4;
 constexpr int COL_ROWS = 128;     // rows of one row block of the column kernel (two warpgroups)
-constexpr int W_PANEL = PANEL * ROW_BYTES;        // [64 x 64] bf16
 constexpr int H_PANEL = COL_ROWS * ROW_BYTES;     // [128 x 64] bf16
-constexpr int ALIGN = 1024;                       // the swizzle atom: 8 rows x 128 bytes
 constexpr int DB_SCRATCH = 2 * 4 * PANEL * 4;     // per-warp column sums of db, float32
 
 // Dynamic shared memory of the two kernels (ops/vocab_bwd.py mirrors both).
@@ -90,56 +84,15 @@ struct Plan {
   int row_wgs, tile, chunk_panels, n_split, rows_per_split;
 };
 
-// ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// orders this thread's shared-memory writes (st.shared, cp.async) before the tensor cores' reads
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 __device__ __forceinline__ void bar_sync_wg(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
-}
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t a) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
 }
-
-// byte offset of 16-byte chunk ``chunk`` of row ``r`` in a swizzled panel
-__device__ __forceinline__ uint32_t swz(int r, int chunk) { return r * ROW_BYTES + ((chunk ^ (r & 7)) << 4); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-
-// wgmma shared-memory descriptors for a 128-byte-swizzled panel (1024-byte
-// aligned atoms).  K-major: 8-row groups 1024 bytes apart, a k-step of 16 is
-// +32 bytes along the row.  MN-major: 8 k-rows per 1024 bytes, a k-step of 16
-// is +2048 bytes; the operand's MN extent is one panel, so the two offsets are
-// both the 8-row stride.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return desc(addr, 16, 1024); }
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) { return desc(addr, 1024, 1024); }
-
-#define VB_D32                                                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31}"
-#define VB_OUT32(d)                                                                                                  \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),        \
-      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
 // d[64 x 64] += A[64 x 16] B[16 x 64], both from shared memory; TA / TB: 1 = MN-major
 template <int TA, int TB>
@@ -159,47 +112,6 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : VB_OUT32(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wg_arrive() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-// at most N of this warpgroup's committed wgmma groups still in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// ---------------------------------------------------------------- panels
-// rows x 64 bf16 of src (row-major, ``ld`` elements a row) from (r0, c0) into
-// the swizzled panel at ``dst``; rows >= nr and columns >= nc read as 0.
-// cp.async when every row starts 16-byte aligned, else a staged copy.
-__device__ __forceinline__ void load_panel(uint32_t dst, int rows, const Bf* __restrict__ src, size_t ld, int aligned,
-                                           size_t r0, long long nr, int c0, int nc, int tid, int nthr) {
-  for (int e = tid; e < rows * 8; e += nthr) {
-    const int r = e >> 3, ch = e & 7, c = ch * 8;
-    const int n = r < nr ? min(max(nc - c, 0), 8) : 0;  // elements of this chunk inside src
-    const Bf* s = src + (r0 + r) * ld + c0 + c;
-    if (aligned) {
-      cp_async16(dst + swz(r, ch), n ? static_cast<const void*>(s) : static_cast<const void*>(src), 2 * n);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t lo = 2 * k < n ? __bfloat16_as_ushort(s[2 * k]) : 0u;
-        const uint32_t hi = 2 * k + 1 < n ? __bfloat16_as_ushort(s[2 * k + 1]) : 0u;
-        w[k] = lo | hi << 16;
-      }
-      st_shared_v4(dst + swz(r, ch), w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-inline int aligned16(const void* p, size_t ld) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 8 == 0;
 }
 
 // The thread's cells of a 64 x 64 accumulator: index i = 4j + 2 half + e is
@@ -226,11 +138,6 @@ __device__ __forceinline__ void add_at(float (&d)[16], int idx, float val) {
 #pragma unroll
   for (int i = 0; i < 16; ++i)
     if (i == idx) d[i] += val;
-}
-
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // ---------------------------------------------------------------- row kernel: dh

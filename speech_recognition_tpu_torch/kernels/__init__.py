@@ -29,7 +29,6 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-VOCAB_TILE = 256  # vocab columns per tile: VOCAB_TILE in csrc/vocab_topk.cuh
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -37,23 +36,25 @@ build_log = ""  # ptxas report of the last build (registers, shared memory, spil
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dtype_bf16, bias_f32, hid, W, b, R, H, V, k, rounding,
-    # part_val, part_idx, part_max, part_sum, vals, idx, lse, stream
-    "vocab_topk": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype_bf16, bias_f32, hid, W, b, R, H, V, k, rounding, wgs, stage_k, tiles_per_block,
+    # part_val, part_idx, part_max, part_sum, vals, idx, lse, run_flag, stream
+    "vocab_topk": [_I, _I, _P, _P, _P] + [_I] * 8 + [_P] * 9,
     # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs,
     # h, c, prev_tok, ended, logp_sum, tokens, step, L, hidden,
-    # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, stream
-    "las_greedy_step": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, wgs, stage_k, tiles_per_block, stream
+    "las_greedy_step": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 11 + [_P],
     # dtype_bf16, emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs, cps,
     # out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H, He, Dv, stream
     "las_decoder_fwd": [_I] + [_P] * 7 + [_I] + [_P] * 6 + [_P] * 8 + [_I] * 6 + [_P],
     # dtype_bf16, dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells,
     # kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv, stream
     "las_decoder_bwd": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
-    # dtype_bf16, hid, W, b, y, R, H, V, part_val, part_idx, part_max, part_sum, lse, lab, pred, stream
-    "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 3 + [_P] * 8,
-    # dtype_bf16, hid, W, b, ids, R, T, K, H, V, part_val, part_idx, part_max, part_sum, lse, vals, stream
-    "ctc_emissions_fwd": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 7,
+    # dtype_bf16, hid, W, b, y, R, H, V, wgs, stage_k, tiles_per_block,
+    # part_val, part_idx, part_max, part_sum, lse, lab, pred, stream
+    "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 6 + [_P] * 8,
+    # dtype_bf16, hid, W, b, ids, R, T, K, H, V, wgs, stage_k, tiles_per_block, id_list,
+    # part_val, part_idx, part_max, part_sum, lse, vals, stream
+    "ctc_emissions_fwd": [_I] + [_P] * 4 + [_I] * 8 + [_P] * 8,
     # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, n_split, row_wgs, tile, chunk_panels,
     # rows_per_split, merged, ids_first, dlse, lab, dW_part, db_part, dhid, dW, db, stream
     "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_P] * 10,
@@ -70,8 +71,8 @@ _SIGNATURES = {
     "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
     # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
     # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
-    # eos_id, pad_id, alpha, beta_den, stream
-    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_P],
+    # eos_id, pad_id, alpha, beta_den, wgs, stage_k, tiles_per_block, stream
+    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_P],
 }
 
 

@@ -34,15 +34,16 @@ the embedding gather, the K queries, the scores and the context streaming
 pk[b] and value[b] once for all K beams (a K4 block per beam row would read
 them K times), then the cell stack, each weight element loaded once per
 block for all K beams.  (2) K5's vocab tile pass over the B*K hidden rows
-with k = K.  (3) A select kernel, one block per batch row: K5's merge of
+with k = K (wgmma under bf16).  (3) A select kernel, one block per batch row: K5's merge of
 each beam row's partials, the K*K scores, the top-K, the re-gather of the
 histories (a thread per column) and flags, and the batch-wide all-ended
 count.  Every kernel of a step first reads the previous step's count of
 live rows and returns at once when it is 0, so the early exit needs no host
 sync.  What bounds it: per step the cell weights (~3 MB at LAS-small) are
-read from L2 by each of the B blocks, and the vocab projection (8.4 GFLOP
-at B*K = 1024 rows) runs on the CUDA cores in float32 (K5's design);
-tensor-core tiles and a persistent loop are later work.
+read from L2 by each of the B blocks, whose products run on the CUDA cores
+in float32; the vocab projection (8.4 GFLOP at B*K = 1024 rows) runs on the
+tensor cores in bf16 (the tile pass, ``ops/vocab_topk.py tile_plan``).
+Tensor-core step products and a persistent loop are later work.
 """
 
 import ctypes
@@ -51,7 +52,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .greedy_search import MAX_CELLS, attention_bias
-from .vocab_topk import MAX_K, ROUND_NONE, ROUND_TWICE, vocab_topk_plain
+from .vocab_topk import MAX_K, ROUND_NONE, ROUND_TWICE, alloc_partials, launch_args, vocab_topk_plain
 
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100 (227 KB)
 
@@ -163,7 +164,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
     if pk.device.type == "cpu":
         return beam_loop_plain(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, init_tokens, init_logp, eos_id,
                                pad_id, alpha, beta, step0, n_steps, return_states)
-    from ..kernels import VOCAB_TILE, check_operands, error_string, library, stream
+    from ..kernels import check_operands, error_string, library, stream
 
     dt = pk.dtype
     B, S, H = pk.shape
@@ -211,11 +212,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
     h = h0.float().contiguous().clone()
     c = c0.float().contiguous().clone()
     hidden = torch.empty(R, H, dtype=dt, device=dev)
-    n_tiles = -(-V // VOCAB_TILE)
-    part_val = torch.empty(R, n_tiles, K, dtype=torch.float32, device=dev)
-    part_idx = torch.empty(R, n_tiles, K, dtype=torch.int32, device=dev)
-    part_max = torch.empty(R, n_tiles, dtype=torch.float32, device=dev)
-    part_sum = torch.empty(R, n_tiles, dtype=torch.float32, device=dev)
+    part_val, part_idx, part_max, part_sum = alloc_partials(R, V, K, dev)
     bias = attention_bias(mask).contiguous()
     cell_ptrs = [(ctypes.c_void_p * len(cells))(*[cell[j].data_ptr() for cell in cells]) for j in range(3)]
     err = library().las_beam_search(
@@ -224,7 +221,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
         *[t.data_ptr() for t in (h, c, tokens, logp, ended, eoslen, live, hidden, part_val, part_idx, part_max,
                                  part_sum)],
         B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta),
-        stream(dev),
+        *launch_args(R, H, V, K, hidden), stream(dev),
     )
     if err:
         raise RuntimeError(f"las_beam_search kernel launch failed: {error_string(err)}")

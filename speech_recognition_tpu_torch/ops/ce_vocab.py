@@ -14,9 +14,11 @@ are formed in float32 tile by tile and never stored:
 ``W`` and ``b`` are cast to ``hid``'s type first, as in JAX; their
 gradients come back in their own type without a rounding to ``hid``'s.
 
-On the H100 (``csrc/ce_vocab.cu``) the forward is kernel K5's two passes with
-k = 1 and no rounding, plus a label gather summed in the same order; the
-backward is kernel K6's (``ops/ctc_emissions.py``) with one id per row, the
+On the H100 (``csrc/ce_vocab.cu``) the forward is the vocab tile pass of
+kernel K5 (``csrc/vocab_topk.cuh``: wgmma products in bf16, CUDA-core FMAs in
+float32) with k = 1, no rounding and the labels as its gather hook, so each
+label's logit is copied out of the tile the logsumexp reduced, then a merge
+kernel; the backward is kernel K6's (``ops/ctc_emissions.py``) with one id per row, the
 label, and emission cotangent ``-dnll``: in bf16 the tensor-core engine of
 ``csrc/vocab_bwd.cuh`` (a row kernel for dhid, a column kernel for dW / db,
 no atomics), in float32 two CUDA-core kernels.  At R = N*B = 16256 rows,
@@ -25,7 +27,7 @@ V = 16000, H = 256 the backward is three 133 GFLOP products.
 
 import torch
 
-from .vocab_topk import vocab_logits_plain, ROUND_NONE
+from .vocab_topk import ROUND_NONE, alloc_partials, launch_args, vocab_logits_plain
 
 
 def ce_fwd_plain(hid, W, b, y):
@@ -65,21 +67,20 @@ def ce_fwd(hid, W, b, y):
     """
     if hid.device.type == "cpu":
         return ce_fwd_plain(hid, W, b, y)
-    from ..kernels import VOCAB_TILE, error_string, library, stream
+    from ..kernels import error_string, library, stream
 
     _check(hid, W, b, y)
     R, H = hid.shape
     V = W.shape[1]
     dev = hid.device
-    n_tiles = -(-V // VOCAB_TILE)
-    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
-    part_val, part_max, part_sum = f32(R, n_tiles), f32(R, n_tiles), f32(R, n_tiles)
-    part_idx = torch.empty(R, n_tiles, dtype=torch.int32, device=dev)
-    lse, lab = f32(R), f32(R)
+    plan = launch_args(R, H, V, 1, hid)
+    part_val, part_idx, part_max, part_sum = alloc_partials(R, V, 1, dev)
+    lse = torch.empty(R, dtype=torch.float32, device=dev)
+    lab = torch.empty(R, dtype=torch.float32, device=dev)
     pred = torch.empty(R, dtype=torch.int32, device=dev)
     err = library().ce_vocab_fwd(
         int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), y.data_ptr(), R, H, V,
-        part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(),
+        *plan, part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(),
         lse.data_ptr(), lab.data_ptr(), pred.data_ptr(), stream(dev),
     )
     if err:

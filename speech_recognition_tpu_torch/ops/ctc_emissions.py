@@ -18,22 +18,23 @@ formed in float32 tile by tile and never stored:
 come back in their own type.  In float32 nothing rounds: the XLA route's
 math (projection + ``measure._emission_logprobs``).
 
-On the H100 (``csrc/ctc_emissions.cu``) the forward is K5's tile pass with
-k = 1 for the lse plus a gather kernel that sums the K logits in the tile
-pass's order.  The backward folds duplicate ids, then recomputes the logits:
-in bf16 on the tensor-core engine of ``csrc/vocab_bwd.cuh`` (wgmma products
-fed by cp.async rings; a row kernel for dhid, a column kernel for dW / db
-whose row splits write partials summed in a fixed order: no atomics), with
-the launch plan of ``ops/vocab_bwd.py``; in float32 on two CUDA-core kernels,
-one over row blocks for dhid and one over vocab tiles for dW / db.  K1's
-backward (``ops/ce_vocab.py``) is the same launch with one id per row.  At
-B=128, T=108, H=256, V=16000 that is 113 GFLOP forward and 340 backward:
-bound by operations at the bf16 tensor-core peak.
+On the H100 (``csrc/ctc_emissions.cu``) the forward is K5's vocab tile pass
+(``csrc/vocab_topk.cuh``: wgmma products in bf16, CUDA-core FMAs in float32)
+with k = 1 and the ids as its gather hook: each row's K logits are copied out
+of the tiles the lse reduced, so they are the same floats.  The backward folds
+duplicate ids, then recomputes the logits: in bf16 on the tensor-core engine
+of ``csrc/vocab_bwd.cuh`` (wgmma products fed by cp.async rings; a row kernel
+for dhid, a column kernel for dW / db whose row splits write partials summed
+in a fixed order: no atomics), with the launch plan of ``ops/vocab_bwd.py``;
+in float32 on two CUDA-core kernels, one over row blocks for dhid and one over
+vocab tiles for dW / db.  K1's backward (``ops/ce_vocab.py``) is the same
+launch with one id per row.  At B=128, T=108, H=256, V=16000 that is 113 GFLOP
+forward and 340 backward: bound by operations at the bf16 tensor-core peak.
 """
 
 import torch
 
-from .vocab_topk import ROUND_NONE, vocab_logits_plain
+from .vocab_topk import ROUND_NONE, alloc_partials, launch_args, vocab_logits_plain
 
 
 def ctc_emissions_fwd_plain(hid, W, b, ids):
@@ -77,21 +78,21 @@ def ctc_emissions_fwd(hid, W, b, ids):
     """
     if hid.device.type == "cpu":
         return ctc_emissions_fwd_plain(hid, W, b, ids)
-    from ..kernels import VOCAB_TILE, error_string, library, stream
+    from ..kernels import error_string, library, stream
 
     _check(hid, W, b, ids)
     B, T, H = hid.shape
     K, V, R = ids.shape[1], W.shape[1], B * T
     dev = hid.device
-    n_tiles = -(-V // VOCAB_TILE)
-    f32 = lambda *s: torch.empty(*s, dtype=torch.float32, device=dev)
-    part_val, part_max, part_sum = f32(R, n_tiles), f32(R, n_tiles), f32(R, n_tiles)
-    part_idx = torch.empty(R, n_tiles, dtype=torch.int32, device=dev)
-    lse, vals = f32(B, T), f32(B, T, K)
+    plan = launch_args(R, H, V, 1, hid)
+    part_val, part_idx, part_max, part_sum = alloc_partials(R, V, 1, dev)
+    id_list = torch.empty(B, 2, K, dtype=torch.int32, device=dev)  # each row's ids in (id, k) order, then their k
+    lse = torch.empty(B, T, dtype=torch.float32, device=dev)
+    vals = torch.empty(B, T, K, dtype=torch.float32, device=dev)
     err = library().ctc_emissions_fwd(
         int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), R, T, K, H, V,
-        part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(), lse.data_ptr(),
-        vals.data_ptr(), stream(dev),
+        *plan, id_list.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(),
+        part_sum.data_ptr(), lse.data_ptr(), vals.data_ptr(), stream(dev),
     )
     if err:
         raise RuntimeError(f"ctc_emissions_fwd kernel launch failed: {error_string(err)}")

@@ -16,8 +16,9 @@ keeps ~55 MB of operands resident in VMEM for the whole loop, and an SM has
 227 KB of shared memory.  Here the host loops over the L-1 steps and each
 step is three launches: a fused step kernel with one block of 1024 threads
 per batch row (all of its vectors in shared memory, every matvec in the
-block's own loops), then K5's vocab-tile and merge kernels, the merge
-carrying the EOS epilogue.  What bounds it: each step streams the row's
+block's own loops), then K5's vocab tile pass (wgmma under bf16, over the
+B rows: ``ops/vocab_topk.py tile_plan``) and a merge kernel carrying the EOS
+epilogue.  What bounds it: each step streams the row's
 projected keys and values (pk + value = ~50 MB per step at B=128, S=255,
 from L2/HBM), and every block re-reads the ~3 MB of cell weights from L2.
 A persistent whole-loop kernel and CUDA graphs are later work.
@@ -28,7 +29,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .vocab_topk import ROUND_NONE, ROUND_ONCE, vocab_topk_plain
+from .vocab_topk import ROUND_NONE, ROUND_ONCE, alloc_partials, launch_args, vocab_topk_plain
 
 MAX_CELLS = 8
 
@@ -112,7 +113,7 @@ class GreedyKernelLoop:
 
     def __init__(self, pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, max_token_length, bos_id, eos_id,
                  pad_id=0):
-        from ..kernels import VOCAB_TILE, check_operands
+        from ..kernels import check_operands
 
         dt = pk.dtype
         B, S, H = pk.shape
@@ -150,11 +151,8 @@ class GreedyKernelLoop:
         self.tokens = torch.full((B, max_token_length), pad_id, dtype=torch.int32, device=dev)
         self.tokens[:, 0] = bos_id
         self.hidden = torch.empty(B, H, dtype=dt, device=dev)
-        n_tiles = -(-V // VOCAB_TILE)
-        self.part_val = torch.empty(B, n_tiles, dtype=torch.float32, device=dev)
-        self.part_idx = torch.empty(B, n_tiles, dtype=torch.int32, device=dev)
-        self.part_max = torch.empty(B, n_tiles, dtype=torch.float32, device=dev)
-        self.part_sum = torch.empty(B, n_tiles, dtype=torch.float32, device=dev)
+        self.plan = launch_args(B, H, V, 1, self.hidden)
+        self.part_val, self.part_idx, self.part_max, self.part_sum = alloc_partials(B, V, 1, dev)
 
     def step(self, n: int) -> None:
         from ..kernels import error_string, library, stream
@@ -166,7 +164,7 @@ class GreedyKernelLoop:
             *[t.data_ptr() for t in (self.h, self.c, self.prev, self.ended, self.logp, self.tokens)],
             n, self.L, self.hidden.data_ptr(),
             *[t.data_ptr() for t in (self.part_val, self.part_idx, self.part_max, self.part_sum)],
-            B, S, H, He, Dv, V, self.eos_id, self.pad_id, stream(self.h.device),
+            B, S, H, He, Dv, V, self.eos_id, self.pad_id, *self.plan, stream(self.h.device),
         )
         if err:
             raise RuntimeError(f"las_greedy_step kernel launch failed: {error_string(err)}")

@@ -10,6 +10,7 @@ wrappers allocate.  The constants mirror the header's ``constexpr`` values
 (``tests/test_torch_vocab_bwd.py`` reads them back from the source).
 """
 
+import functools
 from typing import NamedTuple
 
 PANEL = 64  # bf16 columns of one shared-memory panel (a 128-byte swizzle row)
@@ -111,8 +112,9 @@ def f32_row_splits(R: int) -> int:
     return max(1, min(4, R // 2048))
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
-    """SMs of a CUDA device (the plan's ``n_sm``)."""
+    """SMs of a CUDA device (the plan's ``n_sm``), read once per device."""
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -5,7 +5,11 @@ fixture, at run time).  On the card: ``python -m pytest tests/test_torch_cuda.py
 Small shapes with a ragged vocab tail, both compute types.  float32: values
 and lse rtol 1e-5, tokens equal; bf16: values within 1 bf16 ULP, indices
 equal where the top-(k+1) gaps exceed 1 ULP (float32 sums in another order
-can move a logit by one bf16 step).
+can move a logit by one bf16 step).  The bf16 vocab tile pass (wgmma) also
+at its edges: ragged R, V % 8 != 0, H of one panel and of panel mode, every
+k, rounding and bias type, its lse on the rows whose roundings no sum order
+can flip; its run flag at 0 writes no partial; K1's and K6's gathered
+logits never exceed their row's lse (they are read from the tile).
 
 Training kernels (K1 fused CE, K2 / K3 decoder loop) at ragged shapes
 (V not a multiple of the tiles, odd S, pad tokens, masked key frames):
@@ -91,7 +95,8 @@ from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, 
 from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
                                                                 banded_planes_fwd_plain)
 from speech_recognition_tpu_torch.ops.vocab_bwd import bwd_plan, sm_count
-from speech_recognition_tpu_torch.ops.vocab_topk import ROUND_NONE, ROUND_ONCE, ROUND_TWICE, vocab_topk, vocab_topk_plain
+from speech_recognition_tpu_torch.ops.vocab_topk import (ROUND_NONE, ROUND_ONCE, ROUND_TWICE, rounding_decided, vocab_topk,
+                                                         vocab_topk_plain)
 from speech_recognition_tpu_torch.search import LASSearcher
 
 pytestmark = pytest.mark.cuda
@@ -136,6 +141,65 @@ def test_vocab_topk_kernel_tie_order(cuda):
     _, pi, _ = vocab_topk_plain(hid, W, b, k, ROUND_NONE)
     assert torch.equal(idx, pi)
     assert idx[0, :3].tolist() == [6, 13, 20]
+
+
+@pytest.mark.parametrize("rounding, bias_f32", [(ROUND_NONE, False), (ROUND_ONCE, True), (ROUND_TWICE, False),
+                                                (ROUND_TWICE, True)])
+@pytest.mark.parametrize("k", [1, 8, 11, 16])
+@pytest.mark.parametrize("R, H, V", [(5, 48, 300), (70, 320, 1003), (150, 1024, 300), (150, 256, 1003)])
+def test_vocab_tile_pass_bf16_edges(cuda, rounding, bias_f32, k, R, H, V):
+    """The wgmma tile pass at ragged R (a block's rows past R), V % 8 != 0 (the staged copy of W), H of
+    one panel, of panel mode (320 beside 128 rows, 1024 beside 64) and of tile mode, every k, rounding
+    and bias type: the tolerances of test_vocab_topk_kernel_matches_plain, the lse's on the rows whose
+    bf16 roundings no float32 sum order can flip (the tensor cores sum in another order than cuBLAS,
+    and one heavy logit rounded a step the other way moves the lse by ~1e-3)."""
+    g = torch.Generator().manual_seed(R * 7 + H + V + k)
+    hid = torch.randn(R, H, generator=g).to(cuda, torch.bfloat16)
+    W = (torch.randn(H, V, generator=g) * min(0.25, 4 / H ** 0.5)).to(cuda, torch.bfloat16)
+    b = torch.randn(V, generator=g).to(cuda, torch.float32 if bias_f32 else torch.bfloat16)
+    vals, idx, lse = vocab_topk(hid, W, b, k, rounding)
+    pv, pi, plse = vocab_topk_plain(hid, W, b, k + 1, rounding)
+    decided = rounding_decided(hid, W, b, rounding)
+    assert float(decided.float().mean()) >= 0.9
+    torch.testing.assert_close(lse[decided], plse[decided], rtol=1e-5, atol=0)
+    ulp = torch.exp2(torch.floor(torch.log2(pv[:, :k].abs().clamp_min(1e-30))) - 7)
+    assert bool(((vals - pv[:, :k]).abs() <= ulp).all())
+    gaps = pv[:, :-1] - pv[:, 1:]
+    isolated = gaps[:, :k] > ulp
+    isolated[:, 1:] &= gaps[:, : k - 1] > ulp[:, 1:]
+    assert bool((idx == pi[:, :k])[isolated].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_tile_pass_run_flag(cuda, dtype):
+    """The run flag K11 passes: at 0 the tile pass returns at entry and writes no partial; at 1 it runs."""
+    from speech_recognition_tpu_torch.kernels import library, stream
+    from speech_recognition_tpu_torch.ops.vocab_topk import alloc_partials, launch_args
+
+    R, H, V, k = 70, 256, 1003, 8
+    g = torch.Generator().manual_seed(5)
+    hid = torch.randn(R, H, generator=g).to(cuda, dtype)
+    W = (torch.randn(H, V, generator=g) / 4).to(cuda, dtype)
+    b = torch.randn(V, generator=g).to(cuda, dtype)
+    for flag in (0, 1):
+        parts = alloc_partials(R, V, k, cuda)
+        for t in parts:
+            t.fill_(-7)
+        outs = (torch.empty(R, k, device=cuda), torch.empty(R, k, dtype=torch.int32, device=cuda),
+                torch.empty(R, device=cuda))
+        run = torch.tensor([flag], dtype=torch.int32, device=cuda)
+        err = library().vocab_topk(int(dtype == torch.bfloat16), 0, hid.data_ptr(), W.data_ptr(), b.data_ptr(), R, H,
+                                   V, k, ROUND_NONE, *launch_args(R, H, V, k, hid), *[t.data_ptr() for t in parts],
+                                   *[t.data_ptr() for t in outs], run.data_ptr(), stream(cuda))
+        assert err == 0
+        torch.cuda.synchronize()
+        untouched = [bool((t == -7).all()) for t in parts]
+        if flag == 0:
+            assert all(untouched)
+        else:
+            assert not any(untouched)
+            vals, idx, lse = vocab_topk(hid, W, b, k, ROUND_NONE)
+            assert torch.equal(outs[0], vals) and torch.equal(outs[1].long(), idx) and torch.equal(outs[2], lse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -224,6 +288,50 @@ def test_ctc_emissions_kernels_match_plain(cuda, dtype, B, T, H, V, K):
     _close(dhid, pdhid, tol if dtype == torch.float32 else 2e-2)
     _close(dW, pdW, tol)
     _close(db, pdb, tol)
+
+
+@pytest.mark.parametrize("R, H, V", [(70, 48, 1000), (1000, 256, 16000), (150, 320, 1003)])
+def test_ce_vocab_label_logit_is_read_from_the_tile(cuda, R, H, V):
+    """bf16: the label's logit is the float the logsumexp saw, so it never exceeds its row's lse, exactly,
+    also where the label is the row's argmax (every other row), and equals the selected max there."""
+    g = torch.Generator().manual_seed(R + H)
+    hid = (torch.randn(R, H, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    W = (torch.randn(H, V, generator=g) * 0.3 * min(1.0, (256 / H) ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    y = torch.randint(0, V, (R,), generator=g).to(cuda, torch.int32)
+    y[::2] = (hid.float() @ W.float() + b.float()).argmax(dim=-1).int()[::2]
+    lse, lab, pred = ce_fwd(hid, W, b, y)
+    assert bool((lab <= lse).all())
+    # where the label is the pass's own argmax, its logit is the very max the pass selected
+    top, _, _ = vocab_topk(hid, W, b, 1, ROUND_NONE)
+    hit = pred == y.long()
+    assert int(hit.sum()) >= R // 4 and torch.equal(lab[hit], top[hit, 0])
+
+
+@pytest.mark.parametrize("B, T, H, V, K", [(3, 20, 48, 1000, 7), (2, 37, 256, 16000, 129), (5, 5, 320, 1003, 129)])
+def test_ctc_emissions_gathered_logits_are_read_from_the_tile(cuda, B, T, H, V, K):
+    """bf16: every gathered logit (repeated labels, the pad id many times, the blank, ids outside [0, V) as 0)
+    is a float of the tile the lse reduced: none exceeds its row's lse, duplicates agree bit for bit."""
+    g = torch.Generator().manual_seed(B * T + K)
+    hid = (torch.randn(B, T, H, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    W = (torch.randn(H, V, generator=g) * 0.3 * min(1.0, (256 / H) ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    ids = torch.randint(1, V, (B, K), generator=g)
+    ids[:, 1] = ids[:, 0]  # a repeated label
+    logits0 = hid[:, 0].float() @ W.float() + b.float()
+    ids[:, 2] = logits0.argmax(dim=-1).cpu()  # row t = 0's argmax: its logit is that row's max
+    ids[0, K // 2:-2] = 0  # the pad id, many times
+    ids[:, -2] = V + 5  # outside the vocab: 0
+    ids[:, -1] = 14  # the blank
+    ids = ids.to(cuda, torch.int32)
+    lse, vals = ctc_emissions_fwd(hid, W, b, ids)
+    inside = (ids >= 0) & (ids < V)
+    assert bool((vals <= lse[..., None])[inside[:, None, :].expand(B, T, K)].all())
+    assert bool((vals[:, :, -2] == 0).all())
+    assert torch.equal(vals[:, :, 0], vals[:, :, 1])
+    plse, pvals = ctc_emissions_fwd_plain(hid, W, b, ids.clamp(0, V - 1))
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(vals[..., :-2], pvals[..., :-2], rtol=1e-5, atol=1e-5)
 
 
 def _decoder_operands(cuda, dtype, N, B, S, H, He, Dv, n_cells, seed):

@@ -13,12 +13,15 @@ import pytest
 
 from speech_recognition_tpu_torch.ops import vocab_bwd as vb
 
-HEADER = os.path.join(os.path.dirname(vb.__file__), "..", "csrc", "vocab_bwd.cuh")
+CSRC = os.path.join(os.path.dirname(vb.__file__), "..", "csrc")
+HEADERS = [os.path.join(CSRC, name) for name in ("vocab_bwd.cuh", "wgmma.cuh")]  # the engine's and the shared ones
 
 
 def _constexprs():
-    with open(HEADER) as f:
-        src = f.read()
+    src = ""
+    for path in HEADERS:
+        with open(path) as f:
+            src += f.read()
     out = {}
     for m in re.finditer(r"constexpr int ([^;]+);", src):
         for decl in m.group(1).split(","):

@@ -54,15 +54,17 @@ from torch_decode_profile import cuda_ms, profile  # noqa: E402  (tools/ is the 
 K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel",
           "void srt::vb::vb_row_kernel<srt::EmissionRows", "void srt::vb::vb_col_kernel<srt::EmissionRows",
           "srt::vb::part_sum_kernel")
+# the vocab tile pass of K1's and K6's forwards (csrc/vocab_topk.cuh): wgmma in bf16, FMAs in float32
+VOCAB_TILES = ("void srt::vt::vocab_tile_mma_kernel", "srt::vocab_tile_f32_kernel")
 PORT_KERNELS = {
     "las": {
-        "K1 fwd": ("void srt::vocab_tile_kernel", "srt::ce_merge_kernel", "void srt::ce_label_kernel"),
+        "K1 fwd": VOCAB_TILES + ("srt::ce_merge_kernel",),
         "K1 bwd": K6_BWD,
         "K2": ("void srt::decoder_fwd_kernel",),
         "K3": ("void srt::decoder_bwd_kernel",),
     },
     "ds2": {
-        "K6 fwd": ("void srt::vocab_tile_kernel", "srt::emission_lse_kernel", "void srt::emission_gather_kernel"),
+        "K6 fwd": VOCAB_TILES + ("srt::id_sort_kernel", "srt::emission_lse_kernel"),
         "K6 bwd": K6_BWD,
     },
 }
