@@ -19,10 +19,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    K8, K9: ``F.linear`` producing the full logits; the backwards of K1, K6,
    K8, K9: ``torch.autograd.grad`` of the unfused ``F.linear`` ->
    ``log_softmax`` -> gather, ``autograd_bwd_ms``), and the kernel's bound
-   computed from its shapes (``bound``); the bf16 backwards of K1, K6, K8 and
-   K9 return the same bits in two calls, K1's and K6's gathered logits never
-   exceed their row's lse, and ptxas reports no spill for the bf16 backward
-   engine's kernels nor for the vocab tile pass's;
+   computed from its shapes (``bound``); the bf16 backwards of K1, K6, K7, K8
+   and K9 return the same bits in two calls, K1's and K6's gathered logits
+   never exceed their row's lse, and ptxas reports no spill for the bf16
+   backward engine's kernels, the vocab tile pass's nor K7's tensor-core
+   kernels;
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, the features computed
@@ -56,13 +57,17 @@ Phases, in order; any failure exits non-zero without printing a result:
    ``run.inference``, greedy and beam-8, with K7 firing 16 times per batch;
    then ms per train step, utterances/s and peak memory, decode ms per batch
    and RTF, and one float32 step on 8 clips with K7 and K6 against their
-   plain versions.  Phase 2 holds K7 (``check_mhsa``) against its plain
-   version at the main path's shapes, in float32, at a ragged T, and its
-   dropout mask bit for bit;
+   plain versions; every bf16 K7 launch of the run took the tensor-core
+   route (``check_k7_routes``).  Phase 2 holds K7 (``check_mhsa``) against
+   its plain version at the main path's shapes (bf16 on the tensor cores),
+   in float32 (the CUDA cores), at a ragged T and at T=384 (the forward's two
+   passes), its dropout mask bit for bit, and times its forward at p=0.1 and
+   at p=0 (the decodes' case) beside SDPA;
 7. the RNN-Transducer (Transducer-S: the Conformer-S encoder, a 1x320 LSTM
    prediction net, J=320, V=16000) through ``run.train``: the shipped pruned
    objective (``resources/configs/transducer_small.yml``, S=4) at B=128 with
-   K8's and K7's counters checked, its checkpoint decoded by ``run.inference``
+   K8's and K7's counters checked (every K7 launch on the tensor-core route),
+   its checkpoint decoded by ``run.inference``
    greedy and beam-8 (K5 in the TSD beam's joint rounds), the step and decode
    timed with peak memory, and a float32 step with K8 and K7 against their
    plain versions; then the dense objective (``transducer_small_dense.yml``)
@@ -305,6 +310,10 @@ def phase_setup():
     # one for each bias type (bf16: K1, K6, K5, K11; float32: K4, K5 in the TSD beam)
     check(len(spills) == 2 and not any(spills.values()),
           f"ptxas: the bf16 vocab tile pass's 2 kernels spill no register ({spills})")
+    spills = kernel_spills(kernels.build_log, ("mhsa_fwd_tc_kernel", "mhsa_dq_tc_kernel", "mhsa_dkv_tc_kernel"))
+    # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
+    check(len(spills) == 8 and not any(spills.values()),
+          f"ptxas: K7's 8 tensor-core kernels spill no register ({spills})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -805,13 +814,19 @@ def check_mhsa(gen):
     JAX pins of tests/test_pallas_attention.py): bf16 outputs and dq / dk / dv
     within 2e-2 x max|ref| (float32 sums in another order can move one
     rounding of the probs or ds by a step); float32 (B=8) within 1e-4 x
-    max|ref|; the row statistics rtol 1e-5.  A ragged T=255 (B=16, bf16) the
-    same.  The keep mask, read back through one-hot values (q = k = 0, so
-    every prob is 1/T), equals ``keep_mask`` bit for bit at every (b, h, i, j)."""
+    max|ref|; the row statistics rtol 1e-5.  A ragged T=255 (B=16, bf16) and
+    a T=384 (B=16, bf16: the forward's two passes) the same.  The bf16 cases
+    take the tensor-core route (counted), the float32 one the CUDA cores.  The
+    keep mask, read back through one-hot values (q = k = 0, so every prob is
+    1/T), equals ``keep_mask`` bit for bit at every (b, h, i, j), and two
+    backward calls return the same bits.  Timed: the forward at p=0.1 and at
+    p=0 (the decodes' case; SDPA's yardstick computes p=0), the backward at
+    p=0.1.  Returns the forward's, the p=0 forward's and the backward's
+    entries."""
     import torch
 
     from speech_recognition_tpu_torch.ops.attention import (
-        keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain)
+        ROUTE_TENSOR_CORE, keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain, mhsa_plan)
 
     T, H, d, p = T_CONF + 1, 4, 64, 0.1
     scale = d ** -0.5
@@ -835,9 +850,14 @@ def check_mhsa(gen):
                   f"mhsa {tag}: {name} within {tol:g} x max|ref| (max abs err {err:.3g}, max|ref| {ref:.3g})")
         return (q, k, v, bias, seeds, dout, pm, pl), errs[0], max(errs[1:])
 
+    tc0 = (mhsa_fwd.tc_launches, mhsa_bwd.tc_launches)
     ops, fwd_err, bwd_err = compare(f"bf16 B={B} T={T} H={H} d={d} p={p}", torch.bfloat16, B, T, 2e-2)
+    check(mhsa_plan(B, T, H, d, torch.bfloat16).route == ROUTE_TENSOR_CORE
+          and (mhsa_fwd.tc_launches, mhsa_bwd.tc_launches) == (tc0[0] + 1, tc0[1] + 1),
+          "mhsa bf16 at the main path's shape took the tensor-core route (forward and backward)")
     compare(f"float32 B=8 T={T}", torch.float32, 8, T, 1e-4)
     compare(f"bf16 ragged B=16 T={T_CONF}", torch.bfloat16, 16, T_CONF, 2e-2)
+    compare("bf16 B=16 T=384 (two passes)", torch.bfloat16, 16, 384, 2e-2)
 
     seeds = ops[4]
     zeros = torch.zeros(B, T, H * d, dtype=torch.bfloat16, device="cuda")
@@ -858,8 +878,18 @@ def check_mhsa(gen):
                                    f"(0, 0): kernel {zeroed_k}, plain {zeroed_p} of {T * T}")
 
     q, k, v, bias, seeds, dout, pm, pl = ops
+    repeats_bit_for_bit(lambda: mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p),
+                        f"mhsa bwd B={B} T={T} p={p}")
+    out0, _, _ = mhsa_fwd(q, k, v, bias, seeds, H, scale, 0.0)
+    pout0, _, _ = mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, 0.0)
+    torch.cuda.synchronize()
+    fwd0_err = (out0.float() - pout0.float()).abs().max().item()
+    ref0 = pout0.float().abs().max().item()
+    check(fwd0_err <= 2e-2 * ref0, f"mhsa bf16 p=0: ctx within 2e-2 x max|ref| (max abs err {fwd0_err:.3g})")
     f_ms, pf_ms = timed_pair(lambda: mhsa_fwd(q, k, v, bias, seeds, H, scale, p),
                              lambda: mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, p), 10)
+    f0_ms, pf0_ms = timed_pair(lambda: mhsa_fwd(q, k, v, bias, seeds, H, scale, 0.0),
+                               lambda: mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, 0.0), 10)
     b_ms, pb_ms = timed_pair(lambda: mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p),
                              lambda: mhsa_bwd_plain(q, k, v, bias, seeds, pm, pl, dout, H, scale, p), 10)
     lib_f, lib_b = sdpa_ms(q, k, v, bias, dout, H)
@@ -869,9 +899,11 @@ def check_mhsa(gen):
     fb = bound(2 * product, nbytes(q, k, v, bias, seeds, q))
     bb = bound(5 * product, nbytes(q, k, v, bias, seeds, dout, q, k, v))
     print(f"  mhsa B={B} T={T} H={H} d={d} p={p}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.4f} ms, bound "
-          f"{fb[0]:.4f} ms ({fb[1]}), SDPA {lib_f:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.4f} ms, bound "
-          f"{bb[0]:.4f} ms ({bb[1]}), SDPA backward {lib_b:.4f} ms")
-    return (fwd_err, f_ms, pf_ms, *fb, lib_f), (bwd_err, b_ms, pb_ms, *bb, lib_b)
+          f"{fb[0]:.4f} ms ({fb[1]}), SDPA {lib_f:.4f} ms; at p=0: fwd kernel {f0_ms:.4f} ms, plain "
+          f"{pf0_ms:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), "
+          f"SDPA backward {lib_b:.4f} ms")
+    return ((fwd_err, f_ms, pf_ms, *fb, lib_f), (fwd0_err, f0_ms, pf0_ms, *fb, lib_f),
+            (bwd_err, b_ms, pb_ms, *bb, lib_b))
 
 
 def joint_operands(gen, dtype, Bsz):
@@ -1553,6 +1585,22 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
     return launches, cfg, rec["checkpoint"]
 
 
+def reset_k7_routes():
+    from speech_recognition_tpu_torch.ops import attention
+
+    attention.mhsa_fwd.tc_launches = attention.mhsa_bwd.tc_launches = 0
+
+
+def check_k7_routes(launches, tag):
+    """Every K7 launch counted in ``launches`` (a bf16 run: training, dev pass and decodes since
+    ``reset_k7_routes``) took the tensor-core route."""
+    from speech_recognition_tpu_torch.ops import attention
+
+    tc = {"mhsa_fwd": attention.mhsa_fwd.tc_launches, "mhsa_bwd": attention.mhsa_bwd.tc_launches}
+    want = {name: launches[name] for name in tc}
+    check(tc == want, f"{tag}: every bf16 K7 launch took the tensor-core route ({tc} of {want})")
+
+
 def time_decode(wav_dir, data_config, weights, model_config, T_out, tag):
     """Decode ms per batch of 128 clips and RTF, greedy and beam-8 (CUDA events
     around one whole ``DeepSpeechSearcher`` or ``TransducerSearcher`` call after a
@@ -1712,6 +1760,7 @@ def main():
                    ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("mhsa_fwd", "attention.cu", "attention_kernel.py:217"),
+                   ("mhsa_fwd_p0", "attention.cu", "attention_kernel.py:217"),  # at dropout 0: the decodes'
                    ("mhsa_bwd", "attention.cu", "attention_kernel.py:217"),
                    ("banded_joint_fwd", "transducer_joint.cu", "band_kernel.py:354"),
                    ("banded_joint_bwd", "transducer_joint.cu", "band_kernel.py:354"),
@@ -1758,8 +1807,9 @@ def main():
         fwd, bwd = check_emissions(gen)
         record("ctc_emissions_fwd", fwd)
         record("ctc_emissions_bwd", bwd)
-        fwd, bwd = check_mhsa(gen)
+        fwd, fwd0, bwd = check_mhsa(gen)
         record("mhsa_fwd", fwd)
+        record("mhsa_fwd_p0", fwd0)
         record("mhsa_bwd", bwd)
         fwd, bwd = check_joint_planes(gen, dense=False)
         record("banded_joint_fwd", fwd)
@@ -1806,11 +1856,13 @@ def main():
         k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
         k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
         torch.cuda.reset_peak_memory_stats()
+        reset_k7_routes()
         conf_launches, conf_cfg, conf_weights = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "conformer_small.yml", "Conformer", {**k7, **k6},
             {**k7_expected, **k6_expected}, {"mhsa_fwd": {"greedy": CONF_BLOCKS, "beam8": CONF_BLOCKS}})
         print(f"  peak device memory of the Conformer run.train + decodes: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_k7_routes(conf_launches, "Conformer")
         launches.update({"mhsa_fwd": conf_launches["mhsa_fwd"], "mhsa_bwd": conf_launches["mhsa_bwd"]})
         time_train_step(conf_cfg, f"Conformer-S (T'={T_CONF})")
         time_decode(wav_dir, data_config, conf_weights, "conformer_small.yml", T_CONF, "Conformer")
@@ -1821,6 +1873,7 @@ def main():
         k8 = {"banded_joint_fwd": jp_mod.banded_planes_fwd, "banded_joint_bwd": jp_mod.banded_planes_bwd}
         k8_expected = {"banded_joint_fwd": TRAIN_STEPS + 1, "banded_joint_bwd": TRAIN_STEPS, "vocab_topk": 0}
         torch.cuda.reset_peak_memory_stats()
+        reset_k7_routes()
         rnnt_launches, rnnt_cfg, rnnt_weights = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "transducer_small.yml", "Transducer", {**k7, **k8, **k5, **k10},
             {**k7_expected, **k8_expected, "rnn_sequence": 1},
@@ -1828,6 +1881,10 @@ def main():
              "vocab_topk": {"greedy": 0, "beam8": T_CONF * MAX_SYMBOLS}, "rnn_sequence": {"greedy": 0, "beam8": 0}})
         print(f"  peak device memory of the Transducer run.train + decodes: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_k7_routes(rnnt_launches, "Transducer")
+        # the K7 forwards at dropout 0 in the decodes (greedy and beam-8, Conformer-S and Transducer-S), each
+        # decode's count checked above
+        launches["mhsa_fwd_p0"] = 4 * CONF_BLOCKS
         launches.update({k: rnnt_launches[k] for k in k8})
         launches["vocab_topk_tsd"] = rnnt_launches["vocab_topk"]
         time_train_step(rnnt_cfg, "Transducer-S pruned (S=4)")
@@ -1838,12 +1895,14 @@ def main():
                         "Transducer-S pruned")
         k9 = {"joint_planes_fwd": jp_mod.joint_planes_fwd, "joint_planes_bwd": jp_mod.joint_planes_bwd}
         dev_batches = -(-B // DENSE_B)
+        reset_k7_routes()
         dense_launches, dense_cfg, _ = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "transducer_small_dense.yml", "Transducer-dense",
             {**k7, **k9, **k10},
             {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + dev_batches), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS,
              "joint_planes_fwd": TRAIN_STEPS + dev_batches, "joint_planes_bwd": TRAIN_STEPS,
              "rnn_sequence": dev_batches}, batch=DENSE_B, decode=False)
+        check_k7_routes(dense_launches, "Transducer-dense")
         launches.update({k: dense_launches[k] for k in k9})
         launches["rnn_sequence_lstm_pred"] = rnnt_launches["rnn_sequence"] + dense_launches["rnn_sequence"]
         time_train_step(dense_cfg, "Transducer-S dense", DENSE_B)

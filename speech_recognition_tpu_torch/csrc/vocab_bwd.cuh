@@ -89,31 +89,6 @@ __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t a) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], both from shared memory; TA / TB: 1 = MN-major
-template <int TA, int TB>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : VB_OUT32(d)
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the accumulator layout), B K-major in shared memory
-__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                       uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : VB_OUT32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
 // The thread's cells of a 64 x 64 accumulator: index i = 4j + 2 half + e is
 // row 16 warp + lane / 4 + 8 half, column 8j + 2 (lane % 4) + e.  The 16
 // cells of one half, as d[2j + e], are what the policies work on.

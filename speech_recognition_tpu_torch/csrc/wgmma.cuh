@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's tensor-core kernels: the bf16
-// backward engine of the vocab projections (csrc/vocab_bwd.cuh) and the vocab
-// tile pass (csrc/vocab_topk.cuh).
+// backward engine of the vocab projections (csrc/vocab_bwd.cuh), the vocab
+// tile pass (csrc/vocab_topk.cuh) and the bf16 attention kernels
+// (csrc/attention.cu).
 //
 // Every operand lives in shared memory as panels of [rows x 64] bf16, one
 // 128-byte row per data row, 16-byte chunks swizzled by (row % 8): the layout
@@ -92,6 +93,35 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[64 x 64] += A[64 x 16] B[16 x 64], both from shared memory; TA / TB: 1 = MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : VB_OUT32(d)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the A fragment: pack_bf16 of an accumulator's cells,
+// a0..a3 = registers 4s..4s + 3 for k-step s), B in shared memory; TB: 1 = MN-major
+template <int TB = 0>
+__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : VB_OUT32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(TB));
+}
+
+// Two floats rounded to bf16 (round to nearest even) in one register, lo in the low half: register k of a
+// 64 x 64 accumulator's A fragment is pack_bf16(z[2k], z[2k + 1]) (its row, columns 8 (k / 2) + 2 (lane % 4) + 0, 1)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ void wg_arrive() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 // at most N of this warpgroup's committed wgmma groups still in flight
@@ -148,14 +178,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int x
       : "memory");
 }
 
-// A tensor map of a row-major bf16 matrix [rows, cols] read in [64 x 64] boxes into 128-byte-swizzled panels
-// (zero fill outside).  The pointer must be 16-byte aligned and cols a multiple of 8.  cuTensorMapEncodeTiled
-// comes through the runtime's entry-point query, so the library needs no link to libcuda.
-inline cudaError_t panel_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// box (x = column, y = row, z = batch entry) of a batched tensor map, as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int x, int y, int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the library needs no link to libcuda.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline cudaError_t tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -163,15 +200,40 @@ inline cudaError_t panel_map(CUtensorMap* map, const void* ptr, int rows, int co
         cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(Bf)};
-  const cuuint32_t box[2] = {PANEL, PANEL}, step[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A tensor map of a row-major bf16 array (dims innermost first, strides in bytes) read in [64 x 64] boxes (one
+// batch entry where there is a batch axis) into 128-byte-swizzled panels, zero-filling outside it.  The pointer
+// must be 16-byte aligned and the row pitch a multiple of 16 bytes.
+inline cudaError_t bf16_panel_map(CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,
+                                  const cuuint64_t* strides) {
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t box[3] = {PANEL, PANEL, 1}, step[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
                               step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of a row-major bf16 matrix [rows, cols] (cols a multiple of 8)
+inline cudaError_t panel_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(Bf)};
+  return bf16_panel_map(map, ptr, 2, dims, strides);
+}
+
+// A tensor map of a row-major bf16 array [batch, rows, cols] (cols a multiple of 8): a box holds rows of one batch
+// entry only, and rows >= ``rows`` read as zeros, never as the next entry's
+inline cudaError_t batched_panel_map(CUtensorMap* map, const void* ptr, int batch, int rows, int cols) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(Bf), (cuuint64_t)rows * cols * sizeof(Bf)};
+  return bf16_panel_map(map, ptr, 3, dims, strides);
 }
 
 // ---------------------------------------------------------------- panels

@@ -58,10 +58,13 @@ _SIGNATURES = {
     # dtype_bf16, hid, W, b, ids, lse, dvals, R, T, K, H, V, n_split, row_wgs, tile, chunk_panels,
     # rows_per_split, merged, ids_first, dlse, lab, dW_part, db_part, dhid, dW, db, stream
     "ctc_emissions_bwd": [_I] + [_P] * 6 + [_I] * 10 + [_P] * 10,
-    # dtype_bf16, q, k, v, bias, seeds, B, T, H, d, scale, p_drop, inv_keep, out, m, l, stream
-    "mhsa_fwd": [_I] + [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P] * 4,
-    # dtype_bf16, q, k, v, bias, seeds, m, l, dout, B, T, H, d, scale, p_drop, inv_keep, rowterm, dq, dk, dv, stream
-    "mhsa_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
+    # dtype_bf16, route, passes, stages, q, k, v, bias, seeds, B, T, H, d, scale, p_drop, inv_keep, out, m, l, stream
+    "mhsa_fwd": [_I] * 4 + [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P] * 4,
+    # dtype_bf16, route, stages, q, k, v, bias, seeds, m, l, dout, B, T, H, d, scale, p_drop, inv_keep,
+    # rowterm, dq, dk, dv, stream
+    "mhsa_bwd": [_I] * 3 + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
+    # x, l, n, out_fast, out_exact, stream
+    "mhsa_divide_check": [_P, _P, _I, _P, _P, _P],
     # dtype_bf16, enc, pred, W, b, ids, p (NULL: every node), B, T, U1, S, J, V, blank, lpb, lpe, lse, stream
     "transducer_joint_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 4,
     # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split, row_wgs,

@@ -75,7 +75,9 @@ import torch
 
 from speech_recognition_tpu_torch.configs import DataConfig, LASConfig
 from speech_recognition_tpu_torch.models import LAS
-from speech_recognition_tpu_torch.ops.attention import keep_mask, mhsa_bwd, mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain
+from speech_recognition_tpu_torch.ops.attention import (ROUTE_CUDA_CORE, ROUTE_TENSOR_CORE, keep_mask, mhsa_bwd,
+                                                        mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain, mhsa_plan,
+                                                        softmax_divide_check)
 from speech_recognition_tpu_torch.ops.beam_search import beam_loop_plain, beam_search
 from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_bwd_plain, ce_fwd, ce_fwd_plain
 from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, ctc_emissions_bwd_plain,
@@ -411,12 +413,10 @@ def test_mhsa_kernels_match_plain(cuda, dtype, B, T, H, d, p):
         _close(a, b_, tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mhsa_kernel_keep_mask_bit_identical(cuda, dtype):
+def _keep_mask_read_back(cuda, dtype, B, T, H, d, p):
     """q = k = 0 and bias 0 make every prob 1/T; one-hot values at key offset o
     read the dropped probs of keys o .. o + d - 1 back through ctx."""
-    B, T, H, d, p = 2, 200, 2, 64, 0.3
-    seeds = torch.tensor([7, -123456], dtype=torch.int32, device=cuda)
+    seeds = torch.tensor([7, -123456, 2**31 - 1][:B], dtype=torch.int32, device=cuda)
     zeros = torch.zeros(B, T, H * d, dtype=dtype, device=cuda)
     bias = torch.zeros(B, T, device=cuda)
     i = torch.arange(T, device=cuda)
@@ -428,7 +428,86 @@ def test_mhsa_kernel_keep_mask_bit_identical(cuda, dtype):
         v[:, o + torch.arange(n, device=cuda), :, torch.arange(n, device=cuda)] = 1.0
         out, _, _ = mhsa_fwd(zeros, zeros, v.view(B, T, H * d), bias, seeds, H, 0.125, p)
         kept = out.view(B, T, H, d)[..., :n].permute(0, 2, 1, 3) > 0  # [B, H, T, n]
-        assert torch.equal(kept, want[..., o:o + n])
+        assert torch.equal(kept, want[..., o:o + n]), o
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_kernel_keep_mask_bit_identical(cuda, dtype):
+    _keep_mask_read_back(cuda, dtype, 2, 200, 2, 64, 0.3)
+
+
+# The tensor-core route (bf16, d = 64 or 128): one pass up to T = 256, two above; ragged key lengths
+MHSA_TC_T = [1, 63, 64, 65, 129, 255, 256, 257, 384]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.3])
+@pytest.mark.parametrize("T", MHSA_TC_T)
+@pytest.mark.parametrize("d", [64, 128])
+def test_mhsa_tensor_core_route_matches_plain(cuda, d, T, p):
+    B, H = 3, 2
+    assert mhsa_plan(B, T, H, d, torch.bfloat16).route == ROUTE_TENSOR_CORE
+    q, k, v, bias, seeds, dout = _mhsa_operands(cuda, torch.bfloat16, B, T, H, d, seed=T * d + int(p * 10))
+    scale = d ** -0.5
+    fwd0, bwd0 = mhsa_fwd.tc_launches, mhsa_bwd.tc_launches
+    out, m, l = mhsa_fwd(q, k, v, bias, seeds, H, scale, p)
+    pout, pm, pl = mhsa_fwd_plain(q, k, v, bias, seeds, H, scale, p)
+    assert out.dtype == torch.bfloat16
+    _close(out, pout, 2e-2)
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+    got = mhsa_bwd(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+    want = mhsa_bwd_plain(q, k, v, bias, seeds, pm, pl, dout, H, scale, p)
+    for a, b_ in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _close(a, b_, 2e-2)
+    assert mhsa_fwd.tc_launches == fwd0 + 1 and mhsa_bwd.tc_launches == bwd0 + 1
+
+
+@pytest.mark.parametrize("d, T", [(64, 256), (64, 384), (128, 129)])
+def test_mhsa_tensor_core_route_repeats_bit_for_bit(cuda, d, T):
+    """No atomics: two calls of the forward and of the backward return the same bits."""
+    B, H, p = 4, 2, 0.1
+    q, k, v, bias, seeds, dout = _mhsa_operands(cuda, torch.bfloat16, B, T, H, d, seed=d + T)
+    scale = d ** -0.5
+    first, second = (mhsa_fwd(q, k, v, bias, seeds, H, scale, p) for _ in range(2))
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    _, m, l = first
+    first, second = (mhsa_bwd(q, k, v, bias, seeds, m, l, dout, H, scale, p) for _ in range(2))
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@pytest.mark.parametrize("d, T", [(64, 200), (64, 384), (128, 130)])
+def test_mhsa_tensor_core_keep_mask_bit_identical(cuda, d, T):
+    assert mhsa_plan(3, T, 2, d, torch.bfloat16).route == ROUTE_TENSOR_CORE
+    _keep_mask_read_back(cuda, torch.bfloat16, 3, T, 2, d, 0.3)
+
+
+def test_mhsa_softmax_divide_is_fdiv_rn(cuda):
+    """The tensor-core kernels' divide equals __fdiv_rn bit for bit over the softmax's range: x = exp(s - m) in
+    [2^-64, 1] and 0, l = the row's sum of exp in [1, T]."""
+    g = torch.Generator().manual_seed(5)
+    n = 1 << 24
+    x = torch.exp2(-64 * torch.rand(n, generator=g))
+    x[:4096] = 1.0 - torch.arange(4096) * 2.0**-24  # the top binade, where the quotient rounds most often
+    x[4096:4200] = 0.0
+    l = torch.cat([1 + 4095 * torch.rand(n // 2, generator=g), torch.randint(1, 4097, (n - n // 2,), generator=g)
+                   + torch.rand(n - n // 2, generator=g) * 2.0**-10])
+    fast, exact = softmax_divide_check(x.to(cuda), l.to(cuda))
+    assert torch.equal(fast.view(torch.int32), exact.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype, d, route", [(torch.bfloat16, 64, ROUTE_TENSOR_CORE),
+                                             (torch.bfloat16, 32, ROUTE_CUDA_CORE),
+                                             (torch.float32, 64, ROUTE_CUDA_CORE)])
+def test_mhsa_launches_counted_per_route(cuda, dtype, d, route):
+    q, k, v, bias, seeds, dout = _mhsa_operands(cuda, dtype, 2, 100, 2, d, seed=d)
+    counts = (mhsa_fwd.launches, mhsa_fwd.tc_launches, mhsa_bwd.launches, mhsa_bwd.tc_launches)
+    _, m, l = mhsa_fwd(q, k, v, bias, seeds, 2, 0.125, 0.1)
+    mhsa_bwd(q, k, v, bias, seeds, m, l, dout, 2, 0.125, 0.1)
+    tc = int(route == ROUTE_TENSOR_CORE)
+    assert mhsa_plan(2, 100, 2, d, dtype).route == route
+    assert (mhsa_fwd.launches, mhsa_fwd.tc_launches, mhsa_bwd.launches, mhsa_bwd.tc_launches) == (
+        counts[0] + 1, counts[1] + tc, counts[2] + 1, counts[3] + tc)
 
 
 def _joint_operands(cuda, dtype, B, T, U1, J, V, seed):

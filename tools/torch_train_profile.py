@@ -68,8 +68,10 @@ PORT_KERNELS = {
         "K6 bwd": K6_BWD,
     },
 }
-K7 = {"K7 fwd": ("void srt::mhsa_fwd_kernel",),
-      "K7 bwd": ("void srt::mhsa_bwd_dq_kernel", "void srt::mhsa_bwd_dkv_kernel")}
+# csrc/attention.cu: the tensor-core kernels (bf16 at d = 64 / 128) and the CUDA-core ones (float32, other d)
+K7 = {"K7 fwd": ("void srt::mh::mhsa_fwd_tc_kernel", "void srt::mhsa_fwd_kernel"),
+      "K7 bwd": ("void srt::mh::mhsa_dq_tc_kernel", "void srt::mh::mhsa_dkv_tc_kernel", "void srt::mhsa_bwd_dq_kernel",
+                 "void srt::mhsa_bwd_dkv_kernel")}
 PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], **K7}
 # csrc/transducer_joint.cu: K8 (pruned) and K9 (dense) share their kernels
 JOINT = {"fwd": ("void srt::joint_fwd_kernel",),
