@@ -16,14 +16,18 @@ Phases, in order; any failure exits non-zero without printing a result:
    kernel fuses where there is one (the forwards of K1, K5, K6: ``F.linear``
    writing the logits, then the float32 logsumexp, argmax, rounding, top-k
    and gathers, ``unfused_fwd_ms``, with ``F.linear`` alone printed beside;
-   K8, K9: ``F.linear`` producing the full logits; the backwards of K1, K6,
-   K8, K9: ``torch.autograd.grad`` of the unfused ``F.linear`` ->
+   K8, K9: ``tanh(enc + pred)`` -> ``F.linear`` -> float32 logsumexp -> the
+   blank and target columns, ``F.linear`` alone beside; the backwards of K1,
+   K6, K8, K9: ``torch.autograd.grad`` of the unfused ``F.linear`` ->
    ``log_softmax`` -> gather, ``autograd_bwd_ms``), and the kernel's bound
    computed from its shapes (``bound``); the bf16 backwards of K1, K6, K7, K8
    and K9 return the same bits in two calls, K1's and K6's gathered logits
-   never exceed their row's lse, and ptxas reports no spill for the bf16
-   backward engine's kernels, the vocab tile pass's nor K7's tensor-core
-   kernels;
+   never exceed their row's lse, every bf16 K8 / K9 forward takes the vocab
+   tile pass, and ptxas reports no spill for the bf16 backward engine's
+   kernels, the vocab tile pass's (its top-k and joint passes), K7's
+   tensor-core kernels nor K10's wide route; K4, K5, K10 and K11 also at
+   LAS-large's widths (H = 1024: K10's wide route, K11 with 4 beams a step
+   block);
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, the features computed
@@ -32,9 +36,16 @@ Phases, in order; any failure exits non-zero without printing a result:
    launch counters are set to 0 (the beam-8 decode: K5 once for its first
    step, K11 once for steps 2..L-1); then the card's features of the 128
    clips against the host's, the decode time per batch and the RTF, and a
-   float32 check of both searches against the plain kernels on 8 clips.
+   float32 check of both searches against the plain kernels on 8 clips (the
+   beam also one step at a time from those clips' encoder outputs).
    Phase 2 holds K11 (``check_las_beam``) against its plain version at the
-   beam-8 decode's shapes, bf16 and float32;
+   beam-8 decode's shapes, bf16 and float32.  Then (3b) LAS-large
+   (``las_large.yml``, H = 1024) decodes the same clips through
+   ``run.inference`` with seeded random weights, greedy and beam-8, with K10's
+   (4 layers), K4's, K5's and K11's counters checked, its decode ms per
+   batch, and the same float32 check on 8 clips (``run_las_large``; there the
+   free-running beam's share of equal tokens is printed, the per-step
+   comparison is its gate);
 4. the training path: 256 seeded 1024-frame wav clips with seeded
    transcripts, LAS-small trained by the port's ``run.train.main`` with
    ``--mixed-precision --device GPU --batch-size 128 --max-over-policy
@@ -71,8 +82,9 @@ Phases, in order; any failure exits non-zero without printing a result:
    greedy and beam-8 (K5 in the TSD beam's joint rounds), the step and decode
    timed with peak memory, and a float32 step with K8 and K7 against their
    plain versions; then the dense objective (``transducer_small_dense.yml``)
-   at B=32 with K9's counters, its step timed, and a float32 step with K9
-   against its plain version.  Phase 2 holds K8 (``check_joint_planes``,
+   at B=32 with K9's counters and its peak memory, its step timed, and a
+   float32 step with K9 against its plain version; every bf16 K8 / K9 forward
+   of both runs took the vocab tile pass (``check_joint_routes``).  Phase 2 holds K8 (``check_joint_planes``,
    banded: B=128, S=4 and 8 in bf16, S=4 in float32) and K9 (dense, B=32,
    bf16 and float32) against their plain versions at T'=255, U+1=127, values
    and the four gradients;
@@ -86,9 +98,10 @@ Phases, in order; any failure exits non-zero without printing a result:
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
-prediction net shapes, bf16 and float32, with cuDNN's ``torch.nn.GRU`` /
-``LSTM`` as its yardstick) runs every no-grad recurrent layer: its counter is
-held to one launch per layer per call in phases 3 (LAS decodes: 3), 4 (the
+prediction net shapes and LAS-large's listener (H = 1024, the wide route),
+bf16 and float32, with cuDNN's ``torch.nn.GRU`` / ``LSTM`` as its yardstick)
+runs every no-grad recurrent layer: its counter is held to one launch per
+layer per call in phases 3 (LAS decodes: 3; LAS-large: 4), 4 (the
 LAS dev pass and decode: 3 each), 5 (DS2's dev pass and decodes: 7 each), 7
 (the prediction net in the transducers' dev passes: 1 per dev batch) and 8.
 
@@ -99,6 +112,7 @@ the script exits with 1.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -119,6 +133,7 @@ T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 ->
 T_CONF, CONF_BLOCKS = 255, 16  # Conformer-S: frames after its stem (1024 -> 511 -> 255; blocks at 256), depth
 U1_RNNT, J_RNNT, DENSE_B, MAX_SYMBOLS = L - 1, 320, 32, 4  # Transducer-S: label slots, joint width, dense batch, TSD rounds
 LAS_LAYERS, DS2_LAYERS = 3, 7  # BiLSTM layers of las_small.yml's listener, BiGRU layers of deepspeech.yml
+LAS_LARGE_LAYERS, LAS_LARGE_H = 4, 1024  # las_large.yml's listener: BiLSTM layers and width
 # published H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 failures = []
@@ -271,7 +286,6 @@ def cell_flops(Bsz, cells, H):
 def kernel_spills(build_log, names):
     """{kernel: spill bytes (stores + loads), the most over the sources that compile it} of the
     kernels whose mangled names contain one of ``names``, from ptxas' -v report."""
-    import re
 
     spills, fn = {}, None
     for line in build_log.splitlines():
@@ -307,9 +321,15 @@ def phase_setup():
     check(len(spills) == 8 and not any(spills.values()),
           f"ptxas: the bf16 backward engine's 8 kernels spill no register ({spills})")
     spills = kernel_spills(kernels.build_log, ("vocab_tile_mma_kernel",))
-    # one for each bias type (bf16: K1, K6, K5, K11; float32: K4, K5 in the TSD beam)
-    check(len(spills) == 2 and not any(spills.values()),
-          f"ptxas: the bf16 vocab tile pass's 2 kernels spill no register ({spills})")
+    # the top-k pass for each bias type (bf16: K1, K6, K5, K11; float32: K4, K5 in the TSD beam), the joint's pass
+    # (K8 / K9 forward)
+    check(len(spills) == 3 and not any(spills.values()),
+          f"ptxas: the bf16 vocab tile pass's 3 kernels spill no register ({spills})")
+    spills = {k: v for k, v in kernel_spills(kernels.build_log, ("rnn_sequence_kernel",)).items()
+              if re.search(r"Li8ELi[12]E", k)}
+    # K10's wide route (H > 512; 8 n-tiles a warp, then the m16 tiles of a cluster): LSTM and GRU, bf16 and float32
+    check(len(spills) == 4 and not any(spills.values()),
+          f"ptxas: K10's 4 wide-route kernels spill no register ({spills})")
     spills = kernel_spills(kernels.build_log, ("mhsa_fwd_tc_kernel", "mhsa_dq_tc_kernel", "mhsa_dkv_tc_kernel"))
     # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
     check(len(spills) == 8 and not any(spills.values()),
@@ -320,8 +340,8 @@ def phase_setup():
 
 
 # ---------------------------------------------------------------- phase 2
-def check_vocab_topk(R, H, V, k, rounding, bias_f32, gen):
-    """K5 vs plain in bf16.  Tolerances (float32 accumulation in another order
+def check_vocab_topk(R, H, V, k, rounding, bias_f32, gen, w_scale=0.25):
+    """K5 vs plain in bf16 (W drawn with std ``w_scale``).  Tolerances (float32 accumulation in another order
     than cuBLAS, then bf16 rounding): each selected value within 1 bf16 ULP;
     lse rtol 1e-5 on the rows whose roundings are decided (``rounding_decided``:
     no heavy logit within float32 error of a bf16 rounding boundary, where the
@@ -334,7 +354,7 @@ def check_vocab_topk(R, H, V, k, rounding, bias_f32, gen):
 
     dev = "cuda"
     hid = torch.randn(R, H, generator=gen).to(dev, torch.bfloat16)
-    W = (torch.randn(H, V, generator=gen) / 4).to(dev, torch.bfloat16)
+    W = (torch.randn(H, V, generator=gen) * w_scale).to(dev, torch.bfloat16)
     b = torch.randn(V, generator=gen).to(dev, torch.float32 if bias_f32 else torch.bfloat16)
     vals, idx, lse = vocab_topk(hid, W, b, k, rounding)
     pv, pi, plse = vocab_topk_plain(hid, W, b, k + 1, rounding)
@@ -369,23 +389,26 @@ def check_vocab_topk(R, H, V, k, rounding, bias_f32, gen):
     return err.max().item(), k_ms, p_ms, b_ms, b_by, lib_ms
 
 
-def las_small(dtype, device, gen, vocab_scale=1.0):
+def las_model(dtype, device, gen, vocab_scale=1.0, config="las_small.yml"):
+    """A LAS model of ``config`` (LAS-small unless given) with seeded random weights, its vocab projection
+    scaled by ``vocab_scale``: (model on ``device``, data config, model config)."""
     import torch
 
     from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
     from speech_recognition_tpu_torch.run.common import create_model
 
     data_config = DataConfig.from_yaml(os.path.join(REPO, "resources/configs/libri_config.yml"))
-    model_config = get_model_config(os.path.join(REPO, "resources/configs/las_small.yml"))
+    model_config = get_model_config(os.path.join(REPO, "resources/configs", config))
     model = create_model(model_config, data_config, dtype, torch.device("cpu"), generator=gen)
     with torch.no_grad():
         model.attend_and_speller.feedforward.weight.mul_(vocab_scale)
     return model.to(device), data_config, model_config
 
 
-def check_greedy(gen):
-    """K4 vs plain in bf16 on LAS-small (random weights, vocab projection x8 so
-    logits are peaked), B=128, S=255, L=128.  Per step, the plain step runs
+def check_greedy(gen, config="las_small.yml"):
+    """K4 vs plain in bf16 on LAS-small (H=256, Dv=512) or, with ``config``
+    las_large.yml, LAS-large (H=1024, Dv=2048), random weights with the vocab
+    projection x8 so logits are peaked, B=128, S=255, L=128.  Per step, the plain step runs
     from the kernel's own state: h/c within atol 2e-2 (bf16 inputs, float32
     sums in another order) and >= 99% of the per-step tokens equal (a flip
     needs a near-tie of the top-2 logits).  Then both decode freely and the
@@ -396,17 +419,19 @@ def check_greedy(gen):
         GreedyKernelLoop, attention_bias, greedy_search, greedy_search_plain, greedy_step_plain)
     from speech_recognition_tpu_torch.search import LASSearcher
 
-    dt, dev, S = torch.bfloat16, "cuda", 255
-    model, _, _ = las_small(dt, dev, gen, vocab_scale=8.0)
+    dt, dev, S = torch.bfloat16, "cuda", S_ENC
+    model, _, model_config = las_model(dt, dev, gen, vocab_scale=8.0, config=config)
+    Hd, Dv = model_config.decoder_hidden_dim, 2 * model_config.encoder_hidden_dim
     searcher = LASSearcher(model, L, bos_id=1, eos_id=2)
     emb, qw, qb, cells, vw, vb = searcher.decoder_params()
-    value = torch.relu(torch.randn(B, S, 512, generator=gen)).to(dev, dt)
+    value = torch.relu(torch.randn(B, S, Dv, generator=gen)).to(dev, dt)
     with torch.no_grad():
         pk = model.project_keys(value).contiguous()
     lengths = torch.randint(64, S + 1, (B,), generator=gen).to(dev)
     mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-    h0 = (torch.randn(B, 256, generator=gen) * 0.5).to(dev, dt)
-    c0 = (torch.randn(B, 256, generator=gen) * 0.5).to(dev, dt)
+    h0 = (torch.randn(B, Hd, generator=gen) * 0.5).to(dev, dt)
+    c0 = (torch.randn(B, Hd, generator=gen) * 0.5).to(dev, dt)
+    name = f"las_greedy H={Hd}"
     args = (pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, L, 1, 2, 0)
 
     loop = GreedyKernelLoop(*args)
@@ -421,35 +446,37 @@ def check_greedy(gen):
         c_err = max(c_err, (pc - loop.c).abs().max().item())
         tok_eq += (tok == loop.tokens[:, n]).sum().item()
     torch.cuda.synchronize()
-    check(h_err <= 2e-2 and c_err <= 2e-2, f"las_greedy per-step h/c atol 2e-2 (max {h_err:.3g} / {c_err:.3g})")
+    check(h_err <= 2e-2 and c_err <= 2e-2, f"{name} per-step h/c atol 2e-2 (max {h_err:.3g} / {c_err:.3g})")
 
     tok_frac = tok_eq / (B * (L - 1))
-    check(tok_frac >= 0.99, f"las_greedy per-step tokens equal {tok_frac:.5f} >= 0.99")
+    check(tok_frac >= 0.99, f"{name} per-step tokens equal {tok_frac:.5f} >= 0.99")
 
     ktok, kppl = greedy_search(*args)
     ptok, pppl = greedy_search_plain(*args)
     same_rows = (ktok == ptok).all(dim=1)
-    print(f"  las_greedy free-running: {int(same_rows.sum())}/{B} rows identical, "
+    print(f"  {name} free-running: {int(same_rows.sum())}/{B} rows identical, "
           f"{(ktok == ptok).float().mean().item():.5f} of tokens (a flip changes the rest of its row)")
-    check(bool((kppl >= 1).all()), "las_greedy perplexity >= 1 and not NaN")
+    check(bool((kppl >= 1).all()), f"{name} perplexity >= 1 and not NaN")
     check(torch.allclose(kppl[same_rows], pppl[same_rows], rtol=1e-2, atol=0),
-          f"las_greedy perplexity rtol 1e-2 on the {int(same_rows.sum())} identical rows")
+          f"{name} perplexity rtol 1e-2 on the {int(same_rows.sum())} identical rows")
     k_ms, p_ms = timed_pair(lambda: greedy_search(*args), lambda: greedy_search_plain(*args), 3)
     # every one of the L-1 steps runs for every row: attention (scores, context,
     # query projection), the cells and the vocab projection
     H, Dv, V = qw.shape[0], value.shape[2], vw.shape[1]
     step_flops = 2 * B * (S * H + S * Dv + H * H + H * V) + cell_flops(B, [k for k, _, _ in cells], H)
     b_ms, b_by = bound((L - 1) * step_flops, nbytes(args[:11], ktok, kppl))
-    print(f"  las_greedy B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode, "
+    print(f"  {name} B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode, "
           f"bound {b_ms:.4f} ms ({b_by})")
     return max(h_err, c_err), k_ms, p_ms, b_ms, b_by, None
 
 
-def check_las_beam(gen):
-    """K11 vs plain at LAS-small's beam-8 decode: B=128, K=8, S=255, H=He=256,
-    Dv=512, V=16000, L=128, random weights with the vocab projection x8 (peaked
-    logits), a ragged mask, the beams seeded by the first step from BOS (plain
-    step and plain K5), bf16 and float32.
+def check_las_beam(gen, config="las_small.yml"):
+    """K11 vs plain at a LAS beam-8 decode: LAS-small's (B=128, K=8, S=255,
+    H=He=256, Dv=512, V=16000, L=128) or, with ``config`` las_large.yml,
+    LAS-large's (H=He=1024, Dv=2048: the step kernel holds 4 beams a block),
+    random weights with the vocab projection x8 (peaked logits), a ragged mask,
+    the beams seeded by the first step from BOS (plain step and plain K5), bf16
+    and float32.
 
     Per step, the plain step runs from the kernel's own state (one-step calls of
     both, ``step0`` = n): >= 99% of the slots keep the same history (a flip needs
@@ -472,13 +499,14 @@ def check_las_beam(gen):
 
     S, dev, timed = S_ENC, "cuda", None
     for dt in (torch.bfloat16, torch.float32):
-        model, _, _ = las_small(dt, dev, gen, vocab_scale=8.0)
+        model, _, model_config = las_model(dt, dev, gen, vocab_scale=8.0, config=config)
+        H, Dv = model_config.decoder_hidden_dim, 2 * model_config.encoder_hidden_dim
         emb, qw, qb, cells, vw, vb = LASSearcher(model, L, bos_id=1, eos_id=2).decoder_params()
         vb = vb.to(dt)  # the beam path's bias is in the compute type
-        value = torch.relu(torch.randn(B, S, 512, generator=gen)).to(dev, dt)
+        value = torch.relu(torch.randn(B, S, Dv, generator=gen)).to(dev, dt)
         lengths = torch.randint(64, S + 1, (B,), generator=gen).to(dev)
         mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-        h, c = ((torch.randn(B, 256, generator=gen) * 0.5).to(dev, dt) for _ in range(2))
+        h, c = ((torch.randn(B, H, generator=gen) * 0.5).to(dev, dt) for _ in range(2))
         with torch.no_grad():
             pk = model.project_keys(value).contiguous()
             bos = torch.full((B,), 1, dtype=torch.long, device=dev)
@@ -489,29 +517,11 @@ def check_las_beam(gen):
         ops = (pk, value, mask, qw, qb, emb, vw, vb, cells)
         h0, c0 = (s.repeat_interleave(BEAM, 0).contiguous() for s in (h0, c0))
         args = (*ops, h0, c0, tokens, top - lse[:, None], 2, 0)
-        name = f"las_beam {str(dt).replace('torch.', '')} B={B} K={BEAM} S={S} L={L}"
+        name = f"las_beam {str(dt).replace('torch.', '')} B={B} K={BEAM} S={S} L={L} H={H}"
         bf = dt == torch.bfloat16
         rtol, atol, state_atol = (2e-2, 0.25, 2e-2) if bf else (1e-4, 1e-3, 1e-4)
 
-        state, kept, h_err, c_err, lp_err, lp_ok = (h0.float(), c0.float(), tokens, args[12]), 0, 0.0, 0.0, 0.0, True
-        for n in range(2, L):
-            kt, kl, kh, kc = bs_mod.beam_search(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
-                                                return_states=True)
-            pt, pl, ph, pc = bs_mod.beam_loop_plain(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
-                                                    return_states=True)
-            same = (kt == pt).all(dim=-1)
-            kept += int(same.sum())
-            h_err, c_err = max(h_err, (kh - ph).abs().max().item()), max(c_err, (kc - pc).abs().max().item())
-            if bool(same.any()):
-                lp_err = max(lp_err, (kl - pl)[same].abs().max().item())
-                lp_ok &= torch.allclose(kl[same], pl[same], rtol=rtol, atol=atol)
-            state = (kh, kc, kt, kl)
-        torch.cuda.synchronize()
-        share = kept / (B * BEAM * (L - 2))
-        check(share >= 0.99, f"{name} per step: slots with the plain step's history {share:.5f} >= 0.99")
-        check(h_err <= state_atol and c_err <= state_atol,
-              f"{name} per step: h / c atol {state_atol} (max {h_err:.3g} / {c_err:.3g})")
-        check(lp_ok, f"{name} per step: logP rtol {rtol} / atol {atol} where the slots agree (max abs err {lp_err:.3g})")
+        lp_err = check_beam_steps(ops, (h0.float(), c0.float(), tokens, args[12]), name, rtol, atol, state_atol)
 
         ktok, klogp = bs_mod.beam_search(*args)
         steps, step_plain = [0], bs_mod.beam_step_plain
@@ -540,13 +550,45 @@ def check_las_beam(gen):
             timed = (args, steps[0], max(err, lp_err), ktok, klogp)
     args, n_steps, err, ktok, klogp = timed
     k_ms, p_ms = timed_pair(lambda: bs_mod.beam_search(*args), lambda: bs_mod.beam_loop_plain(*args), 2)
-    R, H, Dv, V = B * BEAM, 256, 512, 16000
+    R, H, Dv, V = B * BEAM, args[3].shape[0], args[1].shape[2], args[6].shape[1]
     step_flops = 2 * R * (H * H + S * H + S * Dv + H * V) + cell_flops(R, [k for k, _, _ in args[8]], H)
     # tokens move as int32 inside the kernel: histories in, histories and log-probs out
     b_ms, b_by = bound(n_steps * step_flops, nbytes(args[:11], args[11].int(), args[12], ktok.int(), klogp))
-    print(f"  las_beam bf16 B={B} K={BEAM} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per loop of "
-          f"{n_steps} steps, bound {b_ms:.4f} ms ({b_by}); library none (no one PyTorch call runs a beam loop)")
+    kbs = bs_mod.beams_per_block(BEAM, S, H, args[5].shape[1], Dv)
+    print(f"  las_beam bf16 B={B} K={BEAM} S={S} L={L} H={H} ({kbs} beams a step block): kernel {k_ms:.3f} ms, "
+          f"plain {p_ms:.3f} ms per loop of {n_steps} steps, bound {b_ms:.4f} ms ({b_by}); library none (no one "
+          f"PyTorch call runs a beam loop)")
     return err, k_ms, p_ms, b_ms, b_by, None
+
+
+def check_beam_steps(ops, state, name, rtol, atol, state_atol):
+    """K11 one step at a time (``step0`` = n, n = 2..L-1) against the plain step run from the kernel's own state
+    (h, c float32, tokens, logP): >= 99% of the slots keep the plain step's history, h / c within ``state_atol``,
+    logP within ``rtol`` / ``atol`` on the slots that agree.  Returns the largest logP error there."""
+    import torch
+
+    import speech_recognition_tpu_torch.ops.beam_search as bs_mod
+
+    kept, h_err, c_err, lp_err, lp_ok = 0, 0.0, 0.0, 0.0, True
+    for n in range(2, L):
+        kt, kl, kh, kc = bs_mod.beam_search(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
+                                            return_states=True)
+        pt, pl, ph, pc = bs_mod.beam_loop_plain(*ops, *state[:2], *state[2:], 2, 0, step0=n, n_steps=1,
+                                                return_states=True)
+        same = (kt == pt).all(dim=-1)
+        kept += int(same.sum())
+        h_err, c_err = max(h_err, (kh - ph).abs().max().item()), max(c_err, (kc - pc).abs().max().item())
+        if bool(same.any()):
+            lp_err = max(lp_err, (kl - pl)[same].abs().max().item())
+            lp_ok &= torch.allclose(kl[same], pl[same], rtol=rtol, atol=atol)
+        state = (kh, kc, kt, kl)
+    torch.cuda.synchronize()
+    share = kept / (state[2].shape[0] * BEAM * (L - 2))
+    check(share >= 0.99, f"{name} per step: slots with the plain step's history {share:.5f} >= 0.99")
+    check(h_err <= state_atol and c_err <= state_atol,
+          f"{name} per step: h / c atol {state_atol} (max {h_err:.3g} / {c_err:.3g})")
+    check(lp_ok, f"{name} per step: logP rtol {rtol} / atol {atol} where the slots agree (max abs err {lp_err:.3g})")
+    return lp_err
 
 
 def check_ce(gen):
@@ -933,13 +975,16 @@ def check_joint_planes(gen, dense):
     1e-5 x max|ref|, dW / db (sums over all R rows, 130,560 for K8 and
     1,036,320 for K9, in another order) within 1e-4 x max|ref|; in bf16 denc /
     dpred within 2e-2 and dW / db within 1e-2 x max|ref| (both sides round dz
-    to bf16, and a float32 difference can move one rounding by a step).  Kernel and plain
-    timed in turns at bf16, S=4 (K8) / B=32 (K9); the forward's library time is cuBLAS's
-    ``F.linear`` producing the full bf16 logits of the same rows, the backward's
-    autograd of ``tanh(enc + pred)`` -> ``F.linear`` -> ``log_softmax`` -> the blank and
-    target columns, each timed on a chunk of 16384 rows and scaled to all of them (the
-    full logits would not fit the card at K9's R)."""
+    to bf16, and a float32 difference can move one rounding by a step).  Every bf16
+    forward takes the vocab tile pass (its ``tc_launches`` counter equals its bf16 calls).
+    Kernel and plain timed in turns at bf16, S=4 (K8) / B=32 (K9); the forward's library
+    time is the unfused function it fuses, ``tanh(enc + pred)`` -> ``F.linear`` (bf16) ->
+    float32 logsumexp -> the blank and target columns minus it (``F.linear`` alone
+    printed beside), the backward's autograd of ``tanh(enc + pred)`` -> ``F.linear`` ->
+    ``log_softmax`` -> the blank and target columns, each timed on a chunk of 16384 rows
+    and scaled to all of them (the full logits would not fit the card at K9's R)."""
     import torch
+    import torch.nn.functional as F
 
     from speech_recognition_tpu_torch.ops import joint_planes as jp
     from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
@@ -950,7 +995,9 @@ def check_joint_planes(gen, dense):
     Bsz = DENSE_B if dense else B
     cases = [("bf16", torch.bfloat16, U1 if dense else 4)]
     cases += [("float32", torch.float32, U1 if dense else 4)] + ([] if dense else [("bf16", torch.bfloat16, 8)])
-    timed = None
+    timed, counter = None, jp.joint_planes_fwd if dense else jp.banded_planes_fwd
+    calls0, tc0 = counter.launches, counter.tc_launches
+    bf16_calls = 0  # the bf16 forwards of this check, all on the tile pass
     for tname, dtype, S in cases:
         enc, pred, W, b, ids, frame_lens, label_lens = joint_operands(gen, dtype, Bsz)
         if dense:
@@ -969,6 +1016,7 @@ def check_joint_planes(gen, dense):
             ops = (enc, pred, W, b, ids, p)
         tag = f"{'joint_planes (K9)' if dense else 'banded_joint (K8)'} {tname} B={Bsz} T={T} U+1={U1} S={S} J={J} V={V}"
         got, want = fwd(*ops), pfwd(*ops)
+        bf16_calls += dtype == torch.bfloat16
         cots = tuple(torch.randn(Bsz, T, S, generator=gen).to("cuda") / T for _ in range(2))
         grads, pgrads = bwd(*ops, want[2], *cots), pbwd(*ops, want[2], *cots)
         torch.cuda.synchronize()
@@ -988,23 +1036,37 @@ def check_joint_planes(gen, dense):
     ops, want, cots, fwd_err, bwd_err, tag, fwd, bwd, pfwd, pbwd = timed
     iters = 1 if dense else 3
     f_ms, pf_ms = timed_pair(lambda: fwd(*ops), lambda: pfwd(*ops), iters)
+    bf16_calls += 1 + 2 * iters  # timed_pair's warm-up and two timed runs of the bf16 kernel
     b_ms, pb_ms = timed_pair(lambda: bwd(*ops, want[2], *cots), lambda: pbwd(*ops, want[2], *cots), iters)
     R = want[0].numel()
     chunk = 16384
-    hrows = torch.randn(chunk, J, generator=gen).to("cuda", torch.bfloat16)
-    lib_ms = linear_ms(hrows, ops[2], ops[3]) * R / chunk
-    # the backward's yardstick on a chunk of rows: h = tanh(enc + pred), the log-probs at the blank and a target
+    # the yardsticks on a chunk of rows: h = tanh(enc + pred), the log-probs at the blank and a target
     enc_rows, pred_rows = (torch.randn(chunk, J, generator=gen).mul(0.4).to("cuda", torch.bfloat16) for _ in range(2))
     cols = torch.stack([torch.zeros(chunk, dtype=torch.long), torch.randint(1, V, (chunk,), generator=gen)], 1)
     cols, cot = cols.to("cuda"), (torch.randn(chunk, 2, generator=gen) / T).to("cuda")
+    lin_ms = linear_ms(torch.tanh(enc_rows + pred_rows), ops[2], ops[3]) * R / chunk
+    weight = ops[2].t().contiguous()  # [V, J], F.linear's layout, made outside the timing
+
+    def unfused_fwd():
+        z = F.linear(torch.tanh(enc_rows + pred_rows), weight, ops[3]).float()
+        return z.gather(1, cols) - torch.logsumexp(z, dim=-1, keepdim=True)
+
+    lib_ms = event_ms(unfused_fwd) * R / chunk
     lib_b = autograd_bwd_ms(lambda e, pr, w, c: vocab_logprobs(torch.tanh(e + pr), w, c).gather(1, cols),
-                            (enc_rows, pred_rows, ops[2].t().contiguous(), ops[3]), cot, iters=3) * R / chunk
+                            (enc_rows, pred_rows, weight, ops[3]), cot, iters=3) * R / chunk
     outs = fwd(*ops)
+    bf16_calls += 1
     fb = bound(2 * R * J * V, nbytes(ops, outs))
     bb = bound(3 * 2 * R * J * V, nbytes(ops, want[2], cots, bwd(*ops, want[2], *cots)))
-    print(f"  {tag}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}), F.linear "
-          f"{lib_ms:.4f} ms; bwd kernel {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}), "
-          f"{AUTOGRAD_YARDSTICK} from tanh(enc + pred) {lib_b:.4f} ms ({R} rows, both yardsticks scaled from {chunk})")
+    print(f"  {tag}: fwd kernel {f_ms:.4f} ms, plain {pf_ms:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}), unfused "
+          f"tanh -> F.linear (bf16) -> float32 logsumexp -> blank / target columns {lib_ms:.4f} ms (F.linear alone "
+          f"{lin_ms:.4f} ms); bwd kernel {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}), "
+          f"{AUTOGRAD_YARDSTICK} from tanh(enc + pred) {lib_b:.4f} ms ({R} rows, the yardsticks scaled from {chunk})")
+    calls, tc = counter.launches - calls0, counter.tc_launches - tc0
+    name = "joint_planes (K9)" if dense else "banded_joint (K8)"
+    check(tc == bf16_calls and calls == bf16_calls + 1,
+          f"{name}: every bf16 forward of the check took the vocab tile pass ({tc} of {bf16_calls} bf16 calls; "
+          f"{calls} launches with the float32 one)")
     return (fwd_err, f_ms, pf_ms, *fb, lib_ms), (bwd_err, b_ms, pb_ms, *bb, lib_b)
 
 
@@ -1156,7 +1218,7 @@ def write_inputs(tmp, gen_np):
     wav_dir = os.path.join(tmp, "wavs")
     write_clips(wav_dir, B, gen_np)
     data_config = write_data_config(tmp)
-    model, _, _ = las_small(torch.float32, "cpu", torch.Generator().manual_seed(0))
+    model, _, _ = las_model(torch.float32, "cpu", torch.Generator().manual_seed(0))
     weights = os.path.join(tmp, "las_small.pt")
     torch.save(model.state_dict(), weights)
     return wav_dir, data_config, weights
@@ -1215,14 +1277,11 @@ def time_and_check_decode(wav_dir, data_config, weights):
     atol 2e-3 (float32 DFT products against the host's FFT, then a log), pad
     frames exactly zero, and its ms per batch.  Decode ms per batch and RTF on
     the host features (CUDA events after a warm-up call), then float32 searches
-    vs the plain kernels on 8 clips."""
+    vs the plain kernels on 8 clips (``check_f32_decode``)."""
     import torch
 
     from speech_recognition_tpu_torch.configs import DataConfig
     from speech_recognition_tpu_torch.data import load_audio_file
-    from speech_recognition_tpu_torch.ops import beam_search as bs_mod
-    from speech_recognition_tpu_torch.ops import greedy_search as gs_mod
-    from speech_recognition_tpu_torch.ops import vocab_topk as vt_mod
     from speech_recognition_tpu_torch.ops.features import make_feature_fn
     from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend, pad_audio_batch
     from speech_recognition_tpu_torch.run.common import load_weights
@@ -1259,7 +1318,7 @@ def time_and_check_decode(wav_dir, data_config, weights):
     print(f"  on-device frontend (log-mel x 3, float32) for {B} clips of {SAMPLES} samples: "
           f"{start.elapsed_time(end):.3f} ms")
     timings = {}
-    model, _, _ = las_small(torch.bfloat16, "cuda", torch.Generator().manual_seed(0))
+    model, _, _ = las_model(torch.bfloat16, "cuda", torch.Generator().manual_seed(0))
     load_weights(model, weights)
     searcher = LASSearcher(model, L, 1, 2)
     for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
@@ -1277,31 +1336,143 @@ def time_and_check_decode(wav_dir, data_config, weights):
               and bool((tok < 16000).all()), f"{name} output shape {tuple(tok.shape)}, tokens in vocab, "
               "perplexity >= 1 and not NaN")
         print(f"  decode {name} bf16 B={B}: {ms:.2f} ms per batch, RTF {ms / 1000 / audio_s:.3e}")
+    timings["host_features"] = audio
 
-    model, _, _ = las_small(torch.float32, "cuda", torch.Generator().manual_seed(0))
-    load_weights(model, weights)
-    small = audio[:8]
-    searcher = LASSearcher(model, L, 1, 2)
-    g_k, _ = searcher.greedy_search(small)
-    b_k, _ = searcher.beam_search(small, BEAM)
-    plain = (vt_mod.vocab_topk_plain, gs_mod.greedy_search_plain, bs_mod.beam_loop_plain)
+    check_f32_decode("las_small.yml", weights, audio[:8], "LAS-small")
+    return timings, audio_s
+
+
+def check_f32_decode(config, weights, audio, tag, free_running_gate=True):
+    """float32 greedy and beam-8 of the LAS model of ``config`` with ``weights`` on ``audio`` (8 clips' host
+    features), the kernels (K10, K4; K10, K5, K11) against their plain versions.  Greedy: >= 99% of the token
+    slots equal.  Beam-8: K11 one step at a time from these clips' encoder outputs (``check_beam_steps``, phase
+    2's float32 tolerances), then both searches run free, their share of equal token slots held to >= 0.99 where
+    ``free_running_gate`` (LAS-small) and printed otherwise: at LAS-large's width a free-running float32 beam on
+    random weights meets near-ties that turn whole rows (phase 2's 128-row loop at H=1024 keeps about a third of
+    its rows identical), so there the per-step comparison is the gate, as in phase 2."""
+    import torch
+
     import speech_recognition_tpu_torch.search as search_mod
+    from speech_recognition_tpu_torch.ops import beam_search as bs_mod
+    from speech_recognition_tpu_torch.ops import greedy_search as gs_mod
     from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+    from speech_recognition_tpu_torch.ops import vocab_topk as vt_mod
     from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence_plain
+    from speech_recognition_tpu_torch.run.common import load_weights
+    from speech_recognition_tpu_torch.search import LASSearcher
 
+    model, _, _ = las_model(torch.float32, "cuda", torch.Generator().manual_seed(0), config=config)
+    load_weights(model, weights)
+    searcher = LASSearcher(model, L, 1, 2)
+    g_k, _ = searcher.greedy_search(audio)
+    b_k, _ = searcher.beam_search(audio, BEAM)
+    n = audio.shape[0]
+    with torch.no_grad():  # the beam's operands from these clips, its first step plain (K5's plain version)
+        emb, qw, qb, cells, vw, vb = searcher.decoder_params()
+        enc_out, keys, mask, states = searcher._encode(audio)
+        bos = torch.full((n,), 1, dtype=torch.long, device=audio.device)
+        hidden, (h0, c0) = model.decode_step_hidden(enc_out, keys, bos, mask, states)
+        top, first, lse = vt_mod.vocab_topk_plain(hidden, vw, vb, BEAM, vt_mod.ROUND_NONE)
+    tokens = torch.zeros(n, BEAM, L, dtype=torch.long, device=audio.device)
+    tokens[:, :, 0], tokens[:, :, 1] = 1, first
+    ops = (keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells)
+    h0, c0 = (s.repeat_interleave(BEAM, 0).float().contiguous() for s in (h0, c0))
+    check_beam_steps(ops, (h0, c0, tokens, top - lse[:, None]), f"{tag} float32 beam-8 on {n} clips", 1e-4, 1e-3,
+                     1e-4)
+    plain = (vt_mod.vocab_topk_plain, gs_mod.greedy_search_plain, bs_mod.beam_loop_plain)
     orig = (search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search, rnn_mod.rnn_sequence)
     search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search = plain
     rnn_mod.rnn_sequence = rnn_sequence_plain
     try:
-        g_p, _ = searcher.greedy_search(small)
-        b_p, _ = searcher.beam_search(small, BEAM)
+        g_p, _ = searcher.greedy_search(audio)
+        b_p, _ = searcher.beam_search(audio, BEAM)
     finally:
         search_mod.vocab_topk, search_mod.greedy_search, search_mod.beam_search, rnn_mod.rnn_sequence = orig
     g_eq = (g_k == g_p).float().mean().item()
     b_eq = (b_k == b_p).float().mean().item()
-    check(g_eq >= 0.99, f"float32 greedy (K10, K4) vs plain on 8 clips: tokens equal {g_eq:.4f} >= 0.99")
-    check(b_eq >= 0.99, f"float32 beam-8 (K10, K5, K11) vs plain on 8 clips: tokens equal {b_eq:.4f} >= 0.99")
-    return timings, audio_s
+    check(g_eq >= 0.99, f"{tag} float32 greedy (K10, K4) vs plain on {n} clips: tokens equal {g_eq:.4f} >= 0.99")
+    what = f"{tag} float32 beam-8 (K10, K5, K11) vs plain on {n} clips, free-running: tokens equal {b_eq:.4f}"
+    if free_running_gate:
+        check(b_eq >= 0.99, f"{what} >= 0.99")
+    else:
+        print(f"  {what} ({int((b_k == b_p).all(dim=2).all(dim=1).sum())}/{n} rows identical)")
+    del model, searcher
+
+
+def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
+    """LAS-large (``las_large.yml``: a 4 x 1024 BiLSTM listener, a 2 x 1024 LSTM speller,
+    V=16000) decodes the 128 clips through ``run.inference`` with seeded random weights
+    (the vocab projection x8, peaked logits as in phase 2), bf16, B=128, greedy and
+    beam-8, each decode after the counters are set to 0: K10 once per listener layer
+    (its wide route), K4 in the greedy decode, K5 once (the beam's first step) and K11
+    once (steps 2..L-1, 4 beams a step block) in beam-8; 128 rows each.  Then the
+    decode ms per batch and RTF on the host features ``audio`` (CUDA events around one
+    searcher call after a warm-up call): tokens in the vocab, perplexity >= 1 and not
+    NaN (it is exp(logP)^(-1/len), as the JAX searcher computes it, so a row whose
+    logP falls below float32's exp range reads inf; their count is printed), and a
+    float32 greedy and beam-8 of 8 clips, kernels against plain (``check_f32_decode``)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.beam_search import beam_search
+    from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.ops.vocab_topk import vocab_topk
+    from speech_recognition_tpu_torch.run import inference
+    from speech_recognition_tpu_torch.run.common import load_weights
+    from speech_recognition_tpu_torch.search import LASSearcher
+
+    model, _, _ = las_model(torch.float32, "cpu", torch.Generator().manual_seed(5), vocab_scale=8.0,
+                            config="las_large.yml")
+    weights = os.path.join(tmp, "las_large.pt")
+    torch.save(model.state_dict(), weights)
+    del model
+    base = ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_large.yml"),
+            "--audio-files", os.path.join(wav_dir, "*.wav"), "--model-path", weights,
+            "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
+            "--mixed-precision", "--device", "GPU", "--batch-size", str(B)]
+    counts = dict.fromkeys(("rnn_sequence_lstm_wide", "las_greedy_large", "vocab_topk_large", "las_beam_large"), 0)
+    for name, beam in (("greedy", 0), ("beam8", BEAM)):
+        rnn_sequence.launches = greedy_search.launches = vocab_topk.launches = beam_search.launches = 0
+        out = os.path.join(tmp, f"las_large_{name}.tsv")
+        t0 = time.perf_counter()
+        inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out]))
+        with open(out) as f:
+            rows = f.read().splitlines()[1:]
+        print(f"  run.inference LAS-large {name}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+        check(len(rows) == B, f"LAS-large {name} TSV has {B} rows ({len(rows)})")
+        check(rnn_sequence.launches == LAS_LARGE_LAYERS,
+              f"rnn_sequence (K10, wide route) launched {rnn_sequence.launches} times in the LAS-large {name} decode "
+              f"(expected {LAS_LARGE_LAYERS})")
+        k4, k5, n11 = greedy_search.launches, vocab_topk.launches, beam_search.launches
+        if beam:
+            check(k5 == 1 and n11 == 1 and k4 == 0, f"the LAS-large beam-8 decode launched vocab_topk (K5) {k5} "
+                                                    f"times and las_beam (K11) {n11} times; expected 1 and 1")
+        else:
+            check(k4 > 0 and n11 == 0, f"the LAS-large greedy decode launched las_greedy (K4) {k4} times")
+        for key, n in zip(counts, (rnn_sequence.launches, k4, k5, n11)):
+            counts[key] += n
+
+    model, _, _ = las_model(torch.bfloat16, "cuda", torch.Generator().manual_seed(5), config="las_large.yml")
+    load_weights(model, weights)
+    searcher = LASSearcher(model, L, 1, 2)
+    times = {}
+    for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
+                     ("beam8", lambda: searcher.beam_search(audio, BEAM))):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tok, ppl = fn()
+        end.record()
+        end.synchronize()
+        times[name] = ms = start.elapsed_time(end)
+        check(bool((ppl >= 1).all()) and bool((tok >= 0).all()) and bool((tok < 16000).all()),
+              f"LAS-large {name}: tokens in the vocab, perplexity >= 1 and not NaN ({int(torch.isnan(ppl).sum())} "
+              f"NaN; {int(torch.isinf(ppl).sum())} of {ppl.numel()} overflow float32 on random weights)")
+        print(f"  decode LAS-large {name} bf16 B={B}: {ms:.2f} ms per batch, RTF {ms / 1000 / audio_s:.3e}")
+    del model, searcher
+    check_f32_decode("las_large.yml", weights, audio[:8], "LAS-large", free_running_gate=False)
+    return counts, times
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1586,9 +1757,21 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
 
 
 def reset_k7_routes():
-    from speech_recognition_tpu_torch.ops import attention
+    """Zero the route counters of K7 and of the K8 / K9 forwards."""
+    from speech_recognition_tpu_torch.ops import attention, joint_planes
 
     attention.mhsa_fwd.tc_launches = attention.mhsa_bwd.tc_launches = 0
+    joint_planes.banded_planes_fwd.tc_launches = joint_planes.joint_planes_fwd.tc_launches = 0
+
+
+def check_joint_routes(launches, name, tag):
+    """Every bf16 forward launch of K8 (``name`` banded_joint_fwd) or K9 (joint_planes_fwd) counted in
+    ``launches`` since ``reset_k7_routes`` took the vocab tile pass."""
+    from speech_recognition_tpu_torch.ops import joint_planes
+
+    fn = joint_planes.banded_planes_fwd if name == "banded_joint_fwd" else joint_planes.joint_planes_fwd
+    check(fn.tc_launches == launches[name] > 0,
+          f"{tag}: every bf16 {name} launch took the vocab tile pass ({fn.tc_launches} of {launches[name]})")
 
 
 def check_k7_routes(launches, tag):
@@ -1768,7 +1951,11 @@ def main():
                    ("joint_planes_bwd", "transducer_joint.cu", "transducer_kernel.py:326"),
                    ("rnn_sequence_gru", "rnn_sequence.cu", "rnn_kernel.py:100"),  # DS2's BiGRU
                    ("rnn_sequence_lstm", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-small's listener BiLSTM
-                   ("rnn_sequence_lstm_pred", "rnn_sequence.cu", "rnn_kernel.py:100"))}  # the prediction net
+                   ("rnn_sequence_lstm_pred", "rnn_sequence.cu", "rnn_kernel.py:100"),  # the prediction net
+                   ("rnn_sequence_lstm_wide", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-large's listener
+                   ("las_beam_large", "las_beam.cu", "beam_kernel.py:415"),  # LAS-large's beam-8
+                   ("las_greedy_large", "las_greedy.cu", "search_kernel.py:237"),  # LAS-large's greedy (H=1024)
+                   ("vocab_topk_large", "vocab_topk.cu", "topk_kernel.py:176"))}  # LAS-large's beam, H=1024
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -1797,7 +1984,14 @@ def main():
         check_vocab_topk(128, 256, 16000, 1, ROUND_ONCE, True, gen)
         record("vocab_topk_tsd", check_vocab_topk(B * BEAM, J_RNNT, 16000, BEAM + 3, ROUND_TWICE, True, gen))
         record("las_greedy", check_greedy(gen))
+        # LAS-large's K5 (steps 2..L-1 inside K11: B*K rows; the first step: B rows) and K4 (H=1024), W's std
+        # 0.125 = 0.25 x sqrt(256 / 1024), so the logits spread as at H=256
+        record("vocab_topk_large", check_vocab_topk(B * BEAM, LAS_LARGE_H, 16000, BEAM, ROUND_TWICE, False, gen,
+                                                    w_scale=0.125))
+        check_vocab_topk(B, LAS_LARGE_H, 16000, BEAM, ROUND_TWICE, False, gen, w_scale=0.125)
+        record("las_greedy_large", check_greedy(gen, "las_large.yml"))
         record("las_beam", check_las_beam(gen))
+        record("las_beam_large", check_las_beam(gen, "las_large.yml"))
         fwd, bwd = check_ce(gen)
         record("ce_vocab_fwd", fwd)
         record("ce_vocab_bwd", bwd)
@@ -1821,12 +2015,19 @@ def main():
         record("rnn_sequence_lstm", check_rnn_sequence(gen, "lstm", 2, S_ENC, 256, "rnn_sequence LAS listener layer"))
         record("rnn_sequence_lstm_pred",
                check_rnn_sequence(gen, "lstm", 1, U1_RNNT, J_RNNT, "rnn_sequence prediction net"))
+        record("rnn_sequence_lstm_wide",
+               check_rnn_sequence(gen, "lstm", 2, S_ENC, LAS_LARGE_H, "rnn_sequence LAS-large listener layer"))
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128, on-device frontend)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
         timings, audio_s = time_and_check_decode(wav_dir, data_config, weights)
         print(f"  decode per batch of {B} ({audio_s:.2f} s of audio): greedy {timings['greedy']:.2f} ms, "
               f"beam-8 {timings['beam8']:.2f} ms")
+        print("== phase 3b: LAS-large (4x1024 BiLSTM listener, 2x1024 speller) through run.inference (bf16, B=128)")
+        large_launches, large_ms = run_las_large(tmp, wav_dir, data_config, timings.pop("host_features"), audio_s)
+        launches.update(large_launches)
+        print(f"  LAS-large decode per batch of {B}: greedy {large_ms['greedy']:.2f} ms, beam-8 "
+              f"{large_ms['beam8']:.2f} ms")
         print("== phase 4: training path through run.train (LAS-small, bf16, B=128)")
         train_wavs, paths = write_train_inputs(tmp, np.random.default_rng(1))
         train_launches, cfg, las_weights = run_train_path(tmp, train_wavs, paths, data_config)
@@ -1882,6 +2083,7 @@ def main():
         print(f"  peak device memory of the Transducer run.train + decodes: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_k7_routes(rnnt_launches, "Transducer")
+        check_joint_routes(rnnt_launches, "banded_joint_fwd", "Transducer")
         # the K7 forwards at dropout 0 in the decodes (greedy and beam-8, Conformer-S and Transducer-S), each
         # decode's count checked above
         launches["mhsa_fwd_p0"] = 4 * CONF_BLOCKS
@@ -1895,6 +2097,7 @@ def main():
                         "Transducer-S pruned")
         k9 = {"joint_planes_fwd": jp_mod.joint_planes_fwd, "joint_planes_bwd": jp_mod.joint_planes_bwd}
         dev_batches = -(-B // DENSE_B)
+        torch.cuda.reset_peak_memory_stats()
         reset_k7_routes()
         dense_launches, dense_cfg, _ = run_model_train_path(
             tmp, train_wavs, ds2_paths, data_config, "transducer_small_dense.yml", "Transducer-dense",
@@ -1902,7 +2105,10 @@ def main():
             {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + dev_batches), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS,
              "joint_planes_fwd": TRAIN_STEPS + dev_batches, "joint_planes_bwd": TRAIN_STEPS,
              "rnn_sequence": dev_batches}, batch=DENSE_B, decode=False)
+        print(f"  peak device memory of the dense Transducer run.train (B={DENSE_B}): "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_k7_routes(dense_launches, "Transducer-dense")
+        check_joint_routes(dense_launches, "joint_planes_fwd", "Transducer-dense")
         launches.update({k: dense_launches[k] for k in k9})
         launches["rnn_sequence_lstm_pred"] = rnnt_launches["rnn_sequence"] + dense_launches["rnn_sequence"]
         time_train_step(dense_cfg, "Transducer-S dense", DENSE_B)

@@ -4,8 +4,11 @@
 // Rows are beam-major (row b*K + k).  Three launches per step, enqueued by
 // las_beam_search for steps 2..L-1 without any host synchronisation:
 //  1. beam_step_kernel: one block of BEAM_THREADS per batch row b, holding
-//     its K beams.  Every per-beam vector lives in shared memory beam-minor
-//     (element [i][k] at i*KB + k, KB = K rounded up to a power of two), so
+//     its K beams, or, where K beams' vectors exceed a block's shared memory
+//     (LAS-large: 320 KB at K = 8, H = 1024, He + Dv = 3072), grid (B, K / KB)
+//     of blocks of KB beams each (a beam's step reads no other beam).  Every
+//     per-beam vector lives in shared memory beam-minor (element [i][k] at
+//     i*KB + k, KB = the block's beams rounded up to a power of two), so
 //     one float4 load brings four beams' values for one weight or key
 //     element: the embedding gather, q = bf16(h) @ qw + qb, the scores (a
 //     warp per key frame) and the context (a thread per value column) read
@@ -70,17 +73,27 @@ __device__ __forceinline__ void load_beams(const float* __restrict__ src, float 
   }
 }
 
-// acc[k] += sum_a rows[a][k] * W[a * ld + col], a < n (rows beam-minor in shared memory)
+// Weight rows a thread loads before it multiplies them: the weights come from L2 (a block reads ~50 MB of
+// cell weights a step at LAS-large), so a thread keeps BEAM_LOADS loads in flight
+#define BEAM_LOADS 16
+
+// acc[k] += sum_a rows[a][k] * W[a * ld + col], a < n in increasing order (rows beam-minor in shared memory)
 template <typename T, int KB>
 __device__ __forceinline__ void beams_matvec(const float* __restrict__ rows, const T* __restrict__ W, int n,
                                              size_t ld, int col, float (&acc)[KB]) {
-#pragma unroll 4
-  for (int a = 0; a < n; ++a) {
-    const float w = to_f(W[(size_t)a * ld + col]);
-    float r[KB];
-    load_beams<KB>(rows + a * KB, r);
+  for (int a0 = 0; a0 < n; a0 += BEAM_LOADS) {
+    float w[BEAM_LOADS];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) acc[k] = fmaf(r[k], w, acc[k]);
+    for (int u = 0; u < BEAM_LOADS; ++u) w[u] = a0 + u < n ? to_f(W[(size_t)(a0 + u) * ld + col]) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < BEAM_LOADS; ++u) {
+      if (a0 + u < n) {
+        float r[KB];
+        load_beams<KB>(rows + (a0 + u) * KB, r);
+#pragma unroll
+        for (int k = 0; k < KB; ++k) acc[k] = fmaf(r[k], w[u], acc[k]);
+      }
+    }
   }
 }
 
@@ -101,16 +114,24 @@ __device__ __forceinline__ void load_pair(const float* p, float& w0, float& w1) 
 template <typename T, int KB>
 __device__ __forceinline__ void beams_matvec2(const float* __restrict__ rows, const T* __restrict__ W, int n,
                                               size_t ld, int col, float (&acc0)[KB], float (&acc1)[KB]) {
-#pragma unroll 4
-  for (int a = 0; a < n; ++a) {
-    float w0, w1;
-    load_pair(W + (size_t)a * ld + col, w0, w1);
-    float r[KB];
-    load_beams<KB>(rows + a * KB, r);
+  for (int a0 = 0; a0 < n; a0 += BEAM_LOADS) {
+    float w0[BEAM_LOADS], w1[BEAM_LOADS];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      acc0[k] = fmaf(r[k], w0, acc0[k]);
-      acc1[k] = fmaf(r[k], w1, acc1[k]);
+    for (int u = 0; u < BEAM_LOADS; ++u) {
+      w0[u] = w1[u] = 0.0f;
+      if (a0 + u < n) load_pair(W + (size_t)(a0 + u) * ld + col, w0[u], w1[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < BEAM_LOADS; ++u) {
+      if (a0 + u < n) {
+        float r[KB];
+        load_beams<KB>(rows + (a0 + u) * KB, r);
+#pragma unroll
+        for (int k = 0; k < KB; ++k) {
+          acc0[k] = fmaf(r[k], w0[u], acc0[k]);
+          acc1[k] = fmaf(r[k], w1[u], acc1[k]);
+        }
+      }
     }
   }
 }
@@ -130,6 +151,8 @@ __global__ void __launch_bounds__(BEAM_THREADS)
                      const int* __restrict__ live, T* __restrict__ hidden, int K, int S, int H, int He, int Dv, int L,
                      int step, int pad_id) {
   if (live[step - 1] == 0) return;  // every beam has ended
+  // this block's beams of batch row blockIdx.x: k0 .. k0 + Kl - 1
+  const int k0 = blockIdx.y * KB, Kl = min(KB, K - k0);
   extern __shared__ __align__(16) float sm[];
   const int xw = He + Dv > H ? He + Dv : H;
   float* hc = sm;            // [H][KB]  h, float32
@@ -144,13 +167,13 @@ __global__ void __launch_bounds__(BEAM_THREADS)
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
-  const size_t row0 = (size_t)b * K;
-  if (tid < KB) toks[tid] = tid < K ? tokens[(row0 + tid) * L + step - 1] : pad_id;  // slots >= K idle on pad
+  const size_t row0 = (size_t)b * K + k0;
+  if (tid < KB) toks[tid] = tid < Kl ? tokens[(row0 + tid) * L + step - 1] : pad_id;  // slots >= Kl idle on pad
   for (int e = tid; e < H * KB; e += nt) {
     const int j = e / KB, k = e - j * KB;
-    const float hv = k < K ? h_state[(row0 + k) * H + j] : 0.0f;
+    const float hv = k < Kl ? h_state[(row0 + k) * H + j] : 0.0f;
     hc[e] = hv;
-    cc[e] = k < K ? c_state[(row0 + k) * H + j] : 0.0f;
+    cc[e] = k < Kl ? c_state[(row0 + k) * H + j] : 0.0f;
     hq[e] = rnd<T>(hv);
   }
   __syncthreads();
@@ -259,7 +282,7 @@ __global__ void __launch_bounds__(BEAM_THREADS)
 
   for (int e = tid; e < H * KB; e += nt) {
     const int j = e / KB, k = e - j * KB;
-    if (k < K) {
+    if (k < Kl) {
       const size_t r = (row0 + k) * H + j;
       hidden[r] = from_f<T>(x[e]);
       h_state[r] = hc[e];
@@ -363,35 +386,22 @@ __global__ void __launch_bounds__(BEAM_THREADS)
   }
 }
 
-template <typename T, int KB>
-cudaError_t beam_loop(const T* pk, const T* value, const float* attn_bias, const T* qw, const T* qb, const T* emb,
-                      const T* vw, const T* vb, const BeamCells<T>& cells, float* h, float* c, int* tokens,
-                      float* logp, int* ended, float* eoslen, int* live, T* hidden, float* part_val, int* part_idx,
-                      float* part_max, float* part_sum, int B, int K, int S, int H, int He, int Dv, int V, int L,
-                      int step0, int n_steps, int eos_id, int pad_id, float alpha, float beta_den,
-                      const TilePlan& plan, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * KB * (size_t)step_smem_floats(S, H, He, Dv);
-  cudaError_t err = cudaFuncSetAttribute(beam_step_kernel<T, KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
-  const int rounding = sizeof(T) == 2 ? ROUND_TWICE : ROUND_NONE;
-  for (int step = step0; step < step0 + n_steps; ++step) {
-    beam_step_kernel<T, KB><<<B, BEAM_THREADS, smem, stream>>>(pk, value, attn_bias, qw, qb, emb, cells, h, c,
-                                                               tokens, live, hidden, K, S, H, He, Dv, L, step,
-                                                               pad_id);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = launch_vocab_tiles<T, T>(hidden, vw, vb, B * K, H, V, K, rounding, plan, part_val, part_idx, part_max,
-                                   part_sum, stream, live + step - 1);
-    if (err != cudaSuccess) return err;
-    beam_select_kernel<KB><<<B, BEAM_THREADS, 0, stream>>>(K, n_tiles, part_val, part_idx, part_max, part_sum,
-                                                           tokens, logp, ended, eoslen, live, L, step, eos_id,
-                                                           pad_id, alpha, beta_den);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+// The step kernel for kbs beams a block (a power of two up to BEAM_MAX_K)
+template <typename T>
+decltype(&beam_step_kernel<T, 1>) step_kernel_for(int kbs) {
+  switch (kbs) {
+    case 1: return beam_step_kernel<T, 1>;
+    case 2: return beam_step_kernel<T, 2>;
+    case 4: return beam_step_kernel<T, 4>;
+    case 8: return beam_step_kernel<T, 8>;
+    default: return beam_step_kernel<T, 16>;
   }
-  return cudaSuccess;
+}
+
+// The select kernel for K beams: its slots are K rounded up to a power of two
+inline decltype(&beam_select_kernel<1>) select_kernel_for(int K) {
+  return K <= 1 ? beam_select_kernel<1> : K <= 2 ? beam_select_kernel<2> : K <= 4 ? beam_select_kernel<4>
+         : K <= 8 ? beam_select_kernel<8> : beam_select_kernel<16>;
 }
 
 template <typename T>
@@ -400,10 +410,11 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
                              void** rs, void** bs, float* h, float* c, int* tokens, float* logp, int* ended,
                              float* eoslen, int* live, void* hidden, float* part_val, int* part_idx, float* part_max,
                              float* part_sum, int B, int K, int S, int H, int He, int Dv, int V, int L, int step0,
-                             int n_steps, int eos_id, int pad_id, float alpha, float beta_den, const TilePlan& plan,
-                             cudaStream_t stream) {
+                             int n_steps, int eos_id, int pad_id, float alpha, float beta_den, int kbs,
+                             const TilePlan& plan, cudaStream_t stream) {
+  // kbs: the beams of one step block, a power of two below 2K
   if (n_cells < 1 || n_cells > BEAM_MAX_CELLS || K < 1 || K > BEAM_MAX_K || step0 < 2 || n_steps < 0 ||
-      step0 + n_steps > L)
+      step0 + n_steps > L || kbs < 1 || kbs > BEAM_MAX_K || (kbs & (kbs - 1)) != 0 || kbs >= 2 * K)
     return cudaErrorInvalidValue;
   BeamCells<T> cells;
   cells.n = n_cells;
@@ -412,18 +423,30 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
     cells.recurrent[i] = static_cast<const T*>(rs[i]);
     cells.bias[i] = static_cast<const T*>(bs[i]);
   }
-#define SRT_BEAM_LOOP(KB)                                                                                         \
-  return beam_loop<T, KB>(static_cast<const T*>(pk), static_cast<const T*>(value), attn_bias,                    \
-                          static_cast<const T*>(qw), static_cast<const T*>(qb), static_cast<const T*>(emb),      \
-                          static_cast<const T*>(vw), static_cast<const T*>(vb), cells, h, c, tokens, logp, ended, \
-                          eoslen, live, static_cast<T*>(hidden), part_val, part_idx, part_max, part_sum, B, K, S, H, \
-                          He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, plan, stream)
-  if (K <= 1) SRT_BEAM_LOOP(1);
-  if (K <= 2) SRT_BEAM_LOOP(2);
-  if (K <= 4) SRT_BEAM_LOOP(4);
-  if (K <= 8) SRT_BEAM_LOOP(8);
-  SRT_BEAM_LOOP(16);
-#undef SRT_BEAM_LOOP
+  const auto step_kernel = step_kernel_for<T>(kbs);
+  const auto select_kernel = select_kernel_for(K);
+  const size_t smem = sizeof(float) * kbs * (size_t)step_smem_floats(S, H, He, Dv);
+  cudaError_t err = cudaFuncSetAttribute(step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
+  const int rounding = sizeof(T) == 2 ? ROUND_TWICE : ROUND_NONE;
+  T* hid = static_cast<T*>(hidden);
+  for (int step = step0; step < step0 + n_steps; ++step) {
+    step_kernel<<<dim3(B, (K + kbs - 1) / kbs), BEAM_THREADS, smem, stream>>>(
+        static_cast<const T*>(pk), static_cast<const T*>(value), attn_bias, static_cast<const T*>(qw),
+        static_cast<const T*>(qb), static_cast<const T*>(emb), cells, h, c, tokens, live, hid, K, S, H, He, Dv, L,
+        step, pad_id);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = launch_vocab_tiles<T, T>(hid, static_cast<const T*>(vw), static_cast<const T*>(vb), B * K, H, V, K,
+                                   rounding, plan, part_val, part_idx, part_max, part_sum, stream, live + step - 1);
+    if (err != cudaSuccess) return err;
+    select_kernel<<<B, BEAM_THREADS, 0, stream>>>(K, n_tiles, part_val, part_idx, part_max, part_sum, tokens, logp,
+                                                  ended, eoslen, live, L, step, eos_id, pad_id, alpha, beta_den);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace srt
@@ -433,7 +456,9 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
 // [B, K] float32 (first EOS position + 1) are updated in place, as are h / c
 // [B*K, H] float32.  live [L] int32 holds live[step0 - 1] = (any beam live at
 // the start) and zeros.  hidden [B*K, H] and part_* ([B*K, ceil(V/VOCAB_TILE),
-// K] and [B*K, ceil(V/VOCAB_TILE)]) are scratch.  beta_den = 1 + beta.  wgs,
+// K] and [B*K, ceil(V/VOCAB_TILE)]) are scratch.  beams_per_block: the step
+// kernel's beams a block, a power of two below 2K (ops/beam_search.py
+// beams_per_block).  beta_den = 1 + beta.  wgs,
 // stage_k, tiles_per_block: the bf16 plan of the vocab tile pass over the B*K
 // rows (ops/vocab_topk.py tile_plan).
 extern "C" int las_beam_search(int dtype_bf16, const void* pk, const void* value, const float* attn_bias,
@@ -442,7 +467,8 @@ extern "C" int las_beam_search(int dtype_bf16, const void* pk, const void* value
                                float* logp, int* ended, float* eoslen, int* live, void* hidden, float* part_val,
                                int* part_idx, float* part_max, float* part_sum, int B, int K, int S, int H, int He,
                                int Dv, int V, int L, int step0, int n_steps, int eos_id, int pad_id, float alpha,
-                               float beta_den, int wgs, int stage_k, int tiles_per_block, void* stream) {
+                               float beta_den, int beams_per_block, int wgs, int stage_k, int tiles_per_block,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
   cudaError_t err;
@@ -450,11 +476,11 @@ extern "C" int las_beam_search(int dtype_bf16, const void* pk, const void* value
     err = srt::beam_search_impl<__nv_bfloat16>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
                                                tokens, logp, ended, eoslen, live, hidden, part_val, part_idx,
                                                part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps, eos_id,
-                                               pad_id, alpha, beta_den, plan, st);
+                                               pad_id, alpha, beta_den, beams_per_block, plan, st);
   else
     err = srt::beam_search_impl<float>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens,
                                        logp, ended, eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B,
-                                       K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den, plan,
-                                       st);
+                                       K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den,
+                                       beams_per_block, plan, st);
   return static_cast<int>(err);
 }

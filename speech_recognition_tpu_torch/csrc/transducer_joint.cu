@@ -14,13 +14,26 @@
 // type T after the add and after the tanh, logits z = h @ W + b in float32,
 // and the planes lp_blank = z[blank] - lse, lp_emit = z[id] - lse.
 //
-// Forward, joint_fwd_kernel: a block owns 32 rows; it builds their h in shared
-// memory (never in device memory) and walks V in tiles of 256 columns, one
-// column per thread (K5's tile pass, csrc/vocab_topk.cuh).  Each tile of logits
-// goes to shared memory, where one warp per row reduces it and merges the
-// tile's (max, sum-exp) into the row's running pair, and picks the blank and
-// target logits on the way; lse, lp_blank and lp_emit [R] float32 are written
-// once.  lse is the backward's residual.
+// Forward, bf16: a pass of the vocab tile pass (csrc/vocab_topk.cuh,
+// JointPass below): a block of one, two or four warpgroups of 64 rows builds
+// their h straight into its resident K-major panels in the prologue (tanh
+// once per row and column; h never reaches device memory), then walks all of
+// V: each 128-column W tile arrives by TMA through the pass's ring and is
+// multiplied by wgmma m64n128k16 into float32 accumulators, and each thread
+// folds its two rows' 32 columns of the tile into a running max and sum-exp
+// in registers, and copies the blank and target logits out of the tile when
+// they are its columns (the floats the sums saw).  After the last tile the
+// four lanes of a row's quad merge their sums; lse, lp_blank and lp_emit [R]
+// float32 are written once.  What bounds it: the 2 R J V product operations
+// at the bf16 tensor-core peak (1.34 TFLOP at K8's R = 130,560: 1.35 ms);
+// like every caller of the pass it is held back by its epilogue (an exp, a
+// max and an add per logit).  The plan is plain Python
+// (ops/joint_planes.py joint_fwd_plan).
+// Forward, float32: joint_fwd_kernel on the CUDA cores: a block owns 32 rows;
+// it builds their h in shared memory and walks V in tiles of 256 columns, one
+// column per thread; each tile of logits goes to shared memory, where one
+// warp per row merges the tile's (max, sum-exp) into the row's running pair
+// and picks the blank and target logits.  lse is the backward's residual.
 //
 // Backward, dz = -softmax (dlpb + dlpe) + onehot(blank) dlpb + onehot(id) dlpe,
 // rounded to T before every product and before the bias sum, as the Pallas
@@ -49,16 +62,11 @@
 //    joint_dpred_kernel: dpred[b, u] = sum over the (t, s) whose clipped node
 //    is u, walking t in order (p is monotone in t, but the walk does not rely
 //    on it).  Both round once to T.
-// The forward's products: in bf16 on the tensor cores (wmma 16x16x16, float32
-// accumulators) with W streamed through shared memory in chunks; in float32 on
-// the CUDA cores.
-#include <cuda_pipeline.h>
-#include <mma.h>
-
 #include <type_traits>
 
 #include "common.cuh"
 #include "vocab_bwd.cuh"
+#include "vocab_topk.cuh"
 
 #define TJ_ROWS 32       // rows per block of the row kernels and per chunk of the dW kernel
 #define TJ_THREADS 256   // = TJ_TILE: one thread per vocab column of a tile
@@ -69,8 +77,6 @@
 #define TJ_WCH 16        // vocab columns per staged chunk of W^T
 #define TJ_DW_COLS 64    // vocab columns per block of the dW kernel
 #define TJ_DW_HPT 80     // dW rows per thread: 4 thread groups x 80 = TJ_JCH
-// bf16 tensor-core tiles (wmma 16x16x16, float32 accumulators)
-#define TC_WLD (TJ_TILE + 8)      // row stride of a staged [32 x TJ_TILE] chunk of W
 
 namespace srt {
 
@@ -80,15 +86,21 @@ struct Slots {
   int n_frames, S, U1, U;
 };
 
-// Row ``row``'s encoder row (b*T + t), prediction row (b*(U+1) + clipped u)
-// and target id (V when the slot has none).
-__device__ __forceinline__ void node_of(int row, const Slots& sl, const int* __restrict__ ids, int V, int& erow,
-                                        int& prow, int& id) {
+// Row ``row``'s encoder row (b*T + t), its batch row b and label slot u, and its prediction row
+// (b*(U+1) + clipped u)
+__device__ __forceinline__ void rows_of(int row, const Slots& sl, int& erow, int& b, int& u, int& prow) {
   erow = row / sl.S;
   const int s = row - erow * sl.S;
-  const int b = erow / sl.n_frames;
-  const int u = (sl.p ? sl.p[erow] : 0) + s;
+  b = erow / sl.n_frames;
+  u = (sl.p ? sl.p[erow] : 0) + s;
   prow = b * sl.U1 + min(max(u, 0), sl.U1 - 1);
+}
+
+// rows_of's encoder and prediction rows, and the row's target id (V when the slot has none)
+__device__ __forceinline__ void node_of(int row, const Slots& sl, const int* __restrict__ ids, int V, int& erow,
+                                        int& prow, int& id) {
+  int b, u;
+  rows_of(row, sl, erow, b, u, prow);
   id = (u >= 0 && u < sl.U) ? ids[(size_t)b * sl.U + u] : V;
 }
 
@@ -171,127 +183,146 @@ __device__ __forceinline__ void merge_tile(const float* zt, int v0, int V, int b
   }
 }
 
-// ---------------------------------------------------------------- bf16 tensor-core helpers
-namespace wm = nvcuda::wmma;
 using Bf = __nv_bfloat16;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, Bf>::value;
 
-__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ __forceinline__ int h_ld(int J) { return pad16(J) + 8; }  // row stride of h in bf16
+// The bf16 forward as a pass of the vocab tile pass (vocab_topk.cuh vocab_tile_mma_kernel): rows are the
+// joint rows, H = J, the bias bf16 added in float32 after the product (no rounding of the logits).
+struct JointPass {
+  const Bf* enc;   // [B, T, J]
+  const Bf* pred;  // [B, U+1, J]
+  const int* ids;  // [B, U]
+  Slots sl;
+  int R, J, V, blank;
+  int vec;  // J % 8 == 0 and enc, pred 16-byte aligned: a 16-byte chunk of h from one load of each
+  float* lpb;
+  float* lpe;
+  float* lse;
 
-// h of the block's rows in bf16, row-major hsb[r * h_ld(J) + j], zero past J (to
-// a multiple of 16) and past ``rows``
-__device__ __forceinline__ void stage_h_bf16(Bf* hsb, int rows, int J, const Bf* __restrict__ enc,
-                                             const Bf* __restrict__ pred, const int* s_erow, const int* s_prow) {
-  const int Jp = pad16(J), ld = h_ld(J);
-  for (int e = threadIdx.x; e < TJ_ROWS * Jp; e += blockDim.x) {
-    const int r = e / Jp, j = e - r * Jp;
-    hsb[r * ld + j] = __float2bfloat16_rn(r < rows && j < J ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f);
-  }
-}
+  struct State {
+    size_t row_a;  // this thread's rows: row_a (half 0) and row_a + 8 (half 1)
+    int q;
+    float m[2], s[2];    // the running max of the thread's columns and their sum of exp(z - m)
+    float zb[2], ze[2];  // the blank and target logits where they are the thread's columns, else 0
+    int id[2];           // the target id, -1 where the slot has none or it lies outside [0, V)
+  };
 
-// dst[i * ld + c] = W[(j0 + i) * V + v0 + c] for i < n_rows, c < n_cols (a
-// multiple of 8), 0 outside W; 16-byte loads when V % 8 == 0
-__device__ __forceinline__ void stage_w(Bf* dst, int ld, const Bf* __restrict__ W, int J, int V, int j0, int n_rows,
-                                        int v0, int n_cols) {
-  if ((V & 7) == 0) {
-    const int groups = n_cols / 8;
-    for (int e = threadIdx.x; e < n_rows * groups; e += blockDim.x) {
-      const int i = e / groups, c = (e - i * groups) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + i < J && v0 + c < V) x = *reinterpret_cast<const uint4*>(W + (size_t)(j0 + i) * V + v0 + c);
-      *reinterpret_cast<uint4*>(dst + i * ld + c) = x;
+  // h = bf16(tanh(bf16(enc + pred))) of the block's rows into the K-major swizzled panels (zero past J and R),
+  // one 16-byte chunk (8 columns of one row) per thread and step
+  __device__ __forceinline__ void load_rows(uint32_t hs, int bm, size_t r0, int, int, int n_k, int tid,
+                                            int nthr) const {
+    const int chunks = n_k * 8;
+    for (int e = tid; e < bm * chunks; e += nthr) {
+      const int r = e / chunks, c = e - r * chunks, j0 = 8 * c;
+      const size_t row = r0 + r;
+      float h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = 0.0f;
+      if (row < (size_t)R && j0 < J) {
+        int erow, b, u, prow;
+        rows_of((int)row, sl, erow, b, u, prow);
+        const Bf* ep = enc + (size_t)erow * J + j0;
+        const Bf* pp = pred + (size_t)prow * J + j0;
+        float ev[8], pv[8];
+        if (vec) {
+          const uint4 e4 = *reinterpret_cast<const uint4*>(ep), p4 = *reinterpret_cast<const uint4*>(pp);
+          const Bf* eb = reinterpret_cast<const Bf*>(&e4);
+          const Bf* pb = reinterpret_cast<const Bf*>(&p4);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            ev[i] = __bfloat162float(eb[i]);
+            pv[i] = __bfloat162float(pb[i]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            ev[i] = j0 + i < J ? __bfloat162float(ep[i]) : 0.0f;
+            pv[i] = j0 + i < J ? __bfloat162float(pp[i]) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) h[i] = j0 + i < J ? rnd<Bf>(tanhf(rnd<Bf>(ev[i] + pv[i]))) : 0.0f;
+      }
+      wg::st_shared_v4(hs + (c >> 3) * bm * wg::ROW_BYTES + wg::swz(r, c & 7), wg::pack_bf16(h[0], h[1]),
+                       wg::pack_bf16(h[2], h[3]), wg::pack_bf16(h[4], h[5]), wg::pack_bf16(h[6], h[7]));
     }
-  } else {
-    for (int e = threadIdx.x; e < n_rows * n_cols; e += blockDim.x) {
-      const int i = e / n_cols, c = e - i * n_cols;
-      dst[i * ld + c] = (j0 + i < J && v0 + c < V) ? W[(size_t)(j0 + i) * V + v0 + c] : __float2bfloat16_rn(0.0f);
+  }
+
+  __device__ __forceinline__ void begin(State& st, size_t row_a, int q, int, int, int, int) const {
+    st.row_a = row_a;
+    st.q = q;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      st.m[hf] = -INFINITY;
+      st.s[hf] = st.zb[hf] = st.ze[hf] = 0.0f;
+      st.id[hf] = -1;
+      const size_t row = row_a + 8 * hf;
+      if (row < (size_t)R) {
+        int erow, prow, id;
+        node_of((int)row, sl, ids, V, erow, prow, id);
+        st.id[hf] = id >= 0 && id < V ? id : -1;  // an id outside [0, V) never meets a tile: its logit counts as 0
+      }
     }
   }
-}
 
-// stage_w without waiting when V % 8 == 0: 16-byte cp.async copies (zero-filled
-// outside W) that the caller commits and waits for; else stage_w itself
-__device__ __forceinline__ void stage_w_async(Bf* dst, int ld, const Bf* __restrict__ W, int J, int V, int j0,
-                                              int n_rows, int v0, int n_cols) {
-  if ((V & 7) != 0) {
-    stage_w(dst, ld, W, J, V, j0, n_rows, v0, n_cols);
-    return;
-  }
-  const int groups = n_cols / 8;
-  for (int e = threadIdx.x; e < n_rows * groups; e += blockDim.x) {
-    const int i = e / groups, c = (e - i * groups) * 8;
-    const bool inside = j0 + i < J && v0 + c < V;
-    __pipeline_memcpy_async(dst + i * ld + c, inside ? W + (size_t)(j0 + i) * V + v0 + c : W, 16, inside ? 0 : 16);
-  }
-}
-
-// The raw logits (no bias) of the block's 32 rows against vocab columns v0 ..
-// v0 + TJ_TILE - 1 into zt [TJ_ROWS][TJ_TILE]: W streams through two
-// [32][TC_WLD] buffers of ``ws`` in chunks of 32 rows of J, the next chunk's
-// copy in flight while the current one is multiplied; warp w owns columns
-// 32w .. 32w + 31 of both 16-row halves.  Every thread of the block must call
-// it; it begins and ends synchronised.
-__device__ __forceinline__ void tc_logits_tile(const Bf* hsb, Bf* ws, const Bf* __restrict__ W, int J, int V, int v0,
-                                               float* zt) {
-  const int warp = threadIdx.x >> 5, Jp = pad16(J), hld = h_ld(J);
-  const int n_chunks = (Jp + 31) / 32;
-  FragC acc[2][2];
+  // tile t's logits (bias added, -inf past V) folded into the running max and sum-exp of both rows
+  template <typename BT>
+  __device__ __forceinline__ void tile(float (&z)[64], int t, State& st, const BT* __restrict__ bias) const {
+    const int v0 = t * vt::COLS;
+    vt::bias_round_mask<ROUND_NONE>(z, bias, v0 + 2 * st.q, V);
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int hf = 0; hf < 2; ++hf) {
+      float cm[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-    for (int q = 0; q < 2; ++q) wm::fill_fragment(acc[m][q], 0.0f);
-  __syncthreads();  // the previous users of ws and zt are done
-  stage_w_async(ws, TC_WLD, W, J, V, 0, 32, v0, TJ_TILE);
-  __pipeline_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int j0 = 32 * ch;
-    const Bf* cur = ws + (ch & 1) * 32 * TC_WLD;
-    if (ch + 1 < n_chunks) stage_w_async(ws + ((ch + 1) & 1) * 32 * TC_WLD, TC_WLD, W, J, V, j0 + 32, 32, v0, TJ_TILE);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // every copy but the newest group has landed: chunk ch is in
-    __syncthreads();
-    for (int kk = 0; kk < 32 && j0 + kk < Jp; kk += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, Bf, wm::row_major> a[2];
-      wm::fragment<wm::matrix_b, 16, 16, 16, Bf, wm::row_major> b[2];
+      for (int c = 0; c < 32; ++c) cm[c & 3] = fmaxf(cm[c & 3], z[vt::cell(c, hf)]);
+      const float mt = fmaxf(fmaxf(cm[0], cm[1]), fmaxf(cm[2], cm[3]));
+      if (mt > st.m[hf]) {  // a new running max: rescale the sum (0 while the max is -inf)
+        st.s[hf] *= expf(st.m[hf] - mt);
+        st.m[hf] = mt;
+      }
+      if (st.m[hf] != -INFINITY) {  // else every column so far lies past V
+        float sp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int m = 0; m < 2; ++m) wm::load_matrix_sync(a[m], hsb + 16 * m * hld + j0 + kk, hld);
-#pragma unroll
-      for (int q = 0; q < 2; ++q) wm::load_matrix_sync(b[q], cur + kk * TC_WLD + (2 * warp + q) * 16, TC_WLD);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) wm::mma_sync(acc[m][q], a[m], b[q], acc[m][q]);
+        for (int c = 0; c < 32; ++c) sp[c & 3] += __expf(z[vt::cell(c, hf)] - st.m[hf]);
+        st.s[hf] += (sp[0] + sp[1]) + (sp[2] + sp[3]);
+      }
+      const int cb = blank - v0, ct = st.id[hf] - v0;  // columns of the tile: this thread's when (col / 2) % 4 == q
+      if (cb >= 0 && cb < vt::COLS && ((cb >> 1) & 3) == st.q) st.zb[hf] = vt::pick(z, hf, cb);
+      if (st.id[hf] >= 0 && ct >= 0 && ct < vt::COLS && ((ct >> 1) & 3) == st.q) st.ze[hf] = vt::pick(z, hf, ct);
     }
-    __syncthreads();  // chunk ch is consumed before its buffer takes chunk ch + 2
   }
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      wm::store_matrix_sync(zt + 16 * m * TJ_TILE + (2 * warp + q) * 16, acc[m][q], TJ_TILE, wm::mem_row_major);
-  __syncthreads();
-}
 
-// Shared memory of the forward: the logits tile, then h (float32, transposed
-// [J][TJ_ROWS]; bf16: row-major [TJ_ROWS][h_ld] and two [32][TC_WLD] chunks of W)
-template <typename T>
-size_t fwd_smem(int J) {
-  if (kTensorCores<T>) return sizeof(float) * TJ_ROWS * TJ_TILE + sizeof(Bf) * TJ_ROWS * (h_ld(J) + 2 * TC_WLD);
-  return sizeof(float) * ((size_t)J * TJ_ROWS + TJ_ROWS * TJ_TILE);
-}
+  // the quad's four running pairs merged into each row's lse; one lane writes the row
+  __device__ __forceinline__ void finish(State& st) const {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float m = fmaxf(st.m[hf], __shfl_xor_sync(0xffffffffu, st.m[hf], 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float s = vt::quad_sum(st.m[hf] == -INFINITY ? 0.0f : st.s[hf] * expf(st.m[hf] - m));
+      const float zb = vt::quad_sum(st.zb[hf]), ze = vt::quad_sum(st.ze[hf]);  // one lane holds each, the rest 0
+      const size_t row = st.row_a + 8 * hf;
+      if (st.q == 0 && row < (size_t)R) {
+        const float l = m + logf(s);
+        lse[row] = l;
+        lpb[row] = zb - l;
+        lpe[row] = ze - l;
+      }
+    }
+  }
+};
 
-template <typename T>
+// Shared memory of the float32 forward: the logits tile, then h transposed [J][TJ_ROWS]
+inline size_t fwd_smem(int J) { return sizeof(float) * ((size_t)J * TJ_ROWS + TJ_ROWS * TJ_TILE); }
+
 __global__ void __launch_bounds__(TJ_THREADS)
-    joint_fwd_kernel(const T* __restrict__ enc, const T* __restrict__ pred, const T* __restrict__ W,
-                     const T* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
+    joint_fwd_kernel(const float* __restrict__ enc, const float* __restrict__ pred, const float* __restrict__ W,
+                     const float* __restrict__ bias, const int* __restrict__ ids, Slots sl, int R, int J, int V,
                      int blank, float* __restrict__ lpb, float* __restrict__ lpe, float* __restrict__ lse) {
-  extern __shared__ __align__(128) float smem[];
-  float* zt = smem;                  // [TJ_ROWS][TJ_TILE] logits tile
-  float* hs = zt + TJ_ROWS * TJ_TILE;  // float32: [J][TJ_ROWS]; bf16: h, then the W chunk
+  extern __shared__ __align__(16) float smem[];
+  float* zt = smem;                    // [TJ_ROWS][TJ_TILE] logits tile
+  float* hs = zt + TJ_ROWS * TJ_TILE;  // [J][TJ_ROWS]
   __shared__ int s_erow[TJ_ROWS], s_prow[TJ_ROWS], s_id[TJ_ROWS];
   __shared__ float s_zb[TJ_ROWS], s_zt[TJ_ROWS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -299,14 +330,9 @@ __global__ void __launch_bounds__(TJ_THREADS)
   stage_nodes(r0, rows, sl, ids, V, s_erow, s_prow, s_id);
   if (tid < TJ_ROWS) s_zb[tid] = s_zt[tid] = 0.0f;
   __syncthreads();
-  Bf* hsb = reinterpret_cast<Bf*>(hs);
-  if constexpr (kTensorCores<T>) {
-    stage_h_bf16(hsb, rows, J, enc, pred, s_erow, s_prow);
-  } else {
-    for (int e = tid; e < TJ_ROWS * J; e += TJ_THREADS) {
-      const int r = e / J, j = e - r * J;
-      hs[j * TJ_ROWS + r] = r < rows ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f;
-    }
+  for (int e = tid; e < TJ_ROWS * J; e += TJ_THREADS) {
+    const int r = e / J, j = e - r * J;
+    hs[j * TJ_ROWS + r] = r < rows ? joint_h(enc, pred, s_erow[r], s_prow[r], J, j) : 0.0f;
   }
   __syncthreads();
 
@@ -319,17 +345,11 @@ __global__ void __launch_bounds__(TJ_THREADS)
   const int n_tiles = (V + TJ_TILE - 1) / TJ_TILE;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int v0 = tile * TJ_TILE, v = v0 + tid;
-    const float bv = v < V ? to_f(bias[v]) : 0.0f;
-    if constexpr (kTensorCores<T>) {
-      tc_logits_tile(hsb, hsb + TJ_ROWS * h_ld(J), W, J, V, v0, zt);
+    const float bv = v < V ? bias[v] : 0.0f;
+    float acc[TJ_ROWS];
+    column_dots(hs, W, J, V, v, acc);
 #pragma unroll
-      for (int r = 0; r < TJ_ROWS; ++r) zt[r * TJ_TILE + tid] = v < V ? zt[r * TJ_TILE + tid] + bv : -INFINITY;
-    } else {
-      float acc[TJ_ROWS];
-      column_dots(hs, W, J, V, v, acc);
-#pragma unroll
-      for (int r = 0; r < TJ_ROWS; ++r) zt[r * TJ_TILE + tid] = v < V ? acc[r] + bv : -INFINITY;
-    }
+    for (int r = 0; r < TJ_ROWS; ++r) zt[r * TJ_TILE + tid] = v < V ? acc[r] + bv : -INFINITY;
     __syncthreads();
     merge_tile(zt, v0, V, blank, s_id, s_zb, s_zt, run_m, run_s);
     __syncthreads();  // every warp is done with the tile
@@ -576,14 +596,23 @@ cudaError_t tj_set_smem(Kernel kernel, size_t smem) {
 
 template <typename T>
 cudaError_t joint_fwd_impl(const void* enc, const void* pred, const void* W, const void* b, const int* ids, Slots sl,
-                           int R, int J, int V, int blank, float* lpb, float* lpe, float* lse, cudaStream_t stream) {
-  const size_t smem = fwd_smem<T>(J);
-  cudaError_t err = tj_set_smem(joint_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  joint_fwd_kernel<T><<<(R + TJ_ROWS - 1) / TJ_ROWS, TJ_THREADS, smem, stream>>>(
-      static_cast<const T*>(enc), static_cast<const T*>(pred), static_cast<const T*>(W), static_cast<const T*>(b),
-      ids, sl, R, J, V, blank, lpb, lpe, lse);
-  return cudaGetLastError();
+                           int R, int J, int V, int blank, const TilePlan& plan, float* lpb, float* lpe, float* lse,
+                           cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {  // the vocab tile pass over every tile of V in one block
+    if (plan.tiles_per_block < (V + VOCAB_TILE - 1) / VOCAB_TILE) return cudaErrorInvalidValue;
+    const Bf *e = static_cast<const Bf*>(enc), *p = static_cast<const Bf*>(pred);
+    const int vec = J % 8 == 0 && wg::aligned16(e, (size_t)J) && wg::aligned16(p, (size_t)J);
+    const JointPass pass{e, p, ids, sl, R, J, V, blank, vec, lpb, lpe, lse};
+    return launch_tile_pass(static_cast<const Bf*>(W), static_cast<const Bf*>(b), R, J, V, plan, pass, stream);
+  } else {
+    const size_t smem = fwd_smem(J);
+    cudaError_t err = tj_set_smem(joint_fwd_kernel, smem);
+    if (err != cudaSuccess) return err;
+    joint_fwd_kernel<<<(R + TJ_ROWS - 1) / TJ_ROWS, TJ_THREADS, smem, stream>>>(
+        static_cast<const float*>(enc), static_cast<const float*>(pred), static_cast<const float*>(W),
+        static_cast<const float*>(b), ids, sl, R, J, V, blank, lpb, lpe, lse);
+    return cudaGetLastError();
+  }
 }
 
 // grid (ceil(R / TJ_ROWS)): the bf16 backward's prologue, hbuf[r, j] = h of
@@ -711,18 +740,22 @@ extern "C" {
 // Forward.  enc [B,T,J], pred [B,U1,J], W [J,V], b [V] in T (bf16 when
 // dtype_bf16, else float32); ids [B,U] int32 (U = U1 - 1); p [B,T] int32 band
 // starts, or NULL for every node (then S = U1).  Outputs lpb, lpe, lse
-// [B,T,S] float32.
+// [B,T,S] float32.  bf16: the vocab tile pass's plan (wgs, stage_k and
+// tiles_per_block = every tile, from ops/joint_planes.py joint_fwd_plan);
+// float32 ignores it.
 int transducer_joint_fwd(int dtype_bf16, const void* enc, const void* pred, const void* W, const void* b,
                          const int* ids, const int* p, int B, int T, int U1, int S, int J, int V, int blank,
-                         float* lpb, float* lpe, float* lse, void* stream) {
+                         int wgs, int stage_k, int tiles_per_block, float* lpb, float* lpe, float* lse,
+                         void* stream) {
   const srt::Slots sl{p, T, S, U1, U1 - 1};
   const int R = B * T * S;
+  const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_bf16)
-    err = srt::joint_fwd_impl<__nv_bfloat16>(enc, pred, W, b, ids, sl, R, J, V, blank, lpb, lpe, lse, st);
+    err = srt::joint_fwd_impl<__nv_bfloat16>(enc, pred, W, b, ids, sl, R, J, V, blank, plan, lpb, lpe, lse, st);
   else
-    err = srt::joint_fwd_impl<float>(enc, pred, W, b, ids, sl, R, J, V, blank, lpb, lpe, lse, st);
+    err = srt::joint_fwd_impl<float>(enc, pred, W, b, ids, sl, R, J, V, blank, plan, lpb, lpe, lse, st);
   return static_cast<int>(err);
 }
 

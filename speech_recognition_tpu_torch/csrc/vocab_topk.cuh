@@ -41,6 +41,12 @@
 //  - the launch plan (warpgroups, stage_k, the vocab range a block walks so
 //    that the grid fills the card at every caller's R) is plain Python,
 //    ops/vocab_topk.py tile_plan.
+// The kernel is a template on its pass: TopkPass (the above: rows read from
+// hid, per-tile partials) or a caller's own, which builds the rows in the
+// block's panels and reduces the tiles in registers (the RNN-T joint's
+// forward, JointPass in csrc/transducer_joint.cu: h = tanh(enc + pred) built
+// in the prologue, a running max and sum-exp per row across all the tiles,
+// the blank and target logits read from the tile).
 // float32 operands keep a CUDA-core FMA product (TF32 would not hold the
 // float32 paths to 1e-5): a block of VOCAB_ROWS rows and one VOCAB_TILE tile,
 // a thread per column, then one warp per row reduces the tile from shared
@@ -416,19 +422,72 @@ __device__ __forceinline__ void tile_epilogue(float (&z)[64], int t, const Epilo
   }
 }
 
+// The top-k pass of K5, K1, K6, K4 and K11: the block's rows of hid [R, H] copied into its panels, each
+// tile's partials (max, sum-exp, top-k) written out, and the gather hook.
+struct TopkPass {
+  const Bf* hid;
+  int h_al;  // hid's rows start 16-byte aligned: cp.async, else staged copies
+  int k, rounding;
+  float* part_val;
+  int* part_idx;
+  float* part_max;
+  float* part_sum;
+  Gather g;
+
+  struct State {
+    Epilogue epi;
+    int pos[2];  // the hook's cursor in each row's sorted ids
+  };
+
+  __device__ __forceinline__ void load_rows(uint32_t hs, int bm, size_t r0, int R, int H, int n_k, int tid,
+                                            int nthr) const {
+    for (int kp = 0; kp < n_k; ++kp)
+      load_panel(hs + kp * bm * ROW_BYTES, bm, hid, H, h_al, r0, (long long)R - (long long)r0, kp * PANEL,
+                 H - kp * PANEL, tid, nthr);
+  }
+
+  // this thread's rows: row_a (half 0) and row_a + 8 (half 1); the block walks tiles from t0
+  __device__ __forceinline__ void begin(State& st, size_t row_a, int q, int t0, int R, int V, int n_tiles) const {
+    st.epi = Epilogue{R, V, k, rounding, n_tiles, q, row_a, part_val, part_idx, part_max, part_sum, g};
+    st.pos[0] = st.pos[1] = 0;
+    if (g.list == nullptr) return;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const size_t row = row_a + 8 * hf;
+      if (row >= (size_t)R) continue;
+      const int* ids = gather_ids(g, row);
+      int lo = 0, hi = g.K;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ids[mid] < t0 * COLS) lo = mid + 1;
+        else hi = mid;
+      }
+      st.pos[hf] = lo;
+      if (t0 == 0 && q == 0)  // ids outside [0, V) never meet a tile: their value is 0
+        for (int p = 0; p < g.K; ++p)
+          if (ids[p] < 0 || ids[p] >= V) g.vals[row * g.K + gather_k(g, ids, p)] = 0.0f;
+    }
+  }
+
+  template <typename BT>
+  __device__ __forceinline__ void tile(float (&z)[64], int t, State& st, const BT* __restrict__ bias) const {
+    tile_epilogue(z, t, st.epi, bias, st.pos);
+  }
+
+  __device__ __forceinline__ void finish(State&) const {}
+};
+
 // grid (row block, vocab range), 128 wgs threads.  Shared memory: the block's
-// rows of hid (n_k panels of [64 wgs x 64]), then the ring of W.  The block
-// walks tiles t0 .. t1 - 1; unit i of the stream is tile t0 + i / upt's
+// rows (n_k panels of [64 wgs x 64], filled by the pass), then the ring of W.
+// The block walks tiles t0 .. t1 - 1; unit i of the stream is tile t0 + i / upt's
 // k-panels [sk (i % upt), sk (i % upt + 1)).  A stage is refilled once every
 // product that read it is done: one wgmma group stays in flight while the
 // next stage is waited for, none across a tile's epilogue.
-template <typename BT>
+template <typename BT, typename Pass>
 __global__ void __launch_bounds__(128 * MAX_WGS, 1)
-    vocab_tile_mma_kernel(const Bf* __restrict__ hid, int h_al, const Bf* __restrict__ W, int w_al,
-                          const __grid_constant__ CUtensorMap w_map, const BT* __restrict__ bias, int R, int H, int V,
-                          int k, int rounding, int stage_k, int tiles_per_block, float* __restrict__ part_val,
-                          int* __restrict__ part_idx, float* __restrict__ part_max, float* __restrict__ part_sum,
-                          const int* __restrict__ run_flag, const Gather g) {
+    vocab_tile_mma_kernel(const Bf* __restrict__ W, int w_al, const __grid_constant__ CUtensorMap w_map,
+                          const BT* __restrict__ bias, int R, int H, int V, int stage_k, int tiles_per_block,
+                          const int* __restrict__ run_flag, const Pass pass) {
   if (run_flag != nullptr && *run_flag == 0) return;  // the beam loop (K11) has ended
   constexpr int S = STAGES, D = IN_FLIGHT;
   extern __shared__ uint8_t vt_smem[];
@@ -469,9 +528,7 @@ __global__ void __launch_bounds__(128 * MAX_WGS, 1)
       }
     }
   };
-  for (int kp = 0; kp < n_k; ++kp)
-    load_panel(hs + kp * bm * ROW_BYTES, bm, hid, H, h_al, r0, (long long)R - (long long)r0, kp * PANEL,
-               H - kp * PANEL, tid, nthr);
+  pass.load_rows(hs, bm, r0, R, H, n_k, tid, nthr);
   cp_async_commit();
   if (tma && tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
@@ -483,27 +540,10 @@ __global__ void __launch_bounds__(128 * MAX_WGS, 1)
   fence_async_smem();
   __syncthreads();
 
-  // this thread's rows: row_a (half 0) and row_a + 8 (half 1); the hook's cursor in each row's sorted ids
+  // this thread's rows: row_a (half 0) and row_a + 8 (half 1)
   const size_t row_a = r0 + 64 * wgi + 16 * warp + (lane >> 2);
-  int pos[2] = {0, 0};
-  if (g.list != nullptr) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const size_t row = row_a + 8 * hf;
-      if (row >= (size_t)R) continue;
-      const int* ids = gather_ids(g, row);
-      int lo = 0, hi = g.K;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (ids[mid] < t0 * COLS) lo = mid + 1;
-        else hi = mid;
-      }
-      pos[hf] = lo;
-      if (blockIdx.y == 0 && q == 0)  // ids outside [0, V) never meet a tile: their value is 0
-        for (int p = 0; p < g.K; ++p)
-          if (ids[p] < 0 || ids[p] >= V) g.vals[row * g.K + gather_k(g, ids, p)] = 0.0f;
-    }
-  }
+  typename Pass::State state;
+  pass.begin(state, row_a, q, t0, R, V, n_tiles);
 
   int i = 0;
   // unit i has landed for every thread and the stage of unit i + D is free: start its copy
@@ -516,7 +556,6 @@ __global__ void __launch_bounds__(128 * MAX_WGS, 1)
   };
   const uint32_t a_rows = hs + WG_ROWS * wgi * ROW_BYTES;
   const int a_stride = bm * ROW_BYTES;
-  const Epilogue epi{R, V, k, rounding, n_tiles, q, row_a, part_val, part_idx, part_max, part_sum, g};
   for (int t = t0; t < t1; ++t) {
     float z[64];
     zero(z);
@@ -527,8 +566,9 @@ __global__ void __launch_bounds__(128 * MAX_WGS, 1)
     }
     wg_wait<0>();
     reg_fence(z);
-    tile_epilogue(z, t, epi, bias, pos);
+    pass.tile(z, t, state, bias);
   }
+  pass.finish(state);
 }
 
 }  // namespace vt
@@ -573,6 +613,30 @@ __device__ __forceinline__ float merge_row(size_t row, int n_tiles, int k, const
   return m + logf(s);
 }
 
+// The bf16 pass over R rows of width H (the pass's own rows) against W [H, V]: launch plan ``plan``
+// (ops/vocab_topk.py tile_plan).
+template <typename BT, typename Pass>
+cudaError_t launch_tile_pass(const wg::Bf* W, const BT* bias, int R, int H, int V, const TilePlan& plan,
+                             const Pass& pass, cudaStream_t stream, const int* run_flag = nullptr) {
+  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
+  const int n_k = (H + wg::PANEL - 1) / wg::PANEL;
+  if (plan.wgs < 1 || plan.wgs > vt::MAX_WGS || plan.stage_k < 1 || plan.stage_k > n_k || plan.tiles_per_block < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = vt::smem_bytes(n_k, plan.wgs, plan.stage_k);
+  if (smem > (size_t)vt::MAX_SMEM) return cudaErrorInvalidValue;
+  const int bm = wg::WG_ROWS * plan.wgs;
+  const dim3 grid((R + bm - 1) / bm, (n_tiles + plan.tiles_per_block - 1) / plan.tiles_per_block);
+  auto kernel = vt::vocab_tile_mma_kernel<BT, Pass>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int w_al = wg::aligned16(W, (size_t)V);
+  CUtensorMap w_map{};
+  if (w_al && (err = wg::panel_map(&w_map, W, H, V)) != cudaSuccess) return err;
+  kernel<<<grid, 2 * bm, smem, stream>>>(W, w_al, w_map, bias, R, H, V, plan.stage_k, plan.tiles_per_block, run_flag,
+                                         pass);
+  return cudaGetLastError();
+}
+
 // Pass 1 over rows hid [R, H]: float32 operands on the CUDA cores, bf16 on
 // wgmma with ``plan``.  Partials: part_val / part_idx [R, n_tiles, k],
 // part_max / part_sum [R, n_tiles], n_tiles = ceil(V / VOCAB_TILE).
@@ -592,25 +656,12 @@ cudaError_t launch_vocab_tiles(const T* hid, const T* W, const BT* bias, int R, 
     }
     vocab_tile_f32_kernel<<<grid, VOCAB_TILE, smem, stream>>>(hid, W, bias, R, H, V, k, rounding, part_val, part_idx,
                                                               part_max, part_sum, run_flag, g);
+    return cudaGetLastError();
   } else {
-    const int n_k = (H + wg::PANEL - 1) / wg::PANEL;
-    if (plan.wgs < 1 || plan.wgs > vt::MAX_WGS || plan.stage_k < 1 || plan.stage_k > n_k || plan.tiles_per_block < 1)
-      return cudaErrorInvalidValue;
-    const size_t smem = vt::smem_bytes(n_k, plan.wgs, plan.stage_k);
-    if (smem > (size_t)vt::MAX_SMEM) return cudaErrorInvalidValue;
-    const int bm = wg::WG_ROWS * plan.wgs;
-    const dim3 grid((R + bm - 1) / bm, (n_tiles + plan.tiles_per_block - 1) / plan.tiles_per_block);
-    auto kernel = vt::vocab_tile_mma_kernel<BT>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const int w_al = wg::aligned16(W, (size_t)V);
-    CUtensorMap w_map{};
-    if (w_al && (err = wg::panel_map(&w_map, W, H, V)) != cudaSuccess) return err;
-    kernel<<<grid, 2 * bm, smem, stream>>>(hid, wg::aligned16(hid, (size_t)H), W, w_al, w_map, bias, R, H, V, k,
-                                           rounding, plan.stage_k, plan.tiles_per_block, part_val, part_idx,
-                                           part_max, part_sum, run_flag, g);
+    const vt::TopkPass pass{hid, wg::aligned16(hid, (size_t)H), k, rounding, part_val, part_idx, part_max, part_sum,
+                            g};
+    return launch_tile_pass(W, bias, R, H, V, plan, pass, stream, run_flag);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace srt

@@ -65,17 +65,18 @@ _SIGNATURES = {
     "mhsa_bwd": [_I] * 3 + [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P] * 5,
     # x, l, n, out_fast, out_exact, stream
     "mhsa_divide_check": [_P, _P, _I, _P, _P, _P],
-    # dtype_bf16, enc, pred, W, b, ids, p (NULL: every node), B, T, U1, S, J, V, blank, lpb, lpe, lse, stream
-    "transducer_joint_fwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 4,
+    # dtype_bf16, enc, pred, W, b, ids, p (NULL: every node), B, T, U1, S, J, V, blank, wgs, stage_k,
+    # tiles_per_block, lpb, lpe, lse, stream
+    "transducer_joint_fwd": [_I] + [_P] * 6 + [_I] * 10 + [_P] * 4,
     # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split, row_wgs,
     # tile, chunk_panels, rows_per_split, hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
     "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] * 5 + [_P] * 9,
-    # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, stream
-    "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
+    # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B, H, stream
+    "rnn_sequence": [_I, _I] + [_P] * 10 + [_I] * 4 + [_P],
     # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
     # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
-    # eos_id, pad_id, alpha, beta_den, wgs, stage_k, tiles_per_block, stream
-    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_P],
+    # eos_id, pad_id, alpha, beta_den, beams_per_block, wgs, stage_k, tiles_per_block, stream
+    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_I] * 4 + [_P],
 }
 
 

@@ -33,7 +33,10 @@ memory (every vector stored beam-minor, so a float4 load feeds four beams):
 the embedding gather, the K queries, the scores and the context streaming
 pk[b] and value[b] once for all K beams (a K4 block per beam row would read
 them K times), then the cell stack, each weight element loaded once per
-block for all K beams.  (2) K5's vocab tile pass over the B*K hidden rows
+block for all K beams.  Where K beams' vectors do not fit a block's shared
+memory (LAS-large: 320 KB at K=8, H=1024), the step kernel takes a grid of
+B x K / KB blocks of KB beams each (``beams_per_block``): a beam's step reads
+no other beam's state.  (2) K5's vocab tile pass over the B*K hidden rows
 with k = K (wgmma under bf16).  (3) A select kernel, one block per batch row: K5's merge of
 each beam row's partials, the K*K scores, the top-K, the re-gather of the
 histories (a thread per column) and flags, and the batch-wide all-ended
@@ -140,9 +143,22 @@ def beam_loop_plain(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c
 
 
 def step_smem_bytes(K: int, S: int, H: int, He: int, Dv: int) -> int:
-    """Dynamic shared memory of the step kernel (csrc/las_beam.cu ``step_smem_floats``)."""
+    """Dynamic shared memory of a step kernel block holding K beams (csrc/las_beam.cu ``step_smem_floats``)."""
     kb = 1 << max(K - 1, 0).bit_length()  # K rounded up to a power of two
     return 4 * kb * (3 * H + max(He + Dv, H) + max(H + S, 4 * H))
+
+
+def beams_per_block(K: int, S: int, H: int, He: int, Dv: int) -> int:
+    """The step kernel's beams a block: K rounded up to a power of two where that fits
+    ``SMEM_LIMIT`` (one block per batch row), else the largest power of two that does."""
+    kb = 1 << max(K - 1, 0).bit_length()
+    while kb > 1 and step_smem_bytes(kb, S, H, He, Dv) > SMEM_LIMIT:
+        kb //= 2
+    smem = step_smem_bytes(kb, S, H, He, Dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"beam kernel: {smem} bytes of shared memory for one beam at S={S} H={H} "
+                         f"He+Dv={He + Dv} exceed {SMEM_LIMIT}")
+    return kb
 
 
 def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, init_tokens, init_logp,
@@ -197,10 +213,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
             or value.shape[:2] != (B, S) or mask.shape != (B, S) or init_tokens.shape[0] != B
             or init_logp.shape != (B, K) or h0.shape != (B * K, H) or c0.shape != (B * K, H)):
         raise ValueError("beam kernel: operand shapes disagree")
-    smem = step_smem_bytes(K, S, H, He, Dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"beam kernel: {smem} bytes of shared memory for K={K} S={S} H={H} He+Dv={He + Dv} "
-                         f"exceed {SMEM_LIMIT}")
+    kbs = beams_per_block(K, S, H, He, Dv)
 
     R = B * K
     tokens = init_tokens.to(torch.int32).contiguous().clone()
@@ -220,7 +233,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
         len(cells), *[ctypes.cast(p, ctypes.c_void_p) for p in cell_ptrs],
         *[t.data_ptr() for t in (h, c, tokens, logp, ended, eoslen, live, hidden, part_val, part_idx, part_max,
                                  part_sum)],
-        B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta),
+        B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta), kbs,
         *launch_args(R, H, V, K, hidden), stream(dev),
     )
     if err:

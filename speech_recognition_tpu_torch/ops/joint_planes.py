@@ -8,19 +8,25 @@ logits ever reaching device memory.  K9 visits every node (u = s, s < U+1);
 K8 the ``s_range`` nodes of each frame's band (u = p[b, t] + s).  Both are one
 CUDA source, ``csrc/transducer_joint.cu``, with the slot map as a parameter:
 
-- forward: a block owns 32 joint rows, builds their ``h`` in shared memory
-  (rounded to the compute type after the add and after the tanh) and walks V
-  in tiles with an online row max and sum-exp, picking the blank and target
-  logits on the way; it writes ``lse`` (the backward's residual) and the two
-  planes ``z - lse``;
+- forward, bf16: a pass of the vocab tile pass (``csrc/vocab_topk.cuh``,
+  ``JointPass``): a block of up to four warpgroups of 64 joint rows builds
+  their ``h`` (rounded to the compute type after the add and after the tanh)
+  straight into its resident shared-memory panels, then walks all of V, each
+  128-column W tile streamed by TMA and multiplied by wgmma m64n128k16; each
+  thread folds its columns of the tile into a running max and sum-exp in
+  registers and copies the blank and target logits out of the tile; it
+  writes ``lse`` (the backward's residual) and the two planes ``z - lse``.
+  The launch plan is ``joint_fwd_plan``; ``tc_launches`` counts this route;
+- forward, float32: a block owns 32 joint rows, builds their ``h`` in shared
+  memory and walks V in tiles of 256 columns on the CUDA cores with an online
+  row max and sum-exp;
 - backward: a row kernel recomputes the logits, forms ``dz`` rounded to the
   compute type and ``dpre = (dz @ W^T)(1 - h^2)``; a column kernel owns tiles
   of V and sums ``dW = h^T dz``, ``db = sum dz`` over its rows, as partials
   summed in a fixed order; ``denc`` and ``dpred`` are ordered reductions of
   ``dpre``.  No atomics: every sum has a fixed order, so a run repeats bit for
   bit;
-- in bf16 the forward's product runs on the tensor cores in ``wmma`` 16x16x16
-  tiles, and the backward is the tensor-core engine of ``csrc/vocab_bwd.cuh``
+- in bf16 the backward is the tensor-core engine of ``csrc/vocab_bwd.cuh``
   (wgmma fed by cp.async rings; ``h`` written once, padded to whole panels,
   by a prologue kernel) with the launch plan of ``ops/vocab_bwd.py``; float32
   accumulators throughout (the bf16 operands' products are exact, as in a
@@ -35,13 +41,49 @@ J % 8, U+1 <= 512, a VMEM budget, s_range <= 32) the kernels take any V, any
 U+1 >= 1 and any 1 <= S <= U+1; J up to ``MAX_J`` (shared memory).
 """
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from .transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
 from .transducer_pruned import banded_planes_bwd_plain, banded_planes_fwd_plain
+from .vocab_bwd import N_SM, PANEL, WG_ROWS, cdiv
+from .vocab_topk import MAX_WGS, VOCAB_TILE, stage_choice, tile_max_width
 
 MAX_J = 1000  # the dW kernel keeps all of J x 64 columns of W and the h of 32 rows in one block's shared memory
+ROUTE_TILE_PASS, ROUTE_CUDA_CORE = "tile_pass", "cuda_core"
+
+
+class JointFwdPlan(NamedTuple):
+    """What the C entry takes: it derives the grid (ceil(R / (64 wgs)) row blocks) and the shared memory
+    (``vocab_topk.tile_smem``) from these; the float32 route takes none of them (0)."""
+    route: str  # ROUTE_TILE_PASS (bf16: the vocab tile pass, wgmma) or ROUTE_CUDA_CORE (float32)
+    wgs: int  # warpgroups of 64 rows a block (tile pass)
+    stage_k: int  # 64-row k-panels of a W tile a ring stage holds (tile pass)
+    tiles_per_block: int  # vocab tiles a block walks: all of them, so each row's lse is one block's
+
+
+def joint_fwd_plan(R: int, J: int, V: int, dtype, n_sm: int = N_SM) -> JointFwdPlan:
+    """The K8 / K9 forward's launch for R joint rows of width J against V vocab columns.
+
+    bf16 takes the vocab tile pass with every tile of V in one block (a row's
+    running max and sum-exp never leave its registers, so no per-tile partials:
+    they would be R x 125 x 16 bytes, 2 GB at K9's R), four warpgroups a block
+    where the row blocks still fill the card, else two, else one, and a ring
+    stage of as many k-panels as fit (``vocab_topk.stage_choice``).  float32
+    keeps the CUDA-core kernel (32 rows a block, 256 threads, set in the C source).
+    """
+    if R < 1 or J < 1 or V < 1:
+        raise ValueError(f"joint forward: empty operands R={R} J={J} V={V}")
+    if dtype != torch.bfloat16:
+        return JointFwdPlan(ROUTE_CUDA_CORE, 0, 0, 0)
+    if J > tile_max_width():
+        raise ValueError(f"joint forward in bf16: width {J} > {tile_max_width()} (shared memory of one block)")
+    n_k = cdiv(J, PANEL)
+    wgs_options = [w for w in (MAX_WGS, 2) if cdiv(R, w * WG_ROWS) >= n_sm] + [1]
+    wgs, stage_k = next((w, sk) for w in wgs_options for sk in [stage_choice(n_k, w)] if sk is not None)
+    return JointFwdPlan(ROUTE_TILE_PASS, wgs, stage_k, cdiv(V, VOCAB_TILE))
 
 
 def _check(enc, pred, W, b, ids, p, S: int, blank: int):
@@ -71,20 +113,23 @@ def _check(enc, pred, W, b, ids, p, S: int, blank: int):
 
 
 def _launch_fwd(enc, pred, W, b, ids, p, S: int, blank: int):
+    """(lpb, lpe, lse, route) of one forward launch."""
     from ..kernels import error_string, library, stream
+    from .vocab_bwd import sm_count
 
     _check(enc, pred, W, b, ids, p, S, blank)
     B, T, J = enc.shape
     U1, V = pred.shape[1], W.shape[1]
+    plan = joint_fwd_plan(B * T * S, J, V, enc.dtype, sm_count(enc.device))
     lpb, lpe, lse = (torch.empty(B, T, S, dtype=torch.float32, device=enc.device) for _ in range(3))
     err = library().transducer_joint_fwd(
         int(enc.dtype == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(),
-        ids.data_ptr(), None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank,
-        lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), stream(enc.device),
+        ids.data_ptr(), None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank, plan.wgs, plan.stage_k,
+        plan.tiles_per_block, lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), stream(enc.device),
     )
     if err:
         raise RuntimeError(f"transducer_joint_fwd kernel launch failed: {error_string(err)}")
-    return lpb, lpe, lse
+    return lpb, lpe, lse, plan.route
 
 
 def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
@@ -127,13 +172,15 @@ def banded_planes_fwd(enc, pred, W, b, ids, p, s_range: int, blank: int):
     :param enc: [B, T, J]; ``pred`` [B, U+1, J], ``W`` [J, V], ``b`` [V] in enc's type
     :param ids: [B, U] int32; ``p`` [B, T] int32 band starts
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``tc_launches`` counts the bf16 launches on the vocab tile pass).
     """
     if enc.device.type == "cpu":
         return banded_planes_fwd_plain(enc, pred, W, b, ids, p, s_range, blank)
-    out = _launch_fwd(enc, pred, W, b, ids, p, s_range, blank)
+    *out, route = _launch_fwd(enc, pred, W, b, ids, p, s_range, blank)
     banded_planes_fwd.launches += 1
-    return out
+    banded_planes_fwd.tc_launches += route == ROUTE_TILE_PASS
+    return tuple(out)
 
 
 def banded_planes_bwd(enc, pred, W, b, ids, p, s_range: int, blank: int, lse, dlpb, dlpe):
@@ -148,12 +195,13 @@ def banded_planes_bwd(enc, pred, W, b, ids, p, s_range: int, blank: int, lse, dl
 
 def joint_planes_fwd(enc, pred, W, b, ids, blank: int):
     """K9 forward: (lp_blank, lp_emit, lse) [B, T, U+1] float32 at every node; lp_emit's
-    column u = U has no target.  CPU: the plain version; CUDA: the kernel."""
+    column u = U has no target.  CPU: the plain version; CUDA: the kernel (``tc_launches`` as K8's)."""
     if enc.device.type == "cpu":
         return joint_planes_fwd_plain(enc, pred, W, b, ids, blank)
-    out = _launch_fwd(enc, pred, W, b, ids, None, pred.shape[1], blank)
+    *out, route = _launch_fwd(enc, pred, W, b, ids, None, pred.shape[1], blank)
     joint_planes_fwd.launches += 1
-    return out
+    joint_planes_fwd.tc_launches += route == ROUTE_TILE_PASS
+    return tuple(out)
 
 
 def joint_planes_bwd(enc, pred, W, b, ids, blank: int, lse, dlpb, dlpe):
@@ -167,6 +215,7 @@ def joint_planes_bwd(enc, pred, W, b, ids, blank: int, lse, dlpb, dlpe):
 
 for _fn in (banded_planes_fwd, banded_planes_bwd, joint_planes_fwd, joint_planes_bwd):
     _fn.launches = 0
+banded_planes_fwd.tc_launches = joint_planes_fwd.tc_launches = 0
 
 
 def _operands(enc, pred, W, b, ids):

@@ -26,13 +26,40 @@ batch tile: a cluster of 8 CTAs per (direction, 16 batch rows), each CTA
 holding its hidden units' columns of R in shared memory for all T steps
 (bf16 products on ``mma.sync`` tensor-core tiles, float32 on FMA loops) and
 sharing its slice of each new h with the others through distributed shared
-memory, one cluster barrier a step.
+memory, one cluster barrier a step.  Above H = 512 (LAS-large's 1024) a
+CTA's columns of R do not fit its shared memory: the wide route reads them
+from L2 every step, in bf16 out of a copy of R in the tiles' fragment order
+that the launch writes first (``rnn_plan``), a cluster taking 32 batch rows
+(two m16 tiles, so each fragment it reads feeds two products) in bf16 and
+16 in float32.
 """
+
+from typing import NamedTuple
 
 import torch
 
 GATES = {"lstm": 4, "gru": 3}
-MAX_UNITS = 512  # RNN_MAX_UNITS in csrc/rnn_sequence.cu
+CLUSTER = 8  # RNN_CLUSTER: CTAs of a cluster, each owning ceil(H / 8) hidden units
+NARROW_UNITS = 512  # RNN_NARROW_UNITS: the widest H of the route that keeps R in shared memory
+MAX_UNITS = 1024  # RNN_MAX_UNITS in csrc/rnn_sequence.cu: the widest H of the wide route
+
+
+class RnnPlan(NamedTuple):
+    route: str  # "narrow" (H <= NARROW_UNITS) or "wide"
+    frag_elems: int  # elements of the fragment-order copy of R the launch writes (bf16, wide), else 0
+
+
+def rnn_plan(rnn_type: str, H: int, dtype) -> RnnPlan:
+    """K10's route for width H, and the scratch it needs: above ``NARROW_UNITS`` in bf16 each of the
+    D x 8 CTAs reads its slice of R from a copy in B-fragment order, [ceil(G U / 8) n-tiles][ceil(H / 16)
+    k-steps][32 lanes][4] with U = ceil(H / 8) (``rnn_frag_elems`` in csrc/rnn_sequence.cu), per direction."""
+    if not 1 <= H <= MAX_UNITS:
+        raise ValueError(f"rnn_sequence: H={H} outside 1..{MAX_UNITS}")
+    if H <= NARROW_UNITS:
+        return RnnPlan("narrow", 0)
+    U = -(-H // CLUSTER)
+    per_cta = -(-GATES[rnn_type] * U // 8) * -(-H // 16) * 128
+    return RnnPlan("wide", CLUSTER * per_cta if dtype == torch.bfloat16 else 0)
 
 
 def rnn_sequence_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
@@ -95,7 +122,7 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     contract; ``c_last`` is None for the GRU).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-    which raises on what it does not take (T < 1, H > 512, D not 1 or 2,
+    which raises on what it does not take (T < 1, H > 1024, D not 1 or 2,
     another type than bf16 / float32).
     """
     if x_proj.device.type == "cpu":
@@ -119,10 +146,13 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     out = torch.empty(T, D, B, H, dtype=x_proj.dtype, device=dev)
     h_last = torch.empty(D, B, H, dtype=x_proj.dtype, device=dev)
     c_last = torch.empty_like(h_last) if lstm else None
+    frag_elems = rnn_plan(rnn_type, H, x_proj.dtype).frag_elems
+    frag = torch.empty(D * frag_elems, dtype=x_proj.dtype, device=dev) if frag_elems else None
     err = library().rnn_sequence(
         int(x_proj.dtype == torch.bfloat16), int(not lstm), x_proj.data_ptr(), mask.data_ptr(), rk.data_ptr(),
         0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
-        h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, stream(dev),
+        h_last.data_ptr(), c_last.data_ptr() if lstm else 0, 0 if frag is None else frag.data_ptr(), T, D, B, H,
+        stream(dev),
     )
     if err:
         raise RuntimeError(f"rnn_sequence kernel launch failed: {error_string(err)}")

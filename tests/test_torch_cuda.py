@@ -56,6 +56,10 @@ rows of lengths T, 1, ceil(T/2), 0 and T - 1, nonzero initial states: float32
 rtol 1e-5 / atol 1e-6 (sums in another order), bf16 within 2e-2 x max|ref|
 (a float32 sum in another order can move one rounding, and the loop carries
 it on); a no-grad ``lstm_scan`` / ``gru_scan`` of CUDA tensors launches it.
+Its wide route (H in {520, 768, 1024}, R read from L2) at B=40 with the same
+tolerances.  The bf16 K8 / K9 forward on the vocab tile pass at ragged bands
+(S in {1, 4, 8}), U+1 = 1, V % 128 != 0 and V % 8 != 0, J in {37, 200, 320,
+1000}, blank != 0, counted on its route; float32 keeps the CUDA-core kernel.
 
 K11 (the whole LAS beam loop) at B=6, S=37 (a row of one frame), V=500, L=12,
 K in {1, 2, 3, 4, 8, 16}, one and two cells, the default and other length
@@ -63,7 +67,9 @@ penalties, an EOS bias under which every row ends before L: float32 tokens
 equal and logP rtol 1e-5 (sums in another order); bf16 >= 95% of the token
 slots equal and logP rtol 2e-2 on the rows that agree (a float32 sum in
 another order can move one bf16 rounding of h or the context, and a
-near-tie then swaps two candidates).  The all-ended state comes back
+near-tie then swaps two candidates).  At LAS-large's widths (H = 1024,
+Dv = 2048, 4 beams a step block) the per-step gate of ``chip_smoke.py``:
+>= 99% of the slots keep the plain step's history.  The all-ended state comes back
 unchanged; ``LASSearcher.beam_search`` launches K5 once and K11 once.  The
 on-device frontend on the card matches the CPU within rtol and atol 2e-3.
 """
@@ -78,7 +84,7 @@ from speech_recognition_tpu_torch.models import LAS
 from speech_recognition_tpu_torch.ops.attention import (ROUTE_CUDA_CORE, ROUTE_TENSOR_CORE, keep_mask, mhsa_bwd,
                                                         mhsa_bwd_plain, mhsa_fwd, mhsa_fwd_plain, mhsa_plan,
                                                         softmax_divide_check)
-from speech_recognition_tpu_torch.ops.beam_search import beam_loop_plain, beam_search
+from speech_recognition_tpu_torch.ops.beam_search import beam_loop_plain, beam_search, beams_per_block
 from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_bwd_plain, ce_fwd, ce_fwd_plain
 from speech_recognition_tpu_torch.ops.ctc_emissions import (ctc_emissions_bwd, ctc_emissions_bwd_plain,
                                                             ctc_emissions_fwd, ctc_emissions_fwd_plain)
@@ -86,13 +92,13 @@ from speech_recognition_tpu_torch.ops.decoder_kernel import (
     decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
 from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend
 from speech_recognition_tpu_torch.ops.greedy_search import greedy_search, greedy_search_plain
-from speech_recognition_tpu_torch.ops.joint_planes import (banded_planes_bwd, banded_planes_fwd, joint_planes_bwd,
-                                                           joint_planes_fwd)
+from speech_recognition_tpu_torch.ops.joint_planes import (ROUTE_TILE_PASS, banded_planes_bwd, banded_planes_fwd,
+                                                           joint_fwd_plan, joint_planes_bwd, joint_planes_fwd)
 from speech_recognition_tpu_torch.ops import rnn as rnn_mod
 from speech_recognition_tpu_torch.ops import transducer as transducer_mod
 from speech_recognition_tpu_torch.ops.graphs import CudaGraphs
 from speech_recognition_tpu_torch.ops.rnn import gru_scan, lstm_scan
-from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_sequence, rnn_sequence_plain
+from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_plan, rnn_sequence, rnn_sequence_plain
 from speech_recognition_tpu_torch.ops.transducer import joint_planes_bwd_plain, joint_planes_fwd_plain, transducer_loss
 from speech_recognition_tpu_torch.ops.transducer_pruned import (band_offsets, banded_planes_bwd_plain,
                                                                 banded_planes_fwd_plain)
@@ -560,6 +566,43 @@ def test_dense_joint_kernels_match_plain(cuda, dtype, B, T, U1, J, V, blank):
                        joint_planes_bwd_plain(enc, pred, W, b, ids, blank, want[2], dlpb, dlpe))
 
 
+@pytest.mark.parametrize("dense, B, T, U1, S, J, V, blank", [
+    (False, 3, 31, 20, 1, 320, 1000, 0), (False, 2, 255, 127, 4, 320, 16000, 0), (False, 2, 40, 60, 8, 320, 1003, 9),
+    (False, 3, 17, 5, 4, 200, 300, 3), (False, 2, 9, 1, 1, 320, 2000, 0), (False, 4, 70, 30, 8, 37, 700, 699),
+    (True, 2, 13, 1, 1, 320, 1000, 0), (True, 2, 33, 40, 40, 200, 1003, 5), (True, 1, 20, 127, 127, 320, 16000, 0),
+    (True, 2, 9, 7, 7, 1000, 136, 135)])
+def test_joint_forward_tile_pass_matches_plain(cuda, dense, B, T, U1, S, J, V, blank):
+    """The bf16 K8 / K9 forward on the vocab tile pass (h built in the block's panels, a running max and
+    sum-exp per row, the blank and target logits read from the tile) vs the plain version: rtol 1e-5 /
+    atol 1e-4 on lp_blank, lp_emit and lse.  Ragged bands (S = 1 / 4 / 8, a row of zero labels, so
+    slots without a target), U+1 = 1, V % 128 != 0 and V % 8 != 0 (W's staged copy), J = 320 and J not
+    a multiple of 64 (37, 200), blank != 0; each launch counted on the route."""
+    enc, pred, W, b, ids, frame_lens, label_lens, _ = _joint_operands(cuda, torch.bfloat16, B, T, U1, J, V,
+                                                                       B + T + U1 + S + J + V)
+    fwd = joint_planes_fwd if dense else banded_planes_fwd
+    before = (fwd.launches, fwd.tc_launches)
+    if dense:
+        got, want = fwd(enc, pred, W, b, ids, blank), joint_planes_fwd_plain(enc, pred, W, b, ids, blank)
+    else:
+        p = band_offsets(frame_lens, label_lens, T, S)
+        got, want = fwd(enc, pred, W, b, ids, p, S, blank), banded_planes_fwd_plain(enc, pred, W, b, ids, p, S,
+                                                                                    blank)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert joint_fwd_plan(B * T * S, J, V, torch.bfloat16).route == ROUTE_TILE_PASS
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+
+
+def test_joint_forward_float32_takes_the_cuda_core_kernel(cuda):
+    enc, pred, W, b, ids, _, _, _ = _joint_operands(cuda, torch.float32, 2, 9, 5, 64, 300, 1)
+    before = (joint_planes_fwd.launches, joint_planes_fwd.tc_launches)
+    got, want = joint_planes_fwd(enc, pred, W, b, ids, 0), joint_planes_fwd_plain(enc, pred, W, b, ids, 0)
+    assert (joint_planes_fwd.launches, joint_planes_fwd.tc_launches) == (before[0] + 1, before[1])
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+
+
 def _ce_case(cuda, R, H, V, seed):
     g = torch.Generator().manual_seed(seed)
     hid = (torch.randn(R, H, generator=g) * 0.5).to(cuda, torch.bfloat16)
@@ -766,10 +809,37 @@ def test_rnn_sequence_kernel_matches_plain(cuda, rnn_type, dtype, D, T, H):
     assert not got[0][~ops[1][..., 0]].any()
 
 
+@pytest.mark.parametrize("D, T, H", [(1, 17, 768), (2, 17, 768), (1, 9, 1024), (2, 23, 1024), (2, 5, 520)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_rnn_sequence_wide_route_matches_plain(cuda, rnn_type, dtype, D, T, H):
+    """K10's wide route (H > 512: R read from L2, in bf16 out of its fragment-order copy) vs the plain
+    version at B=40 (full batch tiles and a ragged one: a cluster takes 32 rows in bf16, 16 in float32),
+    with the narrow route's tolerances: float32 rtol 1e-5 / atol 1e-6, bf16 within 2e-2 x max|ref|;
+    masked steps emit exact zeros."""
+    ops = rnn_operands(rnn_type, dtype, D, T, 40, H, T + H + D, cuda)
+    assert rnn_plan(rnn_type, H, dtype).route == "wide"
+    before = rnn_sequence.launches
+    got = rnn_sequence(rnn_type, *ops)
+    want = rnn_sequence_plain(rnn_type, *ops)
+    torch.cuda.synchronize()
+    assert rnn_sequence.launches == before + 1
+    for a, w in zip(got, want):
+        if w is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
+        else:
+            assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+    assert not got[0][~ops[1][..., 0]].any()
+
+
 def test_rnn_sequence_kernel_raises_on_what_it_does_not_take(cuda):
     x, mask, rk, rb, h0, c0 = rnn_operands("lstm", torch.float32, 2, 4, 3, 8, 0, cuda)
-    with pytest.raises(ValueError, match="bad shapes"):  # H above 512
-        rnn_sequence("lstm", *rnn_operands("lstm", torch.float32, 1, 2, 3, 520, 0, cuda))
+    with pytest.raises(ValueError, match="bad shapes"):  # H above 1024
+        rnn_sequence("lstm", *rnn_operands("lstm", torch.float32, 1, 2, 3, 1030, 0, cuda))
     with pytest.raises(ValueError, match="dtype"):
         rnn_sequence("lstm", x.half(), mask, rk.half(), None, h0.half(), c0.half())
     with pytest.raises(ValueError, match="dtype"):
@@ -848,6 +918,32 @@ def test_beam_kernel_matches_plain(cuda, dtype, K, n_cells, alpha, beta, eos_bia
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [8, 3])
+def test_beam_kernel_at_las_large_shapes(cuda, dtype, K):
+    """K11 at LAS-large's widths (H = He = 1024, Dv = 2048, S = 255, two cells), where K beams'
+    vectors exceed one block's shared memory and the step kernel holds 4 beams a block
+    (``beams_per_block``).  Per step from the kernel's own state, as ``chip_smoke.py check_las_beam``:
+    >= 99% of the slots keep the plain step's history; h / c within atol 2e-2 in bf16, 1e-4 in
+    float32; logP within rtol 2e-2 / atol 0.25 (bf16) or rtol 1e-4 / atol 1e-3 (float32) where the
+    slots agree."""
+    args = _beam_operands(cuda, dtype, 3, K, 255, 1024, 1024, 2048, 2000, 10, 2, K + 11)
+    assert beams_per_block(K, 255, 1024, 1024, 2048) == 4
+    ops, bf = args[:9], dtype == torch.bfloat16
+    rtol, atol, state_atol = (2e-2, 0.25, 2e-2) if bf else (1e-4, 1e-3, 1e-4)
+    h, c, tok, lp = args[9].float(), args[10].float(), args[11], args[12]
+    kept = total = 0
+    for n in range(2, tok.shape[2]):
+        kt, kl, kh, kc = beam_search(*ops, h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
+        pt, pl, ph, pc = beam_loop_plain(*ops, h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
+        same = (kt == pt).all(dim=-1)
+        kept, total = kept + int(same.sum()), total + same.numel()
+        assert (kh - ph).abs().max().item() <= state_atol and (kc - pc).abs().max().item() <= state_atol
+        torch.testing.assert_close(kl[same], pl[same], rtol=rtol, atol=atol)
+        h, c, tok, lp = kh, kc, kt, kl
+    assert kept / total >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_beam_kernel_returns_the_all_ended_state_unchanged(cuda, dtype):
     """Every beam ended before step 2: no kernel of the loop changes anything (the
     XLA loop's condition is false at once), whatever the log-probs."""
@@ -869,8 +965,8 @@ def test_beam_kernel_raises_on_what_it_does_not_take(cuda):
         beam_search(args[0].half(), *args[1:])
     with pytest.raises(ValueError, match="cells"):
         beam_search(*args[:8], args[8] * 5, *args[9:])
-    with pytest.raises(ValueError, match="shared memory"):  # S too long for the block's shared memory
-        long = list(_beam_operands(cuda, torch.float32, 2, 16, 4000, 32, 32, 64, 300, 9, 1, 0))
+    with pytest.raises(ValueError, match="shared memory"):  # S too long for even one beam a block
+        long = list(_beam_operands(cuda, torch.float32, 2, 16, 60000, 32, 32, 64, 300, 9, 1, 0))
         beam_search(*long)
 
 

@@ -1,0 +1,135 @@
+"""Every shipped model config against the port's kernel launch checks, on the CPU.
+
+At each config's main-path shapes (B = 128 clips of 1024 frames under
+``resources/configs/libri_config.yml``: labels of at most 128 tokens, so
+N = 127 teacher-forced steps and L = 128 decode steps) every kernel the
+config's training, dev pass and decodes launch must pass its wrapper's shape
+and shared-memory checks: K10's width limit (``rnn_plan``), K11's step kernel
+for beam-8 (``beams_per_block``: a block's shared memory within
+``SMEM_LIMIT``), the vocab tile pass (``tile_plan``: K1, K4, K5, K6, K11's
+vocab step, the TSD beam), the backward engine (``bwd_plan``: K1, K6, K8,
+K9), K7 (``mhsa_plan``) and the joint forward (``joint_fwd_plan``: K8, K9).
+``deepspeech_moe.yml`` is refused: the port has no MoE trunk yet.
+"""
+
+import glob
+import os
+
+import pytest
+import torch
+
+from speech_recognition_tpu_torch.configs import (ConformerConfig, DataConfig, DeepSpeechConfig, LASConfig,
+                                                  TransducerConfig, get_model_config)
+from speech_recognition_tpu_torch.ops.attention import ROUTE_TENSOR_CORE, mhsa_plan
+from speech_recognition_tpu_torch.ops.beam_search import SMEM_LIMIT, beams_per_block, step_smem_bytes
+from speech_recognition_tpu_torch.ops.joint_planes import MAX_J, ROUTE_TILE_PASS, joint_fwd_plan
+from speech_recognition_tpu_torch.ops.rnn_sequence import MAX_UNITS, rnn_plan
+from speech_recognition_tpu_torch.ops.vocab_bwd import bwd_plan
+from speech_recognition_tpu_torch.ops.vocab_topk import tile_plan, tile_smem
+from speech_recognition_tpu_torch.run.common import create_model
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = os.path.join(ROOT, "resources", "configs")
+MODEL_CONFIGS = ["conformer_small.yml", "deepspeech.yml", "las_large.yml", "las_medium.yml", "las_small.yml",
+                 "transducer_small.yml", "transducer_small_dense.yml", "transducer_small_pruned.yml"]
+REFUSED = ["deepspeech_moe.yml"]  # until MoE is ported (ROADMAP Queue 1)
+B, FRAMES, BEAM, TSD_ROUNDS_K = 128, 1024, 8, 8 + 3  # the TSD beam's joint rounds take the top-(beam + 3)
+
+
+def data_config():
+    return DataConfig.from_yaml(os.path.join(CONFIGS, "libri_config.yml"))
+
+
+def valid_frames(T, kernels, strides):
+    for k, s in zip(kernels, strides):
+        T = (T - k) // s + 1
+    return T
+
+
+def test_the_lists_name_every_shipped_model_config():
+    model = []
+    for path in sorted(glob.glob(os.path.join(CONFIGS, "*.yml"))):
+        with open(path) as f:
+            if "model_name" in f.read():
+                model.append(os.path.basename(path))
+    assert sorted(MODEL_CONFIGS + REFUSED) == model
+
+
+def check_recurrent(rnn_type, H):
+    """K10 takes the width, in both compute types."""
+    assert H <= MAX_UNITS
+    for dtype in (torch.bfloat16, torch.float32):
+        assert rnn_plan(rnn_type, H, dtype).route in ("narrow", "wide")
+
+
+def check_las(cfg, L):
+    T, V = valid_frames(FRAMES, (3, 3), (2, 2)), cfg.vocab_size  # the listener's two 3x3 stride-2 convs: 255
+    He, Hd = cfg.encoder_hidden_dim, cfg.decoder_hidden_dim
+    check_recurrent("lstm", He)  # the listener: decode and dev pass
+    Dv = 2 * He
+    kb = beams_per_block(BEAM, T, Hd, Hd, Dv)  # K11's step kernel, the embedding as wide as the decoder
+    assert kb in (1, 2, 4, 8) and step_smem_bytes(kb, T, Hd, Hd, Dv) <= SMEM_LIMIT
+    for R, k in ((B, 1), (B, BEAM), (B * BEAM, BEAM), ((L - 1) * B, 1)):  # K4, K5's first step, K11's vocab, K1
+        tile_plan(R, Hd, V, k)
+    bwd_plan((L - 1) * B, Hd, V)  # K1's backward
+
+
+def check_ctc(R, H, V):
+    tile_plan(R, H, V, 1)  # K6's forward
+    bwd_plan(R, H, V)  # K6's backward
+
+
+def check_encoder(heads, width):
+    plan = mhsa_plan(B, 256, heads, width // heads, torch.bfloat16)  # 255 frames after the stem, 256 in the blocks
+    assert plan.route == ROUTE_TENSOR_CORE and max(plan.fwd_smem, plan.dq_smem, plan.dkv_smem) <= SMEM_LIMIT
+
+
+def check_transducer(cfg, L):
+    T, J, V = 255, cfg.joint_dim, cfg.vocab_size
+    check_encoder(cfg.num_attention_heads, cfg.encoder_dim)
+    check_recurrent("lstm", cfg.pred_dim)  # the prediction net's dev pass
+    S = cfg.pruned_range or L - 1  # the band, or every label slot: U + 1 = 127 (chip_smoke.py U1_RNNT)
+    R = B * T * S
+    assert J <= MAX_J and R < 2 ** 31
+    plan = joint_fwd_plan(R, J, V, torch.bfloat16)
+    assert plan.route == ROUTE_TILE_PASS and tile_smem(-(-J // 64), plan.wgs, plan.stage_k) <= SMEM_LIMIT
+    bwd_plan(R, J, V)
+    tile_plan(B * BEAM, J, V, TSD_ROUNDS_K)  # the TSD beam's joint rounds through K5
+
+
+@pytest.mark.parametrize("name", MODEL_CONFIGS)
+def test_shipped_config_passes_every_kernel_check(name):
+    cfg = get_model_config(os.path.join(CONFIGS, name))
+    L = data_config().max_token_length
+    if isinstance(cfg, LASConfig):
+        check_las(cfg, L)
+    elif isinstance(cfg, DeepSpeechConfig):
+        T = valid_frames(FRAMES, [k[0] for k in cfg.kernel_sizes], [s[0] for s in cfg.strides])
+        assert T == 108
+        check_recurrent(cfg.rnn_type, cfg.hidden_dim)
+        check_ctc(B * T, 2 * cfg.hidden_dim, cfg.vocab_size)
+    elif isinstance(cfg, ConformerConfig):
+        check_encoder(cfg.num_attention_heads, cfg.encoder_dim)
+        check_ctc(B * 255, cfg.encoder_dim, cfg.vocab_size)
+    else:
+        assert isinstance(cfg, TransducerConfig)
+        check_transducer(cfg, L)
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_unported_config_is_refused(name):
+    cfg = get_model_config(os.path.join(CONFIGS, name))
+    dc = data_config()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        create_model(cfg, dc, torch.float32, torch.device("cpu"))
+
+
+def test_las_large_needs_the_wide_recurrent_route_and_split_beam_blocks():
+    """LAS-large (H = 1024) is what the wide K10 route and K11's beams-per-block split exist for."""
+    cfg = get_model_config(os.path.join(CONFIGS, "las_large.yml"))
+    assert rnn_plan("lstm", cfg.encoder_hidden_dim, torch.bfloat16).route == "wide"
+    assert step_smem_bytes(BEAM, 255, 1024, 1024, 2048) == 327680 > SMEM_LIMIT
+    assert beams_per_block(BEAM, 255, 1024, 1024, 2048) == 4
+    small = get_model_config(os.path.join(CONFIGS, "las_small.yml"))
+    assert rnn_plan("lstm", small.encoder_hidden_dim, torch.bfloat16).route == "narrow"
+    assert beams_per_block(BEAM, 255, 256, 256, 512) == BEAM  # one block per batch row, as before

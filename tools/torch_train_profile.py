@@ -73,8 +73,9 @@ K7 = {"K7 fwd": ("void srt::mh::mhsa_fwd_tc_kernel", "void srt::mhsa_fwd_kernel"
       "K7 bwd": ("void srt::mh::mhsa_dq_tc_kernel", "void srt::mh::mhsa_dkv_tc_kernel", "void srt::mhsa_bwd_dq_kernel",
                  "void srt::mhsa_bwd_dkv_kernel")}
 PORT_KERNELS["conformer"] = {**PORT_KERNELS["ds2"], **K7}
-# csrc/transducer_joint.cu: K8 (pruned) and K9 (dense) share their kernels
-JOINT = {"fwd": ("void srt::joint_fwd_kernel",),
+# csrc/transducer_joint.cu: K8 (pruned) and K9 (dense) share their kernels; the bf16 forward is the vocab tile
+# pass with the joint's pass (JointPass)
+JOINT = {"fwd": ("void srt::joint_fwd_kernel", "void srt::vt::vocab_tile_mma_kernel<__nv_bfloat16, srt::JointPass>"),
          "bwd": ("void srt::joint_dpre_kernel", "void srt::joint_dw_kernel", "srt::joint_h_kernel",
                  "void srt::vb::vb_row_kernel<srt::JointRows", "void srt::vb::vb_col_kernel<srt::JointRows",
                  "srt::vb::part_sum_kernel", "void srt::joint_denc_kernel", "void srt::joint_dpred_kernel")}
@@ -304,6 +305,7 @@ def main():
     result = {"card": card, "model_config": args.model_config, "batch": B, "frames": frames, "dtype": "bfloat16"}
 
     times = []
+    torch.cuda.reset_peak_memory_stats(dev)
     for k in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -312,6 +314,7 @@ def main():
         end.synchronize()
         times.append(start.elapsed_time(end))
     result["step_ms"] = statistics.median(times[2:])
+    result["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30  # the model, Adam and the steps
     result["utterances_per_s"] = B / (result["step_ms"] / 1e3)
 
     staged = staged_step_transducer if "transducer" in family else staged_step if las else staged_step_ctc
