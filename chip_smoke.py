@@ -25,9 +25,10 @@ Phases, in order; any failure exits non-zero without printing a result:
    never exceed their row's lse, every bf16 K8 / K9 forward takes the vocab
    tile pass, and ptxas reports no spill for the bf16 backward engine's
    kernels, the vocab tile pass's (its top-k and joint passes), K7's
-   tensor-core kernels nor K10's wide route; K4, K5, K10 and K11 also at
-   LAS-large's widths (H = 1024: K10's wide route, K11 with 4 beams a step
-   block);
+   tensor-core kernels, K10's wide route nor the split LAS step; K4, K5, K10
+   and K11 also at LAS-large's widths (H = 1024: K10's wide route; bf16 K4 and
+   K11 on the split route, ``ops/las_step.py``, each with its device ms a step
+   by kernel: query, attention, cells, vocab, select);
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, the features computed
@@ -282,6 +283,35 @@ def cell_flops(Bsz, cells, H):
     return sum(2 * Bsz * (k.shape[0] + H) * 4 * H for k in cells)
 
 
+# the split LAS step's kernels by part, demangled or mangled names (the query product: the EPI_QUERY epilogue)
+STEP_KERNELS = (("query", r"product_kernel(<\d, \d, 0>|ILi\dELi\dELi0E)"),
+                ("attention", r"scores_kernel|context_kernel"), ("cells", r"product_kernel"),
+                ("vocab", r"vocab_tile_(mma|f32)_kernel"),
+                ("select", r"beam_select_kernel|greedy_merge_kernel"))
+
+
+def step_breakdown(fn, n_steps, name):
+    """Device ms a step of the split LAS step's kernels (query, attention, cells, vocab, select / merge, the
+    rest), from ``torch.profiler`` over one call of ``fn`` making ``n_steps`` steps, printed on one line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys([k for k, _ in STEP_KERNELS] + ["rest"], 0.0)
+    for e in prof.events():  # the kernels only: an aten op carries its kernels' device time too
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            part = next((k for k, pat in STEP_KERNELS if re.search(pat, e.name)), "rest")
+            ms[part] += e.device_time_total / 1e3 / n_steps
+    print(f"  {name} device ms a step: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) +
+          f"; sum {sum(ms.values()):.4f}")
+    return ms
+
+
 # ---------------------------------------------------------------- phase 1
 def kernel_spills(build_log, names):
     """{kernel: spill bytes (stores + loads), the most over the sources that compile it} of the
@@ -334,6 +364,11 @@ def phase_setup():
     # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
     check(len(spills) == 8 and not any(spills.values()),
           f"ptxas: K7's 8 tensor-core kernels spill no register ({spills})")
+    spills = kernel_spills(kernels.build_log, ("product_kernel", "scores_kernel", "context_kernel"))
+    # the split LAS step (K4 / K11 in bf16): the products (1 or 2 warpgroups, 1 or 2 panels, query or cell
+    # epilogue) and the attention's two kernels (1..16 beams)
+    check(len(spills) == 18 and not any(spills.values()),
+          f"ptxas: the split LAS step's 18 kernels spill no register ({spills})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -417,6 +452,7 @@ def check_greedy(gen, config="las_small.yml"):
 
     from speech_recognition_tpu_torch.ops.greedy_search import (
         GreedyKernelLoop, attention_bias, greedy_search, greedy_search_plain, greedy_step_plain)
+    from speech_recognition_tpu_torch.ops.las_step import ROUTE_SPLIT
     from speech_recognition_tpu_torch.search import LASSearcher
 
     dt, dev, S = torch.bfloat16, "cuda", S_ENC
@@ -435,6 +471,7 @@ def check_greedy(gen, config="las_small.yml"):
     args = (pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, L, 1, 2, 0)
 
     loop = GreedyKernelLoop(*args)
+    check(loop.route.route == ROUTE_SPLIT, f"{name}: bf16 takes the split route ({loop.route.route})")
     bias = attention_bias(mask)
     h_err = c_err = 0.0
     tok_eq = 0
@@ -464,19 +501,21 @@ def check_greedy(gen, config="las_small.yml"):
     # query projection), the cells and the vocab projection
     H, Dv, V = qw.shape[0], value.shape[2], vw.shape[1]
     step_flops = 2 * B * (S * H + S * Dv + H * H + H * V) + cell_flops(B, [k for k, _, _ in cells], H)
-    b_ms, b_by = bound((L - 1) * step_flops, nbytes(args[:11], ktok, kppl))
+    # every step streams pk and value (200.5 MB at LAS-large: more than L2 holds), the other inputs once
+    b_ms, b_by = bound((L - 1) * step_flops, nbytes(args[:11], ktok, kppl) + (L - 2) * nbytes(pk, value))
     print(f"  {name} B={B} S={S} L={L}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms per decode, "
           f"bound {b_ms:.4f} ms ({b_by})")
+    step_breakdown(lambda: greedy_search(*args), L - 1, name)
     return max(h_err, c_err), k_ms, p_ms, b_ms, b_by, None
 
 
 def check_las_beam(gen, config="las_small.yml"):
     """K11 vs plain at a LAS beam-8 decode: LAS-small's (B=128, K=8, S=255,
     H=He=256, Dv=512, V=16000, L=128) or, with ``config`` las_large.yml,
-    LAS-large's (H=He=1024, Dv=2048: the step kernel holds 4 beams a block),
-    random weights with the vocab projection x8 (peaked logits), a ragged mask,
-    the beams seeded by the first step from BOS (plain step and plain K5), bf16
-    and float32.
+    LAS-large's (H=He=1024, Dv=2048), random weights with the vocab projection
+    x8 (peaked logits), a ragged mask, the beams seeded by the first step from
+    BOS (plain step and plain K5), bf16 (the split route) and float32 (the
+    per-row step kernels, 4 beams a block at LAS-large).
 
     Per step, the plain step runs from the kernel's own state (one-step calls of
     both, ``step0`` = n): >= 99% of the slots keep the same history (a flip needs
@@ -523,7 +562,10 @@ def check_las_beam(gen, config="las_small.yml"):
 
         lp_err = check_beam_steps(ops, (h0.float(), c0.float(), tokens, args[12]), name, rtol, atol, state_atol)
 
+        split = bs_mod.beam_search.tc_launches
         ktok, klogp = bs_mod.beam_search(*args)
+        check(bs_mod.beam_search.tc_launches - split == int(bf),
+              f"{name}: {'bf16 takes the split route' if bf else 'float32 takes the per-row step kernels'}")
         steps, step_plain = [0], bs_mod.beam_step_plain
 
         def counted_step(*a, **kw):
@@ -552,12 +594,14 @@ def check_las_beam(gen, config="las_small.yml"):
     k_ms, p_ms = timed_pair(lambda: bs_mod.beam_search(*args), lambda: bs_mod.beam_loop_plain(*args), 2)
     R, H, Dv, V = B * BEAM, args[3].shape[0], args[1].shape[2], args[6].shape[1]
     step_flops = 2 * R * (H * H + S * H + S * Dv + H * V) + cell_flops(R, [k for k, _, _ in args[8]], H)
-    # tokens move as int32 inside the kernel: histories in, histories and log-probs out
-    b_ms, b_by = bound(n_steps * step_flops, nbytes(args[:11], args[11].int(), args[12], ktok.int(), klogp))
-    kbs = bs_mod.beams_per_block(BEAM, S, H, args[5].shape[1], Dv)
-    print(f"  las_beam bf16 B={B} K={BEAM} S={S} L={L} H={H} ({kbs} beams a step block): kernel {k_ms:.3f} ms, "
+    # tokens move as int32 inside the kernel: histories in, histories and log-probs out; every step streams pk
+    # and value (200.5 MB at LAS-large: more than L2 holds)
+    b_ms, b_by = bound(n_steps * step_flops, nbytes(args[:11], args[11].int(), args[12], ktok.int(), klogp)
+                       + (n_steps - 1) * nbytes(args[0], args[1]))
+    print(f"  las_beam bf16 B={B} K={BEAM} S={S} L={L} H={H} (split route): kernel {k_ms:.3f} ms, "
           f"plain {p_ms:.3f} ms per loop of {n_steps} steps, bound {b_ms:.4f} ms ({b_by}); library none (no one "
           f"PyTorch call runs a beam loop)")
+    step_breakdown(lambda: bs_mod.beam_search(*args), n_steps, f"las_beam bf16 H={H}")
     return err, k_ms, p_ms, b_ms, b_by, None
 
 
@@ -1239,9 +1283,9 @@ def run_main_path(tmp, wav_dir, data_config, weights):
             "--audio-files", os.path.join(wav_dir, "*.wav"), "--model-path", weights,
             "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
             "--mixed-precision", "--device", "GPU", "--batch-size", str(B)]
-    greedy_search.launches = 0
+    greedy_search.launches = greedy_search.tc_launches = 0
     vocab_topk.launches = 0
-    beam_search.launches = 0
+    beam_search.launches = beam_search.tc_launches = 0
     rows, k10 = {}, 0
     for name, beam, flags in (("greedy", 0, []), ("beam8", BEAM, []),
                               ("greedy host features", 0, ["--no-on-device-frontend"])):
@@ -1263,6 +1307,9 @@ def run_main_path(tmp, wav_dir, data_config, weights):
                                         f"first step) and las_beam (K11) {k11} times (steps 2..L-1); expected 1 and 1")
     launches = {"las_greedy": greedy_search.launches, "vocab_topk": vocab_topk.launches,
                 "las_beam": beam_search.launches, "rnn_sequence_lstm": k10}
+    check(greedy_search.tc_launches == greedy_search.launches and beam_search.tc_launches == beam_search.launches,
+          f"the LAS-small decodes' K4 / K11 launches all took the split route (K4 {greedy_search.tc_launches} of "
+          f"{greedy_search.launches}, K11 {beam_search.tc_launches} of {beam_search.launches})")
     for name in rows:
         check(len(rows[name]) == B, f"{name} TSV has {B} rows ({len(rows[name])})")
     same = sum(a == b for a, b in zip(rows["greedy"], rows["greedy host features"]))
@@ -1405,7 +1452,7 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
     (the vocab projection x8, peaked logits as in phase 2), bf16, B=128, greedy and
     beam-8, each decode after the counters are set to 0: K10 once per listener layer
     (its wide route), K4 in the greedy decode, K5 once (the beam's first step) and K11
-    once (steps 2..L-1, 4 beams a step block) in beam-8; 128 rows each.  Then the
+    once (steps 2..L-1) in beam-8, every K4 / K11 launch on the split route; 128 rows each.  Then the
     decode ms per batch and RTF on the host features ``audio`` (CUDA events around one
     searcher call after a warm-up call): tokens in the vocab, perplexity >= 1 and not
     NaN (it is exp(logP)^(-1/len), as the JAX searcher computes it, so a row whose
@@ -1433,6 +1480,7 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
     counts = dict.fromkeys(("rnn_sequence_lstm_wide", "las_greedy_large", "vocab_topk_large", "las_beam_large"), 0)
     for name, beam in (("greedy", 0), ("beam8", BEAM)):
         rnn_sequence.launches = greedy_search.launches = vocab_topk.launches = beam_search.launches = 0
+        greedy_search.tc_launches = beam_search.tc_launches = 0
         out = os.path.join(tmp, f"las_large_{name}.tsv")
         t0 = time.perf_counter()
         inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out]))
@@ -1449,6 +1497,9 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
                                                     f"times and las_beam (K11) {n11} times; expected 1 and 1")
         else:
             check(k4 > 0 and n11 == 0, f"the LAS-large greedy decode launched las_greedy (K4) {k4} times")
+        check(greedy_search.tc_launches == k4 and beam_search.tc_launches == n11,
+              f"the LAS-large {name} decode's K4 / K11 launches all took the split route "
+              f"(K4 {greedy_search.tc_launches} of {k4}, K11 {beam_search.tc_launches} of {n11})")
         for key, n in zip(counts, (rnn_sequence.launches, k4, k5, n11)):
             counts[key] += n
 

@@ -1,23 +1,26 @@
 // Kernel K11: the whole LAS beam loop, steps 2..L-1, in one host call.  C interface for ops/beam_search.py (ctypes).
 // Replaces beam_search_pallas (speech_recognition_tpu/ops/pallas/beam_kernel.py:415, step _beam_step_math :122).
 //
-// Rows are beam-major (row b*K + k).  Three launches per step, enqueued by
-// las_beam_search for steps 2..L-1 without any host synchronisation:
-//  1. beam_step_kernel: one block of BEAM_THREADS per batch row b, holding
-//     its K beams, or, where K beams' vectors exceed a block's shared memory
-//     (LAS-large: 320 KB at K = 8, H = 1024, He + Dv = 3072), grid (B, K / KB)
-//     of blocks of KB beams each (a beam's step reads no other beam).  Every
-//     per-beam vector lives in shared memory beam-minor (element [i][k] at
-//     i*KB + k, KB = the block's beams rounded up to a power of two), so
-//     one float4 load brings four beams' values for one weight or key
-//     element: the embedding gather, q = bf16(h) @ qw + qb, the scores (a
-//     warp per key frame) and the context (a thread per value column) read
-//     pk[b] and value[b] once for all K beams; the threaded LSTM stack (a
-//     thread per pair of gate columns, one 4-byte load for both in bf16)
-//     reads each weight element once per block.
-//     h and c stay float32; values are rounded to T where _beam_step_math
-//     rounds them (the query and recurrent inputs, the context, each cell's
-//     output).
+// Rows are beam-major (row b*K + k).  Two routes, chosen by ops/las_step.py step_plan; each enqueues its
+// launches for steps 2..L-1 without any host synchronisation and ends a step with the same two launches:
+//  - bf16 (las_beam_search_split): the split step of las_split.cu over all B*K rows: the query product, the
+//    attention (scores and context kernels whose blocks each hold all K beams of one batch row, so pk[b] and
+//    value[b] are read once a step), one
+//    wgmma product per cell with the cell update as its epilogue, each weight read once for every 64 or 128
+//    rows instead of once per block of beams;
+//  - float32 (las_beam_search), the checks' path: beam_step_kernel, one block of BEAM_THREADS per batch row b,
+//    holding its K beams, or, where K beams' vectors exceed a block's shared memory
+//    (LAS-large: 320 KB at K = 8, H = 1024, He + Dv = 3072), grid (B, K / KB)
+//    of blocks of KB beams each (a beam's step reads no other beam).  Every
+//    per-beam vector lives in shared memory beam-minor (element [i][k] at
+//    i*KB + k, KB = the block's beams rounded up to a power of two), so
+//    one float4 load brings four beams' values for one weight or key
+//    element: the embedding gather, q = h @ qw + qb, the scores (a
+//    warp per key frame) and the context (a thread per value column) read
+//    pk[b] and value[b] once for all K beams; the threaded LSTM stack (a
+//    thread per pair of gate columns) reads each weight element once per block.
+//    h and c stay float32.
+// Then, on both routes:
 //  2. the vocab tile pass (vocab_topk.cuh) over the B*K hidden rows with
 //     k = K and bf16(bf16(dot) + b) under bf16 (the beam path's bias is bf16):
 //     wgmma under bf16, CUDA-core FMAs under float32.
@@ -33,12 +36,10 @@
 // beam has ended no later step changes anything, as when the XLA
 // while_loop stops.
 //
-// What bounds it: the operations, ~12.1 GFLOP a step at LAS-small's beam-8
-// (B=128, S=255, V=16000), 1.55 ms for the 126 steps at the tensor cores'
-// rate.  The vocab projection (8.4 of the 12.1 GFLOP) runs on wgmma in the
-// tile pass; the step kernel's products run as float32 FMAs on the CUDA
-// cores, each block reading the ~3 MB of cell weights from L2 every step;
-// tensor-core step products and a persistent loop are later work.
+// What bounds the bf16 route at LAS-large's beam-8 (B = 128, K = 8, S = 255, H = 1024, V = 16000): the
+// operations, 51.5 GFLOP of cell products and 33.6 of vocab projection a step at the tensor cores' rate, and
+// the attention's 200.5 MB of pk + value a step from device memory.
+#include "las_split.cuh"
 #include "vocab_topk.cuh"
 
 #define BEAM_THREADS 512
@@ -55,54 +56,7 @@ struct BeamCells {
   int n;
 };
 
-// dst[k] = src[k], k < KB, for a beam-minor row in shared memory
-template <int KB>
-__device__ __forceinline__ void load_beams(const float* __restrict__ src, float (&dst)[KB]) {
-  if constexpr (KB % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < KB; k += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(src + k);
-      dst[k] = v.x;
-      dst[k + 1] = v.y;
-      dst[k + 2] = v.z;
-      dst[k + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < KB; ++k) dst[k] = src[k];
-  }
-}
-
-// Weight rows a thread loads before it multiplies them: the weights come from L2 (a block reads ~50 MB of
-// cell weights a step at LAS-large), so a thread keeps BEAM_LOADS loads in flight
-#define BEAM_LOADS 16
-
-// acc[k] += sum_a rows[a][k] * W[a * ld + col], a < n in increasing order (rows beam-minor in shared memory)
-template <typename T, int KB>
-__device__ __forceinline__ void beams_matvec(const float* __restrict__ rows, const T* __restrict__ W, int n,
-                                             size_t ld, int col, float (&acc)[KB]) {
-  for (int a0 = 0; a0 < n; a0 += BEAM_LOADS) {
-    float w[BEAM_LOADS];
-#pragma unroll
-    for (int u = 0; u < BEAM_LOADS; ++u) w[u] = a0 + u < n ? to_f(W[(size_t)(a0 + u) * ld + col]) : 0.0f;
-#pragma unroll
-    for (int u = 0; u < BEAM_LOADS; ++u) {
-      if (a0 + u < n) {
-        float r[KB];
-        load_beams<KB>(rows + (a0 + u) * KB, r);
-#pragma unroll
-        for (int k = 0; k < KB; ++k) acc[k] = fmaf(r[k], w[u], acc[k]);
-      }
-    }
-  }
-}
-
-// Two adjacent elements of T as floats (col even, W 4-byte aligned there for bf16, 8-byte for float)
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& w0, float& w1) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  w0 = __low2float(v);
-  w1 = __high2float(v);
-}
+// Two adjacent floats (col even, W 8-byte aligned there)
 __device__ __forceinline__ void load_pair(const float* p, float& w0, float& w1) {
   const float2 v = *reinterpret_cast<const float2*>(p);
   w0 = v.x;
@@ -404,6 +358,25 @@ inline decltype(&beam_select_kernel<1>) select_kernel_for(int K) {
          : K <= 8 ? beam_select_kernel<8> : beam_select_kernel<16>;
 }
 
+// The end of step ``step`` on both routes: the vocab tile pass over the B*K hidden rows (top-K, bf16(bf16(dot) + b)
+// in bf16) and the select kernel, each returning at entry once live[step - 1] == 0
+template <typename T>
+cudaError_t beam_tail(const T* hid, const void* vw, const void* vb, int* tokens, float* logp, int* ended,
+                      float* eoslen, int* live, float* part_val, int* part_idx, float* part_max, float* part_sum, int B,
+                      int K, int H, int V, int L, int step, int eos_id, int pad_id, float alpha, float beta_den,
+                      const TilePlan& plan, cudaStream_t stream) {
+  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
+  const int rounding = sizeof(T) == 2 ? ROUND_TWICE : ROUND_NONE;
+  cudaError_t err = launch_vocab_tiles<T, T>(hid, static_cast<const T*>(vw), static_cast<const T*>(vb), B * K, H, V,
+                                             K, rounding, plan, part_val, part_idx, part_max, part_sum, stream,
+                                             live + step - 1);
+  if (err != cudaSuccess) return err;
+  select_kernel_for(K)<<<B, BEAM_THREADS, 0, stream>>>(K, n_tiles, part_val, part_idx, part_max, part_sum, tokens,
+                                                       logp, ended, eoslen, live, L, step, eos_id, pad_id, alpha,
+                                                       beta_den);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t beam_search_impl(const void* pk, const void* value, const float* attn_bias, const void* qw,
                              const void* qb, const void* emb, const void* vw, const void* vb, int n_cells, void** ks,
@@ -424,12 +397,9 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
     cells.bias[i] = static_cast<const T*>(bs[i]);
   }
   const auto step_kernel = step_kernel_for<T>(kbs);
-  const auto select_kernel = select_kernel_for(K);
   const size_t smem = sizeof(float) * kbs * (size_t)step_smem_floats(S, H, He, Dv);
   cudaError_t err = cudaFuncSetAttribute(step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
-  const int rounding = sizeof(T) == 2 ? ROUND_TWICE : ROUND_NONE;
   T* hid = static_cast<T*>(hidden);
   for (int step = step0; step < step0 + n_steps; ++step) {
     step_kernel<<<dim3(B, (K + kbs - 1) / kbs), BEAM_THREADS, smem, stream>>>(
@@ -438,12 +408,8 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
         step, pad_id);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = launch_vocab_tiles<T, T>(hid, static_cast<const T*>(vw), static_cast<const T*>(vb), B * K, H, V, K,
-                                   rounding, plan, part_val, part_idx, part_max, part_sum, stream, live + step - 1);
-    if (err != cudaSuccess) return err;
-    select_kernel<<<B, BEAM_THREADS, 0, stream>>>(K, n_tiles, part_val, part_idx, part_max, part_sum, tokens, logp,
-                                                  ended, eoslen, live, L, step, eos_id, pad_id, alpha, beta_den);
-    err = cudaGetLastError();
+    err = beam_tail<T>(hid, vw, vb, tokens, logp, ended, eoslen, live, part_val, part_idx, part_max, part_sum, B, K,
+                       H, V, L, step, eos_id, pad_id, alpha, beta_den, plan, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -458,29 +424,81 @@ cudaError_t beam_search_impl(const void* pk, const void* value, const float* att
 // the start) and zeros.  hidden [B*K, H] and part_* ([B*K, ceil(V/VOCAB_TILE),
 // K] and [B*K, ceil(V/VOCAB_TILE)]) are scratch.  beams_per_block: the step
 // kernel's beams a block, a power of two below 2K (ops/beam_search.py
-// beams_per_block).  beta_den = 1 + beta.  wgs,
-// stage_k, tiles_per_block: the bf16 plan of the vocab tile pass over the B*K
-// rows (ops/vocab_topk.py tile_plan).
-extern "C" int las_beam_search(int dtype_bf16, const void* pk, const void* value, const float* attn_bias,
-                               const void* qw, const void* qb, const void* emb, const void* vw, const void* vb,
-                               int n_cells, void** ks, void** rs, void** bs, float* h, float* c, int* tokens,
-                               float* logp, int* ended, float* eoslen, int* live, void* hidden, float* part_val,
-                               int* part_idx, float* part_max, float* part_sum, int B, int K, int S, int H, int He,
-                               int Dv, int V, int L, int step0, int n_steps, int eos_id, int pad_id, float alpha,
-                               float beta_den, int beams_per_block, int wgs, int stage_k, int tiles_per_block,
+// beams_per_block).  beta_den = 1 + beta.  Every operand float32 (the float32 route).
+extern "C" int las_beam_search(const void* pk, const void* value, const float* attn_bias, const void* qw,
+                               const void* qb, const void* emb, const void* vw, const void* vb, int n_cells, void** ks,
+                               void** rs, void** bs, float* h, float* c, int* tokens, float* logp, int* ended,
+                               float* eoslen, int* live, void* hidden, float* part_val, int* part_idx, float* part_max,
+                               float* part_sum, int B, int K, int S, int H, int He, int Dv, int V, int L, int step0,
+                               int n_steps, int eos_id, int pad_id, float alpha, float beta_den, int beams_per_block,
                                void* stream) {
+  const cudaError_t err = srt::beam_search_impl<float>(
+      pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended, eoslen, live, hidden,
+      part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha,
+      beta_den, beams_per_block, srt::TilePlan{0, 0, 0}, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The bf16 route (las_split.cuh) of steps step0 .. step0 + n_steps - 1, with the float32 route's state and
+// scratch (above) and: hq [2, B*K, H] and xs [2, B*K, H] bf16 and q [B*K, H] float32 and x0 [B*K, He + Dv] bf16
+// scratch; ws: each cell's gate-interleaved [Kc; Rc] (ops/las_step.py interleave_cell) with Hu units; bs: the
+// cells' biases.  q_*, c_*: the query's and the cells' product plans; wgs, stage_k, tiles_per_block: the vocab
+// pass's (ops/las_step.py step_plan).
+extern "C" int las_beam_search_split(const void* pk, const void* value, const float* attn_bias, const void* qw,
+                                     const void* qb, const void* emb, const void* vw, const void* vb, int n_cells,
+                                     void** ws, void** bs, float* h, float* c, void* hq, float* q, float* scores,
+                                     void* x0, void* xs, int* tokens, float* logp, int* ended, float* eoslen,
+                                     int* live, void* hidden, float* part_val, int* part_idx, float* part_max,
+                                     float* part_sum, int B, int K, int S, int H, int He, int Dv, int Hu, int V, int L,
+                                     int step0, int n_steps, int eos_id, int pad_id, float alpha, float beta_den,
+                                     int q_wgs, int q_panels, int c_wgs, int c_panels, int wgs, int stage_k,
+                                     int tiles_per_block, void* stream) {
+  using srt::wg::Bf;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_cells < 1 || n_cells > SPLIT_MAX_CELLS || K < 1 || K > BEAM_MAX_K || step0 < 2 || n_steps < 0 ||
+      step0 + n_steps > L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  srt::SplitStep s{};
+  s.pk = static_cast<const Bf*>(pk);
+  s.value = static_cast<const Bf*>(value);
+  s.qw = static_cast<const Bf*>(qw);
+  s.qb = static_cast<const Bf*>(qb);
+  s.emb = static_cast<const Bf*>(emb);
+  s.attn_bias = attn_bias;
+  s.n_cells = n_cells;
+  for (int i = 0; i < n_cells; ++i) {
+    s.w[i] = static_cast<const Bf*>(ws[i]);
+    s.bias[i] = static_cast<const Bf*>(bs[i]);
+  }
+  s.h = h;
+  s.c = c;
+  s.hq = static_cast<Bf*>(hq);
+  s.q = q;
+  s.scores = scores;
+  s.x0 = static_cast<Bf*>(x0);
+  s.xs = static_cast<Bf*>(xs);
+  s.hidden = static_cast<Bf*>(hidden);
+  s.B = B;
+  s.K = K;
+  s.S = S;
+  s.H = H;
+  s.He = He;
+  s.Dv = Dv;
+  s.Hu = Hu;
+  s.pad_id = pad_id;
+  s.qp = srt::ProductPlan{q_wgs, q_panels};
+  s.cp = srt::ProductPlan{c_wgs, c_panels};
   const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
-  cudaError_t err;
-  if (dtype_bf16)
-    err = srt::beam_search_impl<__nv_bfloat16>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
-                                               tokens, logp, ended, eoslen, live, hidden, part_val, part_idx,
-                                               part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps, eos_id,
-                                               pad_id, alpha, beta_den, beams_per_block, plan, st);
-  else
-    err = srt::beam_search_impl<float>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens,
-                                       logp, ended, eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B,
-                                       K, S, H, He, Dv, V, L, step0, n_steps, eos_id, pad_id, alpha, beta_den,
-                                       beams_per_block, plan, st);
+  srt::SplitMaps maps;
+  cudaError_t err = srt::split_prepare(s, &maps);
+  if (err == cudaSuccess) err = srt::split_hq_init(s, st);
+  int parity = 0;
+  for (int step = step0; step < step0 + n_steps && err == cudaSuccess; ++step) {
+    err = srt::split_step(s, maps, tokens + step - 1, L, live + step - 1, parity, st);
+    if (err == cudaSuccess)
+      err = srt::beam_tail<Bf>(s.hidden, vw, vb, tokens, logp, ended, eoslen, live, part_val, part_idx, part_max,
+                               part_sum, B, K, H, V, L, step, eos_id, pad_id, alpha, beta_den, plan, st);
+    parity ^= n_cells & 1;
+  }
   return static_cast<int>(err);
 }

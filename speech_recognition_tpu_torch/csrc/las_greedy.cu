@@ -1,20 +1,27 @@
 // Kernel K4: one LAS greedy decode step.  C interface for ops/greedy_search.py (ctypes).
 // Replaces greedy_search_pallas (speech_recognition_tpu/ops/pallas/search_kernel.py:237).
 //
-// Three launches per step:
-//  1. las_step_kernel: one block of STEP_THREADS per batch row.  Embedding
-//     gather, q = h @ qw + qb, masked attention scores (a warp per key frame),
-//     float32 softmax, the context (a thread per value column), then the
-//     threaded LSTM cell stack with pad gating (a thread per gate column).
-//     Every vector lives in shared memory; every matvec is the block's own
-//     loop, float32 accumulation.  Values are rounded to T where the TPU
-//     kernel rounds them; h and c stay float32 across steps.  The step's
-//     device code is in las_step.cuh, shared with the decoder forward (K2).
-//  2. the vocab tile pass (vocab_topk.cuh) over the step's hidden rows, k = 1,
-//     one bf16 rounding of (dot + float32 bias) under bf16 (wgmma), none under
-//     float32 (CUDA-core FMAs).
-//  3. greedy_merge_kernel: K5's merge (top-1 and logsumexp) plus the EOS
-//     bookkeeping: a row that has ended emits pad and stops adding logP.
+// Two routes, chosen by ops/las_step.py step_plan:
+//  - bf16 (las_greedy_step_split): the split step of las_split.cu over the B rows (the query product, the
+//    attention's scores and context kernels, one wgmma product per cell with the cell update as its epilogue),
+//    then the vocab tile pass and the merge.  Each weight is read once for each 64-row tile of the batch (at B = 128,
+//    twice) instead of once per batch row.  What bounds it at LAS-large: the attention's 200.5 MB of pk +
+//    value a step from device memory (60 us at 3.35 TB/s), then the cells' 48 MB of weights;
+//  - float32 (las_greedy_step), the checks' path, three launches a step:
+//    1. las_step_kernel: one block of STEP_THREADS per batch row.  Embedding
+//       gather, q = h @ qw + qb, masked attention scores (a warp per key frame),
+//       float32 softmax, the context (a thread per value column), then the
+//       threaded LSTM cell stack with pad gating (a thread per gate column).
+//       Every vector lives in shared memory; every matvec is the block's own
+//       loop, float32 accumulation.  h and c stay float32 across steps.  The
+//       step's device code is in las_step.cuh, shared with the decoder forward (K2).
+//       Each block reads every weight of the step.
+//    2. the vocab tile pass (vocab_topk.cuh) over the step's hidden rows, k = 1
+//       (CUDA-core FMAs in float32; wgmma and one bf16 rounding of (dot + float32
+//       bias) on the bf16 route).
+//    3. greedy_merge_kernel: K5's merge (top-1 and logsumexp) plus the EOS
+//       bookkeeping: a row that has ended emits pad and stops adding logP.
+#include "las_split.cuh"
 #include "las_step.cuh"
 #include "vocab_topk.cuh"
 
@@ -102,6 +109,25 @@ __global__ void greedy_merge_kernel(int B, int n_tiles, const float* __restrict_
   }
 }
 
+// The step's vocab tile pass over the hidden rows (one bf16 rounding of dot + float32 bias in bf16) and the merge
+template <typename T>
+cudaError_t greedy_tail(const void* hidden, const void* vw, const float* vb, int* prev_tok, int* ended,
+                        float* logp_sum, int* tokens, int step, int L, float* part_val, int* part_idx,
+                        float* part_max, float* part_sum, int B, int H, int V, int eos_id, int pad_id,
+                        const TilePlan& plan, cudaStream_t stream) {
+  const bool is_bf16 = sizeof(T) == 2;
+  cudaError_t err = launch_vocab_tiles<T, float>(static_cast<const T*>(hidden), static_cast<const T*>(vw), vb, B, H,
+                                                 V, 1, is_bf16 ? ROUND_ONCE : ROUND_NONE, plan, part_val, part_idx,
+                                                 part_max, part_sum, stream);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
+  const int threads = 256;
+  const int blocks = (int)(((size_t)B * 32 + threads - 1) / threads);
+  greedy_merge_kernel<<<blocks, threads, 0, stream>>>(B, n_tiles, part_val, part_idx, part_max, part_sum, prev_tok,
+                                                      ended, logp_sum, tokens, step, L, eos_id, pad_id);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t greedy_step_impl(const void* pk, const void* value, const float* attn_bias, const void* qw,
                              const void* qb, const void* emb, const void* vw, const float* vb, int n_cells,
@@ -130,39 +156,78 @@ cudaError_t greedy_step_impl(const void* pk, const void* value, const float* att
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const bool is_bf16 = sizeof(T) == 2;
-  err = launch_vocab_tiles<T, float>(static_cast<const T*>(hidden), static_cast<const T*>(vw), vb, B, H, V, 1,
-                                     is_bf16 ? ROUND_ONCE : ROUND_NONE, plan, part_val, part_idx, part_max,
-                                     part_sum, stream);
-  if (err != cudaSuccess) return err;
-
-  const int n_tiles = (V + VOCAB_TILE - 1) / VOCAB_TILE;
-  const int threads = 256;
-  const int blocks = (int)(((size_t)B * 32 + threads - 1) / threads);
-  greedy_merge_kernel<<<blocks, threads, 0, stream>>>(B, n_tiles, part_val, part_idx, part_max, part_sum, prev_tok,
-                                                      ended, logp_sum, tokens, step, L, eos_id, pad_id);
-  return cudaGetLastError();
+  return greedy_tail<T>(hidden, vw, vb, prev_tok, ended, logp_sum, tokens, step, L, part_val, part_idx, part_max,
+                        part_sum, B, H, V, eos_id, pad_id, plan, stream);
 }
 
 }  // namespace srt
 
-extern "C" int las_greedy_step(int dtype_bf16, const void* pk, const void* value, const float* attn_bias,
-                               const void* qw, const void* qb, const void* emb, const void* vw, const float* vb,
-                               int n_cells, void** ks, void** rs, void** bs, float* h, float* c, int* prev_tok,
-                               int* ended, float* logp_sum, int* tokens, int step, int L, void* hidden,
-                               float* part_val, int* part_idx, float* part_max, float* part_sum, int B, int S, int H,
-                               int He, int Dv, int V, int eos_id, int pad_id, int wgs, int stage_k,
-                               int tiles_per_block, void* stream) {
+// The float32 route's step n: every operand float32; h / c [B,H] in place.
+extern "C" int las_greedy_step(const void* pk, const void* value, const float* attn_bias, const void* qw,
+                               const void* qb, const void* emb, const void* vw, const float* vb, int n_cells, void** ks,
+                               void** rs, void** bs, float* h, float* c, int* prev_tok, int* ended, float* logp_sum,
+                               int* tokens, int step, int L, void* hidden, float* part_val, int* part_idx,
+                               float* part_max, float* part_sum, int B, int S, int H, int He, int Dv, int V, int eos_id,
+                               int pad_id, void* stream) {
+  const cudaError_t err = srt::greedy_step_impl<float>(
+      pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, prev_tok, ended, logp_sum, tokens, step, L,
+      hidden, part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, srt::TilePlan{0, 0, 0},
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// The bf16 route's step n (las_split.cuh): h / c [B,H] float32 in place, hq [2,B,H] bf16 with rnd(h) in plane
+// ``parity`` (the step leaves it in plane parity ^ (n_cells & 1)), q [B,H] float32, x0 [B, He + Dv] and xs
+// [2,B,H] bf16 scratch; ws: each cell's gate-interleaved [Kc; Rc] (ops/las_step.py interleave_cell) with Hu
+// units; bs: the cells' biases.  q_*, c_*: the query's and the cells' product plans, wgs, stage_k,
+// tiles_per_block: the vocab pass's (ops/las_step.py step_plan).
+extern "C" int las_greedy_step_split(const void* pk, const void* value, const float* attn_bias, const void* qw,
+                                     const void* qb, const void* emb, const void* vw, const float* vb, int n_cells,
+                                     void** ws, void** bs, float* h, float* c, void* hq, float* q, float* scores,
+                                     void* x0, void* xs, int parity, int* prev_tok, int* ended, float* logp_sum,
+                                     int* tokens, int step, int L, void* hidden, float* part_val, int* part_idx,
+                                     float* part_max, float* part_sum, int B, int S, int H, int He, int Dv, int Hu,
+                                     int V, int eos_id, int pad_id, int q_wgs, int q_panels, int c_wgs, int c_panels,
+                                     int wgs, int stage_k, int tiles_per_block, void* stream) {
+  using srt::wg::Bf;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const srt::TilePlan plan{wgs, stage_k, tiles_per_block};
-  cudaError_t err;
-  if (dtype_bf16)
-    err = srt::greedy_step_impl<__nv_bfloat16>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
-                                               prev_tok, ended, logp_sum, tokens, step, L, hidden, part_val, part_idx,
-                                               part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, plan, st);
-  else
-    err = srt::greedy_step_impl<float>(pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c,
-                                       prev_tok, ended, logp_sum, tokens, step, L, hidden, part_val, part_idx,
-                                       part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, plan, st);
+  if (n_cells < 1 || n_cells > SPLIT_MAX_CELLS) return static_cast<int>(cudaErrorInvalidValue);
+  srt::SplitStep s{};
+  s.pk = static_cast<const Bf*>(pk);
+  s.value = static_cast<const Bf*>(value);
+  s.qw = static_cast<const Bf*>(qw);
+  s.qb = static_cast<const Bf*>(qb);
+  s.emb = static_cast<const Bf*>(emb);
+  s.attn_bias = attn_bias;
+  s.n_cells = n_cells;
+  for (int i = 0; i < n_cells; ++i) {
+    s.w[i] = static_cast<const Bf*>(ws[i]);
+    s.bias[i] = static_cast<const Bf*>(bs[i]);
+  }
+  s.h = h;
+  s.c = c;
+  s.hq = static_cast<Bf*>(hq);
+  s.q = q;
+  s.scores = scores;
+  s.x0 = static_cast<Bf*>(x0);
+  s.xs = static_cast<Bf*>(xs);
+  s.hidden = static_cast<Bf*>(hidden);
+  s.B = B;
+  s.K = 1;
+  s.S = S;
+  s.H = H;
+  s.He = He;
+  s.Dv = Dv;
+  s.Hu = Hu;
+  s.pad_id = pad_id;
+  s.qp = srt::ProductPlan{q_wgs, q_panels};
+  s.cp = srt::ProductPlan{c_wgs, c_panels};
+  srt::SplitMaps maps;
+  cudaError_t err = srt::split_prepare(s, &maps);
+  if (err == cudaSuccess) err = srt::split_step(s, maps, prev_tok, 1, nullptr, parity, st);
+  if (err == cudaSuccess)
+    err = srt::greedy_tail<Bf>(hidden, vw, vb, prev_tok, ended, logp_sum, tokens, step, L, part_val, part_idx,
+                               part_max, part_sum, B, H, V, eos_id, pad_id,
+                               srt::TilePlan{wgs, stage_k, tiles_per_block}, st);
   return static_cast<int>(err);
 }

@@ -1,0 +1,482 @@
+// The split LAS decode step (las_split.cuh): the bf16 route of K4 (greedy_search_pallas,
+// speech_recognition_tpu/ops/pallas/search_kernel.py:237) and K11 (beam_search_pallas, beam_kernel.py:415).
+// The TPU kernels compute the step's products as whole-matrix jnp.dots on the MXU (search_kernel.py:131 and
+// :146-150, beam_kernel.py:159 and :178-182); so does this route, on wgmma over all R rows.
+//
+// What bounds it at LAS-large (B = 128, S = 255, H = He = 1024, Dv = 2048): the attention streams pk + value,
+// 200.5 MB a step, from device memory (60 us at 3.35 TB/s); the cell products are 6.4 GFLOP (greedy, R = 128)
+// or 51.5 GFLOP (beam-8, R = 1024) a step, their 48 MB of weights read once for each row tile.  The design:
+//  - products: a block owns 64 or 128 rows and 64 or 128 output columns; A (the rows) and B (the weights)
+//    arrive by TMA, one [64 x 64] box each per 64-row k-panel, through a ring of four stages (two in flight
+//    while one is multiplied), an mbarrier per stage; wgmma m64n64k16 or m64n128k16, each k-panel into a
+//    fresh float32 accumulator whose sum is added into the total in float32.  Blocks that share a weight tile
+//    are adjacent in the grid, so it is read from device memory about once and from L2 by the others.  The K
+//    loop runs over the rows' first source, then the second (x, then rnd(h), for a cell);
+//  - the gates: each cell's [Kc; Rc] is copied once per decode call into a gate-interleaved layout, column
+//    32 g + 8 k + t holding gate k of unit 8 g + t, so that the thread that holds accumulator columns
+//    8 j + 2 (lane % 4) + {0, 1} (j = 4 g + k) has all four gates of its two units in registers: the cell
+//    update is the product's epilogue, with no shuffle and no round trip through memory;
+//  - the attention keeps the sums of the per-row kernels it replaces (las_step.cuh attend for one beam, the
+//    beam-minor vectors of the per-row beam step for K beams) in the same order, with all K beams of a batch
+//    row in each of its blocks, so pk[b] and value[b] are read once a step; a row's key frames and value
+//    columns spread over 8 + 8 blocks (at S = 255, Dv = 2048), pk and value staged through shared memory
+//    16 bytes a load.
+#include "las_split.cuh"
+
+namespace srt {
+namespace sp {
+
+using namespace wg;  // PANEL, W_PANEL, ALIGN and the PTX helpers
+
+constexpr int STAGES = 4, IN_FLIGHT = STAGES - 2;  // = ops/las_step.py STAGES
+constexpr int MAX_SMEM = 232448;                   // dynamic shared memory one block may use on the H100
+constexpr int MAX_KB = 16;                         // beams of an attention block (= ops/vocab_topk.py MAX_K)
+enum { EPI_QUERY = 0, EPI_CELL = 1 };
+
+// Dynamic shared memory of a product block (ops/las_step.py product_smem mirrors it): the ring only.
+inline size_t product_smem(int wgs, int panels) { return ALIGN + (size_t)STAGES * (wgs + panels) * W_PANEL; }
+// The attention's blocks (ops/las_step.py mirrors them): a scores block takes SCORE_FRAMES key frames with
+// SCORE_THREADS threads (each warp SCORE_FRAMES / 8 of them) and holds the row's queries, q [KB][H] floats, and
+// its key frames, [SCORE_FRAMES][H] bf16; a context block takes CTX_COLS value columns, a thread each, and holds
+// two tiles of CTX_FRAMES frames of them (bf16), the row's scores, p [S][KB], and 33 floats of reduction scratch.
+#define SCORE_FRAMES 32
+#define SCORE_THREADS 256
+#define CTX_COLS 256
+#define CTX_FRAMES 32
+inline size_t scores_smem(int kb, int H) { return sizeof(float) * (size_t)kb * H + 2 * SCORE_FRAMES * (size_t)H; }
+inline size_t context_smem(int kb, int S) {
+  return 2 * 2 * CTX_FRAMES * CTX_COLS + sizeof(float) * ((size_t)kb * S + 33);
+}
+
+// What a product's epilogue reads and writes.
+struct Epi {
+  const Bf* bias;  // query: qb [H]; cell: [4H]
+  float* q;        // query: out [R,H]
+  float *h, *c;    // cell: state [R,H], in place
+  Bf *hq_out, *x_out;
+  const int* prev;
+  int prev_stride, pad_id, R, H;
+};
+
+// out = A @ W (+ the epilogue) for the block's 64 WGS rows and 64 NP columns.  A's k-panels 0..n_k1-1 come
+// from a1, n_k1..n_k-1 from a2 (column (k - n_k1) 64); W's k-panel k is rows 64 k.. of wm.  The ring holds one
+// k-panel a stage; a stage is refilled once every product that read it is done.  Each k-panel's four k-steps
+// go into a fresh accumulator, za and zb in turns, and the panel sums are added into z in float32, in order,
+// while the next panel is multiplied: the tensor cores' own accumulation rounds toward zero, and over a
+// 4096-deep product that bias moved h far enough to flip its bf16 roundings (PERF.md, PR 12).
+template <int WGS, int NP, int EPI>
+__global__ void __launch_bounds__(128 * WGS, 1)
+    product_kernel(const __grid_constant__ CUtensorMap a1, const __grid_constant__ CUtensorMap a2,
+                   const __grid_constant__ CUtensorMap wm, int n_k1, int n_k, const int* __restrict__ run_flag,
+                   const Epi e) {
+  if (run_flag != nullptr && *run_flag == 0) return;  // the beam loop (K11) has ended
+  constexpr int S = STAGES, D = IN_FLIGHT, A_BYTES = WGS * W_PANEL, KPB = (WGS + NP) * W_PANEL, N = 32 * NP;
+  extern __shared__ uint8_t sp_smem[];
+  __shared__ __align__(8) uint64_t sp_bars[STAGES];  // stage s has landed (one phase a fill)
+  const uint32_t base = (smem_addr(sp_smem) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+  const uint32_t bars = smem_addr(sp_bars);
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31, q = lane & 3;
+  const int row0 = blockIdx.x * WG_ROWS * WGS, col0 = blockIdx.y * PANEL * NP;
+
+  auto issue = [&](int k) {  // k-panel k into stage k % S
+    if (k < n_k && tid == 0) {
+      const uint32_t dst = base + (k % S) * KPB, bar = bars + (k % S) * 8;
+      mbar_expect_tx(bar, KPB);
+      for (int w = 0; w < WGS; ++w) {
+        if (k < n_k1) tma_load_2d(dst + w * W_PANEL, &a1, k * PANEL, row0 + WG_ROWS * w, bar);
+        else tma_load_2d(dst + w * W_PANEL, &a2, (k - n_k1) * PANEL, row0 + WG_ROWS * w, bar);
+      }
+      for (int np = 0; np < NP; ++np) tma_load_2d(dst + A_BYTES + np * W_PANEL, &wm, col0 + np * PANEL, k * PANEL, bar);
+    }
+  };
+  // k-panel k into acc (fresh), one committed wgmma group, not waited for
+  auto panel = [&](float (&acc)[N], int k) {
+    mbar_wait(bars + (k % S) * 8, (k / S) & 1);
+    __syncthreads();  // every warpgroup is done with k-panel k - 2, whose stage the next issue refills
+    issue(k + D);
+    const uint32_t st = base + (k % S) * KPB;
+    wg_arrive();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t a = kmajor(st + wgi * W_PANEL + 32 * s), b = mnmajor(st + A_BYTES + 2048 * s, W_PANEL);
+      if constexpr (NP == 2) mma_ss_n128(acc, a, b, s);
+      else mma_ss<0, 1>(acc, a, b, s);
+    }
+    wg_commit();
+  };
+  float z[N], za[N], zb[N];
+  auto add = [&](float (&acc)[N]) {
+    reg_fence(acc);
+#pragma unroll
+    for (int c = 0; c < N; ++c) z[c] += acc[c];
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  for (int k = 0; k < D; ++k) issue(k);
+#pragma unroll
+  for (int c = 0; c < N; ++c) z[c] = za[c] = zb[c] = 0.0f;
+  int k = 0;
+  for (; k + 1 < n_k; k += 2) {
+    panel(za, k);
+    wg_wait<1>();  // k-panel k - 1 (zb) is done
+    add(zb);
+    panel(zb, k + 1);
+    wg_wait<1>();
+    add(za);
+  }
+  if (k < n_k) {
+    panel(za, k);
+    wg_wait<1>();
+    add(zb);
+    wg_wait<0>();
+    add(za);
+  } else {
+    wg_wait<0>();
+    add(zb);
+  }
+
+  // the thread's cells: z[4 j + 2 hf + x] is row (16 warp + lane / 4 + 8 hf) of its warpgroup, column
+  // 8 j + 2 q + x of the tile
+  const int H = e.H;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + WG_ROWS * wgi + 16 * warp + (lane >> 2) + 8 * hf;
+    if (r >= e.R) continue;
+    if constexpr (EPI == EPI_QUERY) {
+#pragma unroll
+      for (int j = 0; j < 8 * NP; ++j) {
+        const int col = col0 + 8 * j + 2 * q;
+        if (col < H)  // H % 8 == 0: a pair is inside or outside together
+          *reinterpret_cast<float2*>(e.q + (size_t)r * H + col) =
+              make_float2(z[4 * j + 2 * hf] + to_f(e.bias[col]), z[4 * j + 2 * hf + 1] + to_f(e.bias[col + 1]));
+      }
+    } else {
+      const bool m = e.prev[(size_t)r * e.prev_stride] != e.pad_id;  // pad-token gating
+#pragma unroll
+      for (int g = 0; g < 2 * NP; ++g) {  // the tile's groups of 8 units, 16 NP units from col0 / 4
+        const int u = col0 / 4 + 8 * g + 2 * q;
+        if (u >= H) continue;
+        const size_t at = (size_t)r * H + u;
+        const float2 h_old = *reinterpret_cast<const float2*>(e.h + at);
+        const float2 c_old = *reinterpret_cast<const float2*>(e.c + at);
+        float hn[2], cn[2], xo[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float zi = z[4 * (4 * g + 0) + 2 * hf + x] + to_f(e.bias[u + x]);
+          const float zf = z[4 * (4 * g + 1) + 2 * hf + x] + to_f(e.bias[H + u + x]);
+          const float zg = z[4 * (4 * g + 2) + 2 * hf + x] + to_f(e.bias[2 * H + u + x]);
+          const float zo = z[4 * (4 * g + 3) + 2 * hf + x] + to_f(e.bias[3 * H + u + x]);
+          const float gi = sigmoidf(zi), gf = sigmoidf(zf);
+          const float gg = tanhf(zg), go = sigmoidf(zo);
+          const float co = x ? c_old.y : c_old.x, ho = x ? h_old.y : h_old.x;
+          const float cp = gf * co + gi * gg;
+          const float hp = go * tanhf(cp);
+          hn[x] = m ? hp : ho;
+          cn[x] = m ? cp : co;
+          xo[x] = m ? hp : 0.0f;
+        }
+        if (m) {
+          *reinterpret_cast<float2*>(e.h + at) = make_float2(hn[0], hn[1]);
+          *reinterpret_cast<float2*>(e.c + at) = make_float2(cn[0], cn[1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(e.hq_out + at) = __floats2bfloat162_rn(hn[0], hn[1]);
+        *reinterpret_cast<__nv_bfloat162*>(e.x_out + at) = __floats2bfloat162_rn(xo[0], xo[1]);
+      }
+    }
+  }
+}
+
+// The attention of batch row b for its K beams (rows b K + k), KB = K rounded up to a power of two, in two
+// launches so that a row's frames and value columns spread over many blocks, with the per-beam order of sums of
+// the per-row step kernels (pk and value arrive 16 bytes a load through shared memory; each sum takes its terms
+// in the same order as there):
+//  - scores_kernel, grid (B, chunks of SCORE_FRAMES key frames): scores[b K + k][s] = q[k] . pk[b, s] +
+//    bias[b, s], a warp per key frame (four at a time), lane l summing elements l, l + 32, ..;
+//  - context_kernel, grid (B, chunks of CTX_COLS value columns): the float32 softmax of the row's scores (one
+//    beam: block-wide max and sum; else a warp per beam; each block of the row computes the same), the context
+//    rnd(sum_s p[s][k] value[b, s, d]) into x0[:, He + d] (a thread per value column, frames in order, value
+//    streamed in tiles of CTX_FRAMES frames through a double buffer), and, in the row's first block, the
+//    embedding rows of the previous tokens into x0[:, :He].
+template <int KB>
+__global__ void __launch_bounds__(SCORE_THREADS, 2)
+    scores_kernel(const float* __restrict__ q_rows, const Bf* __restrict__ pk, const float* __restrict__ attn_bias,
+                  const int* __restrict__ run_flag, float* __restrict__ scores, int K, int S, int H) {
+  if (run_flag != nullptr && *run_flag == 0) return;
+  constexpr int F = SCORE_FRAMES / (SCORE_THREADS / 32);  // key frames a warp takes together
+  extern __shared__ __align__(16) float sm[];
+  float* q = sm;  // [KB][H] queries, beam-major: lane l reads q[k][l + 32 u], conflict-free
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Bf* rows = reinterpret_cast<Bf*>(q + (size_t)KB * H) + (size_t)warp * F * H;  // [F][H]: this warp's key frames
+  const size_t row0 = (size_t)b * K;
+  for (int e = tid; e < KB * H; e += SCORE_THREADS) {
+    const int k = e / H, j = e - k * H;
+    q[e] = k < K ? q_rows[(row0 + k) * H + j] : 0.0f;
+  }
+  const int s0 = blockIdx.y * SCORE_FRAMES + warp * F;
+  const Bf* pkb = pk + (size_t)b * S * H;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {  // 16 bytes a copy (H % 8 == 0); frames past S read as zeros
+    uint4* dst = reinterpret_cast<uint4*>(rows + f * H);
+    const uint4* src = reinterpret_cast<const uint4*>(pkb + (size_t)(s0 + f) * H);
+    for (int c = lane; c < H / 8; c += 32) dst[c] = s0 + f < S ? src[c] : make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  // lane l sums the terms i = l, l + 32, .. of each (frame, beam) in order, as the per-row step kernels do; the
+  // F frames share each load of the queries
+  float acc[F][KB] = {};
+  for (int i = lane; i < H; i += 32) {
+    float r[KB];
+#pragma unroll
+    for (int k = 0; k < KB; ++k) r[k] = q[k * H + i];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float kv = to_f(rows[f * H + i]);
+#pragma unroll
+      for (int k = 0; k < KB; ++k) acc[f][k] = fmaf(r[k], kv, acc[f][k]);
+    }
+  }
+  const float* biasb = attn_bias + (size_t)b * S;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int k = 0; k < KB; ++k) acc[f][k] = warp_sum(acc[f][k]);
+    const int s = s0 + f;
+    if (lane == 0 && s < S) {
+#pragma unroll
+      for (int k = 0; k < KB; ++k)
+        if (k < K) scores[(row0 + k) * S + s] = acc[f][k] + biasb[s];
+    }
+  }
+}
+
+template <int KB>
+__global__ void __launch_bounds__(CTX_COLS)
+    context_kernel(const float* __restrict__ scores, const Bf* __restrict__ value, const Bf* __restrict__ emb,
+                   const int* __restrict__ prev, int prev_stride, const int* __restrict__ run_flag,
+                   Bf* __restrict__ x0, int K, int S, int He, int Dv) {
+  if (run_flag != nullptr && *run_flag == 0) return;
+  extern __shared__ __align__(16) float sm[];
+  Bf* tiles = reinterpret_cast<Bf*>(sm);                 // [2][CTX_FRAMES][CTX_COLS] value, double-buffered
+  float* p = sm + CTX_FRAMES * CTX_COLS;                 // [S][KB] scores, then probabilities
+  float* red = p + S * KB;                               // [33] reduction scratch
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+  const size_t row0 = (size_t)b * K, in = (size_t)He + Dv;
+  const int d0 = blockIdx.y * CTX_COLS, n_tiles = (S + CTX_FRAMES - 1) / CTX_FRAMES;
+  const Bf* vb = value + (size_t)b * S * Dv;
+  // frames [CTX_FRAMES t, CTX_FRAMES (t + 1)) of the block's columns into buffer t % 2, 16 bytes a copy (Dv % 8 == 0)
+  auto stage = [&](int t) {
+    if (t < n_tiles) {
+      const uint32_t dst = smem_addr(tiles + (t & 1) * CTX_FRAMES * CTX_COLS);
+      for (int e = tid; e < CTX_FRAMES * CTX_COLS / 8; e += nt) {
+        const int f = e / (CTX_COLS / 8), c = 8 * (e - f * (CTX_COLS / 8)), s = t * CTX_FRAMES + f;
+        const bool in_row = s < S && d0 + c < Dv;
+        cp_async16(dst + 2 * (f * CTX_COLS + c), in_row ? vb + (size_t)s * Dv + d0 + c : vb, in_row ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int e = tid; e < S * KB; e += nt) {
+    const int k = e / S, s = e - k * S;
+    p[s * KB + k] = k < K ? scores[(row0 + k) * S + s] : 0.0f;
+  }
+  if (blockIdx.y == 0)
+    for (int e = tid; e < K * He; e += nt) {
+      const int k = e / He, j = e - k * He;
+      x0[(row0 + k) * in + j] = emb[(size_t)prev[(row0 + k) * prev_stride] * He + j];  // exact table rows
+    }
+  __syncthreads();
+
+  if constexpr (KB == 1) {
+    float mx = -INFINITY;
+    for (int s = tid; s < S; s += nt) mx = fmaxf(mx, p[s]);
+    mx = block_reduce(mx, red, true);
+    float sum = 0.0f;
+    for (int s = tid; s < S; s += nt) {
+      const float ex = expf(p[s] - mx);
+      p[s] = ex;
+      sum += ex;
+    }
+    sum = block_reduce(sum, red, false);
+    for (int s = tid; s < S; s += nt) p[s] = p[s] / sum;
+  } else {
+    for (int k = warp; k < KB; k += n_warps) {
+      float mx = -INFINITY;
+      for (int s = lane; s < S; s += 32) mx = fmaxf(mx, p[s * KB + k]);
+      mx = warp_max(mx);
+      float sum = 0.0f;
+      for (int s = lane; s < S; s += 32) {
+        const float ex = expf(p[s * KB + k] - mx);
+        p[s * KB + k] = ex;
+        sum += ex;
+      }
+      sum = warp_sum(sum);
+      for (int s = lane; s < S; s += 32) p[s * KB + k] = p[s * KB + k] / sum;
+    }
+  }
+
+  float acc[KB] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    stage(t + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // tile t has landed for every thread (and, at t = 0, the probabilities are ready)
+    const Bf* tile = tiles + (t & 1) * CTX_FRAMES * CTX_COLS;
+    const int nf = min(CTX_FRAMES, S - t * CTX_FRAMES);
+    for (int f = 0; f < nf; ++f) {
+      const float v = to_f(tile[f * CTX_COLS + tid]);
+      float r[KB];
+      load_beams<KB>(p + (t * CTX_FRAMES + f) * KB, r);
+#pragma unroll
+      for (int k = 0; k < KB; ++k) acc[k] = fmaf(r[k], v, acc[k]);
+    }
+    __syncthreads();  // every thread is done with buffer t % 2 before tile t + 2 refills it
+  }
+  const int d = d0 + tid;
+  if (d < Dv) {
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      if (k < K) x0[(row0 + k) * in + He + d] = __float2bfloat16_rn(acc[k]);
+  }
+}
+
+__global__ void hq_init_kernel(const float* __restrict__ h, Bf* __restrict__ hq, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (size_t)gridDim.x * blockDim.x)
+    hq[i] = __float2bfloat16_rn(h[i]);
+}
+
+template <int EPI>
+decltype(&product_kernel<1, 1, EPI>) product_kernel_for(const ProductPlan& p) {
+  if (p.wgs == 2) return p.panels == 2 ? product_kernel<2, 2, EPI> : product_kernel<2, 1, EPI>;
+  return p.panels == 2 ? product_kernel<1, 2, EPI> : product_kernel<1, 1, EPI>;
+}
+
+inline decltype(&scores_kernel<1>) scores_kernel_for(int kb) {
+  switch (kb) {
+    case 1: return scores_kernel<1>;
+    case 2: return scores_kernel<2>;
+    case 4: return scores_kernel<4>;
+    case 8: return scores_kernel<8>;
+    default: return scores_kernel<16>;
+  }
+}
+
+inline decltype(&context_kernel<1>) context_kernel_for(int kb) {
+  switch (kb) {
+    case 1: return context_kernel<1>;
+    case 2: return context_kernel<2>;
+    case 4: return context_kernel<4>;
+    case 8: return context_kernel<8>;
+    default: return context_kernel<16>;
+  }
+}
+
+inline int beams_pow2(int K) {
+  int kb = 1;
+  while (kb < K) kb *= 2;
+  return kb;
+}
+inline int round64(int n) { return (n + PANEL - 1) / PANEL * PANEL; }
+inline int cell_in(const SplitStep& s, int ci) { return ci == 0 ? s.He + s.Dv : s.H; }
+
+inline bool plan_ok(const ProductPlan& p) { return (p.wgs == 1 || p.wgs == 2) && (p.panels == 1 || p.panels == 2); }
+
+template <int EPI>
+cudaError_t launch_product(const ProductPlan& p, const CUtensorMap& a1, const CUtensorMap& a2, const CUtensorMap& wm,
+                           int n_k1, int n_k, int R, int N, const int* run_flag, const Epi& e, cudaStream_t stream) {
+  const dim3 grid((R + WG_ROWS * p.wgs - 1) / (WG_ROWS * p.wgs), (N + PANEL * p.panels - 1) / (PANEL * p.panels));
+  product_kernel_for<EPI>(p)<<<grid, 128 * p.wgs, product_smem(p.wgs, p.panels), stream>>>(a1, a2, wm, n_k1, n_k,
+                                                                                             run_flag, e);
+  return cudaGetLastError();
+}
+
+}  // namespace sp
+
+cudaError_t split_prepare(const SplitStep& s, SplitMaps* m) {
+  using namespace sp;
+  const int R = s.B * s.K, H = s.H;
+  if (s.n_cells < 1 || s.n_cells > SPLIT_MAX_CELLS || s.K < 1 || s.K > MAX_KB || H % 8 || s.He % 8 || s.Dv % 8 ||
+      !plan_ok(s.qp) || !plan_ok(s.cp) || s.Hu < H || s.Hu % (16 * s.cp.panels))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = panel_map(&m->qw, s.qw, H, H)) != cudaSuccess) return err;
+  if ((err = panel_map(&m->x0, s.x0, R, s.He + s.Dv)) != cudaSuccess) return err;
+  for (int p = 0; p < 2; ++p) {
+    if ((err = panel_map(&m->hq[p], s.hq + (size_t)p * R * H, R, H)) != cudaSuccess) return err;
+    if ((err = panel_map(&m->xs[p], s.xs + (size_t)p * R * H, R, H)) != cudaSuccess) return err;
+  }
+  for (int ci = 0; ci < s.n_cells; ++ci) {
+    const int depth = round64(cell_in(s, ci)) + round64(H);
+    if ((err = panel_map(&m->w[ci], s.w[ci], depth, 4 * s.Hu)) != cudaSuccess) return err;
+  }
+  const ProductPlan* plans[2] = {&s.qp, &s.cp};
+  for (int i = 0; i < 2; ++i) {
+    const auto kernel = i == 0 ? (const void*)product_kernel_for<EPI_QUERY>(*plans[i])
+                               : (const void*)product_kernel_for<EPI_CELL>(*plans[i]);
+    const size_t smem = product_smem(plans[i]->wgs, plans[i]->panels);
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+      return err;
+  }
+  const int kb = beams_pow2(s.K);
+  const size_t ss = scores_smem(kb, H), cs = context_smem(kb, s.S);
+  if (ss > (size_t)MAX_SMEM || cs > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(scores_kernel_for(kb), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ss)) !=
+      cudaSuccess)
+    return err;
+  return cudaFuncSetAttribute(context_kernel_for(kb), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cs);
+}
+
+cudaError_t split_hq_init(const SplitStep& s, cudaStream_t stream) {
+  const size_t n = (size_t)s.B * s.K * s.H;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  sp::hq_init_kernel<<<blocks, 256, 0, stream>>>(s.h, s.hq, n);
+  return cudaGetLastError();
+}
+
+cudaError_t split_step(const SplitStep& s, const SplitMaps& m, const int* prev, int prev_stride, const int* run_flag,
+                       int parity, cudaStream_t stream) {
+  using namespace sp;
+  const int R = s.B * s.K, H = s.H;
+  const size_t plane = (size_t)R * H;
+  const int n_kh = round64(H) / PANEL;
+  Epi e{};
+  e.prev = prev;
+  e.prev_stride = prev_stride;
+  e.pad_id = s.pad_id;
+  e.R = R;
+  e.H = H;
+
+  e.bias = s.qb;
+  e.q = s.q;
+  cudaError_t err = launch_product<EPI_QUERY>(s.qp, m.hq[parity], m.hq[parity], m.qw, n_kh, n_kh, R, H, run_flag, e,
+                                              stream);
+  if (err != cudaSuccess) return err;
+
+  const int kb = beams_pow2(s.K);
+  scores_kernel_for(kb)<<<dim3(s.B, (s.S + SCORE_FRAMES - 1) / SCORE_FRAMES), SCORE_THREADS, scores_smem(kb, H),
+                          stream>>>(s.q, s.pk, s.attn_bias, run_flag, s.scores, s.K, s.S, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  context_kernel_for(kb)<<<dim3(s.B, (s.Dv + CTX_COLS - 1) / CTX_COLS), CTX_COLS, context_smem(kb, s.S), stream>>>(
+      s.scores, s.value, s.emb, prev, prev_stride, run_flag, s.x0, s.K, s.S, s.He, s.Dv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  int p = parity;
+  for (int ci = 0; ci < s.n_cells; ++ci) {
+    e.bias = s.bias[ci];
+    e.h = s.h;
+    e.c = s.c;
+    e.hq_out = s.hq + (p ^ 1) * plane;
+    e.x_out = ci == s.n_cells - 1 ? s.hidden : s.xs + (ci & 1) * plane;
+    const CUtensorMap& a1 = ci == 0 ? m.x0 : m.xs[(ci - 1) & 1];
+    const int n_k1 = round64(cell_in(s, ci)) / PANEL;
+    err = launch_product<EPI_CELL>(s.cp, a1, m.hq[p], m.w[ci], n_k1, n_k1 + n_kh, R, 4 * s.Hu, run_flag, e, stream);
+    if (err != cudaSuccess) return err;
+    p ^= 1;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace srt

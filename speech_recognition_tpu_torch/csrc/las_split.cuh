@@ -1,0 +1,106 @@
+// The split LAS decode step: the bf16 route of the greedy loop (K4, las_greedy.cu) and the beam loop (K11,
+// las_beam.cu).  Declarations here, kernels and host code in las_split.cu; the plan is plain Python,
+// ops/las_step.py step_plan.
+//
+// One step over all R = B K rows (beam-major: row b K + k) is five launches, each reading a weight once for
+// every row of its tile instead of once per batch row:
+//  1. the query product q = rnd(h) @ qw + qb (float32 out), a tiled wgmma product;
+//  2. the attention, each block holding all K beams of one batch row for a chunk of its key frames (the scores)
+//     or of its value columns (the embedding rows, the float32 softmax and the context rounded to bf16, written as
+//     the first cell's input x0 = [emb | ctx]);
+//  3. one wgmma product per LSTM cell, z = x @ Kc + rnd(h) @ Rc over a gate-interleaved copy of [Kc; Rc], its
+//     epilogue the whole cell update (bias, gates, pad gating, h and c in float32, the next cell's inputs).
+// The vocab tile pass and the callers' merge / select kernels follow.  Buffers whose every row a launch reads
+// as a product's A operand (the rounded h, a cell's input) are ping-ponged, so no block reads what another
+// block of the same launch writes.
+#pragma once
+
+#include "common.cuh"
+#include "wgmma.cuh"
+
+#define SPLIT_MAX_CELLS 8  // = ops/las_step.py MAX_CELLS
+
+namespace srt {
+
+// dst[k] = src[k], k < KB, for a beam-minor row in shared memory
+template <int KB>
+__device__ __forceinline__ void load_beams(const float* __restrict__ src, float (&dst)[KB]) {
+  if constexpr (KB % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < KB; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + k);
+      dst[k] = v.x;
+      dst[k + 1] = v.y;
+      dst[k + 2] = v.z;
+      dst[k + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < KB; ++k) dst[k] = src[k];
+  }
+}
+
+// Weight rows a thread loads before it multiplies them (the rows come from L2 or device memory), so a thread
+// keeps BEAM_LOADS loads in flight
+#define BEAM_LOADS 16
+
+// acc[k] += sum_a rows[a][k] * W[a * ld + col], a < n in increasing order (rows beam-minor in shared memory)
+template <typename T, int KB>
+__device__ __forceinline__ void beams_matvec(const float* __restrict__ rows, const T* __restrict__ W, int n,
+                                             size_t ld, int col, float (&acc)[KB]) {
+  for (int a0 = 0; a0 < n; a0 += BEAM_LOADS) {
+    float w[BEAM_LOADS];
+#pragma unroll
+    for (int u = 0; u < BEAM_LOADS; ++u) w[u] = a0 + u < n ? to_f(W[(size_t)(a0 + u) * ld + col]) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < BEAM_LOADS; ++u) {
+      if (a0 + u < n) {
+        float r[KB];
+        load_beams<KB>(rows + (a0 + u) * KB, r);
+#pragma unroll
+        for (int k = 0; k < KB; ++k) acc[k] = fmaf(r[k], w[u], acc[k]);
+      }
+    }
+  }
+}
+
+// The launch plan of one product (ops/las_step.py product_plan): warpgroups of 64 rows a block, 64-column
+// panels of its output tile.
+struct ProductPlan {
+  int wgs, panels;
+};
+
+// One decode's operands and scratch on the split route, bf16 unless stated.  R = B K rows.
+struct SplitStep {
+  const wg::Bf *pk, *value, *qw, *qb, *emb;  // pk [B,S,H], value [B,S,Dv], qw [H,H], qb [H], emb [V,He]
+  const float* attn_bias;                    // [B,S]
+  int n_cells;
+  const wg::Bf* w[SPLIT_MAX_CELLS];     // gate-interleaved [in_p + H_p, 4 Hu] (ops/las_step.py interleave_cell)
+  const wg::Bf* bias[SPLIT_MAX_CELLS];  // [4H], gates i, f, g, o
+  float *h, *c;                         // [R,H] float32, updated in place
+  wg::Bf* hq;                           // [2,R,H]: rnd(h), ping-pong
+  float* q;                             // [R,H] float32: the queries
+  float* scores;                        // [R,S] float32: the attention's scores
+  wg::Bf* x0;                           // [R, He + Dv]: the first cell's input
+  wg::Bf* xs;                           // [2,R,H]: the inputs of cells 1..n-1, ping-pong
+  wg::Bf* hidden;                       // [R,H]: the last cell's output, the vocab pass's rows
+  int B, K, S, H, He, Dv, Hu, pad_id;   // Hu: H rounded up to the cell tile's units
+  ProductPlan qp, cp;                   // the query product's plan and the cells'
+};
+
+// Tensor maps of the products' operands, built once per host call
+struct SplitMaps {
+  CUtensorMap qw, hq[2], x0, xs[2], w[SPLIT_MAX_CELLS];
+};
+
+// The tensor maps, and the shared memory the split kernels of ``s`` use
+cudaError_t split_prepare(const SplitStep& s, SplitMaps* maps);
+// hq[0] = rnd(h): the rounded state the first step reads
+cudaError_t split_hq_init(const SplitStep& s, cudaStream_t stream);
+// One step up to ``hidden``: the query product, the attention, the cells.  Row r's previous token is
+// prev[r * prev_stride]; every launch returns at entry when run_flag is given and *run_flag == 0.  The step
+// reads hq[parity] and leaves the new rounded state in hq[parity ^ (n_cells & 1)].
+cudaError_t split_step(const SplitStep& s, const SplitMaps& maps, const int* prev, int prev_stride,
+                       const int* run_flag, int parity, cudaStream_t stream);
+
+}  // namespace srt

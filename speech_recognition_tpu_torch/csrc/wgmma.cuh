@@ -84,23 +84,25 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t panel_step =
       "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),        \
       "+f"(d[63])
 
-// d[64 x 128] += A[64 x 16] B[16 x 128]: A K-major, B MN-major (two 64-column panels), both from shared memory
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b) {
+// d[64 x 128] += A[64 x 16] B[16 x 128] (d = A B where accumulate is 0): A K-major, B MN-major (two 64-column
+// panels), both from shared memory
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VB_D64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"
       : VB_OUT64(d)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], both from shared memory; TA / TB: 1 = MN-major
+// d[64 x 64] += A[64 x 16] B[16 x 64] (d = A B where accumulate is 0), both from shared memory; TA / TB:
+// 1 = MN-major
 template <int TA, int TB>
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_D32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : VB_OUT32(d)
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the A fragment: pack_bf16 of an accumulator's cells,

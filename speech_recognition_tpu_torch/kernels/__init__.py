@@ -39,10 +39,10 @@ _SIGNATURES = {
     # dtype_bf16, bias_f32, hid, W, b, R, H, V, k, rounding, wgs, stage_k, tiles_per_block,
     # part_val, part_idx, part_max, part_sum, vals, idx, lse, run_flag, stream
     "vocab_topk": [_I, _I, _P, _P, _P] + [_I] * 8 + [_P] * 9,
-    # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs,
+    # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs,
     # h, c, prev_tok, ended, logp_sum, tokens, step, L, hidden,
-    # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, wgs, stage_k, tiles_per_block, stream
-    "las_greedy_step": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 11 + [_P],
+    # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, stream
+    "las_greedy_step": [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
     # dtype_bf16, emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs, cps,
     # out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H, He, Dv, stream
     "las_decoder_fwd": [_I] + [_P] * 7 + [_I] + [_P] * 6 + [_P] * 8 + [_I] * 6 + [_P],
@@ -73,10 +73,19 @@ _SIGNATURES = {
     "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] * 5 + [_P] * 9,
     # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B, H, stream
     "rnn_sequence": [_I, _I] + [_P] * 10 + [_I] * 4 + [_P],
-    # dtype_bf16, pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
+    # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
     # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
-    # eos_id, pad_id, alpha, beta_den, beams_per_block, wgs, stage_k, tiles_per_block, stream
-    "las_beam_search": [_I] + [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_I] * 4 + [_P],
+    # eos_id, pad_id, alpha, beta_den, beams_per_block, stream
+    "las_beam_search": [_P] * 8 + [_I] + [_P] * 3 + [_P] * 12 + [_I] * 12 + [_F] * 2 + [_I] + [_P],
+    # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ws, bs, h, c, hq, q, scores, x0, xs, parity, prev_tok,
+    # ended, logp_sum, tokens, step, L, hidden, part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, Hu, V, eos_id,
+    # pad_id, q_wgs, q_panels, c_wgs, c_panels, wgs, stage_k, tiles_per_block, stream
+    "las_greedy_step_split": [_P] * 8 + [_I] + [_P] * 9 + [_I] + [_P] * 4 + [_I] * 2 + [_P] * 5 + [_I] * 16 + [_P],
+    # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ws, bs, h, c, hq, q, scores, x0, xs, tokens, logp, ended,
+    # eoslen,
+    # live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, Hu, V, L, step0, n_steps, eos_id,
+    # pad_id, alpha, beta_den, q_wgs, q_panels, c_wgs, c_panels, wgs, stage_k, tiles_per_block, stream
+    "las_beam_search_split": [_P] * 8 + [_I] + [_P] * 19 + [_I] * 13 + [_F] * 2 + [_I] * 7 + [_P],
 }
 
 

@@ -27,26 +27,32 @@ equal candidates, so one more step collapses the row onto its best beam.
 On the H100 (``csrc/las_beam.cu``) the TPU design does not carry over: it
 keeps ~110 MB of operands resident in VMEM across the loop, and an SM has
 227 KB of shared memory.  The L-2 steps are one host call that enqueues
-three kernels a step and never synchronises with the host.  (1) A step
-kernel with one block per batch row holds that row's K beams in shared
-memory (every vector stored beam-minor, so a float4 load feeds four beams):
-the embedding gather, the K queries, the scores and the context streaming
-pk[b] and value[b] once for all K beams (a K4 block per beam row would read
-them K times), then the cell stack, each weight element loaded once per
-block for all K beams.  Where K beams' vectors do not fit a block's shared
-memory (LAS-large: 320 KB at K=8, H=1024), the step kernel takes a grid of
-B x K / KB blocks of KB beams each (``beams_per_block``): a beam's step reads
-no other beam's state.  (2) K5's vocab tile pass over the B*K hidden rows
-with k = K (wgmma under bf16).  (3) A select kernel, one block per batch row: K5's merge of
-each beam row's partials, the K*K scores, the top-K, the re-gather of the
-histories (a thread per column) and flags, and the batch-wide all-ended
-count.  Every kernel of a step first reads the previous step's count of
-live rows and returns at once when it is 0, so the early exit needs no host
-sync.  What bounds it: per step the cell weights (~3 MB at LAS-small) are
-read from L2 by each of the B blocks, whose products run on the CUDA cores
-in float32; the vocab projection (8.4 GFLOP at B*K = 1024 rows) runs on the
-tensor cores in bf16 (the tile pass, ``ops/vocab_topk.py tile_plan``).
-Tensor-core step products and a persistent loop are later work.
+the launches of every step and never synchronises with the host;
+``ops/las_step.py step_plan`` picks the step's route:
+
+- bf16: the split step (``csrc/las_split.cu``) over all B*K rows: the query
+  product on wgmma, the attention (scores and context kernels whose blocks
+  each hold all K beams of one batch row, so pk[b] and value[b] are read once
+  for all of them), one wgmma product per
+  cell with the cell update as its epilogue, each weight read once for every
+  row tile;
+- float32 (the checks' path): a step kernel with one block per batch row
+  holding that row's K beams
+  in shared memory (every vector beam-minor, so a float4 load feeds four
+  beams), each block reading every weight; where K beams' vectors do not fit
+  a block's shared memory (LAS-large: 320 KB at K=8, H=1024), a grid of
+  B x K / KB blocks of KB beams each (``beams_per_block``).
+
+Then, on both routes, K5's vocab tile pass over the B*K hidden rows with
+k = K (wgmma under bf16) and a select kernel, one block per batch row: K5's
+merge of each beam row's partials, the K*K scores, the top-K, the re-gather
+of the histories (a thread per column) and flags, and the batch-wide
+all-ended count.  Every kernel of a step first reads the previous step's
+count of live rows and returns at once when it is 0, so the early exit needs
+no host sync.  What bounds the bf16 route at LAS-large's beam-8 (B=128,
+S=255, H=1024): 51.5 GFLOP of cell products and 33.6 GFLOP of vocab
+projection a step at the tensor cores' rate, and the attention's 200.5 MB of
+pk + value a step from device memory.  A persistent loop is later work.
 """
 
 import ctypes
@@ -55,6 +61,8 @@ from typing import Sequence, Tuple
 import torch
 
 from .greedy_search import MAX_CELLS, attention_bias
+from .las_step import ROUTE_SPLIT, interleave_cell, step_plan
+from .vocab_bwd import sm_count
 from .vocab_topk import MAX_K, ROUND_NONE, ROUND_TWICE, alloc_partials, launch_args, vocab_topk_plain
 
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100 (227 KB)
@@ -77,7 +85,7 @@ def beam_step_plain(pk, value, attn_bias, qw, qb, emb, vw, vb, cells, h, c, toke
     :param ended: [B, K] bool; ``eoslen`` [B, K] float32 first-EOS position + 1
     :return: (h, c, tokens, logp, ended, eoslen)
     """
-    B, K, L = tokens.shape
+    B, K, _ = tokens.shape
     dt = pk.dtype
     H, Dv = pk.shape[2], value.shape[2]
 
@@ -98,7 +106,18 @@ def beam_step_plain(pk, value, attn_bias, qw, qb, emb, vw, vb, cells, h, c, toke
         h = torch.where(m, h_p, h)
         c = torch.where(m, c_p, c)
         x = rnd(h_p * m)
-    top, idx, lse = vocab_topk_plain(x.to(dt), vw, vb, K, ROUND_TWICE if dt == torch.bfloat16 else ROUND_NONE)
+    return (h, c, *beam_select_plain(x.to(dt), vw, vb, tokens, logp, ended, eoslen, step, eos_id, pad_id, alpha,
+                                     beta))
+
+
+def beam_select_plain(hidden, vw, vb, tokens, logp, ended, eoslen, step: int, eos_id: int, pad_id: int,
+                      alpha: float, beta: float):
+    """The end of a plain K11 step from its hidden rows [B*K, H] (compute type): the vocab projection's top-K
+    and logsumexp (bf16(bf16(dot) + b) in bf16), the K*K candidates, the top-K and the re-gathered histories:
+    (tokens, logp, ended, eoslen)."""
+    B, K, L = tokens.shape
+    rounding = ROUND_TWICE if hidden.dtype == torch.bfloat16 else ROUND_NONE
+    top, idx, lse = vocab_topk_plain(hidden, vw, vb, K, rounding)
 
     step_lp = torch.where(ended[:, :, None], 0.0, (top - lse[:, None]).reshape(B, K, K))
     cand_lp = (logp[:, :, None] + step_lp).reshape(B, K * K)  # parent-major flat index p*K + t
@@ -111,8 +130,7 @@ def beam_step_plain(pk, value, attn_bias, qw, qb, emb, vw, vb, cells, h, c, toke
     tok = torch.where(p_ended, pad_id, idx.reshape(B, K * K).gather(1, sel))
     tokens = tokens.gather(1, parent[:, :, None].expand(B, K, L)).clone()
     tokens[:, :, step] = tok
-    return (h, c, tokens, cand_lp.gather(1, sel), p_ended | (tok == eos_id),
-            torch.where(p_ended, p_eoslen, float(step + 1)))
+    return tokens, cand_lp.gather(1, sel), p_ended | (tok == eos_id), torch.where(p_ended, p_eoslen, float(step + 1))
 
 
 def _steps(L: int, step0: int, n_steps):
@@ -213,7 +231,8 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
             or value.shape[:2] != (B, S) or mask.shape != (B, S) or init_tokens.shape[0] != B
             or init_logp.shape != (B, K) or h0.shape != (B * K, H) or c0.shape != (B * K, H)):
         raise ValueError("beam kernel: operand shapes disagree")
-    kbs = beams_per_block(K, S, H, He, Dv)
+    route = step_plan(dt, B, K, S, H, He, Dv, len(cells), sm_count(dev))
+    kbs = beams_per_block(K, S, H, He, Dv) if route.route != ROUTE_SPLIT else 0
 
     R = B * K
     tokens = init_tokens.to(torch.int32).contiguous().clone()
@@ -227,14 +246,36 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
     hidden = torch.empty(R, H, dtype=dt, device=dev)
     part_val, part_idx, part_max, part_sum = alloc_partials(R, V, K, dev)
     bias = attention_bias(mask).contiguous()
+    if route.route == ROUTE_SPLIT:
+        weights = [interleave_cell(k, r, route.Hu) for k, r, _ in cells]
+        ptrs = [(ctypes.c_void_p * len(cells))(*[t.data_ptr() for t in ts])
+                for ts in (weights, [b for _, _, b in cells])]
+        pk, value, qw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pk, value, qw))  # 16-byte copies
+        hq, xs = (torch.empty(2, R, H, dtype=dt, device=dev) for _ in range(2))
+        q = torch.empty(R, H, dtype=torch.float32, device=dev)
+        scores = torch.empty(R, S, dtype=torch.float32, device=dev)
+        x0 = torch.empty(R, He + Dv, dtype=dt, device=dev)
+        err = library().las_beam_search_split(
+            *[t.data_ptr() for t in (pk, value, bias, qw, qb, emb, vw, vb)], len(cells),
+            *[ctypes.cast(p, ctypes.c_void_p) for p in ptrs],
+            *[t.data_ptr() for t in (h, c, hq, q, scores, x0, xs, tokens, logp, ended, eoslen, live, hidden,
+                                     part_val, part_idx, part_max, part_sum)],
+            B, K, S, H, He, Dv, route.Hu, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha),
+            float(1.0 + beta), *route.query.args(), *route.cell.args(), *launch_args(R, H, V, K, hidden), stream(dev),
+        )
+        if err:
+            raise RuntimeError(f"las_beam_search_split kernel launch failed: {error_string(err)}")
+        beam_search.launches += 1
+        beam_search.tc_launches += 1
+        return (tokens.long(), logp, h, c) if return_states else (tokens.long(), logp)
     cell_ptrs = [(ctypes.c_void_p * len(cells))(*[cell[j].data_ptr() for cell in cells]) for j in range(3)]
     err = library().las_beam_search(
-        int(dt == torch.bfloat16), *[t.data_ptr() for t in (pk, value, bias, qw, qb, emb, vw, vb)],
+        *[t.data_ptr() for t in (pk, value, bias, qw, qb, emb, vw, vb)],
         len(cells), *[ctypes.cast(p, ctypes.c_void_p) for p in cell_ptrs],
         *[t.data_ptr() for t in (h, c, tokens, logp, ended, eoslen, live, hidden, part_val, part_idx, part_max,
                                  part_sum)],
         B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta), kbs,
-        *launch_args(R, H, V, K, hidden), stream(dev),
+        stream(dev),
     )
     if err:
         raise RuntimeError(f"las_beam_search kernel launch failed: {error_string(err)}")
@@ -243,3 +284,4 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
 
 
 beam_search.launches = 0
+beam_search.tc_launches = 0  # of them on the split (tensor-core) route

@@ -13,14 +13,23 @@ inputs, the context, each cell's output); h and c are carried in float32.
 
 On the H100 (``csrc/las_greedy.cu``) the TPU design does not carry over: it
 keeps ~55 MB of operands resident in VMEM for the whole loop, and an SM has
-227 KB of shared memory.  Here the host loops over the L-1 steps and each
-step is three launches: a fused step kernel with one block of 1024 threads
-per batch row (all of its vectors in shared memory, every matvec in the
-block's own loops), then K5's vocab tile pass (wgmma under bf16, over the
-B rows: ``ops/vocab_topk.py tile_plan``) and a merge kernel carrying the EOS
-epilogue.  What bounds it: each step streams the row's
-projected keys and values (pk + value = ~50 MB per step at B=128, S=255,
-from L2/HBM), and every block re-reads the ~3 MB of cell weights from L2.
+227 KB of shared memory.  Here the host loops over the L-1 steps and
+``ops/las_step.py step_plan`` picks the step's route:
+
+- bf16: the split step (``csrc/las_split.cu``): the query product, the
+  attention (scores and context kernels over chunks of each batch row's key
+  frames and value columns), one wgmma product per cell over all B
+  rows with the cell update as its epilogue, then K5's vocab tile pass (wgmma,
+  ``ops/vocab_topk.py tile_plan``) and a merge kernel carrying the EOS
+  epilogue.  Each weight is read once for every 64-row tile of the batch.
+  What bounds it at LAS-large (B=128, S=255, H=1024): the attention's 200.5 MB
+  of projected keys and values a step from device memory (60 us at 3.35
+  TB/s), then the cells' 48 MB of weights;
+- float32 (the checks' path): a fused step kernel with one block of 1024
+  threads per batch row (all of its vectors in shared memory, every matvec in
+  the block's own loops, every block reading every weight), then the same
+  vocab pass (CUDA-core FMAs) and merge.
+
 A persistent whole-loop kernel and CUDA graphs are later work.
 """
 
@@ -29,9 +38,9 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .las_step import MAX_CELLS, ROUTE_SPLIT, interleave_cell, step_plan
+from .vocab_bwd import sm_count
 from .vocab_topk import ROUND_NONE, ROUND_ONCE, alloc_partials, launch_args, vocab_topk_plain
-
-MAX_CELLS = 8
 
 
 def attention_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -67,11 +76,18 @@ def greedy_step_plain(pk, value, attn_bias, qw, qb, emb, vw, vb, cells, h, c, pr
         h = torch.where(m, h_p, h)
         c = torch.where(m, c_p, c)
         x = rnd(h_p * m)
-    rounding = ROUND_ONCE if dt == torch.bfloat16 else ROUND_NONE
-    top, pred, lse = vocab_topk_plain(x.to(dt), vw, vb, 1, rounding)
+    new_tok, step_logp, ended = greedy_select_plain(x.to(dt), vw, vb, ended, eos_id, pad_id)
+    return new_tok, step_logp, h, c, ended
+
+
+def greedy_select_plain(hidden, vw, vb, ended, eos_id, pad_id):
+    """The end of a plain K4 step from its hidden rows [B,H] (compute type): the vocab projection's top-1
+    and logsumexp (one bf16 rounding in bf16), then the EOS bookkeeping: (new_tok, step_logp, ended)."""
+    rounding = ROUND_ONCE if hidden.dtype == torch.bfloat16 else ROUND_NONE
+    top, pred, lse = vocab_topk_plain(hidden, vw, vb, 1, rounding)
     new_tok = torch.where(ended, pad_id, pred[:, 0])
     step_logp = torch.where(ended, 0.0, top[:, 0] - lse)
-    return new_tok, step_logp, h, c, ended | (new_tok == eos_id)
+    return new_tok, step_logp, ended | (new_tok == eos_id)
 
 
 def seq_lengths(tokens: torch.Tensor, cur_len: int, eos_id: int) -> torch.Tensor:
@@ -151,20 +167,53 @@ class GreedyKernelLoop:
         self.tokens = torch.full((B, max_token_length), pad_id, dtype=torch.int32, device=dev)
         self.tokens[:, 0] = bos_id
         self.hidden = torch.empty(B, H, dtype=dt, device=dev)
-        self.plan = launch_args(B, H, V, 1, self.hidden)
         self.part_val, self.part_idx, self.part_max, self.part_sum = alloc_partials(B, V, 1, dev)
+        self.route = step_plan(dt, B, 1, S, H, He, Dv, len(cells), sm_count(dev))
+        if self.route.route == ROUTE_SPLIT:  # the split step's weights, scratch, rounded state and vocab plan
+            self.plan = launch_args(B, H, V, 1, self.hidden)
+            self.weights = [interleave_cell(k, r, self.route.Hu) for k, r, _ in cells]
+            self._split_ptrs = [(ctypes.c_void_p * len(cells))(*[t.data_ptr() for t in ts])
+                                for ts in (self.weights, [b for _, _, b in cells])]
+            pk, value, qw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pk, value, qw))  # 16-byte copies
+            self.operands = (pk, value, self.operands[2], qw, *self.operands[4:])
+            self.hq = torch.empty(2, B, H, dtype=dt, device=dev)
+            self.hq[0] = self.h.to(dt)
+            self.parity = 0  # the plane of hq holding rnd(h)
+            self.q = torch.empty(B, H, dtype=torch.float32, device=dev)
+            self.scores = torch.empty(B, S, dtype=torch.float32, device=dev)
+            self.x0 = torch.empty(B, He + Dv, dtype=dt, device=dev)
+            self.xs = torch.empty(2, B, H, dtype=dt, device=dev)
 
     def step(self, n: int) -> None:
         from ..kernels import error_string, library, stream
 
         B, S, H, He, Dv, V = self.dims
+        if self.route.route == ROUTE_SPLIT:
+            r = self.route
+            err = library().las_greedy_step_split(
+                *[t.data_ptr() for t in self.operands], len(self.cells),
+                *[ctypes.cast(p, ctypes.c_void_p) for p in self._split_ptrs],
+                *[t.data_ptr() for t in (self.h, self.c, self.hq, self.q, self.scores, self.x0, self.xs)],
+                self.parity,
+                *[t.data_ptr() for t in (self.prev, self.ended, self.logp, self.tokens)], n, self.L,
+                self.hidden.data_ptr(),
+                *[t.data_ptr() for t in (self.part_val, self.part_idx, self.part_max, self.part_sum)],
+                B, S, H, He, Dv, r.Hu, V, self.eos_id, self.pad_id, *r.query.args(), *r.cell.args(), *self.plan,
+                stream(self.h.device),
+            )
+            if err:
+                raise RuntimeError(f"las_greedy_step_split kernel launch failed: {error_string(err)}")
+            self.parity ^= len(self.cells) & 1
+            greedy_search.launches += 1
+            greedy_search.tc_launches += 1
+            return
         err = library().las_greedy_step(
-            int(self.dt == torch.bfloat16), *[t.data_ptr() for t in self.operands],
+            *[t.data_ptr() for t in self.operands],
             len(self.cells), *[ctypes.cast(p, ctypes.c_void_p) for p in self._cell_ptrs],
             *[t.data_ptr() for t in (self.h, self.c, self.prev, self.ended, self.logp, self.tokens)],
             n, self.L, self.hidden.data_ptr(),
             *[t.data_ptr() for t in (self.part_val, self.part_idx, self.part_max, self.part_sum)],
-            B, S, H, He, Dv, V, self.eos_id, self.pad_id, *self.plan, stream(self.h.device),
+            B, S, H, He, Dv, V, self.eos_id, self.pad_id, stream(self.h.device),
         )
         if err:
             raise RuntimeError(f"las_greedy_step kernel launch failed: {error_string(err)}")
@@ -195,3 +244,4 @@ def greedy_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0,
 
 
 greedy_search.launches = 0
+greedy_search.tc_launches = 0  # of them on the split (tensor-core) route

@@ -70,7 +70,12 @@ another order can move one bf16 rounding of h or the context, and a
 near-tie then swaps two candidates).  At LAS-large's widths (H = 1024,
 Dv = 2048, 4 beams a step block) the per-step gate of ``chip_smoke.py``:
 >= 99% of the slots keep the plain step's history.  The all-ended state comes back
-unchanged; ``LASSearcher.beam_search`` launches K5 once and K11 once.  The
+unchanged; ``LASSearcher.beam_search`` launches K5 once and K11 once.  In
+bf16 K4 and K11 take the split step (``ops/las_step.py``; float32 the per-row
+step kernels, counted apart): the tests above run it at small widths, and at
+LAS-large's widths (S = 64) it holds, one step at a time from the kernel's
+own state, the per-step gates of ``chip_smoke.py`` (h / c atol 2e-2, >= 99%
+of the tokens or slots), and the whole loop twice gives the same bits.  The
 on-device frontend on the card matches the CPU within rtol and atol 2e-3.
 """
 
@@ -1009,11 +1014,89 @@ def test_beam_kernel_in_parts_equals_the_whole_loop(cuda, dtype):
     histories, log-probs and states, gives the whole loop's results bit for bit
     (the same kernels in the same order)."""
     args = _beam_operands(cuda, dtype, 4, 4, 20, 32, 32, 64, 300, 9, 2, 3, eos_bias=3.0)
+    split = beam_search.tc_launches
     whole = beam_search(*args, return_states=True)
     h, c, tok, lp = args[9], args[10], args[11], args[12]
     for n in range(2, tok.shape[2]):
         tok, lp, h, c = beam_search(*args[:9], h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
     for got, want in zip((tok, lp, h, c), whole):
         assert torch.equal(got, want)
+    # bf16 runs the split route, float32 the per-row step kernels
+    assert beam_search.tc_launches - split == (tok.shape[2] - 1 if dtype == torch.bfloat16 else 0)
     with pytest.raises(ValueError, match="step0"):
         beam_search(*args, step0=1)
+
+
+def _large_greedy_operands(cuda, B, S, seed):
+    """K4's operands at LAS-large's widths (H = He = 1024, Dv = 2048, two cells, V = 2000) in bf16: a ragged
+    mask, peaked logits (vocab kernel x8 / sqrt(H)), nonzero states."""
+    g = torch.Generator().manual_seed(seed)
+    H, He, Dv, V = 1024, 1024, 2048, 2000
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda, torch.bfloat16)
+
+    lengths = torch.randint(1, S + 1, (B,), generator=g)
+    lengths[0] = S
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).to(cuda)
+    cells, in_dim = [], He + Dv
+    for _ in range(2):
+        cells.append((rand(in_dim, 4 * H, scale=in_dim ** -0.5), rand(H, 4 * H, scale=H ** -0.5),
+                      rand(4 * H, scale=0.1)))
+        in_dim = H
+    return (rand(B, S, H), torch.relu(rand(B, S, Dv)), mask, rand(H, H, scale=H ** -0.5), rand(H, scale=0.1),
+            rand(V, He), rand(H, V, scale=8 * H ** -0.5), (torch.randn(V, generator=g) * 0.5).to(cuda), cells,
+            rand(B, H, scale=0.5), rand(B, H, scale=0.5), 10, 1, 2, 0)
+
+
+def test_split_greedy_steps_at_las_large_width(cuda):
+    """K4's split route at LAS-large's widths (B = 5, S = 64), one step at a time from the kernel's own
+    state against ``greedy_step_plain``, with ``chip_smoke.py check_greedy``'s gates: h / c within atol 2e-2
+    (bf16 inputs, float32 sums in another order), >= 99% of the tokens equal (here all 45: a flip needs a
+    near-tie of the top-2 logits).  The whole loop twice gives the same bits (no atomics, fixed sum orders)."""
+    from speech_recognition_tpu_torch.ops.greedy_search import GreedyKernelLoop, attention_bias, greedy_step_plain
+    from speech_recognition_tpu_torch.ops.las_step import ROUTE_SPLIT
+
+    args = _large_greedy_operands(cuda, 5, 64, 21)
+    pk, value, mask, qw, qb, emb, vw, vb, cells = args[:9]
+    loop = GreedyKernelLoop(*args)
+    assert loop.route.route == ROUTE_SPLIT
+    bias = attention_bias(mask)
+    before = greedy_search.tc_launches
+    tok_eq = total = 0
+    for n in range(1, args[11]):
+        h, c, prev, ended = loop.h.clone(), loop.c.clone(), loop.prev.long(), loop.ended.bool()
+        loop.step(n)
+        tok, _, ph, pc, _ = greedy_step_plain(pk, value, bias, qw, qb, emb, vw, vb, cells, h, c, prev, ended, 2, 0)
+        assert (ph - loop.h).abs().max().item() <= 2e-2 and (pc - loop.c).abs().max().item() <= 2e-2
+        tok_eq, total = tok_eq + int((tok == loop.tokens[:, n]).sum()), total + tok.numel()
+    assert greedy_search.tc_launches - before == args[11] - 1
+    assert tok_eq / total >= 0.99
+    first, second = greedy_search(*args), greedy_search(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("K", [8, 1])
+def test_split_beam_steps_at_las_large_width(cuda, K):
+    """K11's split route at LAS-large's widths (B = 16, S = 64, all K beams of a row in one attention block),
+    one step at a time from the kernel's own state, with ``chip_smoke.py check_las_beam``'s bf16 gates:
+    >= 99% of the slots keep the plain step's history (over 128 K slots, so that the share means what it
+    means at B = 128: a flip needs two candidates within float32 error of each other), h / c within atol
+    2e-2, logP within rtol 2e-2 / atol 0.25 where the slots agree.  The whole loop twice gives the same bits."""
+    args = _beam_operands(cuda, torch.bfloat16, 16, K, 64, 1024, 1024, 2048, 2000, 10, 2, K + 31)
+    ops = args[:9]
+    h, c, tok, lp = args[9].float(), args[10].float(), args[11], args[12]
+    before = beam_search.tc_launches
+    kept = total = 0
+    for n in range(2, tok.shape[2]):
+        kt, kl, kh, kc = beam_search(*ops, h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
+        pt, pl, ph, pc = beam_loop_plain(*ops, h, c, tok, lp, 2, 0, step0=n, n_steps=1, return_states=True)
+        same = (kt == pt).all(dim=-1)
+        kept, total = kept + int(same.sum()), total + same.numel()
+        assert (kh - ph).abs().max().item() <= 2e-2 and (kc - pc).abs().max().item() <= 2e-2
+        torch.testing.assert_close(kl[same], pl[same], rtol=2e-2, atol=0.25)
+        h, c, tok, lp = kh, kc, kt, kl
+    assert beam_search.tc_launches - before == tok.shape[2] - 2
+    assert kept / total >= 0.99
+    first, second = beam_search(*args, return_states=True), beam_search(*args, return_states=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

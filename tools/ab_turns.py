@@ -13,7 +13,8 @@ list of their keys, all by default): the Conformer-S, pruned Transducer-S
 and dense Transducer-S (B=32) train steps (``tools/torch_train_profile.py``:
 the step's CUDA-event median, ``torch.profiler``'s device-busy time over one
 step and, where the checkout's tool records it, the peak device memory), the
-Conformer-S greedy decode and its CTC prefix beam-8 decode of 128 clips
+Conformer-S greedy decode and its CTC prefix beam-8 decode of 128 clips, and
+the LAS-large and LAS-small greedy and beam-8 decodes of 128 clips
 (``tools/torch_decode_profile.py``: the search's CUDA-event median and its
 device-busy time), each run by the checkout's own tool; and the bf16 vocab
 tile pass's callers, K1, K5, K6 and K4's vocab step, and the K8 / K9
@@ -38,6 +39,11 @@ def _step(r):
     return {None: (r["step_ms"], r["profile"]["device_busy_ms"], r.get("peak_memory_gib"))}
 
 
+def _decodes(r):
+    return {name: (r[f"{name}_search_ms"], r[f"{name}_profile"]["device_busy_ms"], None)
+            for name in ("greedy", "beam8")}
+
+
 def _kernels(r):
     return {name: (c["ms"], c["device_busy_ms"], c.get("peak_added_gib")) for name, c in r["cases"].items()}
 
@@ -60,6 +66,8 @@ CASES = {
                          "own"),
     "conformer_beam8": ("Conformer-S CTC beam-8 decode", "torch_decode_profile.py", _config("conformer_small.yml"),
                         lambda r: {None: (r["beam8_search_ms"], r["beam8_profile"]["device_busy_ms"], None)}, "own"),
+    "las_large": ("LAS-large decode", "torch_decode_profile.py", _config("las_large.yml"), _decodes, "own"),
+    "las_small": ("LAS-small decode", "torch_decode_profile.py", _config("las_small.yml"), _decodes, "own"),
     "vocab_tiles": ("vocab tile pass", "vocab_tiles_profile.py", [], _kernels, "change"),
     "rnn_sequence": ("K10", "rnn_sequence_profile.py", [], _kernels, "change"),
 }
