@@ -356,19 +356,21 @@ def phase_setup():
     check(len(spills) == 3 and not any(spills.values()),
           f"ptxas: the bf16 vocab tile pass's 3 kernels spill no register ({spills})")
     spills = {k: v for k, v in kernel_spills(kernels.build_log, ("rnn_sequence_kernel",)).items()
-              if re.search(r"Li8ELi[12]E", k)}
-    # K10's wide route (H > 512; 8 n-tiles a warp, then the m16 tiles of a cluster): LSTM and GRU, bf16 and float32
+              if re.search(r"Li8ELi8EE", k)}
+    spills.update(kernel_spills(kernels.build_log, ("rnn_persistent_kernel",)))
+    # K10 above H = 512: float32's wide cluster route (8 pairs and 8 n-tiles a warp) and bf16's persistent grid,
+    # LSTM and GRU each
     check(len(spills) == 4 and not any(spills.values()),
-          f"ptxas: K10's 4 wide-route kernels spill no register ({spills})")
+          f"ptxas: K10's 4 kernels above H = 512 (2 wide, 2 persistent) spill no register ({spills})")
     spills = kernel_spills(kernels.build_log, ("mhsa_fwd_tc_kernel", "mhsa_dq_tc_kernel", "mhsa_dkv_tc_kernel"))
     # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
     check(len(spills) == 8 and not any(spills.values()),
           f"ptxas: K7's 8 tensor-core kernels spill no register ({spills})")
     spills = kernel_spills(kernels.build_log, ("product_kernel", "scores_kernel", "context_kernel"))
-    # the split LAS step (K4 / K11 in bf16): the products (1 or 2 warpgroups, 1 or 2 panels, query or cell
-    # epilogue) and the attention's two kernels (1..16 beams)
-    check(len(spills) == 18 and not any(spills.values()),
-          f"ptxas: the split LAS step's 18 kernels spill no register ({spills})")
+    # the split LAS step (K4 / K11 / K2 in bf16): the products (1 or 2 warpgroups, 1 or 2 panels; query, cell or
+    # the teacher-forced loop's cell epilogue) and the attention's two kernels (1..16 beams)
+    check(len(spills) == 22 and not any(spills.values()),
+          f"ptxas: the split LAS step's 22 kernels spill no register ({spills})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -723,17 +725,23 @@ def decoder_operands(gen, dtype, N, Bsz, S, H, He, Dv, device="cuda"):
 
 def check_decoder(gen):
     """K2 and K3 vs plain in bf16 at LAS-small's loop shapes: N=127, B=128,
-    S=255, H=He=256, Dv=512, 2 cells.  K2 on all its streams within 2e-2 x
-    max|ref|; K3, fed the same residuals, on all its streams within 3e-2 x
-    max|ref| (the tolerances of tests/test_pallas_decoder.py: bf16 storage,
-    float32 sums in another order, carried through the loop)."""
+    S=255, H=He=256, Dv=512, 2 cells.  K2 (the split route: its launch counted
+    on it) on all its streams within 2e-2 x max|ref|; K3, fed the same
+    residuals, on all its streams within 3e-2 x max|ref| (the tolerances of
+    tests/test_pallas_decoder.py: bf16 storage, float32 sums in another order,
+    carried through the loop), and fed K2's own residuals within the same 3e-2
+    of the plain K3 on them.  Bounds: every step streams pk and value (K3 also
+    the step's probs), the other operands once."""
     import torch
 
     from speech_recognition_tpu_torch.ops.decoder_kernel import (
         decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
+    from speech_recognition_tpu_torch.ops.las_step import interleave_cell, split_plan
 
     ops = decoder_operands(gen, torch.bfloat16, N_DEC, B, S_ENC, 256, 256, 512)
+    tc = decoder_fwd.tc_launches
     (hl, cl), (hid, hs, ci, zs, cps) = decoder_fwd(*ops)
+    check(decoder_fwd.tc_launches == tc + 1, "las_decoder fwd (K2) in bf16 took the split route")
     (phl, pcl), (phid, phs, pci, pzs, pcps) = decoder_fwd_plain(*ops)
     fwd_err = 0.0
     names = ["hidden", "h_start", "c_in0", "h_last", "c_last", "z0", "z1", "c_p0", "c_p1"]
@@ -757,16 +765,30 @@ def check_decoder(gen):
             check(err <= 3e-2 * b_.float().abs().max().item(),
                   f"las_decoder bwd {name}{i if isinstance(g, tuple) else ''} within 3e-2 x max|ref| "
                   f"(max abs err {err:.3g})")
+    own_probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
+    own = (dhid, zero, zero, tm, own_probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, 256)
+    own_err = max(((a.float() - b_.float()).abs().max() / (b_.float().abs().max() + 1e-3)).item()
+                  for g, w in zip(decoder_bwd(*own), decoder_bwd_plain(*own))
+                  for a, b_ in (zip(g, w) if isinstance(g, tuple) else [(g, w)]))
+    check(own_err <= 3e-2, f"las_decoder bwd on K2's own residuals within 3e-2 x max|ref| of the plain K3 on them "
+                           f"(worst {own_err:.3g} x max|ref|)")
     f_ms, pf_ms = timed_pair(lambda: decoder_fwd(*ops), lambda: decoder_fwd_plain(*ops), 3)
     b_ms, pb_ms = timed_pair(lambda: decoder_bwd(*args), lambda: decoder_bwd_plain(*args), 3)
     # per step and row: attention (scores, context, query projection) and the
     # cells; the backward runs the same products transposed
     H, Dv = 256, 512
     loop_flops = N_DEC * (2 * B * (S_ENC * H + S_ENC * Dv + H * H) + cell_flops(B, ks, H))
-    fb = bound(loop_flops, nbytes(ops, hl, cl, hid, hs, ci, zs, cps))
-    bb = bound(loop_flops, nbytes(args[:-1], got))
+    # every step streams pk and value (50.1 MB at LAS-small), K3 also the step's probs; the rest once
+    fb = bound(loop_flops, nbytes(ops, hl, cl, hid, hs, ci, zs, cps) + (N_DEC - 1) * nbytes(pk, value))
+    bb = bound(loop_flops, nbytes(args[:-1], got) + (N_DEC - 1) * nbytes(pk, value))
     print(f"  las_decoder N={N_DEC} B={B} S={S_ENC}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound "
-          f"{fb[0]:.4f} ms; bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms")
+          f"{fb[0]:.4f} ms ({fb[1]}); bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms "
+          f"({bb[1]})")
+    step_breakdown(lambda: decoder_fwd(*ops), N_DEC, "las_decoder fwd (K2)")
+    plan = split_plan(B, 1, S_ENC, H, 256, Dv, len(ks))
+    il_ms = event_ms(lambda: [interleave_cell(k, r, plan.Hu) for k, r in zip(ks, rs)])
+    print(f"  las_decoder fwd (K2): the cells' interleaved weight copies {il_ms:.4f} ms a call "
+          f"({nbytes(ks, rs) / 2**20:.2f} MiB of weights)")
     return (fwd_err, f_ms, pf_ms, *fb, None), (bwd_err, b_ms, pb_ms, *bb, None)
 
 
@@ -1134,10 +1156,12 @@ def rnn_operands(gen, rnn_type, dtype, D, T, Bsz, H):
 
 
 def cudnn_rnn_ms(rnn_type, ops, iters=5):
-    """(ms, type) of cuDNN's ``torch.nn.LSTM`` / ``GRU`` (bidirectional when D=2)
+    """(ms, type, identity ms) of cuDNN's ``torch.nn.LSTM`` / ``GRU`` (bidirectional when D=2)
     on a ``PackedSequence`` of the same lengths: x_proj enters through an
     identity input weight (its [T*B, G*H] x [G*H, G*H] product is extra work
-    for cuDNN), R and the GRU's recurrent bias in cuDNN's gate order (GRU:
+    for cuDNN: timed alone in the same call as ``identity ms``, D products of
+    ``F.linear`` in the same type, so that cuDNN's time less it can be printed
+    beside the raw one), R and the GRU's recurrent bias in cuDNN's gate order (GRU:
     r, z, n).  In the kernel's type where cuDNN takes it, else float16 (in bf16
     PyTorch does not flatten the weights, so each call also copies them into
     one buffer: a few MB, microseconds).  Timed here only; the port never calls it."""
@@ -1172,10 +1196,13 @@ def cudnn_rnn_ms(rnn_type, ops, iters=5):
                     net(packed, hx)
                 end.record()
                 end.synchronize()
-            return start.elapsed_time(end) / iters, str(dtype).replace("torch.", "")
+                lib_ms = start.elapsed_time(end) / iters
+                rows, eye = x[:, 0].to(dtype).reshape(T * Bsz, GH), torch.eye(GH, device="cuda", dtype=dtype)
+                id_ms = event_ms(lambda: [torch.nn.functional.linear(rows, eye) for _ in range(D)], iters)
+            return lib_ms, str(dtype).replace("torch.", ""), id_ms
         except RuntimeError as e:
             print(f"  cuDNN {rnn_type} in {dtype}: {str(e).splitlines()[0][:120]}")
-    return None, None
+    return None, None, None
 
 
 def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
@@ -1191,15 +1218,24 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
     nil: T x one step's barrier and exchange)."""
     import torch
 
-    from speech_recognition_tpu_torch.ops.rnn_sequence import GATES, rnn_sequence, rnn_sequence_plain
+    from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, ROUTE_PERSISTENT, rnn_plan, rnn_sequence,
+                                                               rnn_sequence_plain)
 
     G = GATES[rnn_type]
     timed = None
     for dtype in (torch.bfloat16, torch.float32):
         ops = rnn_operands(gen, rnn_type, dtype, D, T, B, H)
+        before = rnn_sequence.persistent_launches
         got, want = rnn_sequence(rnn_type, *ops), rnn_sequence_plain(rnn_type, *ops)
         torch.cuda.synchronize()
         name = f"{tag} {str(dtype).replace('torch.', '')} D={D} T={T} B={B} H={H}"
+        persistent = rnn_plan(rnn_type, H, dtype, D, B, torch.cuda.get_device_properties(0).multi_processor_count
+                              ).route == ROUTE_PERSISTENT
+        check(rnn_sequence.persistent_launches - before == int(persistent),
+              f"{name}: {'the persistent route' if persistent else 'the cluster route'} launched")
+        if persistent:
+            check(all(torch.equal(a, b) for a, b in zip(got, rnn_sequence(rnn_type, *ops)) if a is not None),
+                  f"{name}: two launches give the same bits")
         err = 0.0
         for what, a, w in zip(("out", "h_last", "c_last"), got, want):
             if w is None:
@@ -1216,15 +1252,17 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
             timed = (ops, err, got)
     ops, err, got = timed
     k_ms, p_ms = timed_pair(lambda: rnn_sequence(rnn_type, *ops), lambda: rnn_sequence_plain(rnn_type, *ops), 3)
-    lib_ms, lib_type = cudnn_rnn_ms(rnn_type, ops)
+    lib_ms, lib_type, id_ms = cudnn_rnn_ms(rnn_type, ops)
     valid = int(ops[1].sum())
     present = lambda ts: [t for t in ts if t is not None]
     b_ms, b_by = bound(2 * valid * H * G * H, nbytes(present(ops), present(got)))
     floor_ops = rnn_operands(gen, rnn_type, torch.bfloat16, D, T, B, 8)
     floor_ms, _ = timed_pair(lambda: rnn_sequence(rnn_type, *floor_ops), lambda: None, 5)
-    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms ({lib_type})"
-    print(f"  {tag} bf16 D={D} T={T} B={B} H={H}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, cuDNN {lib}, bound "
-          f"{b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8) {floor_ms:.4f} ms = {T} x {floor_ms / T * 1e3:.2f} us")
+    lib = "n/a" if lib_ms is None else (f"{lib_ms:.4f} ms ({lib_type}; less its identity input product "
+                                        f"{id_ms:.4f} ms: {lib_ms - id_ms:.4f} ms)")
+    print(f"  {tag} bf16 D={D} T={T} B={B} H={H}: kernel {k_ms:.4f} ms = {k_ms / T * 1e3:.2f} us a step, plain "
+          f"{p_ms:.3f} ms, cuDNN {lib}, bound {b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8) {floor_ms:.4f} ms = "
+          f"{T} x {floor_ms / T * 1e3:.2f} us")
     return err, k_ms, p_ms, b_ms, b_by, lib_ms
 
 
@@ -1451,8 +1489,9 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
     V=16000) decodes the 128 clips through ``run.inference`` with seeded random weights
     (the vocab projection x8, peaked logits as in phase 2), bf16, B=128, greedy and
     beam-8, each decode after the counters are set to 0: K10 once per listener layer
-    (its wide route), K4 in the greedy decode, K5 once (the beam's first step) and K11
-    once (steps 2..L-1) in beam-8, every K4 / K11 launch on the split route; 128 rows each.  Then the
+    (bf16 above H = 512), K4 in the greedy decode, K5 once (the beam's first step) and K11
+    once (steps 2..L-1) in beam-8, every K4 / K11 launch on the split route and every K10 launch on the
+    persistent route; 128 rows each.  Then the
     decode ms per batch and RTF on the host features ``audio`` (CUDA events around one
     searcher call after a warm-up call): tokens in the vocab, perplexity >= 1 and not
     NaN (it is exp(logP)^(-1/len), as the JAX searcher computes it, so a row whose
@@ -1480,7 +1519,7 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
     counts = dict.fromkeys(("rnn_sequence_lstm_wide", "las_greedy_large", "vocab_topk_large", "las_beam_large"), 0)
     for name, beam in (("greedy", 0), ("beam8", BEAM)):
         rnn_sequence.launches = greedy_search.launches = vocab_topk.launches = beam_search.launches = 0
-        greedy_search.tc_launches = beam_search.tc_launches = 0
+        greedy_search.tc_launches = beam_search.tc_launches = rnn_sequence.persistent_launches = 0
         out = os.path.join(tmp, f"las_large_{name}.tsv")
         t0 = time.perf_counter()
         inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out]))
@@ -1488,9 +1527,10 @@ def run_las_large(tmp, wav_dir, data_config, audio, audio_s):
             rows = f.read().splitlines()[1:]
         print(f"  run.inference LAS-large {name}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
         check(len(rows) == B, f"LAS-large {name} TSV has {B} rows ({len(rows)})")
-        check(rnn_sequence.launches == LAS_LARGE_LAYERS,
-              f"rnn_sequence (K10, wide route) launched {rnn_sequence.launches} times in the LAS-large {name} decode "
-              f"(expected {LAS_LARGE_LAYERS})")
+        check(rnn_sequence.launches == rnn_sequence.persistent_launches == LAS_LARGE_LAYERS,
+              f"rnn_sequence (K10) launched {rnn_sequence.launches} times in the LAS-large {name} decode, "
+              f"{rnn_sequence.persistent_launches} on the persistent route (expected {LAS_LARGE_LAYERS} and "
+              f"{LAS_LARGE_LAYERS})")
         k4, k5, n11 = greedy_search.launches, vocab_topk.launches, beam_search.launches
         if beam:
             check(k5 == 1 and n11 == 1 and k4 == 0, f"the LAS-large beam-8 decode launched vocab_topk (K5) {k5} "
@@ -1569,6 +1609,7 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config))))
     for fn in (ce_fwd, ce_bwd, decoder_fwd, decoder_bwd, rnn_sequence):
         fn.launches = 0
+    decoder_fwd.tc_launches = 0
     t0 = time.perf_counter()
     records = train.main(cfg)
     wall = time.perf_counter() - t0
@@ -1577,6 +1618,9 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     print(f"  run.train: {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times in the training run")
+    check(decoder_fwd.tc_launches == decoder_fwd.launches,
+          f"every K2 launch of the training run took the split route ({decoder_fwd.tc_launches} of "
+          f"{decoder_fwd.launches})")
     k10 = rnn_sequence.launches
     check(k10 == LAS_LAYERS, f"rnn_sequence (K10) launched {k10} times in the training run (the dev pass of one "
                              f"batch; expected {LAS_LAYERS})")
@@ -1989,7 +2033,7 @@ def main():
                    ("las_beam", "las_beam.cu", "beam_kernel.py:415"),
                    ("ce_vocab_fwd", "ce_vocab.cu", "ce_kernel.py:201"),
                    ("ce_vocab_bwd", "ctc_emissions.cu", "ce_kernel.py:201"),  # K6's backward with one id per row
-                   ("las_decoder_fwd", "las_decoder.cu", "decoder_kernel.py:238"),
+                   ("las_decoder_fwd", "las_split.cu", "decoder_kernel.py:238"),  # bf16: the split step
                    ("las_decoder_bwd", "las_decoder.cu", "decoder_kernel.py:477"),
                    ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"),

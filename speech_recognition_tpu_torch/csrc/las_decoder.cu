@@ -3,6 +3,11 @@
 //   K2 replaces decoder_fwd_pallas (speech_recognition_tpu/ops/pallas/decoder_kernel.py:238),
 //   K3 replaces decoder_bwd_pallas (same file, :477).
 //
+// In bf16, K2 runs on the split LAS step (las_split.cu split_decoder_fwd, entry las_decoder_fwd_split below):
+// each step's query and cell products are wgmma tiles over all B rows, each weight read once a row tile, and
+// the cells' epilogue writes the residual streams below in the same layouts.  The per-row kernels here are
+// K2's float32 route (the checks' path) and K3 in both types.
+//
 // Batch rows are independent in the decoder loop, so each kernel is ONE
 // launch of one block of DEC_THREADS per batch row that runs all N steps
 // itself (forward in order, backward in reverse): the loop inside the block
@@ -34,6 +39,7 @@
 //       stored in T; softmax VJP on probs that arrive in T; dq float32, then
 //       rnd(dq) @ qw^T; dh0, dc0 stored in T.
 // The key axis S is masked by the loops themselves: no padding of pk/value.
+#include "las_split.cuh"
 #include "las_step.cuh"
 
 #define DEC_THREADS 1024
@@ -353,26 +359,82 @@ cudaError_t decoder_bwd_impl(const void* dhidden, const void* dh_last, const voi
 
 extern "C" {
 
-// K2.  emb [N,B,He], pk [B,S,H], value [B,S,Dv], qw [H,H], qb [H], per cell
-// kernel [in_i,4H], recurrent [H,4H], bias [4H], mask [B,in_i]; out_mask,
-// h0, c0 [B,H]: all in T (bf16 when dtype_bf16, else float32).
-// token_mask [N,B] and attn_bias [B,S] float32.  Outputs in T: hidden,
-// h_start, c_in0 [N,B,H], per cell z [N,B,4H] and c' [N,B,H], h_last, c_last [B,H].
-int las_decoder_fwd(int dtype_bf16, const void* emb, const float* token_mask, const void* pk, const void* value,
+// K2 in float32 (bf16: las_decoder_fwd_split).  emb [N,B,He], pk [B,S,H], value [B,S,Dv], qw [H,H], qb [H],
+// per cell kernel [in_i,4H], recurrent [H,4H], bias [4H], mask [B,in_i]; out_mask, h0, c0 [B,H];
+// token_mask [N,B] and attn_bias [B,S].  Outputs: hidden, h_start, c_in0 [N,B,H], per cell z [N,B,4H] and
+// c' [N,B,H], h_last, c_last [B,H].
+int las_decoder_fwd(const void* emb, const float* token_mask, const void* pk, const void* value,
                     const float* attn_bias, const void* qw, const void* qb, int n_cells, void** ks, void** rs,
                     void** bs, void** cms, void** zs, void** cps, const void* out_mask, const void* h0,
                     const void* c0, void* hidden, void* h_start, void* c_in0, void* h_last, void* c_last, int N,
                     int B, int S, int H, int He, int Dv, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype_bf16)
-    err = srt::decoder_fwd_impl<__nv_bfloat16>(emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs,
-                                               cms, zs, cps, out_mask, h0, c0, hidden, h_start, c_in0, h_last,
-                                               c_last, N, B, S, H, He, Dv, st);
-  else
-    err = srt::decoder_fwd_impl<float>(emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs,
-                                       cps, out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H,
-                                       He, Dv, st);
+  const cudaError_t err = srt::decoder_fwd_impl<float>(emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs,
+                                                       bs, cms, zs, cps, out_mask, h0, c0, hidden, h_start, c_in0,
+                                                       h_last, c_last, N, B, S, H, He, Dv,
+                                                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K2 in bf16 on the split step (las_split.cuh split_decoder_fwd), every operand bf16 unless stated.  emb_rows
+// [N B, He] = rnd(emb[n] cm0[:, :He]) row n B + b, rows [N B] int32 = 0 .. N B - 1, token_mask [N,B] and attn_bias
+// [B,S] float32, pk [B,S,H], value [B,S,Dv], qw [H,H], qb [H]; ws: each cell's gate-interleaved [Kc; Rc]
+// (ops/las_step.py interleave_cell) of Hu units, bs its bias [4H], out_masks its output's mask [B,H] (the next
+// cell's dropout mask, then out_mask), zs [N,B,4H] and cps [N,B,H] its residuals out; ctx_mask = cm0 + He, row
+// stride ctx_ld.  h, c [B,H] float32 hold h0, c0; hq [2,B,H] holds rnd(h0) in plane 0; q [B,H] and scores [B,S]
+// float32, x0 [B, He + Dv] and xs [2,B,H] scratch.  Out: hidden [N,B,H], h_state / c_state [N+1,B,H] (row 0 given:
+// h0, c0; row n + 1 after step n).  q_*, c_*: the query's and the cells' product plans (ops/las_step.py).
+int las_decoder_fwd_split(const void* emb_rows, const int* rows, const float* token_mask, const void* pk,
+                          const void* value, const float* attn_bias, const void* qw, const void* qb, int n_cells,
+                          void** ws, void** bs, void** out_masks, void** zs, void** cps, const void* ctx_mask,
+                          int ctx_ld, float* h, float* c, void* hq, float* q, float* scores, void* x0, void* xs,
+                          void* hidden, void* h_state, void* c_state, int N, int B, int S, int H, int He, int Dv,
+                          int Hu, int q_wgs, int q_panels, int c_wgs, int c_panels, void* stream) {
+  using srt::wg::Bf;
+  if (n_cells < 1 || n_cells > SPLIT_MAX_CELLS) return static_cast<int>(cudaErrorInvalidValue);
+  srt::SplitStep s{};
+  s.pk = static_cast<const Bf*>(pk);
+  s.value = static_cast<const Bf*>(value);
+  s.qw = static_cast<const Bf*>(qw);
+  s.qb = static_cast<const Bf*>(qb);
+  s.emb = static_cast<const Bf*>(emb_rows);
+  s.attn_bias = attn_bias;
+  s.n_cells = n_cells;
+  srt::SplitTrain t{};
+  t.N = N;
+  t.rows = rows;
+  t.token_mask = token_mask;
+  t.ctx_mask = static_cast<const Bf*>(ctx_mask);
+  t.ctx_ld = ctx_ld;
+  for (int i = 0; i < n_cells; ++i) {
+    s.w[i] = static_cast<const Bf*>(ws[i]);
+    s.bias[i] = static_cast<const Bf*>(bs[i]);
+    t.out_mask[i] = static_cast<const Bf*>(out_masks[i]);
+    t.z[i] = static_cast<Bf*>(zs[i]);
+    t.cp[i] = static_cast<Bf*>(cps[i]);
+  }
+  s.h = h;
+  s.c = c;
+  s.hq = static_cast<Bf*>(hq);
+  s.q = q;
+  s.scores = scores;
+  s.x0 = static_cast<Bf*>(x0);
+  s.xs = static_cast<Bf*>(xs);
+  s.hidden = nullptr;
+  t.hidden = static_cast<Bf*>(hidden);
+  t.h_state = static_cast<Bf*>(h_state);
+  t.c_state = static_cast<Bf*>(c_state);
+  s.B = B;
+  s.K = 1;
+  s.S = S;
+  s.H = H;
+  s.He = He;
+  s.Dv = Dv;
+  s.Hu = Hu;
+  s.qp = srt::ProductPlan{q_wgs, q_panels};
+  s.cp = srt::ProductPlan{c_wgs, c_panels};
+  srt::SplitMaps maps;
+  cudaError_t err = srt::split_prepare(s, &maps);
+  if (err == cudaSuccess) err = srt::split_decoder_fwd(s, maps, t, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -21,6 +21,12 @@
 //    row in each of its blocks, so pk[b] and value[b] are read once a step; a row's key frames and value
 //    columns spread over 8 + 8 blocks (at S = 255, Dv = 2048), pk and value staged through shared memory
 //    16 bytes a load.
+// The teacher-forced decoder loop (K2, decoder_fwd_pallas, speech_recognition_tpu/ops/pallas/decoder_kernel.py:238)
+// runs the same step without the vocab pass (split_decoder_fwd): the embedding rows are given (dropout-masked
+// before the loop), the context kernel applies the first cell's dropout mask, and the cells' epilogue
+// (EPI_TRAIN) gates by the token mask and writes K3's residuals: rnd(z) in the natural gate order, rnd(c'),
+// each next cell's masked input and the step's h / c.  At LAS-small (B = 128, S = 255, H = 256) a step is
+// bound by the attention's pk + value, 50.1 MB from device memory (15 us at 3.35 TB/s).
 #include "las_split.cuh"
 
 namespace srt {
@@ -31,7 +37,7 @@ using namespace wg;  // PANEL, W_PANEL, ALIGN and the PTX helpers
 constexpr int STAGES = 4, IN_FLIGHT = STAGES - 2;  // = ops/las_step.py STAGES
 constexpr int MAX_SMEM = 232448;                   // dynamic shared memory one block may use on the H100
 constexpr int MAX_KB = 16;                         // beams of an attention block (= ops/vocab_topk.py MAX_K)
-enum { EPI_QUERY = 0, EPI_CELL = 1 };
+enum { EPI_QUERY = 0, EPI_CELL = 1, EPI_TRAIN = 2 };
 
 // Dynamic shared memory of a product block (ops/las_step.py product_smem mirrors it): the ring only.
 inline size_t product_smem(int wgs, int panels) { return ALIGN + (size_t)STAGES * (wgs + panels) * W_PANEL; }
@@ -56,6 +62,12 @@ struct Epi {
   Bf *hq_out, *x_out;
   const int* prev;
   int prev_stride, pad_id, R, H;
+  // EPI_TRAIN (the teacher-forced loop, K = 1): the pad gate of each row, the mask of the cell's output, the
+  // residual streams of the step, and (the last cell) rnd(h), rnd(c) after it
+  const float* gate;       // [R]
+  const Bf* next_mask;     // [R,H]
+  Bf *z_out, *cp_out;      // [R,4H], [R,H]
+  Bf *hs_out, *cs_out;     // [R,H] or null
 };
 
 // out = A @ W (+ the epilogue) for the block's 64 WGS rows and 64 NP columns.  A's k-panels 0..n_k1-1 come
@@ -154,7 +166,8 @@ __global__ void __launch_bounds__(128 * WGS, 1)
               make_float2(z[4 * j + 2 * hf] + to_f(e.bias[col]), z[4 * j + 2 * hf + 1] + to_f(e.bias[col + 1]));
       }
     } else {
-      const bool m = e.prev[(size_t)r * e.prev_stride] != e.pad_id;  // pad-token gating
+      // pad-token gating: the previous token (decoding) or the token mask (the teacher-forced loop)
+      const bool m = EPI == EPI_TRAIN ? e.gate[r] != 0.0f : e.prev[(size_t)r * e.prev_stride] != e.pad_id;
 #pragma unroll
       for (int g = 0; g < 2 * NP; ++g) {  // the tile's groups of 8 units, 16 NP units from col0 / 4
         const int u = col0 / 4 + 8 * g + 2 * q;
@@ -162,28 +175,43 @@ __global__ void __launch_bounds__(128 * WGS, 1)
         const size_t at = (size_t)r * H + u;
         const float2 h_old = *reinterpret_cast<const float2*>(e.h + at);
         const float2 c_old = *reinterpret_cast<const float2*>(e.c + at);
-        float hn[2], cn[2], xo[2];
+        float hn[2], cn[2], xo[2], zk[4][2], cps[2];
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
-          const float zi = z[4 * (4 * g + 0) + 2 * hf + x] + to_f(e.bias[u + x]);
-          const float zf = z[4 * (4 * g + 1) + 2 * hf + x] + to_f(e.bias[H + u + x]);
-          const float zg = z[4 * (4 * g + 2) + 2 * hf + x] + to_f(e.bias[2 * H + u + x]);
-          const float zo = z[4 * (4 * g + 3) + 2 * hf + x] + to_f(e.bias[3 * H + u + x]);
-          const float gi = sigmoidf(zi), gf = sigmoidf(zf);
-          const float gg = tanhf(zg), go = sigmoidf(zo);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) zk[k][x] = z[4 * (4 * g + k) + 2 * hf + x] + to_f(e.bias[k * H + u + x]);
+          const float gi = sigmoidf(zk[0][x]), gf = sigmoidf(zk[1][x]);
+          const float gg = tanhf(zk[2][x]), go = sigmoidf(zk[3][x]);
           const float co = x ? c_old.y : c_old.x, ho = x ? h_old.y : h_old.x;
           const float cp = gf * co + gi * gg;
           const float hp = go * tanhf(cp);
           hn[x] = m ? hp : ho;
           cn[x] = m ? cp : co;
           xo[x] = m ? hp : 0.0f;
+          cps[x] = cp;
         }
         if (m) {
           *reinterpret_cast<float2*>(e.h + at) = make_float2(hn[0], hn[1]);
           *reinterpret_cast<float2*>(e.c + at) = make_float2(cn[0], cn[1]);
         }
         *reinterpret_cast<__nv_bfloat162*>(e.hq_out + at) = __floats2bfloat162_rn(hn[0], hn[1]);
-        *reinterpret_cast<__nv_bfloat162*>(e.x_out + at) = __floats2bfloat162_rn(xo[0], xo[1]);
+        if constexpr (EPI == EPI_TRAIN) {
+          // the next cell's input (or the hidden stream) rnd(rnd(h' m) mask); the residuals K3 reads
+          const float2 mk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e.next_mask + at));
+          *reinterpret_cast<__nv_bfloat162*>(e.x_out + at) =
+              __floats2bfloat162_rn(bf16_grid(xo[0]) * mk.x, bf16_grid(xo[1]) * mk.y);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            *reinterpret_cast<__nv_bfloat162*>(e.z_out + (size_t)r * 4 * H + k * H + u) =
+                __floats2bfloat162_rn(zk[k][0], zk[k][1]);
+          *reinterpret_cast<__nv_bfloat162*>(e.cp_out + at) = __floats2bfloat162_rn(cps[0], cps[1]);
+          if (e.hs_out != nullptr) {
+            *reinterpret_cast<__nv_bfloat162*>(e.hs_out + at) = __floats2bfloat162_rn(hn[0], hn[1]);
+            *reinterpret_cast<__nv_bfloat162*>(e.cs_out + at) = __floats2bfloat162_rn(cn[0], cn[1]);
+          }
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(e.x_out + at) = __floats2bfloat162_rn(xo[0], xo[1]);
+        }
       }
     }
   }
@@ -198,8 +226,8 @@ __global__ void __launch_bounds__(128 * WGS, 1)
 //  - context_kernel, grid (B, chunks of CTX_COLS value columns): the float32 softmax of the row's scores (one
 //    beam: block-wide max and sum; else a warp per beam; each block of the row computes the same), the context
 //    rnd(sum_s p[s][k] value[b, s, d]) into x0[:, He + d] (a thread per value column, frames in order, value
-//    streamed in tiles of CTX_FRAMES frames through a double buffer), and, in the row's first block, the
-//    embedding rows of the previous tokens into x0[:, :He].
+//    streamed in tiles of CTX_FRAMES frames through a double buffer; times ctx_mask where one is given), and,
+//    in the row's first block, the embedding rows of the previous tokens into x0[:, :He].
 template <int KB>
 __global__ void __launch_bounds__(SCORE_THREADS, 2)
     scores_kernel(const float* __restrict__ q_rows, const Bf* __restrict__ pk, const float* __restrict__ attn_bias,
@@ -256,7 +284,8 @@ template <int KB>
 __global__ void __launch_bounds__(CTX_COLS)
     context_kernel(const float* __restrict__ scores, const Bf* __restrict__ value, const Bf* __restrict__ emb,
                    const int* __restrict__ prev, int prev_stride, const int* __restrict__ run_flag,
-                   Bf* __restrict__ x0, int K, int S, int He, int Dv) {
+                   const Bf* __restrict__ ctx_mask, int mask_ld, Bf* __restrict__ x0, int K, int S, int He,
+                   int Dv) {
   if (run_flag != nullptr && *run_flag == 0) return;
   extern __shared__ __align__(16) float sm[];
   Bf* tiles = reinterpret_cast<Bf*>(sm);                 // [2][CTX_FRAMES][CTX_COLS] value, double-buffered
@@ -339,7 +368,11 @@ __global__ void __launch_bounds__(CTX_COLS)
   if (d < Dv) {
 #pragma unroll
     for (int k = 0; k < KB; ++k)
-      if (k < K) x0[(row0 + k) * in + He + d] = __float2bfloat16_rn(acc[k]);
+      if (k < K) {
+        // the teacher-forced loop's first cell takes rnd(rnd(ctx) cm0[He + d]): its dropout mask
+        const float v = ctx_mask == nullptr ? acc[k] : bf16_grid(acc[k]) * to_f(ctx_mask[(row0 + k) * mask_ld + d]);
+        x0[(row0 + k) * in + He + d] = __float2bfloat16_rn(v);
+      }
   }
 }
 
@@ -412,10 +445,11 @@ cudaError_t split_prepare(const SplitStep& s, SplitMaps* m) {
     const int depth = round64(cell_in(s, ci)) + round64(H);
     if ((err = panel_map(&m->w[ci], s.w[ci], depth, 4 * s.Hu)) != cudaSuccess) return err;
   }
-  const ProductPlan* plans[2] = {&s.qp, &s.cp};
-  for (int i = 0; i < 2; ++i) {
-    const auto kernel = i == 0 ? (const void*)product_kernel_for<EPI_QUERY>(*plans[i])
-                               : (const void*)product_kernel_for<EPI_CELL>(*plans[i]);
+  const ProductPlan* plans[3] = {&s.qp, &s.cp, &s.cp};
+  for (int i = 0; i < 3; ++i) {
+    const auto kernel = i == 0   ? (const void*)product_kernel_for<EPI_QUERY>(*plans[i])
+                        : i == 1 ? (const void*)product_kernel_for<EPI_CELL>(*plans[i])
+                                 : (const void*)product_kernel_for<EPI_TRAIN>(*plans[i]);
     const size_t smem = product_smem(plans[i]->wgs, plans[i]->panels);
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
       return err;
@@ -436,19 +470,17 @@ cudaError_t split_hq_init(const SplitStep& s, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t split_step(const SplitStep& s, const SplitMaps& m, const int* prev, int prev_stride, const int* run_flag,
-                       int parity, cudaStream_t stream) {
+// The step up to the first cell's input: the query product over hq[parity], the scores, the context (times
+// ctx_mask where given) and the embedding rows prev[r prev_stride] of ``s.emb`` into x0
+static cudaError_t split_attend(const SplitStep& s, const SplitMaps& m, const int* prev, int prev_stride,
+                                const int* run_flag, int parity, const wg::Bf* ctx_mask, int mask_ld,
+                                cudaStream_t stream) {
   using namespace sp;
   const int R = s.B * s.K, H = s.H;
-  const size_t plane = (size_t)R * H;
   const int n_kh = round64(H) / PANEL;
   Epi e{};
-  e.prev = prev;
-  e.prev_stride = prev_stride;
-  e.pad_id = s.pad_id;
   e.R = R;
   e.H = H;
-
   e.bias = s.qb;
   e.q = s.q;
   cudaError_t err = launch_product<EPI_QUERY>(s.qp, m.hq[parity], m.hq[parity], m.qw, n_kh, n_kh, R, H, run_flag, e,
@@ -460,9 +492,24 @@ cudaError_t split_step(const SplitStep& s, const SplitMaps& m, const int* prev, 
                           stream>>>(s.q, s.pk, s.attn_bias, run_flag, s.scores, s.K, s.S, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   context_kernel_for(kb)<<<dim3(s.B, (s.Dv + CTX_COLS - 1) / CTX_COLS), CTX_COLS, context_smem(kb, s.S), stream>>>(
-      s.scores, s.value, s.emb, prev, prev_stride, run_flag, s.x0, s.K, s.S, s.He, s.Dv);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      s.scores, s.value, s.emb, prev, prev_stride, run_flag, ctx_mask, mask_ld, s.x0, s.K, s.S, s.He, s.Dv);
+  return cudaGetLastError();
+}
 
+cudaError_t split_step(const SplitStep& s, const SplitMaps& m, const int* prev, int prev_stride, const int* run_flag,
+                       int parity, cudaStream_t stream) {
+  using namespace sp;
+  const int R = s.B * s.K, H = s.H;
+  const size_t plane = (size_t)R * H;
+  const int n_kh = round64(H) / PANEL;
+  cudaError_t err = split_attend(s, m, prev, prev_stride, run_flag, parity, nullptr, 0, stream);
+  if (err != cudaSuccess) return err;
+  Epi e{};
+  e.prev = prev;
+  e.prev_stride = prev_stride;
+  e.pad_id = s.pad_id;
+  e.R = R;
+  e.H = H;
   int p = parity;
   for (int ci = 0; ci < s.n_cells; ++ci) {
     e.bias = s.bias[ci];
@@ -475,6 +522,42 @@ cudaError_t split_step(const SplitStep& s, const SplitMaps& m, const int* prev, 
     err = launch_product<EPI_CELL>(s.cp, a1, m.hq[p], m.w[ci], n_k1, n_k1 + n_kh, R, 4 * s.Hu, run_flag, e, stream);
     if (err != cudaSuccess) return err;
     p ^= 1;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t split_decoder_fwd(const SplitStep& s, const SplitMaps& m, const SplitTrain& t, cudaStream_t stream) {
+  using namespace sp;
+  if (s.K != 1 || t.N < 1) return cudaErrorInvalidValue;
+  const int B = s.B, H = s.H;
+  const size_t plane = (size_t)B * H;
+  const int n_kh = round64(H) / PANEL;
+  int p = 0;  // the plane of hq holding rnd(h)
+  for (int n = 0; n < t.N; ++n) {
+    cudaError_t err = split_attend(s, m, t.rows + (size_t)n * B, 1, nullptr, p, t.ctx_mask, t.ctx_ld, stream);
+    if (err != cudaSuccess) return err;
+    Epi e{};
+    e.R = B;
+    e.H = H;
+    e.h = s.h;
+    e.c = s.c;
+    e.gate = t.token_mask + (size_t)n * B;
+    for (int ci = 0; ci < s.n_cells; ++ci) {
+      const bool last = ci == s.n_cells - 1;
+      e.bias = s.bias[ci];
+      e.hq_out = s.hq + (p ^ 1) * plane;
+      e.x_out = last ? t.hidden + n * plane : s.xs + (ci & 1) * plane;
+      e.next_mask = t.out_mask[ci];
+      e.z_out = t.z[ci] + n * 4 * plane;
+      e.cp_out = t.cp[ci] + n * plane;
+      e.hs_out = last ? t.h_state + (n + 1) * plane : nullptr;
+      e.cs_out = last ? t.c_state + (n + 1) * plane : nullptr;
+      const CUtensorMap& a1 = ci == 0 ? m.x0 : m.xs[(ci - 1) & 1];
+      const int n_k1 = round64(cell_in(s, ci)) / PANEL;
+      err = launch_product<EPI_TRAIN>(s.cp, a1, m.hq[p], m.w[ci], n_k1, n_k1 + n_kh, B, 4 * s.Hu, nullptr, e, stream);
+      if (err != cudaSuccess) return err;
+      p ^= 1;
+    }
   }
   return cudaSuccess;
 }

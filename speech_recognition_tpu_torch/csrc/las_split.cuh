@@ -88,6 +88,24 @@ struct SplitStep {
   ProductPlan qp, cp;                   // the query product's plan and the cells'
 };
 
+// The teacher-forced loop's extra operands (K2 on the split step, las_decoder.cu las_decoder_fwd_split): the
+// step's embedding rows come in through ``SplitStep::emb`` as rnd(emb[n] cm0[:He]), made for all N before the
+// loop, row n B + b (``rows`` holds 0 .. N B - 1, so step n reads its rows at rows + n B), and each cell's
+// epilogue writes K3's residual streams.
+struct SplitTrain {
+  int N;
+  const int* rows;                            // [N B]: i at i, the embedding row of (n, b)
+  const float* token_mask;                    // [N,B] float32: the pad gate (nonzero = a real token)
+  const wg::Bf* ctx_mask;                     // cm0 + He: the context's dropout mask, row stride ctx_ld
+  int ctx_ld;
+  const wg::Bf* out_mask[SPLIT_MAX_CELLS];    // [B,H] the mask of cell i's output: cm_{i+1}, or out_mask
+  wg::Bf* z[SPLIT_MAX_CELLS];                 // [N,B,4H] out: rnd(z), gates i, f, g, o
+  wg::Bf* cp[SPLIT_MAX_CELLS];                // [N,B,H] out: rnd(c')
+  wg::Bf* hidden;                             // [N,B,H] out: rnd(rnd(h' m) out_mask) of the last cell
+  wg::Bf *h_state, *c_state;                  // [N+1,B,H] out: rnd(h), rnd(c) before step n (row 0 given), then
+                                              // after the last step
+};
+
 // Tensor maps of the products' operands, built once per host call
 struct SplitMaps {
   CUtensorMap qw, hq[2], x0, xs[2], w[SPLIT_MAX_CELLS];
@@ -102,5 +120,9 @@ cudaError_t split_hq_init(const SplitStep& s, cudaStream_t stream);
 // reads hq[parity] and leaves the new rounded state in hq[parity ^ (n_cells & 1)].
 cudaError_t split_step(const SplitStep& s, const SplitMaps& maps, const int* prev, int prev_stride,
                        const int* run_flag, int parity, cudaStream_t stream);
+// The whole teacher-forced loop of ``t`` (K = 1), enqueued without a host sync: for each of the N steps the
+// query product, the attention (the context's mask applied) and one product per cell whose epilogue writes
+// the residual streams.  hq[0] holds rnd(h0); h / c hold h0 / c0 in float32.
+cudaError_t split_decoder_fwd(const SplitStep& s, const SplitMaps& maps, const SplitTrain& t, cudaStream_t stream);
 
 }  // namespace srt

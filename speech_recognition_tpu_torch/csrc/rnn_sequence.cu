@@ -4,37 +4,44 @@
 //
 // Replaces rnn_sequence_pallas (speech_recognition_tpu/ops/pallas/rnn_kernel.py:100,
 // cells _lstm_kernel :31 and _gru_kernel :65).  On the TPU one core walks the
-// T grid steps with the recurrent weights pinned in VMEM.  Here a thread-block
-// cluster of RNN_CLUSTER CTAs runs one (direction, tile of RNN_ROWS x MT batch rows)
-// for all T steps: CTA j owns hidden units [j*U, j*U + U), U = ceil(H / 8),
-// and keeps their G gate columns of R in shared memory for the whole sequence.
-// Each step a CTA computes its [ROWS, G*U] slice of h @ R, applies the gates to
-// its units, and stores its slice of the new h into the next-h buffer of every
-// CTA of the cluster through distributed shared memory; one cluster barrier
-// ends the step.  The step's x_proj and mask are loaded one step ahead, so
-// their latency hides behind the previous step.
+// T grid steps with the recurrent weights pinned in VMEM.  Here two designs
+// share that idea, chosen by width and type (ops/rnn_sequence.py rnn_plan):
 //
-// The product has four modes, chosen at launch:
-// - MODE_MMA (bf16 when R fits): mma.sync m16n8k16 bf16 tiles with float32
-//   accumulators; the 16 batch rows are the tile's M, R is held in shared
-//   memory in B-fragment order (one 8-byte load per lane and tile), and h's
-//   rows are padded by 8 elements so the A-fragment loads hit 32 banks;
-// - MODE_MMA_GLOBAL (bf16 above H = 512, where a CTA's gate columns of R
-//   are 1 MB at H = 1024): the same tiles, the B fragments read from L2 out
-//   of a copy of R in fragment order that rnn_frag_kernel writes once per
-//   launch, KU k-steps of loads issued before their products;
-// - MODE_FMA_SMEM (float32 when R fits): float32 FMA loops, R in shared memory;
-// - MODE_FMA_GLOBAL (R too large, e.g. float32 at H=320): the same loops over R
-//   read from L2.
-// Two routes: up to H = 512 a thread takes 4 (row, unit) pairs of the gate
-// phase and a warp 4 n-tiles (RNN_NARROW_*); above, up to H = 1024, 8 pairs a
-// thread for each m16 tile of rows and 8 n-tiles a warp (RNN_WIDE_*), with R
-// always read from L2.  Above H = 512 each cluster of a direction reads the
-// whole R every step (8 MB in bf16 at H = 1024), so in bf16 a cluster takes
-// RNN_WIDE_MT = 2 m16 tiles (32 batch rows): each B fragment it loads feeds
-// two products, and L2 carries half the bytes of one tile a cluster.  Its
-// 16 pairs a thread load their inputs in the gate phase, not a step ahead
-// (two steps of them would not fit the registers).
+// 1. Clusters (rnn_sequence_kernel: every width in float32, up to H = 512 in bf16).  A
+//    thread-block cluster of RNN_CLUSTER CTAs runs one (direction, tile of RNN_ROWS batch rows) for all T
+//    steps: CTA j owns hidden units [j*U, j*U + U), U = ceil(H / 8), and keeps their G gate columns of R in
+//    shared memory for the whole sequence.  Each step a CTA computes its [ROWS, G*U] slice of h @ R, applies
+//    the gates to its units, and stores its slice of the new h into the next-h buffer of every CTA of the
+//    cluster through distributed shared memory; one cluster barrier ends the step.  The step's x_proj and
+//    mask are loaded one step ahead, so their latency hides behind the previous step.  The product has three
+//    modes, chosen at launch:
+//    - MODE_MMA (bf16, H <= 512): mma.sync m16n8k16 bf16 tiles with float32 accumulators; the 16 batch rows
+//      are the tile's M, R is held in shared memory in B-fragment order (one 8-byte load per lane and tile),
+//      and h's rows are padded by 8 elements so the A-fragment loads hit 32 banks;
+//    - MODE_FMA_SMEM (float32 when R fits): float32 FMA loops, R in shared memory;
+//    - MODE_FMA_GLOBAL (R too large, float32 above H ~ 300): the same loops over R read from L2.
+//    Up to H = 512 a thread takes 4 (row, unit) pairs of the gate phase and a warp 4 n-tiles
+//    (RNN_NARROW_*); above, up to H = 1024 (float32 only), 8 pairs and 8 n-tiles (RNN_WIDE_*).
+//
+// 2. The persistent grid (rnn_persistent_kernel: bf16 above H = 512, LAS-large's listener at H = 1024).  A
+//    direction's R is 8 MB there: no cluster holds it, and a cluster that reads it from L2 every step spent
+//    ~48 us a step.  Instead one cooperative launch puts a CTA on each of D * ceil(H / 16) SMs (128 at
+//    LAS-large), and each CTA keeps the 64 gate columns of its 16 units resident in shared memory for the
+//    whole sequence: [Hp x 64] bf16, 128 KB at H = 1024, loaded once by TMA from a gate-interleaved copy
+//    (ops/rnn_sequence.py interleave_recurrent: column 32 g + 8 k + t of a CTA's slice is gate k of its unit
+//    8 g + t; the GRU's fourth gate slot is zero), so the thread holding accumulator columns 8 j + 2 (lane %
+//    4) + {0, 1} holds every gate of its two units and the cell update is the product's epilogue.  A step:
+//    thread 0 waits until every CTA of the direction has published h(t-1) (an acquire load of the
+//    direction's step counter), then streams h(t-1) [B x Hp] through a four-stage TMA ring of [64 rows x 64]
+//    k-panels as wgmma's A operand (m64n64k16, two warpgroups of 64 rows: 128 batch rows a chunk, chunks in
+//    turn), against the resident R panels as B; each k-panel goes into a fresh float32 accumulator whose sum
+//    is added into the total in float32 (wgmma's accumulation rounds toward zero, PERF.md §6).  The
+//    epilogue adds x_proj (loaded before the chunk's product), applies the gates, keeps h and c for the CTA's
+//    units in shared memory (both are on the compute type's grid, so bf16 holds them exactly), writes out[t]
+//    and the CTA's slice of h(t) into the other of two h buffers (by step parity: a CTA writes h(t+1) only
+//    after every CTA of its direction has read all of h(t)), and publishes the step with a release add on
+//    the counter.  h is written by st.global and read by TMA in other CTAs, so both sides fence the async
+//    proxy.  The batch is walked in slices of rows whose state fits shared memory (all of B = 128 at once).
 //
 // Rounding is the Pallas kernel's: z = x (float32) + h @ R in float32 (bf16 x
 // bf16 products are exact in float32); the GRU's recurrent bias (already in
@@ -42,34 +49,39 @@
 // to the compute type before tanh(c_new); h_new is rounded to the compute
 // type.  At a masked step the state is frozen and the output is zero.
 //
-// What bounds it on the H100: the chain of T dependent steps.  Each step's
-// product is small (LAS-small: [16, 256] x [256, 128] per CTA) and the step
-// ends in a cluster barrier, so the kernel runs at T x (product latency +
-// barrier and exchange), far above the bytes / operations bound of the launch.
+// What bounds it on the H100: the chain of T dependent steps.  Each step's product is small (LAS-small:
+// [16, 256] x [256, 128] per CTA; LAS-large: 16.8 MFLOP per CTA) and the step ends in a barrier, so the
+// kernel runs at T x (product latency + barrier and exchange), far above the bytes / operations bound of the
+// launch.  On the persistent route each CTA also reads all of h(t-1) from L2 every step (256 KB at B = 128,
+// 32 MB over the 128 CTAs).
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace srt {
 
 constexpr int RNN_CLUSTER = 8;    // CTAs per (direction, batch tile)
-constexpr int RNN_ROWS = 16;      // batch rows of an m16n8k16 tile; a cluster takes MT such tiles
+constexpr int RNN_ROWS = 16;      // batch rows of an m16n8k16 tile: a cluster's batch tile
 constexpr int RNN_STRIP = 4;      // batch rows per thread in the FMA product
 constexpr int RNN_THREADS = 256;
 constexpr int RNN_WARPS = RNN_THREADS / 32;
-// (row, unit) pairs per thread in the gate phase for each m16 tile, and n-tiles of 8 columns per warp in the
-// mma modes (G * U <= 8 tiles x 8 warps x 8 columns), of the narrow route (H <= 512) and the wide one (H <= 1024)
+// (row, unit) pairs per thread in the gate phase, and n-tiles of 8 columns per warp in the mma mode
+// (G * U <= 8 tiles x 8 warps x 8 columns), of the narrow route (H <= 512) and the wide one (H <= 1024, float32)
 constexpr int RNN_NARROW_PAIRS = 4, RNN_NARROW_TILES = 4;
 constexpr int RNN_WIDE_PAIRS = 8, RNN_WIDE_TILES = 8;
-constexpr int RNN_WIDE_MT = 2;  // m16 tiles of a cluster on the wide route in bf16 (float32: 1, shared memory)
 constexpr int RNN_NARROW_UNITS = RNN_THREADS * RNN_NARROW_PAIRS / RNN_ROWS * RNN_CLUSTER;  // 512
 constexpr int RNN_MAX_UNITS = RNN_THREADS * RNN_WIDE_PAIRS / RNN_ROWS * RNN_CLUSTER;       // 1024
-constexpr int RNN_KU = 4;  // MODE_MMA_GLOBAL: k-steps whose B fragments are loaded before their products
-constexpr int MODE_FMA_GLOBAL = 0, MODE_FMA_SMEM = 1, MODE_MMA = 2, MODE_MMA_GLOBAL = 3;
+constexpr int MODE_FMA_GLOBAL = 0, MODE_FMA_SMEM = 1, MODE_MMA = 2;
+// the persistent route (= ops/rnn_sequence.py P_*): units a CTA owns, its gate columns (4 slots a unit),
+// warpgroups (64 batch rows each) and ring stages of h's k-panels, two in flight
+constexpr int RNN_P_UNITS = 16, RNN_P_COLS = 64, RNN_P_WGS = 2, RNN_P_STAGES = 4, RNN_P_IN_FLIGHT = 2;
+constexpr int RNN_P_THREADS = 128 * RNN_P_WGS;
+constexpr int RNN_P_ROWS = 64 * RNN_P_WGS;  // batch rows of a chunk
 
 __device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
                                                uint32_t b0, uint32_t b1) {
@@ -82,19 +94,10 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0, uint32_t a
 
 // h's row stride in shared memory: MODE_MMA pads H to whole k-steps of 16, plus 8
 // elements so the 8 rows of an A fragment fall on different banks
-__host__ __device__ inline int rnn_h_stride(int H, int mode) {
-  return mode == MODE_MMA || mode == MODE_MMA_GLOBAL ? (H + 15) / 16 * 16 + 8 : H;
-}
+__host__ __device__ inline int rnn_h_stride(int H, int mode) { return mode == MODE_MMA ? (H + 15) / 16 * 16 + 8 : H; }
 
-// Elements of one CTA's slice of R in B-fragment order: [NT][KS][32 lanes][4], NT = ceil(G * U / 8) n-tiles of
-// 8 columns, KS = ceil(H / 16) k-steps (zero past H and past the CTA's columns)
-__host__ __device__ inline size_t rnn_frag_elems(int G, int H) {
-  const int U = (H + RNN_CLUSTER - 1) / RNN_CLUSTER;
-  return (size_t)((G * U + 7) / 8) * ((H + 15) / 16) * 128;
-}
-
-// Element i of CTA j's fragment-order slice of direction d's R: column n < NCj of the slice is gate n / Uj,
-// unit lo + n % Uj
+// Element i of CTA j's fragment-order slice of direction d's R (MODE_MMA: [NT][KS][32 lanes][4]): column
+// n < NCj of the slice is gate n / Uj, unit lo + n % Uj
 template <typename T>
 __device__ __forceinline__ T rnn_frag_elem(const T* __restrict__ rk_d, int i, int KS, int H, int GH, int lo, int Uj,
                                            int NCj) {
@@ -104,33 +107,19 @@ __device__ __forceinline__ T rnn_frag_elem(const T* __restrict__ rk_d, int i, in
   return (k < H && n < NCj) ? rk_d[(size_t)k * GH + g * H + lo + u] : from_f<T>(0.0f);
 }
 
-// grid (RNN_CLUSTER, D, parts): frag[d][j] = CTA j's slice of rk[d] in B-fragment order (MODE_MMA_GLOBAL)
-template <typename T>
-__global__ void rnn_frag_kernel(const T* __restrict__ rk, int G, int H, T* __restrict__ frag) {
-  const int j = blockIdx.x, d = blockIdx.y, GH = G * H;
-  const int U = (H + RNN_CLUSTER - 1) / RNN_CLUSTER, lo = j * U, Uj = max(0, min(H - lo, U));
-  const size_t n = rnn_frag_elems(G, H);
-  T* out = frag + ((size_t)d * RNN_CLUSTER + j) * n;
-  for (size_t i = (size_t)blockIdx.z * blockDim.x + threadIdx.x; i < n; i += (size_t)gridDim.z * blockDim.x)
-    out[i] = rnn_frag_elem(rk + (size_t)d * H * GH, (int)i, (H + 15) / 16, H, GH, lo, Uj, G * Uj);
-}
-
 // x [T, D, B, G*H]; mask [T, D, B] (bool bytes); rk [D, H, G*H]; rb [D, G*H]
 // (GRU); h0, c0 [D, B, H]; out [T, D, B, H]; h_last, c_last [D, B, H].
-// Direction d runs its own time order: the caller has flipped the inputs.  frag: MODE_MMA_GLOBAL's
-// fragment-order copy of R, [D][RNN_CLUSTER][rnn_frag_elems].  MT: m16 tiles of batch rows a cluster takes;
-// PAIRS = MT x the route's RNN_*_PAIRS, TILES its RNN_*_TILES.
-template <typename T, bool GRU, int PAIRS, int TILES, int MT>
+// Direction d runs its own time order: the caller has flipped the inputs.  PAIRS and TILES: the route's
+// RNN_*_PAIRS and RNN_*_TILES.
+template <typename T, bool GRU, int PAIRS, int TILES>
 __global__ void __launch_bounds__(RNN_THREADS)
     rnn_sequence_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask, const T* __restrict__ rk,
-                        const T* __restrict__ frag, const T* __restrict__ rb, const T* __restrict__ h0,
-                        const T* __restrict__ c0, T* __restrict__ out, T* __restrict__ h_last,
-                        T* __restrict__ c_last, int steps, int D, int B, int H, int mode) {
+                        const T* __restrict__ rb, const T* __restrict__ h0, const T* __restrict__ c0,
+                        T* __restrict__ out, T* __restrict__ h_last, T* __restrict__ c_last, int steps, int D, int B,
+                        int H, int mode) {
   constexpr int G = GRU ? 3 : 4;
   constexpr bool BF16 = sizeof(T) == 2;
-  constexpr bool WIDE = TILES == RNN_WIDE_TILES;  // the wide route: R read from L2 (MODE_MMA_GLOBAL, FMA_GLOBAL)
-  constexpr int ROWS = RNN_ROWS * MT;            // batch rows of the cluster
-  constexpr bool AHEAD = MT == 1;  // step t+1's inputs loaded into registers during step t
+  constexpr int ROWS = RNN_ROWS;  // batch rows of the cluster
   cg::cluster_group cluster = cg::this_cluster();
   const int j = (int)cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -183,27 +172,25 @@ __global__ void __launch_bounds__(RNN_THREADS)
   const int n_strips = (ROWS / RNN_STRIP) * NCj;
   const T* rb_d = GRU ? rb + (size_t)d * GH + lo : nullptr;
 
-  // the inputs of the thread's pair i at step t
-  auto pair_inputs = [&](int t, int i, float (&xs)[G], bool& m) {
+  // the inputs of all the thread's pairs at step t
+  auto load_inputs = [&](int t, float (&xs)[PAIRS][G], bool (&ms)[PAIRS]) {
     const size_t row0 = ((size_t)t * D + d) * B;
-    const int p = tid + i * RNN_THREADS;
-    m = false;
 #pragma unroll
-    for (int g = 0; g < G; ++g) xs[g] = 0.0f;
-    if (p < n_pairs) {
-      const int r = p / Uj, u = p - r * Uj, b = b0 + r;
-      if (b < B) {
-        const T* xp = x + (row0 + b) * GH + lo + u;
+    for (int i = 0; i < PAIRS; ++i) {
+      const int p = tid + i * RNN_THREADS;
+      ms[i] = false;
 #pragma unroll
-        for (int g = 0; g < G; ++g) xs[g] = to_f(xp[g * H]);
-        m = mask[row0 + b] != 0;
+      for (int g = 0; g < G; ++g) xs[i][g] = 0.0f;
+      if (p < n_pairs) {
+        const int r = p / Uj, u = p - r * Uj, b = b0 + r;
+        if (b < B) {
+          const T* xp = x + (row0 + b) * GH + lo + u;
+#pragma unroll
+          for (int g = 0; g < G; ++g) xs[i][g] = to_f(xp[g * H]);
+          ms[i] = mask[row0 + b] != 0;
+        }
       }
     }
-  };
-  // AHEAD: the inputs of all the thread's pairs
-  auto load_inputs = [&](int t, float (&xs)[PAIRS][G], bool (&ms)[PAIRS]) {
-#pragma unroll
-    for (int i = 0; i < PAIRS; ++i) pair_inputs(t, i, xs[i], ms[i]);
   };
 
   // one step on inputs xv / mv, with step t+1's loads issued into xn / mn first
@@ -212,86 +199,44 @@ __global__ void __launch_bounds__(RNN_THREADS)
     const int cur = t & 1;
     const T* hc = hbuf + cur * ROWS * HS;
     const size_t row0 = ((size_t)t * D + d) * B;  // [T, D, B] row of batch row 0
-    if (AHEAD && t + 1 < steps) load_inputs(t + 1, xn, mn);  // in flight until the next step's gates
+    if (t + 1 < steps) load_inputs(t + 1, xn, mn);  // in flight until the next step's gates
 
     // the recurrent product: zs[r][g*U + u] = sum_k h[r][k] R[k][g][u]
     if constexpr (BF16) {
-      if (mode == MODE_MMA || mode == MODE_MMA_GLOBAL) {
-        float acc[MT][TILES][4];
+      if (mode == MODE_MMA && warp < NT) {
+        float acc[TILES][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int q = 0; q < TILES; ++q) acc[mt][q][0] = acc[mt][q][1] = acc[mt][q][2] = acc[mt][q][3] = 0.0f;
-        // the A fragment of k-step ks of m-tile mt: rows 16 mt + lane / 4 and + 8, columns ks * 16 + 2 (lane % 4)
-        // (+ 1, + 8, + 9)
-        auto a_frag = [&](int ks, int mt, uint32_t (&a)[4]) {
-          const T* hA = hc + (mt * RNN_ROWS + (lane >> 2)) * HS + ks * 16 + (lane & 3) * 2;
-          a[0] = *reinterpret_cast<const uint32_t*>(hA);
-          a[1] = *reinterpret_cast<const uint32_t*>(hA + 8 * HS);
-          a[2] = *reinterpret_cast<const uint32_t*>(hA + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(hA + 8 * HS + 8);
-        };
-        if (!WIDE && warp < NT) {  // MODE_MMA
-          const uint2* Rf = reinterpret_cast<const uint2*>(Rs);
+        for (int q = 0; q < TILES; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+        const uint2* Rf = reinterpret_cast<const uint2*>(Rs);
 #pragma unroll 4
-          for (int ks = 0; ks < KS; ++ks) {
-            uint32_t a[MT][4];
+        for (int ks = 0; ks < KS; ++ks) {
+          // the A fragment: rows lane / 4 and + 8, columns ks * 16 + 2 (lane % 4) (+ 1, + 8, + 9)
+          const T* hA = hc + (lane >> 2) * HS + ks * 16 + (lane & 3) * 2;
+          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(hA);
+          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(hA + 8 * HS);
+          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(hA + 8);
+          const uint32_t a3 = *reinterpret_cast<const uint32_t*>(hA + 8 * HS + 8);
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) a_frag(ks, mt, a[mt]);
-#pragma unroll
-            for (int q = 0; q < TILES; ++q) {
-              const int nt = warp + q * RNN_WARPS;
-              if (nt < NT) {
-                const uint2 bf = Rf[(nt * KS + ks) * 32 + lane];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-                  mma_bf16_16816(acc[mt][q], a[mt][0], a[mt][1], a[mt][2], a[mt][3], bf.x, bf.y);
-              }
-            }
-          }
-        } else if (WIDE && warp < NT) {  // MODE_MMA_GLOBAL
-          // this CTA's slice in fragment order; all of a group's loads are in flight before its first product
-          const uint2* Rf = reinterpret_cast<const uint2*>(frag + ((size_t)d * RNN_CLUSTER + j) * rnn_frag_elems(G, H));
-#pragma unroll 1
-          for (int ks0 = 0; ks0 < KS; ks0 += RNN_KU) {
-            uint2 bf[RNN_KU][TILES];
-#pragma unroll
-            for (int u = 0; u < RNN_KU; ++u)
-#pragma unroll
-              for (int q = 0; q < TILES; ++q) {
-                const int nt = warp + q * RNN_WARPS;
-                bf[u][q] = (nt < NT && ks0 + u < KS) ? Rf[(nt * KS + ks0 + u) * 32 + lane] : make_uint2(0u, 0u);
-              }
-#pragma unroll
-            for (int u = 0; u < RNN_KU; ++u) {
-              if (ks0 + u < KS) {
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                  uint32_t a[4];
-                  a_frag(ks0 + u, mt, a);
-#pragma unroll
-                  for (int q = 0; q < TILES; ++q)
-                    if (warp + q * RNN_WARPS < NT)
-                      mma_bf16_16816(acc[mt][q], a[0], a[1], a[2], a[3], bf[u][q].x, bf[u][q].y);
-                }
-              }
+          for (int q = 0; q < TILES; ++q) {
+            const int nt = warp + q * RNN_WARPS;
+            if (nt < NT) {
+              const uint2 bf = Rf[(nt * KS + ks) * 32 + lane];
+              mma_bf16_16816(acc[q], a0, a1, a2, a3, bf.x, bf.y);
             }
           }
         }
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+        for (int q = 0; q < TILES; ++q) {
+          const int nt = warp + q * RNN_WARPS;
 #pragma unroll
-          for (int q = 0; q < TILES; ++q) {
-            const int nt = warp + q * RNN_WARPS;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = mt * RNN_ROWS + (lane >> 2) + (e >> 1) * 8, n = nt * 8 + (lane & 3) * 2 + (e & 1);
-              if (nt < NT && n < NCj) {
-                const int g = n / Uj;
-                zs[r * NC + g * U + (n - g * Uj)] = acc[mt][q][e];
-              }
+          for (int e = 0; e < 4; ++e) {
+            const int r = (lane >> 2) + (e >> 1) * 8, n = nt * 8 + (lane & 3) * 2 + (e & 1);
+            if (nt < NT && n < NCj) {
+              const int g = n / Uj;
+              zs[r * NC + g * U + (n - g * Uj)] = acc[q][e];
             }
           }
+        }
       }
     }
     if (mode == MODE_FMA_SMEM || mode == MODE_FMA_GLOBAL) {
@@ -323,15 +268,8 @@ __global__ void __launch_bounds__(RNN_THREADS)
         const int r = p / Uj, u = p - r * Uj, b = b0 + r;
         const float* zr = zs + r * NC + u;
         const float h_old = to_f(hc[r * HS + lo + u]);
-        float xg[G];
-        bool m;
-        if constexpr (AHEAD) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) xg[g] = xv[i][g];
-          m = mv[i];
-        } else {
-          pair_inputs(t, i, xg, m);
-        }
+        const float* xg = xv[i];
+        const bool m = mv[i];
         float h_new, h_next;
         if constexpr (GRU) {
           const float rz = zr[0] + to_f(rb_d[u]);
@@ -368,10 +306,10 @@ __global__ void __launch_bounds__(RNN_THREADS)
     cluster.sync();  // the new h is in every CTA, and every read of this step's buffers is done
   };
 
-  // AHEAD: two register sets of inputs, so a step's loads are consumed only in the step after
+  // two register sets of inputs, so a step's loads are consumed only in the step after
   float xa[PAIRS][G], xb[PAIRS][G];
   bool ma[PAIRS], mb[PAIRS];
-  if (AHEAD) load_inputs(0, xa, ma);
+  load_inputs(0, xa, ma);
   cluster.sync();  // every CTA of the cluster has started and loaded its state before any remote store
   for (int t = 0; t < steps; t += 2) {
     step(t, xa, ma, xb, mb);
@@ -379,15 +317,287 @@ __global__ void __launch_bounds__(RNN_THREADS)
   }
 }
 
+// ---------------------------------------------------------------- the persistent route
+namespace rp {
+
+using namespace wg;  // PANEL, W_PANEL, WG_ROWS, ALIGN and the PTX helpers
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+// orders this thread's global accesses of the generic proxy (st / ld) with those of the async proxy (TMA)
+__device__ __forceinline__ void fence_async_global() { asm volatile("fence.proxy.async.global;\n" ::: "memory"); }
+
+// One launch's operands, bf16 unless stated.  Hp = H rounded up to 64-column panels.
+struct Args {
+  const Bf* x;             // [T, D, B, G*H]
+  const uint8_t* mask;     // [T, D, B]
+  const Bf* rb;            // [D, G*H] (GRU)
+  const Bf* c0;            // [D, B, H] (LSTM)
+  Bf* hbuf;                // [2, D, B, Hp]: h(t) in plane t % 2 (h0 in plane 0), columns past H zero
+  unsigned* done;          // [D] steps published by the direction's CTAs, 0 at launch
+  Bf *out, *h_last, *c_last;  // [T, D, B, H], [D, B, H], [D, B, H] (LSTM)
+  int T, D, B, H, Hp, ctas, slice_rows;
+};
+
+// Dynamic shared memory (ops/rnn_sequence.py persistent_smem mirrors it): alignment slack, the resident R
+// panels, the ring, and h and c of the CTA's 16 units for a slice of batch rows.
+inline size_t smem_bytes(int Hp, int slice_rows) {
+  return ALIGN + (size_t)(Hp / PANEL) * W_PANEL + (size_t)RNN_P_STAGES * RNN_P_WGS * W_PANEL +
+         2 * sizeof(Bf) * (size_t)RNN_P_UNITS * slice_rows;
+}
+
+// Grid: D x ctas CTAs, all resident (a cooperative launch); CTA (d, j) owns units [16 j, 16 j + 16) of
+// direction d.  rmap: the interleaved R [D Hp, 64 ctas] in [64 x 64] boxes; hmap: hbuf as [2 D][B][Hp].
+template <bool GRU>
+__global__ void __launch_bounds__(RNN_P_THREADS, 1)
+    rnn_persistent_kernel(const __grid_constant__ CUtensorMap rmap, const __grid_constant__ CUtensorMap hmap,
+                          const Args a) {
+  constexpr int G = GRU ? 3 : 4, S = RNN_P_STAGES, DF = RNN_P_IN_FLIGHT, STAGE = RNN_P_WGS * W_PANEL;
+  extern __shared__ uint8_t rp_smem[];
+  __shared__ __align__(8) uint64_t rp_bars[S + 1];  // the ring's stages, then R's
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31, q = lane & 3;
+  const int d = blockIdx.x / a.ctas, j = blockIdx.x - d * a.ctas;
+  const int H = a.H, B = a.B, D = a.D, Hp = a.Hp, GH = G * H, lo = j * RNN_P_UNITS, n_kp = Hp / PANEL;
+  const uint32_t raw = smem_addr(rp_smem);
+  const uint32_t base = (raw + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+  const uint32_t r_base = base, ring = base + n_kp * W_PANEL;
+  const uint32_t bars = smem_addr(rp_bars), r_bar = bars + 8 * S;
+  Bf* hs = reinterpret_cast<Bf*>(rp_smem + (ring - raw) + S * STAGE);  // [slice_rows][16]: h of the units
+  Bf* cs = hs + (size_t)a.slice_rows * RNN_P_UNITS;                    // [slice_rows][16]: c (LSTM)
+
+  if (tid == 0) {
+    for (int s = 0; s <= S; ++s) mbar_init(bars + 8 * s, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {  // the CTA's R panels, resident for the whole launch
+    mbar_expect_tx(r_bar, n_kp * W_PANEL);
+    for (int k = 0; k < n_kp; ++k) tma_load_2d(r_base + k * W_PANEL, &rmap, j * RNN_P_COLS, d * Hp + k * PANEL, r_bar);
+  }
+  // the thread's units: 8 g + 2 q + x, g, x in {0, 1}; the GRU's recurrent bias of them
+  float rbv[2][3][2] = {};
+  if constexpr (GRU) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int u = lo + 8 * g + 2 * q + x;
+          rbv[g][k][x] = u < H ? to_f(a.rb[(size_t)d * GH + k * H + u]) : 0.0f;
+        }
+  }
+  mbar_wait(r_bar, 0);
+
+  const unsigned short* xraw = reinterpret_cast<const unsigned short*>(a.x);
+  int job0 = 0;        // ring jobs (k-panels of a chunk) of the launch before this step's
+  unsigned epoch = 0;  // steps this CTA has published
+  for (int s0 = 0; s0 < B; s0 += a.slice_rows) {
+    const int ns = min(a.slice_rows, B - s0), n_chunks = (ns + RNN_P_ROWS - 1) / RNN_P_ROWS;
+    const int n_jobs = n_chunks * n_kp;
+    for (int i = tid; i < ns * RNN_P_UNITS; i += RNN_P_THREADS) {  // the slice's state: h0 (plane 0), c0
+      const int r = i / RNN_P_UNITS, u = lo + i % RNN_P_UNITS, b = s0 + r;
+      hs[i] = u < H ? a.hbuf[((size_t)d * B + b) * Hp + u] : from_f<Bf>(0.0f);
+      cs[i] = !GRU && u < H ? a.c0[((size_t)d * B + b) * H + u] : from_f<Bf>(0.0f);
+    }
+    __syncthreads();
+    for (int t = 0; t < a.T; ++t, ++epoch) {
+      const int par = t & 1;
+      // ring job i of this step: k-panel i % n_kp of chunk i / n_kp's two 64-row boxes into stage (job0 + i) % S
+      auto issue = [&](int i) {
+        if (i < n_jobs && tid == 0) {
+          const int g = job0 + i, ch = i / n_kp, k = i - ch * n_kp;
+          const uint32_t dst = ring + (g % S) * STAGE, bar = bars + (g % S) * 8;
+          mbar_expect_tx(bar, STAGE);
+          for (int w = 0; w < RNN_P_WGS; ++w)
+            tma_load_3d(dst + w * W_PANEL, &hmap, k * PANEL, s0 + ch * RNN_P_ROWS + w * WG_ROWS, par * D + d, bar);
+        }
+      };
+      const size_t xrow0 = ((size_t)t * D + d) * B;
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        // the thread's rows (16 warp + lane / 4 + 8 hf of its warpgroup) and their inputs, loaded before the
+        // product: x[hf][g][k] packs units 8 g + 2 q + {0, 1} of gate k
+        int rows[2];
+        bool live[2], m[2];
+        uint32_t xw[2][2][4] = {};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = s0 + ch * RNN_P_ROWS + wgi * WG_ROWS + 16 * warp + (lane >> 2) + 8 * hf;
+          rows[hf] = r;
+          live[hf] = r < s0 + ns;
+          m[hf] = live[hf] && a.mask[xrow0 + r] != 0;
+          if (live[hf]) {
+            const unsigned short* xr = xraw + (xrow0 + r) * GH;
+#pragma unroll
+            for (int g = 0; g < 2; ++g)
+#pragma unroll
+              for (int k = 0; k < G; ++k) {
+                const int u = lo + 8 * g + 2 * q;
+                const uint32_t v0 = u < H ? xr[k * H + u] : 0u, v1 = u + 1 < H ? xr[k * H + u + 1] : 0u;
+                xw[hf][g][k] = v0 | v1 << 16;
+              }
+          }
+        }
+        if (ch == 0) {  // h(t - 1) is complete once every CTA of the direction has published step t - 1
+          if (tid == 0) {
+            const unsigned target = epoch * (unsigned)a.ctas;
+            for (uint32_t n = 0; ld_acquire(a.done + d) < target; ++n)
+              if (n > (1u << 26)) __trap();  // a CTA that never publishes ends the launch, not a hang
+            fence_async_global();  // the acquired h, written by st.global, before TMA reads it
+          }
+          for (int i = 0; i < DF; ++i) issue(i);
+        }
+
+        // the chunk's product: k-panel k into a fresh accumulator (za, zb in turns), its sum added into z
+        float z[32], za[32], zb[32];
+#pragma unroll
+        for (int c = 0; c < 32; ++c) z[c] = za[c] = zb[c] = 0.0f;
+        auto panel = [&](float (&acc)[32], int k) {
+          const int i = ch * n_kp + k, g = job0 + i;
+          mbar_wait(bars + (g % S) * 8, (g / S) & 1);
+          __syncthreads();  // both warpgroups are done with job i - 2, whose stage the next issue refills
+          issue(i + DF);
+          const uint32_t st = ring + (g % S) * STAGE;
+          wg_arrive();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            mma_ss<0, 1>(acc, kmajor(st + wgi * W_PANEL + 32 * s), mnmajor(r_base + k * W_PANEL + 2048 * s, W_PANEL),
+                         s);
+          wg_commit();
+        };
+        auto add = [&](float (&acc)[32]) {
+          reg_fence(acc);
+#pragma unroll
+          for (int c = 0; c < 32; ++c) z[c] += acc[c];
+        };
+        int k = 0;
+        for (; k + 1 < n_kp; k += 2) {
+          panel(za, k);
+          wg_wait<1>();
+          add(zb);
+          panel(zb, k + 1);
+          wg_wait<1>();
+          add(za);
+        }
+        if (k < n_kp) {
+          panel(za, k);
+          wg_wait<1>();
+          add(zb);
+          wg_wait<0>();
+          add(za);
+        } else {
+          wg_wait<0>();
+          add(zb);
+        }
+
+        // the epilogue: z[4 (4 g + k) + 2 hf + x] is gate k of unit 8 g + 2 q + x, row rows[hf]
+        Bf* hnext = a.hbuf + ((size_t)(par ^ 1) * D + d) * B * Hp;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (!live[hf]) continue;
+          const int r = rows[hf], lr = r - s0;
+          const size_t orow = (xrow0 + r) * H, srow = ((size_t)d * B + r) * H;
+#pragma unroll
+          for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int ul = 8 * g + 2 * q + x, u = lo + ul;
+              if (u >= H) continue;
+              float xg[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                xg[k] = k < G ? __uint_as_float(((xw[hf][g][k] >> (16 * x)) & 0xffffu) << 16) : 0.0f;
+              const int zc = 16 * g + 2 * hf + x;  // gate k at z[zc + 4 k]
+              const float z0 = z[zc], z1 = z[zc + 4], z2 = z[zc + 8], z3 = z[zc + 12];
+              const float h_old = to_f(hs[lr * RNN_P_UNITS + ul]);
+              float h_new, h_next;
+              if constexpr (GRU) {
+                const float zg = sigmoidf(xg[0] + (z0 + rbv[g][0][x]));
+                const float rg = sigmoidf(xg[1] + (z1 + rbv[g][1][x]));
+                const float hh = tanhf(xg[2] + rg * (z2 + rbv[g][2][x]));
+                h_new = bf16_grid(zg * h_old + (1.0f - zg) * hh);
+                h_next = m[hf] ? h_new : h_old;
+              } else {
+                const float c_old = to_f(cs[lr * RNN_P_UNITS + ul]);
+                const float ig = sigmoidf(xg[0] + z0), fg = sigmoidf(xg[1] + z1);
+                const float gg = tanhf(xg[2] + z2), og = sigmoidf(xg[3] + z3);
+                const float c_new = bf16_grid(fg * c_old + ig * gg);
+                h_new = bf16_grid(og * tanhf(c_new));
+                h_next = m[hf] ? h_new : h_old;
+                const float c_next = m[hf] ? c_new : c_old;
+                cs[lr * RNN_P_UNITS + ul] = from_f<Bf>(c_next);
+                if (t == a.T - 1) a.c_last[srow + u] = from_f<Bf>(c_next);
+              }
+              const Bf hv = from_f<Bf>(h_next);
+              hs[lr * RNN_P_UNITS + ul] = hv;
+              hnext[(size_t)r * Hp + u] = hv;
+              a.out[orow + u] = from_f<Bf>(m[hf] ? h_new : 0.0f);
+              if (t == a.T - 1) a.h_last[srow + u] = hv;
+            }
+        }
+      }
+      // publish h(t): every thread's stores, then one release add for the CTA
+      fence_async_global();
+      __syncthreads();
+      if (tid == 0) red_release(a.done + d, 1u);
+      job0 += n_jobs;
+    }
+  }
+}
+
+template <bool GRU>
+cudaError_t launch(const void* rk_il, const Args& a, cudaStream_t stream) {
+  const int n_kp = a.Hp / PANEL;
+  if (a.T < 1 || a.D < 1 || a.B < 1 || a.H <= RNN_NARROW_UNITS || a.H > RNN_MAX_UNITS || a.Hp % PANEL ||
+      a.Hp < a.H || a.ctas != (a.H + RNN_P_UNITS - 1) / RNN_P_UNITS || a.slice_rows < 1 ||
+      a.slice_rows % RNN_P_ROWS || n_kp < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(a.Hp, a.slice_rows);
+  int dev = 0, max_smem = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  if (!coop) return cudaErrorNotSupported;
+  CUtensorMap rmap, hmap;
+  if ((err = panel_map(&rmap, rk_il, a.D * a.Hp, a.ctas * RNN_P_COLS)) != cudaSuccess) return err;
+  if ((err = batched_panel_map(&hmap, a.hbuf, 2 * a.D, a.B, a.Hp)) != cudaSuccess) return err;
+  auto kernel = rnn_persistent_kernel<GRU>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.D * a.ctas);
+  config.blockDim = dim3(RNN_P_THREADS);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;  // refused, not hung, when the CTAs cannot all be resident
+  attr[0].val.cooperative = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, rmap, hmap, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace rp
+
 template <typename T, bool GRU>
 cudaError_t launch_rnn_sequence(const void* x, const void* mask, const void* rk, const void* rb, const void* h0,
-                                const void* c0, void* out, void* h_last, void* c_last, void* frag, int steps, int D,
-                                int B, int H, cudaStream_t stream) {
+                                const void* c0, void* out, void* h_last, void* c_last, int steps, int D, int B, int H,
+                                cudaStream_t stream) {
   constexpr int G = GRU ? 3 : 4;
   if (steps < 1 || D < 1 || B < 1 || H < 1 || H > RNN_MAX_UNITS) return cudaErrorInvalidValue;
   const bool wide = H > RNN_NARROW_UNITS;
-  constexpr int WIDE_MT = sizeof(T) > 2 ? 1 : RNN_WIDE_MT;  // float32: one m16 tile (shared memory)
-  const int rows = RNN_ROWS * (wide ? WIDE_MT : 1);  // batch rows of a cluster
+  if (wide && sizeof(T) == 2) return cudaErrorInvalidValue;  // bf16 above 512: the persistent route
+  const int rows = RNN_ROWS;  // batch rows of a cluster
   const int U = (H + RNN_CLUSTER - 1) / RNN_CLUSTER;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -399,26 +609,16 @@ cudaError_t launch_rnn_sequence(const void* x, const void* mask, const void* rk,
                                                    : 0;
     return 2 * rows * rnn_h_stride(H, mode) * sizeof(T) + (size_t)rows * G * U * 4 + (size_t)rows * U * 4 + r_bytes;
   };
-  int mode;
-  if (wide) {  // R never fits: bf16 reads the fragment-order copy, float32 R itself
-    mode = sizeof(T) == 2 ? MODE_MMA_GLOBAL : MODE_FMA_GLOBAL;
-    if (sizeof(T) == 2 && frag == nullptr) return cudaErrorInvalidValue;
-  } else {
-    mode = sizeof(T) == 2 ? MODE_MMA : MODE_FMA_SMEM;
-    if (smem_bytes(mode) > (size_t)max_smem) mode = MODE_FMA_GLOBAL;
-  }
+  int mode = wide ? MODE_FMA_GLOBAL : sizeof(T) == 2 ? MODE_MMA : MODE_FMA_SMEM;
+  if (smem_bytes(mode) > (size_t)max_smem) mode = MODE_FMA_GLOBAL;
   const size_t smem = smem_bytes(mode);
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  auto kernel = wide ? rnn_sequence_kernel<T, GRU, RNN_WIDE_PAIRS * WIDE_MT, RNN_WIDE_TILES, WIDE_MT>
-                     : rnn_sequence_kernel<T, GRU, RNN_NARROW_PAIRS, RNN_NARROW_TILES, 1>;
+  auto kernel = rnn_sequence_kernel<T, GRU, RNN_NARROW_PAIRS, RNN_NARROW_TILES>;
+  if constexpr (sizeof(T) == 4) {  // the wide cluster route is float32's only
+    if (wide) kernel = rnn_sequence_kernel<T, GRU, RNN_WIDE_PAIRS, RNN_WIDE_TILES>;
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (mode == MODE_MMA_GLOBAL) {
-    rnn_frag_kernel<T><<<dim3(RNN_CLUSTER, D, 32), 256, 0, stream>>>(static_cast<const T*>(rk), G, H,
-                                                                    static_cast<T*>(frag));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
 
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(RNN_CLUSTER, (B + rows - 1) / rows, D);
@@ -438,9 +638,9 @@ cudaError_t launch_rnn_sequence(const void* x, const void* mask, const void* rk,
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorLaunchOutOfResources;
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
-                           static_cast<const T*>(rk), static_cast<const T*>(frag), static_cast<const T*>(rb),
-                           static_cast<const T*>(h0), static_cast<const T*>(c0), static_cast<T*>(out),
-                           static_cast<T*>(h_last), static_cast<T*>(c_last), steps, D, B, H, mode);
+                           static_cast<const T*>(rk), static_cast<const T*>(rb), static_cast<const T*>(h0),
+                           static_cast<const T*>(c0), static_cast<T*>(out), static_cast<T*>(h_last),
+                           static_cast<T*>(c_last), steps, D, B, H, mode);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -449,24 +649,50 @@ cudaError_t launch_rnn_sequence(const void* x, const void* mask, const void* rk,
 
 extern "C" {
 
-// is_gru: 0 LSTM (c0 / c_last used, rb unused), 1 GRU (rb [D, G*H] used, c0 / c_last unused).
-// Shapes as rnn_sequence_kernel's; T >= 1, 1 <= H <= 1024.  frag: scratch of D * 8 * rnn_frag_elems(G, H)
-// elements in bf16 above H = 512 (ops/rnn_sequence.py rnn_plan), else unused.
+// The cluster route.  is_gru: 0 LSTM (c0 / c_last used, rb unused), 1 GRU (rb [D, G*H] used, c0 / c_last
+// unused).  Shapes as rnn_sequence_kernel's; T >= 1, 1 <= H <= 1024, and H <= 512 in bf16.
 int rnn_sequence(int dtype_bf16, int is_gru, const void* x, const void* mask, const void* rk, const void* rb,
-                 const void* h0, const void* c0, void* out, void* h_last, void* c_last, void* frag, int T, int D,
-                 int B, int H, void* stream) {
+                 const void* h0, const void* c0, void* out, void* h_last, void* c_last, int T, int D, int B, int H,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype_bf16 && is_gru)
-    err = srt::launch_rnn_sequence<__nv_bfloat16, true>(x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B,
-                                                        H, st);
+    err = srt::launch_rnn_sequence<__nv_bfloat16, true>(x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, st);
   else if (dtype_bf16)
-    err = srt::launch_rnn_sequence<__nv_bfloat16, false>(x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D,
-                                                         B, H, st);
+    err = srt::launch_rnn_sequence<__nv_bfloat16, false>(x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, st);
   else if (is_gru)
-    err = srt::launch_rnn_sequence<float, true>(x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B, H, st);
+    err = srt::launch_rnn_sequence<float, true>(x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, st);
   else
-    err = srt::launch_rnn_sequence<float, false>(x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B, H, st);
+    err = srt::launch_rnn_sequence<float, false>(x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, st);
+  return static_cast<int>(err);
+}
+
+// The persistent route (bf16, 512 < H <= 1024; ops/rnn_sequence.py rnn_plan): x [T, D, B, G*H], mask [T, D, B],
+// rk_il the gate-interleaved R [D, Hp, 64 ctas] (interleave_recurrent), rb [D, G*H] (GRU), c0 [D, B, H] (LSTM),
+// hbuf [2, D, B, Hp] with h0 in plane 0 and zeros past H, done [D] zeros; out [T, D, B, H], h_last, c_last
+// [D, B, H].  Fails (cudaErrorCooperativeLaunchTooLarge) when the D * ctas CTAs cannot all be resident.
+int rnn_sequence_persistent(int is_gru, const void* x, const void* mask, const void* rk_il, const void* rb,
+                            const void* c0, void* hbuf, void* done, void* out, void* h_last, void* c_last, int T,
+                            int D, int B, int H, int ctas, int slice_rows, void* stream) {
+  srt::rp::Args a{};
+  a.x = static_cast<const srt::wg::Bf*>(x);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.rb = static_cast<const srt::wg::Bf*>(rb);
+  a.c0 = static_cast<const srt::wg::Bf*>(c0);
+  a.hbuf = static_cast<srt::wg::Bf*>(hbuf);
+  a.done = static_cast<unsigned*>(done);
+  a.out = static_cast<srt::wg::Bf*>(out);
+  a.h_last = static_cast<srt::wg::Bf*>(h_last);
+  a.c_last = static_cast<srt::wg::Bf*>(c_last);
+  a.T = T;
+  a.D = D;
+  a.B = B;
+  a.H = H;
+  a.Hp = (H + srt::wg::PANEL - 1) / srt::wg::PANEL * srt::wg::PANEL;
+  a.ctas = ctas;
+  a.slice_rows = slice_rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_gru ? srt::rp::launch<true>(rk_il, a, st) : srt::rp::launch<false>(rk_il, a, st);
   return static_cast<int>(err);
 }
 

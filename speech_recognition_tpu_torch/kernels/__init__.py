@@ -43,9 +43,13 @@ _SIGNATURES = {
     # h, c, prev_tok, ended, logp_sum, tokens, step, L, hidden,
     # part_val, part_idx, part_max, part_sum, B, S, H, He, Dv, V, eos_id, pad_id, stream
     "las_greedy_step": [_P] * 8 + [_I] + [_P] * 3 + [_P] * 6 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
-    # dtype_bf16, emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs, cps,
-    # out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H, He, Dv, stream
-    "las_decoder_fwd": [_I] + [_P] * 7 + [_I] + [_P] * 6 + [_P] * 8 + [_I] * 6 + [_P],
+    # emb, token_mask, pk, value, attn_bias, qw, qb, n_cells, ks, rs, bs, cms, zs, cps,
+    # out_mask, h0, c0, hidden, h_start, c_in0, h_last, c_last, N, B, S, H, He, Dv, stream (float32)
+    "las_decoder_fwd": [_P] * 7 + [_I] + [_P] * 6 + [_P] * 8 + [_I] * 6 + [_P],
+    # emb_rows, rows, token_mask, pk, value, attn_bias, qw, qb, n_cells, ws, bs, out_masks, zs, cps, ctx_mask,
+    # ctx_ld, h, c, hq, q, scores, x0, xs, hidden, h_state, c_state, N, B, S, H, He, Dv, Hu, q_wgs, q_panels, c_wgs,
+    # c_panels, stream
+    "las_decoder_fwd_split": [_P] * 8 + [_I] + [_P] * 6 + [_I] + [_P] * 10 + [_I] * 11 + [_P],
     # dtype_bf16, dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells,
     # kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv, stream
     "las_decoder_bwd": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
@@ -71,8 +75,10 @@ _SIGNATURES = {
     # dtype_bf16, enc, pred, W, b, ids, p, B, T, U1, S, J, V, blank, lse, dlpb, dlpe, n_split, row_wgs,
     # tile, chunk_panels, rows_per_split, hbuf, dpre, dW_part, db_part, denc, dpred, dW, db, stream
     "transducer_joint_bwd": [_I] + [_P] * 6 + [_I] * 7 + [_P] * 3 + [_I] * 5 + [_P] * 9,
-    # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, frag, T, D, B, H, stream
-    "rnn_sequence": [_I, _I] + [_P] * 10 + [_I] * 4 + [_P],
+    # dtype_bf16, is_gru, x, mask, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, stream
+    "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
+    # is_gru, x, mask, rk_il, rb, c0, hbuf, done, out, h_last, c_last, T, D, B, H, ctas, slice_rows, stream
+    "rnn_sequence_persistent": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
     # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
     # eos_id, pad_id, alpha, beta_den, beams_per_block, stream

@@ -21,16 +21,28 @@ dq is float32 and ``rnd(dq) @ qw^T`` feeds dh.  The plain versions here apply
 the same rule, so on a CPU tensor they equal the interpret-mode Pallas
 kernels (bf16) and the XLA scan (float32).
 
-On the H100 (``csrc/las_decoder.cu``) each kernel is one launch with one
-block of 1024 threads per batch row, running the whole loop inside the
-block; the source note there says what bounds it.  Unlike the TPU wrapper,
-the key axis is not padded to a chunk multiple: the kernel masks S itself.
+On the H100, in bf16, K2 runs each of the N steps as the split LAS step
+(``csrc/las_split.cu split_decoder_fwd``, plan ``ops/las_step.py
+split_plan``; K4 and K11 decode with it): the query product and one product
+per cell as wgmma tiles over all B rows (each weight read once per 64-row
+tile, not once per batch row), the attention in a scores and a context
+kernel, the cell update and K3's residuals as the cell product's epilogue
+over a gate-interleaved copy of [Kc; Rc] made per call; the whole loop is
+enqueued by one host call.  ``decoder_fwd_split_plain`` is that
+decomposition in plain PyTorch, for the CPU tests.  K2 in float32 (the
+checks' path) and K3 (``csrc/las_decoder.cu``) are one launch with one block
+of 1024 threads per batch row, running the whole loop inside the block; the
+source note there says what bounds them.  Unlike the TPU wrapper, the key
+axis is not padded to a chunk multiple: the kernels mask S themselves.
 """
 
 import ctypes
 from typing import Sequence
 
 import torch
+
+from .las_step import GATES, deinterleave_gates, interleave_cell, split_plan
+from .vocab_bwd import PANEL, pad_to
 
 MAX_CELLS = 8  # = csrc/las_decoder.cu DEC_MAX_CELLS
 
@@ -75,6 +87,58 @@ def decoder_fwd_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rk
     stack = lambda xs: torch.stack(xs) if xs else None
     return (h.to(dt), c.to(dt)), (stack(hidden), stack(h_start), stack(c_in0), tuple(stack(z) for z in zs),
                                   tuple(stack(cp) for cp in cps))
+
+
+def decoder_fwd_split_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases, cell_masks,
+                            out_mask, h0, c0, units: int = 16):
+    """K2 computed the way the split route runs it, on tensors; :func:`decoder_fwd_plain`'s contract.
+
+    Cell 0's embedding input ``rnd(emb[n] cm0[:He])`` for all N first; each
+    step the query ``rnd(h) @ qw + qb``, the attention, the context
+    ``rnd(rnd(ctx) cm0[He:])``; each cell ``x @ Kc + rnd(h) @ Rc`` over the
+    gate-interleaved weights (``interleave_cell``, ``units`` hidden units a
+    cell tile), then the bias, and the epilogue: the gates, h and c in float32
+    gated by the token mask, rnd(z) in the natural gate order, rnd(c'), and the
+    next cell's input ``rnd(rnd(h' m) cm_{i+1})`` (the last cell's
+    ``rnd(rnd(h' m) out_mask)`` is the hidden stream).
+    """
+    dt = emb.dtype
+    N, B, He = emb.shape
+    H = pk.shape[2]
+    Hu = pad_to(H, units)
+    ws = [interleave_cell(k, r, Hu).float() for k, r in zip(kernels, rkernels)]
+    next_masks = [*cell_masks[1:], out_mask]
+    emb_rows = (emb.float() * cell_masks[0][:, :He].float()).to(dt)
+    h, c, hq = h0.float(), c0.float(), h0.to(dt)
+    hidden, h_state, c_state = [], [h0.to(dt)], [c0.to(dt)]
+    zs, cps = [[] for _ in kernels], [[] for _ in kernels]
+    pkf, vf, bias = pk.float(), value.float(), attn_bias.float()
+    for n in range(N):
+        q = hq.float() @ qw.float() + qb.float()
+        probs = torch.softmax(torch.einsum("bh,bsh->bs", q, pkf) + bias, dim=-1)
+        ctx = torch.einsum("bs,bsd->bd", probs, vf).to(dt).float() * cell_masks[0][:, He:].float()
+        x = torch.cat([emb_rows[n], ctx.to(dt)], dim=-1)
+        m = token_mask[n].reshape(B, 1) != 0
+        for i, (w, b) in enumerate(zip(ws, biases)):
+            in_p = w.shape[0] - pad_to(H, PANEL)
+            xp = torch.nn.functional.pad(x.float(), (0, in_p - x.shape[1]))
+            hqp = torch.nn.functional.pad(hq.float(), (0, w.shape[0] - in_p - H))
+            z = xp @ w[:in_p] + hqp @ w[in_p:]
+            z = deinterleave_gates(z, H).reshape(B, GATES * H) + b.float()
+            zs[i].append(z.to(dt))
+            zi, zf, zg, zo = z.chunk(GATES, dim=-1)
+            c_p = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
+            cps[i].append(c_p.to(dt))
+            h_p = torch.sigmoid(zo) * torch.tanh(c_p)
+            h = torch.where(m, h_p, h)
+            c = torch.where(m, c_p, c)
+            hq = h.to(dt)
+            x = ((h_p * m).to(dt).float() * next_masks[i].float()).to(dt)
+        hidden.append(x)
+        h_state.append(h.to(dt))
+        c_state.append(c.to(dt))
+    return (h_state[N], c_state[N]), (torch.stack(hidden), torch.stack(h_state[:N]), torch.stack(c_state[:N]),
+                                      tuple(torch.stack(z) for z in zs), tuple(torch.stack(cp) for cp in cps))
 
 
 def decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels,
@@ -165,7 +229,9 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     :param cell_masks: per cell [B,in_i] dropout masks; ``out_mask`` [B,H]; ``h0``, ``c0`` [B,H]
     :return: ((h_last, c_last), (hidden, h_start, c_in0, zs, c_ps)), in the compute type
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel: in
+    bf16 the split route (``decoder_fwd.tc_launches`` counts it; shapes its
+    plan refuses raise), in float32 the per-row kernel.
     """
     if emb.device.type == "cpu":
         return decoder_fwd_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases,
@@ -185,6 +251,9 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     tm = token_mask.reshape(N, B).float().contiguous()
     bias = attn_bias.float().contiguous()
     check_operands(torch.float32, dev, token_mask=tm, attn_bias=bias)
+    if dt == torch.bfloat16:
+        return _decoder_fwd_split(emb, tm, pk, value, bias, qw, qb, kernels, rkernels, biases, cell_masks, out_mask,
+                                  h0, c0)
     new = lambda *shape: torch.empty(*shape, dtype=dt, device=dev)
     hidden, h_start, c_in0 = new(N, B, H), new(N, B, H), new(N, B, H)
     zs = [new(N, B, 4 * H) for _ in kernels]
@@ -192,7 +261,7 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     h_last, c_last = new(B, H), new(B, H)
     arrays = [_ptr_array(ts) for ts in (kernels, rkernels, biases, cell_masks, zs, cps)]  # alive for the call
     err = library().las_decoder_fwd(
-        int(dt == torch.bfloat16), emb.data_ptr(), tm.data_ptr(), pk.data_ptr(), value.data_ptr(), bias.data_ptr(),
+        emb.data_ptr(), tm.data_ptr(), pk.data_ptr(), value.data_ptr(), bias.data_ptr(),
         qw.data_ptr(), qb.data_ptr(), len(kernels), *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
         out_mask.data_ptr(), h0.data_ptr(), c0.data_ptr(), hidden.data_ptr(), h_start.data_ptr(), c_in0.data_ptr(),
         h_last.data_ptr(), c_last.data_ptr(), N, B, S, H, He, Dv, stream(dev),
@@ -201,6 +270,48 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
         raise RuntimeError(f"las_decoder_fwd kernel launch failed: {error_string(err)}")
     decoder_fwd.launches += 1
     return (h_last, c_last), (hidden, h_start, c_in0, tuple(zs), tuple(cps))
+
+
+def _decoder_fwd_split(emb, tm, pk, value, bias, qw, qb, kernels, rkernels, biases, cell_masks, out_mask, h0, c0):
+    """K2 in bf16 on the split step (checked operands; ``tm`` [N,B] and ``bias`` [B,S] float32)."""
+    from ..kernels import error_string, library, stream
+    from .vocab_bwd import sm_count
+
+    dt, dev = emb.dtype, emb.device
+    N, B, He = emb.shape
+    _, S, H = pk.shape
+    Dv = value.shape[2]
+    plan = split_plan(B, 1, S, H, He, Dv, len(kernels), sm_count(dev))  # raises on shapes it does not take
+    ws = [interleave_cell(k, r, plan.Hu) for k, r in zip(kernels, rkernels)]
+    pk, value, qw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (pk, value, qw))  # 16-byte copies
+    cm0 = cell_masks[0]
+    emb_rows = (emb * cm0[None, :, :He]).reshape(N * B, He)  # cell 0's rnd(emb[n] cm0[:He]), every step at once
+    rows = torch.arange(N * B, dtype=torch.int32, device=dev)
+    out_masks = [*cell_masks[1:], out_mask]
+    new = lambda *shape: torch.empty(*shape, dtype=dt, device=dev)
+    zs = [new(N, B, 4 * H) for _ in kernels]
+    cps = [new(N, B, H) for _ in kernels]
+    hidden, h_state, c_state = new(N, B, H), new(N + 1, B, H), new(N + 1, B, H)
+    h_state[0], c_state[0] = h0, c0
+    h, c = h0.float().clone(), c0.float().clone()
+    hq = new(2, B, H)
+    hq[0] = h0
+    q = torch.empty(B, H, dtype=torch.float32, device=dev)
+    scores = torch.empty(B, S, dtype=torch.float32, device=dev)
+    x0, xs = new(B, He + Dv), new(2, B, H)
+    arrays = [_ptr_array(ts) for ts in (ws, biases, out_masks, zs, cps)]  # alive for the call
+    err = library().las_decoder_fwd_split(
+        emb_rows.data_ptr(), rows.data_ptr(), tm.data_ptr(), pk.data_ptr(), value.data_ptr(), bias.data_ptr(),
+        qw.data_ptr(), qb.data_ptr(), len(kernels), *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
+        cm0.data_ptr() + He * cm0.element_size(), He + Dv,
+        *[t.data_ptr() for t in (h, c, hq, q, scores, x0, xs, hidden, h_state, c_state)],
+        N, B, S, H, He, Dv, plan.Hu, *plan.query.args(), *plan.cell.args(), stream(dev),
+    )
+    if err:
+        raise RuntimeError(f"las_decoder_fwd_split kernel launch failed: {error_string(err)}")
+    decoder_fwd.launches += 1
+    decoder_fwd.tc_launches += 1
+    return (h_state[N], c_state[N]), (hidden, h_state[:N], c_state[:N], tuple(zs), tuple(cps))
 
 
 def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels, cell_masks,
@@ -255,4 +366,5 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
 
 
 decoder_fwd.launches = 0
+decoder_fwd.tc_launches = 0  # of them on the split route (bf16)
 decoder_bwd.launches = 0

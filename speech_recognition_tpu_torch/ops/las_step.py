@@ -145,31 +145,47 @@ def step_plan(dtype, B: int, K: int, S: int, H: int, He: int, Dv: int, n_cells: 
     return StepPlan(ROUTE_PER_ROW)
 
 
-def gate_columns(H: int, Hu: int) -> torch.Tensor:
+def gate_columns(H: int, Hu: int, gates: int = GATES) -> torch.Tensor:
     """[4 Hu] int64: the original gate column of each interleaved column, -1 for padding.
 
     Interleaved column ``32 g + 8 k + t`` holds gate k (i, f, g, o) of unit
     ``8 g + t``, original column ``k H + 8 g + t``.  A wgmma accumulator's
     thread holds columns ``8 j + 2 (lane % 4) + {0, 1}``: with j = 4 g + k,
-    the four gates of units ``8 g + 2 (lane % 4) + {0, 1}``.
+    the four gates of units ``8 g + 2 (lane % 4) + {0, 1}``.  A cell of fewer
+    ``gates`` (the GRU's 3) leaves the slots k >= gates as padding.
     """
     j = torch.arange(GATES * Hu)
     g, k, t = j // (GATES * GROUP), (j // GROUP) % GATES, j % GROUP
     unit = GROUP * g + t
-    return torch.where(unit < H, k * H + unit, -1)
+    return torch.where((unit < H) & (k < gates), k * H + unit, -1)
+
+
+def interleave_gates(w: torch.Tensor, H: int, Hu: int) -> torch.Tensor:
+    """[..., gates H] -> [..., 4 Hu]: the columns in the order of ``gate_columns`` (zero where it has -1), by
+    reshapes and one padded copy, so that the card makes it without a host sync."""
+    gates = w.shape[-1] // H
+    x = torch.nn.functional.pad(w.reshape(*w.shape[:-1], gates, H), (0, Hu - H, 0, GATES - gates))
+    x = x.reshape(*w.shape[:-1], GATES, Hu // GROUP, GROUP).transpose(-3, -2)
+    return x.reshape(*w.shape[:-1], GATES * Hu)
+
+
+def deinterleave_gates(z: torch.Tensor, H: int) -> torch.Tensor:
+    """[..., 4 Hu] in the order of ``gate_columns`` -> [..., 4, H]: gate k of unit u (``interleave_gates``'
+    inverse, the padding dropped)."""
+    Hu = z.shape[-1] // GATES
+    z = z.reshape(*z.shape[:-1], Hu // GROUP, GATES, GROUP).transpose(-3, -2)
+    return z.reshape(*z.shape[:-3], GATES, Hu)[..., :H]
 
 
 def interleave_cell(kernel: torch.Tensor, rkernel: torch.Tensor, Hu: int) -> torch.Tensor:
     """A cell's [Kc; Rc] as the split route reads it: [in_p + H_p, 4 Hu], Kc in rows 0..in-1 and Rc in rows
     in_p..in_p+H-1 (in_p, H_p: in and H rounded up to 64-row panels, the rest zero), columns gate-interleaved
-    (``gate_columns``).  Made once per decode call."""
+    (``gate_columns``).  Made once per decode call and per teacher-forced loop."""
     in_dim, H = kernel.shape[0], rkernel.shape[0]
     in_p, h_p = pad_to(in_dim, PANEL), pad_to(H, PANEL)
-    src = gate_columns(H, Hu).to(kernel.device)
-    valid = src >= 0
     w = kernel.new_zeros(in_p + h_p, GATES * Hu)
-    w[:in_dim, valid] = kernel[:, src[valid]]
-    w[in_p:in_p + H, valid] = rkernel[:, src[valid]]
+    w[:in_dim] = interleave_gates(kernel, H, Hu)
+    w[in_p:in_p + H] = interleave_gates(rkernel, H, Hu)
     return w
 
 
@@ -203,7 +219,7 @@ def split_step_plain(pk, value, attn_bias, qw, qb, emb, cells, h, c, hq, prev, p
         hqp = torch.nn.functional.pad(hq.float(), (0, w.shape[0] - in_p - H))
         z = xp @ w[:in_p] + hqp @ w[in_p:]
         # the epilogue: gates back to [R, 4, Hu], bias, the cell update on the ping-pong buffers
-        gates = z.reshape(R, Hu // GROUP, GATES, GROUP).transpose(1, 2).reshape(R, GATES, Hu)[:, :, :H]
+        gates = deinterleave_gates(z, H)
         zi, zf, zg, zo = (gates[:, k] + bias[k * H:(k + 1) * H].float() for k in range(GATES))
         c_p = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
         h_p = torch.sigmoid(zo) * torch.tanh(c_p)

@@ -22,44 +22,125 @@ float32; gates in float32; ``c_new`` rounded to the compute type before
 state is frozen and the output is zero.
 
 On the H100 (``csrc/rnn_sequence.cu``) one launch runs every direction and
-batch tile: a cluster of 8 CTAs per (direction, 16 batch rows), each CTA
-holding its hidden units' columns of R in shared memory for all T steps
-(bf16 products on ``mma.sync`` tensor-core tiles, float32 on FMA loops) and
-sharing its slice of each new h with the others through distributed shared
-memory, one cluster barrier a step.  Above H = 512 (LAS-large's 1024) a
-CTA's columns of R do not fit its shared memory: the wide route reads them
-from L2 every step, in bf16 out of a copy of R in the tiles' fragment order
-that the launch writes first (``rnn_plan``), a cluster taking 32 batch rows
-(two m16 tiles, so each fragment it reads feeds two products) in bf16 and
-16 in float32.
+batch tile, on one of two designs (``rnn_plan``):
+
+- clusters (float32 at every width, bf16 up to H = 512): 8 CTAs per
+  (direction, 16 batch rows), each CTA holding its hidden units' columns of R
+  in shared memory for all T steps (bf16 products on ``mma.sync`` tiles,
+  float32 on FMA loops; float32 above H ~ 300 reads R from L2) and sharing its
+  slice of each new h with the others through distributed shared memory, one
+  cluster barrier a step;
+- the persistent grid (bf16 above H = 512: LAS-large's 1024): one cooperative
+  launch of D x ceil(H / 16) CTAs, all resident, each keeping the gate columns
+  of its 16 units resident in shared memory for the whole sequence (a slice of
+  the gate-interleaved copy ``interleave_recurrent``), streaming each h(t-1)
+  through a TMA ring into wgmma and ending each step in a release / acquire
+  count on a per-direction counter.  ``rnn_persistent_plain`` is that
+  decomposition in plain PyTorch, for the CPU tests.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from .las_step import deinterleave_gates, interleave_gates
+from .vocab_bwd import ALIGN, N_SM, PANEL, SMEM_LIMIT, W_PANEL, cdiv, pad_to
+
 GATES = {"lstm": 4, "gru": 3}
 CLUSTER = 8  # RNN_CLUSTER: CTAs of a cluster, each owning ceil(H / 8) hidden units
 NARROW_UNITS = 512  # RNN_NARROW_UNITS: the widest H of the route that keeps R in shared memory
-MAX_UNITS = 1024  # RNN_MAX_UNITS in csrc/rnn_sequence.cu: the widest H of the wide route
+MAX_UNITS = 1024  # RNN_MAX_UNITS in csrc/rnn_sequence.cu: the widest H K10 takes
+# the persistent route (csrc/rnn_sequence.cu RNN_P_*): units a CTA owns (4 gate columns each), warpgroups of
+# 64 batch rows, ring stages of h's 64-column k-panels
+P_UNITS, P_WGS, P_STAGES = 16, 2, 4
+P_ROWS = 64 * P_WGS  # batch rows of a chunk: the slices of the batch are whole chunks
+ROUTE_NARROW, ROUTE_WIDE, ROUTE_PERSISTENT = "narrow", "wide", "persistent"
 
 
 class RnnPlan(NamedTuple):
-    route: str  # "narrow" (H <= NARROW_UNITS) or "wide"
-    frag_elems: int  # elements of the fragment-order copy of R the launch writes (bf16, wide), else 0
+    route: str  # "narrow" (H <= NARROW_UNITS), "wide" (float32 above) or "persistent" (bf16 above)
+    units: int = 0  # persistent: hidden units a CTA owns
+    ctas: int = 0  # persistent: CTAs a direction needs (D x ctas in all, one an SM)
+    smem: int = 0  # persistent: dynamic shared memory of a CTA
+    slice_rows: int = 0  # persistent: batch rows whose h and c a CTA holds at once (the launch walks B in slices)
+    multicast: bool = False  # TMA multicast of h across a cluster: not used
 
 
-def rnn_plan(rnn_type: str, H: int, dtype) -> RnnPlan:
-    """K10's route for width H, and the scratch it needs: above ``NARROW_UNITS`` in bf16 each of the
-    D x 8 CTAs reads its slice of R from a copy in B-fragment order, [ceil(G U / 8) n-tiles][ceil(H / 16)
-    k-steps][32 lanes][4] with U = ceil(H / 8) (``rnn_frag_elems`` in csrc/rnn_sequence.cu), per direction."""
+def persistent_smem(H: int, slice_rows: int) -> int:
+    """Bytes of dynamic shared memory of a persistent CTA (``rp::smem_bytes``): alignment slack, its R slice
+    [Hp x 64] bf16 in 64-row panels, the ring of h's k-panels, and bf16 h and c of its units for a slice."""
+    return ALIGN + cdiv(H, PANEL) * W_PANEL + P_STAGES * P_WGS * W_PANEL + 2 * 2 * P_UNITS * slice_rows
+
+
+def rnn_plan(rnn_type: str, H: int, dtype, D: int = 1, B: int = 1, n_sm: int = N_SM) -> RnnPlan:
+    """K10's route for width H, and the persistent route's launch: the units a CTA takes, the CTAs a
+    direction needs, the shared memory and the batch slice.  Raises ValueError on widths K10 does not take and
+    on a persistent launch whose D x ctas CTAs cannot all be resident on the card's ``n_sm`` SMs (one a SM)."""
     if not 1 <= H <= MAX_UNITS:
         raise ValueError(f"rnn_sequence: H={H} outside 1..{MAX_UNITS}")
+    if rnn_type not in GATES:
+        raise ValueError(f"rnn_sequence: rnn_type {rnn_type!r}")
     if H <= NARROW_UNITS:
-        return RnnPlan("narrow", 0)
-    U = -(-H // CLUSTER)
-    per_cta = -(-GATES[rnn_type] * U // 8) * -(-H // 16) * 128
-    return RnnPlan("wide", CLUSTER * per_cta if dtype == torch.bfloat16 else 0)
+        return RnnPlan(ROUTE_NARROW)
+    if dtype != torch.bfloat16:
+        return RnnPlan(ROUTE_WIDE)
+    ctas = cdiv(H, P_UNITS)
+    if D * ctas > n_sm:
+        raise ValueError(f"rnn_sequence: the persistent route needs {D} x {ctas} CTAs resident at once, one an "
+                         f"SM, and the card has {n_sm} SMs")
+    room = (SMEM_LIMIT - persistent_smem(H, 0)) // (4 * P_UNITS) // P_ROWS * P_ROWS
+    slice_rows = min(pad_to(max(B, 1), P_ROWS), room)
+    if slice_rows < P_ROWS:
+        raise ValueError(f"rnn_sequence: no batch slice of the persistent route fits shared memory at H={H}")
+    return RnnPlan(ROUTE_PERSISTENT, P_UNITS, ctas, persistent_smem(H, slice_rows), slice_rows, False)
+
+
+def interleave_recurrent(rk: torch.Tensor, plan: RnnPlan) -> torch.Tensor:
+    """rk [D, H, G H] as the persistent route reads it: [D, Hp, 4 P_UNITS ctas], Hp = H rounded up to
+    64-row panels (the rows past H zero), CTA j's slice in columns [64 j, 64 j + 64), gate-interleaved as
+    ``ops/las_step.py gate_columns`` lays out a cell: column 32 g + 8 k + t holds gate k of unit 8 g + t (the
+    GRU's gate slot 3 and units past H zero).  Made once per call."""
+    H = rk.shape[1]
+    w = interleave_gates(rk, H, plan.ctas * plan.units)
+    return torch.nn.functional.pad(w, (0, 0, 0, pad_to(H, PANEL) - H))
+
+
+def rnn_persistent_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0, plan: RnnPlan):
+    """K10 computed the way the persistent route splits it, on tensors: the interleaved R, h(t-1) [D, B, Hp]
+    (zero past H) times it one 64-row k-panel at a time, each panel's float32 product added into the total in
+    order, then the gates read out of the interleaved columns, and x_proj (and the GRU's rb), read in their own
+    layout, added as the epilogue adds them.  ``rnn_sequence_plain``'s contract; the CPU proof of the
+    decomposition."""
+    T, D, B, GH = x_proj.shape
+    G = GATES[rnn_type]
+    H, dt = GH // G, x_proj.dtype
+    w = interleave_recurrent(rk, plan).float()
+    Hp = w.shape[1]
+    rb_g = rb.float().reshape(D, 1, G, H) if rnn_type == "gru" else None
+    h = x_proj.new_zeros(D, B, Hp, dtype=torch.float32)
+    h[..., :H] = h0.float()
+    c = c0.float() if rnn_type == "lstm" else None
+    out = torch.empty(T, D, B, H, dtype=dt, device=x_proj.device)
+    for t in range(T):
+        z = torch.zeros(D, B, w.shape[2], dtype=torch.float32, device=x_proj.device)
+        for k in range(0, Hp, PANEL):
+            z = z + torch.bmm(h[..., k:k + PANEL], w[:, k:k + PANEL])
+        zg, xg = deinterleave_gates(z, H), x_proj[t].float().reshape(D, B, G, H)
+        m, h_old = mask[t], h[..., :H]
+        if rnn_type == "lstm":
+            ig, fg = torch.sigmoid(xg[..., 0, :] + zg[..., 0, :]), torch.sigmoid(xg[..., 1, :] + zg[..., 1, :])
+            gg, og = torch.tanh(xg[..., 2, :] + zg[..., 2, :]), torch.sigmoid(xg[..., 3, :] + zg[..., 3, :])
+            c_new = (fg * c + ig * gg).to(dt).float()
+            h_new = (og * torch.tanh(c_new)).to(dt).float()
+            c = torch.where(m, c_new, c)
+        else:
+            zz = torch.sigmoid(xg[..., 0, :] + (zg[..., 0, :] + rb_g[..., 0, :]))
+            rr = torch.sigmoid(xg[..., 1, :] + (zg[..., 1, :] + rb_g[..., 1, :]))
+            hh = torch.tanh(xg[..., 2, :] + rr * (zg[..., 2, :] + rb_g[..., 2, :]))
+            h_new = (zz * h_old + (1.0 - zz) * hh).to(dt).float()
+        h[..., :H] = torch.where(m, h_new, h_old)
+        out[t] = (h_new * m).to(dt)
+    return out, h[..., :H].to(dt), (c.to(dt) if c is not None else None)
 
 
 def rnn_sequence_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
@@ -123,11 +204,14 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which raises on what it does not take (T < 1, H > 1024, D not 1 or 2,
-    another type than bf16 / float32).
+    another type than bf16 / float32, a persistent launch whose CTAs cannot all
+    be resident).  ``rnn_sequence.persistent_launches`` counts the launches of
+    the persistent route (bf16 above H = 512).
     """
     if x_proj.device.type == "cpu":
         return rnn_sequence_plain(rnn_type, x_proj, mask, rk, rb, h0, c0)
     from ..kernels import check_operands, error_string, library, stream
+    from .vocab_bwd import sm_count
 
     T, D, B, GH = x_proj.shape
     gates = GATES[rnn_type]
@@ -146,18 +230,31 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     out = torch.empty(T, D, B, H, dtype=x_proj.dtype, device=dev)
     h_last = torch.empty(D, B, H, dtype=x_proj.dtype, device=dev)
     c_last = torch.empty_like(h_last) if lstm else None
-    frag_elems = rnn_plan(rnn_type, H, x_proj.dtype).frag_elems
-    frag = torch.empty(D * frag_elems, dtype=x_proj.dtype, device=dev) if frag_elems else None
-    err = library().rnn_sequence(
-        int(x_proj.dtype == torch.bfloat16), int(not lstm), x_proj.data_ptr(), mask.data_ptr(), rk.data_ptr(),
-        0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
-        h_last.data_ptr(), c_last.data_ptr() if lstm else 0, 0 if frag is None else frag.data_ptr(), T, D, B, H,
-        stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"rnn_sequence kernel launch failed: {error_string(err)}")
+    plan = rnn_plan(rnn_type, H, x_proj.dtype, D, B, sm_count(dev))
+    if plan.route == ROUTE_PERSISTENT:
+        w = interleave_recurrent(rk, plan)
+        hbuf = torch.zeros(2, D, B, w.shape[1], dtype=x_proj.dtype, device=dev)  # h0 in plane 0, zeros past H
+        hbuf[0, ..., :H] = h0
+        done = torch.zeros(D, dtype=torch.int32, device=dev)
+        err = library().rnn_sequence_persistent(
+            int(not lstm), x_proj.data_ptr(), mask.data_ptr(), w.data_ptr(), 0 if lstm else rb.data_ptr(),
+            c0.data_ptr() if lstm else 0, hbuf.data_ptr(), done.data_ptr(), out.data_ptr(), h_last.data_ptr(),
+            c_last.data_ptr() if lstm else 0, T, D, B, H, plan.ctas, plan.slice_rows, stream(dev),
+        )
+        if err:
+            raise RuntimeError(f"rnn_sequence_persistent kernel launch failed: {error_string(err)}")
+        rnn_sequence.persistent_launches += 1
+    else:
+        err = library().rnn_sequence(
+            int(x_proj.dtype == torch.bfloat16), int(not lstm), x_proj.data_ptr(), mask.data_ptr(), rk.data_ptr(),
+            0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
+            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, stream(dev),
+        )
+        if err:
+            raise RuntimeError(f"rnn_sequence kernel launch failed: {error_string(err)}")
     rnn_sequence.launches += 1
     return out, h_last, c_last
 
 
 rnn_sequence.launches = 0
+rnn_sequence.persistent_launches = 0  # of them on the persistent route

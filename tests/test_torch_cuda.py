@@ -56,8 +56,13 @@ rows of lengths T, 1, ceil(T/2), 0 and T - 1, nonzero initial states: float32
 rtol 1e-5 / atol 1e-6 (sums in another order), bf16 within 2e-2 x max|ref|
 (a float32 sum in another order can move one rounding, and the loop carries
 it on); a no-grad ``lstm_scan`` / ``gru_scan`` of CUDA tensors launches it.
-Its wide route (H in {520, 768, 1024}, R read from L2) at B=40 with the same
-tolerances.  The bf16 K8 / K9 forward on the vocab tile pass at ragged bands
+Above H = 512 (H in {520, 600, 768, 1024}; float32 the wide cluster route,
+bf16 the persistent grid) at B in {1, 40, 128, 160}, T up to 255, one and two
+directions, with the same tolerances; the persistent route counted on its
+route, and two calls give the same bits.  K2 in bf16 on the split step at
+LAS-small's and LAS-large's widths (operands at a model's scales: weights
+~ N(0, 1/fan-in)), counted on its route, every stream within 2e-2 x max|ref|
+of the plain K2, two calls bit for bit, and K3 on its residuals within 3e-2.  The bf16 K8 / K9 forward on the vocab tile pass at ragged bands
 (S in {1, 4, 8}), U+1 = 1, V % 128 != 0 and V % 8 != 0, J in {37, 200, 320,
 1000}, blank != 0, counted on its route; float32 keeps the CUDA-core kernel.
 
@@ -392,6 +397,75 @@ def test_decoder_kernels_match_plain(cuda, dtype, N, B, S, H, He, Dv, n_cells):
         for a, b_ in (zip(g_, w_) if isinstance(g_, tuple) else [(g_, w_)]):
             assert a.dtype == dtype, i
             _close(a, b_, tol)
+
+
+def _scaled_decoder_operands(cuda, N, B, S, H, He, Dv, n_cells, seed):
+    """bf16 decoder operands at a model's scales (``chip_smoke.py decoder_operands``): weights ~ N(0, 1/fan-in),
+    value = relu(N(0, 1)), embeddings ~ N(0, 0.05^2), pad-token tails, key masks, dropout masks of keep 0.85.
+    At ``_decoder_operands``' flat scales (weights ~ N(0, 0.04) whatever the fan-in) the loop amplifies a
+    one-step difference of a bf16 rounding until the streams leave the plain K2's altogether, for the kernel
+    and, at LAS-small's widths, for the same decomposition in cuBLAS float32 too; at a model's scales the
+    kernel stays within 0.011 x max|ref| over 24 steps (``tools/decoder_split_drift.py``)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
+    keep = lambda *s: ((torch.rand(*s, generator=g) < 0.85).float() / 0.85).to(cuda, torch.bfloat16)
+    n_tok = torch.randint(1, N + 1, (B,), generator=g)
+    tm = (torch.arange(N)[:, None] < n_tok[None, :]).float()[..., None].to(cuda, torch.bfloat16)
+    n_key = torch.randint(1, S + 1, (B,), generator=g)
+    bias = (-1e9 * (1.0 - (torch.arange(S)[None, :] < n_key[:, None]).float())).to(cuda, torch.bfloat16)
+    ks, rs, bs, cms = [], [], [], []
+    in_dim = He + Dv
+    for _ in range(n_cells):
+        ks.append(r(in_dim, 4 * H, scale=in_dim ** -0.5))
+        rs.append(r(H, 4 * H, scale=H ** -0.5))
+        bs.append(r(4 * H, scale=0.1))
+        cms.append(keep(B, in_dim))
+        in_dim = H
+    value = torch.relu(r(B, S, Dv, scale=1.0))
+    return (r(N, B, He, scale=0.05), tm, r(B, S, H, scale=1.0), value, bias, r(H, H, scale=H ** -0.5),
+            r(H, scale=0.1), ks, rs, bs, cms, keep(B, H), r(B, H, scale=0.5), r(B, H, scale=0.5))
+
+
+@pytest.mark.parametrize("N, B, S, H, He, Dv, n_cells", [(9, 128, 255, 256, 256, 512, 2),  # LAS-small's widths
+                                                         (4, 16, 64, 1024, 1024, 2048, 2),  # LAS-large's widths
+                                                         (5, 70, 37, 48, 32, 80, 3)])
+def test_decoder_split_route(cuda, N, B, S, H, He, Dv, n_cells):
+    """K2 in bf16 on the split step, counted on its route: every stream within 2e-2 x max|ref| of the plain
+    K2 (the summation order differs: x @ K + h @ R before the bias, wgmma per-panel sums), two calls give the
+    same bits, and K3 fed the split route's residuals stays within 3e-2 x max|ref| of the plain K3 fed the
+    same residuals."""
+    from speech_recognition_tpu_torch.ops.las_step import split_plan
+
+    ops = _scaled_decoder_operands(cuda, N, B, S, H, He, Dv, n_cells, seed=N + B + H)
+    assert split_plan(B, 1, S, H, He, Dv, n_cells, sm_count(cuda)).route == "split"
+    before, before_tc = decoder_fwd.launches, decoder_fwd.tc_launches
+    first, second = decoder_fwd(*ops), decoder_fwd(*ops)
+    assert decoder_fwd.launches - before == 2 and decoder_fwd.tc_launches - before_tc == 2
+    (hl, cl), (hid, hs, ci, zs, cps) = first
+    (phl, pcl), (phid, phs, pci, pzs, pcps) = decoder_fwd_plain(*ops)
+    flat = lambda r: [*r[0], *r[1][:3], *r[1][3], *r[1][4]]
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+    for got, want in [(hid, phid), (hs, phs), (ci, pci), (hl, phl), (cl, pcl), *zip(zs, pzs), *zip(cps, pcps)]:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _close(got, want, 2e-2)
+
+    emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = ops
+    probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
+    g = torch.Generator().manual_seed(2)
+    dhid = (torch.randn(N, B, H, generator=g) * 1e-2).to(cuda, torch.bfloat16)
+    zero = torch.zeros(B, H, dtype=torch.bfloat16, device=cuda)
+    args = (dhid, zero, zero, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, He)
+    for i, (g_, w_) in enumerate(zip(decoder_bwd(*args), decoder_bwd_plain(*args))):
+        for a, b_ in (zip(g_, w_) if isinstance(g_, tuple) else [(g_, w_)]):
+            assert a.dtype == torch.bfloat16, i
+            _close(a, b_, 3e-2)
+
+
+def test_decoder_split_route_refuses_what_its_plan_does_not_take(cuda):
+    """bf16 has one route for K2 on the card: shapes the split plan refuses raise, as in the decode loops."""
+    ops = _decoder_operands(cuda, torch.bfloat16, 3, 4, 9, 20, 16, 24, 1, seed=0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decoder_fwd(*ops)
 
 
 def _mhsa_operands(cuda, dtype, B, T, H, d, seed):
@@ -818,17 +892,19 @@ def test_rnn_sequence_kernel_matches_plain(cuda, rnn_type, dtype, D, T, H):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
 def test_rnn_sequence_wide_route_matches_plain(cuda, rnn_type, dtype, D, T, H):
-    """K10's wide route (H > 512: R read from L2, in bf16 out of its fragment-order copy) vs the plain
-    version at B=40 (full batch tiles and a ragged one: a cluster takes 32 rows in bf16, 16 in float32),
-    with the narrow route's tolerances: float32 rtol 1e-5 / atol 1e-6, bf16 within 2e-2 x max|ref|;
-    masked steps emit exact zeros."""
+    """K10 above H = 512 (float32: the wide cluster route, R read from L2; bf16: the persistent grid, R
+    resident in shared memory) vs the plain version at B=40 (one ragged 128-row chunk of the persistent
+    route, 16-row tiles of the clusters), with the narrow route's tolerances: float32 rtol 1e-5 / atol 1e-6,
+    bf16 within 2e-2 x max|ref|; masked steps emit exact zeros."""
     ops = rnn_operands(rnn_type, dtype, D, T, 40, H, T + H + D, cuda)
-    assert rnn_plan(rnn_type, H, dtype).route == "wide"
-    before = rnn_sequence.launches
+    persistent = dtype == torch.bfloat16
+    assert rnn_plan(rnn_type, H, dtype, D, 40, sm_count(cuda)).route == ("persistent" if persistent else "wide")
+    before, before_p = rnn_sequence.launches, rnn_sequence.persistent_launches
     got = rnn_sequence(rnn_type, *ops)
     want = rnn_sequence_plain(rnn_type, *ops)
     torch.cuda.synchronize()
     assert rnn_sequence.launches == before + 1
+    assert rnn_sequence.persistent_launches == before_p + int(persistent)
     for a, w in zip(got, want):
         if w is None:
             assert a is None
@@ -839,6 +915,36 @@ def test_rnn_sequence_wide_route_matches_plain(cuda, rnn_type, dtype, D, T, H):
         else:
             assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
     assert not got[0][~ops[1][..., 0]].any()
+
+
+@pytest.mark.parametrize("rnn_type, D, T, B, H", [
+    ("lstm", 2, 255, 128, 1024),  # a LAS-large listener layer
+    ("lstm", 1, 40, 160, 768),  # two 128-row chunks, the second ragged
+    ("gru", 2, 33, 40, 520),  # a ragged last CTA (520 = 32 x 16 + 8 units)
+    ("gru", 1, 255, 128, 1024),
+    ("lstm", 2, 9, 1, 600),  # one batch row
+])
+def test_rnn_sequence_persistent_route(cuda, rnn_type, D, T, B, H):
+    """The persistent route (bf16 above H = 512) at LAS-large's shape and at ragged ones: counted on its
+    route, within 2e-2 x max|ref| of the plain version (a float32 sum in another order can move one rounding,
+    and the loop carries it on), masked steps exact zeros, and two calls give the same bits: a CTA that read a
+    stale h (a missing fence between another CTA's stores and the TMA load) would show as a difference."""
+    ops = rnn_operands(rnn_type, torch.bfloat16, D, T, B, H, T + B + H, cuda)
+    plan = rnn_plan(rnn_type, H, torch.bfloat16, D, B, sm_count(cuda))
+    assert plan.route == "persistent" and plan.ctas == -(-H // 16) and plan.smem <= 232448
+    before = rnn_sequence.persistent_launches
+    first, second = rnn_sequence(rnn_type, *ops), rnn_sequence(rnn_type, *ops)
+    want = rnn_sequence_plain(rnn_type, *ops)
+    torch.cuda.synchronize()
+    assert rnn_sequence.persistent_launches == before + 2
+    for a, b, w in zip(first, second, want):
+        if w is None:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b)
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+    assert not first[0][~ops[1][..., 0]].any()
 
 
 def test_rnn_sequence_kernel_raises_on_what_it_does_not_take(cuda):

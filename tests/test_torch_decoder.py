@@ -7,6 +7,14 @@
   streams, 3e-2 x max|ref| on the backward streams (bf16 storage, float32
   sums in another order).  S = 11 is not a multiple of the Pallas chunk, so
   the TPU side pads the key axis and the port does not.
+- K2's split route decomposed in plain PyTorch (``decoder_fwd_split_plain``:
+  the embedding rows masked before the loop, the cells over gate-interleaved
+  weights, x @ K + h @ R before the bias, the residuals written by the
+  epilogue) against the plain K2 and the JAX package, with 1-3 cells, dropout
+  masks, ragged token masks and a row of pad tokens only: bf16 against
+  ``decoder_fwd_pallas`` in interpret mode at 2e-2 x max|ref|, float32 against
+  the XLA scan (``_decoder_fwd_core``) at rtol 1e-4 / atol 1e-5 x max|ref|;
+  a CPU tensor counts no launch of the split route.
 - float32: the port's ``decoder_scan_lstm`` (autograd Function: plain K2,
   the recompute, plain K3, the weight-gradient tail) vs the JAX custom-VJP
   scan, on the three outputs and all 14 operand gradients, with non-trivial
@@ -24,7 +32,8 @@ from jax.experimental.pallas import tpu as pltpu
 from speech_recognition_tpu.ops import decoder as D
 from speech_recognition_tpu.ops.pallas.decoder_kernel import decoder_bwd_pallas, decoder_fwd_pallas
 from speech_recognition_tpu_torch.ops.decoder import decoder_scan_lstm
-from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+from speech_recognition_tpu_torch.ops.decoder_kernel import (decoder_bwd, decoder_fwd, decoder_fwd_plain,
+                                                             decoder_fwd_split_plain)
 
 from .test_torch_twins import one_device_mesh  # noqa: F401  (fixture)
 
@@ -143,3 +152,54 @@ def test_decoder_scan_matches_jax_f32(n_cells, masks):
         want = np.asarray(j)
         np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-4, atol=1e-5 * (np.abs(want).max() + 1e-3),
                                    err_msg=f"gradient leaf {i}")
+
+
+def _split_operands(n_cells, seed):
+    """``_operands`` with dropout masks and row 1 all pad tokens."""
+    ops = list(_operands(n_cells, seed=seed, masks=True))
+    ops[1] = ops[1].copy()
+    ops[1][:, 1] = 0.0
+    return tuple(ops)
+
+
+def _streams(result):
+    (h_last, c_last), (hidden, h_start, c_in0, zs, cps) = result
+    names = ["h_last", "c_last", "hidden", "h_start", "c_in0", *[f"z{i}" for i in range(len(zs))],
+             *[f"c_p{i}" for i in range(len(cps))]]
+    return dict(zip(names, [h_last, c_last, hidden, h_start, c_in0, *zs, *cps]))
+
+
+@pytest.mark.parametrize("n_cells", [1, 2, 3])
+def test_split_k2_decomposition_matches_pallas_bf16(one_device_mesh, n_cells):
+    ops = _split_operands(n_cells, seed=30 + n_cells)
+    with pltpu.force_tpu_interpret_mode():
+        want = _streams(decoder_fwd_pallas(*_jax(ops, jnp.bfloat16), chunk=CHUNK))
+    t_ops = _torch(ops, torch.bfloat16)
+    got, plain = _streams(decoder_fwd_split_plain(*t_ops)), _streams(decoder_fwd_plain(*t_ops))
+    assert set(got) == set(want) == set(plain)
+    for name, g in got.items():
+        assert g.dtype == torch.bfloat16, name
+        _close(g, want[name], 2e-2, f"{name} vs Pallas")
+        _close(g, plain[name].float().numpy(), 2e-2, f"{name} vs the plain K2")
+
+
+@pytest.mark.parametrize("n_cells", [1, 2, 3])
+def test_split_k2_decomposition_matches_the_xla_scan_f32(monkeypatch, n_cells):
+    monkeypatch.setenv("SRT_PALLAS_DECODER", "0")
+    ops = _split_operands(n_cells, seed=40 + n_cells)
+    want = _streams(D._decoder_fwd_core(*_jax(ops)))
+    t_ops = _torch(ops)
+    got, plain = _streams(decoder_fwd_split_plain(*t_ops)), _streams(decoder_fwd_plain(*t_ops))
+    for name, g in got.items():
+        w = np.asarray(want[name])
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5 * (np.abs(w).max() + 1e-3), err_msg=name)
+        torch.testing.assert_close(g, plain[name], rtol=1e-4, atol=1e-5 * (plain[name].abs().max().item() + 1e-3))
+
+
+def test_cpu_tensors_count_no_split_launch():
+    t_ops = _torch(_split_operands(2, seed=50), torch.bfloat16)
+    before, before_tc = decoder_fwd.launches, decoder_fwd.tc_launches
+    got = _streams(decoder_fwd(*t_ops))
+    assert decoder_fwd.launches == before and decoder_fwd.tc_launches == before_tc
+    for name, w in _streams(decoder_fwd_plain(*t_ops)).items():
+        assert torch.equal(got[name], w), name

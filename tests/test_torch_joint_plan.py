@@ -7,8 +7,10 @@
 - ``node_of`` (the kernel's slot map: each joint row's target id, or V where
   the slot has none), mirrored row by row, against the plain planes' own slot
   map on a ragged band.
-- ``ops/rnn_sequence.py rnn_plan``: the narrow route up to H = 512, the wide
-  one up to 1024 with its fragment-order copy of R in bf16.
+- ``ops/rnn_sequence.py rnn_plan``: the narrow route up to H = 512, above it
+  the wide cluster route in float32 and the persistent grid in bf16 (its
+  units and CTAs, shared memory, batch slices, and its refusal of a grid whose
+  CTAs cannot all be resident on the card's SMs).
 - ``ops/beam_search.py beams_per_block``: one block per batch row where K
   beams fit, else the most that do.
 - The constants mirror the sources' ``constexpr`` values and the C entries'
@@ -129,27 +131,55 @@ def test_rnn_constants_mirror_the_source():
     assert int(c["RNN_CLUSTER"]) == rs.CLUSTER
     assert eval(c["RNN_NARROW_UNITS"], {}, env) == rs.NARROW_UNITS == 512
     assert eval(c["RNN_MAX_UNITS"], {}, env) == rs.MAX_UNITS == 1024
+    assert int(c["RNN_P_UNITS"]) == rs.P_UNITS and int(c["RNN_P_COLS"]) == 4 * rs.P_UNITS
+    assert int(c["RNN_P_WGS"]) == rs.P_WGS and int(c["RNN_P_STAGES"]) == rs.P_STAGES
+    assert eval(c["RNN_P_ROWS"], {}, env) == rs.P_ROWS == 128
 
 
 @pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
 @pytest.mark.parametrize("H", [1, 8, 320, 512, 513, 768, 1000, 1024])
 def test_rnn_routes(rnn_type, H):
+    """Up to H = 512 the cluster route in both types; above, float32 keeps the wide cluster route and bf16
+    takes the persistent grid: 16 units (64 gate columns) a CTA, ceil(H / 16) CTAs a direction, all of
+    B = 128 in one slice, R's panels + the ring + the slice's h and c within the H100's 232,448 bytes."""
     narrow = H <= 512
     for dtype in (torch.bfloat16, torch.float32):
-        p = rs.rnn_plan(rnn_type, H, dtype)
-        assert p.route == ("narrow" if narrow else "wide")
-        G, U = rs.GATES[rnn_type], cdiv(H, 8)
-        # bf16 above 512: each CTA's [ceil(G U / 8) n-tiles][ceil(H / 16) k-steps][32 lanes][4], zero-padded
-        want = 0 if narrow or dtype != torch.bfloat16 else 8 * cdiv(G * U, 8) * cdiv(H, 16) * 128
-        assert p.frag_elems == want
-        if want:
-            assert p.frag_elems >= H * G * H
+        p = rs.rnn_plan(rnn_type, H, dtype, D=2, B=128)
+        persistent = not narrow and dtype == torch.bfloat16
+        assert p.route == ("narrow" if narrow else "persistent" if persistent else "wide")
+        if persistent:
+            assert p.units == 16 and p.ctas == cdiv(H, 16) and (p.ctas - 1) * 16 < H <= p.ctas * 16
+            assert 2 * p.ctas <= 132 and p.slice_rows == 128 and not p.multicast
+            assert p.smem == 1024 + cdiv(H, 64) * 8192 + 4 * 2 * 8192 + 2 * 2 * 16 * 128 <= SMEM_LIMIT
+        else:
+            assert (p.units, p.ctas, p.smem, p.slice_rows) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_rnn_plan_rejects_widths_it_does_not_take(H):
     with pytest.raises(ValueError):
         rs.rnn_plan("lstm", H, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D, H, n_sm, ok", [(2, 1024, 132, True), (2, 1024, 114, False), (1, 1024, 114, True),
+                                             (2, 912, 114, True), (2, 913, 114, False), (2, 600, 64, False)])
+def test_persistent_plan_takes_the_sm_count_of_the_card(D, H, n_sm, ok):
+    """Every CTA of the persistent grid must be resident at once (one an SM: its R slice is up to 128 KB): on an
+    H100 PCIe (114 SMs) a bidirectional layer above 912 units is refused, not launched to hang."""
+    if ok:
+        assert rs.rnn_plan("lstm", H, torch.bfloat16, D, 128, n_sm).ctas * D <= n_sm
+    else:
+        with pytest.raises(ValueError, match="resident"):
+            rs.rnn_plan("lstm", H, torch.bfloat16, D, 128, n_sm)
+
+
+@pytest.mark.parametrize("B, slice_rows", [(1, 128), (40, 128), (128, 128), (160, 256), (512, 512), (5000, 512)])
+def test_persistent_plan_walks_large_batches_in_slices(B, slice_rows):
+    """A CTA holds h and c of its 16 units for a slice of whole 128-row chunks; at H = 1024 shared memory holds
+    512 rows of them, so a larger batch is walked in slices inside the one launch."""
+    p = rs.rnn_plan("gru", 1024, torch.bfloat16, 2, B)
+    assert p.slice_rows == slice_rows and p.smem <= SMEM_LIMIT
+    assert rs.persistent_smem(1024, p.slice_rows + 128) > SMEM_LIMIT or p.slice_rows >= B
 
 
 @pytest.mark.parametrize("K, S, H, E, Dv, kb", [(8, 255, 256, 256, 512, 8), (8, 255, 512, 512, 1024, 8),
@@ -174,7 +204,10 @@ def _c_parameters(source, name):
 
 
 @pytest.mark.parametrize("source, name", [("transducer_joint.cu", "transducer_joint_fwd"),
-                                          ("rnn_sequence.cu", "rnn_sequence")])
+                                          ("rnn_sequence.cu", "rnn_sequence"),
+                                          ("rnn_sequence.cu", "rnn_sequence_persistent"),
+                                          ("las_decoder.cu", "las_decoder_fwd_split"),
+                                          ("las_decoder.cu", "las_decoder_fwd")])
 def test_c_entries_match_their_ctypes_signatures(source, name):
     kinds = [kernels._P if "*" in p else kernels._F if p.startswith("float") else kernels._I
              for p in _c_parameters(source, name)]

@@ -11,6 +11,13 @@ package's ``rnn_sequence_pallas`` in interpret mode, on the CPU.
   per-direction Pallas calls, forward and reverse.
 - In float32, ``rnn_sequence_plain`` equals the training loops
   (``_lstm_scan_core`` / ``_gru_scan_core(save=False)``) to rtol 1e-5.
+- The persistent route's decomposition (``rnn_persistent_plain``: the
+  gate-interleaved R of ``interleave_recurrent``, h times it one 64-row
+  k-panel at a time, the gates read out of the interleaved columns) against
+  ``rnn_sequence_plain`` and two per-direction Pallas calls at H = 520 (a
+  ragged last CTA of 8 units), LSTM and GRU, both types, the same
+  tolerances; the interleaved R against a row-by-row twin and against the
+  accumulator's lane layout; a CPU tensor at that width counts no launch.
 - A DeepSpeech2 (BiGRU) and a LAS listener (BiLSTM) forward at the mini
   configs, with K10's plain version routed into ``lstm_scan`` / ``gru_scan``,
   match the JAX models in eval mode, float32.
@@ -24,7 +31,8 @@ import torch
 from speech_recognition_tpu.models import LAS as JaxLAS
 from speech_recognition_tpu.ops.pallas.rnn_kernel import rnn_sequence_pallas
 from speech_recognition_tpu_torch.ops import rnn as rnn_mod
-from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, rnn_direction_plain, rnn_sequence,
+from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, interleave_recurrent, rnn_direction_plain,
+                                                           rnn_persistent_plain, rnn_plan, rnn_sequence,
                                                            rnn_sequence_plain)
 
 from .test_torch_ds2 import _audio, ds2_twins
@@ -140,6 +148,98 @@ def test_cpu_tensors_take_the_plain_version():
     got, want = rnn_sequence(*args), rnn_sequence_plain(*args)
     assert rnn_sequence.launches == before
     for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+
+
+WIDE_T, WIDE_B, WIDE_H = 4, 3, 520  # 33 CTAs a direction, the last with 8 units
+
+
+def _wide_operands(rnn_type, seed, dtype):
+    """The stacked two-direction operands at H = 520 (direction 1 time-flipped), numpy and torch."""
+    rng = np.random.default_rng(seed)
+    G = GATES[rnn_type]
+    f = lambda *s, scale: (rng.standard_normal(s) * scale).astype(np.float32)
+    x, rk = f(2, WIDE_T, WIDE_B, G * WIDE_H, scale=1.0), f(2, WIDE_H, G * WIDE_H, scale=WIDE_H ** -0.5)
+    rb = f(2, G * WIDE_H, scale=0.1) if rnn_type == "gru" else None
+    init = [f(2, WIDE_B, WIDE_H, scale=0.5) for _ in range(2 if rnn_type == "lstm" else 1)]
+    mask = (np.arange(WIDE_T)[:, None] < np.array([4, 1, 3])[None, :])[:, :, None]
+    t_ops = (_torch(np.stack([x[0], x[1][::-1]], axis=1), dtype),
+             torch.from_numpy(np.stack([mask, mask[::-1]], axis=1).copy()), _torch(rk, dtype),
+             None if rb is None else _torch(rb[:, None, :], dtype), _torch(init[0], dtype),
+             _torch(init[1], dtype) if rnn_type == "lstm" else None)
+    return (x, mask, rk, rb, init), t_ops
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_persistent_decomposition_matches_pallas_interpret(rnn_type, dtype):
+    (x, mask, rk, rb, init), t_ops = _wide_operands(rnn_type, 7, dtype)
+    plan = rnn_plan(rnn_type, WIDE_H, torch.bfloat16, 2, WIDE_B)
+    assert plan.route == "persistent" and plan.ctas == 33
+    out, h, c = rnn_persistent_plain(rnn_type, *t_ops, plan)
+    p_out, p_h, p_c = rnn_sequence_plain(rnn_type, *t_ops)
+    for got, want in ((out, p_out), (h, p_h), (c, p_c)):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == want.dtype
+        _assert_close(got.float(), want.float(), dtype)
+    for d, reverse in enumerate((False, True)):
+        want_out, want_state = _pallas(rnn_type, x[d], mask, rk[d], None if rb is None else rb[d],
+                                       [s[d] for s in init], reverse, dtype)
+        got = out[:, d].float().numpy()
+        _assert_close(got[::-1] if reverse else got, want_out, dtype)
+        _assert_close(h[d].float(), want_state[0], dtype)
+        if rnn_type == "lstm":
+            _assert_close(c[d].float(), want_state[1], dtype)
+    assert not out[1:, 0, 1].float().any()  # the length-1 row's masked steps emit zeros
+
+
+@pytest.mark.parametrize("rnn_type, H", [("lstm", 520), ("gru", 520), ("lstm", 1024), ("gru", 600)])
+def test_interleaved_recurrent_weights_row_by_row(rnn_type, H):
+    """Column 64 j + 32 g + 8 k + t of the copy is gate k of unit 16 j + 8 g + t of R (zero for the GRU's slot
+    3 and units past H); rows past H zero."""
+    G = GATES[rnn_type]
+    g = torch.Generator().manual_seed(H)
+    rk = torch.randn(2, H, G * H, generator=g)
+    plan = rnn_plan(rnn_type, H, torch.bfloat16, 2, 8)
+    w = interleave_recurrent(rk, plan)
+    Hp = -(-H // 64) * 64
+    assert w.shape == (2, Hp, 64 * plan.ctas)
+    assert not w[:, H:].any()
+    for col in range(w.shape[2]):
+        j, rest = divmod(col, 64)
+        grp, rest = divmod(rest, 32)
+        k, t = divmod(rest, 8)
+        unit = 16 * j + 8 * grp + t
+        if k < G and unit < H:
+            assert torch.equal(w[:, :H, col], rk[:, :, k * H + unit]), col
+        else:
+            assert not w[:, :, col].any(), col
+
+
+def test_each_accumulator_thread_holds_every_gate_of_its_units():
+    """csrc/rnn_sequence.cu's epilogue: in CTA j's 64 columns, lane quad position q holds columns 8 i + 2 q +
+    {0, 1} of its m64n64 accumulator; with i = 4 g + k they are gate k of units 16 j + 8 g + 2 q + {0, 1}."""
+    H = 1024
+    g = torch.Generator().manual_seed(0)
+    rk = torch.randn(1, H, 4 * H, generator=g)
+    w = interleave_recurrent(rk, rnn_plan("lstm", H, torch.bfloat16, 1, 128))
+    for j in (0, 1, 37, 63):
+        for q in range(4):
+            for grp in range(2):
+                for k in range(4):
+                    for x in range(2):
+                        col = 64 * j + 8 * (4 * grp + k) + 2 * q + x
+                        assert torch.equal(w[0, :, col], rk[0, :, k * H + 16 * j + 8 * grp + 2 * q + x])
+
+
+def test_cpu_tensors_at_a_persistent_width_count_no_launch():
+    _, t_ops = _wide_operands("lstm", 8, "bfloat16")
+    before, before_p = rnn_sequence.launches, rnn_sequence.persistent_launches
+    got, want = rnn_sequence("lstm", *t_ops), rnn_sequence_plain("lstm", *t_ops)
+    assert rnn_sequence.launches == before and rnn_sequence.persistent_launches == before_p
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 

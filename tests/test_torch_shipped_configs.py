@@ -59,7 +59,7 @@ def check_recurrent(rnn_type, H):
     """K10 takes the width, in both compute types."""
     assert H <= MAX_UNITS
     for dtype in (torch.bfloat16, torch.float32):
-        assert rnn_plan(rnn_type, H, dtype).route in ("narrow", "wide")
+        assert rnn_plan(rnn_type, H, dtype, D=2, B=B).route in ("narrow", "wide", "persistent")
 
 
 def check_las(cfg, L):
@@ -125,9 +125,12 @@ def test_unported_config_is_refused(name):
 
 
 def test_las_large_needs_the_wide_recurrent_route_and_split_beam_blocks():
-    """LAS-large (H = 1024) is what the wide K10 route and K11's beams-per-block split exist for."""
+    """LAS-large (H = 1024) is what K10's routes above H = 512 (bf16: the persistent grid of 2 x 64 CTAs, one
+    an SM of the H100's 132, R resident; float32: the wide clusters) and K11's beams-per-block split exist for."""
     cfg = get_model_config(os.path.join(CONFIGS, "las_large.yml"))
-    assert rnn_plan("lstm", cfg.encoder_hidden_dim, torch.bfloat16).route == "wide"
+    plan = rnn_plan("lstm", cfg.encoder_hidden_dim, torch.bfloat16, D=2, B=B)
+    assert plan.route == "persistent" and 2 * plan.ctas == 128 and plan.slice_rows == B
+    assert rnn_plan("lstm", cfg.encoder_hidden_dim, torch.float32, D=2, B=B).route == "wide"
     assert step_smem_bytes(BEAM, 255, 1024, 1024, 2048) == 327680 > SMEM_LIMIT
     assert beams_per_block(BEAM, 255, 1024, 1024, 2048) == 4
     small = get_model_config(os.path.join(CONFIGS, "las_small.yml"))

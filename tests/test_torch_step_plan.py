@@ -127,6 +127,18 @@ def test_each_accumulator_thread_holds_four_gates_of_its_units(panels):
                         assert cols[col] == k * H + tile * units + 8 * g + 2 * q + x
 
 
+@pytest.mark.parametrize("H, Hu, gates", [(8, 16, 4), (40, 48, 4), (256, 256, 4), (24, 32, 3), (520, 528, 3)])
+def test_interleave_gates_follows_the_column_map(H, Hu, gates):
+    """The reshape / pad form the split step and K10's persistent route copy with (no host sync on the card)
+    puts column ``gate_columns(H, Hu, gates)[j]`` of its input at j, zero where the map has -1."""
+    g = torch.Generator().manual_seed(H)
+    w = torch.randn(2, 3, gates * H, generator=g)
+    got = ls.interleave_gates(w, H, Hu)
+    cols = ls.gate_columns(H, Hu, gates)
+    assert got.shape == (2, 3, 4 * Hu)
+    assert torch.equal(got[..., cols >= 0], w[..., cols[cols >= 0]]) and not got[..., cols < 0].any()
+
+
 def test_interleaved_cell_weights_row_by_row():
     g = torch.Generator().manual_seed(0)
     in_dim, H, Hu = 40, 24, 32

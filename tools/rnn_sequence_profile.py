@@ -6,8 +6,8 @@
 ``ops/rnn_sequence.py rnn_sequence`` in bf16 at B=128 on seeded random
 operands: DeepSpeech2's BiGRU layer (T'=108, H=128), LAS-small's listener
 BiLSTM layer (T=255, H=256), the transducer's prediction net (one direction,
-T=127, H=320) and LAS-large's listener layer (T=255, H=1024, the wide
-route), every row valid.  For each: the call's CUDA-event median of
+T=127, H=320) and LAS-large's listener layer (T=255, H=1024, the persistent
+route of bf16 above H = 512), every row valid.  For each: the call's CUDA-event median of
 ``--iters`` calls after a warm-up, its device-busy time and the µs a step.
 ``--checkout`` times the port of another checkout of the repository
 (``tools/ab_turns.py`` uses it).  Prints the card's name and power limit

@@ -49,8 +49,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from torch_decode_profile import cuda_ms, profile  # noqa: E402  (tools/ is the script's own directory)
 
 # kernel-name prefixes of the port's training kernels (csrc/ce_vocab.cu, csrc/ctc_emissions.cu,
-# csrc/las_decoder.cu); K1's backward is K6's backward kernels with one id per row; in bf16 K6's and
-# K8 / K9's backwards run the engine of csrc/vocab_bwd.cuh, named by its policy
+# csrc/las_decoder.cu, csrc/las_split.cu); K1's backward is K6's backward kernels with one id per row; in bf16 K6's
+# and K8 / K9's backwards run the engine of csrc/vocab_bwd.cuh, named by its policy; in bf16 K2 runs on the split
+# LAS step (namespace sp: the query and cell products, the scores and context kernels; no decode runs in a train
+# step, so every one of them is K2's)
 K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel",
           "void srt::vb::vb_row_kernel<srt::EmissionRows", "void srt::vb::vb_col_kernel<srt::EmissionRows",
           "srt::vb::part_sum_kernel")
@@ -60,7 +62,8 @@ PORT_KERNELS = {
     "las": {
         "K1 fwd": VOCAB_TILES + ("srt::ce_merge_kernel",),
         "K1 bwd": K6_BWD,
-        "K2": ("void srt::decoder_fwd_kernel",),
+        "K2": ("void srt::decoder_fwd_kernel", "void srt::sp::product_kernel", "void srt::sp::scores_kernel",
+               "void srt::sp::context_kernel"),
         "K3": ("void srt::decoder_bwd_kernel",),
     },
     "ds2": {
