@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    tensor-core kernels, K10's wide route nor the split LAS step; K4, K5, K10
    and K11 also at LAS-large's widths (H = 1024: K10's wide route; bf16 K4 and
    K11 on the split route, ``ops/las_step.py``, each with its device ms a step
-   by kernel: query, attention, cells, vocab, select);
+   by kernel: query, attention, cells, vocab, select); K3 (bf16: the split
+   reverse step, ``check_reverse``) at LAS-small's and LAS-large's widths on
+   the plain K2's and on K2's own residuals (at LAS-large also each step from
+   the plain K3's state), two calls bit for bit, with its device ms a step by
+   kernel (query, cell 0, cells, attention VJP, gate);
 3. the serving path: 128 seeded 10.23 s wav clips decoded by the port's
    ``run.inference.main`` with random LAS-small weights, greedy and beam-8,
    ``--mixed-precision --device GPU --batch-size 128``, the features computed
@@ -53,7 +57,10 @@ Phases, in order; any failure exits non-zero without printing a result:
    slice`` for a few steps of one epoch and a dev pass, after the training
    kernels' counters are set to 0; the checkpoint is decoded by
    ``run.inference``; then ms per train step and utterances/s, and one
-   float32 step on 8 clips with the kernels against the plain versions;
+   float32 step on 8 clips with the kernels against the plain versions; every
+   K2 / K3 launch of the run took the split route; then (4b) LAS-large
+   (``las_large.yml``) trains the same way for a few steps and a dev pass, K2's
+   and K3's routes checked, and its step is timed;
 5. DeepSpeech2 (``resources/configs/deepspeech.yml``) through ``run.train``:
    the same 256 clips with transcripts of at most 48 tokens (so every CTC
    row is feasible at T' = 108), ``--mixed-precision --device GPU
@@ -290,9 +297,18 @@ STEP_KERNELS = (("query", r"product_kernel(<\d, \d, 0>|ILi\dELi\dELi0E)"),
                 ("select", r"beam_select_kernel|greedy_merge_kernel"))
 
 
-def step_breakdown(fn, n_steps, name):
-    """Device ms a step of the split LAS step's kernels (query, attention, cells, vocab, select / merge, the
-    rest), from ``torch.profiler`` over one call of ``fn`` making ``n_steps`` steps, printed on one line."""
+# the split reverse step's kernels (K3 in bf16) by part: the query product (EPI_RQUERY), cell 0's (EPI_RCELL0), the
+# other cells', the attention's VJP, the last cell's gate VJP
+REVERSE_KERNELS = (("query", r"reverse_product_kernel(<\d, \d, 2>|ILi\dELi\dELi2E)"),
+                   ("cell0", r"reverse_product_kernel(<\d, \d, 1>|ILi\dELi\dELi1E)"),
+                   ("cells", r"reverse_product_kernel"), ("attention", r"dprobs_kernel|sp::dq_kernel|2sp9dq_kernel"),
+                   ("gate", r"gate_kernel"))
+
+
+def step_breakdown(fn, n_steps, name, parts=STEP_KERNELS):
+    """Device ms a step of the split LAS step's kernels by part (``parts``: the forward's query, attention, cells,
+    vocab, select / merge, or the reverse's ``REVERSE_KERNELS``; the rest), from ``torch.profiler`` over one call
+    of ``fn`` making ``n_steps`` steps, printed on one line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -302,10 +318,10 @@ def step_breakdown(fn, n_steps, name):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys([k for k, _ in STEP_KERNELS] + ["rest"], 0.0)
+    ms = dict.fromkeys([k for k, _ in parts] + ["rest"], 0.0)
     for e in prof.events():  # the kernels only: an aten op carries its kernels' device time too
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            part = next((k for k, pat in STEP_KERNELS if re.search(pat, e.name)), "rest")
+            part = next((k for k, pat in parts if re.search(pat, e.name)), "rest")
             ms[part] += e.device_time_total / 1e3 / n_steps
     print(f"  {name} device ms a step: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) +
           f"; sum {sum(ms.values()):.4f}")
@@ -366,11 +382,17 @@ def phase_setup():
     # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
     check(len(spills) == 8 and not any(spills.values()),
           f"ptxas: K7's 8 tensor-core kernels spill no register ({spills})")
-    spills = kernel_spills(kernels.build_log, ("product_kernel", "scores_kernel", "context_kernel"))
+    spills = kernel_spills(kernels.build_log, ("2sp14product_kernel", "scores_kernel", "context_kernel"))
     # the split LAS step (K4 / K11 / K2 in bf16): the products (1 or 2 warpgroups, 1 or 2 panels; query, cell or
     # the teacher-forced loop's cell epilogue) and the attention's two kernels (1..16 beams)
     check(len(spills) == 22 and not any(spills.values()),
           f"ptxas: the split LAS step's 22 kernels spill no register ({spills})")
+    spills = kernel_spills(kernels.build_log, ("2sp22reverse_product_kernel", "2sp13dprobs_kernel", "2sp9dq_kernel",
+                                               "2sp11gate_kernel"))
+    # its reverse (K3 in bf16): the products (1 or 2 warpgroups, 1 or 2 panels; query, cell 0 or the other cells'
+    # epilogue), the attention VJP's two kernels and the last cell's gate VJP
+    check(len(spills) == 15 and not any(spills.values()),
+          f"ptxas: the split reverse step's 15 kernels spill no register ({spills})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -723,26 +745,119 @@ def decoder_operands(gen, dtype, N, Bsz, S, H, He, Dv, device="cuda"):
             r(H, scale=0.1), ks, rs, bs, cms, keep(Bsz, H), r(Bsz, H, scale=0.5), r(Bsz, H, scale=0.5))
 
 
+def k3_streams(result):
+    """K3's outputs as a flat list: dh0, dc0, each cell's dz, demb, dctx, dscores, dq."""
+    return [*result[:2], *result[2], *result[3:]]
+
+
+def k3_worst(got, want):
+    """The largest error of any K3 stream, x that stream's max|ref| (+ 1e-3)."""
+    return max(((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-3)).item()
+               for a, b in zip(k3_streams(got), k3_streams(want)))
+
+
+def reverse_steps(args):
+    """K3 one step at a time (N = 1 calls), every step from the plain K3's carried dh, dc, kernel against plain on
+    the step's streams: the worst error of any stream over the steps, x its max|ref| over all steps."""
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_bwd_plain
+
+    dhid, dhl, dcl, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, He = args
+    err, ref = {}, {}
+    dh, dc = dhl, dcl
+    for n in range(dhid.shape[0] - 1, -1, -1):
+        at = lambda t: t[n:n + 1]
+        step = (at(dhid), dh, dc, at(tm), at(probs), at(ci), pk, value, qw, ks, rs, cms, om, [at(z) for z in zs],
+                [at(c) for c in cps], He)
+        want = decoder_bwd_plain(*step)
+        for i, (a, b) in enumerate(zip(k3_streams(decoder_bwd(*step)), k3_streams(want))):
+            err[i] = max(err.get(i, 0.0), (a.float() - b.float()).abs().max().item())
+            ref[i] = max(ref.get(i, 0.0), b.float().abs().max().item())
+        dh, dc = want[0], want[1]
+    return max(err[i] / (ref[i] + 1e-3) for i in err)
+
+
+def check_reverse(gen, ops, own, plain, tag, own_per_step=False):
+    """K3 in bf16 on the split reverse step against the plain K3, on the loop of ``ops`` (seeded cotangents of
+    1e-3 scale): fed the plain K2's residuals ``plain``, each stream within 3e-2 x max|ref| of the plain K3 on them
+    (the tolerance of tests/test_pallas_decoder.py: bf16 storage, float32 sums in another order, carried through
+    the loop); fed K2's own residuals ``own``, within the same 3e-2 of the plain K3 on them, and with
+    ``own_per_step`` also each step from the plain K3's state (``reverse_steps``), the cuBLAS float32
+    decomposition's distance printed beside: at LAS-large's widths the whole loop on K2's own residuals depends
+    on the draw, since any float32 sum order other than the plain K3's flips some bf16 roundings of dz and the loop
+    carries them (on other draws the parent's per-row kernel and the decomposition left the plain K3 by 0.040 and
+    0.048 x max|ref|: PERF.md §6); two calls give the same bits; each call counted on the split route.  Times in
+    turns with the plain K3, and the bound: every step streams pk and value (and its probs), the other operands
+    once.  Returns the kernels line's numbers."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.decoder_kernel import (decoder_bwd, decoder_bwd_plain,
+                                                                 decoder_bwd_split_plain)
+
+    emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = ops
+    (N, Bsz, He), (S, H), Dv = emb.shape, pk.shape[1:], value.shape[2]
+    dhid, dhl, dcl = ((torch.randn(*shape, generator=gen) * 1e-3).to("cuda", torch.bfloat16)
+                      for shape in ((N, Bsz, H), (Bsz, H), (Bsz, H)))
+
+    def k3_args(residuals):
+        _, (_, hs, ci, zs, cps) = residuals
+        probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
+        return (dhid, dhl, dcl, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, He)
+
+    args = k3_args(plain)
+    n, tc = decoder_bwd.launches, decoder_bwd.tc_launches
+    got = decoder_bwd(*args)
+    check(decoder_bwd.launches == n + 1 and decoder_bwd.tc_launches == tc + 1,
+          f"{tag} (K3) in bf16 took the split reverse step")
+    want = decoder_bwd_plain(*args)
+    bwd_err = 0.0
+    names = ["dh0", "dc0", *[f"dz{i}" for i in range(len(ks))], "demb", "dctx", "dscores", "dq"]
+    for name, a, b_ in zip(names, k3_streams(got), k3_streams(want)):
+        err = (a.float() - b_.float()).abs().max().item()
+        bwd_err = max(bwd_err, err)
+        check(err <= 3e-2 * b_.float().abs().max().item(),
+              f"{tag} bwd {name} within 3e-2 x max|ref| (max abs err {err:.3g})")
+    own_args = k3_args(own)
+    own_plain = decoder_bwd_plain(*own_args)
+    own_err = k3_worst(decoder_bwd(*own_args), own_plain)
+    check(own_err <= 3e-2, f"{tag} bwd on K2's own residuals within 3e-2 x max|ref| of the plain K3 on them "
+                           f"(worst {own_err:.3g} x max|ref|)")
+    if own_per_step:
+        print(f"  {tag} bwd on K2's own residuals: the split step in cuBLAS float32 "
+              f"{k3_worst(decoder_bwd_split_plain(*own_args), own_plain):.3g} x max|ref| from the plain K3")
+        step_err = reverse_steps(own_args)
+        check(step_err <= 3e-2, f"{tag} bwd on K2's own residuals, each step from the plain K3's state, within 3e-2 x "
+                                f"max|ref| of the plain K3 (worst {step_err:.3g} x max|ref|)")
+    repeats_bit_for_bit(lambda: k3_streams(decoder_bwd(*own_args)), f"{tag} bwd (K3)")
+    b_ms, pb_ms = timed_pair(lambda: decoder_bwd(*args), lambda: decoder_bwd_plain(*args), 3)
+    # per step and row: the attention's VJP (dprobs, dq, the query product) and the cells' products, transposed
+    loop_flops = N * (2 * Bsz * (S * H + S * Dv + H * H) + cell_flops(Bsz, ks, H))
+    # every step streams pk and value; probs (each step its own rows) and the rest once
+    bb = bound(loop_flops, nbytes(args[:-1], got) + (N - 1) * nbytes(pk, value))
+    print(f"  {tag} N={N} B={Bsz} S={S} H={H}: bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms "
+          f"({bb[1]})")
+    step_breakdown(lambda: decoder_bwd(*args), N, f"{tag} bwd (K3)", REVERSE_KERNELS)
+    return bwd_err, b_ms, pb_ms, *bb, None
+
+
 def check_decoder(gen):
     """K2 and K3 vs plain in bf16 at LAS-small's loop shapes: N=127, B=128,
     S=255, H=He=256, Dv=512, 2 cells.  K2 (the split route: its launch counted
-    on it) on all its streams within 2e-2 x max|ref|; K3, fed the same
-    residuals, on all its streams within 3e-2 x max|ref| (the tolerances of
-    tests/test_pallas_decoder.py: bf16 storage, float32 sums in another order,
-    carried through the loop), and fed K2's own residuals within the same 3e-2
-    of the plain K3 on them.  Bounds: every step streams pk and value (K3 also
-    the step's probs), the other operands once."""
+    on it) on all its streams within 2e-2 x max|ref|; K3 (the split reverse
+    step, ``check_reverse``) within 3e-2 x max|ref| of the plain K3 on the plain
+    K2's residuals and on K2's own.  Bounds: every step streams pk and value
+    (K3 also the step's probs), the other operands once."""
     import torch
 
-    from speech_recognition_tpu_torch.ops.decoder_kernel import (
-        decoder_bwd, decoder_bwd_plain, decoder_fwd, decoder_fwd_plain)
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_fwd, decoder_fwd_plain
     from speech_recognition_tpu_torch.ops.las_step import interleave_cell, split_plan
 
     ops = decoder_operands(gen, torch.bfloat16, N_DEC, B, S_ENC, 256, 256, 512)
     tc = decoder_fwd.tc_launches
-    (hl, cl), (hid, hs, ci, zs, cps) = decoder_fwd(*ops)
+    own = decoder_fwd(*ops)
     check(decoder_fwd.tc_launches == tc + 1, "las_decoder fwd (K2) in bf16 took the split route")
-    (phl, pcl), (phid, phs, pci, pzs, pcps) = decoder_fwd_plain(*ops)
+    plain = decoder_fwd_plain(*ops)
+    (hl, cl), (hid, hs, ci, zs, cps) = own
+    (phl, pcl), (phid, phs, pci, pzs, pcps) = plain
     fwd_err = 0.0
     names = ["hidden", "h_start", "c_in0", "h_last", "c_last", "z0", "z1", "c_p0", "c_p1"]
     for name, got, want in zip(names, [hid, hs, ci, hl, cl, *zs, *cps], [phid, phs, pci, phl, pcl, *pzs, *pcps]):
@@ -750,46 +865,34 @@ def check_decoder(gen):
         fwd_err = max(fwd_err, err)
         check(err <= 2e-2 * want.float().abs().max().item(),
               f"las_decoder fwd {name} within 2e-2 x max|ref| (max abs err {err:.3g})")
-    emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = ops
-    probs = torch.softmax(torch.einsum("nbh,bsh->nbs", phs @ qw + qb, pk) + bias[None], dim=-1)
-    dhid = (torch.randn(N_DEC, B, 256, generator=gen) * 1e-3).to("cuda", torch.bfloat16)
-    zero = torch.zeros(B, 256, dtype=torch.bfloat16, device="cuda")
-    args = (dhid, zero, zero, tm, probs, pci, pk, value, qw, ks, rs, cms, om, pzs, pcps, 256)
-    got, want = decoder_bwd(*args), decoder_bwd_plain(*args)
-    bwd_err = 0.0
-    names = ["dh0", "dc0", "dz", "demb", "dctx", "dscores", "dq"]
-    for name, g, w in zip(names, got, want):
-        for i, (a, b_) in enumerate(zip(g, w) if isinstance(g, tuple) else [(g, w)]):
-            err = (a.float() - b_.float()).abs().max().item()
-            bwd_err = max(bwd_err, err)
-            check(err <= 3e-2 * b_.float().abs().max().item(),
-                  f"las_decoder bwd {name}{i if isinstance(g, tuple) else ''} within 3e-2 x max|ref| "
-                  f"(max abs err {err:.3g})")
-    own_probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
-    own = (dhid, zero, zero, tm, own_probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, 256)
-    own_err = max(((a.float() - b_.float()).abs().max() / (b_.float().abs().max() + 1e-3)).item()
-                  for g, w in zip(decoder_bwd(*own), decoder_bwd_plain(*own))
-                  for a, b_ in (zip(g, w) if isinstance(g, tuple) else [(g, w)]))
-    check(own_err <= 3e-2, f"las_decoder bwd on K2's own residuals within 3e-2 x max|ref| of the plain K3 on them "
-                           f"(worst {own_err:.3g} x max|ref|)")
+    bwd = check_reverse(gen, ops, own, plain, "las_decoder")
     f_ms, pf_ms = timed_pair(lambda: decoder_fwd(*ops), lambda: decoder_fwd_plain(*ops), 3)
-    b_ms, pb_ms = timed_pair(lambda: decoder_bwd(*args), lambda: decoder_bwd_plain(*args), 3)
-    # per step and row: attention (scores, context, query projection) and the
-    # cells; the backward runs the same products transposed
+    # per step and row: attention (scores, context, query projection) and the cells
     H, Dv = 256, 512
-    loop_flops = N_DEC * (2 * B * (S_ENC * H + S_ENC * Dv + H * H) + cell_flops(B, ks, H))
-    # every step streams pk and value (50.1 MB at LAS-small), K3 also the step's probs; the rest once
+    loop_flops = N_DEC * (2 * B * (S_ENC * H + S_ENC * Dv + H * H) + cell_flops(B, ops[7], H))
+    # every step streams pk and value (50.1 MB at LAS-small); the rest once
+    pk, value = ops[2], ops[3]
     fb = bound(loop_flops, nbytes(ops, hl, cl, hid, hs, ci, zs, cps) + (N_DEC - 1) * nbytes(pk, value))
-    bb = bound(loop_flops, nbytes(args[:-1], got) + (N_DEC - 1) * nbytes(pk, value))
     print(f"  las_decoder N={N_DEC} B={B} S={S_ENC}: fwd kernel {f_ms:.3f} ms, plain {pf_ms:.3f} ms, bound "
-          f"{fb[0]:.4f} ms ({fb[1]}); bwd kernel {b_ms:.3f} ms, plain {pb_ms:.3f} ms, bound {bb[0]:.4f} ms "
-          f"({bb[1]})")
+          f"{fb[0]:.4f} ms ({fb[1]})")
     step_breakdown(lambda: decoder_fwd(*ops), N_DEC, "las_decoder fwd (K2)")
-    plan = split_plan(B, 1, S_ENC, H, 256, Dv, len(ks))
-    il_ms = event_ms(lambda: [interleave_cell(k, r, plan.Hu) for k, r in zip(ks, rs)])
+    plan = split_plan(B, 1, S_ENC, H, 256, Dv, len(ops[7]))
+    il_ms = event_ms(lambda: [interleave_cell(k, r, plan.Hu) for k, r in zip(ops[7], ops[8])])
     print(f"  las_decoder fwd (K2): the cells' interleaved weight copies {il_ms:.4f} ms a call "
-          f"({nbytes(ks, rs) / 2**20:.2f} MiB of weights)")
-    return (fwd_err, f_ms, pf_ms, *fb, None), (bwd_err, b_ms, pb_ms, *bb, None)
+          f"({nbytes(ops[7], ops[8]) / 2**20:.2f} MiB of weights)")
+    return (fwd_err, f_ms, pf_ms, *fb, None), bwd
+
+
+def check_decoder_large(gen):
+    """K3 at LAS-large's widths (H = He = 1024, Dv = 2048, 2 cells) on LAS-small's loop (N=127, B=128, S=255),
+    ``check_reverse`` on the residuals of the plain K2 (the whole loop) and of K2 (the split route; each step)."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_fwd, decoder_fwd_plain
+
+    ops = decoder_operands(gen, torch.bfloat16, N_DEC, B, S_ENC, LAS_LARGE_H, LAS_LARGE_H, 2 * LAS_LARGE_H)
+    return check_reverse(gen, ops, decoder_fwd(*ops), decoder_fwd_plain(*ops), "las_decoder LAS-large",
+                         own_per_step=True)
 
 
 def check_emissions(gen):
@@ -1609,7 +1712,7 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config))))
     for fn in (ce_fwd, ce_bwd, decoder_fwd, decoder_bwd, rnn_sequence):
         fn.launches = 0
-    decoder_fwd.tc_launches = 0
+    decoder_fwd.tc_launches = decoder_bwd.tc_launches = 0
     t0 = time.perf_counter()
     records = train.main(cfg)
     wall = time.perf_counter() - t0
@@ -1618,9 +1721,7 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     print(f"  run.train: {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times in the training run")
-    check(decoder_fwd.tc_launches == decoder_fwd.launches,
-          f"every K2 launch of the training run took the split route ({decoder_fwd.tc_launches} of "
-          f"{decoder_fwd.launches})")
+    check_decoder_routes("the training run")
     k10 = rnn_sequence.launches
     check(k10 == LAS_LAYERS, f"rnn_sequence (K10) launched {k10} times in the training run (the dev pass of one "
                              f"batch; expected {LAS_LAYERS})")
@@ -1642,6 +1743,41 @@ def run_train_path(tmp, wav_dir, paths, data_config):
           f"rnn_sequence (K10) launched {rnn_sequence.launches} times in that decode (expected {LAS_LAYERS})")
     launches["rnn_sequence_lstm"] = k10 + rnn_sequence.launches
     return launches, cfg, rec["checkpoint"]
+
+
+def check_decoder_routes(what):
+    """Every K2 launch since the counters were set to 0 took the split step, every K3 launch its reverse."""
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+
+    for name, fn in (("K2", decoder_fwd), ("K3", decoder_bwd)):
+        check(fn.tc_launches == fn.launches, f"every {name} launch of {what} took the split route "
+                                             f"({fn.tc_launches} of {fn.launches})")
+
+
+def run_las_large_train(tmp, wav_dir, paths, data_config):
+    """run.train.main with LAS-large (``las_large.yml``) on phase 4's clips, bf16, B=128, a few steps and a dev
+    pass, after K2's and K3's counters are set to 0: both launched, each launch on the split route, the loss
+    finite; then its train step timed (``time_train_step``).  Returns K3's launches there."""
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.run import train
+
+    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, "las_large.yml",
+                                                                "train_large_out"))))
+    for fn in (decoder_fwd, decoder_bwd):
+        fn.launches = fn.tc_launches = 0
+    t0 = time.perf_counter()
+    (rec,) = train.main(cfg)
+    print(f"  run.train LAS-large: {time.perf_counter() - t0:.1f} s for {TRAIN_STEPS} steps + a dev pass + the "
+          f"checkpoint; loss {rec['loss']:.4f}, dev loss {rec['val_loss']:.4f}")
+    check(rec["steps"] == TRAIN_STEPS and decoder_fwd.launches > 0 and decoder_bwd.launches > 0,
+          f"LAS-large run.train: {rec['steps']} steps, las_decoder_fwd launched {decoder_fwd.launches} times, "
+          f"las_decoder_bwd {decoder_bwd.launches}")
+    check_decoder_routes("the LAS-large training run")
+    check(all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")), "LAS-large train and dev loss finite")
+    launches = decoder_bwd.launches
+    time_train_step(cfg, "LAS-large (N=127)")
+    return {"las_decoder_bwd_large": launches}
 
 
 def token_conditioned(cfg):
@@ -2034,7 +2170,7 @@ def main():
                    ("ce_vocab_fwd", "ce_vocab.cu", "ce_kernel.py:201"),
                    ("ce_vocab_bwd", "ctc_emissions.cu", "ce_kernel.py:201"),  # K6's backward with one id per row
                    ("las_decoder_fwd", "las_split.cu", "decoder_kernel.py:238"),  # bf16: the split step
-                   ("las_decoder_bwd", "las_decoder.cu", "decoder_kernel.py:477"),
+                   ("las_decoder_bwd", "las_split.cu", "decoder_kernel.py:477"),  # bf16: the split reverse step
                    ("ctc_emissions_fwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("ctc_emissions_bwd", "ctc_emissions.cu", "ctc_kernel.py:210"),
                    ("mhsa_fwd", "attention.cu", "attention_kernel.py:217"),
@@ -2050,7 +2186,8 @@ def main():
                    ("rnn_sequence_lstm_wide", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-large's listener
                    ("las_beam_large", "las_beam.cu", "beam_kernel.py:415"),  # LAS-large's beam-8
                    ("las_greedy_large", "las_greedy.cu", "search_kernel.py:237"),  # LAS-large's greedy (H=1024)
-                   ("vocab_topk_large", "vocab_topk.cu", "topk_kernel.py:176"))}  # LAS-large's beam, H=1024
+                   ("vocab_topk_large", "vocab_topk.cu", "topk_kernel.py:176"),  # LAS-large's beam, H=1024
+                   ("las_decoder_bwd_large", "las_split.cu", "decoder_kernel.py:477"))}  # LAS-large's K3
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -2093,6 +2230,7 @@ def main():
         fwd, bwd = check_decoder(gen)
         record("las_decoder_fwd", fwd)
         record("las_decoder_bwd", bwd)
+        record("las_decoder_bwd_large", check_decoder_large(gen))
         fwd, bwd = check_emissions(gen)
         record("ctc_emissions_fwd", fwd)
         record("ctc_emissions_bwd", bwd)
@@ -2133,6 +2271,8 @@ def main():
                               (dec_mod, "decoder_bwd", dk.decoder_bwd_plain),
                               (ce_mod, "ce_fwd", ce_mod.ce_fwd_plain), (ce_mod, "ce_bwd", ce_mod.ce_bwd_plain),
                               k10_plain], "LAS-small")
+        print("== phase 4b: LAS-large through run.train (bf16, B=128)")
+        launches.update(run_las_large_train(tmp, train_wavs, paths, data_config))
         print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
         k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}

@@ -3,29 +3,26 @@
 //   K2 replaces decoder_fwd_pallas (speech_recognition_tpu/ops/pallas/decoder_kernel.py:238),
 //   K3 replaces decoder_bwd_pallas (same file, :477).
 //
-// In bf16, K2 runs on the split LAS step (las_split.cu split_decoder_fwd, entry las_decoder_fwd_split below):
-// each step's query and cell products are wgmma tiles over all B rows, each weight read once a row tile, and
-// the cells' epilogue writes the residual streams below in the same layouts.  The per-row kernels here are
-// K2's float32 route (the checks' path) and K3 in both types.
+// In bf16 both run on the split LAS step (las_split.cu; entries las_decoder_fwd_split and las_decoder_bwd_split
+// below): each step's products are wgmma tiles over all B rows, each weight read once a row tile, with the cell
+// update (K2) or the gate VJP (K3) as their epilogue, and the attention (or its VJP) in two kernels over chunks
+// of key frames and of columns.  The per-row kernels here are the float32 route of both (the checks' path).
 //
-// Batch rows are independent in the decoder loop, so each kernel is ONE
-// launch of one block of DEC_THREADS per batch row that runs all N steps
+// Batch rows are independent in the decoder loop, so each per-row kernel is
+// ONE launch of one block of DEC_THREADS per batch row that runs all N steps
 // itself (forward in order, backward in reverse): the loop inside the block
 // takes the place of the TPU kernel's sequential grid.  The carried state
 // (h, c forward; dh, dc backward) stays float32 in shared memory for the
 // whole loop, and every per-step vector lives there too (~20 KB).
 //
 // What bounds them: each step of each row streams the row's projected keys
-// (S*H) and values (S*Dv), 130 KB + 261 KB at LAS-small in bf16, and the
-// ~3 MB of cell / query weights, all from L2 (the TPU kernel keeps ~50 MB
-// resident in VMEM; an SM has 227 KB, so nothing is resident here).  Every
-// matvec is the block's own float32 loop on the CUDA cores; 128 rows fill
-// 128 of the 132 SMs with one block each.  Measured on the H100, one row
-// alone takes half or more of the time of 128: each block is bound by the latency of
-// its per-thread chains of ~2k dependent L2 loads and FMAs per step, so the
-// loops are unit-stride to keep several loads in flight (see vec_mat).
-// Batching rows per block to share the weight reads, and tensor-core tiles,
-// are later work.
+// (S*H) and values (S*Dv) and the cell / query weights, all from L2; every
+// matvec is the block's own float32 loop on the CUDA cores, bound by the
+// latency of its per-thread chains of dependent L2 loads and FMAs, so the
+// loops are unit-stride to keep several loads in flight (see vec_mat).  In
+// bf16 the per-row K3 took 19.29 ms at LAS-small and 207.12 ms at LAS-large
+// (H = 1024: ~51 MB of weights re-read per row and step) on the H100
+// (PERF.md §6); the split route replaced it there.
 //
 // Rounding follows the Pallas kernels (decoder_kernel.py:113-169 and
 // :326-404) in T = bf16, and rounds nothing in T = float32 (the XLA scan's
@@ -438,27 +435,76 @@ int las_decoder_fwd_split(const void* emb_rows, const int* rows, const float* to
   return static_cast<int>(err);
 }
 
-// K3.  dhidden [N,B,H], dh_last/dc_last [B,H], probs [N,B,S], c_in0 [N,B,H],
-// pk, value, qw_t = qw^T [H,H], per cell kernel^T [4H,in_i],
-// recurrent^T [4H,H], mask [B,in_i], z [N,B,4H], c' [N,B,H]; out_mask [B,H]:
-// in T.  token_mask [N,B] float32.  Outputs in T: per cell dz [N,B,4H],
-// demb [N,B,He], dctx [N,B,Dv], dscores [N,B,S], dq [N,B,H], dh0, dc0 [B,H].
-int las_decoder_bwd(int dtype_bf16, const void* dhidden, const void* dh_last, const void* dc_last,
-                    const float* token_mask, const void* probs, const void* c_in0, const void* pk, const void* value,
-                    const void* qw_t, int n_cells, void** kts, void** rts, void** cms, void** zs, void** cps,
-                    void** dzs, const void* out_mask, void* demb, void* dctx, void* dscores, void* dq, void* dh0,
-                    void* dc0, int N, int B, int S, int H, int He, int Dv, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype_bf16)
-    err = srt::decoder_bwd_impl<__nv_bfloat16>(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t,
-                                               n_cells, kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores,
-                                               dq, dh0, dc0, N, B, S, H, He, Dv, st);
-  else
-    err = srt::decoder_bwd_impl<float>(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t,
-                                       n_cells, kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0,
-                                       dc0, N, B, S, H, He, Dv, st);
+// K3 in float32 (bf16: las_decoder_bwd_split).  dhidden [N,B,H], dh_last/dc_last [B,H], probs [N,B,S],
+// c_in0 [N,B,H], pk, value, qw_t = qw^T [H,H], per cell kernel^T [4H,in_i], recurrent^T [4H,H], mask [B,in_i],
+// z [N,B,4H], c' [N,B,H]; out_mask [B,H]; token_mask [N,B].  Outputs: per cell dz [N,B,4H], demb [N,B,He],
+// dctx [N,B,Dv], dscores [N,B,S], dq [N,B,H], dh0, dc0 [B,H].
+int las_decoder_bwd(const void* dhidden, const void* dh_last, const void* dc_last, const float* token_mask,
+                    const void* probs, const void* c_in0, const void* pk, const void* value, const void* qw_t,
+                    int n_cells, void** kts, void** rts, void** cms, void** zs, void** cps, void** dzs,
+                    const void* out_mask, void* demb, void* dctx, void* dscores, void* dq, void* dh0, void* dc0, int N,
+                    int B, int S, int H, int He, int Dv, void* stream) {
+  const cudaError_t err = srt::decoder_bwd_impl<float>(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value,
+                                                       qw_t, n_cells, kts, rts, cms, zs, cps, dzs, out_mask, demb,
+                                                       dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv,
+                                                       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
+}
+
+// K3 in bf16 on the split reverse step (las_split.cuh split_decoder_bwd), every operand bf16 unless stated.
+// dhidden [N,B,H], dh_last / dc_last [B,H], token_mask [N,B] float32, probs [N,B,S], c_in0 [N,B,H], pk [B,S,H],
+// value [B,S,Dv], qw_t = qw^T [H,H]; per cell ws its transposed weights (ops/las_step.py reverse_cell_weights),
+// cms its dropout mask [B,in_i], zs [N,B,4H] and cps [N,B,H] K2's residuals, dzs [N,B,4H] out; out_mask [B,H].
+// Out: demb [N,B,He], dctx [N,B,Dv], dscores [N,B,S], dq [N,B,H], dh0, dc0 [B,H].  Scratch, float32: dh, dc [B,H],
+// dctx_f [B,Dv], dprobs [B,S].  q_*, c0_*, c_*: the plans of the query product, cell 0's and the other cells'
+// (ops/las_step.py reverse_plan).
+int las_decoder_bwd_split(const void* dhidden, const void* dh_last, const void* dc_last, const float* token_mask,
+                          const void* probs, const void* c_in0, const void* pk, const void* value, const void* qw_t,
+                          int n_cells, void** ws, void** cms, void** zs, void** cps, void** dzs, const void* out_mask,
+                          void* demb, void* dctx, void* dscores, void* dq, void* dh0, void* dc0, float* dh, float* dc,
+                          float* dctx_f, float* dprobs, int N, int B, int S, int H, int He, int Dv, int q_wgs,
+                          int q_panels, int c0_wgs, int c0_panels, int c_wgs, int c_panels, void* stream) {
+  using srt::wg::Bf;
+  if (n_cells < 1 || n_cells > SPLIT_MAX_CELLS) return static_cast<int>(cudaErrorInvalidValue);
+  srt::SplitReverse s{};
+  s.N = N;
+  s.B = B;
+  s.S = S;
+  s.H = H;
+  s.He = He;
+  s.Dv = Dv;
+  s.n_cells = n_cells;
+  s.token_mask = token_mask;
+  s.dhidden = static_cast<const Bf*>(dhidden);
+  s.dh_last = static_cast<const Bf*>(dh_last);
+  s.dc_last = static_cast<const Bf*>(dc_last);
+  s.probs = static_cast<const Bf*>(probs);
+  s.c_in0 = static_cast<const Bf*>(c_in0);
+  s.pk = static_cast<const Bf*>(pk);
+  s.value = static_cast<const Bf*>(value);
+  s.qw_t = static_cast<const Bf*>(qw_t);
+  s.out_mask = static_cast<const Bf*>(out_mask);
+  for (int i = 0; i < n_cells; ++i) {
+    s.w[i] = static_cast<const Bf*>(ws[i]);
+    s.mask[i] = static_cast<const Bf*>(cms[i]);
+    s.z[i] = static_cast<const Bf*>(zs[i]);
+    s.cp[i] = static_cast<const Bf*>(cps[i]);
+    s.dz[i] = static_cast<Bf*>(dzs[i]);
+  }
+  s.demb = static_cast<Bf*>(demb);
+  s.dctx = static_cast<Bf*>(dctx);
+  s.dscores = static_cast<Bf*>(dscores);
+  s.dq = static_cast<Bf*>(dq);
+  s.dh0 = static_cast<Bf*>(dh0);
+  s.dc0 = static_cast<Bf*>(dc0);
+  s.dh = dh;
+  s.dc = dc;
+  s.dctx_f = dctx_f;
+  s.dprobs = dprobs;
+  s.query_plan = srt::ProductPlan{q_wgs, q_panels};
+  s.cell0_plan = srt::ProductPlan{c0_wgs, c0_panels};
+  s.cell_plan = srt::ProductPlan{c_wgs, c_panels};
+  return static_cast<int>(srt::split_decoder_bwd(s, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -27,7 +27,16 @@
 // (EPI_TRAIN) gates by the token mask and writes K3's residuals: rnd(z) in the natural gate order, rnd(c'),
 // each next cell's masked input and the step's h / c.  At LAS-small (B = 128, S = 255, H = 256) a step is
 // bound by the attention's pk + value, 50.1 MB from device memory (15 us at 3.35 TB/s).
+// Its reverse (K3, decoder_bwd_pallas, decoder_kernel.py:477, body _bwd_kernel :296-405; split_decoder_bwd) is the
+// same step transposed: per cell from the last down a product rnd(dz_i) @ [K_i^T | R_i^T] whose epilogue is the
+// next cell's gate VJP (K_i^T and R_i^T interleaved by 8-column groups, so that a thread holds both columns of its
+// units), cell 0's writing dx0 = [demb | dctx]; the attention's VJP in a dprobs kernel (a step reads value) and a
+// dq kernel (the softmax VJP, then pk); the query product rnd(dq) @ qw^T adding into dh, then the last cell's gate
+// VJP of the step before over all B H units (gate_kernel).  A step streams pk + value + probs (50.1 MB at
+// LAS-small, 200.5 MB at LAS-large) and reads each transposed weight once per row tile (3 MB / 48 MB).
 #include "las_split.cuh"
+
+#include <utility>
 
 namespace srt {
 namespace sp {
@@ -70,33 +79,31 @@ struct Epi {
   Bf *hs_out, *cs_out;     // [R,H] or null
 };
 
-// out = A @ W (+ the epilogue) for the block's 64 WGS rows and 64 NP columns.  A's k-panels 0..n_k1-1 come
-// from a1, n_k1..n_k-1 from a2 (column (k - n_k1) 64); W's k-panel k is rows 64 k.. of wm.  The ring holds one
-// k-panel a stage; a stage is refilled once every product that read it is done.  Each k-panel's four k-steps
-// go into a fresh accumulator, za and zb in turns, and the panel sums are added into z in float32, in order,
-// while the next panel is multiplied: the tensor cores' own accumulation rounds toward zero, and over a
-// 4096-deep product that bias moved h far enough to flip its bf16 roundings (PERF.md, PR 12).
-template <int WGS, int NP, int EPI>
-__global__ void __launch_bounds__(128 * WGS, 1)
-    product_kernel(const __grid_constant__ CUtensorMap a1, const __grid_constant__ CUtensorMap a2,
-                   const __grid_constant__ CUtensorMap wm, int n_k1, int n_k, const int* __restrict__ run_flag,
-                   const Epi e) {
-  if (run_flag != nullptr && *run_flag == 0) return;  // the beam loop (K11) has ended
+// z = A @ W for the block's 64 WGS rows and 64 NP columns (from col0): the thread's accumulator cells, z[4 j + 2 hf
+// + x] at row 16 warp + lane / 4 + 8 hf of its warpgroup and column 8 j + 2 (lane % 4) + x of the tile.  A's
+// k-panels 0..n_k1-1 come from a1, n_k1..n_k-1 from a2 (column (k - n_k1) 64), the block's rows from row a_row0 of
+// each; W's k-panel k is rows 64 k.. of wm.  The ring holds one k-panel a stage; a stage is refilled once every
+// product that read it is done.  Each k-panel's four k-steps go into a fresh accumulator, za and zb in turns, and
+// the panel sums are added into z in float32, in order, while the next panel is multiplied: the tensor cores' own
+// accumulation rounds toward zero, and over a 4096-deep product that bias moved h far enough to flip its bf16
+// roundings (PERF.md §6).
+template <int WGS, int NP>
+__device__ __forceinline__ void product_tile(const CUtensorMap& a1, const CUtensorMap& a2, const CUtensorMap& wm,
+                                             int n_k1, int n_k, int a_row0, int col0, float (&z)[32 * NP]) {
   constexpr int S = STAGES, D = IN_FLIGHT, A_BYTES = WGS * W_PANEL, KPB = (WGS + NP) * W_PANEL, N = 32 * NP;
   extern __shared__ uint8_t sp_smem[];
   __shared__ __align__(8) uint64_t sp_bars[STAGES];  // stage s has landed (one phase a fill)
   const uint32_t base = (smem_addr(sp_smem) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
   const uint32_t bars = smem_addr(sp_bars);
-  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31, q = lane & 3;
-  const int row0 = blockIdx.x * WG_ROWS * WGS, col0 = blockIdx.y * PANEL * NP;
+  const int tid = threadIdx.x, wgi = tid >> 7;
 
   auto issue = [&](int k) {  // k-panel k into stage k % S
     if (k < n_k && tid == 0) {
       const uint32_t dst = base + (k % S) * KPB, bar = bars + (k % S) * 8;
       mbar_expect_tx(bar, KPB);
       for (int w = 0; w < WGS; ++w) {
-        if (k < n_k1) tma_load_2d(dst + w * W_PANEL, &a1, k * PANEL, row0 + WG_ROWS * w, bar);
-        else tma_load_2d(dst + w * W_PANEL, &a2, (k - n_k1) * PANEL, row0 + WG_ROWS * w, bar);
+        if (k < n_k1) tma_load_2d(dst + w * W_PANEL, &a1, k * PANEL, a_row0 + WG_ROWS * w, bar);
+        else tma_load_2d(dst + w * W_PANEL, &a2, (k - n_k1) * PANEL, a_row0 + WG_ROWS * w, bar);
       }
       for (int np = 0; np < NP; ++np) tma_load_2d(dst + A_BYTES + np * W_PANEL, &wm, col0 + np * PANEL, k * PANEL, bar);
     }
@@ -116,7 +123,7 @@ __global__ void __launch_bounds__(128 * WGS, 1)
     }
     wg_commit();
   };
-  float z[N], za[N], zb[N];
+  float za[N], zb[N];
   auto add = [&](float (&acc)[N]) {
     reg_fence(acc);
 #pragma unroll
@@ -149,6 +156,19 @@ __global__ void __launch_bounds__(128 * WGS, 1)
     wg_wait<0>();
     add(zb);
   }
+}
+
+// out = A @ W (+ the epilogue) for the block's 64 WGS rows and 64 NP columns (product_tile)
+template <int WGS, int NP, int EPI>
+__global__ void __launch_bounds__(128 * WGS, 1)
+    product_kernel(const __grid_constant__ CUtensorMap a1, const __grid_constant__ CUtensorMap a2,
+                   const __grid_constant__ CUtensorMap wm, int n_k1, int n_k, const int* __restrict__ run_flag,
+                   const Epi e) {
+  if (run_flag != nullptr && *run_flag == 0) return;  // the beam loop (K11) has ended
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31, q = lane & 3;
+  const int row0 = blockIdx.x * WG_ROWS * WGS, col0 = blockIdx.y * PANEL * NP;
+  float z[32 * NP];
+  product_tile<WGS, NP>(a1, a2, wm, n_k1, n_k, row0, col0, z);
 
   // the thread's cells: z[4 j + 2 hf + x] is row (16 warp + lane / 4 + 8 hf) of its warpgroup, column
   // 8 j + 2 q + x of the tile
@@ -381,6 +401,344 @@ __global__ void hq_init_kernel(const float* __restrict__ h, Bf* __restrict__ hq,
     hq[i] = __float2bfloat16_rn(h[i]);
 }
 
+// ---------------------------------------------------------------- the reverse step (K3, split_decoder_bwd)
+enum { EPI_RCELL = 0, EPI_RCELL0 = 1, EPI_RQUERY = 2 };
+// The attention VJP's blocks (ops/las_step.py mirrors them): a dprobs block takes DP_FRAMES key frames of one batch
+// row with DP_THREADS threads (each warp DP_FRAMES / 8 of them) and holds the row's dctx, [Dv] floats; a dq block
+// takes DQ_COLS columns of pk, a thread each, and holds two tiles of DQ_FRAMES frames of them (bf16), the row's
+// probabilities and dscores, 2 [S] floats, and 33 floats of reduction scratch.
+#define DP_FRAMES 32
+#define DP_THREADS 256
+#define DQ_COLS 128
+#define DQ_FRAMES 32
+inline size_t dprobs_smem(int Dv) { return sizeof(float) * (size_t)Dv; }
+inline size_t dq_smem(int S) { return 2 * 2 * DQ_FRAMES * DQ_COLS + sizeof(float) * (2 * (size_t)S + 33); }
+
+__device__ __forceinline__ float2 load_bf2(const Bf* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The rows of one step that a cell's gate VJP reads and writes, each pointer at the step's row 0 (stream row n B)
+struct GateRows {
+  int cell, H;                       // the cell; c entering it is rebuilt from c_in0 and the c' of cells < cell
+  const float* gate;                 // [B] the pad gate
+  const Bf *z, *cp, *c_in0;          // [B,4H] rnd(z) and [B,H] rnd(c') of the cell, [B,H] c_in0
+  const Bf* cps[SPLIT_MAX_CELLS];    // [B,H] rnd(c') of every cell
+  const Bf* dhidden;                 // [B,H] the last cell's output's cotangent
+  Bf* dz;                            // [B,4H] out: rnd(dz)
+};
+
+// What the gate VJP of batch row r, units u and u + 1, reads from the residual streams: rnd(z) (gates i, f, g, o),
+// rnd(c'), the c entering the cell (rebuilt from c_in0 and the c' of the cells before it) and the pad gate.
+struct GateIn {
+  __nv_bfloat162 z[4], cp;
+  float2 cin;
+  float m;
+};
+
+__device__ __forceinline__ GateIn gate_load(const GateRows& g, int r, int u) {
+  const int H = g.H;
+  const size_t at = (size_t)r * H + u;
+  GateIn in;
+  in.m = g.gate[r];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) in.z[k] = *reinterpret_cast<const __nv_bfloat162*>(g.z + (size_t)r * 4 * H + k * H + u);
+  in.cp = *reinterpret_cast<const __nv_bfloat162*>(g.cp + at);
+  in.cin = load_bf2(g.c_in0 + at);
+#pragma unroll
+  for (int j = 0; j < SPLIT_MAX_CELLS - 1; ++j)  // unrolled, so that cps is indexed by constants
+    if (j < g.cell) {
+      const float2 c = load_bf2(g.cps[j] + at);
+      in.cin = make_float2(in.m * c.x + (1.0f - in.m) * in.cin.x, in.m * c.y + (1.0f - in.m) * in.cin.y);
+    }
+  return in;
+}
+
+// The LSTM cell's gate VJP at batch row r, units u and u + 1, the Pallas kernel's math (decoder_kernel.py:337-360):
+// dh and dc flow into the cell's h' and c', dx into its emitted x.  Writes rnd(dz) in the natural gate order (the
+// cell's product reads it as its A operand) and leaves (1 - m) dh in dh (the part of dh_prev that the product's
+// acc_R adds to) and dc_prev in dc.
+__device__ __forceinline__ void gate_vjp(const GateRows& g, const GateIn& in, int r, int u, float (&dh)[2],
+                                         float (&dc)[2], const float (&dx)[2]) {
+  const float m = in.m;
+  float dz[4][2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const auto pick = [x](__nv_bfloat162 v) { return x ? __high2float(v) : __low2float(v); };
+    const float gi = sigmoidf(pick(in.z[0])), gf = sigmoidf(pick(in.z[1]));
+    const float gg = tanhf(pick(in.z[2])), go = sigmoidf(pick(in.z[3]));
+    const float tanh_cp = tanhf(pick(in.cp));
+    const float dh_p = m * dh[x] + m * dx[x];
+    const float dh_part = (1.0f - m) * dh[x];
+    float dc_p = m * dc[x];
+    float dc_prev = (1.0f - m) * dc[x];
+    const float d_o = dh_p * tanh_cp;
+    dc_p = dc_p + dh_p * go * (1.0f - tanh_cp * tanh_cp);
+    const float df = dc_p * (x ? in.cin.y : in.cin.x);
+    dc_prev = dc_prev + dc_p * gf;
+    const float di = dc_p * gg, dg = dc_p * gi;
+    dz[0][x] = di * gi * (1.0f - gi);
+    dz[1][x] = df * gf * (1.0f - gf);
+    dz[2][x] = dg * (1.0f - gg * gg);
+    dz[3][x] = d_o * go * (1.0f - go);
+    dh[x] = dh_part;
+    dc[x] = dc_prev;
+  }
+  const int H = g.H;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<__nv_bfloat162*>(g.dz + (size_t)r * 4 * H + k * H + u) =
+        __floats2bfloat162_rn(dz[k][0], dz[k][1]);
+}
+
+// What a reverse product's epilogue reads and writes, at step n
+struct ReverseEpi {
+  int a_row0, B, H, He, D0;  // A's first row (n B); D0 = He + Dv, cell 0's input width
+  const Bf* in_mask;         // the product's cell: its input's dropout mask [B, in_i]
+  float *dh, *dc;            // [B,H] float32: dh's partial sum, the carried dc
+  GateRows g;                // EPI_RCELL: cell i - 1's rows at step n
+  Bf *demb, *dctx;           // EPI_RCELL0: step n's rows of the streams
+  float* dctx_f;             // [B,Dv] float32: dctx unrounded, for dprobs
+  Bf *dh0, *dc0;             // EPI_RQUERY after step 0: out (else null)
+};
+
+// Gate VJPs an EPI_RCELL thread runs together: their loads are all issued before the first one's math
+#define VJP_BATCH 4
+
+// One product of the reverse step for the block's 64 WGS rows and 64 NP columns (product_tile over A = the rows of
+// a stream at a_row0, K = 4H or H), with its epilogue:
+//  - EPI_RCELL, cell i > 0 (W: K_i^T and R_i^T interleaved, column 16 G + 8 k + t column 8 G + t of K_i^T (k = 0)
+//    or R_i^T (k = 1), so the thread holding accumulator columns 8 j + 2 q + {0, 1}, j = 2 g + k, holds both of
+//    units 8 G + 2 q + {0, 1}): dx = acc_K cm_i, dh = dh_part + acc_R, then cell i - 1's gate VJP;
+//  - EPI_RCELL0 (W = [K_0^T | R_0^T]): columns < D0 are dx0 = acc cm_0, written as demb and dctx (bf16) and dctx
+//    (float32, for dprobs); columns D0 + u add acc into dh_part: dh_prev of cell 0;
+//  - EPI_RQUERY (W = qw^T): dh = dh_prev + acc, whose gate VJP (the last cell's, of step n - 1) gate_kernel runs
+//    over all B H units; after step 0 dh0 and dc0.
+template <int WGS, int NP, int EPI>
+__global__ void __launch_bounds__(128 * WGS, 1)
+    reverse_product_kernel(const __grid_constant__ CUtensorMap a, const __grid_constant__ CUtensorMap wm, int n_k,
+                           const ReverseEpi e) {
+  const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31, q = lane & 3;
+  const int row0 = blockIdx.x * WG_ROWS * WGS, col0 = blockIdx.y * PANEL * NP;
+  float z[32 * NP];
+  product_tile<WGS, NP>(a, a, wm, n_k, n_k, e.a_row0 + row0, col0, z);
+
+  const int H = e.H;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = row0 + WG_ROWS * wgi + 16 * warp + (lane >> 2) + 8 * hf;
+    if (r >= e.B) continue;
+    if constexpr (EPI == EPI_RCELL) {
+#pragma unroll
+      for (int g0 = 0; g0 < 4 * NP; g0 += VJP_BATCH) {
+        GateIn in[VJP_BATCH];
+        float2 dhp[VJP_BATCH], dcv[VJP_BATCH], cm[VJP_BATCH];
+#pragma unroll
+        for (int b = 0; b < VJP_BATCH; ++b) {
+          const int u = 8 * (col0 / 16 + g0 + b) + 2 * q;
+          if (u >= H) continue;  // H % 8 == 0: a pair is inside or outside together
+          const size_t at = (size_t)r * H + u;
+          in[b] = gate_load(e.g, r, u);
+          dhp[b] = *reinterpret_cast<const float2*>(e.dh + at);
+          dcv[b] = *reinterpret_cast<const float2*>(e.dc + at);
+          cm[b] = load_bf2(e.in_mask + at);
+        }
+#pragma unroll
+        for (int b = 0; b < VJP_BATCH; ++b) {
+          const int g = g0 + b, u = 8 * (col0 / 16 + g) + 2 * q;
+          if (u >= H) continue;
+          const size_t at = (size_t)r * H + u;
+          float dh[2] = {dhp[b].x + z[4 * (2 * g + 1) + 2 * hf], dhp[b].y + z[4 * (2 * g + 1) + 2 * hf + 1]};
+          float dc[2] = {dcv[b].x, dcv[b].y};
+          const float dx[2] = {z[4 * (2 * g) + 2 * hf] * cm[b].x, z[4 * (2 * g) + 2 * hf + 1] * cm[b].y};
+          gate_vjp(e.g, in[b], r, u, dh, dc, dx);
+          *reinterpret_cast<float2*>(e.dh + at) = make_float2(dh[0], dh[1]);
+          *reinterpret_cast<float2*>(e.dc + at) = make_float2(dc[0], dc[1]);
+        }
+      }
+    } else if constexpr (EPI == EPI_RCELL0) {
+      // every load first: a load after a store to memory that might alias it would wait for the store
+      const int Dv = e.D0 - e.He;
+      float2 in[8 * NP];
+#pragma unroll
+      for (int j = 0; j < 8 * NP; ++j) {
+        const int c = col0 + 8 * j + 2 * q;  // He and D0 are even: a pair lies on one side of each
+        if (c < e.D0) in[j] = load_bf2(e.in_mask + (size_t)r * e.D0 + c);
+        else if (c < e.D0 + H) in[j] = *reinterpret_cast<const float2*>(e.dh + (size_t)r * H + c - e.D0);
+      }
+#pragma unroll
+      for (int j = 0; j < 8 * NP; ++j) {
+        const int c = col0 + 8 * j + 2 * q;
+        const float a0 = z[4 * j + 2 * hf], a1 = z[4 * j + 2 * hf + 1];
+        if (c < e.D0) {  // dx0 = acc cm_0
+          const float v0 = a0 * in[j].x, v1 = a1 * in[j].y;
+          if (c < e.He) {
+            *reinterpret_cast<__nv_bfloat162*>(e.demb + (size_t)r * e.He + c) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            const size_t at = (size_t)r * Dv + c - e.He;
+            *reinterpret_cast<__nv_bfloat162*>(e.dctx + at) = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<float2*>(e.dctx_f + at) = make_float2(v0, v1);
+          }
+        } else if (c < e.D0 + H) {  // dh_prev of cell 0
+          *reinterpret_cast<float2*>(e.dh + (size_t)r * H + c - e.D0) = make_float2(in[j].x + a0, in[j].y + a1);
+        }
+      }
+    } else {
+      float2 dh[8 * NP];
+#pragma unroll
+      for (int j = 0; j < 8 * NP; ++j) {
+        const int u = col0 + 8 * j + 2 * q;
+        if (u < H) dh[j] = *reinterpret_cast<const float2*>(e.dh + (size_t)r * H + u);
+      }
+#pragma unroll
+      for (int j = 0; j < 8 * NP; ++j) {
+        const int u = col0 + 8 * j + 2 * q;
+        if (u >= H) continue;
+        const size_t at = (size_t)r * H + u;
+        const float dh0 = dh[j].x + z[4 * j + 2 * hf], dh1 = dh[j].y + z[4 * j + 2 * hf + 1];
+        if (e.dh0 != nullptr) {
+          *reinterpret_cast<__nv_bfloat162*>(e.dh0 + at) = __floats2bfloat162_rn(dh0, dh1);
+          *reinterpret_cast<__nv_bfloat162*>(e.dc0 + at) =
+              __float22bfloat162_rn(*reinterpret_cast<const float2*>(e.dc + at));
+        } else {
+          *reinterpret_cast<float2*>(e.dh + at) = make_float2(dh0, dh1);
+        }
+      }
+    }
+  }
+}
+
+// The last cell's gate VJP over all B H units, a unit pair a thread: its emitted x carries the cotangent of the
+// hidden stream, dhidden out_mask; dh and dc flow in from dh_last / dc_last (step N - 1, bf16) or from the float32
+// dh / dc that the query product of the step after left (dh_last null).  At H = 256 a step's query product has 8
+// blocks: this elementwise pass spreads the VJP over the card instead of 16 VJPs a thread in its epilogue.
+__global__ void __launch_bounds__(256)
+    gate_kernel(const GateRows g, const Bf* __restrict__ out_mask, const Bf* __restrict__ dh_last,
+                const Bf* __restrict__ dc_last, float* __restrict__ dh, float* __restrict__ dc, int B) {
+  const int pairs = g.H / 2;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)B * pairs;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / pairs), u = 2 * (int)(i - (size_t)r * pairs);
+    const size_t at = (size_t)r * g.H + u;
+    const GateIn in = gate_load(g, r, u);
+    const float2 h = dh_last != nullptr ? load_bf2(dh_last + at) : *reinterpret_cast<const float2*>(dh + at);
+    const float2 c = dc_last != nullptr ? load_bf2(dc_last + at) : *reinterpret_cast<const float2*>(dc + at);
+    const float2 dhid = load_bf2(g.dhidden + at), om = load_bf2(out_mask + at);
+    float dhv[2] = {h.x, h.y}, dcv[2] = {c.x, c.y};
+    const float dx[2] = {dhid.x * om.x, dhid.y * om.y};
+    gate_vjp(g, in, r, u, dhv, dcv, dx);
+    *reinterpret_cast<float2*>(dh + at) = make_float2(dhv[0], dhv[1]);
+    *reinterpret_cast<float2*>(dc + at) = make_float2(dcv[0], dcv[1]);
+  }
+}
+
+// dprobs[b, s] = dctx[b] . value[b, s] in float32 (dctx unrounded, as the Pallas kernel takes it), grid (B, chunks
+// of DP_FRAMES key frames): a warp takes DP_FRAMES / 8 frames together, lane l the 16-byte chunks l, l + 32, .. of
+// each value row, then a warp sum; frames past S are skipped.
+__global__ void __launch_bounds__(DP_THREADS)
+    dprobs_kernel(const float* __restrict__ dctx, const Bf* __restrict__ value, float* __restrict__ dprobs, int S,
+                  int Dv) {
+  constexpr int F = DP_FRAMES / (DP_THREADS / 32);
+  extern __shared__ __align__(16) float sm[];  // [Dv] the row's dctx
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int d = tid; d < Dv; d += DP_THREADS) sm[d] = dctx[(size_t)b * Dv + d];
+  __syncthreads();
+  const int s0 = blockIdx.y * DP_FRAMES + warp * F;
+  const Bf* vb = value + (size_t)b * S * Dv;
+  float acc[F] = {};
+  for (int c = lane; c < Dv / 8; c += 32) {  // Dv % 8 == 0
+    const float4 d0 = reinterpret_cast<const float4*>(sm)[2 * c], d1 = reinterpret_cast<const float4*>(sm)[2 * c + 1];
+    const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    uint4 v[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[f] = s0 + f < S ? *reinterpret_cast<const uint4*>(vb + (size_t)(s0 + f) * Dv + 8 * c) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[f]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 x = __bfloat1622float2(h[k]);
+        acc[f] = fmaf(d[2 * k], x.x, acc[f]);
+        acc[f] = fmaf(d[2 * k + 1], x.y, acc[f]);
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    acc[f] = warp_sum(acc[f]);
+    if (lane == 0 && s0 + f < S) dprobs[(size_t)b * S + s0 + f] = acc[f];
+  }
+}
+
+// The softmax VJP and dq of batch row b, grid (B, chunks of DQ_COLS columns of pk): every block of the row forms
+// t = sum_s p dprobs (a block sum in a fixed order, the same in each) and dscores = p (dprobs - t) in float32 on the
+// probabilities stored in bf16 (the row's first block writes dscores rounded), then dq[b, h] = sum_s dscores[s]
+// pk[b, s, h], a thread per column, frames in order, pk streamed in tiles of DQ_FRAMES frames through a double
+// buffer; dq is written rounded: the query product's A operand.  probs, dscores and dq point at step n's rows.
+__global__ void __launch_bounds__(DQ_COLS)
+    dq_kernel(const Bf* __restrict__ probs, const float* __restrict__ dprobs, const Bf* __restrict__ pk,
+              Bf* __restrict__ dscores, Bf* __restrict__ dq, int S, int H) {
+  extern __shared__ __align__(16) float sm[];
+  Bf* tiles = reinterpret_cast<Bf*>(sm);        // [2][DQ_FRAMES][DQ_COLS] pk, double-buffered
+  float* p = sm + DQ_FRAMES * DQ_COLS;          // [S] probabilities
+  float* ds = p + S;                            // [S] dprobs, then dscores
+  float* red = ds + S;                          // [33]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int h0 = blockIdx.y * DQ_COLS, n_tiles = (S + DQ_FRAMES - 1) / DQ_FRAMES;
+  const Bf* pkb = pk + (size_t)b * S * H;
+  auto stage = [&](int t) {  // frames [DQ_FRAMES t, DQ_FRAMES (t + 1)) of the block's columns into buffer t % 2
+    if (t < n_tiles) {
+      const uint32_t dst = smem_addr(tiles + (t & 1) * DQ_FRAMES * DQ_COLS);
+      for (int e = tid; e < DQ_FRAMES * DQ_COLS / 8; e += DQ_COLS) {
+        const int f = e / (DQ_COLS / 8), c = 8 * (e - f * (DQ_COLS / 8)), s = t * DQ_FRAMES + f;
+        const bool in_row = s < S && h0 + c < H;  // H % 8 == 0
+        cp_async16(dst + 2 * (f * DQ_COLS + c), in_row ? pkb + (size_t)s * H + h0 + c : pkb, in_row ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  float t = 0.0f;
+  for (int s = tid; s < S; s += DQ_COLS) {
+    const float pv = to_f(probs[(size_t)b * S + s]), dv = dprobs[(size_t)b * S + s];
+    p[s] = pv;
+    ds[s] = dv;
+    t += pv * dv;
+  }
+  t = block_reduce(t, red, false);
+  for (int s = tid; s < S; s += DQ_COLS) {
+    const float v = p[s] * (ds[s] - t);
+    ds[s] = v;
+    if (blockIdx.y == 0) dscores[(size_t)b * S + s] = __float2bfloat16_rn(v);
+  }
+  float acc = 0.0f;
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    stage(tt + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // tile tt has landed for every thread (and, at tt = 0, dscores is complete)
+    const Bf* tile = tiles + (tt & 1) * DQ_FRAMES * DQ_COLS;
+    const int nf = min(DQ_FRAMES, S - tt * DQ_FRAMES);
+    for (int f = 0; f < nf; ++f) acc = fmaf(ds[tt * DQ_FRAMES + f], to_f(tile[f * DQ_COLS + tid]), acc);
+    __syncthreads();  // every thread is done with buffer tt % 2 before tile tt + 2 refills it
+  }
+  if (h0 + tid < H) dq[(size_t)b * H + h0 + tid] = __float2bfloat16_rn(acc);
+}
+
+template <int EPI>
+decltype(&reverse_product_kernel<1, 1, EPI>) reverse_product_kernel_for(const ProductPlan& p) {
+  if (p.wgs == 2) return p.panels == 2 ? reverse_product_kernel<2, 2, EPI> : reverse_product_kernel<2, 1, EPI>;
+  return p.panels == 2 ? reverse_product_kernel<1, 2, EPI> : reverse_product_kernel<1, 1, EPI>;
+}
+
+template <int EPI>
+cudaError_t launch_reverse_product(const ProductPlan& p, const CUtensorMap& a, const CUtensorMap& wm, int n_k, int B,
+                                   int N, const ReverseEpi& e, cudaStream_t stream) {
+  const dim3 grid((B + WG_ROWS * p.wgs - 1) / (WG_ROWS * p.wgs), (N + PANEL * p.panels - 1) / (PANEL * p.panels));
+  reverse_product_kernel_for<EPI>(p)<<<grid, 128 * p.wgs, product_smem(p.wgs, p.panels), stream>>>(a, wm, n_k, e);
+  return cudaGetLastError();
+}
+
 template <int EPI>
 decltype(&product_kernel<1, 1, EPI>) product_kernel_for(const ProductPlan& p) {
   if (p.wgs == 2) return p.panels == 2 ? product_kernel<2, 2, EPI> : product_kernel<2, 1, EPI>;
@@ -557,6 +915,96 @@ cudaError_t split_decoder_fwd(const SplitStep& s, const SplitMaps& m, const Spli
       err = launch_product<EPI_TRAIN>(s.cp, a1, m.hq[p], m.w[ci], n_k1, n_k1 + n_kh, B, 4 * s.Hu, nullptr, e, stream);
       if (err != cudaSuccess) return err;
       p ^= 1;
+    }
+  }
+  return cudaSuccess;
+}
+
+cudaError_t split_decoder_bwd(const SplitReverse& s, cudaStream_t stream) {
+  using namespace sp;
+  const int N = s.N, B = s.B, S = s.S, H = s.H, D0 = s.He + s.Dv, last = s.n_cells - 1;
+  if (N < 1 || B < 1 || S < 1 || s.n_cells < 1 || s.n_cells > SPLIT_MAX_CELLS || H % 8 || s.He % 8 || s.Dv % 8 ||
+      !plan_ok(s.query_plan) || !plan_ok(s.cell0_plan) || !plan_ok(s.cell_plan) || dq_smem(S) > (size_t)MAX_SMEM ||
+      dprobs_smem(s.Dv) > (size_t)MAX_SMEM)
+    return cudaErrorInvalidValue;
+  const size_t plane = (size_t)B * H;
+  CUtensorMap qw_map, dq_map, dz_map[SPLIT_MAX_CELLS], w_map[SPLIT_MAX_CELLS];
+  cudaError_t err;
+  if ((err = panel_map(&qw_map, s.qw_t, H, H)) != cudaSuccess) return err;
+  if ((err = panel_map(&dq_map, s.dq, N * B, H)) != cudaSuccess) return err;
+  for (int i = 0; i < s.n_cells; ++i) {
+    if ((err = panel_map(&dz_map[i], s.dz[i], N * B, 4 * H)) != cudaSuccess) return err;
+    if ((err = panel_map(&w_map[i], s.w[i], 4 * H, i == 0 ? D0 + H : 2 * H)) != cudaSuccess) return err;
+  }
+  const std::pair<const void*, size_t> smem[] = {
+      {(const void*)reverse_product_kernel_for<EPI_RQUERY>(s.query_plan),
+       product_smem(s.query_plan.wgs, s.query_plan.panels)},
+      {(const void*)reverse_product_kernel_for<EPI_RCELL0>(s.cell0_plan),
+       product_smem(s.cell0_plan.wgs, s.cell0_plan.panels)},
+      {(const void*)reverse_product_kernel_for<EPI_RCELL>(s.cell_plan),
+       product_smem(s.cell_plan.wgs, s.cell_plan.panels)},
+      {(const void*)dprobs_kernel, dprobs_smem(s.Dv)},
+      {(const void*)dq_kernel, dq_smem(S)}};
+  for (const auto& [kernel, bytes] : smem)
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)) != cudaSuccess)
+      return err;
+
+  // cell ci's gate VJP rows at step n
+  auto rows = [&](int ci, int n) {
+    GateRows g{};
+    g.cell = ci;
+    g.H = H;
+    g.gate = s.token_mask + (size_t)n * B;
+    g.z = s.z[ci] + (size_t)n * 4 * plane;
+    g.cp = s.cp[ci] + (size_t)n * plane;
+    g.c_in0 = s.c_in0 + (size_t)n * plane;
+    for (int j = 0; j < s.n_cells; ++j) g.cps[j] = s.cp[j] + (size_t)n * plane;
+    g.dhidden = s.dhidden + (size_t)n * plane;
+    g.dz = s.dz[ci] + (size_t)n * 4 * plane;
+    return g;
+  };
+  const int pairs = B * (H / 2), gate_blocks = (pairs + 255) / 256 < 4096 ? (pairs + 255) / 256 : 4096;
+  gate_kernel<<<gate_blocks, 256, 0, stream>>>(rows(last, N - 1), s.out_mask, s.dh_last, s.dc_last, s.dh, s.dc, B);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n_k4h = round64(4 * H) / PANEL, n_kh = round64(H) / PANEL;
+  for (int n = N - 1; n >= 0; --n) {
+    ReverseEpi e{};
+    e.a_row0 = n * B;
+    e.B = B;
+    e.H = H;
+    e.He = s.He;
+    e.D0 = D0;
+    e.dh = s.dh;
+    e.dc = s.dc;
+    for (int i = last; i > 0; --i) {
+      e.in_mask = s.mask[i];
+      e.g = rows(i - 1, n);
+      err = launch_reverse_product<EPI_RCELL>(s.cell_plan, dz_map[i], w_map[i], n_k4h, B, 2 * H, e, stream);
+      if (err != cudaSuccess) return err;
+    }
+    e.in_mask = s.mask[0];
+    e.demb = s.demb + (size_t)n * B * s.He;
+    e.dctx = s.dctx + (size_t)n * B * s.Dv;
+    e.dctx_f = s.dctx_f;
+    err = launch_reverse_product<EPI_RCELL0>(s.cell0_plan, dz_map[0], w_map[0], n_k4h, B, D0 + H, e, stream);
+    if (err != cudaSuccess) return err;
+
+    dprobs_kernel<<<dim3(B, (S + DP_FRAMES - 1) / DP_FRAMES), DP_THREADS, dprobs_smem(s.Dv), stream>>>(
+        s.dctx_f, s.value, s.dprobs, S, s.Dv);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    dq_kernel<<<dim3(B, (H + DQ_COLS - 1) / DQ_COLS), DQ_COLS, dq_smem(S), stream>>>(
+        s.probs + (size_t)n * B * S, s.dprobs, s.pk, s.dscores + (size_t)n * B * S, s.dq + (size_t)n * plane, S, H);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+    if (n == 0) {
+      e.dh0 = s.dh0;
+      e.dc0 = s.dc0;
+    }
+    err = launch_reverse_product<EPI_RQUERY>(s.query_plan, dq_map, qw_map, n_kh, B, H, e, stream);
+    if (err != cudaSuccess) return err;
+    if (n > 0) {
+      gate_kernel<<<gate_blocks, 256, 0, stream>>>(rows(last, n - 1), s.out_mask, nullptr, nullptr, s.dh, s.dc, B);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }
   return cudaSuccess;

@@ -1,6 +1,6 @@
-// The split LAS decode step: the bf16 route of the greedy loop (K4, las_greedy.cu) and the beam loop (K11,
-// las_beam.cu).  Declarations here, kernels and host code in las_split.cu; the plan is plain Python,
-// ops/las_step.py step_plan.
+// The split LAS decode step: the bf16 route of the greedy loop (K4, las_greedy.cu), the beam loop (K11,
+// las_beam.cu) and the teacher-forced loop forward and reverse (K2, K3: las_decoder.cu).  Declarations here,
+// kernels and host code in las_split.cu; the plans are plain Python, ops/las_step.py step_plan and reverse_plan.
 //
 // One step over all R = B K rows (beam-major: row b K + k) is five launches, each reading a weight once for
 // every row of its tile instead of once per batch row:
@@ -124,5 +124,34 @@ cudaError_t split_step(const SplitStep& s, const SplitMaps& maps, const int* pre
 // query product, the attention (the context's mask applied) and one product per cell whose epilogue writes
 // the residual streams.  hq[0] holds rnd(h0); h / c hold h0 / c0 in float32.
 cudaError_t split_decoder_fwd(const SplitStep& s, const SplitMaps& maps, const SplitTrain& t, cudaStream_t stream);
+
+// The teacher-forced loop's reverse (K3 in bf16, las_decoder.cu las_decoder_bwd_split): the same step transposed,
+// steps N - 1 .. 0, each
+//  1. one product per cell from the last down, rnd(dz_i) @ [K_i^T | R_i^T] over all B rows (A: the cell's dz
+//     stream, written by the previous launch), its epilogue dx = acc_K cm_i, dh_prev = (1 - m) dh + acc_R and,
+//     for i > 0, cell i - 1's whole gate VJP (writing rnd(dz_{i-1})); cell 0's writes dx0 = [demb | dctx] instead;
+//  2. the attention's VJP: dprobs = dctx . value over chunks of key frames, then the softmax VJP and
+//     dq = sum_s dscores pk over chunks of pk's columns;
+//  3. the query product rnd(dq) @ qw^T, its epilogue dh = dh_prev + acc (after step 0: dh0, dc0), then the last
+//     cell's gate VJP of step n - 1 as an elementwise kernel over all B H units (as at step N - 1, first).
+// Every operand bf16 unless stated.
+struct SplitReverse {
+  int N, B, S, H, He, Dv, n_cells;
+  const float* token_mask;                   // [N,B] float32: the pad gate
+  const wg::Bf *dhidden, *dh_last, *dc_last;  // [N,B,H], [B,H], [B,H]
+  const wg::Bf *probs, *c_in0, *pk, *value;   // [N,B,S], [N,B,H], [B,S,H], [B,S,Dv]
+  const wg::Bf *qw_t, *out_mask;              // [H,H] = qw^T, [B,H]
+  const wg::Bf* w[SPLIT_MAX_CELLS];           // cell 0: [4H, He + Dv + H] = [K_0^T | R_0^T]; cell i > 0: [4H, 2H],
+                                              // K_i^T and R_i^T interleaved (ops/las_step.py reverse_cell_weights)
+  const wg::Bf* mask[SPLIT_MAX_CELLS];        // [B, in_i] the cells' dropout masks
+  const wg::Bf* z[SPLIT_MAX_CELLS];           // [N,B,4H] K2's rnd(z)
+  const wg::Bf* cp[SPLIT_MAX_CELLS];          // [N,B,H] K2's rnd(c')
+  wg::Bf* dz[SPLIT_MAX_CELLS];                // [N,B,4H] out: rnd(dz), gates i, f, g, o; the products' A operands
+  wg::Bf *demb, *dctx, *dscores, *dq;         // [N,B,He], [N,B,Dv], [N,B,S], [N,B,H] out (dq: the query's A)
+  wg::Bf *dh0, *dc0;                          // [B,H] out
+  float *dh, *dc, *dctx_f, *dprobs;           // scratch [B,H], [B,H], [B,Dv], [B,S] float32
+  ProductPlan query_plan, cell0_plan, cell_plan;  // the products' plans: query, cell 0, cells 1..n-1
+};
+cudaError_t split_decoder_bwd(const SplitReverse& s, cudaStream_t stream);
 
 }  // namespace srt

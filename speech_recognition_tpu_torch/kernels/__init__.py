@@ -50,9 +50,13 @@ _SIGNATURES = {
     # ctx_ld, h, c, hq, q, scores, x0, xs, hidden, h_state, c_state, N, B, S, H, He, Dv, Hu, q_wgs, q_panels, c_wgs,
     # c_panels, stream
     "las_decoder_fwd_split": [_P] * 8 + [_I] + [_P] * 6 + [_I] + [_P] * 10 + [_I] * 11 + [_P],
-    # dtype_bf16, dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells,
-    # kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv, stream
-    "las_decoder_bwd": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
+    # dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells,
+    # kts, rts, cms, zs, cps, dzs, out_mask, demb, dctx, dscores, dq, dh0, dc0, N, B, S, H, He, Dv, stream (float32)
+    "las_decoder_bwd": [_P] * 9 + [_I] + [_P] * 6 + [_P] * 7 + [_I] * 6 + [_P],
+    # dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw_t, n_cells, ws, cms, zs, cps, dzs,
+    # out_mask, demb, dctx, dscores, dq, dh0, dc0, dh, dc, dctx_f, dprobs, N, B, S, H, He, Dv, q_wgs, q_panels,
+    # c0_wgs, c0_panels, c_wgs, c_panels, stream
+    "las_decoder_bwd_split": [_P] * 9 + [_I] + [_P] * 5 + [_P] * 7 + [_P] * 4 + [_I] * 12 + [_P],
     # dtype_bf16, hid, W, b, y, R, H, V, wgs, stage_k, tiles_per_block,
     # part_val, part_idx, part_max, part_sum, lse, lab, pred, stream
     "ce_vocab_fwd": [_I] + [_P] * 4 + [_I] * 6 + [_P] * 8,

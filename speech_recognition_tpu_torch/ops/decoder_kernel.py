@@ -28,12 +28,18 @@ per cell as wgmma tiles over all B rows (each weight read once per 64-row
 tile, not once per batch row), the attention in a scores and a context
 kernel, the cell update and K3's residuals as the cell product's epilogue
 over a gate-interleaved copy of [Kc; Rc] made per call; the whole loop is
-enqueued by one host call.  ``decoder_fwd_split_plain`` is that
-decomposition in plain PyTorch, for the CPU tests.  K2 in float32 (the
-checks' path) and K3 (``csrc/las_decoder.cu``) are one launch with one block
-of 1024 threads per batch row, running the whole loop inside the block; the
-source note there says what bounds them.  Unlike the TPU wrapper, the key
-axis is not padded to a chunk multiple: the kernels mask S themselves.
+enqueued by one host call.  K3 runs the same step transposed
+(``split_decoder_bwd``, plan ``reverse_plan``): per cell from the last down
+a product ``rnd(dz_i) @ [K_i^T | R_i^T]`` whose epilogue is the next cell's
+gate VJP, the attention's VJP in a dprobs and a dq kernel, the query product
+``rnd(dq) @ qw^T`` adding into dh, and the last cell's gate VJP of the step
+before over all B H units.  ``decoder_fwd_split_plain`` and ``decoder_bwd_split_plain``
+are those decompositions in plain PyTorch, for the CPU tests.  K2 and K3 in
+float32 (the checks' path, ``csrc/las_decoder.cu``) are one launch with one
+block of 1024 threads per batch row, running the whole loop inside the
+block; the source note there says what bounds them.  Unlike the TPU wrapper,
+the key axis is not padded to a chunk multiple: the kernels mask S
+themselves.
 """
 
 import ctypes
@@ -41,7 +47,8 @@ from typing import Sequence
 
 import torch
 
-from .las_step import GATES, deinterleave_gates, interleave_cell, split_plan
+from .las_step import (GATES, deinterleave_gates, deinterleave_units, interleave_cell, reverse_cell_weights,
+                       reverse_plan, split_plan)
 from .vocab_bwd import PANEL, pad_to
 
 MAX_CELLS = 8  # = csrc/las_decoder.cu DEC_MAX_CELLS
@@ -141,6 +148,18 @@ def decoder_fwd_split_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kerne
                                       tuple(torch.stack(z) for z in zs), tuple(torch.stack(cp) for cp in cps))
 
 
+def _gate_vjp(m, dh, dc, dxout, z, c_p, c_in):
+    """The LSTM cell's gate VJP (decoder_kernel.py:337-360 of the JAX package): (dz, (1 - m) dh, dc_prev), float32."""
+    gi, gf, gg, go = _gates(z.float())
+    tanh_cp = torch.tanh(c_p.float())
+    dh_p = m * dh + m * dxout
+    dc_p = m * dc + dh_p * go * (1.0 - tanh_cp * tanh_cp)
+    dc_prev = (1.0 - m) * dc + dc_p * gf
+    dz = torch.cat([dc_p * gg * gi * (1.0 - gi), dc_p * c_in * gf * (1.0 - gf), dc_p * gi * (1.0 - gg * gg),
+                    dh_p * tanh_cp * go * (1.0 - go)], dim=-1)
+    return dz, (1.0 - m) * dh, dc_prev
+
+
 def decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels,
                       cell_masks, out_mask, zs, c_ps, He):
     """Plain PyTorch K3.  Shapes as :func:`decoder_bwd`; returns the same tuple."""
@@ -163,25 +182,11 @@ def decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, v
         dxout = dhidden[n].float() * om
         dh_cur, dc_cur = dh, dc
         for i in range(n_cells - 1, -1, -1):
-            gi, gf, gg, go = _gates(zs[i][n].float())
-            tanh_cp = torch.tanh(c_ps[i][n].float())
-            dh_p = m * dh_cur + m * dxout
-            dh_prev = (1.0 - m) * dh_cur
-            dc_p = m * dc_cur
-            dc_prev = (1.0 - m) * dc_cur
-            do = dh_p * tanh_cp
-            dc_p = dc_p + dh_p * go * (1.0 - tanh_cp * tanh_cp)
-            df = dc_p * cins[i]
-            dc_prev = dc_prev + dc_p * gf
-            di = dc_p * gg
-            dg = dc_p * gi
-            dz = torch.cat([di * gi * (1.0 - gi), df * gf * (1.0 - gf), dg * (1.0 - gg * gg), do * go * (1.0 - go)],
-                           dim=-1)
+            dz, dh_part, dc_cur = _gate_vjp(m, dh_cur, dc_cur, dxout, zs[i][n], c_ps[i][n], cins[i])
             dzs[i][n] = dz.to(dt)
             dz = rnd(dz)
-            dh_prev = dh_prev + dz @ rkernels[i].float().T
+            dh_cur = dh_part + dz @ rkernels[i].float().T
             dxout = (dz @ kernels[i].float().T) * cell_masks[i].float()
-            dh_cur, dc_cur = dh_prev, dc_prev
         demb[n] = dxout[:, :He].to(dt)
         dctx_n = dxout[:, He:]
         dctx[n] = dctx_n.to(dt)
@@ -195,6 +200,60 @@ def decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, v
         dc = dc_cur
     return (dh.to(dt), dc.to(dt), tuple(torch.stack(d) for d in dzs), torch.stack(demb), torch.stack(dctx),
             torch.stack(dscores), torch.stack(dq))
+
+
+def decoder_bwd_split_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels,
+                            cell_masks, out_mask, zs, c_ps, He):
+    """K3 computed the way the split route runs it, on tensors; :func:`decoder_bwd_plain`'s contract.
+
+    The transposed weights as the products read them (``reverse_cell_weights``:
+    cell 0 ``[K_0^T | R_0^T]``, the others K^T and R^T interleaved by unit);
+    the last cell's gate VJP of step N - 1 first; each step, per cell from the
+    last down, the product ``rnd(dz_i) @ W_i`` whose epilogue adds acc_R into
+    dh's partial sum ``(1 - m) dh``, forms ``dx = acc_K cm_i`` and runs cell
+    i - 1's gate VJP (storing rnd(dz)); cell 0's product gives dx0 = [demb |
+    dctx] (dctx unrounded for dprobs) and dh_prev; the attention's VJP on the
+    probabilities as stored; dq stored rounded, ``rnd(dq) @ qw^T`` added into
+    dh, then the last cell's gate VJP of step n - 1.
+    """
+    dt = dhidden.dtype
+    N, B, H = dhidden.shape
+    n_cells, D0 = len(kernels), kernels[0].shape[0]
+    ws = [w.float() for w in reverse_cell_weights(kernels, rkernels)]
+    qw_t = qw.t().float()
+    tm = token_mask.reshape(N, B, 1).float()
+    om, pkf, vf = out_mask.float(), pk.float(), value.float()
+    new = lambda *shape: torch.empty(*shape, dtype=dt, device=dhidden.device)
+    dzs = [new(N, B, GATES * H) for _ in kernels]
+    demb, dctx, dscores, dq = new(N, B, He), new(N, B, D0 - He), new(N, B, pk.shape[1]), new(N, B, H)
+
+    def vjp(i, n, dh, dc, dxout):  # cell i's gate VJP at step n, rnd(dz) into its stream
+        c_in = c_in0[n].float()
+        for j in range(i):
+            c_in = tm[n] * c_ps[j][n].float() + (1.0 - tm[n]) * c_in
+        dz, dh_part, dc_prev = _gate_vjp(tm[n], dh, dc, dxout, zs[i][n], c_ps[i][n], c_in)
+        dzs[i][n] = dz.to(dt)
+        return dh_part, dc_prev
+
+    last = n_cells - 1
+    dh, dc = vjp(last, N - 1, dh_last.float(), dc_last.float(), dhidden[N - 1].float() * om)
+    for n in range(N - 1, -1, -1):
+        for i in range(last, 0, -1):
+            acc_k, acc_r = deinterleave_units(dzs[i][n].float() @ ws[i])
+            dh, dc = vjp(i - 1, n, dh + acc_r, dc, acc_k * cell_masks[i].float())
+        acc = dzs[0][n].float() @ ws[0]
+        dx0 = acc[:, :D0] * cell_masks[0].float()
+        dh = dh + acc[:, D0:]
+        demb[n], dctx[n] = dx0[:, :He].to(dt), dx0[:, He:].to(dt)
+        dprobs = torch.einsum("bd,bsd->bs", dx0[:, He:], vf)
+        p = probs[n].float()
+        ds = p * (dprobs - (p * dprobs).sum(dim=-1, keepdim=True))
+        dscores[n] = ds.to(dt)
+        dq[n] = torch.einsum("bs,bsh->bh", ds, pkf).to(dt)
+        dh = dh + dq[n].float() @ qw_t
+        if n > 0:
+            dh, dc = vjp(last, n - 1, dh, dc, dhidden[n - 1].float() * om)
+    return dh.to(dt), dc.to(dt), tuple(dzs), demb, dctx, dscores, dq
 
 
 def _check_cells(dt, dev, kernels, rkernels, cell_masks, H, in0, B, biases=None):
@@ -323,7 +382,9 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     :param c_in0, zs, c_ps: K2's residual streams; the other operands as :func:`decoder_fwd`
     :return: (dh0, dc0, dzs, demb [N,B,He], dctx [N,B,Dv], dscores [N,B,S], dq [N,B,H]), compute type
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel: in
+    bf16 the split reverse step (``decoder_bwd.tc_launches`` counts it; shapes
+    its plan refuses raise), in float32 the per-row kernel.
     """
     if dhidden.device.type == "cpu":
         return decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels,
@@ -344,6 +405,9 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
         raise ValueError("decoder_bwd: operand shapes disagree")
     tm = token_mask.reshape(N, B).float().contiguous()
     check_operands(torch.float32, dev, token_mask=tm)
+    if dt == torch.bfloat16:
+        return _decoder_bwd_split(dhidden, dh_last, dc_last, tm, probs, c_in0, pk, value, qw, kernels, rkernels,
+                                  cell_masks, out_mask, zs, c_ps, He)
     kts = [k.t().contiguous() for k in kernels]
     rts = [r.t().contiguous() for r in rkernels]
     qw_t = qw.t().contiguous()
@@ -353,8 +417,8 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     dh0, dc0 = new(B, H), new(B, H)
     arrays = [_ptr_array(ts) for ts in (kts, rts, cell_masks, zs, c_ps, dzs)]  # alive for the call
     err = library().las_decoder_bwd(
-        int(dt == torch.bfloat16), dhidden.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), tm.data_ptr(),
-        probs.data_ptr(), c_in0.data_ptr(), pk.data_ptr(), value.data_ptr(), qw_t.data_ptr(), len(kernels),
+        dhidden.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), tm.data_ptr(), probs.data_ptr(),
+        c_in0.data_ptr(), pk.data_ptr(), value.data_ptr(), qw_t.data_ptr(), len(kernels),
         *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
         out_mask.data_ptr(), demb.data_ptr(), dctx.data_ptr(), dscores.data_ptr(), dq.data_ptr(), dh0.data_ptr(),
         dc0.data_ptr(), N, B, S, H, He, Dv, stream(dev),
@@ -365,6 +429,45 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     return dh0, dc0, tuple(dzs), demb, dctx, dscores, dq
 
 
+def _decoder_bwd_split(dhidden, dh_last, dc_last, tm, probs, c_in0, pk, value, qw, kernels, rkernels, cell_masks,
+                       out_mask, zs, c_ps, He):
+    """K3 in bf16 on the split reverse step (checked operands; ``tm`` [N,B] float32)."""
+    from ..kernels import error_string, library, stream
+    from .vocab_bwd import sm_count
+
+    dt, dev = dhidden.dtype, dhidden.device
+    N, B, H = dhidden.shape
+    S, Dv = pk.shape[1], value.shape[2]
+    plan = reverse_plan(N, B, S, H, He, Dv, len(kernels), sm_count(dev))  # raises on shapes it does not take
+    ws = reverse_cell_weights(kernels, rkernels)
+    qw_t = qw.t().contiguous()
+    # pairs of bf16 and 16-byte copies: every operand the kernels read starts 16-byte aligned
+    aligned = lambda t: t if t.data_ptr() % 16 == 0 else t.clone()
+    dhidden, dh_last, dc_last, probs, c_in0, pk, value, out_mask = (
+        aligned(t) for t in (dhidden, dh_last, dc_last, probs, c_in0, pk, value, out_mask))
+    cell_masks, zs, c_ps = ([aligned(t) for t in ts] for ts in (cell_masks, zs, c_ps))
+    new = lambda *shape: torch.empty(*shape, dtype=dt, device=dev)
+    dzs = [new(N, B, 4 * H) for _ in kernels]
+    demb, dctx, dscores, dq = new(N, B, He), new(N, B, Dv), new(N, B, S), new(N, B, H)
+    dh0, dc0 = new(B, H), new(B, H)
+    scratch = [torch.empty(*shape, dtype=torch.float32, device=dev) for shape in ((B, H), (B, H), (B, Dv), (B, S))]
+    arrays = [_ptr_array(ts) for ts in (ws, cell_masks, zs, c_ps, dzs)]  # alive for the call
+    err = library().las_decoder_bwd_split(
+        dhidden.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), tm.data_ptr(), probs.data_ptr(),
+        c_in0.data_ptr(), pk.data_ptr(), value.data_ptr(), qw_t.data_ptr(), len(kernels),
+        *[ctypes.cast(a, ctypes.c_void_p) for a in arrays], out_mask.data_ptr(),
+        *[t.data_ptr() for t in (demb, dctx, dscores, dq, dh0, dc0)],
+        *[t.data_ptr() for t in scratch],  # dh, dc, dctx_f, dprobs
+        N, B, S, H, He, Dv, *plan.query.args(), *plan.cell0.args(), *plan.cell.args(), stream(dev),
+    )
+    if err:
+        raise RuntimeError(f"las_decoder_bwd_split kernel launch failed: {error_string(err)}")
+    decoder_bwd.launches += 1
+    decoder_bwd.tc_launches += 1
+    return dh0, dc0, tuple(dzs), demb, dctx, dscores, dq
+
+
 decoder_fwd.launches = 0
 decoder_fwd.tc_launches = 0  # of them on the split route (bf16)
 decoder_bwd.launches = 0
+decoder_bwd.tc_launches = 0  # of them on the split reverse step (bf16)

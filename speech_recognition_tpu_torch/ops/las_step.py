@@ -20,10 +20,18 @@ weight is read once for every row tile of a product, not once per batch row.
 The rounded state and the cells' inputs, which every block of a product reads
 whole, are ping-ponged between two buffers.
 
+The teacher-forced loop's reverse (K3 in bf16) runs the same step transposed
+(``reverse_plan``): per cell from the last down a product ``rnd(dz_i) @
+[K_i^T | R_i^T]`` whose epilogue is the next cell's gate VJP, over an
+interleave of K_i^T and R_i^T by unit (``interleave_units``); the attention's
+VJP in a dprobs and a dq kernel; the query product ``rnd(dq) @ qw^T``, then
+the last cell's gate VJP over all B H units.
+
 This module holds what the launches rely on, in plain Python where the CPU
-tests reach it: the route and the launch plan (``step_plan``), the gate
-interleave, and ``split_step_plain``, the step computed the way the route
-splits it (the CPU proof of the decomposition; the card never runs it).
+tests reach it: the routes and the launch plans (``step_plan``,
+``reverse_plan``), the interleaves, and ``split_step_plain``, the step
+computed the way the route splits it (the CPU proof of the decomposition; the
+card never runs it).
 """
 
 from typing import NamedTuple, Optional
@@ -228,3 +236,74 @@ def split_step_plain(pk, value, attn_bias, qw, qb, emb, cells, h, c, hq, prev, p
         hq = h.to(dt)
         x = (h_p * m).to(dt)
     return x, h, c, hq
+
+
+# The reverse step's attention VJP (csrc/las_split.cu): a dprobs block takes DP_FRAMES key frames of one batch row
+# with DP_THREADS threads, a dq block DQ_COLS columns of pk (a thread each) in tiles of DQ_FRAMES frames
+DP_FRAMES, DP_THREADS, DQ_COLS, DQ_FRAMES = 32, 256, 128, 32
+
+
+def dprobs_smem(Dv: int) -> int:
+    """Bytes of dynamic shared memory of a dprobs block: the row's dctx in float32 (sp::dprobs_smem)."""
+    return 4 * Dv
+
+
+def dq_smem(S: int) -> int:
+    """Bytes of dynamic shared memory of a dq block: two tiles of pk (bf16), the row's probabilities and dscores and
+    33 floats (sp::dq_smem)."""
+    return 2 * 2 * DQ_FRAMES * DQ_COLS + 4 * (2 * S + 33)
+
+
+class ReversePlan(NamedTuple):
+    query: ProductPlan  # rnd(dq) @ qw^T: N = H
+    cell0: ProductPlan  # rnd(dz_0) @ [K_0^T | R_0^T]: N = He + Dv + H
+    cell: ProductPlan  # rnd(dz_i) @ interleave_units(K_i^T, R_i^T), i > 0: N = 2H
+    grids: tuple  # (dprobs blocks, dq blocks)
+
+
+def reverse_refusal(N: int, B: int, S: int, H: int, He: int, Dv: int, n_cells: int) -> Optional[str]:
+    """Why the split reverse step does not take these shapes, or None."""
+    if not 0 < n_cells <= MAX_CELLS:
+        return f"{n_cells} cells (1..{MAX_CELLS})"
+    if min(N, B, S, H, He, Dv) < 1:
+        return "empty operands"
+    if H % 8 or He % 8 or Dv % 8:
+        return f"H={H}, He={He} and Dv={Dv} must be multiples of 8 (rows of whole 16-byte copies)"
+    smem = max(dprobs_smem(Dv), dq_smem(S))
+    if smem > SMEM_LIMIT:
+        return f"an attention VJP block's {smem} bytes of shared memory at S={S} Dv={Dv} exceed {SMEM_LIMIT}"
+    return None
+
+
+def reverse_plan(N: int, B: int, S: int, H: int, He: int, Dv: int, n_cells: int, n_sm: int = N_SM) -> ReversePlan:
+    """The split reverse step's plan (K3 in bf16); raises ValueError on shapes it does not take."""
+    why = reverse_refusal(N, B, S, H, He, Dv, n_cells)
+    if why is not None:
+        raise ValueError(f"split LAS reverse step: {why}")
+    grids = ((B, cdiv(S, DP_FRAMES)), (B, cdiv(H, DQ_COLS)))
+    return ReversePlan(product_plan(B, H, n_sm), product_plan(B, He + Dv + H, n_sm), product_plan(B, 2 * H, n_sm),
+                       grids)
+
+
+def interleave_units(kt: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """[..., H] K^T and R^T rows of a cell -> [..., 2H]: column ``16 G + 8 k + t`` holds column ``8 G + t`` of K^T
+    (k = 0) or R^T (k = 1), so that a wgmma accumulator's thread, holding columns ``8 j + 2 (lane % 4) + {0, 1}``,
+    holds both of its units (j = 2 g + k).  H % 8 == 0; reshapes and one copy, no host sync."""
+    H = kt.shape[-1]
+    x = torch.stack([kt, rt], dim=-2).reshape(*kt.shape[:-1], 2, H // GROUP, GROUP).transpose(-3, -2)
+    return x.reshape(*kt.shape[:-1], 2 * H)
+
+
+def deinterleave_units(acc: torch.Tensor):
+    """``interleave_units``' inverse: [..., 2H] -> (the K^T part, the R^T part), each [..., H]."""
+    H = acc.shape[-1] // 2
+    x = acc.reshape(*acc.shape[:-1], H // GROUP, 2, GROUP)
+    return x[..., 0, :].reshape(*acc.shape[:-1], H), x[..., 1, :].reshape(*acc.shape[:-1], H)
+
+
+def reverse_cell_weights(kernels, rkernels):
+    """Each cell's transposed weights as the reverse step's products read them: cell 0 [K_0^T | R_0^T]
+    [4H, in_0 + H], cell i > 0 ``interleave_units(K_i^T, R_i^T)`` [4H, 2H].  Made once per reverse loop."""
+    ws = [torch.cat([kernels[0].t(), rkernels[0].t()], dim=1)]
+    ws += [interleave_units(k.t(), r.t()) for k, r in zip(kernels[1:], rkernels[1:])]
+    return [w.contiguous() for w in ws]

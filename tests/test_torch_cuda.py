@@ -17,6 +17,9 @@ float32 within rtol 1e-4 / atol 1e-5 x max|ref| (sums in another order);
 bf16 streams within 2e-2 x max|ref| (K2) and 3e-2 x max|ref| (K3), the
 tolerances of tests/test_pallas_decoder.py, since a float32 sum in another
 order can move a stored value by one bf16 step and the loop carries it on.
+In bf16 K2 and K3 run the split LAS step and its reverse (counted on their
+routes, two calls the same bits), also at LAS-small's and LAS-large's widths
+on a model's operand scales; shapes their plans refuse raise.
 
 K6 (fused CTC emissions) at ragged shapes (T below and above the 32-row
 block, V not a multiple of the tiles, K up to 129 with repeated ids and the
@@ -430,10 +433,10 @@ def _scaled_decoder_operands(cuda, N, B, S, H, He, Dv, n_cells, seed):
                                                          (4, 16, 64, 1024, 1024, 2048, 2),  # LAS-large's widths
                                                          (5, 70, 37, 48, 32, 80, 3)])
 def test_decoder_split_route(cuda, N, B, S, H, He, Dv, n_cells):
-    """K2 in bf16 on the split step, counted on its route: every stream within 2e-2 x max|ref| of the plain
-    K2 (the summation order differs: x @ K + h @ R before the bias, wgmma per-panel sums), two calls give the
-    same bits, and K3 fed the split route's residuals stays within 3e-2 x max|ref| of the plain K3 fed the
-    same residuals."""
+    """K2 and K3 in bf16 on the split step and its reverse, each counted on its route: every K2 stream within
+    2e-2 x max|ref| of the plain K2 (the summation order differs: x @ K + h @ R before the bias, wgmma per-panel
+    sums); K3, fed K2's own residuals and fed the plain K2's, within 3e-2 x max|ref| of the plain K3 fed the same
+    residuals; two calls of each give the same bits."""
     from speech_recognition_tpu_torch.ops.las_step import split_plan
 
     ops = _scaled_decoder_operands(cuda, N, B, S, H, He, Dv, n_cells, seed=N + B + H)
@@ -450,14 +453,19 @@ def test_decoder_split_route(cuda, N, B, S, H, He, Dv, n_cells):
         _close(got, want, 2e-2)
 
     emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = ops
-    probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
     g = torch.Generator().manual_seed(2)
     dhid = (torch.randn(N, B, H, generator=g) * 1e-2).to(cuda, torch.bfloat16)
-    zero = torch.zeros(B, H, dtype=torch.bfloat16, device=cuda)
-    args = (dhid, zero, zero, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps, He)
-    for i, (g_, w_) in enumerate(zip(decoder_bwd(*args), decoder_bwd_plain(*args))):
-        for a, b_ in (zip(g_, w_) if isinstance(g_, tuple) else [(g_, w_)]):
-            assert a.dtype == torch.bfloat16, i
+    dhl, dcl = ((torch.randn(B, H, generator=g) * 1e-2).to(cuda, torch.bfloat16) for _ in range(2))
+    for h_start, c_in0, z_s, c_p in ((hs, ci, zs, cps), (phs, pci, pzs, pcps)):
+        probs = torch.softmax(torch.einsum("nbh,bsh->nbs", h_start @ qw + qb, pk) + bias[None], dim=-1)
+        args = (dhid, dhl, dcl, tm, probs, c_in0, pk, value, qw, ks, rs, cms, om, z_s, c_p, He)
+        before, before_tc = decoder_bwd.launches, decoder_bwd.tc_launches
+        first, second = decoder_bwd(*args), decoder_bwd(*args)
+        assert decoder_bwd.launches - before == 2 and decoder_bwd.tc_launches - before_tc == 2
+        flat = lambda r: [*r[:2], *r[2], *r[3:]]
+        assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+        for a, b_ in zip(flat(first), flat(decoder_bwd_plain(*args))):
+            assert a.dtype == torch.bfloat16 and a.shape == b_.shape
             _close(a, b_, 3e-2)
 
 
@@ -466,6 +474,21 @@ def test_decoder_split_route_refuses_what_its_plan_does_not_take(cuda):
     ops = _decoder_operands(cuda, torch.bfloat16, 3, 4, 9, 20, 16, 24, 1, seed=0)
     with pytest.raises(ValueError, match="multiples of 8"):
         decoder_fwd(*ops)
+
+
+def test_decoder_split_reverse_refuses_what_its_plan_does_not_take(cuda):
+    """bf16 has one route for K3 on the card: shapes the reverse plan refuses raise, with no launch."""
+    N, B, S, H, He, Dv = 3, 4, 9, 20, 16, 24
+    ops = _decoder_operands(cuda, torch.float32, N, B, S, H, He, Dv, 1, seed=0)
+    _, (_, hs, ci, zs, cps) = decoder_fwd_plain(*ops)
+    emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = ops
+    probs = torch.softmax(torch.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], dim=-1)
+    args = (torch.ones(N, B, H, device=cuda), h0, c0, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps)
+    bf = [[t.to(torch.bfloat16) for t in a] if isinstance(a, (list, tuple)) else a.to(torch.bfloat16) for a in args]
+    before = decoder_bwd.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decoder_bwd(*bf, He)
+    assert decoder_bwd.launches == before
 
 
 def _mhsa_operands(cuda, dtype, B, T, H, d, seed):

@@ -15,6 +15,13 @@
   ``decoder_fwd_pallas`` in interpret mode at 2e-2 x max|ref|, float32 against
   the XLA scan (``_decoder_fwd_core``) at rtol 1e-4 / atol 1e-5 x max|ref|;
   a CPU tensor counts no launch of the split route.
+- K3's split reverse step decomposed the same way (``decoder_bwd_split_plain``:
+  the transposed weights, K^T and R^T interleaved by unit, per-cell products
+  with the gate VJP as their epilogue, dh carried as partial sums) on 1-3
+  cells: bf16 against ``decoder_bwd_pallas`` in interpret mode and the plain
+  K3 at 3e-2 x max|ref|; float32 inside the port's ``decoder_scan_lstm``
+  against the JAX custom-VJP scan's gradients with the XLA loops, at rtol
+  1e-4 / atol 1e-5 x max|ref|; a CPU tensor counts no launch of K3.
 - float32: the port's ``decoder_scan_lstm`` (autograd Function: plain K2,
   the recompute, plain K3, the weight-gradient tail) vs the JAX custom-VJP
   scan, on the three outputs and all 14 operand gradients, with non-trivial
@@ -32,8 +39,8 @@ from jax.experimental.pallas import tpu as pltpu
 from speech_recognition_tpu.ops import decoder as D
 from speech_recognition_tpu.ops.pallas.decoder_kernel import decoder_bwd_pallas, decoder_fwd_pallas
 from speech_recognition_tpu_torch.ops.decoder import decoder_scan_lstm
-from speech_recognition_tpu_torch.ops.decoder_kernel import (decoder_bwd, decoder_fwd, decoder_fwd_plain,
-                                                             decoder_fwd_split_plain)
+from speech_recognition_tpu_torch.ops.decoder_kernel import (decoder_bwd, decoder_bwd_plain, decoder_bwd_split_plain,
+                                                             decoder_fwd, decoder_fwd_plain, decoder_fwd_split_plain)
 
 from .test_torch_twins import one_device_mesh  # noqa: F401  (fixture)
 
@@ -203,3 +210,88 @@ def test_cpu_tensors_count_no_split_launch():
     assert decoder_fwd.launches == before and decoder_fwd.tc_launches == before_tc
     for name, w in _streams(decoder_fwd_plain(*t_ops)).items():
         assert torch.equal(got[name], w), name
+
+
+def _k3_args(ops, dtype, seed):
+    """K3's operands for ``ops``: the residuals of the JAX package's forward (Pallas in bf16, in interpret mode;
+    the XLA scan in float32) and seeded cotangents."""
+    emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0 = _jax(ops, dtype)
+    if dtype == jnp.bfloat16:
+        with pltpu.force_tpu_interpret_mode():
+            _, (_, hs, ci, zs, cps) = decoder_fwd_pallas(emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0,
+                                                         c0, chunk=CHUNK)
+    else:
+        _, (_, hs, ci, zs, cps) = D._decoder_fwd_core(emb, tm, pk, value, bias, qw, qb, ks, rs, bs, cms, om, h0, c0)
+    probs = jax.nn.softmax(jnp.einsum("nbh,bsh->nbs", hs @ qw + qb, pk) + bias[None], axis=-1)
+    rng = np.random.default_rng(seed)
+    dhid = jnp.asarray(rng.standard_normal((N, B, H)), dtype)
+    dhl, dcl = (jnp.asarray(rng.standard_normal((B, H)), dtype) for _ in range(2))
+    return (dhid, dhl, dcl, tm, probs, ci, pk, value, qw, ks, rs, cms, om, zs, cps)
+
+
+@pytest.mark.parametrize("n_cells", [1, 2])
+def test_split_k3_decomposition_matches_pallas_bf16(one_device_mesh, n_cells):
+    """K3's split reverse step decomposed in plain PyTorch (``decoder_bwd_split_plain``: the transposed,
+    unit-interleaved weights, per-cell products with the gate VJP as their epilogue, dh's partial sums) against
+    ``decoder_bwd_pallas`` in interpret mode on the same residuals, ragged token masks and a row of pad tokens
+    only, at 3e-2 x max|ref|; and against the plain K3 on the same operands."""
+    args = _k3_args(_split_operands(n_cells, seed=60 + n_cells), jnp.bfloat16, seed=n_cells)
+    with pltpu.force_tpu_interpret_mode():
+        want = decoder_bwd_pallas(*args, He, chunk=CHUNK)
+    t_args = _torch(args, torch.bfloat16)
+    got, plain = decoder_bwd_split_plain(*t_args, He), decoder_bwd(*t_args, He)
+    for name, g, w, p in zip(["dh0", "dc0", "dzs", "demb", "dctx", "dscores", "dq"], got, want, plain):
+        for i, (a, b_, c) in enumerate(zip(g, w, p) if isinstance(g, tuple) else [(g, w, p)]):
+            assert a.dtype == torch.bfloat16, name
+            _close(a, b_, 3e-2, f"{name}{i} vs Pallas")
+            _close(a, c.float().numpy(), 3e-2, f"{name}{i} vs the plain K3")
+
+
+@pytest.mark.parametrize("n_cells", [1, 2, 3])
+def test_split_k3_decomposition_matches_the_xla_scan_f32(monkeypatch, n_cells):
+    """The port's decoder_scan_lstm with K3 replaced by its split decomposition against the JAX package's
+    custom-VJP scan with the XLA loops (no Pallas): the three outputs and all operand gradients within rtol 1e-4 /
+    atol 1e-5 x max|ref| (float32 sums in another order); the K3 streams themselves against the plain K3."""
+    import speech_recognition_tpu_torch.ops.decoder as port_decoder
+
+    monkeypatch.setenv("SRT_PALLAS_DECODER", "0")
+    ops = _split_operands(n_cells, seed=70 + n_cells)
+    rng = np.random.default_rng(7)
+    w_hid, w_h, w_c = _weights(rng), rng.standard_normal((B, H)).astype(np.float32), \
+        rng.standard_normal((B, H)).astype(np.float32)
+
+    def j_loss(args):
+        hidden, h_last, c_last = D.decoder_scan_lstm(*args)
+        return jnp.sum(hidden * w_hid) + jnp.sum(h_last * w_h) + jnp.sum(c_last * w_c)
+
+    j_args = _jax(ops)
+    j_grads = jax.grad(j_loss)(j_args)
+    monkeypatch.setattr(port_decoder, "decoder_bwd", decoder_bwd_split_plain)
+    t_args = _torch(ops)
+    for leaf in jax.tree_util.tree_leaves(t_args):
+        leaf.requires_grad_(True)
+    t_out = decoder_scan_lstm(*t_args)
+    loss = (t_out[0] * torch.from_numpy(w_hid)).sum() + (t_out[1] * torch.from_numpy(w_h)).sum() \
+        + (t_out[2] * torch.from_numpy(w_c)).sum()
+    loss.backward()
+    t_leaves, j_leaves = jax.tree_util.tree_leaves(t_args), jax.tree_util.tree_leaves(j_grads)
+    assert len(t_leaves) == len(j_leaves) == 10 + 4 * n_cells
+    for i, (t, j) in enumerate(zip(t_leaves, j_leaves)):
+        want = np.asarray(j)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-4, atol=1e-5 * (np.abs(want).max() + 1e-3),
+                                   err_msg=f"gradient leaf {i}")
+    k3_args = _torch(_k3_args(ops, jnp.float32, seed=n_cells))
+    for g, p in zip(decoder_bwd_split_plain(*k3_args, He), decoder_bwd(*k3_args, He)):
+        for a, b_ in (zip(g, p) if isinstance(g, tuple) else [(g, p)]):
+            torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5 * (b_.abs().max().item() + 1e-3))
+
+
+def test_cpu_tensors_count_no_split_k3_launch():
+    ops = _split_operands(2, seed=80)
+    t_args = _torch(_k3_args(ops, jnp.float32, seed=3), torch.bfloat16)
+    before, before_tc = decoder_bwd.launches, decoder_bwd.tc_launches
+    got = decoder_bwd(*t_args, He)
+    assert decoder_bwd.launches == before and decoder_bwd.tc_launches == before_tc
+    for g, w in zip(got, decoder_bwd_plain(*t_args, He)):
+        for a, b_ in (zip(g, w) if isinstance(g, tuple) else [(g, w)]):
+            assert torch.equal(a, b_)

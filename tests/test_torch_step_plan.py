@@ -21,6 +21,11 @@
   holds all four gates of its two units.
 - The constants mirror ``csrc/las_split.cu`` and the C entries match their
   ctypes signatures.
+- The reverse step (K3 in bf16, ``reverse_plan``): its products cover their
+  rows and columns and every block's shared memory fits at LAS-small's and
+  LAS-large's shapes; shapes it does not take raise; the unit interleave of
+  K^T and R^T round-trips, and the accumulator's thread holding columns
+  8 j + 2 (lane % 4) + {0, 1} holds both columns of its units.
 """
 
 import os
@@ -296,9 +301,12 @@ def test_constants_mirror_the_source():
 
 
 @pytest.mark.parametrize("source, name", [("las_greedy.cu", "las_greedy_step_split"),
-                                          ("las_beam.cu", "las_beam_search_split")])
+                                          ("las_beam.cu", "las_beam_search_split"),
+                                          ("las_decoder.cu", "las_decoder_fwd_split"),
+                                          ("las_decoder.cu", "las_decoder_bwd_split"),
+                                          ("las_decoder.cu", "las_decoder_bwd")])
 def test_split_c_entries_match_their_ctypes_signatures(source, name):
-    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", _source(source))
+    m = re.search(r"\bint " + name + r"\(([^)]*)\)", _source(source))
     kinds = [kernels._P if "*" in p else kernels._F if p.strip().startswith("float") else kernels._I
              for p in m.group(1).split(",")]
     assert kinds == kernels._SIGNATURES[name]
@@ -316,3 +324,77 @@ def test_cpu_tensors_launch_no_split_step():
                 o["cells"], o["h"], o["c"], tokens, torch.zeros(3, 2), EOS, PAD)
     assert (greedy_search.tc_launches, beam_search.tc_launches, greedy_search.launches,
             beam_search.launches) == before
+
+
+@pytest.mark.parametrize("config", ["las_small.yml", "las_large.yml"])
+def test_reverse_plan_at_the_shipped_configs(config):
+    """K3's split reverse step at a train step's shapes (N = 127, B = 128, S = 255): each product's grid covers
+    its rows and columns (query H, cell 0 He + Dv + H, the other cells 2H), every block fits the H100."""
+    n_cells, H, He, Dv = _config(config)
+    N, B, S = 127, 128, 255
+    p = ls.reverse_plan(N, B, S, H, He, Dv, n_cells)
+    _covers(p.query, B, H)
+    _covers(p.cell0, B, He + Dv + H)
+    _covers(p.cell, B, 2 * H)
+    assert max(ls.dprobs_smem(Dv), ls.dq_smem(S)) <= SMEM_LIMIT
+    assert p.grids == ((B, 8), (B, H // 128))  # 32 frames a dprobs block, 128 columns of pk a dq block
+
+
+@pytest.mark.parametrize("N, B, S, H, He, Dv, n_cells, what", [
+    (4, 4, 20, 36, 32, 64, 2, "multiples of 8"),
+    (4, 4, 20, 32, 30, 64, 2, "multiples of 8"),
+    (4, 4, 20, 32, 32, 60, 2, "multiples of 8"),
+    (4, 4, 20, 32, 32, 64, 0, "cells"),
+    (4, 4, 20, 32, 32, 64, MAX_CELLS + 1, "cells"),
+    (0, 4, 20, 32, 32, 64, 2, "empty"),
+    (4, 4, 29000, 32, 32, 64, 2, "shared memory"),
+    (4, 4, 20, 32, 32, 60000, 2, "shared memory"),
+])
+def test_reverse_plan_refuses_what_the_kernels_do_not_take(N, B, S, H, He, Dv, n_cells, what):
+    with pytest.raises(ValueError, match=what):
+        ls.reverse_plan(N, B, S, H, He, Dv, n_cells)
+
+
+@pytest.mark.parametrize("H", [8, 16, 40, 256])
+def test_interleave_units_round_trips(H):
+    g = torch.Generator().manual_seed(H)
+    kt, rt = torch.randn(3, 5, H, generator=g), torch.randn(3, 5, H, generator=g)
+    w = ls.interleave_units(kt, rt)
+    assert w.shape == (3, 5, 2 * H)
+    back = ls.deinterleave_units(w)
+    assert torch.equal(back[0], kt) and torch.equal(back[1], rt)
+
+
+@pytest.mark.parametrize("panels", [1, 2])
+def test_each_accumulator_thread_holds_both_columns_of_its_units(panels):
+    """csrc/las_split.cu's EPI_RCELL epilogue: in a tile of 64 panels columns of interleave_units(K^T, R^T), lane
+    quad position q holds columns 8 j + 2 q + {0, 1}; with j = 2 g + k they are K^T (k = 0) or R^T (k = 1) column
+    of units (the tile's first unit) + 8 g + 2 q + {0, 1}."""
+    H = 128
+    kt = torch.arange(H, dtype=torch.float64)[None]
+    w = ls.interleave_units(kt, kt + 1000)[0]
+    for tile in range(2 * H // (64 * panels)):
+        for q in range(4):
+            for g in range(4 * panels):
+                for k in range(2):
+                    for x in range(2):
+                        col = tile * 64 * panels + 8 * (2 * g + k) + 2 * q + x
+                        assert w[col] == 1000 * k + tile * 32 * panels + 8 * g + 2 * q + x
+
+
+def test_reverse_weights_put_each_cell_where_the_products_read_it():
+    g = torch.Generator().manual_seed(0)
+    H, D0 = 16, 40
+    ks = [torch.randn(D0, 4 * H, generator=g), torch.randn(H, 4 * H, generator=g)]
+    rs = [torch.randn(H, 4 * H, generator=g) for _ in range(2)]
+    w0, w1 = ls.reverse_cell_weights(ks, rs)
+    assert torch.equal(w0, torch.cat([ks[0].t(), rs[0].t()], dim=1)) and w0.is_contiguous()
+    assert torch.equal(w1, ls.interleave_units(ks[1].t(), rs[1].t())) and w1.shape == (4 * H, 2 * H)
+
+
+def test_reverse_constants_mirror_the_source():
+    src = _source("las_split.cu")
+    for name in ("DP_FRAMES", "DP_THREADS", "DQ_COLS", "DQ_FRAMES"):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == getattr(ls, name)
+    assert "inline size_t dprobs_smem(int Dv) { return sizeof(float) * (size_t)Dv; }" in src
+    assert "return 2 * 2 * DQ_FRAMES * DQ_COLS + sizeof(float) * (2 * (size_t)S + 33); }" in src

@@ -10,7 +10,7 @@ that ``.gitignore`` lists).  Each case runs one profile tool for each
 checkout in its own process, in turns: parent, change in odd pairs, change,
 parent in even ones, ``--pairs`` pairs.  The cases (``--cases``: a comma
 list of their keys, all by default): the Conformer-S, pruned Transducer-S,
-LAS-small and dense Transducer-S (B=32) train steps (``tools/torch_train_profile.py``:
+LAS-small, LAS-large and dense Transducer-S (B=32) train steps (``tools/torch_train_profile.py``:
 the step's CUDA-event median, ``torch.profiler``'s device-busy time over one
 step and, where the checkout's tool records it, the peak device memory), the
 Conformer-S greedy decode and its CTC prefix beam-8 decode of 128 clips, and
@@ -60,6 +60,7 @@ CASES = {
     "transducer_step": ("Transducer-S pruned train step", "torch_train_profile.py", _config("transducer_small.yml"),
                         _step, "own"),
     "las_small_step": ("LAS-small train step", "torch_train_profile.py", _config("las_small.yml"), _step, "own"),
+    "las_large_step": ("LAS-large train step", "torch_train_profile.py", _config("las_large.yml"), _step, "own"),
     "transducer_dense_step": ("Transducer-S dense train step, B=32", "torch_train_profile.py",
                               _config("transducer_small_dense.yml") + ["--batch", "32"], _step, "own"),
     "conformer_greedy": ("Conformer-S greedy decode", "torch_decode_profile.py", _config("conformer_small.yml"),

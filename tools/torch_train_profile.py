@@ -7,7 +7,7 @@ RNN-Transducer, one CUDA GPU).
 
 Random seeded weights of the model config (dropout as configured), random
 non-zero features of 1024 frames with true lengths, and random tokens of
-128 positions with pad tails, bf16.  LAS (``las_small.yml``): N = 127
+128 positions with pad tails, bf16.  LAS (``las_small.yml`` or ``las_large.yml``): N = 127
 decoder positions, the teacher-forced branch.  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``): labels of
 at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.  The
@@ -52,7 +52,7 @@ from torch_decode_profile import cuda_ms, profile  # noqa: E402  (tools/ is the 
 # csrc/las_decoder.cu, csrc/las_split.cu); K1's backward is K6's backward kernels with one id per row; in bf16 K6's
 # and K8 / K9's backwards run the engine of csrc/vocab_bwd.cuh, named by its policy; in bf16 K2 runs on the split
 # LAS step (namespace sp: the query and cell products, the scores and context kernels; no decode runs in a train
-# step, so every one of them is K2's)
+# step, so every one of them is K2's) and K3 on its reverse (the reverse products, dprobs, dq, the first gate VJP)
 K6_BWD = ("srt::emission_fold_kernel", "void srt::emission_dhid_kernel", "void srt::emission_dw_kernel",
           "void srt::vb::vb_row_kernel<srt::EmissionRows", "void srt::vb::vb_col_kernel<srt::EmissionRows",
           "srt::vb::part_sum_kernel")
@@ -64,7 +64,8 @@ PORT_KERNELS = {
         "K1 bwd": K6_BWD,
         "K2": ("void srt::decoder_fwd_kernel", "void srt::sp::product_kernel", "void srt::sp::scores_kernel",
                "void srt::sp::context_kernel"),
-        "K3": ("void srt::decoder_bwd_kernel",),
+        "K3": ("void srt::decoder_bwd_kernel", "void srt::sp::reverse_product_kernel", "void srt::sp::dprobs_kernel",
+               "void srt::sp::dq_kernel", "void srt::sp::gate_kernel"),
     },
     "ds2": {
         "K6 fwd": VOCAB_TILES + ("srt::id_sort_kernel", "srt::emission_lse_kernel"),
@@ -271,7 +272,8 @@ def conformer_parts(model, B, T_out, gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-config", default="resources/configs/las_small.yml",
-                        help="las_small.yml, deepspeech.yml, conformer_small.yml, transducer_small.yml or "
+                        help="las_small.yml, las_large.yml, deepspeech.yml, conformer_small.yml, "
+                             "transducer_small.yml or "
                              "transducer_small_dense.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
     parser.add_argument("--out", default="build/train_profile.json")
