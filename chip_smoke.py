@@ -106,12 +106,17 @@ Phases, in order; any failure exits non-zero without printing a result:
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
-prediction net shapes and LAS-large's listener (H = 1024, the wide route),
-bf16 and float32, with cuDNN's ``torch.nn.GRU`` / ``LSTM`` as its yardstick)
-runs every no-grad recurrent layer: its counter is held to one launch per
-layer per call in phases 3 (LAS decodes: 3; LAS-large: 4), 4 (the
-LAS dev pass and decode: 3 each), 5 (DS2's dev pass and decodes: 7 each), 7
-(the prediction net in the transducers' dev passes: 1 per dev batch) and 8.
+prediction net shapes and LAS-large's listener (H = 1024, the persistent
+route), bf16 and float32, with cuDNN's ``torch.nn.GRU`` / ``LSTM`` as its
+yardstick, two bf16 launches bit for bit, and µs a step beside the H = 8
+floor) runs every no-grad recurrent layer: its counter is held to one launch
+per layer per call in phases 3 (LAS decodes: 3; LAS-large: 4), 4 (the LAS
+dev pass and decode: 3 each), 5 (DS2's dev pass and decodes: 7 each), 7 (the
+prediction net in the transducers' dev passes: 1 per dev batch) and 8, and in
+phases 3, 4, 5, 7 and 8 every one of those bf16 launches (widths 128 to 320)
+took the cluster tensor-core route (``check_k10_route``:
+``rnn_sequence.cluster_tc_launches``).  Phase 1 fails if ptxas reports a
+spill in that route's 6 kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside the repository,
@@ -378,6 +383,10 @@ def phase_setup():
     # LSTM and GRU each
     check(len(spills) == 4 and not any(spills.values()),
           f"ptxas: K10's 4 kernels above H = 512 (2 wide, 2 persistent) spill no register ({spills})")
+    spills = kernel_spills(kernels.build_log, ("rnn_cluster_tc_kernel",))
+    # K10's cluster tensor-core route (bf16 up to H = 384): 8, 16 or 24 units a CTA, LSTM and GRU each
+    check(len(spills) == 6 and not any(spills.values()),
+          f"ptxas: K10's 6 cluster tensor-core kernels spill no register ({spills})")
     spills = kernel_spills(kernels.build_log, ("mhsa_fwd_tc_kernel", "mhsa_dq_tc_kernel", "mhsa_dkv_tc_kernel"))
     # K7's tensor-core route: the forward (one and two passes) and the dq and dk / dv kernels, at d = 64 and 128
     check(len(spills) == 8 and not any(spills.values()),
@@ -1313,30 +1322,34 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
     the outputs and final states in bf16 within 2e-2 x max|ref| (a float32 sum
     in another order can move one rounding, and the loop carries it on), in
     float32 rtol 1e-5 / atol 1e-6 (sums in another order); masked steps emit
-    exact zeros.  Kernel and plain timed in turns in bf16; the library time is
-    cuDNN's (``cudnn_rnn_ms``).  The bound counts the recurrent product of the
-    valid (step, direction, row) triples only (a frozen step needs none), over
-    989 TFLOP/s, and the bytes of the inputs and outputs.  The latency floor of
-    the T dependent steps is K10's own time at H=8 (products and gates almost
-    nil: T x one step's barrier and exchange)."""
+    exact zeros; the launch counted on the route ``rnn_plan`` gives (bf16 up to
+    H = 384: the cluster tensor-core route, whose two launches give the same
+    bits, as the persistent route's do).  Kernel and plain timed in turns in
+    bf16; the library time is cuDNN's (``cudnn_rnn_ms``).  The bound counts the
+    recurrent product of the valid (step, direction, row) triples only (a frozen
+    step needs none), over 989 TFLOP/s, and the bytes of the inputs and outputs.
+    The latency floor of the T dependent steps is K10's own time at H=8
+    (products and gates almost nil; on the cluster tensor-core route a cluster
+    of one CTA, so T x one step's product, gates and input wait, without the
+    exchange)."""
     import torch
 
-    from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, ROUTE_PERSISTENT, rnn_plan, rnn_sequence,
-                                                               rnn_sequence_plain)
+    from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, ROUTE_CLUSTER_TC, ROUTE_PERSISTENT, rnn_plan,
+                                                               rnn_sequence, rnn_sequence_plain)
 
     G = GATES[rnn_type]
     timed = None
     for dtype in (torch.bfloat16, torch.float32):
         ops = rnn_operands(gen, rnn_type, dtype, D, T, B, H)
-        before = rnn_sequence.persistent_launches
+        before, before_tc = rnn_sequence.persistent_launches, rnn_sequence.cluster_tc_launches
         got, want = rnn_sequence(rnn_type, *ops), rnn_sequence_plain(rnn_type, *ops)
         torch.cuda.synchronize()
         name = f"{tag} {str(dtype).replace('torch.', '')} D={D} T={T} B={B} H={H}"
-        persistent = rnn_plan(rnn_type, H, dtype, D, B, torch.cuda.get_device_properties(0).multi_processor_count
-                              ).route == ROUTE_PERSISTENT
-        check(rnn_sequence.persistent_launches - before == int(persistent),
-              f"{name}: {'the persistent route' if persistent else 'the cluster route'} launched")
-        if persistent:
+        route = rnn_plan(rnn_type, H, dtype, D, B, torch.cuda.get_device_properties(0).multi_processor_count).route
+        check(rnn_sequence.persistent_launches - before == int(route == ROUTE_PERSISTENT) and
+              rnn_sequence.cluster_tc_launches - before_tc == int(route == ROUTE_CLUSTER_TC),
+              f"{name}: the {route} route launched")
+        if route in (ROUTE_PERSISTENT, ROUTE_CLUSTER_TC):
             check(all(torch.equal(a, b) for a, b in zip(got, rnn_sequence(rnn_type, *ops)) if a is not None),
                   f"{name}: two launches give the same bits")
         err = 0.0
@@ -1361,11 +1374,12 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
     b_ms, b_by = bound(2 * valid * H * G * H, nbytes(present(ops), present(got)))
     floor_ops = rnn_operands(gen, rnn_type, torch.bfloat16, D, T, B, 8)
     floor_ms, _ = timed_pair(lambda: rnn_sequence(rnn_type, *floor_ops), lambda: None, 5)
+    floor_route = rnn_plan(rnn_type, 8, torch.bfloat16, D, B).route
     lib = "n/a" if lib_ms is None else (f"{lib_ms:.4f} ms ({lib_type}; less its identity input product "
                                         f"{id_ms:.4f} ms: {lib_ms - id_ms:.4f} ms)")
     print(f"  {tag} bf16 D={D} T={T} B={B} H={H}: kernel {k_ms:.4f} ms = {k_ms / T * 1e3:.2f} us a step, plain "
-          f"{p_ms:.3f} ms, cuDNN {lib}, bound {b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8) {floor_ms:.4f} ms = "
-          f"{T} x {floor_ms / T * 1e3:.2f} us")
+          f"{p_ms:.3f} ms, cuDNN {lib}, bound {b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8, "
+          f"{floor_route} route) {floor_ms:.4f} ms = {T} x {floor_ms / T * 1e3:.2f} us")
     return err, k_ms, p_ms, b_ms, b_by, lib_ms
 
 
@@ -1431,7 +1445,7 @@ def run_main_path(tmp, wav_dir, data_config, weights):
     for name, beam, flags in (("greedy", 0, []), ("beam8", BEAM, []),
                               ("greedy host features", 0, ["--no-on-device-frontend"])):
         out = os.path.join(tmp, f"{name.replace(' ', '_')}.tsv")
-        rnn_sequence.launches = 0
+        rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
         k5, k11 = vocab_topk.launches, beam_search.launches
         t0 = time.perf_counter()
         inference.main(inference.parser.parse_args(base + ["--beam-size", str(beam), "--output-path", out] + flags))
@@ -1441,6 +1455,7 @@ def run_main_path(tmp, wav_dir, data_config, weights):
               f"first: {rows[name][0].split(chr(9))[-1][:60]!r}")
         check(rnn_sequence.launches == LAS_LAYERS,
               f"rnn_sequence (K10) launched {rnn_sequence.launches} times in the {name} decode (expected {LAS_LAYERS})")
+        check_k10_route(f"the {name} decode")
         k10 += rnn_sequence.launches
         if beam:
             k5, k11 = vocab_topk.launches - k5, beam_search.launches - k11
@@ -1712,7 +1727,7 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config))))
     for fn in (ce_fwd, ce_bwd, decoder_fwd, decoder_bwd, rnn_sequence):
         fn.launches = 0
-    decoder_fwd.tc_launches = decoder_bwd.tc_launches = 0
+    decoder_fwd.tc_launches = decoder_bwd.tc_launches = rnn_sequence.cluster_tc_launches = 0
     t0 = time.perf_counter()
     records = train.main(cfg)
     wall = time.perf_counter() - t0
@@ -1725,12 +1740,13 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     k10 = rnn_sequence.launches
     check(k10 == LAS_LAYERS, f"rnn_sequence (K10) launched {k10} times in the training run (the dev pass of one "
                              f"batch; expected {LAS_LAYERS})")
+    check_k10_route("the LAS-small training run")
     (rec,) = records
     check(rec["steps"] == TRAIN_STEPS and all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")),
           f"{rec['steps']} train steps; train loss {rec['loss']:.4f} and dev loss {rec['val_loss']:.4f} finite")
     check(os.path.exists(rec["checkpoint"]) and rec["checkpoint"].endswith(".pt"), "the .pt checkpoint exists")
     out = os.path.join(tmp, "trained.tsv")
-    rnn_sequence.launches = 0
+    rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
     inference.main(inference.parser.parse_args([
         "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
         "--audio-files", os.path.join(wav_dir, "clip0*.wav"), "--model-path", rec["checkpoint"],
@@ -1741,8 +1757,19 @@ def run_train_path(tmp, wav_dir, paths, data_config):
     check(n_rows == 100, f"run.inference decoded {n_rows} clips (clip000-099) with the trained checkpoint")
     check(rnn_sequence.launches == LAS_LAYERS,
           f"rnn_sequence (K10) launched {rnn_sequence.launches} times in that decode (expected {LAS_LAYERS})")
+    check_k10_route("the trained LAS-small decode")
     launches["rnn_sequence_lstm"] = k10 + rnn_sequence.launches
     return launches, cfg, rec["checkpoint"]
+
+
+def check_k10_route(what):
+    """Every K10 launch since the counters were set to 0 took the cluster tensor-core route: every bf16
+    recurrent layer of these runs (LAS-small's 256, DS2's 128, the prediction net's 320) is at most 384 wide."""
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+
+    check(rnn_sequence.cluster_tc_launches == rnn_sequence.launches,
+          f"every K10 launch of {what} took the cluster tensor-core route ({rnn_sequence.cluster_tc_launches} of "
+          f"{rnn_sequence.launches})")
 
 
 def check_decoder_routes(what):
@@ -1954,6 +1981,9 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
     train_pkg.make_train_step = recording_train_step
     for fn in counted.values():
         fn.launches = 0
+    k10 = counted.get("rnn_sequence")
+    if k10:
+        k10.cluster_tc_launches = 0
     t0 = time.perf_counter()
     try:
         records = train.main(cfg)
@@ -1964,6 +1994,8 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
     print(f"  run.train ({tag}): {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
     check(launches == expected, f"{tag} kernels launched {launches} times in the training run ({TRAIN_STEPS} steps "
                                 f"+ {-(-B // batch)} dev batches; expected {expected})")
+    if k10:
+        check_k10_route(f"the {tag} training run")
     (rec,) = records
     step_losses = torch.stack(losses).tolist() if losses else []
     check(rec["steps"] == TRAIN_STEPS and len(step_losses) == TRAIN_STEPS
@@ -1974,6 +2006,8 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
     for name, beam in (("greedy", 0), ("beam8", BEAM)) if decode else ():
         for kernel in per_decode or {}:
             counted[kernel].launches = 0
+        if k10:
+            k10.cluster_tc_launches = 0
         out = os.path.join(tmp, f"{tag.lower()}_{name}.tsv")
         inference.main(inference.parser.parse_args(decode_args(
             data_config, model_config, os.path.join(wav_dir, "clip0*.wav"), rec["checkpoint"], out, beam)))
@@ -1984,6 +2018,8 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
             n, got = per[name], counted[kernel].launches
             check(got == n, f"{kernel} launched {got} times in the {tag} {name} decode of one batch (expected {n})")
             launches[kernel] += got
+        if k10:
+            check_k10_route(f"the {tag} {name} decode")
     return launches, cfg, rec["checkpoint"]
 
 
@@ -2112,7 +2148,7 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
             "--dataset-paths", tsv, "--model-path", weights, "--sp-model-path", sp, "--output-path", out,
             "--batch-size", str(B), "--beam-size", str(beam), "--mixed-precision", "--device", "GPU"])
         times.clear()
-        rnn_sequence.launches = beam_search.launches = 0
+        rnn_sequence.launches = rnn_sequence.cluster_tc_launches = beam_search.launches = 0
         common_mod.pipelined_decode = timed_decode
         try:
             rc = evaluate.main(args)
@@ -2131,6 +2167,7 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
         check(all(np.isfinite(wer)) and all(np.isfinite(cer)),
               f"{name}: WER {100 * np.mean(wer):.2f}%, CER {100 * np.mean(cer):.2f}%, every row finite")
         check(n == per_batch, f"{name}: rnn_sequence (K10) launched {n} times for the one batch (expected {per_batch})")
+        check_k10_route(name)
         want11 = int(beam > 0 and model_config == "las_small.yml")
         check(n11 == want11, f"{name}: las_beam (K11) launched {n11} times for the one batch (expected {want11})")
         decoded = os.path.join(tmp, f"infer_{tag}_{beam}.tsv")

@@ -4,18 +4,35 @@
 //
 // Replaces rnn_sequence_pallas (speech_recognition_tpu/ops/pallas/rnn_kernel.py:100,
 // cells _lstm_kernel :31 and _gru_kernel :65).  On the TPU one core walks the
-// T grid steps with the recurrent weights pinned in VMEM.  Here two designs
+// T grid steps with the recurrent weights pinned in VMEM.  Here three designs
 // share that idea, chosen by width and type (ops/rnn_sequence.py rnn_plan):
 //
-// 1. Clusters (rnn_sequence_kernel: every width in float32, up to H = 512 in bf16).  A
-//    thread-block cluster of RNN_CLUSTER CTAs runs one (direction, tile of RNN_ROWS batch rows) for all T
-//    steps: CTA j owns hidden units [j*U, j*U + U), U = ceil(H / 8), and keeps their G gate columns of R in
-//    shared memory for the whole sequence.  Each step a CTA computes its [ROWS, G*U] slice of h @ R, applies
-//    the gates to its units, and stores its slice of the new h into the next-h buffer of every CTA of the
-//    cluster through distributed shared memory; one cluster barrier ends the step.  The step's x_proj and
-//    mask are loaded one step ahead, so their latency hides behind the previous step.  The product has three
-//    modes, chosen at launch:
-//    - MODE_MMA (bf16, H <= 512): mma.sync m16n8k16 bf16 tiles with float32 accumulators; the 16 batch rows
+// 1. The cluster tensor-core route (rc::rnn_cluster_tc_kernel: bf16 up to H = 384, every bf16 recurrent layer of
+//    the main paths).  A cluster of C <= 16 CTAs runs one (direction, tile of 64 batch rows) for all T steps: CTA j
+//    owns units [j U, j U + U), U = ceil(H / 16) rounded up to 8, C = ceil(H / U), and keeps their gate-interleaved
+//    slice of R [K x 4U] (column 32 g + 8 k + t: gate k of unit j U + 8 g + t; K = C U rounded up to 16) resident in
+//    shared memory as wgmma's B operand.  It holds the cluster's 64 rows of h(t-1) [64 x K] as wgmma's A operand in
+//    two planes by step parity, both K-major without swizzle (8 x 8 core matrices), so that a CTA's slice of h is
+//    one contiguous run of bytes.  U / 8 warpgroups each compute their 8 units' 32 gate columns (m64n32k16), every
+//    64-deep k-panel into its own accumulator, all issued before one wait, their sums added into z in panel order
+//    in float32 (wgmma's accumulation rounds toward zero, PERF.md §6); the thread holding columns 8 i + 2 q + {0, 1}
+//    holds every gate of its two units for two rows, so the cell update is the product's epilogue (no round trip
+//    through shared memory).  The new h goes into the CTA's own plane (st.shared, a proxy fence, __syncthreads),
+//    then to the C - 1 other CTAs as one bulk copy each (cp.async.bulk shared::cta -> shared::cluster), each
+//    completing its bytes on the receiver's mbarrier: a CTA waits only on its own barrier for the step's C - 1
+//    slices, no cluster barrier.  A CTA sends h(t) only after its own product of step t, which read the other
+//    plane, so the wait for h(t) also tells that the other plane may be written again.  x_proj and the mask come
+//    ahead of use through a four-stage TMA ring (each gate's columns padded to a multiple of 8 by the caller where
+//    H is not, so that every box starts on 16 bytes); out[t] leaves as plain stores no barrier waits for.
+//
+// 2. The narrow and wide clusters (rnn_sequence_kernel: float32 at every width, bf16 from H = 385 to 512).  A
+//    thread-block cluster of RNN_CLUSTER CTAs runs one (direction, tile of RNN_ROWS batch rows) for all T steps: CTA j
+//    owns hidden units [j*U, j*U + U), U = ceil(H / 8), and keeps their G gate columns of R in shared memory for the
+//    whole sequence.  Each step a CTA computes its [ROWS, G*U] slice of h @ R, applies the gates to its units, and
+//    stores its slice of the new h into the next-h buffer of every CTA of the cluster through distributed shared
+//    memory; one cluster barrier ends the step.  The step's x_proj and mask are loaded one step ahead, so their latency
+//    hides behind the previous step.  The product has three modes, chosen at launch:
+//    - MODE_MMA (bf16, 384 < H <= 512): mma.sync m16n8k16 bf16 tiles with float32 accumulators; the 16 batch rows
 //      are the tile's M, R is held in shared memory in B-fragment order (one 8-byte load per lane and tile),
 //      and h's rows are padded by 8 elements so the A-fragment loads hit 32 banks;
 //    - MODE_FMA_SMEM (float32 when R fits): float32 FMA loops, R in shared memory;
@@ -23,7 +40,7 @@
 //    Up to H = 512 a thread takes 4 (row, unit) pairs of the gate phase and a warp 4 n-tiles
 //    (RNN_NARROW_*); above, up to H = 1024 (float32 only), 8 pairs and 8 n-tiles (RNN_WIDE_*).
 //
-// 2. The persistent grid (rnn_persistent_kernel: bf16 above H = 512, LAS-large's listener at H = 1024).  A
+// 3. The persistent grid (rnn_persistent_kernel: bf16 above H = 512, LAS-large's listener at H = 1024).  A
 //    direction's R is 8 MB there: no cluster holds it, and a cluster that reads it from L2 every step spent
 //    ~48 us a step.  Instead one cooperative launch puts a CTA on each of D * ceil(H / 16) SMs (128 at
 //    LAS-large), and each CTA keeps the 64 gate columns of its 16 units resident in shared memory for the
@@ -35,25 +52,29 @@
 //    direction's step counter), then streams h(t-1) [B x Hp] through a four-stage TMA ring of [64 rows x 64]
 //    k-panels as wgmma's A operand (m64n64k16, two warpgroups of 64 rows: 128 batch rows a chunk, chunks in
 //    turn), against the resident R panels as B; each k-panel goes into a fresh float32 accumulator whose sum
-//    is added into the total in float32 (wgmma's accumulation rounds toward zero, PERF.md §6).  The
-//    epilogue adds x_proj (loaded before the chunk's product), applies the gates, keeps h and c for the CTA's
-//    units in shared memory (both are on the compute type's grid, so bf16 holds them exactly), writes out[t]
-//    and the CTA's slice of h(t) into the other of two h buffers (by step parity: a CTA writes h(t+1) only
-//    after every CTA of its direction has read all of h(t)), and publishes the step with a release add on
-//    the counter.  h is written by st.global and read by TMA in other CTAs, so both sides fence the async
-//    proxy.  The batch is walked in slices of rows whose state fits shared memory (all of B = 128 at once).
+//    is added into the total in float32.  The epilogue adds x_proj (loaded before the chunk's product), applies
+//    the gates, keeps h and c for the CTA's units in shared memory (both are on the compute type's grid, so bf16
+//    holds them exactly), writes out[t] and the CTA's slice of h(t) into the other of two h buffers (by step
+//    parity: a CTA writes h(t+1) only after every CTA of its direction has read all of h(t)), and publishes the
+//    step with a release add on the counter.  h is written by st.global and read by TMA in other CTAs, so both
+//    sides fence the async proxy.  The batch is walked in slices of rows whose state fits shared memory (all of
+//    B = 128 at once).
 //
 // Rounding is the Pallas kernel's: z = x (float32) + h @ R in float32 (bf16 x
 // bf16 products are exact in float32); the GRU's recurrent bias (already in
 // the compute type) is added in float32; gates in float32; c_new is rounded
 // to the compute type before tanh(c_new); h_new is rounded to the compute
-// type.  At a masked step the state is frozen and the output is zero.
+// type.  At a masked step the state is frozen and the output is zero.  Route 1
+// takes sigmoid and tanh from ex2.approx and the approximate divide (within a
+// few float32 ulps; the accurate functions' branches held its gates ~1 us a
+// step); routes 2 and 3 use sigmoidf / tanhf.
 //
-// What bounds it on the H100: the chain of T dependent steps.  Each step's product is small (LAS-small:
-// [16, 256] x [256, 128] per CTA; LAS-large: 16.8 MFLOP per CTA) and the step ends in a barrier, so the
-// kernel runs at T x (product latency + barrier and exchange), far above the bytes / operations bound of the
-// launch.  On the persistent route each CTA also reads all of h(t-1) from L2 every step (256 KB at B = 128,
-// 32 MB over the 128 CTAs).
+// What bounds it on the H100: the chain of T dependent steps.  Each step's product is small (LAS-small: 64 x 64
+// x 256 a CTA; LAS-large: 16.8 MFLOP a CTA) and the step ends in an exchange of h, so the kernel runs at T x
+// (product latency + gates + exchange), far above the bytes / operations bound of the launch.  On route 1 at
+// LAS-small's width a step is ~3.2 us: ~1.1 us the exchange (15 bulk copies of 2 KB a CTA), ~0.6 the product,
+// ~1.2 a step's fixed work with no exchange at all (PERF.md §6).  On the persistent route each CTA also
+// reads all of h(t-1) from L2 every step (256 KB at B = 128, 32 MB over the 128 CTAs).
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -589,6 +610,367 @@ cudaError_t launch(const void* rk_il, const Args& a, cudaStream_t stream) {
 
 }  // namespace rp
 
+// ---------------------------------------------------------------- the cluster tensor-core route
+namespace rc {
+
+using namespace wg;  // Bf, the PTX helpers
+
+constexpr int RC_ROWS = 64;  // batch rows of a cluster: the wgmma M
+constexpr int RC_MAX_CLUSTER = 16, RC_MAX_STAGES = 4;
+constexpr int RC_MAX_PANELS = 6;  // 64-deep k-panels of the product at most: K <= 384
+constexpr int RC_CORE = 128;  // bytes of a core matrix: 8 rows x 8 bf16
+constexpr int RC_MASK_SLOT = 128;  // bytes of a ring stage's mask row (64 used; TMA destinations 128-byte aligned)
+
+// The operands' layout in shared memory (wgmma's K-major layout without swizzle): [K / 8][rows / 8] core
+// matrices of [8 rows x 8 k] bf16, 128 contiguous bytes each; a k-step of 16 is two core matrices along K.
+// lbo: bytes from one core matrix to the next along K; the 8-row groups are 128 bytes apart.
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(RC_CORE >> 4) << 32;
+}
+
+#define RC_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define RC_OUT16(d)                                                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),        \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major from shared memory: a warpgroup's 8 units, 4 gates each
+__device__ __forceinline__ void mma_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " RC_D16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+               : RC_OUT16(d)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// ``bytes`` of this CTA's shared memory at src into another CTA's at dst (a shared::cluster address), completing
+// on that CTA's mbarrier at bar (also a shared::cluster address)
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// waits for phase ``parity`` of an mbarrier; one that never completes (a slice or a tile that never lands) ends the
+// kernel with a trap after ~2 s of the SM's clock, not a hang
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+// The gates' sigmoid and tanh without branches, from ex2.approx (__expf) and the approximate divide: within a few
+// float32 ulps of sigmoidf / tanhf where it matters for a bf16 h (tanh: within ~1e-7 absolute near 0), and the
+// four (row, unit) pairs of a thread interleave instead of running one after another through the accurate
+// functions' branches (sigmoidf / tanhf took ~0.6-0.7 us more of a step, PERF.md §6)
+__device__ __forceinline__ float fast_sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
+__device__ __forceinline__ float fast_tanh(float x) {
+  const float e = __expf(-2.0f * fabsf(x));
+  return copysignf(__fdividef(1.0f - e, 1.0f + e), x);
+}
+
+struct Args {
+  const Bf* rk;            // [D, H, G*H]
+  const Bf* rb;            // [D, G*H] (GRU)
+  const Bf* h0;            // [D, B, H]
+  const Bf* c0;            // [D, B, H] (LSTM)
+  Bf *out, *h_last, *c_last;  // [T, D, B, H], [D, B, H], [D, B, H] (LSTM)
+  int T, D, B, H, Hg, C, Kp, stages;  // Hg: x_proj's gate pitch, H rounded up to 8; Kp: C U rounded up to 16
+};
+
+// Dynamic shared memory (ops/rnn_sequence.py cluster_tc_smem mirrors it): alignment slack, R's slice [Kp x 4U],
+// two planes of h [64 x Kp], and the ring of x_proj tiles [G][64][U] and mask rows.
+inline size_t smem_bytes(int G, int U, int Kp, int stages) {
+  return RC_CORE + (size_t)Kp * 4 * U * 2 + (size_t)2 * Kp * RC_ROWS * 2 +
+         (size_t)stages * ((size_t)G * RC_ROWS * U * 2 + RC_MASK_SLOT);
+}
+
+// Grid: (C, ceil(B / 64), D), clusters of C CTAs along x.  CTA j of a cluster owns units [j U, j U + U) of
+// direction blockIdx.z for 64 batch rows, with U / 8 warpgroups: warpgroup w computes the 32 gate columns of units
+// j U + 8 w + [0, 8) for all 64 rows (m64n32k16), so a thread's epilogue is 2 rows x 2 units.  xmap: x_proj as
+// [T D][B][G Hg] in [1 x 64 x U] boxes (gate k of unit u in column k Hg + u: a box starts on 16 bytes, which TMA
+// needs); mmap: the mask as [T D][Bm] bytes in 64-byte boxes.
+template <bool GRU, int U>
+__global__ void __launch_bounds__(16 * U, 1)
+    rnn_cluster_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap mmap,
+                          const Args a) {
+  constexpr int G = GRU ? 3 : 4, N = 4 * U, THREADS = 16 * U;
+  constexpr uint32_t X_STAGE = G * RC_ROWS * U * 2, SLICE = RC_ROWS * U * 2;
+  extern __shared__ uint8_t rc_smem[];
+  __shared__ __align__(8) uint64_t rc_bars[2 + RC_MAX_STAGES];  // the two h planes' slices, the x ring's stages
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = (int)cluster.block_rank();
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, q = lane & 3;
+  const int d = blockIdx.z, H = a.H, B = a.B, T = a.T, C = a.C, Kp = a.Kp, S = a.stages, GH = G * H;
+  const int lo = j * U, KS = Kp / 16, b0 = blockIdx.y * RC_ROWS;
+  const int ul = 8 * w + 2 * q, u = lo + ul;  // the thread's units u, u + 1 (of the CTA: ul, ul + 1)
+  const uint32_t raw = smem_addr(rc_smem), base = (raw + RC_CORE - 1) & ~(uint32_t)(RC_CORE - 1);
+  const uint32_t bs = base;                          // R: [Kp / 8][N / 8] cores
+  const uint32_t planes = bs + Kp * N * 2;           // [2][Kp / 8][8] cores
+  const uint32_t xring = planes + 2 * Kp * RC_ROWS * 2;  // [S][G][64][U]
+  const uint32_t mring = xring + S * X_STAGE;        // [S][128 bytes]
+  const uint8_t* gen = rc_smem + (base - raw);       // the same bytes, generic pointer
+  auto plane = [&](int P) { return planes + P * Kp * RC_ROWS * 2; };
+  const uint32_t full0 = smem_addr(&rc_bars[0]), xbar0 = smem_addr(&rc_bars[2]);
+  const uint32_t in_bytes = (C - 1) * SLICE;  // the other CTAs' slices of one h
+  const bool xchg = C > 1;                     // a cluster of one CTA has no other slices to wait for
+
+  // R's slice, resident for the whole launch, gate-interleaved as ops/las_step.py gate_columns lays out a cell:
+  // column 32 g + 8 k + t is gate k of unit lo + 8 g + t (zero for the GRU's slot 3, units past H and rows past
+  // H), so the thread holding accumulator columns 8 i + 2 q + {0, 1} of warpgroup g holds every gate of its units
+  const Bf* rk_d = a.rk + (size_t)d * H * GH;
+  for (int e = tid; e < (Kp / 8) * N; e += THREADS) {
+    const int kc = e / N, n = e - kc * N, k = (n >> 3) & 3, un = lo + 8 * (n >> 5) + (n & 7);
+    const bool ok = k < G && un < H;
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r0 = 8 * kc + 2 * i;
+      const uint32_t lo16 = ok && r0 < H ? __bfloat16_as_ushort(rk_d[(size_t)r0 * GH + k * H + un]) : 0u;
+      const uint32_t hi16 = ok && r0 + 1 < H ? __bfloat16_as_ushort(rk_d[(size_t)(r0 + 1) * GH + k * H + un]) : 0u;
+      v[i] = lo16 | hi16 << 16;
+    }
+    st_shared_v4(bs + (kc * (N / 8) + (n >> 3)) * RC_CORE + (n & 7) * 16, v[0], v[1], v[2], v[3]);
+  }
+  // h0 in plane 0 (every unit of the rows, zero past H and B), plane 1 zero
+  const Bf* h0_d = a.h0 + (size_t)d * B * H;
+  for (int e = tid; e < (Kp / 8) * RC_ROWS; e += THREADS) {
+    const int kc = e / RC_ROWS, r = e - kc * RC_ROWS, b = b0 + r;
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k0 = 8 * kc + 2 * i;
+      const uint32_t lo16 = b < B && k0 < H ? __bfloat16_as_ushort(h0_d[(size_t)b * H + k0]) : 0u;
+      const uint32_t hi16 = b < B && k0 + 1 < H ? __bfloat16_as_ushort(h0_d[(size_t)b * H + k0 + 1]) : 0u;
+      v[i] = lo16 | hi16 << 16;
+    }
+    const uint32_t off = (kc * 8 + (r >> 3)) * RC_CORE + (r & 7) * 16;
+    st_shared_v4(plane(0) + off, v[0], v[1], v[2], v[3]);
+    st_shared_v4(plane(1) + off, 0u, 0u, 0u, 0u);
+  }
+  // the thread's state: rows rw[hf], units u + x
+  int rw[2];
+  float hs[2][2], cs[2][2], rbv[3][2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rw[hf] = 16 * warp + (lane >> 2) + 8 * hf;
+    const int b = b0 + rw[hf];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const bool ok = b < B && u + x < H;
+      hs[hf][x] = ok ? to_f(h0_d[(size_t)b * H + u + x]) : 0.0f;
+      cs[hf][x] = !GRU && ok ? to_f(a.c0[((size_t)d * B + b) * H + u + x]) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int x = 0; x < 2; ++x) rbv[k][x] = GRU && u + x < H ? to_f(a.rb[(size_t)d * GH + k * H + u + x]) : 0.0f;
+  fence_async_smem();  // R and the planes, written by st.shared, before the tensor cores and bulk copies use them
+
+  // step tt's x_proj tiles and mask row into ring stage tt % S
+  auto stage_inputs = [&](int tt) {
+    const int s = tt % S;
+    const uint32_t bar = xbar0 + 8 * s, dst = xring + s * X_STAGE;
+    mbar_expect_tx(bar, X_STAGE + RC_ROWS);
+    for (int k = 0; k < G; ++k) tma_load_3d(dst + k * RC_ROWS * U * 2, &xmap, k * a.Hg + lo, b0, tt * a.D + d, bar);
+    tma_load_2d(mring + s * RC_MASK_SLOT, &mmap, b0, tt * a.D + d, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 2 + S; ++i) mbar_init(full0 + 8 * i, 1);
+    fence_mbar_init();
+    // h(0) lands in plane 1 and h(1) in plane 0; a CTA sends h(t) only for t <= T - 2
+    if (xchg && T >= 2) mbar_expect_tx(full0 + 8, in_bytes);
+    if (xchg && T >= 3) mbar_expect_tx(full0, in_bytes);
+    for (int tt = 0; tt < S && tt < T; ++tt) stage_inputs(tt);
+  }
+  cluster.sync();  // every CTA of the cluster has its barriers and planes ready before any copy reaches them
+
+  const uint32_t bw = bs + w * 4 * RC_CORE;  // the warpgroup's 32 columns: 4 of the N / 8 column groups
+  for (int t = 0; t < T; ++t) {
+    const int P = t & 1;
+    if (xchg && t >= 1) {
+      // h(t - 1): the other CTAs' slices in plane P.  A CTA sends h(t - 1) only after its own product of step
+      // t - 1, which read plane P ^ 1, so this wait also tells that plane P ^ 1 may be written again
+      wait_phase(full0 + 8 * P, ((t - 1) >> 1) & 1);
+      if (tid == 0 && t + 1 <= T - 2) mbar_expect_tx(full0 + 8 * P, in_bytes);  // h(t + 1), plane P again
+    }
+
+    // z = h(t-1) @ R: every 64-deep k-panel into its own accumulator, all issued before one wait, their sums
+    // added into z in panel order in float32
+    float z[16], acc[RC_MAX_PANELS][16];
+    const uint32_t ap = plane(P);
+    wg_arrive();
+#pragma unroll
+    for (int p = 0; p < RC_MAX_PANELS; ++p)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        if (4 * p + s < KS)
+          mma_n32(acc[p], kdesc(ap + (4 * p + s) * 2 * RC_CORE * 8, RC_CORE * 8),
+                  kdesc(bw + (4 * p + s) * 2 * 16 * N, 16 * N), s);
+    wg_commit();
+    // the stage step t - 1 read takes step t - 1 + S, while the tensor cores work: every thread passed step
+    // t - 1's __syncthreads after its reads
+    if (tid == 0 && t >= 1 && t - 1 + S < T) stage_inputs(t - 1 + S);
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < 16; ++c) z[c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < RC_MAX_PANELS; ++p) {
+      reg_fence(acc[p]);
+      if (4 * p < KS) {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) z[c] += acc[p][c];
+      }
+    }
+
+    // the epilogue: z[4 k + 2 hf + x] is gate k of unit u + x, row rw[hf]
+    const int st = t % S;
+    wait_phase(xbar0 + 8 * st, (t / S) & 1);
+    const uint8_t* xs = gen + (xring - base) + st * X_STAGE;
+    const uint8_t* ms = gen + (mring - base) + st * RC_MASK_SLOT;
+    const bool send = t <= T - 2, last = t == T - 1;
+    const uint32_t np = plane(P ^ 1);
+    const size_t orow0 = ((size_t)t * a.D + d) * B;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = rw[hf], b = b0 + r;
+      const bool m = ms[r] != 0;
+      uint32_t xw[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        xw[k] = k < G ? *reinterpret_cast<const uint32_t*>(xs + ((k * RC_ROWS + r) * U + ul) * 2) : 0u;
+      float hn[2], on[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float xg[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) xg[k] = __uint_as_float(x ? xw[k] & 0xffff0000u : xw[k] << 16);
+        const int zc = 2 * hf + x;
+        const float z0 = z[zc], z1 = z[zc + 4], z2 = z[zc + 8], z3 = z[zc + 12];
+        const float h_old = hs[hf][x];
+        float h_new;
+        if constexpr (GRU) {
+          const float zg = fast_sigmoid(xg[0] + (z0 + rbv[0][x]));
+          const float rg = fast_sigmoid(xg[1] + (z1 + rbv[1][x]));
+          const float hh = fast_tanh(xg[2] + rg * (z2 + rbv[2][x]));
+          h_new = bf16_grid(zg * h_old + (1.0f - zg) * hh);
+        } else {
+          const float c_old = cs[hf][x];
+          const float ig = fast_sigmoid(xg[0] + z0), fg = fast_sigmoid(xg[1] + z1);
+          const float gg = fast_tanh(xg[2] + z2), og = fast_sigmoid(xg[3] + z3);
+          const float c_new = bf16_grid(fg * c_old + ig * gg);
+          h_new = bf16_grid(og * fast_tanh(c_new));
+          cs[hf][x] = m ? c_new : c_old;
+        }
+        const bool ok = u + x < H;  // units past H keep h = 0: their columns of h(t) are zero for every reader
+        hs[hf][x] = ok ? (m ? h_new : h_old) : 0.0f;
+        hn[x] = hs[hf][x];
+        on[x] = m ? h_new : 0.0f;
+      }
+      if (b < B) {  // out[t], and at the last step h_last / c_last: plain stores no barrier waits for
+        const size_t orow = (orow0 + b) * H, srow = ((size_t)d * B + b) * H;
+        if ((H & 1) == 0 && u + 1 < H) {
+          *reinterpret_cast<uint32_t*>(a.out + orow + u) = pack_bf16(on[0], on[1]);
+          if (last) {
+            *reinterpret_cast<uint32_t*>(a.h_last + srow + u) = pack_bf16(hn[0], hn[1]);
+            if (!GRU) *reinterpret_cast<uint32_t*>(a.c_last + srow + u) = pack_bf16(cs[hf][0], cs[hf][1]);
+          }
+        } else {
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            if (u + x < H) {
+              a.out[orow + u + x] = from_f<Bf>(on[x]);
+              if (last) {
+                a.h_last[srow + u + x] = from_f<Bf>(hn[x]);
+                if (!GRU) a.c_last[srow + u + x] = from_f<Bf>(cs[hf][x]);
+              }
+            }
+        }
+      }
+      if (send) {  // the CTA's slice of h(t) in its own plane P ^ 1
+        const uint32_t off = ((u >> 3) * 8 + (r >> 3)) * RC_CORE + (r & 7) * 16 + (u & 7) * 2;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(np + off), "r"(pack_bf16(hn[0], hn[1])) : "memory");
+      }
+    }
+    if (send) {
+      fence_async_smem();  // the slice, written by st.shared, before the bulk copies and wgmma read it
+      __syncthreads();     // the slice is whole, and every read of this step's ring stage is done
+      if (tid < C && tid != j) {  // thread i sends the slice to CTA i
+        const uint32_t src = np + (lo / 8) * 8 * RC_CORE;
+        bulk_to_peer(mapa(src, tid), src, SLICE, mapa(full0 + 8 * (P ^ 1), tid));
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while a copy from or to its shared memory may be in flight
+}
+
+template <bool GRU, int U>
+cudaError_t launch(const void* x, const void* mask, int mask_pitch, const Args& a, cudaStream_t stream) {
+  constexpr int G = GRU ? 3 : 4;
+  const int pitch = G * a.Hg;
+  if (a.T < 1 || a.D < 1 || a.B < 1 || a.H < 1 || a.C < 1 || a.C > RC_MAX_CLUSTER || (a.C - 1) * U >= a.H ||
+      a.C * U < a.H || a.Kp != (a.C * U + 15) / 16 * 16 || a.Kp > 64 * RC_MAX_PANELS || a.stages < 1 ||
+      a.stages > RC_MAX_STAGES || a.Hg < a.H || a.Hg % 8 || mask_pitch < a.B || mask_pitch % 16 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(mask) & 15))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(G, U, a.Kp, a.stages);
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  TensorMapEncode encode;
+  if ((err = tensor_map_encoder(&encode)) != cudaSuccess) return err;
+  CUtensorMap xmap, mmap;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)pitch, (cuuint64_t)a.B, (cuuint64_t)a.T * a.D};
+    const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)pitch * 2 * a.B};
+    const cuuint32_t box[3] = {U, RC_ROWS, 1}, step[3] = {1, 1, 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, step,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)mask_pitch, (cuuint64_t)a.T * a.D};
+    const cuuint64_t strides[1] = {(cuuint64_t)mask_pitch};
+    const cuuint32_t box[2] = {RC_ROWS, 1}, step[2] = {1, 1};
+    if (encode(&mmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(mask), dims, strides, box, step,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  auto kernel = rnn_cluster_tc_kernel<GRU, U>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess)
+    return err;
+  if (a.C > 8 && (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.C, (a.B + RC_ROWS - 1) / RC_ROWS, a.D);
+  config.blockDim = dim3(16 * U);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;  // a cluster whose CTAs cannot all be resident together would never pass its barriers
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config)) != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&config, kernel, xmap, mmap, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace rc
+
 template <typename T, bool GRU>
 cudaError_t launch_rnn_sequence(const void* x, const void* mask, const void* rk, const void* rb, const void* h0,
                                 const void* c0, void* out, void* h_last, void* c_last, int steps, int D, int B, int H,
@@ -693,6 +1075,49 @@ int rnn_sequence_persistent(int is_gru, const void* x, const void* mask, const v
   a.slice_rows = slice_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_gru ? srt::rp::launch<true>(rk_il, a, st) : srt::rp::launch<false>(rk_il, a, st);
+  return static_cast<int>(err);
+}
+
+// The cluster tensor-core route (bf16, H up to what fits shared memory; ops/rnn_sequence.py rnn_plan): x
+// [T, D, B, G, Hg] (Hg: H rounded up to 8, the columns past H of each gate unread), mask [T, D, Bm] bytes
+// (mask_pitch = Bm >= B, a multiple of 16; zero past B), rk [D, H, G*H], rb [D, G*H] (GRU), h0 and c0 (LSTM)
+// [D, B, H]; out [T, D, B, H], h_last, c_last [D, B, H].  units (8, 16 or 24) a CTA, one warpgroup for each 8;
+// cluster CTAs (cluster x units >= H, the product's K = cluster x units rounded up to 16, at most 384); stages of
+// the x_proj ring.
+int rnn_sequence_cluster_tc(int is_gru, const void* x, const void* mask, int mask_pitch, const void* rk,
+                            const void* rb, const void* h0, const void* c0, void* out, void* h_last, void* c_last,
+                            int T, int D, int B, int H, int units, int cluster, int stages, void* stream) {
+  srt::rc::Args a{};
+  a.rk = static_cast<const srt::wg::Bf*>(rk);
+  a.rb = static_cast<const srt::wg::Bf*>(rb);
+  a.h0 = static_cast<const srt::wg::Bf*>(h0);
+  a.c0 = static_cast<const srt::wg::Bf*>(c0);
+  a.out = static_cast<srt::wg::Bf*>(out);
+  a.h_last = static_cast<srt::wg::Bf*>(h_last);
+  a.c_last = static_cast<srt::wg::Bf*>(c_last);
+  a.T = T;
+  a.D = D;
+  a.B = B;
+  a.H = H;
+  a.Hg = (H + 7) / 8 * 8;
+  a.C = cluster;
+  a.Kp = (cluster * units + 15) / 16 * 16;
+  a.stages = stages;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define RC_LAUNCH(U)                                                                                        \
+  case U:                                                                                                   \
+    err = is_gru ? srt::rc::launch<true, U>(x, mask, mask_pitch, a, st)                                     \
+                 : srt::rc::launch<false, U>(x, mask, mask_pitch, a, st);                                   \
+    break;
+  switch (units) {
+    RC_LAUNCH(8)
+    RC_LAUNCH(16)
+    RC_LAUNCH(24)
+    default:
+      break;
+  }
+#undef RC_LAUNCH
   return static_cast<int>(err);
 }
 

@@ -83,6 +83,8 @@ _SIGNATURES = {
     "rnn_sequence": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
     # is_gru, x, mask, rk_il, rb, c0, hbuf, done, out, h_last, c_last, T, D, B, H, ctas, slice_rows, stream
     "rnn_sequence_persistent": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    # is_gru, x, mask, mask_pitch, rk, rb, h0, c0, out, h_last, c_last, T, D, B, H, units, cluster, stages, stream
+    "rnn_sequence_cluster_tc": [_I, _P, _P, _I] + [_P] * 7 + [_I] * 7 + [_P],
     # pk, value, attn_bias, qw, qb, emb, vw, vb, n_cells, ks, rs, bs, h, c, tokens, logp, ended,
     # eoslen, live, hidden, part_val, part_idx, part_max, part_sum, B, K, S, H, He, Dv, V, L, step0, n_steps,
     # eos_id, pad_id, alpha, beta_den, beams_per_block, stream

@@ -22,14 +22,22 @@ float32; gates in float32; ``c_new`` rounded to the compute type before
 state is frozen and the output is zero.
 
 On the H100 (``csrc/rnn_sequence.cu``) one launch runs every direction and
-batch tile, on one of two designs (``rnn_plan``):
+batch tile, on one of three designs (``rnn_plan``):
 
-- clusters (float32 at every width, bf16 up to H = 512): 8 CTAs per
-  (direction, 16 batch rows), each CTA holding its hidden units' columns of R
-  in shared memory for all T steps (bf16 products on ``mma.sync`` tiles,
-  float32 on FMA loops; float32 above H ~ 300 reads R from L2) and sharing its
-  slice of each new h with the others through distributed shared memory, one
-  cluster barrier a step;
+- the cluster tensor-core route (bf16 up to H = 384: every bf16 recurrent
+  layer of the main paths): a cluster of up to 16 CTAs per (direction, 64
+  batch rows), each keeping its units' gate-interleaved slice of R resident
+  in shared memory as wgmma's B operand and the cluster's h(t-1) as its A
+  operand, the cell update as the product's epilogue, and its slice of each
+  new h sent to the other CTAs as bulk copies that complete on their
+  mbarriers (no cluster barrier); x_proj and the mask through a TMA ring.
+  ``rnn_cluster_plain`` is its decomposition, for the CPU tests;
+- the narrow route's clusters (float32 at every width, bf16 from H = 385 to 512): 8 CTAs
+  per (direction, 16 batch rows), each CTA holding its hidden units' columns
+  of R in shared memory for all T steps (bf16 products on ``mma.sync``
+  tiles, float32 on FMA loops; float32 above H ~ 300 reads R from L2) and
+  sharing its slice of each new h with the others through distributed shared
+  memory, one cluster barrier a step;
 - the persistent grid (bf16 above H = 512: LAS-large's 1024): one cooperative
   launch of D x ceil(H / 16) CTAs, all resident, each keeping the gate columns
   of its 16 units resident in shared memory for the whole sequence (a slice of
@@ -54,16 +62,25 @@ MAX_UNITS = 1024  # RNN_MAX_UNITS in csrc/rnn_sequence.cu: the widest H K10 take
 # 64 batch rows, ring stages of h's 64-column k-panels
 P_UNITS, P_WGS, P_STAGES = 16, 2, 4
 P_ROWS = 64 * P_WGS  # batch rows of a chunk: the slices of the batch are whole chunks
-ROUTE_NARROW, ROUTE_WIDE, ROUTE_PERSISTENT = "narrow", "wide", "persistent"
+# the cluster tensor-core route (csrc/rnn_sequence.cu rc::RC_*): batch rows of a cluster, CTAs of a cluster at
+# most, ring stages of x_proj at most, the product's K at most (6 k-panels of 64), the units a CTA may own (one
+# warpgroup for each 8), bytes of a ring stage's mask row and of the alignment slack
+TC_ROWS, TC_MAX_CLUSTER, TC_MAX_STAGES, TC_MAX_K = 64, 16, 4, 384
+TC_UNITS = (8, 16, 24)
+TC_MASK_SLOT = TC_ALIGN = 128
+ROUTE_NARROW, ROUTE_WIDE, ROUTE_PERSISTENT, ROUTE_CLUSTER_TC = "narrow", "wide", "persistent", "cluster_tc"
 
 
 class RnnPlan(NamedTuple):
-    route: str  # "narrow" (H <= NARROW_UNITS), "wide" (float32 above) or "persistent" (bf16 above)
-    units: int = 0  # persistent: hidden units a CTA owns
+    route: str  # "cluster_tc" (bf16 up to H = 384), "narrow" (the rest up to H = NARROW_UNITS), "wide" (float32
+    #             above) or "persistent" (bf16 above)
+    units: int = 0  # persistent, cluster_tc: hidden units a CTA owns
     ctas: int = 0  # persistent: CTAs a direction needs (D x ctas in all, one an SM)
-    smem: int = 0  # persistent: dynamic shared memory of a CTA
+    smem: int = 0  # persistent, cluster_tc: dynamic shared memory of a CTA
     slice_rows: int = 0  # persistent: batch rows whose h and c a CTA holds at once (the launch walks B in slices)
     multicast: bool = False  # TMA multicast of h across a cluster: not used
+    cluster: int = 0  # cluster_tc: CTAs of a cluster (cluster x units >= H), each for the cluster's 64 batch rows
+    stages: int = 0  # cluster_tc: steps of x_proj and the mask staged ahead in shared memory
 
 
 def persistent_smem(H: int, slice_rows: int) -> int:
@@ -72,16 +89,48 @@ def persistent_smem(H: int, slice_rows: int) -> int:
     return ALIGN + cdiv(H, PANEL) * W_PANEL + P_STAGES * P_WGS * W_PANEL + 2 * 2 * P_UNITS * slice_rows
 
 
+def cluster_tc_smem(rnn_type: str, U: int, K: int, stages: int) -> int:
+    """Bytes of dynamic shared memory of a cluster-tc CTA (``rc::smem_bytes``): alignment slack, its R slice
+    [K x 4U] bf16, two planes of h [64 x K] bf16, and the ring of x_proj tiles [G][64][U] bf16 and mask rows."""
+    G = GATES[rnn_type]
+    return TC_ALIGN + K * 4 * U * 2 + 2 * K * TC_ROWS * 2 + stages * (G * TC_ROWS * U * 2 + TC_MASK_SLOT)
+
+
+def cluster_tc_plan(rnn_type: str, H: int):
+    """The cluster-tc launch at width H, or None where it does not fit (above H = 384).
+
+    A CTA owns U = ceil(H / 16) units rounded up to 8, with one warpgroup for each 8 (warpgroup w computes the
+    gates of units 8 w .. 8 w + 7), so that a cluster of C = ceil(H / U) <= 16 CTAs covers H for 64 batch rows:
+    the most SMs for a cluster, the least product and gates for each (twice the units on half the CTAs took
+    1.2-1.7x the time a step, PERF.md §6).  The product's K is C U rounded up to 16, at most 384 (six
+    k-panels of accumulators in registers; two planes of h and R's slice must fit shared memory beside the
+    x_proj ring, as deep as fits: 4 steps down to 2)."""
+    U = pad_to(cdiv(H, TC_MAX_CLUSTER), 8)
+    if U not in TC_UNITS:
+        return None
+    C = cdiv(H, U)
+    K = pad_to(C * U, 16)
+    stages = next((st for st in range(TC_MAX_STAGES, 1, -1) if cluster_tc_smem(rnn_type, U, K, st) <= SMEM_LIMIT), 0)
+    if K > TC_MAX_K or not stages:
+        return None
+    return RnnPlan(ROUTE_CLUSTER_TC, U, smem=cluster_tc_smem(rnn_type, U, K, stages), cluster=C, stages=stages)
+
+
 def rnn_plan(rnn_type: str, H: int, dtype, D: int = 1, B: int = 1, n_sm: int = N_SM) -> RnnPlan:
-    """K10's route for width H, and the persistent route's launch: the units a CTA takes, the CTAs a
-    direction needs, the shared memory and the batch slice.  Raises ValueError on widths K10 does not take and
-    on a persistent launch whose D x ctas CTAs cannot all be resident on the card's ``n_sm`` SMs (one a SM)."""
+    """K10's route for width H and type, and the launch of the routes that need one.  bf16 takes the cluster
+    tensor-core route where it fits shared memory (``cluster_tc_plan``: H <= 384), the narrow route's cluster
+    kernel from there to H = 512 (``las_medium.yml``'s listener: two planes of h and R's slice of 32 units, 256 KB,
+    do not fit a CTA) and the persistent grid above; float32 takes the narrow route's clusters at every width.
+    Raises
+    ValueError on widths K10 does not take and on a persistent launch whose D x ctas CTAs cannot all be resident
+    on the card's ``n_sm`` SMs (one a SM)."""
     if not 1 <= H <= MAX_UNITS:
         raise ValueError(f"rnn_sequence: H={H} outside 1..{MAX_UNITS}")
     if rnn_type not in GATES:
         raise ValueError(f"rnn_sequence: rnn_type {rnn_type!r}")
     if H <= NARROW_UNITS:
-        return RnnPlan(ROUTE_NARROW)
+        plan = cluster_tc_plan(rnn_type, H) if dtype == torch.bfloat16 else None
+        return plan or RnnPlan(ROUTE_NARROW)
     if dtype != torch.bfloat16:
         return RnnPlan(ROUTE_WIDE)
     ctas = cdiv(H, P_UNITS)
@@ -96,21 +145,28 @@ def rnn_plan(rnn_type: str, H: int, dtype, D: int = 1, B: int = 1, n_sm: int = N
 
 
 def interleave_recurrent(rk: torch.Tensor, plan: RnnPlan) -> torch.Tensor:
-    """rk [D, H, G H] as the persistent route reads it: [D, Hp, 4 P_UNITS ctas], Hp = H rounded up to
-    64-row panels (the rows past H zero), CTA j's slice in columns [64 j, 64 j + 64), gate-interleaved as
-    ``ops/las_step.py gate_columns`` lays out a cell: column 32 g + 8 k + t holds gate k of unit 8 g + t (the
-    GRU's gate slot 3 and units past H zero).  Made once per call."""
+    """rk [D, H, G H] gate-interleaved as ``ops/las_step.py gate_columns`` lays out a cell: column 32 g + 8 k + t
+    holds gate k of unit 8 g + t (the GRU's gate slot 3, units past H and rows past H zero), so the thread holding
+    a wgmma accumulator's columns 8 i + 2 (lane % 4) + {0, 1} holds every gate of its two units.
+
+    The persistent route reads it: [D, Hp, 4 P_UNITS ctas], Hp = H rounded up to 64-row panels, CTA j's slice in
+    columns [64 j, 64 j + 64); made once per call.  The cluster-tc route lays its slice out in shared memory from
+    rk itself, in this order: [D, K, 4 U C], K = C U rounded up to 16, CTA j's slice in columns
+    [4 U j, 4 U j + 4 U), warpgroup w's in the 32 from 4 U j + 32 w."""
     H = rk.shape[1]
-    w = interleave_gates(rk, H, plan.ctas * plan.units)
-    return torch.nn.functional.pad(w, (0, 0, 0, pad_to(H, PANEL) - H))
+    if plan.route == ROUTE_PERSISTENT:
+        units, rows = plan.ctas * plan.units, pad_to(H, PANEL)
+    else:
+        units, rows = plan.cluster * plan.units, pad_to(plan.cluster * plan.units, 16)
+    return torch.nn.functional.pad(interleave_gates(rk, H, units), (0, 0, 0, rows - H))
 
 
 def rnn_persistent_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0, plan: RnnPlan):
-    """K10 computed the way the persistent route splits it, on tensors: the interleaved R, h(t-1) [D, B, Hp]
-    (zero past H) times it one 64-row k-panel at a time, each panel's float32 product added into the total in
-    order, then the gates read out of the interleaved columns, and x_proj (and the GRU's rb), read in their own
-    layout, added as the epilogue adds them.  ``rnn_sequence_plain``'s contract; the CPU proof of the
-    decomposition."""
+    """K10 computed the way the persistent and the cluster-tc routes split it (the plan's route), on tensors:
+    the interleaved R, h(t-1) [D, B, K] (zero past H) times it one 64-row k-panel at a time, each panel's
+    float32 product added into the total in order, then the gates read out of the interleaved columns, and
+    x_proj (and the GRU's rb), read in their own layout, added as the epilogue adds them.
+    ``rnn_sequence_plain``'s contract; the CPU proof of the decomposition."""
     T, D, B, GH = x_proj.shape
     G = GATES[rnn_type]
     H, dt = GH // G, x_proj.dtype
@@ -141,6 +197,11 @@ def rnn_persistent_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0, plan: RnnP
         h[..., :H] = torch.where(m, h_new, h_old)
         out[t] = (h_new * m).to(dt)
     return out, h[..., :H].to(dt), (c.to(dt) if c is not None else None)
+
+
+# The cluster-tc route's twin: the persistent route's decomposition (the same gate interleave, the same 64-deep
+# k-panels in the same order, the same epilogue), at the plan's K (C U rounded up to 16: the rows past H zero).
+rnn_cluster_plain = rnn_persistent_plain
 
 
 def rnn_sequence_plain(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
@@ -202,11 +263,13 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     """The masked sequence's (out, h_last, c_last) (``rnn_sequence_plain``'s
     contract; ``c_last`` is None for the GRU).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-    which raises on what it does not take (T < 1, H > 1024, D not 1 or 2,
-    another type than bf16 / float32, a persistent launch whose CTAs cannot all
-    be resident).  ``rnn_sequence.persistent_launches`` counts the launches of
-    the persistent route (bf16 above H = 512).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel on
+    the route ``rnn_plan`` gives, which raises on what it does not take (T < 1,
+    H > 1024, D not 1 or 2, another type than bf16 / float32, a persistent
+    launch whose CTAs cannot all be resident, a cluster that cannot be).
+    ``rnn_sequence.cluster_tc_launches`` counts the launches of the cluster
+    tensor-core route (bf16 up to H = 384), ``rnn_sequence.persistent_launches``
+    those of the persistent route (bf16 above H = 512).
     """
     if x_proj.device.type == "cpu":
         return rnn_sequence_plain(rnn_type, x_proj, mask, rk, rb, h0, c0)
@@ -231,7 +294,24 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     h_last = torch.empty(D, B, H, dtype=x_proj.dtype, device=dev)
     c_last = torch.empty_like(h_last) if lstm else None
     plan = rnn_plan(rnn_type, H, x_proj.dtype, D, B, sm_count(dev))
-    if plan.route == ROUTE_PERSISTENT:
+    if plan.route == ROUTE_CLUSTER_TC:
+        # TMA reads x_proj in [64 rows x U] boxes, each starting on 16 bytes (each gate's columns padded to Hg, a
+        # multiple of 8: a copy where H is not), and the mask in 64-byte rows (a row pitch of 16 bytes)
+        Hg, mask_pitch = pad_to(H, 8), pad_to(B, 16)
+        xt = x_proj if Hg == H else torch.nn.functional.pad(x_proj.reshape(T, D, B, gates, H), (0, Hg - H))
+        mt = mask.reshape(T, D, B).view(torch.uint8)
+        mt = torch.nn.functional.pad(mt, (0, mask_pitch - B)) if mask_pitch != B else mt
+        xt, mt = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xt, mt))
+        err = library().rnn_sequence_cluster_tc(
+            int(not lstm), xt.data_ptr(), mt.data_ptr(), mask_pitch, rk.data_ptr(),
+            0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
+            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, plan.units, plan.cluster, plan.stages,
+            stream(dev),
+        )
+        if err:
+            raise RuntimeError(f"rnn_sequence_cluster_tc kernel launch failed: {error_string(err)}")
+        rnn_sequence.cluster_tc_launches += 1
+    elif plan.route == ROUTE_PERSISTENT:
         w = interleave_recurrent(rk, plan)
         hbuf = torch.zeros(2, D, B, w.shape[1], dtype=x_proj.dtype, device=dev)  # h0 in plane 0, zeros past H
         hbuf[0, ..., :H] = h0
@@ -258,3 +338,4 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
 
 rnn_sequence.launches = 0
 rnn_sequence.persistent_launches = 0  # of them on the persistent route
+rnn_sequence.cluster_tc_launches = 0  # of them on the cluster tensor-core route

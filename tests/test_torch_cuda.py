@@ -62,7 +62,11 @@ it on); a no-grad ``lstm_scan`` / ``gru_scan`` of CUDA tensors launches it.
 Above H = 512 (H in {520, 600, 768, 1024}; float32 the wide cluster route,
 bf16 the persistent grid) at B in {1, 40, 128, 160}, T up to 255, one and two
 directions, with the same tolerances; the persistent route counted on its
-route, and two calls give the same bits.  K2 in bf16 on the split step at
+route, and two calls give the same bits.  The cluster tensor-core route
+(bf16 up to H = 384) at the main path's widths, at H in {8, 37, 100, 200,
+384}, B in {1, 5, 64, 65, 128, 130}, T in {1, 2, 17, 108}: counted on its
+route, within 2e-2 x max|ref|, masked steps exact zeros, two calls bit for
+bit; bf16 at 500 and 512 on the narrow route's clusters; a launch it refuses raises.  K2 in bf16 on the split step at
 LAS-small's and LAS-large's widths (operands at a model's scales: weights
 ~ N(0, 1/fan-in)), counted on its route, every stream within 2e-2 x max|ref|
 of the plain K2, two calls bit for bit, and K3 on its residuals within 3e-2.  The bf16 K8 / K9 forward on the vocab tile pass at ragged bands
@@ -968,6 +972,75 @@ def test_rnn_sequence_persistent_route(cuda, rnn_type, D, T, B, H):
         assert a.dtype == torch.bfloat16 and a.shape == w.shape
         assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
     assert not first[0][~ops[1][..., 0]].any()
+
+
+@pytest.mark.parametrize("rnn_type, D, T, B, H", [
+    ("lstm", 2, 108, 128, 256),  # LAS-small's listener width (16 CTAs of 16 units)
+    ("gru", 2, 108, 128, 128),  # a DeepSpeech2 BiGRU layer (16 CTAs of 8 units)
+    ("lstm", 1, 108, 128, 320),  # the prediction net's width (14 CTAs of 24 units, K = 336)
+    ("lstm", 2, 1, 5, 8),  # a cluster of one CTA, one step
+    ("gru", 1, 2, 1, 8),
+    ("lstm", 2, 2, 64, 200),
+    ("gru", 2, 108, 65, 200),  # a second 64-row cluster with one valid row
+    ("lstm", 1, 2, 130, 256),
+    ("gru", 2, 1, 130, 320),
+    ("lstm", 2, 108, 1, 128),
+    ("gru", 1, 108, 5, 256),
+    ("lstm", 2, 17, 65, 37),  # H not a multiple of 8: each gate of x_proj padded for TMA
+    ("gru", 1, 17, 64, 100),
+    ("lstm", 2, 9, 64, 384),  # the widest the route takes
+])
+def test_rnn_sequence_cluster_tc_route(cuda, rnn_type, D, T, B, H):
+    """The cluster tensor-core route (bf16 up to H = 384) at the main path's widths and ragged ones: counted on
+    its route, within 2e-2 x max|ref| of the plain version (a float32 sum in another order can move one
+    rounding, and the loop carries it on), masked steps exact zeros, and two calls give the same bits: a CTA
+    that read a slice of h before it landed would show as a difference."""
+    ops = rnn_operands(rnn_type, torch.bfloat16, D, T, B, H, T + B + H, cuda)
+    assert rnn_plan(rnn_type, H, torch.bfloat16, D, B, sm_count(cuda)).route == "cluster_tc"
+    before, before_tc = rnn_sequence.launches, rnn_sequence.cluster_tc_launches
+    first, second = rnn_sequence(rnn_type, *ops), rnn_sequence(rnn_type, *ops)
+    want = rnn_sequence_plain(rnn_type, *ops)
+    torch.cuda.synchronize()
+    assert rnn_sequence.launches == before + 2 and rnn_sequence.cluster_tc_launches == before_tc + 2
+    for a, b, w in zip(first, second, want):
+        if w is None:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b)
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+    assert not first[0][~ops[1][..., 0]].any()
+
+
+@pytest.mark.parametrize("rnn_type, H", [("lstm", 512), ("gru", 500)])
+def test_rnn_sequence_bf16_above_384_keeps_the_cluster_kernel(cuda, rnn_type, H):
+    """bf16 from H = 385 to 512 (las_medium.yml's listener: 512) keeps the narrow route's clusters, as ``rnn_plan``
+    says: not counted on the cluster tensor-core route, within 2e-2 x max|ref| of the plain version."""
+    ops = rnn_operands(rnn_type, torch.bfloat16, 2, 17, 40, H, H, cuda)
+    assert rnn_plan(rnn_type, H, torch.bfloat16, 2, 40, sm_count(cuda)).route == "narrow"
+    before, before_tc = rnn_sequence.launches, rnn_sequence.cluster_tc_launches
+    got, want = rnn_sequence(rnn_type, *ops), rnn_sequence_plain(rnn_type, *ops)
+    torch.cuda.synchronize()
+    assert rnn_sequence.launches == before + 1 and rnn_sequence.cluster_tc_launches == before_tc
+    for a, w in zip(got, want):
+        if w is not None:
+            assert (a.float() - w.float()).abs().max().item() <= 2e-2 * w.float().abs().max().item()
+
+
+def test_rnn_sequence_cluster_tc_refusals_raise(cuda, monkeypatch):
+    """A cluster tensor-core launch the kernel refuses (a cluster that does not cover H, units it is not built
+    for) raises, counts nothing and goes to no other route."""
+    import speech_recognition_tpu_torch.ops.rnn_sequence as rs
+
+    ops = rnn_operands("lstm", torch.bfloat16, 1, 4, 5, 64, 0, cuda)
+    good = rnn_plan("lstm", 64, torch.bfloat16, 1, 5, sm_count(cuda))
+    assert good.route == "cluster_tc" and good.cluster * good.units == 64
+    for bad in (good._replace(cluster=good.cluster - 1), good._replace(units=40)):
+        monkeypatch.setattr(rs, "rnn_plan", lambda *a, bad=bad, **k: bad)
+        before, before_tc = rnn_sequence.launches, rnn_sequence.cluster_tc_launches
+        with pytest.raises(RuntimeError, match="rnn_sequence_cluster_tc kernel launch failed"):
+            rnn_sequence("lstm", *ops)
+        assert rnn_sequence.launches == before and rnn_sequence.cluster_tc_launches == before_tc
 
 
 def test_rnn_sequence_kernel_raises_on_what_it_does_not_take(cuda):

@@ -139,15 +139,21 @@ def test_rnn_constants_mirror_the_source():
 @pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
 @pytest.mark.parametrize("H", [1, 8, 320, 512, 513, 768, 1000, 1024])
 def test_rnn_routes(rnn_type, H):
-    """Up to H = 512 the cluster route in both types; above, float32 keeps the wide cluster route and bf16
-    takes the persistent grid: 16 units (64 gate columns) a CTA, ceil(H / 16) CTAs a direction, all of
-    B = 128 in one slice, R's panels + the ring + the slice's h and c within the H100's 232,448 bytes."""
+    """Up to H = 512 the cluster route in float32 and in bf16 above H = 384; bf16 up to 384 the cluster
+    tensor-core route (ceil(H / 16) units rounded up to 8 a CTA, clusters covering H); above 512, float32 keeps
+    the wide cluster route and bf16 takes the persistent grid: 16 units (64 gate columns) a CTA, ceil(H / 16)
+    CTAs a direction, all of B = 128 in one slice, R's panels + the ring + the slice's h and c within the H100's
+    232,448 bytes."""
     narrow = H <= 512
     for dtype in (torch.bfloat16, torch.float32):
         p = rs.rnn_plan(rnn_type, H, dtype, D=2, B=128)
         persistent = not narrow and dtype == torch.bfloat16
-        assert p.route == ("narrow" if narrow else "persistent" if persistent else "wide")
-        if persistent:
+        tc = H <= 384 and dtype == torch.bfloat16
+        assert p.route == ("cluster_tc" if tc else "narrow" if narrow else "persistent" if persistent else "wide")
+        if tc:
+            assert p.units == -(-cdiv(H, 16) // 8) * 8 and p.cluster == cdiv(H, p.units) <= 16
+            assert (p.ctas, p.slice_rows) == (0, 0) and 0 < p.smem <= SMEM_LIMIT
+        elif persistent:
             assert p.units == 16 and p.ctas == cdiv(H, 16) and (p.ctas - 1) * 16 < H <= p.ctas * 16
             assert 2 * p.ctas <= 132 and p.slice_rows == 128 and not p.multicast
             assert p.smem == 1024 + cdiv(H, 64) * 8192 + 4 * 2 * 8192 + 2 * 2 * 16 * 128 <= SMEM_LIMIT

@@ -18,6 +18,16 @@ package's ``rnn_sequence_pallas`` in interpret mode, on the CPU.
   ragged last CTA of 8 units), LSTM and GRU, both types, the same
   tolerances; the interleaved R against a row-by-row twin and against the
   accumulator's lane layout; a CPU tensor at that width counts no launch.
+- The cluster tensor-core route (bf16 up to H = 384): ``rnn_plan`` picks it
+  there and keeps float32, bf16 from 385 to 512 (the narrow route's clusters) and bf16
+  above (the persistent grid) where they were; its plan (units a CTA, cluster
+  size, K, shared memory) fits at H in {8, 128, 200, 256, 320, 500, 512}, LSTM
+  and GRU, D = 1 and 2, B in {1, 5, 64, 65, 128, 130}; its decomposition
+  (``rnn_cluster_plain``: the persistent route's, at the plan's K) against two
+  per-direction Pallas calls and against one, ragged masks, nonzero initial
+  states, both types, the same tolerances; its column layout against the
+  kernel's (CTA j's 4U columns, warpgroup w's 32 of them); a CPU tensor at
+  such a width counts no launch.
 - A DeepSpeech2 (BiGRU) and a LAS listener (BiLSTM) forward at the mini
   configs, with K10's plain version routed into ``lstm_scan`` / ``gru_scan``,
   match the JAX models in eval mode, float32.
@@ -31,9 +41,11 @@ import torch
 from speech_recognition_tpu.models import LAS as JaxLAS
 from speech_recognition_tpu.ops.pallas.rnn_kernel import rnn_sequence_pallas
 from speech_recognition_tpu_torch.ops import rnn as rnn_mod
-from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, interleave_recurrent, rnn_direction_plain,
-                                                           rnn_persistent_plain, rnn_plan, rnn_sequence,
-                                                           rnn_sequence_plain)
+from speech_recognition_tpu_torch.ops.rnn_sequence import (GATES, TC_MAX_CLUSTER, TC_MAX_K, TC_UNITS,
+                                                           cluster_tc_smem, interleave_recurrent, rnn_cluster_plain,
+                                                           rnn_direction_plain, rnn_persistent_plain, rnn_plan,
+                                                           rnn_sequence, rnn_sequence_plain)
+from speech_recognition_tpu_torch.ops.vocab_bwd import SMEM_LIMIT
 
 from .test_torch_ds2 import _audio, ds2_twins
 from .test_torch_twins import las_twins, make_audio
@@ -289,3 +301,123 @@ def test_las_listener_with_k10_plain_matches_jax(k10_plain_routed):
     assert k10_plain_routed and set(k10_plain_routed) == {"lstm"}
     for got, want in ((t_enc, enc), (t_h, h), (t_c, c)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+TC_WIDTHS = (8, 128, 200, 256, 320, 500, 512)
+
+
+@pytest.mark.parametrize("H", TC_WIDTHS + (1, 37, 384, 385, 520, 1024))
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_plan_routes_bf16_up_to_384_to_the_cluster_tensor_core_route(rnn_type, H):
+    """bf16 takes the cluster tensor-core route up to H = 384, the narrow route's clusters from 385 to 512
+    (las_medium.yml's listener at 512: its two planes of h and R's slice do not fit a CTA) and the persistent grid
+    above; float32 keeps the narrow route's clusters (the wide ones above 512)."""
+    bf16 = rnn_plan(rnn_type, H, torch.bfloat16, 2, 128).route
+    f32 = rnn_plan(rnn_type, H, torch.float32, 2, 128).route
+    assert bf16 == ("cluster_tc" if H <= 384 else "narrow" if H <= 512 else "persistent")
+    assert f32 == ("narrow" if H <= 512 else "wide")
+
+
+@pytest.mark.parametrize("B", [1, 5, 64, 65, 128, 130])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+@pytest.mark.parametrize("H", TC_WIDTHS)
+def test_cluster_tc_plan_fits(H, rnn_type, D, B):
+    """The cluster tensor-core launch (csrc/rnn_sequence.cu rc::launch's checks): U a multiple of 8 that the kernel
+    is built for, C = ceil(H / U) <= 16 CTAs each owning units, K = C U rounded up to 16 within six k-panels, a
+    ring of 2..4 stages, and the shared memory within the H100's limit; the widths it does not fit (500, 512)
+    take the narrow route's clusters."""
+    plan = rnn_plan(rnn_type, H, torch.bfloat16, D, B)
+    if H > 384:
+        assert plan.route == "narrow"
+        return
+    U, C = plan.units, plan.cluster
+    K = -(-C * U // 16) * 16
+    assert plan.route == "cluster_tc" and U in TC_UNITS and U % 8 == 0
+    assert 1 <= C <= TC_MAX_CLUSTER and (C - 1) * U < H <= C * U and K <= TC_MAX_K
+    assert 2 <= plan.stages <= 4
+    assert plan.smem == cluster_tc_smem(rnn_type, U, K, plan.stages) <= SMEM_LIMIT
+
+
+TC_T, TC_B = 5, 3
+
+
+def _tc_operands(rnn_type, seed, H, dtype):
+    """The stacked two-direction operands at width H (direction 1 time-flipped): ragged lengths (a full row, a
+    length-1 row), nonzero initial states; numpy and torch."""
+    rng = np.random.default_rng(seed)
+    G = GATES[rnn_type]
+    f = lambda *s, scale: (rng.standard_normal(s) * scale).astype(np.float32)
+    x, rk = f(2, TC_T, TC_B, G * H, scale=1.0), f(2, H, G * H, scale=H ** -0.5)
+    rb = f(2, G * H, scale=0.1) if rnn_type == "gru" else None
+    init = [f(2, TC_B, H, scale=0.5) for _ in range(2 if rnn_type == "lstm" else 1)]
+    mask = (np.arange(TC_T)[:, None] < np.array([5, 1, 3])[None, :])[:, :, None]
+    t_ops = (_torch(np.stack([x[0], x[1][::-1]], axis=1), dtype),
+             torch.from_numpy(np.stack([mask, mask[::-1]], axis=1).copy()), _torch(rk, dtype),
+             None if rb is None else _torch(rb[:, None, :], dtype), _torch(init[0], dtype),
+             _torch(init[1], dtype) if rnn_type == "lstm" else None)
+    return (x, mask, rk, rb, init), t_ops
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rnn_type, H", [("lstm", 40), ("gru", 40), ("lstm", 200), ("gru", 200)])
+def test_cluster_decomposition_matches_pallas_interpret(rnn_type, H, dtype):
+    """``rnn_cluster_plain`` (the route's columns, its 64-deep k-panels summed in float32 in order, its epilogue)
+    against ``rnn_sequence_pallas(interpret=True)``: stacked (two directions, direction 1 time-flipped) against
+    two per-direction calls, and one direction alone against one call.  H = 40: a cluster of 5 CTAs of 8 units,
+    K = 48 (one partial k-panel); H = 200: 13 CTAs of 16 units, K = 208."""
+    (x, mask, rk, rb, init), t_ops = _tc_operands(rnn_type, H + len(rnn_type), H, dtype)
+    plan = rnn_plan(rnn_type, H, torch.bfloat16, 2, TC_B)
+    assert plan.route == "cluster_tc"
+    out, h, c = rnn_cluster_plain(rnn_type, *t_ops, plan)
+    for d, reverse in enumerate((False, True)):
+        want_out, want_state = _pallas(rnn_type, x[d], mask, rk[d], None if rb is None else rb[d],
+                                       [s[d] for s in init], reverse, dtype)
+        got = out[:, d].float().numpy()
+        _assert_close(got[::-1] if reverse else got, want_out, dtype)
+        _assert_close(h[d].float(), want_state[0], dtype)
+        if rnn_type == "lstm":
+            _assert_close(c[d].float(), want_state[1], dtype)
+    assert out.dtype == t_ops[0].dtype and not out[1:, 0, 1].float().any()  # the length-1 row's masked steps
+    one = tuple(None if t is None else t[:, :1] if i < 2 else t[:1] for i, t in enumerate(t_ops))
+    out1, h1, c1 = rnn_cluster_plain(rnn_type, *one, rnn_plan(rnn_type, H, torch.bfloat16, 1, TC_B))
+    want_out, want_state = _pallas(rnn_type, x[0], mask, rk[0], None if rb is None else rb[0], [s[0] for s in init],
+                                   False, dtype)
+    _assert_close(out1[:, 0].float(), want_out, dtype)
+    _assert_close(h1[0].float(), want_state[0], dtype)
+    if rnn_type == "lstm":
+        _assert_close(c1[0].float(), want_state[1], dtype)
+
+
+@pytest.mark.parametrize("rnn_type, H", [("lstm", 8), ("gru", 128), ("lstm", 256), ("lstm", 320), ("gru", 37)])
+def test_cluster_columns_are_the_kernels_layout(rnn_type, H):
+    """csrc/rnn_sequence.cu rc::rnn_cluster_tc_kernel lays CTA j's slice of R out from rk itself: its column
+    32 g + 8 k + t (warpgroup g's 32 columns, the m64n32 accumulator's column 8 k + t) is gate k of unit
+    j U + 8 g + t, zero for the GRU's slot 3, units past H and rows past H; ``interleave_recurrent`` is that
+    layout, C CTAs side by side, K = C U rounded up to 16 rows."""
+    G = GATES[rnn_type]
+    g = torch.Generator().manual_seed(H)
+    rk = torch.randn(2, H, G * H, generator=g)
+    plan = rnn_plan(rnn_type, H, torch.bfloat16, 2, 128)
+    U, C = plan.units, plan.cluster
+    w = interleave_recurrent(rk, plan)
+    assert w.shape == (2, -(-C * U // 16) * 16, 4 * C * U)
+    assert not w[:, H:].any()
+    for j in range(C):
+        for n in range(4 * U):
+            grp, k, t = n // 32, (n // 8) % 4, n % 8
+            unit = j * U + 8 * grp + t
+            col = w[:, :H, 4 * U * j + n]
+            if k < G and unit < H:
+                assert torch.equal(col, rk[:, :, k * H + unit]), (j, n)
+            else:
+                assert not col.any(), (j, n)
+
+
+def test_cpu_tensors_at_a_cluster_tc_width_count_no_launch():
+    _, t_ops = _tc_operands("gru", 9, 200, "bfloat16")
+    before, before_tc = rnn_sequence.launches, rnn_sequence.cluster_tc_launches
+    got, want = rnn_sequence("gru", *t_ops), rnn_sequence_plain("gru", *t_ops)
+    assert rnn_sequence.launches == before and rnn_sequence.cluster_tc_launches == before_tc
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)

@@ -9,7 +9,11 @@ for beam-8 (``beams_per_block``: a block's shared memory within
 ``SMEM_LIMIT``), the vocab tile pass (``tile_plan``: K1, K4, K5, K6, K11's
 vocab step, the TSD beam), the backward engine (``bwd_plan``: K1, K6, K8,
 K9), K7 (``mhsa_plan``) and the joint forward (``joint_fwd_plan``: K8, K9).
-``deepspeech_moe.yml`` is refused: the port has no MoE trunk yet.
+``deepspeech_moe.yml`` is refused: the port has no MoE trunk yet.  Each
+config's no-grad recurrent layers in bf16 take the K10 route their width
+gives: the cluster tensor-core route up to H = 384 (its launch within the
+card's limits), the narrow route's clusters at ``las_medium.yml``'s 512, the persistent
+grid at ``las_large.yml``'s 1024.
 """
 
 import glob
@@ -23,7 +27,7 @@ from speech_recognition_tpu_torch.configs import (ConformerConfig, DataConfig, D
 from speech_recognition_tpu_torch.ops.attention import ROUTE_TENSOR_CORE, mhsa_plan
 from speech_recognition_tpu_torch.ops.beam_search import SMEM_LIMIT, beams_per_block, step_smem_bytes
 from speech_recognition_tpu_torch.ops.joint_planes import MAX_J, ROUTE_TILE_PASS, joint_fwd_plan
-from speech_recognition_tpu_torch.ops.rnn_sequence import MAX_UNITS, rnn_plan
+from speech_recognition_tpu_torch.ops.rnn_sequence import MAX_UNITS, TC_MAX_CLUSTER, TC_MAX_K, cluster_tc_smem, rnn_plan
 from speech_recognition_tpu_torch.ops.vocab_bwd import bwd_plan
 from speech_recognition_tpu_torch.ops.vocab_topk import tile_plan, tile_smem
 from speech_recognition_tpu_torch.run.common import create_model
@@ -59,7 +63,7 @@ def check_recurrent(rnn_type, H):
     """K10 takes the width, in both compute types."""
     assert H <= MAX_UNITS
     for dtype in (torch.bfloat16, torch.float32):
-        assert rnn_plan(rnn_type, H, dtype, D=2, B=B).route in ("narrow", "wide", "persistent")
+        assert rnn_plan(rnn_type, H, dtype, D=2, B=B).route in ("cluster_tc", "narrow", "wide", "persistent")
 
 
 def check_las(cfg, L):
@@ -134,5 +138,44 @@ def test_las_large_needs_the_wide_recurrent_route_and_split_beam_blocks():
     assert step_smem_bytes(BEAM, 255, 1024, 1024, 2048) == 327680 > SMEM_LIMIT
     assert beams_per_block(BEAM, 255, 1024, 1024, 2048) == 4
     small = get_model_config(os.path.join(CONFIGS, "las_small.yml"))
-    assert rnn_plan("lstm", small.encoder_hidden_dim, torch.bfloat16).route == "narrow"
+    assert rnn_plan("lstm", small.encoder_hidden_dim, torch.bfloat16).route == "cluster_tc"
     assert beams_per_block(BEAM, 255, 256, 256, 512) == BEAM  # one block per batch row, as before
+
+
+def recurrent_layers(cfg):
+    """(cell, width, directions) of the config's no-grad recurrent layers: the LAS listener, DS2's BiGRU, the
+    transducer's prediction net; none for the Conformer."""
+    if isinstance(cfg, LASConfig):
+        return [("lstm", cfg.encoder_hidden_dim, 2)]
+    if isinstance(cfg, DeepSpeechConfig):
+        return [(cfg.rnn_type, cfg.hidden_dim, 2)]
+    if isinstance(cfg, TransducerConfig):
+        return [("lstm", cfg.pred_dim, 1)]
+    return []
+
+
+RECURRENT_CONFIGS = ["deepspeech.yml", "las_large.yml", "las_medium.yml", "las_small.yml", "transducer_small.yml",
+                     "transducer_small_dense.yml", "transducer_small_pruned.yml"]
+
+
+def test_the_recurrent_list_names_every_config_with_recurrent_layers():
+    assert RECURRENT_CONFIGS == [n for n in MODEL_CONFIGS
+                                 if recurrent_layers(get_model_config(os.path.join(CONFIGS, n)))]
+
+
+@pytest.mark.parametrize("name", RECURRENT_CONFIGS)
+def test_shipped_recurrent_widths_take_their_k10_route(name):
+    """bf16 at B = 128: the cluster tensor-core route up to H = 384 (clusters of at most 16 CTAs owning ceil(H /
+    16) units each, rounded up to 8; K within six k-panels; shared memory within the H100's), the narrow route's
+    clusters from 385 to 512, the persistent grid above."""
+    for rnn_type, H, D in recurrent_layers(get_model_config(os.path.join(CONFIGS, name))):
+        plan = rnn_plan(rnn_type, H, torch.bfloat16, D=D, B=B)
+        if H > 512:
+            assert plan.route == "persistent"
+        elif H > 384:
+            assert plan.route == "narrow"
+        else:
+            K = -(-plan.cluster * plan.units // 16) * 16
+            assert plan.route == "cluster_tc" and plan.cluster <= TC_MAX_CLUSTER and K <= TC_MAX_K
+            assert plan.cluster * plan.units >= H and plan.smem == cluster_tc_smem(rnn_type, plan.units, K,
+                                                                                    plan.stages) <= SMEM_LIMIT

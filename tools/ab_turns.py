@@ -14,7 +14,8 @@ LAS-small, LAS-large and dense Transducer-S (B=32) train steps (``tools/torch_tr
 the step's CUDA-event median, ``torch.profiler``'s device-busy time over one
 step and, where the checkout's tool records it, the peak device memory), the
 Conformer-S greedy decode and its CTC prefix beam-8 decode of 128 clips, and
-the LAS-large and LAS-small greedy and beam-8 decodes of 128 clips
+the LAS-large and LAS-small greedy and beam-8 decodes of 128 clips and
+DeepSpeech2's greedy and CTC prefix beam-8 decodes (``ds2_decode``)
 (``tools/torch_decode_profile.py``: the search's CUDA-event median and its
 device-busy time), each run by the checkout's own tool; and the bf16 vocab
 tile pass's callers, K1, K5, K6 and K4's vocab step, and the K8 / K9
@@ -70,6 +71,7 @@ CASES = {
                         lambda r: {None: (r["beam8_search_ms"], r["beam8_profile"]["device_busy_ms"], None)}, "own"),
     "las_large": ("LAS-large decode", "torch_decode_profile.py", _config("las_large.yml"), _decodes, "own"),
     "las_small": ("LAS-small decode", "torch_decode_profile.py", _config("las_small.yml"), _decodes, "own"),
+    "ds2_decode": ("DS2 decode", "torch_decode_profile.py", _config("deepspeech.yml"), _decodes, "own"),
     "vocab_tiles": ("vocab tile pass", "vocab_tiles_profile.py", [], _kernels, "change"),
     "rnn_sequence": ("K10", "rnn_sequence_profile.py", [], _kernels, "change"),
 }

@@ -87,10 +87,10 @@ print(json.dumps(out))
 ''' % (SHAPES,)
 
 
-def make_variant(work, name, edits):
+def make_variant(work, name, edits, checkout=REPO):
     root = os.path.join(work, name)
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG), ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(os.path.join(checkout, PKG), os.path.join(root, PKG), ignore=shutil.ignore_patterns("__pycache__"))
     for rel, old, new in edits:
         path = os.path.join(root, PKG, rel)
         with open(path) as f:

@@ -7,7 +7,8 @@
 operands: DeepSpeech2's BiGRU layer (T'=108, H=128), LAS-small's listener
 BiLSTM layer (T=255, H=256), the transducer's prediction net (one direction,
 T=127, H=320) and LAS-large's listener layer (T=255, H=1024, the persistent
-route of bf16 above H = 512), every row valid.  For each: the call's CUDA-event median of
+route of bf16 above H = 512), every row valid; then the first three again at
+H = 8 (the latency floor of their T steps: products and gates almost nil).  For each: the call's CUDA-event median of
 ``--iters`` calls after a warm-up, its device-busy time and the µs a step.
 ``--checkout`` times the port of another checkout of the repository
 (``tools/ab_turns.py`` uses it).  Prints the card's name and power limit
@@ -29,6 +30,9 @@ SHAPES = {  # name: (cell, directions, steps, width)
     "LAS-small listener layer": ("lstm", 2, 255, 256),
     "prediction net": ("lstm", 1, 127, 320),
     "LAS-large listener layer": ("lstm", 2, 255, 1024),
+    "DS2 BiGRU layer at H=8": ("gru", 2, 108, 8),
+    "LAS-small listener layer at H=8": ("lstm", 2, 255, 8),
+    "prediction net at H=8": ("lstm", 1, 127, 8),
 }
 B = 128
 
