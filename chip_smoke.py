@@ -60,7 +60,16 @@ Phases, in order; any failure exits non-zero without printing a result:
    float32 step on 8 clips with the kernels against the plain versions; every
    K2 / K3 launch of the run took the split route; then (4b) LAS-large
    (``las_large.yml``) trains the same way for a few steps and a dev pass, K2's
-   and K3's routes checked, and its step is timed;
+   and K3's routes checked, and its step is timed; then (4c) LAS-small trains
+   with SpecAugment at LibriSpeech's LD policy (W=80, F=27, m_F=2, T=100,
+   p=1.0, m_T=2), once on the host stream and once with
+   ``--on-device-frontend``, K1 / K2 / K3 / K10 counted, the losses finite;
+   the card's SpecAugment is held against the CPU's on the same draws (masks
+   bit for bit; with the warp the zero pattern equal, the dense flow against a
+   float64 solve and the values within a Lipschitz bound,
+   ``check_spec_augment_apply``), zero-width draws without a warp against
+   the frontend without SpecAugment bit for bit, and the train-side
+   frontend's ms per batch is printed plain, masks only and with the warp;
 5. DeepSpeech2 (``resources/configs/deepspeech.yml``) through ``run.train``:
    the same 256 clips with transcripts of at most 48 tokens (so every CTC
    row is feasible at T' = 108), ``--mixed-precision --device GPU
@@ -68,6 +77,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    set to 0; the checkpoint is decoded by ``run.inference``, greedy and
    beam-8; then ms per train step and utterances/s, decode ms per batch and
    RTF, and one float32 step on 8 clips with K6 against its plain version;
+   then (5b) DeepSpeech2-MoE (``deepspeech_moe.yml``: 8 experts of width
+   1024 after each BiGRU layer) the same way, K6 and K10 counted, its step's
+   ms and peak memory beside DS2's, and the index MoE against the one-hot
+   einsum form at one layer's shape (``check_moe_forms``: outputs bit for
+   bit, each form's ms and memory);
 6. Conformer-S (``resources/configs/conformer_small.yml``) through
    ``run.train`` on the same clips and transcripts, ``--mixed-precision
    --device GPU --batch-size 128`` for a few steps and a dev pass, after K7's
@@ -81,7 +95,10 @@ Phases, in order; any failure exits non-zero without printing a result:
    its plain version at the main path's shapes (bf16 on the tensor cores),
    in float32 (the CUDA cores), at a ragged T and at T=384 (the forward's two
    passes), its dropout mask bit for bit, and times its forward at p=0.1 and
-   at p=0 (the decodes' case) beside SDPA;
+   at p=0 (the decodes' case) beside SDPA; then (6b) one bf16 step with
+   ``remat`` against two without, the same seeds (``check_remat``): the loss
+   bit for bit, each gradient bit for bit wherever the two steps without
+   remat agree, K7's forward launched twice a block, both peak memories;
 7. the RNN-Transducer (Transducer-S: the Conformer-S encoder, a 1x320 LSTM
    prediction net, J=320, V=16000) through ``run.train``: the shipped pruned
    objective (``resources/configs/transducer_small.yml``, S=4) at B=128 with
@@ -98,9 +115,9 @@ Phases, in order; any failure exits non-zero without printing a result:
    and the four gradients;
 8. ``run.evaluate`` on a TSV of the 128 dev clips with their seeded
    transcripts, ``--mixed-precision --device GPU --batch-size 128``, greedy
-   for LAS-small, DeepSpeech2, Conformer-S and the pruned Transducer-S with
-   the checkpoints of phases 4-7 and beam-8 for LAS-small (K11 once) and
-   DeepSpeech2: 128 rows, finite WER / CER, the predictions equal to
+   for LAS-small, DeepSpeech2, DeepSpeech2-MoE, Conformer-S and the pruned
+   Transducer-S with the checkpoints of phases 4-7 and beam-8 for LAS-small
+   (K11 once) and DeepSpeech2: 128 rows, finite WER / CER, the predictions equal to
    ``run.inference``'s on the same clips and weights, K10's and K11's
    launches counted, and the decode ms of the batch.
 
@@ -1832,15 +1849,19 @@ def one_batch(cfg, n_rows):
     return (audio, lengths), tokens
 
 
-def time_train_step(cfg, what, batch=B):
-    """ms per bf16 train step at ``batch`` (B=128) and 1024 frames (LAS: N=127, the
-    teacher-forced branch): CUDA events around each of TIMED_STEPS steps after
-    2 warm-up steps, median; utterances/s = batch / step seconds."""
+def train_setup(cfg, batch=B):
+    """A bf16 model, Adam and train step of ``cfg`` with its first batch of ``batch`` rows on the card, after
+    2 warm-up steps: (a function running one step and returning its metrics, the peak device memory of the
+    setup and those steps in GiB above what was allocated before)."""
     import torch
 
     from speech_recognition_tpu_torch.run.common import create_model
     from speech_recognition_tpu_torch.train import TrainState, linear_warmup_decay, make_adam, make_train_step
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     model = create_model(cfg.model_config, cfg.data_config, torch.bfloat16, torch.device("cuda"),
                          generator=torch.Generator().manual_seed(0), train=True)
     schedule = linear_warmup_decay(100, 1e-3, 1e-5, 0.0, 2)
@@ -1848,19 +1869,53 @@ def time_train_step(cfg, what, batch=B):
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
     inputs, y = one_batch(cfg, batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = []
-    for k in range(2 + TIMED_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step(state, inputs, y, gen)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = float(np.median(times[2:]))
-    check(bool(torch.isfinite(metrics["loss"])), f"timed train steps' loss finite ({metrics['loss'].item():.4f})")
+    run = lambda: step(state, inputs, y, gen)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    return run, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def step_ms(run):
+    """(CUDA-event ms of one call of ``run``, its metrics), the loss checked finite."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = run()
+    end.record()
+    end.synchronize()
+    check(bool(torch.isfinite(metrics["loss"])), f"timed train step's loss finite ({metrics['loss'].item():.4f})")
+    return start.elapsed_time(end), metrics
+
+
+def time_train_step(cfg, what, batch=B):
+    """ms per bf16 train step at ``batch`` (B=128) and 1024 frames (LAS: N=127, the
+    teacher-forced branch): CUDA events around each of TIMED_STEPS steps after
+    2 warm-up steps, median; utterances/s = batch / step seconds; the peak device
+    memory of the model, Adam and the steps."""
+    run, peak = train_setup(cfg, batch)
+    times = [step_ms(run)[0] for _ in range(TIMED_STEPS)]
+    ms = float(np.median(times))
     print(f"  {what} train step bf16 B={batch} T={FRAMES}: {ms:.2f} ms (median of {TIMED_STEPS}: "
-          f"{', '.join(f'{t:.2f}' for t in times[2:])}), {batch / (ms / 1000):.1f} utterances/s")
-    return ms, batch / (ms / 1000)
+          f"{', '.join(f'{t:.2f}' for t in times)}), {batch / (ms / 1000):.1f} utterances/s, peak device memory "
+          f"{peak:.2f} GiB (model, Adam and steps)")
+    return ms, batch / (ms / 1000), peak
+
+
+def time_train_steps_in_turns(cfgs, names, rounds=3):
+    """The bf16 train steps of several configs at B=128 timed in turns (a b, b a, a b, ...), each after its
+    2 warm-up steps; the median of each and its peak device memory (model, Adam and steps)."""
+    setups = [train_setup(cfg) for cfg in cfgs]
+    times = [[] for _ in cfgs]
+    for r in range(rounds):
+        for i in (range(len(cfgs)) if r % 2 == 0 else reversed(range(len(cfgs)))):
+            times[i].append(step_ms(setups[i][0])[0])
+    for name, (_, peak), t in zip(names, setups, times):
+        print(f"  {name} train step bf16 B={B} T={FRAMES}, in turns: {float(np.median(t)):.2f} ms (median of "
+              f"{rounds}: {', '.join(f'{x:.2f}' for x in t)}), peak device memory {peak:.2f} GiB (model, Adam and "
+              f"steps)")
+    return [float(np.median(t)) for t in times], [peak for _, peak in setups]
 
 
 def check_train_f32(cfg, plain, what):
@@ -1913,6 +1968,258 @@ def check_train_f32(cfg, plain, what):
     worst = max(((k_grads[k] - p_grads[k]).abs().max().item() / scale(k), k) for k in p_grads)
     check(worst[0] <= 1e-3, f"{what} float32 step: every gradient within 1e-3 x max|ref| ({len(p_grads)} tensors; "
           f"worst {worst[0]:.3g} on {worst[1]})")
+
+
+# ---------------------------------------------------------------- phase 4c
+SA_LD = {"W": 80, "F": 27, "m_F": 2, "T": 100, "p": 1.0, "m_T": 2}  # LibriSpeech LD (Park et al. 2019, Table 1)
+
+
+def write_spec_augment_config(tmp, data_config):
+    """The wav data config with SpecAugment on, at the LD policy."""
+    import yaml
+
+    with open(data_config) as f:
+        config = yaml.safe_load(f)
+    config["spec_augment"] = {"enable": True, **SA_LD}
+    path = os.path.join(tmp, "libri_wav_spec_augment.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def run_spec_augment_train(tmp, paths, sa_config, raw):
+    """run.train.main of LAS-small with SpecAugment on (host stream, or ``raw``: the
+    on-device frontend), K1 / K2 / K3 / K10 counters set to 0 just before and read
+    just after: every training kernel launched, K2 / K3 on their split routes, K10
+    once per listener layer in the dev pass, the losses finite."""
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_fwd
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.run import train
+
+    tag = "on-device frontend" if raw else "host stream"
+    args = train_args(tmp, paths, sa_config, out=f"sa_{'raw' if raw else 'host'}_out")
+    cfg = TrainConfig(**vars(train.parser.parse_args(args + (["--on-device-frontend"] if raw else []))))
+    counted = {"ce_vocab_fwd": ce_fwd, "ce_vocab_bwd": ce_bwd, "las_decoder_fwd": decoder_fwd,
+               "las_decoder_bwd": decoder_bwd, "rnn_sequence_lstm": rnn_sequence}
+    for fn in counted.values():
+        fn.launches = 0
+    decoder_fwd.tc_launches = decoder_bwd.tc_launches = rnn_sequence.cluster_tc_launches = 0
+    t0 = time.perf_counter()
+    (rec,) = train.main(cfg)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"  run.train LAS-small with SpecAugment ({tag}): {time.perf_counter() - t0:.1f} s for {TRAIN_STEPS} steps "
+          f"+ a dev pass; loss {rec['loss']:.4f}, dev loss {rec['val_loss']:.4f}; launches {launches}")
+    check(all(n > 0 for n in launches.values()) and launches["rnn_sequence_lstm"] == LAS_LAYERS,
+          f"SpecAugment ({tag}): K1 / K2 / K3 launched, K10 {launches['rnn_sequence_lstm']} times in the dev pass "
+          f"(expected {LAS_LAYERS})")
+    check_decoder_routes(f"the SpecAugment ({tag}) training run")
+    check_k10_route(f"the SpecAugment ({tag}) dev pass")
+    check(rec["steps"] == TRAIN_STEPS and all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")),
+          f"SpecAugment ({tag}): {rec['steps']} steps, train and dev loss finite")
+    return launches, cfg
+
+
+def raw_batch(wav_dir, n):
+    """The first ``n`` clips as a padded raw batch on the card, with their sample counts."""
+    import torch
+
+    from speech_recognition_tpu_torch.data import load_audio_file
+    from speech_recognition_tpu_torch.ops.frontend import pad_audio_batch
+
+    load = load_audio_file(16000, "wav", 16000)
+    audio, lengths = pad_audio_batch([load(os.path.join(wav_dir, f)) for f in sorted(os.listdir(wav_dir))[:n]],
+                                     SAMPLES)
+    return torch.from_numpy(audio).cuda(), torch.from_numpy(lengths).cuda()
+
+
+def check_spec_augment_apply(cfg, wav_dir):
+    """SpecAugment on the card against the CPU on the same draws (the LD policy, B = 128 clips of 1024
+    frames): masks only bit for bit; with the warp the zero pattern equal, the card's dense flow within
+    2 x the CPU's float32 error + 1e-5 against a float64 solve, and the warped values within
+    max|feats[t + 1] - feats[t]| x (max|flow_card - flow_cpu| + ulp(T)) (time) + the same without the ulp
+    along frequency + 4 float32 ulps of the clip's largest value + 1e-5 per clip (bilinear sampling is
+    Lipschitz with those constants along each axis; the sample's time t - flow is rounded to float32 at
+    magnitudes up to T, and the ulps of the value cover the last sample's rounding).  Then zero-width
+    draws without a warp against the frontend without SpecAugment, bit for bit, and the train-side
+    frontend's ms per batch."""
+    import dataclasses
+
+    import torch
+
+    from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend
+    from speech_recognition_tpu_torch.ops.spec_augment import SpecAugmentDraws, apply_spec_augment, draw_spec_augment
+    from speech_recognition_tpu_torch.ops.warp import dense_flow
+
+    dc, sa = cfg.data_config, cfg.data_config.spec_augment
+    audio, lengths = raw_batch(wav_dir, B)
+    feats = dc.make_audio_feature_fn()(audio)  # [B, T, F, 1] before delta, as the augment sees them
+    Bsz, T, F = feats.shape[:3]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    draws = draw_spec_augment(sa, Bsz, T, F, gen, "cuda")
+    masks_only = dataclasses.replace(draws, warp_src=None, warp_dst=None)
+    card = apply_spec_augment(feats, masks_only)
+    cpu = apply_spec_augment(feats.cpu(), masks_only.to("cpu"))
+    masked = (card == 0).float().mean().item()
+    check(torch.equal(card.cpu(), cpu) and masked > 0,
+          f"SpecAugment masks on the card equal the CPU's bit for bit on the same draws ({masked:.3f} of the cells "
+          f"masked)")
+    check(draws.warp_src is not None and bool(((draws.warp_src >= sa.W) & (draws.warp_src < T - sa.W)).all()),
+          f"the warp is drawn at T = {T} > 2 W + 1 = {2 * sa.W + 1}, src in [W, T - W)")
+    card = apply_spec_augment(feats, draws)
+    cpu = apply_spec_augment(feats.cpu(), draws.to("cpu"))
+    check(torch.equal(card.cpu() == 0, cpu == 0), "SpecAugment with the warp: the zero pattern equals the CPU's")
+    src = torch.stack([draws.warp_src.float(), torch.full((Bsz,), float(F // 2), device="cuda")], 1)[:, None]
+    dst = torch.stack([draws.warp_dst.float(), torch.full((Bsz,), float(F // 2), device="cuda")], 1)[:, None]
+    flow_card = dense_flow(T, F, src, dst).cpu().double()
+    flow_cpu = dense_flow(T, F, src.cpu(), dst.cpu()).double()
+    flow_64 = dense_flow(T, F, src.cpu(), dst.cpu(), torch.float64)
+    err_card, err_cpu = (flow_card - flow_64).abs().max().item(), (flow_cpu - flow_64).abs().max().item()
+    check(err_card <= 2 * err_cpu + 1e-5, f"the card's warp flow is off a float64 solve by {err_card:.3g} (the "
+                                          f"CPU's float32 by {err_cpu:.3g}; gate 2x + 1e-5)")
+    lip_t = (feats[:, 1:] - feats[:, :-1]).abs().amax(dim=(1, 2, 3)).cpu().double()
+    lip_f = (feats[:, :, 1:] - feats[:, :, :-1]).abs().amax(dim=(1, 2, 3)).cpu().double()
+    gap = (flow_card - flow_cpu).abs().amax(dim=1)  # [B, 2]: time and frequency
+    # + the last sample's rounding: a few float32 ulps of the clip's largest value (the card may fuse the
+    # bilinear weights' products and sums where the CPU rounds each)
+    rounding = 4 * 2.0 ** -23 * feats.abs().amax(dim=(1, 2, 3)).cpu().double()
+    ulp_t = float(np.spacing(np.float32(T)))  # the sample's time t - flow is rounded at magnitudes up to T
+    bound = lip_t * (gap[:, 0] + ulp_t) + lip_f * gap[:, 1] + rounding + 1e-5
+    diff = (card.cpu() - cpu).abs().amax(dim=(1, 2, 3)).double()
+    b = int((diff / bound).argmax())
+    check(diff[b] <= bound[b], f"SpecAugment with the warp: every clip within its Lipschitz bound of the CPU's "
+                               f"(worst clip {b}: {diff[b]:.3g} against {bound[b]:.3g} = {lip_t[b]:.3g} x "
+                               f"({gap[b, 0]:.3g} + {ulp_t:.3g}) + {lip_f[b]:.3g} x {gap[b, 1]:.3g} + "
+                               f"{rounding[b]:.3g} + 1e-5)")
+    zeros = torch.zeros(Bsz, 2, dtype=torch.long, device="cuda")
+    nothing = SpecAugmentDraws(zeros, zeros + 3, zeros, zeros + 5)
+    train_front, plain_front = make_batch_frontend(dc, spec_augment=True), make_batch_frontend(dc)
+    check(torch.equal(train_front(audio, lengths, draws=nothing)[0], plain_front(audio, lengths)[0]),
+          "zero-width draws without a warp give the frontend without SpecAugment, bit for bit")
+    masks_cfg = dataclasses.replace(dc, spec_augment=dataclasses.replace(sa, W=None))
+    masks_front = make_batch_frontend(masks_cfg, spec_augment=True)
+    fns = {"plain": lambda: plain_front(audio, lengths), "masks": lambda: masks_front(audio, lengths, gen),
+           "masks + warp": lambda: train_front(audio, lengths, gen)}
+    runs = {name: [] for name in fns}
+    for r in range(3):  # in turns: plain, masks, warp, then back
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[name].append(event_ms(fns[name], iters=5))
+    print(f"  train-side frontend ms per batch of {B} (raw audio -> features; CUDA events, the mean of 5 calls, "
+          f"3 runs in turns): " + "; ".join(f"{k} {np.median(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
+                                           for k, v in runs.items()))
+    return {name: float(np.median(v)) for name, v in runs.items()}
+
+
+# ---------------------------------------------------------------- phase 5b
+def check_moe_forms(gen):
+    """The index MoE (``moe_ffn``) against the one-hot einsum form at one DS2-MoE layer's training shape:
+    x [128, 108, 256] bf16, E = 8, H = 1024, k = 1, C = 2160, a ragged mask: the outputs and the aux loss
+    bit for bit, every gradient within 1e-2 x max|ref|; each form's ms (forward + backward) and peak memory."""
+    import torch
+
+    from speech_recognition_tpu_torch.models.moe import MoELayer, moe_ffn, moe_ffn_einsum
+
+    E, D, H = 8, 256, 1024
+    layer = MoELayer(D, E, H, k=1, capacity_factor=1.25).cuda()
+    layer.init_weights(gen)
+    x = (torch.randn(B, T_DS2, D, generator=gen) * 0.5).cuda().bfloat16()
+    lengths = torch.randint(T_DS2 // 2, T_DS2 + 1, (B,), generator=gen).cuda()
+    mask = torch.arange(T_DS2, device="cuda")[None, :] < lengths[:, None]
+    w = torch.randn(B, T_DS2, D, generator=gen).cuda()
+    results = {}
+    for name, fn in (("index", moe_ffn), ("einsum", moe_ffn_einsum)):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in layer.params().items()}
+        xin = x.clone().requires_grad_(True)
+
+        def run():
+            y, aux = fn(params, xin, 1, 1.25, mask=mask)
+            loss = (y.float() * w).sum() + aux
+            grads = torch.autograd.grad(loss, [xin, *params.values()])
+            return y, aux, grads
+
+        y, aux, grads = run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = event_ms(run, iters=5)
+        results[name] = (y, aux, grads, ms, (torch.cuda.max_memory_allocated() - base) / 2**30)
+    (y, aux, grads, ms, peak), (ye, auxe, grads_e, ms_e, peak_e) = results["index"], results["einsum"]
+    dropped = ((y == 0).all(-1) & mask).float().sum().item()
+    check(torch.equal(y, ye) and torch.equal(aux, auxe),
+          f"MoE index form equals the einsum form bit for bit at [{B}, {T_DS2}, {D}] E={E} H={H} "
+          f"({int(dropped)} real tokens dropped at capacity)")
+    worst = max(((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30)).item()
+                for a, b in zip(grads, grads_e))
+    check(worst <= 1e-2, f"MoE index form's gradients within 1e-2 x max|ref| of the einsum form's (worst {worst:.3g})")
+    print(f"  MoE layer fwd + bwd bf16 B={B} T'={T_DS2}: index {ms:.3f} ms ({peak:.3f} GiB above the inputs), "
+          f"einsum {ms_e:.3f} ms ({peak_e:.3f} GiB)")
+    return {"index_ms": ms, "einsum_ms": ms_e, "index_gib": peak, "einsum_gib": peak_e}
+
+
+# ---------------------------------------------------------------- phase 6b
+def check_remat(cfg):
+    """Conformer-S bf16 forward + backward (B = 128, 1024 frames, dropout 0.1: hash dropout and K7's seeds
+    from the generator), the same weights and generator seed each time, in turns without and with remat
+    (a, r, r, a, a, r after a warm-up of each): the loss equal bit for bit, and each gradient bit for bit
+    wherever the steps without remat agree bit for bit among themselves (else within twice their spread);
+    K7's forward launched once a block without remat and twice with; the ms and peak memory of each."""
+    import dataclasses
+
+    import torch
+
+    from speech_recognition_tpu_torch.ops import attention
+    from speech_recognition_tpu_torch.run.common import create_model
+
+    inputs, y = one_batch(cfg, B)
+    models = [create_model(dataclasses.replace(cfg.model_config, remat=remat), cfg.data_config, torch.bfloat16,
+                           torch.device("cuda"), generator=torch.Generator().manual_seed(3), train=True)
+              for remat in (False, True)]
+
+    def step(model):
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        attention.mhsa_fwd.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        loss, _ = model.loss_from_hidden(model.hidden_states(inputs, True, gen), y)
+        loss.backward()
+        end.record()
+        end.synchronize()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        return (loss.detach(), grads, start.elapsed_time(end), (torch.cuda.max_memory_allocated() - base) / 2**30,
+                attention.mhsa_fwd.launches)
+
+    step(models[0])  # warm-ups: the first steps' allocations and library plans
+    step(models[1])
+    runs = {False: [], True: []}
+    for remat in (False, True, True, False, False, True):
+        runs[remat].append(step(models[remat]))
+    (a_loss, a_grads, *_), (b_loss, b_grads, *_) = runs[False][:2]
+    check(all(torch.equal(run[0], a_loss) for run in runs[False] + runs[True]),
+          f"Conformer-S remat step loss {runs[True][0][0].item():.6f} equals the step without remat bit for bit "
+          f"(3 steps each)")
+    exact = [k for k in a_grads if all(torch.equal(run[1][k], a_grads[k]) for run in runs[False])]
+    off = [k for k in exact if not all(torch.equal(run[1][k], a_grads[k]) for run in runs[True])]
+    spread = [all(((run[1][k] - a_grads[k]).abs().max() <= 2 * (b_grads[k] - a_grads[k]).abs().max()).item()
+                  for run in runs[True]) for k in a_grads if k not in exact]
+    check(not off and all(spread), f"Conformer-S remat gradients: {len(exact) - len(off)} of the {len(exact)} tensors "
+                                   f"that repeat bit for bit without remat equal them under remat; the other "
+                                   f"{len(spread)} within twice their own spread")
+    fwd = {remat: {run[4] for run in runs[remat]} for remat in runs}
+    check(fwd == {False: {CONF_BLOCKS}, True: {2 * CONF_BLOCKS}},
+          f"K7 forward launches a step: {fwd[False]} without remat, {fwd[True]} with (each block recomputed once)")
+    out = {}
+    for remat, name in ((False, "without remat"), (True, "with remat")):
+        ms, peak = [run[2] for run in runs[remat]], max(run[3] for run in runs[remat])
+        out[name] = (float(np.median(ms)), peak)
+        print(f"  Conformer-S bf16 forward + backward B={B} {name}: {np.median(ms):.2f} ms (median of 3 in turns: "
+              f"{', '.join(f'{t:.2f}' for t in ms)}), peak {peak:.2f} GiB above the weights")
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2310,6 +2617,14 @@ def main():
                               k10_plain], "LAS-small")
         print("== phase 4b: LAS-large through run.train (bf16, B=128)")
         launches.update(run_las_large_train(tmp, train_wavs, paths, data_config))
+        print("== phase 4c: LAS-small through run.train with SpecAugment (LD policy, W=80; host stream and "
+              "on-device frontend)")
+        sa_config = write_spec_augment_config(tmp, data_config)
+        for raw in (False, True):
+            sa_launches, sa_cfg = run_spec_augment_train(tmp, paths, sa_config, raw)
+            for name, n in sa_launches.items():
+                launches[name] += n
+        check_spec_augment_apply(sa_cfg, train_wavs)
         print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
         k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}
@@ -2325,6 +2640,17 @@ def main():
         k6_plain = [(em_mod, "ctc_emissions_fwd", em_mod.ctc_emissions_fwd_plain),
                     (em_mod, "ctc_emissions_bwd", em_mod.ctc_emissions_bwd_plain)]
         check_train_f32(ds2_cfg, [*k6_plain, k10_plain], "DS2")
+        print("== phase 5b: DeepSpeech2-MoE (deepspeech_moe.yml) through run.train and run.inference (bf16, B=128)")
+        moe_launches, moe_cfg, moe_weights = run_model_train_path(
+            tmp, train_wavs, ds2_paths, data_config, "deepspeech_moe.yml", "DS2-MoE", {**k6, **k10},
+            {**k6_expected, "rnn_sequence": DS2_LAYERS}, {"rnn_sequence": {"greedy": DS2_LAYERS, "beam8": DS2_LAYERS}})
+        launches["rnn_sequence_gru"] += moe_launches.pop("rnn_sequence")
+        for name, n in moe_launches.items():
+            launches[name] += n
+        time_train_steps_in_turns([ds2_cfg, moe_cfg], [f"DS2 (T'={T_DS2})", "DS2-MoE (8 experts)"])
+        time_decode(wav_dir, data_config, moe_weights, "deepspeech_moe.yml", T_DS2, "DS2-MoE")
+        check_train_f32(moe_cfg, [*k6_plain, k10_plain], "DS2-MoE")
+        check_moe_forms(gen)
         print("== phase 6: Conformer-CTC through run.train and run.inference (bf16, B=128)")
         k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
         k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
@@ -2341,6 +2667,8 @@ def main():
         time_decode(wav_dir, data_config, conf_weights, "conformer_small.yml", T_CONF, "Conformer")
         check_train_f32(conf_cfg, [(attn_mod, "mhsa_fwd", attn_mod.mhsa_fwd_plain),
                                    (attn_mod, "mhsa_bwd", attn_mod.mhsa_bwd_plain), *k6_plain], "Conformer-S")
+        print("== phase 6b: Conformer-S with remat against without (bf16, B=128, the same seeds)")
+        check_remat(conf_cfg)
         print("== phase 7: RNN-Transducer through run.train and run.inference (bf16; pruned B=128, dense B=32)")
         k5 = {"vocab_topk": vt_mod.vocab_topk}
         k8 = {"banded_joint_fwd": jp_mod.banded_planes_fwd, "banded_joint_bwd": jp_mod.banded_planes_bwd}
@@ -2387,17 +2715,19 @@ def main():
         check_train_f32(dense_cfg, [(jp_mod, "joint_planes_fwd", joint_planes_fwd_plain),
                                     (jp_mod, "joint_planes_bwd", joint_planes_bwd_plain), *k7_plain, k10_plain],
                         "Transducer-S dense")
-        print("== phase 8: run.evaluate on the 128 dev clips (LAS-small, DS2, Conformer-S, Transducer-S; bf16)")
+        print("== phase 8: run.evaluate on the 128 dev clips (LAS-small, DS2, DS2-MoE, Conformer-S, Transducer-S; "
+              "bf16)")
         eval_launches, eval_k11 = run_evaluate_path(tmp, train_wavs, ds2_paths["dev"], data_config, (
             ("LAS-small", "las_small.yml", las_weights, 0, LAS_LAYERS),
             ("LAS-small", "las_small.yml", las_weights, BEAM, LAS_LAYERS),
             ("DS2", "deepspeech.yml", ds2_weights, 0, DS2_LAYERS),
             ("DS2", "deepspeech.yml", ds2_weights, BEAM, DS2_LAYERS),
+            ("DS2-MoE", "deepspeech_moe.yml", moe_weights, 0, DS2_LAYERS),
             ("Conformer-S", "conformer_small.yml", conf_weights, 0, 0),
             ("Transducer-S", "transducer_small.yml", rnnt_weights, 0, 0)))
         launches["rnn_sequence_lstm"] += eval_launches["LAS-small"]
         launches["las_beam"] += eval_k11
-        launches["rnn_sequence_gru"] += eval_launches["DS2"]
+        launches["rnn_sequence_gru"] += eval_launches["DS2"] + eval_launches["DS2-MoE"]
         for name, n in launches.items():
             kernels[name]["launches"] = n
     except Exception:

@@ -171,7 +171,7 @@ class ConformerConfig:
     blank_index: int
     # the index of the pad token
     pad_index: int
-    # rematerialize block activations in the backward pass (not ported yet: raises)
+    # rematerialize block activations in the backward pass (torch.utils.checkpoint per block)
     remat: bool = False
     # the JAX package's stacked-parameter layout; the port builds the same
     # unrolled model and ``weights.params_from_jax`` splits the stacked tree
@@ -235,7 +235,7 @@ class TransducerConfig:
     blank_index: int
     # the index of the pad token
     pad_index: int
-    # rematerialize encoder block activations in the backward pass (not ported yet: raises)
+    # rematerialize encoder block activations in the backward pass (torch.utils.checkpoint per block)
     remat: bool = False
     # pruned (banded) lattice: evaluate the joint only on a band of this many
     # label slots per encoder frame (ops/transducer_pruned.py); 0 = the dense lattice

@@ -7,7 +7,8 @@ and ``model_config`` are paths to the nested configs, loaded during
 construction.  Two defaults differ: ``device`` is ``"GPU"`` (the port's
 entry points run on the card unless asked for the CPU), and
 ``on_device_frontend=None`` means off (the port computes features on the
-host; the train CLI refuses ``True``).
+host unless asked for the on-device frontend, where JAX turns it on for TPU
+runs without the time warp).
 """
 
 from dataclasses import dataclass
@@ -71,8 +72,8 @@ class TrainConfig:
     device: str = "GPU"
     # profile N training steps (not ported yet: the train CLI refuses it)
     profile_steps: Optional[int] = None
-    # compute the audio features on the device (not ported yet: None and
-    # False both mean the host pipeline computes them)
+    # compute the audio features (and SpecAugment) on the device from padded
+    # raw audio; None and False both mean the host pipeline computes them
     on_device_frontend: Optional[bool] = None
     # comma-separated audio-length bucket boundaries for bucketed batching
     # (e.g. "512,1024,2048"); cuts pad waste vs the single max-length shape

@@ -20,8 +20,11 @@ are cast to ``compute_dtype`` at use.  The JAX model's semantics carried over:
   blocks, slices back and zeroes the masked frames;
 - the loss through ``measure.ctc_loss_from_hidden`` (kernel K6).
 
-``remat`` is not ported yet (raises); ``scan_layers`` builds the same
-unrolled model (the bridge splits the stacked parameters).
+``remat`` recomputes each block's activations in the backward
+(``run_block``: ``torch.utils.checkpoint``, the block's generator draws
+replayed), so a step gives the loss and gradients it gives without;
+``scan_layers`` builds the same unrolled model (the bridge splits the stacked
+parameters).
 """
 
 from typing import Optional
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, fused_mhsa
 from ..ops.dropout import fast_dropout
@@ -168,6 +172,33 @@ class ConformerBlock(nn.Module):
         return self.ln(x, dtype)
 
 
+def run_block(block: ConformerBlock, remat: bool, x, mask, dtype, rate: float, training: bool, generator=None):
+    """``block``'s forward, with ``remat`` under ``torch.utils.checkpoint`` while gradients are on.
+
+    The block draws its hash-dropout and K7 seeds from ``generator``, whose
+    state ``checkpoint`` does not save (it saves the global CPU / CUDA
+    streams only): the recompute restores the state the forward started
+    from, draws the same seeds, and then puts the generator back where the
+    step had left it."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x, mask, dtype, rate, training, generator)
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def forward(x, mask):
+        if not calls or generator is None:
+            calls.append(1)
+            return block(x, mask, dtype, rate, training, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(x, mask, dtype, rate, training, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(forward, x, mask, use_reentrant=False)
+
+
 class Conformer(CTCModel):
     """Conformer encoder + CTC head (JAX ``Conformer``, conformer.py:307-448), from a ``ConformerConfig``.
 
@@ -179,8 +210,7 @@ class Conformer(CTCModel):
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError("Conformer with remat is not ported yet to torch")
+        self.remat = config.remat
         self.compute_dtype = dtype
         self.vocab_size = config.vocab_size
         self.blank_index = config.blank_index
@@ -208,7 +238,7 @@ class Conformer(CTCModel):
             x = F.pad(x, (0, 0, 0, pad))
             mask = torch.cat([mask, mask.new_zeros(mask.shape[0], pad)], dim=1)
         for i in range(self.num_layers):
-            x = getattr(self, f"block{i}")(x, mask, dt, rate, training, generator)
+            x = run_block(getattr(self, f"block{i}"), self.remat, x, mask, dt, rate, training, generator)
         if pad:
             x, mask = x[:, :T1], mask[:, :T1]
         return x * mask[:, :, None].to(x.dtype)

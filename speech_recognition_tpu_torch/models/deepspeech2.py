@@ -16,12 +16,16 @@ carried over from JAX:
   include the zeroed pad frames;
 - the hidden states are masked before the vocab projection, while CTC
   takes the full padded T' as every row's logit length;
-- training: Keras input dropout in every BiRNN, batch statistics.
+- training: Keras input dropout in every BiRNN, batch statistics;
+- ``moe_experts > 0``: a residual Switch-routed MoE FFN (``models/moe.py``,
+  ``moe{i}``) after each layer's batch norm, hidden width ``moe_hidden_dim``
+  or 8 x units, routing the frames the trunk's mask keeps; in training each
+  layer's weighted aux loss is collected for the train step
+  (``take_aux_loss``), as JAX sows it.
 
 The loss goes through ``measure.ctc_loss_from_hidden`` (kernel K6, in
-``models/ctc.py``, shared with the Conformer).  MoE
-trunks (``moe_experts > 0``), ``rnn_type: rnn`` and recurrent dropout are not
-ported yet.
+``models/ctc.py``, shared with the Conformer).  ``rnn_type: rnn`` and
+recurrent dropout are not ported yet.
 """
 
 from typing import Optional
@@ -33,6 +37,7 @@ from torch import nn
 from ..ops.rnn import BiGRU, BiLSTM
 from .ctc import CTCModel
 from .layers import BatchNorm, audio_frame_lengths, init_weights
+from .moe import MoELayer
 
 
 class Convolution(nn.Module):
@@ -70,22 +75,29 @@ class Convolution(nn.Module):
 class Recurrent(nn.Module):
     """N x (BiRNN -> BatchNorm) with final-state threading (JAX ``Recurrent``, deepspeech2.py:70-121)."""
 
-    def __init__(self, rnn_type: str, in_dim: int, num_layers: int, units: int):
+    def __init__(self, rnn_type: str, in_dim: int, num_layers: int, units: int, moe=None):
         super().__init__()
         self.num_layers = num_layers
         birnn = {"gru": BiGRU, "lstm": BiLSTM}[rnn_type]
         for i in range(num_layers):
             self.add_module(f"reccurent_layer{i}", birnn(in_dim, units))
             self.add_module(f"batch_normalization{i}", BatchNorm(2 * units))
+            if moe is not None:  # (experts, hidden, k, capacity factor, aux weight)
+                self.add_module(f"moe{i}", MoELayer(2 * units, *moe))
             in_dim = 2 * units
+        self.has_moe = moe is not None
 
     def forward(self, x, mask, dtype, training: bool = False, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None):
-        states = None
+        """-> (outputs [B, T', 2H], the MoE layers' weighted aux losses in layer order)."""
+        states, aux = None, []
         for i in range(self.num_layers):
             output, *states = getattr(self, f"reccurent_layer{i}")(x, mask, states, dtype, dropout_rate, generator)
             x = getattr(self, f"batch_normalization{i}")(output, training)
-        return x
+            if self.has_moe:
+                x, layer_aux = getattr(self, f"moe{i}")(x, mask, dtype)
+                aux.append(layer_aux)
+        return x, aux
 
 
 class DeepSpeech2(CTCModel):
@@ -99,7 +111,7 @@ class DeepSpeech2(CTCModel):
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        unported = [(config.moe_experts > 0, "moe_experts > 0"), (config.rnn_type == "rnn", "rnn_type 'rnn'"),
+        unported = [(config.rnn_type == "rnn", "rnn_type 'rnn'"),
                     (config.recurrent_dropout > 0, "recurrent_dropout > 0")]
         for bad, what in unported:
             if bad:
@@ -111,9 +123,17 @@ class DeepSpeech2(CTCModel):
         self.dropout_rate = config.dropout
         self.convolution = Convolution(feature_dim, config.channels, config.kernel_sizes, config.strides)
         rnn_in = self.convolution.output_frequency(frequency_dim) * config.channels[-1]
-        self.recurrent = Recurrent(config.rnn_type, rnn_in, config.num_reccurent_layers, config.hidden_dim)
+        moe = None
+        if config.moe_experts > 0:
+            moe = (config.moe_experts, config.moe_hidden_dim or 8 * config.hidden_dim, config.moe_k,
+                   config.moe_capacity_factor, config.moe_aux_weight)
+        self.recurrent = Recurrent(config.rnn_type, rnn_in, config.num_reccurent_layers, config.hidden_dim, moe)
         self.fully_connected = nn.Linear(2 * config.hidden_dim, config.vocab_size)
         init_weights(self, generator)
+        for module in self.modules():
+            if isinstance(module, MoELayer):
+                module.init_weights(generator)
+        self._aux_loss = []
 
     def hidden_states(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
         """Forward up to the vocab projection: [B, T', 2H], zero on masked frames.
@@ -124,5 +144,12 @@ class DeepSpeech2(CTCModel):
         dt = self.compute_dtype
         x, mask = self.convolution(audio, dt, lengths)
         rate = self.dropout_rate if training else 0.0
-        x = self.recurrent(x, mask, dt, training, rate, generator)
+        x, aux = self.recurrent(x, mask, dt, training, rate, generator)
+        if training:
+            self._aux_loss = aux
         return x * mask[:, :, None].to(x.dtype)
+
+    def take_aux_loss(self):
+        """The weighted MoE aux losses of the last training forward (empty without MoE), once."""
+        aux, self._aux_loss = self._aux_loss, []
+        return aux

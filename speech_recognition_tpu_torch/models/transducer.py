@@ -19,7 +19,8 @@ Module and parameter names follow the Flax tree (``enc_proj``,
 Parameters stay float32 and are cast to ``compute_dtype`` at use.  Training
 I/O is LAS's: ``((audio, lengths), tokens[:, :-1])`` against ``tokens[:, 1:]``;
 the trailing EOS is not a transducer label (blank ends a path), so the loss
-takes ``label_lens = non-pad - 1``.  ``remat`` is not ported yet (raises).
+takes ``label_lens = non-pad - 1``.  ``remat`` recomputes each encoder
+block in the backward (``models/conformer.py run_block``).
 """
 
 import math
@@ -31,7 +32,7 @@ from torch import nn
 
 from ..ops.rnn import LSTM
 from ..ops.transducer import transducer_loss
-from .conformer import TIME_PAD_GATE, TIME_PAD_MULTIPLE, ConformerBlock, ConvSubsampler
+from .conformer import TIME_PAD_GATE, TIME_PAD_MULTIPLE, ConformerBlock, ConvSubsampler, run_block
 from .layers import dense, init_weights
 
 
@@ -41,8 +42,7 @@ class Transducer(nn.Module):
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError("Transducer with remat is not ported yet to torch")
+        self.remat = config.remat
         self.compute_dtype = dtype
         self.vocab_size = config.vocab_size
         self.blank_index = config.blank_index
@@ -84,7 +84,7 @@ class Transducer(nn.Module):
             x = F.pad(x, (0, 0, 0, pad))
             mask = torch.cat([mask, mask.new_zeros(mask.shape[0], pad)], dim=1)
         for i in range(self.num_encoder_layers):
-            x = getattr(self, f"block{i}")(x, mask, dt, rate, training, generator)
+            x = run_block(getattr(self, f"block{i}"), self.remat, x, mask, dt, rate, training, generator)
         if pad:
             x, mask = x[:, :T1], mask[:, :T1]
         return dense(self.enc_proj, x * mask[:, :, None].to(dt), dt), mask.sum(dim=-1)

@@ -147,9 +147,11 @@ def delta_accelerate(audio: np.ndarray) -> np.ndarray:
     return np.concatenate([audio, delta, accel], axis=2)
 
 
-def make_feature_fn(config):
-    """The host feature chain a ``DataConfig`` asks for, delta/accel included:
-    fn(audio [NumSamples]) -> [NumFrame, frequency_dim, feature_dim] float32."""
+def make_feature_fn(config, delta: bool = True):
+    """The host feature chain a ``DataConfig`` asks for, delta/accel included
+    unless ``delta`` is False (the training stream then augments the features
+    before it applies ``delta_accelerate``, as the JAX stream does):
+    fn(audio [NumSamples]) -> [NumFrame, frequency_dim, feature_dim (or 1)] float32."""
     if config.audio_feature_type == "spectrogram":
         base = make_spectrogram(config.frame_length, config.frame_step, config.fft_length)
     elif config.audio_feature_type == "log-mel-spectrogram":
@@ -173,7 +175,7 @@ def make_feature_fn(config):
             config.lower_edge_hertz,
             config.upper_edge_hertz,
         )
-    if not config.use_delta_accelerate:
+    if not (delta and config.use_delta_accelerate):
         return lambda audio: base(audio).astype(np.float32)
     return lambda audio: delta_accelerate(base(audio)).astype(np.float32)
 

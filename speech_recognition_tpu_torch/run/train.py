@@ -4,8 +4,12 @@
 Same flags and the same ``--from-file`` YAML (CLI keys override file keys) as
 ``speech_recognition_tpu.run.train``.  Audio decoding, tokenizing, length
 policies, shuffling, batching and prefetching are the port's copies of the
-JAX package's host modules; features are the port's host numpy chain; the
-model, the train step and Adam are the port's.  LAS and the transducer
+JAX package's host modules; features are the port's host numpy chain, or,
+with ``--on-device-frontend``, the port's device chain inside the step
+(``ops/frontend.py``: padded raw audio goes to the card); SpecAugment
+(``spec_augment.enable`` in the data config, ``ops/spec_augment.py``) runs on
+the host stream before delta-accelerate, or in the device chain; the model,
+the train step and Adam are the port's.  LAS and the transducer
 (token-conditioned models) are fed ``((audio, lengths), tokens[:, :-1])``
 against ``tokens[:, 1:]``; a CTC model
 (DeepSpeech2, the Conformer) ``(audio, lengths)`` against the full tokens.  Each epoch ends
@@ -60,7 +64,7 @@ parser.add_argument("--seed", type=int, help="Set random seed")
 parser.add_argument("--skip-epochs", type=int, help="skip first N epochs and start N + 1 epoch")
 parser.add_argument("--device", type=str, choices=["CPU", "GPU", "TPU"], help="device to use (GPU, the default, or CPU; TPU is the JAX package's)")
 parser.add_argument("--profile-steps", type=int, help="profile N training steps (not ported yet)")
-parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (not ported yet)")
+parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features (and SpecAugment) on device from padded raw audio (default: off)")
 parser.add_argument("--bucket-boundaries", type=str, help="audio-length bucket boundaries (not ported yet)")
 parser.add_argument("--auto-resume", action="store_true", help="resume from the newest checkpoint (not ported yet)")
 parser.add_argument("--model-parallel", type=int, help="tensor-parallel degree (only 1 is ported)")
@@ -78,30 +82,53 @@ def refuse_unported(cfg: TrainConfig) -> None:
         (cfg.model_parallel > 1, "--model-parallel > 1"),
         (cfg.fsdp, "--fsdp"),
         (cfg.coordinator_address, "--coordinator-address"),
-        (cfg.on_device_frontend, "--on-device-frontend"),
         (cfg.use_tfrecord, "--use-tfrecord"),
         (cfg.auto_resume, "--auto-resume"),
         (cfg.grad_accum_steps > 1, "--grad-accum-steps > 1"),
         (cfg.bucket_boundaries, "--bucket-boundaries"),
         (cfg.profile_steps, "--profile-steps"),
-        (cfg.data_config.spec_augment.enable, "SpecAugment (spec_augment.enable in the data config)"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet to the torch training path")
 
 
+def max_raw_samples(data_config) -> int:
+    """The samples of ``max_audio_length`` whole frames: a raw clip's cut, and a raw batch's padded length."""
+    return (data_config.max_audio_length - 1) * data_config.frame_step + data_config.frame_length
+
+
 def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
-    """A callable ``factory(skip=0)`` producing the (features, tokens) stream
-    (run/train.py:62-154 without the raw-audio, TFRecord and SpecAugment
-    branches).  Features, delta and accel included, are computed in the
-    decode thread pool."""
+    """A callable ``factory(skip=0)`` producing the (features, tokens) stream, or
+    in raw mode (``--on-device-frontend``) the (raw audio, tokens) stream
+    (run/train.py:62-154 without the TFRecord branch).  Host features are
+    computed in the decode thread pool; with SpecAugment on, the pool leaves
+    out delta-accelerate and the stream augments each example with draws from a
+    CPU generator seeded ``seed * 1000 + calls so far``, then applies delta, as
+    the JAX stream does with its key."""
     from ..data import filter_example, get_dataset, slice_example
-    from ..ops.features import make_feature_fn
+    from ..ops.features import delta_accelerate, make_feature_fn
+    from ..ops.spec_augment import augment_clip
 
     data_config = cfg.data_config
     paths = cfg.train_dataset_paths if train else cfg.dev_dataset_paths
-    feature_fn = make_feature_fn(data_config)
+    raw_mode = bool(cfg.on_device_frontend)
+    sa = data_config.spec_augment if train and data_config.spec_augment.enable and not raw_mode else None
+    feature_fn = None if raw_mode else make_feature_fn(data_config, delta=sa is None)
+    calls = {"n": 0}
+
+    def raw_policy(stream):
+        # the length policies act on frame counts; a kept clip loses only samples past its last whole frame
+        fl, fs, max_samples = data_config.frame_length, data_config.frame_step, max_raw_samples(data_config)
+        for audio, tokens in stream:
+            frames = max((len(audio) - fl) // fs + 1, 0)
+            if cfg.max_over_policy == "filter":
+                if frames > data_config.max_audio_length or len(tokens) > data_config.max_token_length:
+                    continue
+                audio = audio[:max_samples]
+            elif cfg.max_over_policy == "slice":
+                audio, tokens = audio[:max_samples], tokens[: data_config.max_token_length]
+            yield audio, tokens
 
     def factory(skip: int = 0):
         stream = get_dataset(
@@ -111,15 +138,45 @@ def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
             tokenizer,
             shuffle=train and cfg.shuffle_buffer_size > 1,
             skip=skip,
-            map_fn=lambda audio, tokens: (feature_fn(audio), tokens),
+            map_fn=None if raw_mode else (lambda audio, tokens: (feature_fn(audio), tokens)),
         )
+        if raw_mode:
+            return raw_policy(stream)
+        if sa is not None:
+            import torch
+
+            gen = torch.Generator().manual_seed((cfg.seed or 0) * 1000 + calls["n"])
+            stream = ((augment_clip(a, sa, gen), t) for a, t in stream)
+            if data_config.use_delta_accelerate:
+                stream = ((delta_accelerate(a), t) for a, t in stream)
         if cfg.max_over_policy == "filter":
             stream = filter_example(data_config.max_audio_length, data_config.max_token_length)(stream)
         elif cfg.max_over_policy == "slice":
             stream = slice_example(data_config.max_audio_length, data_config.max_token_length)(stream)
+        calls["n"] += 1
         return stream
 
     return factory
+
+
+def make_frontend_preprocess(cfg: TrainConfig, token_conditioned: bool, generator=None):
+    """``preprocess(model_input)`` for the train / eval step in raw mode: the
+    on-device frontend turns ``(audio, sample_lengths)`` into ``(features,
+    frame_lengths)``, so the models mask from the true lengths, which survive
+    the time masks.  With ``generator`` it is the training frontend, SpecAugment
+    drawn from it when the data config enables it; without, the plain one."""
+    from ..ops.frontend import make_batch_frontend
+
+    front = make_batch_frontend(cfg.data_config, spec_augment=generator is not None)
+
+    def preprocess(model_input):
+        if token_conditioned:
+            (audio, lengths), dec_in = model_input
+            return front(audio, lengths, generator), dec_in
+        audio, lengths = model_input
+        return front(audio, lengths, generator)
+
+    return preprocess
 
 
 def _summary_writer(log_dir: str, logger):
@@ -192,28 +249,39 @@ def main(cfg: TrainConfig):
     schedule = linear_warmup_decay(cfg.total_steps, cfg.learning_rate, cfg.min_learning_rate, cfg.warmup_rate,
                                    cfg.warmup_steps, cfg.offset_steps)
     state = TrainState(model, make_adam(model, schedule), schedule)
-    train_step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
-    eval_step = make_eval_step(model, model.get_loss_fn(), model.get_metrics())
+    # models whose input is (features, decoder / prediction tokens)
+    token_conditioned = isinstance(model, (LAS, Transducer))
+    raw_mode = bool(cfg.on_device_frontend)
+    train_preprocess = eval_preprocess = None
+    if raw_mode:
+        logger.info("[+] Fused on-device audio frontend")
+        # its own stream, so turning SpecAugment on leaves the dropout masks of a seed as they were
+        frontend_gen = torch.Generator(device=device).manual_seed(seed + 3)
+        train_preprocess = make_frontend_preprocess(cfg, token_conditioned, frontend_gen)
+        eval_preprocess = make_frontend_preprocess(cfg, token_conditioned)
+    train_step = make_train_step(model, model.get_loss_fn(), model.get_metrics(), train_preprocess)
+    eval_step = make_eval_step(model, model.get_loss_fn(), model.get_metrics(), eval_preprocess)
     dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
     coin_gen = torch.Generator().manual_seed(seed + 2)
 
     # static shapes whenever lengths are bounded by a policy
     static = cfg.max_over_policy is not None
-    audio_pad = cfg.audio_pad_length if static else None
-    token_pad = cfg.token_pad_length if static else None
+    audio_pad = token_pad = None
+    if static:
+        audio_pad = max_raw_samples(cfg.data_config) if raw_mode else cfg.audio_pad_length
+        token_pad = cfg.token_pad_length
     skip_count = (cfg.steps_per_epoch or 0) * cfg.skip_epochs * cfg.batch_size
     if skip_count and cfg.train_dataset_size:
         skip_count %= cfg.train_dataset_size
     skip_examples = {"count": skip_count}
     pin = device.type == "cuda"
-    # models whose input is (features, decoder / prediction tokens)
-    token_conditioned = isinstance(model, (LAS, Transducer))
 
     def batch_iterator(factory, batch_size, train: bool, epoch: int = 0):
         skip = skip_examples.pop("count", 0) if train else 0
         stream = factory(skip=skip) if skip else factory()
         if train and cfg.shuffle_buffer_size > 1:
             stream = shuffle_stream(stream, cfg.shuffle_buffer_size, seed=None if cfg.seed is None else cfg.seed + epoch)
+        # raw mode: padded raw audio and sample counts, which the frontend turns into frame counts
         for audio, lengths, tokens in padded_batch(stream, batch_size, audio_pad, token_pad, pad_to_batch=static,
                                                    with_lengths=True):
             audio, lengths, tokens = (torch.from_numpy(np.ascontiguousarray(a)) for a in (audio, lengths, tokens))

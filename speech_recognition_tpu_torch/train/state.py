@@ -12,6 +12,14 @@ outputs and ``loss_fn``: full logits, or the RNN-Transducer's joint inputs
 ``logits_time_major_supported`` (LAS), as in JAX; only such a
 token-conditioned model takes the teacher-forcing coin.
 
+A model that collects regularisers in its training forward (DeepSpeech2's
+MoE load-balancing losses, ``take_aux_loss``) has them added to the train
+step's loss, in layer order, on the fused route and the unfused one alike, as
+JAX adds its ``aux_loss`` collection; the eval step leaves them out.  With
+``preprocess`` (the on-device frontend of ``run.train``: raw audio ->
+features) each step first turns its input into the model's, without
+gradients.
+
 Adam follows ``optax.adam(schedule, eps=1e-7)``: b1 0.9, b2 0.999, epsilon
 outside the square root, bias-corrected moments (``torch.optim.Adam``'s
 update is the same formula).  optax reads the schedule at the update count
@@ -62,21 +70,39 @@ def _forward_loss(model, model_input, y_true, loss_fn, fused, training, generato
     return loss_fn(y_true, outputs), outputs
 
 
-def make_train_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
+def _with_aux_loss(model, loss):
+    """``loss`` plus each regulariser the training forward collected (none for most models)."""
+    take = getattr(model, "take_aux_loss", None)
+    for aux in take() if take else ():
+        loss = loss + aux
+    return loss
+
+
+def _preprocessed(preprocess, model_input):
+    if preprocess is None:
+        return model_input
+    with torch.no_grad():
+        return preprocess(model_input)
+
+
+def make_train_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optional[Callable] = None) -> Callable:
     """Build the train step: (state, model_input, y_true, generator, coin_generator) -> metrics.
 
     ``generator`` draws dropout masks on the model's device; ``coin_generator``
-    (CPU) draws the per-batch teacher-forcing coin.  Metrics are device
-    scalars: no step waits for the card.
+    (CPU) draws the per-batch teacher-forcing coin; ``preprocess(model_input)``
+    runs first, without gradients.  Metrics are device scalars: no step waits
+    for the card.
     """
     fused = _fused_loss_wanted(model, metric_fns)
     time_major = _time_major(model)
 
     def train_step(state: TrainState, model_input, y_true, generator: Optional[torch.Generator] = None,
                    coin_generator: Optional[torch.Generator] = None):
+        model_input = _preprocessed(preprocess, model_input)
         if time_major:
             y_true = y_true.t()  # [N, B]
         loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, True, generator, coin_generator)
+        loss = _with_aux_loss(model, loss)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         lr = state.schedule(state.step)
@@ -107,13 +133,14 @@ def _add_metrics(metrics, metric_fns, y_true, outputs, fused, pad_id=0):
         metrics[f"{name}_count"] = count
 
 
-def make_eval_step(model, loss_fn: Callable, metric_fns=()) -> Callable:
+def make_eval_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optional[Callable] = None) -> Callable:
     """Build the eval step: (state, model_input, y_true) -> metrics (running batch-norm statistics)."""
     fused = _fused_loss_wanted(model, metric_fns)
     time_major = _time_major(model)
 
     @torch.no_grad()
     def eval_step(state: TrainState, model_input, y_true):
+        model_input = _preprocessed(preprocess, model_input)
         if time_major:
             y_true = y_true.t()
         loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, False)

@@ -18,6 +18,9 @@ renamed and the layout changed where PyTorch's modules differ:
 - the transducer's top-level ``joint_kernel`` [J, V] and ``joint_bias`` keep
   their names and layout, its prediction net's ``pred_layer{i}/cell`` leaves
   are LSTM cells, and ``pred_proj`` is a Dense without a bias;
+- DeepSpeech2's MoE layers (``recurrent.moe{i}``) keep Flax's names and
+  layouts: ``router [d, E]``, ``w_in [E, d, H]``, ``b_in [E, H]``,
+  ``w_out [E, H, d]``, ``b_out [E, d]``;
 - the ``scan_layers`` layout (Conformer and transducer blocks), ``blocks/block/...`` with a leading
   [L] axis on every leaf, is split into ``block{i}`` subtrees on the way in
   (numpy, as the JAX package's ``unstack_block_params``), and stacked back by

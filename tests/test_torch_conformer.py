@@ -21,7 +21,8 @@ on the CPU.
 - The weight bridge round-trips the unrolled and the ``scan_layers``
   layouts, and a ``scan_layers`` JAX model's logits equal the port's on the
   split weights.
-- Training dropout, the remat refusal and the config registry.
+- Training dropout and the config registry; ``remat`` against no remat at
+  dropout 0.2 (equal loss and gradients, bit for bit).
 """
 
 import dataclasses
@@ -253,5 +254,36 @@ def test_training_dropout_draws_masks():
 def test_config_and_unported_options():
     config = get_model_config(TEST_CONFORMER_CONFIG)
     assert isinstance(config, ConformerConfig) and config.encoder_dim == 32 and config.num_layers == 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Conformer(dataclasses.replace(config, remat=True), FREQ, CHANNELS)
+    remat = Conformer(dataclasses.replace(config, remat=True), FREQ, CHANNELS)  # remat is ported: it builds
+    assert remat.remat and set(remat.state_dict()) == set(Conformer(config, FREQ, CHANNELS).state_dict())
+
+
+def _remat_loss_and_grads(config, remat, seed, generator_seed=5, replay=True, monkeypatch=None):
+    port = Conformer(dataclasses.replace(config, remat=remat), FREQ, CHANNELS,
+                     generator=torch.Generator().manual_seed(seed))
+    if not replay:  # a plain checkpoint of the block, without the generator's replay
+        monkeypatch.setattr(t_conformer, "run_block", lambda block, remat, x, mask, *run:
+                            torch.utils.checkpoint.checkpoint(block, x, mask, *run, use_reentrant=False))
+    audio, lengths = _audio()
+    gen = torch.Generator().manual_seed(generator_seed)
+    hid = port.hidden_states((torch.from_numpy(audio), torch.from_numpy(lengths)), True, gen)
+    loss, _ = port.loss_from_hidden(hid, torch.from_numpy(_tokens()))
+    after_forward = gen.get_state()
+    loss.backward()
+    # the backward leaves the generator where the forward did; a plain checkpoint's recompute draws from it
+    assert torch.equal(gen.get_state(), after_forward) == replay
+    return loss.detach(), {k: p.grad for k, p in port.named_parameters()}
+
+
+def test_remat_gives_the_loss_and_gradients_of_no_remat(monkeypatch):
+    """With dropout on (hash dropout at every site, K7's plain twin with its per-example seeds), a
+    step under remat recomputes each block with the seeds its forward drew: equal loss and gradients,
+    bit for bit; a plain checkpoint would draw new seeds in the recompute and give other gradients."""
+    config = dataclasses.replace(get_model_config(TEST_CONFORMER_CONFIG), dropout=0.2)
+    loss, grads = _remat_loss_and_grads(config, False, 0)
+    r_loss, r_grads = _remat_loss_and_grads(config, True, 0)
+    assert torch.equal(loss, r_loss) and grads.keys() == r_grads.keys()
+    for name, g in grads.items():
+        assert torch.equal(g, r_grads[name]), name
+    n_loss, n_grads = _remat_loss_and_grads(config, True, 0, replay=False, monkeypatch=monkeypatch)
+    assert torch.equal(n_loss, loss) and any(not torch.equal(g, n_grads[k]) for k, g in grads.items())

@@ -13,7 +13,7 @@ train step) vs the JAX package, float32 on the CPU.
   ``make_train_step`` with ``optax.adam(schedule, eps=1e-7)`` at dropout 0:
   loss rtol 1e-5, batch statistics atol 1e-6, parameters atol 1e-5.
 - The weight bridge round trip, training dropout, and the options that are
-  not ported yet.
+  not ported yet (the MoE trunk is held in tests/test_torch_moe.py).
 """
 
 import dataclasses
@@ -206,7 +206,7 @@ def test_training_dropout_draws_masks():
     assert torch.equal(train, again) and not torch.allclose(train, evaluated)
 
 
-@pytest.mark.parametrize("override", [dict(moe_experts=2), dict(rnn_type="rnn"), dict(recurrent_dropout=0.1)])
+@pytest.mark.parametrize("override", [dict(rnn_type="rnn"), dict(recurrent_dropout=0.1)])
 def test_unported_options_raise(override):
     config = dataclasses.replace(get_model_config(TEST_DS_CONFIG), **override)
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -6,6 +6,9 @@ CLIs' raw mode against the JAX package, on the CPU.
   JAX suite's frontend-vs-host tolerance: float32 DFT products summed in
   another order, then a log), pad frames exactly 0, frame lengths equal.
 - ``pad_audio_batch`` and ``quantized_padded_raw_batch``: identical arrays.
+- The training frontend (``spec_augment=True``) augments only when the data
+  config enables SpecAugment, drawing from the generator it is given
+  (JAX's draws are held in tests/test_torch_spec_augment.py).
 - ``run.inference --on-device-frontend --device CPU``: the same sentences as
   JAX's ``run.inference --on-device-frontend`` on the wav fixture, LAS greedy
   and beam-2 (float32, vocab projection x8 so no token sits on a near-tie).
@@ -75,9 +78,24 @@ def test_batch_frontend_matches_jax(path, spectrogram):
     assert got_lengths.tolist()[-1] == 0  # a clip shorter than one frame has no valid frame
 
 
-def test_frontend_refuses_spec_augment():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        frontend.make_batch_frontend(DataConfig.from_yaml(DEFAULT_LIBRI_CONFIG), spec_augment=True)
+@pytest.mark.parametrize("enable", [True, False])
+def test_training_frontend_draws_spec_augment_from_its_generator(enable):
+    """``spec_augment=True`` augments only when the config enables it, with draws from the generator it is
+    given: the same seed the same features, another seed others, pad frames exactly 0 either way."""
+    config = DataConfig.from_yaml(DEFAULT_LIBRI_CONFIG)
+    config = dataclasses.replace(config, spec_augment=dataclasses.replace(config.spec_augment, enable=enable, W=20))
+    rng = np.random.default_rng(2)
+    batch, lengths = frontend.pad_audio_batch([rng.standard_normal(n).astype(np.float32) * 0.3
+                                               for n in (16000, 9000, 12000)], 16000)
+    audio, lens = torch.from_numpy(batch), torch.from_numpy(lengths)
+    front = frontend.make_batch_frontend(config, spec_augment=True)
+    runs = [front(audio, lens, torch.Generator().manual_seed(s))[0] for s in (1, 1, 2)]
+    plain, frames = frontend.make_batch_frontend(config)(audio, lens)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2]) != enable
+    assert torch.equal(runs[0], plain) != enable
+    assert torch.equal(front(audio, lens)[0], plain)  # no generator, no augment
+    for i, n in enumerate(frames.tolist()):
+        assert (runs[0][i, n:] == 0).all()
 
 
 def test_raw_batchers_match_jax():

@@ -9,13 +9,15 @@ for beam-8 (``beams_per_block``: a block's shared memory within
 ``SMEM_LIMIT``), the vocab tile pass (``tile_plan``: K1, K4, K5, K6, K11's
 vocab step, the TSD beam), the backward engine (``bwd_plan``: K1, K6, K8,
 K9), K7 (``mhsa_plan``) and the joint forward (``joint_fwd_plan``: K8, K9).
-``deepspeech_moe.yml`` is refused: the port has no MoE trunk yet.  Each
+``deepspeech_moe.yml`` adds the MoE trunk's dispatch buffers (``models/moe.py``:
+capacity C = 2160 of the 13,824 tokens per layer).  Each
 config's no-grad recurrent layers in bf16 take the K10 route their width
 gives: the cluster tensor-core route up to H = 384 (its launch within the
 card's limits), the narrow route's clusters at ``las_medium.yml``'s 512, the persistent
 grid at ``las_large.yml``'s 1024.
 """
 
+import dataclasses
 import glob
 import os
 
@@ -24,6 +26,7 @@ import torch
 
 from speech_recognition_tpu_torch.configs import (ConformerConfig, DataConfig, DeepSpeechConfig, LASConfig,
                                                   TransducerConfig, get_model_config)
+from speech_recognition_tpu_torch.models.moe import capacity
 from speech_recognition_tpu_torch.ops.attention import ROUTE_TENSOR_CORE, mhsa_plan
 from speech_recognition_tpu_torch.ops.beam_search import SMEM_LIMIT, beams_per_block, step_smem_bytes
 from speech_recognition_tpu_torch.ops.joint_planes import MAX_J, ROUTE_TILE_PASS, joint_fwd_plan
@@ -34,9 +37,8 @@ from speech_recognition_tpu_torch.run.common import create_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(ROOT, "resources", "configs")
-MODEL_CONFIGS = ["conformer_small.yml", "deepspeech.yml", "las_large.yml", "las_medium.yml", "las_small.yml",
-                 "transducer_small.yml", "transducer_small_dense.yml", "transducer_small_pruned.yml"]
-REFUSED = ["deepspeech_moe.yml"]  # until MoE is ported (ROADMAP Queue 1)
+MODEL_CONFIGS = ["conformer_small.yml", "deepspeech.yml", "deepspeech_moe.yml", "las_large.yml", "las_medium.yml",
+                 "las_small.yml", "transducer_small.yml", "transducer_small_dense.yml", "transducer_small_pruned.yml"]
 B, FRAMES, BEAM, TSD_ROUNDS_K = 128, 1024, 8, 8 + 3  # the TSD beam's joint rounds take the top-(beam + 3)
 
 
@@ -56,7 +58,7 @@ def test_the_lists_name_every_shipped_model_config():
         with open(path) as f:
             if "model_name" in f.read():
                 model.append(os.path.basename(path))
-    assert sorted(MODEL_CONFIGS + REFUSED) == model
+    assert sorted(MODEL_CONFIGS) == model
 
 
 def check_recurrent(rnn_type, H):
@@ -112,6 +114,8 @@ def test_shipped_config_passes_every_kernel_check(name):
         assert T == 108
         check_recurrent(cfg.rnn_type, cfg.hidden_dim)
         check_ctc(B * T, 2 * cfg.hidden_dim, cfg.vocab_size)
+        if cfg.moe_experts:
+            check_moe(cfg, B * T)
     elif isinstance(cfg, ConformerConfig):
         check_encoder(cfg.num_attention_heads, cfg.encoder_dim)
         check_ctc(B * 255, cfg.encoder_dim, cfg.vocab_size)
@@ -120,12 +124,21 @@ def test_shipped_config_passes_every_kernel_check(name):
         check_transducer(cfg, L)
 
 
-@pytest.mark.parametrize("name", REFUSED)
-def test_unported_config_is_refused(name):
-    cfg = get_model_config(os.path.join(CONFIGS, name))
-    dc = data_config()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_model(cfg, dc, torch.float32, torch.device("cpu"))
+def check_moe(cfg, n_tokens):
+    """The index form's buffers at the main path's shape: [E, C, 2H] dispatch, [E, C, hidden] activations."""
+    C = capacity(n_tokens, cfg.moe_experts, cfg.moe_k, cfg.moe_capacity_factor)
+    hidden = cfg.moe_hidden_dim or 8 * cfg.hidden_dim
+    assert cfg.moe_experts * C >= n_tokens * cfg.moe_k and C <= n_tokens
+    assert cfg.moe_experts * C * hidden * 2 < 2 ** 31  # the bf16 activations of a layer's experts, in bytes
+
+
+def test_moe_config_builds_its_trunk():
+    cfg = get_model_config(os.path.join(CONFIGS, "deepspeech_moe.yml"))
+    assert capacity(B * 108, cfg.moe_experts, cfg.moe_k, cfg.moe_capacity_factor) == 2160
+    small = dataclasses.replace(cfg, hidden_dim=8, moe_hidden_dim=16, vocab_size=32, channels=[2, 2, 2])
+    model = create_model(small, data_config(), torch.float32, torch.device("cpu"))
+    layers = [k for k in model.state_dict() if ".moe" in k]
+    assert len(layers) == 5 * cfg.num_reccurent_layers and model.recurrent.moe6.w_in.shape == (8, 16, 16)
 
 
 def test_las_large_needs_the_wide_recurrent_route_and_split_beam_blocks():
@@ -154,8 +167,8 @@ def recurrent_layers(cfg):
     return []
 
 
-RECURRENT_CONFIGS = ["deepspeech.yml", "las_large.yml", "las_medium.yml", "las_small.yml", "transducer_small.yml",
-                     "transducer_small_dense.yml", "transducer_small_pruned.yml"]
+RECURRENT_CONFIGS = ["deepspeech.yml", "deepspeech_moe.yml", "las_large.yml", "las_medium.yml", "las_small.yml",
+                     "transducer_small.yml", "transducer_small_dense.yml", "transducer_small_pruned.yml"]
 
 
 def test_the_recurrent_list_names_every_config_with_recurrent_layers():

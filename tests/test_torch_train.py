@@ -22,11 +22,11 @@ run/train.py) vs the JAX package, float32 on the CPU.
   lr <= 1e-3).
 - The ``run.train`` CLI on the tests/data fixtures writes a ``.pt`` that the
   port's ``run.inference`` loads and decodes with; options whose paths are
-  not ported raise.
+  not ported raise (SpecAugment and the on-device frontend run:
+  tests/test_torch_spec_augment.py).
 """
 
 import csv
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -264,16 +264,11 @@ def test_train_cli_parses_the_jax_flags():
 
 @pytest.mark.parametrize("override", [
     dict(model_parallel=2), dict(fsdp=True), dict(coordinator_address="localhost:1234"),
-    dict(on_device_frontend=True), dict(use_tfrecord=True), dict(auto_resume=True), dict(grad_accum_steps=2),
-    dict(bucket_boundaries="64,128"), dict(profile_steps=2), "spec_augment",
+    dict(use_tfrecord=True), dict(auto_resume=True), dict(grad_accum_steps=2),
+    dict(bucket_boundaries="64,128"), dict(profile_steps=2),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, override):
-    if override == "spec_augment":
-        cfg = _train_config(tmp_path)
-        cfg.data_config = dataclasses.replace(
-            cfg.data_config, spec_augment=dataclasses.replace(cfg.data_config.spec_augment, enable=True))
-    else:
-        cfg = _train_config(tmp_path, **override)
+    cfg = _train_config(tmp_path, **override)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_cli.main(cfg)
     assert not (tmp_path / "out").exists()

@@ -15,7 +15,9 @@ package, float32 on the CPU, at 2 blocks, D=64, J=48, V=256, T'=39, U+1=9.
   the joint kernel scaled x8 (peaked logits: no argmax on a near-tie):
   tokens equal, probabilities rtol 1e-4.
 - ``cell_step`` for the LSTM, GRU and simple cells: equal to JAX's within atol 1e-6.
-- Training dropout draws its masks from the generator; ``remat`` raises.
+- Training dropout draws its masks from the generator; ``remat`` builds, and
+  its step at dropout 0.2 gives the loss and gradients of the step without
+  it, bit for bit, dense and pruned.
 """
 
 import dataclasses
@@ -209,5 +211,26 @@ def test_training_dropout_and_config():
         evaluated = port(t_in)["pred_proj"]
     assert torch.equal(runs[0], runs[1]) and not torch.allclose(runs[0], runs[2])
     assert not torch.allclose(runs[0], evaluated)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Transducer(dataclasses.replace(config, remat=True), FREQ, CHANNELS)
+    remat = Transducer(dataclasses.replace(config, remat=True), FREQ, CHANNELS)  # remat is ported: it builds
+    assert remat.remat and set(remat.state_dict()) == set(port.state_dict())
+
+
+@pytest.mark.parametrize("pruned", [0, 2])
+def test_remat_gives_the_loss_and_gradients_of_no_remat(pruned):
+    """At dropout 0.2 the remat step recomputes each encoder block with the seeds its forward drew:
+    the loss and every gradient equal the step without remat, bit for bit."""
+    config = dataclasses.replace(get_model_config(TEST_TRANSDUCER_CONFIG),
+                                 **{**SMALL, "pruned_range": pruned, "dropout": 0.2})
+    _, t_in, _, t_y = _inputs(*_batch())
+
+    def loss_and_grads(remat):
+        port = Transducer(dataclasses.replace(config, remat=remat), FREQ, CHANNELS,
+                          generator=torch.Generator().manual_seed(0))
+        loss = port.get_loss_fn()(t_y, port(t_in, True, torch.Generator().manual_seed(7)))
+        loss.backward()
+        return loss.detach(), {k: p.grad for k, p in port.named_parameters()}
+
+    (loss, grads), (r_loss, r_grads) = loss_and_grads(False), loss_and_grads(True)
+    assert torch.equal(loss, r_loss) and grads.keys() == r_grads.keys()
+    for name, g in grads.items():
+        assert (g is None and r_grads[name] is None) or torch.equal(g, r_grads[name]), name

@@ -22,8 +22,8 @@ from speech_recognition_tpu_torch.configs import LASConfig
 from speech_recognition_tpu_torch.models import LAS
 from speech_recognition_tpu_torch.weights import params_from_jax
 
-from .const import (REPO_ROOT, SP_MODEL_LIBRI, TEST_CONFORMER_CONFIG, TEST_DATA_DIR, TEST_LAS_CONFIG,
-                    TEST_TRANSDUCER_PRUNED_CONFIG, WAV_DATASET_PATH)
+from .const import (REPO_ROOT, SP_MODEL_LIBRI, TEST_CONFORMER_CONFIG, TEST_DATA_DIR, TEST_DS_MOE_CONFIG,
+                    TEST_LAS_CONFIG, TEST_TRANSDUCER_PRUNED_CONFIG, WAV_DATASET_PATH)
 
 V, H, ENC_LAYERS, DEC_LAYERS, FREQ, CHANNELS = 64, 16, 1, 2, 10, 3
 BOS, EOS = 2, 3
@@ -100,7 +100,9 @@ def test_port_imports_no_jax(tmp_path):
     ``run.inference`` and scores the tsv fixture through ``run.evaluate`` with a
     LAS mini checkpoint, and trains one step through
     ``run.train`` of the LAS, Conformer and pruned RNN-Transducer mini configs,
-    all on the CPU.  The transducer's modules (``models/transducer.py``,
+    of LAS with SpecAugment (the warp and both masks) in the on-device
+    frontend, and of the DeepSpeech2-MoE mini config, all on the CPU.
+    The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
     code = r"""
 import importlib, pkgutil, sys
@@ -116,14 +118,14 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
-             "run.evaluate"):
+             "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
 from speech_recognition_tpu_torch.run import evaluate, inference, train
 from speech_recognition_tpu_torch.run.common import create_model
 
-out, data_config, las_config, conformer_config, transducer_config, sp_model, tsv, wav = sys.argv[1:]
+out, data_config, las_config, conformer_config, transducer_config, moe_config, sp_model, tsv, wav = sys.argv[1:]
 model = create_model(get_model_config(las_config), DataConfig.from_yaml(data_config), torch.float32,
                      torch.device("cpu"), generator=torch.Generator().manual_seed(0))
 torch.save(model.state_dict(), out + "/las.pt")
@@ -135,25 +137,32 @@ assert evaluate.main(evaluate.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--dataset-paths", tsv, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/scored.tsv", "--batch-size", "2",
     "--device", "CPU"])) == 0
+import dataclasses
 steps = []
-for model_config in (las_config, conformer_config, transducer_config):
-    records = train.main(TrainConfig(
+for model_config, spec_augment in ((las_config, False), (conformer_config, False), (transducer_config, False),
+                                   (las_config, True), (moe_config, False)):
+    cfg = TrainConfig(
         data_config=data_config, model_config=model_config, sp_model_path=sp_model, train_dataset_paths=tsv,
         dev_dataset_paths=tsv, train_dataset_size=2, output_path=out + "/train", epochs=1, steps_per_epoch=1,
         learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
-        device="CPU", seed=1))
+        device="CPU", seed=1, on_device_frontend=spec_augment)
+    if spec_augment:  # the warp and both masks, in the on-device frontend
+        cfg.data_config = dataclasses.replace(cfg.data_config, spec_augment=dataclasses.replace(
+            cfg.data_config.spec_augment, enable=True, W=5))
+    records = train.main(cfg)
     steps.append(records[0]["steps"])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names), sum(steps))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     args = [str(tmp_path), f"{TEST_DATA_DIR}/mini_data_config.yml", TEST_LAS_CONFIG, TEST_CONFORMER_CONFIG,
-            TEST_TRANSDUCER_PRUNED_CONFIG, SP_MODEL_LIBRI, WAV_DATASET_PATH, f"{TEST_DATA_DIR}/audio_files/test.wav"]
+            TEST_TRANSDUCER_PRUNED_CONFIG, TEST_DS_MOE_CONFIG, SP_MODEL_LIBRI, WAV_DATASET_PATH,
+            f"{TEST_DATA_DIR}/audio_files/test.wav"]
     out = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO_ROOT, env=env, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stderr
     n_modules, steps = out.stdout.split()[-2:]
-    assert int(n_modules) >= 30 and int(steps) == 3
+    assert int(n_modules) >= 30 and int(steps) == 5
     assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
     assert (tmp_path / "scored.tsv").read_text().startswith("Prediction\tTarget\tWER\tCER")
 
