@@ -70,6 +70,25 @@ Phases, in order; any failure exits non-zero without printing a result:
    ``check_spec_augment_apply``), zero-width draws without a warp against
    the frontend without SpecAugment bit for bit, and the train-side
    frontend's ms per batch is printed plain, masks only and with the warp;
+   then (4d) the JAX CLIs' remaining host options on LAS-small: ``run.make_tfrecord``
+   over TSVs mixing 128 of the 1024-frame clips with 128 seeded 512-frame ones
+   (timed), ``run.train --use-tfrecord --grad-accum-steps 2 --bucket-boundaries
+   512,1024 --profile-steps 2`` for 4 micro-steps and a dev pass (K2 / K3 on the
+   split route at both buckets' listener lengths, S = 127 and 255; K10 3 times a
+   dev batch; the trace under ``<output>/profile``; the accumulation's log
+   line), ``run.train --auto-resume --epochs 2`` on the same output (the resume
+   logged with skip_epochs = 1, the epoch-2 checkpoint) and ``run.evaluate
+   --use-tfrecord`` greedy on the dev records, then two accumulated micro-steps
+   timed against two plain steps in turns; then (4e) LAS-small with ``rnn_type:
+   gru`` (the config written in the run's temporary directory): ``run.train``
+   with the on-device frontend (K1 counted, K2 / K3 not launched: the speller
+   loop is plain, as JAX's scan; K10 3 times on the cluster tensor-core route),
+   ``run.inference`` greedy and beam-8 (K5 1 + the beam loop's steps, each loop
+   stopping where the XLA loop's condition fails) and ``run.evaluate`` greedy;
+   the train step's and the decodes' ms, a float32 step against the plain path,
+   the float32 decodes against the plain K10 and K5 (the beam per step and free
+   running); and LAS-large's widths with ``rnn_type: gru`` decoded greedy (K10 4
+   times on the persistent route);
 5. DeepSpeech2 (``resources/configs/deepspeech.yml``) through ``run.train``:
    the same 256 clips with transcripts of at most 48 tokens (so every CTC
    row is feasible at T' = 108), ``--mixed-precision --device GPU
@@ -81,7 +100,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    1024 after each BiGRU layer) the same way, K6 and K10 counted, its step's
    ms and peak memory beside DS2's, and the index MoE against the one-hot
    einsum form at one layer's shape (``check_moe_forms``: outputs bit for
-   bit, each form's ms and memory);
+   bit, each form's ms and memory); then (5c) DeepSpeech2 with ``rnn_type: rnn`` and
+   ``recurrent_dropout: 0.1`` through ``run.train`` with the on-device frontend
+   (K6 counted, the losses finite) and ``run.inference`` greedy and beam-8 (K10
+   not launched: no kernel takes the simple RNN, in either package), its step
+   timed;
 6. Conformer-S (``resources/configs/conformer_small.yml``) through
    ``run.train`` on the same clips and transcripts, ``--mixed-precision
    --device GPU --batch-size 128`` for a few steps and a dev pass, after K7's
@@ -124,7 +147,8 @@ Phases, in order; any failure exits non-zero without printing a result:
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
 prediction net shapes and LAS-large's listener (H = 1024, the persistent
-route), bf16 and float32, with cuDNN's ``torch.nn.GRU`` / ``LSTM`` as its
+route), and the GRU at LAS-small's and LAS-large's listener widths (H = 256
+and 1024), bf16 and float32, with cuDNN's ``torch.nn.GRU`` / ``LSTM`` as its
 yardstick, two bf16 launches bit for bit, and µs a step beside the H = 8
 floor) runs every no-grad recurrent layer: its counter is held to one launch
 per layer per call in phases 3 (LAS decodes: 3; LAS-large: 4), 4 (the LAS
@@ -159,6 +183,8 @@ N_DEC, S_ENC = L - 1, 255  # decoder positions and listener frames at 1024 input
 TRAIN_CLIPS, TRAIN_STEPS, TIMED_STEPS = 256, 4, 5
 FRAMES = 1024
 SAMPLES = (FRAMES - 1) * 160 + 320  # 1024 frames of the libri config (frame 320, step 160) at 16 kHz
+SHORT_FRAMES, S_SHORT = 512, 127  # phase 4d's short clips (the 512-frame bucket) and their listener frames
+SHORT_SAMPLES = (SHORT_FRAMES - 1) * 160 + 320
 T_DS2, DS2_MAX_TOKENS = 108, 48  # DeepSpeech2's frames after its convs (1024 -> 492 -> 236 -> 108); label cap
 T_CONF, CONF_BLOCKS = 255, 16  # Conformer-S: frames after its stem (1024 -> 511 -> 255; blocks at 256), depth
 U1_RNNT, J_RNNT, DENSE_B, MAX_SYMBOLS = L - 1, 320, 32, 4  # Transducer-S: label slots, joint width, dense batch, TSD rounds
@@ -1401,14 +1427,14 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
 
 
 # ---------------------------------------------------------------- phase 3
-def write_clips(wav_dir, n, gen_np):
-    """n seeded 16 kHz mono wav clips of 1024 frames (sums of tones and noise)."""
+def write_clips(wav_dir, n, gen_np, samples=SAMPLES):
+    """n seeded 16 kHz mono wav clips of 1024 frames, or ``samples`` (sums of tones and noise)."""
     os.makedirs(wav_dir)
-    t = np.arange(SAMPLES) / 16000.0
+    t = np.arange(samples) / 16000.0
     for i in range(n):
         freqs = gen_np.uniform(80, 4000, 4)
         sig = sum(np.sin(2 * np.pi * f * t + gen_np.uniform(0, 6.28)) for f in freqs) / 8
-        sig = sig + 0.05 * gen_np.standard_normal(SAMPLES)
+        sig = sig + 0.05 * gen_np.standard_normal(samples)
         with wave.open(os.path.join(wav_dir, f"clip{i:03d}.wav"), "wb") as w:
             w.setnchannels(1)
             w.setsampwidth(2)
@@ -1720,8 +1746,8 @@ def write_train_inputs(tmp, gen_np):
     return wav_dir, paths
 
 
-def train_args(tmp, paths, data_config, model_config="las_small.yml", out="train_out", batch=B):
-    return ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
+def train_args(tmp, paths, data_config, model_config="las_small.yml", out="train_out", batch=B, flags=()):
+    return [*flags, "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs", model_config),
             "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
             "--train-dataset-paths", paths["train"], "--dev-dataset-paths", paths["dev"],
             "--train-dataset-size", str(TRAIN_CLIPS), "--output-path", os.path.join(tmp, out),
@@ -1824,6 +1850,403 @@ def run_las_large_train(tmp, wav_dir, paths, data_config):
     return {"las_decoder_bwd_large": launches}
 
 
+# ---------------------------------------------------------------- phase 4d
+class LogLines:
+    """The lines the ``train`` logger writes while active (a handler of its own; run.train's goes to stdout)."""
+
+    def __enter__(self):
+        import io
+        import logging
+
+        self.buffer, self.handler = io.StringIO(), logging.StreamHandler()
+        self.handler.setStream(self.buffer)
+        logging.getLogger("train").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("train").removeHandler(self.handler)
+
+    def text(self):
+        return self.buffer.getvalue()
+
+
+def write_host_option_inputs(tmp, paths, gen_np):
+    """128 seeded 512-frame clips beside 128 of phase 4's 1024-frame ones, and TSVs that mix them: train (all
+    256) and dev (64 of each)."""
+    write_clips(os.path.join(tmp, "short_wavs"), B, gen_np, samples=SHORT_SAMPLES)
+    with open(paths["train"]) as f:
+        long_rows = f.read().splitlines()[1:B + 1]
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    short_rows = [f"short_wavs/clip{i:03d}.wav\t" + " ".join(
+        "".join(gen_np.choice(letters, gen_np.integers(2, 9))) for _ in range(gen_np.integers(5, 16)))
+        for i in range(B)]
+    tsvs = {}
+    for name, rows in (("train", long_rows + short_rows), ("dev", long_rows[:B // 2] + short_rows[:B // 2])):
+        tsvs[name] = os.path.join(tmp, f"hostopt_{name}.tsv")
+        with open(tsvs[name], "w") as f:
+            f.write("FilePath\tText\n" + "".join(r + "\n" for r in rows))
+    return tsvs
+
+
+class ShapeSpy:
+    """Wraps K2 and K3 where ops/decoder.py calls them, recording each launch's listener length S."""
+
+    def __enter__(self):
+        import speech_recognition_tpu_torch.ops.decoder as dec_mod
+
+        self.mod, self.real, self.S = dec_mod, (dec_mod.decoder_fwd, dec_mod.decoder_bwd), {"K2": [], "K3": []}
+
+        def spy(fn, name, pk_arg):
+            def run(*args):
+                self.S[name].append(args[pk_arg].shape[1])
+                return fn(*args)
+
+            return run
+
+        dec_mod.decoder_fwd, dec_mod.decoder_bwd = spy(self.real[0], "K2", 2), spy(self.real[1], "K3", 6)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decoder_fwd, self.mod.decoder_bwd = self.real
+
+
+def run_host_options(tmp, paths, data_config, gen_np, las_cfg):
+    """Phase 4d: the JAX CLIs' remaining host options on LSTM LAS-small, bf16, B=128.  ``run.make_tfrecord``
+    over TSVs mixing 1024- and 512-frame clips (timed); ``run.train --use-tfrecord --grad-accum-steps 2
+    --bucket-boundaries 512,1024 --profile-steps 2`` for 4 steps (2 updates) and a dev pass, with K1, K2, K3
+    and K10 counted: K2 / K3 on the split route at both buckets' listener lengths (S = 127 and 255), K10 3 times
+    a dev batch (2: a bucket each), the losses finite, a trace under ``<output>/profile`` and the accumulation's
+    log line; then ``run.train --auto-resume --epochs 2`` on the same output (the resume logged with
+    skip_epochs = 1, the epoch-2 checkpoint written) and ``run.evaluate --use-tfrecord`` greedy on the dev
+    records (128 rows, K10 3 times).  Returns the launches."""
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.ops.ce_vocab import ce_bwd, ce_fwd
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.run import evaluate, make_tfrecord, train
+
+    tsvs = write_host_option_inputs(tmp, paths, gen_np)
+    rec_dir = os.path.join(tmp, "records")
+    os.makedirs(rec_dir)
+    sp = os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model")
+    t0 = time.perf_counter()
+    written = make_tfrecord.main(make_tfrecord.parser.parse_args([
+        "--data-config", data_config, "--dataset-paths", os.path.join(tmp, "hostopt_*.tsv"), "--output-dir", rec_dir,
+        "--sp-model-path", sp]))
+    secs = time.perf_counter() - t0
+    records = {name: os.path.join(rec_dir, f"hostopt_{name}.tfrecord") for name in tsvs}
+    size = sum(os.path.getsize(p) for p in records.values()) / 2**20
+    print(f"  run.make_tfrecord: {TRAIN_CLIPS + B} clips (half 1024, half 512 frames) into {len(written)} files "
+          f"of {size:.1f} MiB in {secs:.2f} s ({(TRAIN_CLIPS + B) / secs:.1f} clips/s)")
+    check(sorted(written) == sorted(records.values()), f"run.make_tfrecord wrote {written}")
+
+    args = train_args(tmp, records, data_config, out="hostopt_out") + [
+        "--use-tfrecord", "--grad-accum-steps", "2", "--bucket-boundaries", f"{SHORT_FRAMES},{FRAMES}",
+        "--profile-steps", "2"]
+    cfg = TrainConfig(**vars(train.parser.parse_args(args)))
+    counted = {"ce_vocab_fwd": ce_fwd, "ce_vocab_bwd": ce_bwd, "las_decoder_fwd": decoder_fwd,
+               "las_decoder_bwd": decoder_bwd, "rnn_sequence_lstm": rnn_sequence}
+    for fn in counted.values():
+        fn.launches = 0
+    decoder_fwd.tc_launches = decoder_bwd.tc_launches = rnn_sequence.cluster_tc_launches = 0
+    t0 = time.perf_counter()
+    with LogLines() as log, ShapeSpy() as shapes:
+        (rec,) = train.main(cfg)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"  run.train --use-tfrecord --grad-accum-steps 2 --bucket-boundaries {SHORT_FRAMES},{FRAMES} "
+          f"--profile-steps 2: {time.perf_counter() - t0:.1f} s for {TRAIN_STEPS} steps + a dev pass; loss "
+          f"{rec['loss']:.4f}, dev loss {rec['val_loss']:.4f}; launches {launches}; K2 S {shapes.S['K2']}, K3 S "
+          f"{shapes.S['K3']}")
+    check(all(n > 0 for n in launches.values()), f"host options: K1 / K2 / K3 / K10 launched {launches}")
+    check_decoder_routes("the host-options training run")
+    check(set(shapes.S["K2"]) == set(shapes.S["K3"]) == {S_SHORT, S_ENC},
+          f"host options: K2 and K3 ran at both buckets' listener lengths (K2 {sorted(set(shapes.S['K2']))}, "
+          f"K3 {sorted(set(shapes.S['K3']))}; expected {S_SHORT} and {S_ENC})")
+    check(launches["rnn_sequence_lstm"] == 2 * LAS_LAYERS,
+          f"host options: K10 launched {launches['rnn_sequence_lstm']} times in the dev pass (2 bucketed batches; "
+          f"expected {2 * LAS_LAYERS})")
+    check_k10_route("the host-options dev pass")
+    check(rec["steps"] == TRAIN_STEPS and all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")),
+          f"host options: {rec['steps']} steps, train and dev loss finite")
+    trace = os.path.join(cfg.output_path, "profile", "trace.json")
+    check(os.path.exists(trace) and os.path.getsize(trace) > 0, f"host options: the profiler trace {trace} written")
+    if os.path.exists(trace):
+        print(f"  the torch.profiler trace of steps 2-3: {os.path.getsize(trace) / 2**20:.1f} MiB")
+    check("[+] Gradient accumulation over 2 steps" in log.text(), "host options: the accumulation's log line")
+
+    resume = TrainConfig(**{**vars(train.parser.parse_args(train_args(tmp, records, data_config,
+                                                                      out="hostopt_out") + [
+        "--use-tfrecord", "--grad-accum-steps", "2", "--bucket-boundaries", f"{SHORT_FRAMES},{FRAMES}"])),
+        "epochs": 2, "auto_resume": True})
+    rnn_sequence.launches = 0
+    with LogLines() as log:
+        records2 = train.main(resume)
+    launches["rnn_sequence_lstm"] += rnn_sequence.launches
+    line = f"[+] Auto-resume from {rec['checkpoint']} (skip_epochs=1)"
+    check(line in log.text(), f"auto-resume: logged {line!r}")
+    check([r["epoch"] for r in records2] == [2] and "/models/model-2epoch-" in records2[0]["checkpoint"]
+          and os.path.exists(records2[0]["checkpoint"]), f"auto-resume: epoch 2 only, its checkpoint written "
+                                                         f"({[r['checkpoint'] for r in records2]})")
+
+    rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
+    out = os.path.join(tmp, "eval_tfrecord.tsv")
+    rc = evaluate.main(evaluate.parser.parse_args([
+        "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
+        "--dataset-paths", records["dev"], "--model-path", records2[0]["checkpoint"], "--sp-model-path", sp,
+        "--output-path", out, "--batch-size", str(B), "--mixed-precision", "--device", "GPU", "--use-tfrecord"]))
+    with open(out) as f:
+        scored = f.read().splitlines()
+    check(rc == 0 and len(scored) == B + 1, f"run.evaluate --use-tfrecord: exit {rc}, {len(scored) - 1} rows "
+                                            f"(expected {B})")
+    check(rnn_sequence.launches == LAS_LAYERS, f"run.evaluate --use-tfrecord: K10 launched {rnn_sequence.launches} "
+                                               f"times for the one batch (expected {LAS_LAYERS})")
+    check_k10_route("run.evaluate --use-tfrecord")
+    launches["rnn_sequence_lstm"] += rnn_sequence.launches
+    time_accumulation(las_cfg)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 4e
+def write_model_variant(tmp, config, **changes):
+    """A copy of ``resources/configs/<config>`` with ``changes``, in the run's temporary directory."""
+    import yaml
+
+    with open(os.path.join(REPO, "resources/configs", config)) as f:
+        raw = yaml.safe_load(f)
+    path = os.path.join(tmp, config.replace(".yml", "_" + "_".join(f"{k}-{v}" for k, v in changes.items()) + ".yml"))
+    with open(path, "w") as f:
+        yaml.safe_dump({**raw, **changes}, f)
+    return path
+
+
+class BeamSteps:
+    """Records the steps each LAS beam loop of a GRU / RNN speller ran after its first (``_beam_steps``), and
+    whether it stopped where the XLA loop's condition fails: every beam ended, or the last position reached."""
+
+    def __enter__(self):
+        from speech_recognition_tpu_torch.search import LASSearcher
+
+        self.cls, self.real, self.steps, self.stopped_right = LASSearcher, LASSearcher._beam_steps, [], True
+
+        def run(searcher, *args):
+            tokens, logp = self.real(searcher, *args)
+            self.steps.append(searcher.steps_run)
+            all_ended = bool((tokens == 2).any(dim=-1).all())  # the libri sentencepiece model's eos 2
+            self.stopped_right &= all_ended or searcher.steps_run == L - 2
+            return tokens, logp
+
+        LASSearcher._beam_steps = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._beam_steps = self.real
+
+
+def time_las_decodes(config, weights, audio, audio_s, tag):
+    """bf16 greedy and beam-8 ms per batch of the LAS model of ``config`` on ``audio`` (CUDA events around one
+    searcher call after a warm-up call), tokens in the vocab and perplexity >= 1."""
+    import torch
+
+    from speech_recognition_tpu_torch.run.common import load_weights
+    from speech_recognition_tpu_torch.search import LASSearcher
+
+    model, _, _ = las_model(torch.bfloat16, "cuda", torch.Generator().manual_seed(0), config=config)
+    load_weights(model, weights)
+    searcher = LASSearcher(model, L, 1, 2)
+    times = {}
+    for name, fn in (("greedy", lambda: searcher.greedy_search(audio)),
+                     ("beam8", lambda: searcher.beam_search(audio, BEAM))):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tok, ppl = fn()
+        end.record()
+        end.synchronize()
+        times[name] = ms = start.elapsed_time(end)
+        check(bool((ppl >= 1).all()) and bool((tok >= 0).all()) and bool((tok < 16000).all()),
+              f"{tag} {name}: tokens in the vocab, perplexity >= 1 and not NaN")
+        print(f"  decode {tag} {name} bf16 B={B}: {ms:.2f} ms per batch ({searcher.steps_run} steps after the "
+              f"first), RTF {ms / 1000 / audio_s:.3e}")
+    del model, searcher
+    return times
+
+
+def check_f32_plain_speller_decode(config, weights, audio, tag):
+    """float32 greedy and beam-8 of a GRU-speller LAS on ``audio`` (8 clips' host features), K10 and K5 against
+    their plain versions.  Beam-8 per step: from the kernel run's own beams each step, K5 and its plain version
+    on the same hidden rows, the share of slots whose history agrees >= 0.99 and logP rtol 1e-4 / atol 1e-3 where
+    they agree (phase 3's per-step gate); then both searches run free, tokens equal in >= 99% of the slots."""
+    import torch
+
+    import speech_recognition_tpu_torch.search as search_mod
+    from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+    from speech_recognition_tpu_torch.ops import vocab_topk as vt_mod
+    from speech_recognition_tpu_torch.ops.beam_search import _initial_flags, beam_update
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence_plain
+    from speech_recognition_tpu_torch.run.common import load_weights
+    from speech_recognition_tpu_torch.search import LASSearcher
+
+    model, _, _ = las_model(torch.float32, "cuda", torch.Generator().manual_seed(0), config=config)
+    load_weights(model, weights)
+    searcher = LASSearcher(model, L, 1, 2)
+    n = audio.shape[0]
+    with torch.no_grad():
+        emb, qw, qb, cells, vw, vb = searcher.decoder_params()
+        enc_out, keys, mask, states = searcher._encode(audio)
+        bos = torch.full((n,), 1, dtype=torch.long, device=audio.device)
+        hidden, states = model.decode_step_hidden(enc_out, keys, bos, mask, states)
+        top, first, lse = vt_mod.vocab_topk_plain(hidden, vw, vb, BEAM, vt_mod.ROUND_NONE)
+        tokens = torch.zeros(n, BEAM, L, dtype=torch.long, device=audio.device)
+        tokens[:, :, 0], tokens[:, :, 1] = 1, first
+        logp, states = top - lse[:, None], tuple(s.repeat_interleave(BEAM, 0) for s in states)
+        ended, eoslen = _initial_flags(tokens, 2)
+        kept = total = 0
+        lp_err, lp_ok = 0.0, True
+        for step in range(2, L):
+            if bool(ended.all()):
+                break
+            hidden, states = model.decode_step_beam_hidden(enc_out, keys, tokens[:, :, step - 1], mask, states)
+            k = beam_update(*vt_mod.vocab_topk(hidden, vw, vb, BEAM, vt_mod.ROUND_NONE), tokens, logp, ended, eoslen,
+                            step, 2, 0, 1.0, 32)
+            p = beam_update(*vt_mod.vocab_topk_plain(hidden, vw, vb, BEAM, vt_mod.ROUND_NONE), tokens, logp, ended,
+                            eoslen, step, 2, 0, 1.0, 32)
+            same = (k[0] == p[0]).all(dim=-1)
+            kept, total = kept + int(same.sum()), total + same.numel()
+            if bool(same.any()):
+                lp_err = max(lp_err, (k[1] - p[1])[same].abs().max().item())
+                lp_ok &= torch.allclose(k[1][same], p[1][same], rtol=1e-4, atol=1e-3)
+            tokens, logp, ended, eoslen = k
+    check(kept >= 0.99 * total, f"{tag} float32 beam-8 per step (K5 vs plain): slots with the plain step's history "
+                                f"{kept / max(total, 1):.5f} >= 0.99 ({step - 1} steps)")
+    check(lp_ok, f"{tag} float32 beam-8 per step: logP rtol 1e-4 / atol 1e-3 where the slots agree (max abs err "
+                 f"{lp_err:.3g})")
+    g_k, _ = searcher.greedy_search(audio)
+    b_k, _ = searcher.beam_search(audio, BEAM)
+    orig = (search_mod.vocab_topk, rnn_mod.rnn_sequence)
+    search_mod.vocab_topk, rnn_mod.rnn_sequence = vt_mod.vocab_topk_plain, rnn_sequence_plain
+    try:
+        g_p, _ = searcher.greedy_search(audio)
+        b_p, _ = searcher.beam_search(audio, BEAM)
+    finally:
+        search_mod.vocab_topk, rnn_mod.rnn_sequence = orig
+    g_eq, b_eq = (g_k == g_p).float().mean().item(), (b_k == b_p).float().mean().item()
+    check(g_eq >= 0.99, f"{tag} float32 greedy (K10) vs plain on {n} clips: tokens equal {g_eq:.4f} >= 0.99")
+    check(b_eq >= 0.99, f"{tag} float32 beam-8 (K10, K5) vs plain on {n} clips, free-running: tokens equal "
+                        f"{b_eq:.4f} >= 0.99")
+    del model, searcher
+
+
+def run_gru_las(tmp, train_wavs, paths, data_config, host_audio, audio_s):
+    """Phase 4e: LAS-small with ``rnn_type: gru`` (``las_small.yml`` with that key changed, written here).
+    ``run.train`` bf16, B=128, with the on-device frontend, a few steps and a dev pass: K1 counted, K2 and K3 not launched (JAX's speller loop
+    for a GRU is a plain scan), K10 3 times in the dev pass on the cluster tensor-core route.  Its checkpoint
+    through ``run.inference`` greedy and beam-8 (K10 3 times a call, K4 and K11 not at all, K5 1 + the loop's
+    steps in beam-8, each loop stopping where the XLA loop's condition fails) and ``run.evaluate`` greedy
+    (K10 3 times).  Then the train step's and the decodes' ms, one float32 train step against the plain path,
+    the float32 decodes against the plain kernels, and LAS-large's widths with ``rnn_type: gru`` through
+    ``run.inference`` greedy (K10 4 times, the persistent route).  Returns the launches."""
+    import torch
+
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    import speech_recognition_tpu_torch.ops.ce_vocab as ce_mod
+    from speech_recognition_tpu_torch.ops import rnn as rnn_mod
+    from speech_recognition_tpu_torch.ops.beam_search import beam_search
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence, rnn_sequence_plain
+    from speech_recognition_tpu_torch.ops.vocab_topk import vocab_topk
+    from speech_recognition_tpu_torch.run import evaluate, inference, train
+
+    config = write_model_variant(tmp, "las_small.yml", rnn_type="gru")
+    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, config, "gru_out",
+                                                                flags=["--on-device-frontend"]))))
+    counted = (ce_mod.ce_fwd, ce_mod.ce_bwd, decoder_fwd, decoder_bwd, rnn_sequence, greedy_search, beam_search,
+               vocab_topk)
+    for fn in counted:
+        fn.launches = 0
+    rnn_sequence.cluster_tc_launches = 0
+    t0 = time.perf_counter()
+    (rec,) = train.main(cfg)
+    print(f"  run.train LAS-small GRU: {time.perf_counter() - t0:.1f} s for {TRAIN_STEPS} steps + a dev pass; loss "
+          f"{rec['loss']:.4f}, dev loss {rec['val_loss']:.4f}")
+    check(ce_mod.ce_fwd.launches > 0 and ce_mod.ce_bwd.launches > 0 and decoder_fwd.launches == 0
+          and decoder_bwd.launches == 0, f"LAS-small GRU run.train: K1 launched {ce_mod.ce_fwd.launches} + "
+                                         f"{ce_mod.ce_bwd.launches} times, K2 {decoder_fwd.launches} and K3 "
+                                         f"{decoder_bwd.launches} (expected 0: a plain speller loop)")
+    check(rnn_sequence.launches == LAS_LAYERS, f"LAS-small GRU run.train: K10 launched {rnn_sequence.launches} "
+                                               f"times in the dev pass (expected {LAS_LAYERS})")
+    check_k10_route("the LAS-small GRU training run")
+    check(rec["steps"] == TRAIN_STEPS and all(np.isfinite(rec[k]) for k in ("loss", "accuracy", "val_loss")),
+          f"LAS-small GRU: {rec['steps']} steps, train and dev loss finite")
+    launches = {"ce_vocab_fwd": ce_mod.ce_fwd.launches, "ce_vocab_bwd": ce_mod.ce_bwd.launches,
+                "rnn_sequence_gru_las": rnn_sequence.launches, "vocab_topk_gru_beam": 0}
+
+    for name, beam in (("greedy", 0), ("beam8", BEAM)):
+        for fn in counted:
+            fn.launches = 0
+        rnn_sequence.cluster_tc_launches = 0
+        out = os.path.join(tmp, f"gru_{name}.tsv")
+        with BeamSteps() as beams:
+            inference.main(inference.parser.parse_args(decode_args(
+                data_config, config, os.path.join(train_wavs, "clip0*.wav"), rec["checkpoint"], out, beam)))
+        with open(out) as f:
+            n_rows = len(f.read().splitlines()) - 1
+        k5, want5 = vocab_topk.launches, (1 + sum(beams.steps)) if beam else 0
+        print(f"  run.inference LAS-small GRU {name}: {n_rows} rows; K10 {rnn_sequence.launches}, K5 {k5}"
+              + (f" = 1 + {sum(beams.steps)} steps of the beam loop" if beam else ""))
+        check(n_rows == 100 and rnn_sequence.launches == LAS_LAYERS and k5 == want5 and greedy_search.launches == 0
+              and beam_search.launches == 0 and len(beams.steps) == int(beam > 0) and beams.stopped_right,
+              f"LAS-small GRU {name} decode: {n_rows} rows, K10 {rnn_sequence.launches} (expected {LAS_LAYERS}), K5 "
+              f"{k5} (expected {want5}), K4 {greedy_search.launches} and K11 {beam_search.launches} (expected 0), "
+              f"the beam loop stopped where the XLA loop stops: {beams.stopped_right}")
+        check_k10_route(f"the LAS-small GRU {name} decode")
+        launches["rnn_sequence_gru_las"] += rnn_sequence.launches
+        launches["vocab_topk_gru_beam"] += k5
+
+    rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
+    out = os.path.join(tmp, "gru_eval.tsv")
+    rc = evaluate.main(evaluate.parser.parse_args([
+        "--data-config", data_config, "--model-config", config, "--dataset-paths", paths["dev"],
+        "--model-path", rec["checkpoint"], "--sp-model-path",
+        os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"), "--output-path", out,
+        "--batch-size", str(B), "--mixed-precision", "--device", "GPU"]))
+    with open(out) as f:
+        scored = f.read().splitlines()
+    check(rc == 0 and len(scored) == B + 1 and rnn_sequence.launches == LAS_LAYERS,
+          f"run.evaluate LAS-small GRU greedy: exit {rc}, {len(scored) - 1} rows (expected {B}), K10 "
+          f"{rnn_sequence.launches} (expected {LAS_LAYERS})")
+    check_k10_route("run.evaluate LAS-small GRU")
+    launches["rnn_sequence_gru_las"] += rnn_sequence.launches
+
+    time_train_step(cfg, "LAS-small GRU (N=127, the plain speller loop)")
+    time_las_decodes(config, rec["checkpoint"], host_audio, audio_s, "LAS-small GRU")
+    check_train_f32(cfg, [(ce_mod, "ce_fwd", ce_mod.ce_fwd_plain), (ce_mod, "ce_bwd", ce_mod.ce_bwd_plain),
+                          (rnn_mod, "rnn_sequence", rnn_sequence_plain)], "LAS-small GRU")
+    check_f32_plain_speller_decode(config, rec["checkpoint"], host_audio[:8], "LAS-small GRU")
+
+    large = write_model_variant(tmp, "las_large.yml", rnn_type="gru")
+    model, _, _ = las_model(torch.float32, "cpu", torch.Generator().manual_seed(6), vocab_scale=8.0, config=large)
+    weights = os.path.join(tmp, "las_large_gru.pt")
+    torch.save(model.state_dict(), weights)
+    del model
+    rnn_sequence.launches = rnn_sequence.persistent_launches = 0
+    out = os.path.join(tmp, "gru_large_greedy.tsv")
+    t0 = time.perf_counter()
+    inference.main(inference.parser.parse_args(decode_args(
+        data_config, large, os.path.join(train_wavs, "clip0*.wav"), weights, out, 0)))
+    with open(out) as f:
+        n_rows = len(f.read().splitlines()) - 1
+    print(f"  run.inference LAS-large GRU greedy: {n_rows} rows in {time.perf_counter() - t0:.1f} s")
+    check(n_rows == 100 and rnn_sequence.launches == rnn_sequence.persistent_launches == LAS_LARGE_LAYERS,
+          f"LAS-large GRU greedy decode: {n_rows} rows, K10 {rnn_sequence.launches} times, "
+          f"{rnn_sequence.persistent_launches} on the persistent route (expected {LAS_LARGE_LAYERS})")
+    launches["rnn_sequence_gru_wide"] = rnn_sequence.launches
+    return launches
+
+
 def token_conditioned(cfg):
     """LAS and the transducer take the tokens as decoder / prediction inputs; a CTC model does not."""
     from speech_recognition_tpu_torch.configs import LASConfig, TransducerConfig
@@ -1832,7 +2255,9 @@ def token_conditioned(cfg):
 
 
 def one_batch(cfg, n_rows):
-    """The first training batch of ``n_rows`` rows, as run.train builds it, on the card."""
+    """The first training batch of ``n_rows`` rows, as run.train builds it with host features, on the card."""
+    import copy
+
     import torch
 
     from speech_recognition_tpu_torch.data import SentencePieceTokenizer, padded_batch
@@ -1840,7 +2265,9 @@ def one_batch(cfg, n_rows):
 
     with open(cfg.sp_model_path, "rb") as f:
         tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
-    stream = build_dataset_factory(cfg, tokenizer, train=True)()
+    host_cfg = copy.copy(cfg)
+    host_cfg.on_device_frontend = None
+    stream = build_dataset_factory(host_cfg, tokenizer, train=True)()
     audio, lengths, tokens = next(padded_batch(stream, n_rows, cfg.audio_pad_length, cfg.token_pad_length,
                                                pad_to_batch=True, with_lengths=True))
     audio, lengths, tokens = (torch.from_numpy(a).cuda() for a in (audio, lengths, tokens))
@@ -1849,10 +2276,11 @@ def one_batch(cfg, n_rows):
     return (audio, lengths), tokens
 
 
-def train_setup(cfg, batch=B):
-    """A bf16 model, Adam and train step of ``cfg`` with its first batch of ``batch`` rows on the card, after
-    2 warm-up steps: (a function running one step and returning its metrics, the peak device memory of the
-    setup and those steps in GiB above what was allocated before)."""
+def train_setup(cfg, batch=B, accum_steps=1, data=None):
+    """A bf16 model, Adam and train step of ``cfg`` with its first batch of ``batch`` rows on the card (or
+    ``data``, such a batch), after 2 warm-up steps (``accum_steps`` micro-steps an update): (a function running
+    one step and returning its metrics, the peak device memory of the setup and those steps in GiB above what
+    was allocated before)."""
     import torch
 
     from speech_recognition_tpu_torch.run.common import create_model
@@ -1865,9 +2293,9 @@ def train_setup(cfg, batch=B):
     model = create_model(cfg.model_config, cfg.data_config, torch.bfloat16, torch.device("cuda"),
                          generator=torch.Generator().manual_seed(0), train=True)
     schedule = linear_warmup_decay(100, 1e-3, 1e-5, 0.0, 2)
-    state = TrainState(model, make_adam(model, schedule), schedule)
+    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum_steps)
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
-    inputs, y = one_batch(cfg, batch)
+    inputs, y = data or one_batch(cfg, batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     run = lambda: step(state, inputs, y, gen)
     for _ in range(2):
@@ -1901,6 +2329,29 @@ def time_train_step(cfg, what, batch=B):
           f"{', '.join(f'{t:.2f}' for t in times)}), {batch / (ms / 1000):.1f} utterances/s, peak device memory "
           f"{peak:.2f} GiB (model, Adam and steps)")
     return ms, batch / (ms / 1000), peak
+
+
+def time_accumulation(cfg, rounds=3):
+    """Two bf16 micro-steps with ``--grad-accum-steps 2`` (one Adam update) against two plain steps (two
+    updates), B=128, in turns, each pair between CUDA events: the medians."""
+    import torch
+
+    data = one_batch(cfg, B)
+    runs = {"accumulated (2 micro-steps)": train_setup(cfg, accum_steps=2, data=data)[0],
+            "plain (2 steps)": train_setup(cfg, data=data)[0]}
+    times = {name: [] for name in runs}
+    for r in range(rounds):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = [runs[name]() for _ in range(2)]
+            end.record()
+            end.synchronize()
+            check(all(bool(torch.isfinite(m["loss"])) for m in metrics), f"{name}: losses finite")
+            times[name].append(start.elapsed_time(end))
+    for name, t in times.items():
+        print(f"  LAS-small {name} bf16 B={B}, in turns: {float(np.median(t)):.2f} ms (median of {rounds}: "
+              f"{', '.join(f'{x:.2f}' for x in t)})")
 
 
 def time_train_steps_in_turns(cfgs, names, rounds=3):
@@ -2256,14 +2707,14 @@ def decode_args(data_config, model_config, audio_files, weights, out, beam):
 
 
 def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, counted, expected, per_decode=None,
-                         batch=B, decode=True):
+                         batch=B, decode=True, flags=()):
     """run.train.main trains a CTC or transducer model on the 256 clips at
     ``batch`` with the counters of ``counted`` ({name: wrapper}) set to 0 just
     before and read just after, held to ``expected`` ({name: launches}), each
     step's loss recorded; then (``decode``) run.inference decodes clips
     000-099 with the checkpoint, greedy and beam-8, each decode with the
     counters of ``per_decode`` ({name: {"greedy": n, "beam8": n}} launches per
-    decode) set to 0 before and checked after.  Returns the launches of the
+    decode) set to 0 before and checked after; ``flags`` go to run.train too.  Returns the launches of the
     training run plus the decodes."""
     import torch
 
@@ -2272,7 +2723,7 @@ def run_model_train_path(tmp, wav_dir, paths, data_config, model_config, tag, co
     from speech_recognition_tpu_torch.run import inference, train
 
     cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config, model_config,
-                                                                f"{tag.lower()}_train_out", batch))))
+                                                                f"{tag.lower()}_train_out", batch, flags))))
     losses, make_step = [], train_pkg.make_train_step
 
     def recording_train_step(*args, **kwargs):  # the real step, each loss kept on the card
@@ -2531,7 +2982,10 @@ def main():
                    ("las_beam_large", "las_beam.cu", "beam_kernel.py:415"),  # LAS-large's beam-8
                    ("las_greedy_large", "las_greedy.cu", "search_kernel.py:237"),  # LAS-large's greedy (H=1024)
                    ("vocab_topk_large", "vocab_topk.cu", "topk_kernel.py:176"),  # LAS-large's beam, H=1024
-                   ("las_decoder_bwd_large", "las_split.cu", "decoder_kernel.py:477"))}  # LAS-large's K3
+                   ("las_decoder_bwd_large", "las_split.cu", "decoder_kernel.py:477"),  # LAS-large's K3
+                   ("rnn_sequence_gru_las", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-small's GRU listener
+                   ("rnn_sequence_gru_wide", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-large-width GRU listener
+                   ("vocab_topk_gru_beam", "vocab_topk.cu", "topk_kernel.py:176"))}  # every step of a GRU beam
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -2594,6 +3048,12 @@ def main():
                check_rnn_sequence(gen, "lstm", 1, U1_RNNT, J_RNNT, "rnn_sequence prediction net"))
         record("rnn_sequence_lstm_wide",
                check_rnn_sequence(gen, "lstm", 2, S_ENC, LAS_LARGE_H, "rnn_sequence LAS-large listener layer"))
+        record("rnn_sequence_gru_las", check_rnn_sequence(gen, "gru", 2, S_ENC, 256,
+                                                          "rnn_sequence LAS-small GRU listener layer"))
+        record("rnn_sequence_gru_wide", check_rnn_sequence(gen, "gru", 2, S_ENC, LAS_LARGE_H,
+                                                           "rnn_sequence LAS-large-width GRU listener layer"))
+        # K5 in each step of a GRU speller's beam-8: B*K rows at H=256, as the LSTM beam's first step
+        record("vocab_topk_gru_beam", check_vocab_topk(B * BEAM, 256, 16000, BEAM, ROUND_TWICE, False, gen))
         print("== phase 3: serving path through run.inference (LAS-small, bf16, B=128, on-device frontend)")
         wav_dir, data_config, weights = write_inputs(tmp, np.random.default_rng(0))
         launches = run_main_path(tmp, wav_dir, data_config, weights)
@@ -2601,7 +3061,8 @@ def main():
         print(f"  decode per batch of {B} ({audio_s:.2f} s of audio): greedy {timings['greedy']:.2f} ms, "
               f"beam-8 {timings['beam8']:.2f} ms")
         print("== phase 3b: LAS-large (4x1024 BiLSTM listener, 2x1024 speller) through run.inference (bf16, B=128)")
-        large_launches, large_ms = run_las_large(tmp, wav_dir, data_config, timings.pop("host_features"), audio_s)
+        host_audio = timings.pop("host_features")
+        large_launches, large_ms = run_las_large(tmp, wav_dir, data_config, host_audio, audio_s)
         launches.update(large_launches)
         print(f"  LAS-large decode per batch of {B}: greedy {large_ms['greedy']:.2f} ms, beam-8 "
               f"{large_ms['beam8']:.2f} ms")
@@ -2625,6 +3086,21 @@ def main():
             for name, n in sa_launches.items():
                 launches[name] += n
         check_spec_augment_apply(sa_cfg, train_wavs)
+        print("== phase 4d: LAS-small through run.make_tfrecord, run.train --use-tfrecord --grad-accum-steps 2 "
+              f"--bucket-boundaries {SHORT_FRAMES},{FRAMES} --profile-steps 2, --auto-resume and run.evaluate "
+              "--use-tfrecord (bf16, B=128)")
+        t_phase = time.perf_counter()
+        for name, n in run_host_options(tmp, paths, data_config, np.random.default_rng(3), cfg).items():
+            launches[name] += n
+        print(f"  phase 4d: {time.perf_counter() - t_phase:.1f} s")
+        print("== phase 4e: LAS-small with rnn_type: gru through run.train, run.inference and run.evaluate (bf16, "
+              "B=128); LAS-large's widths with rnn_type: gru through run.inference")
+        t_phase = time.perf_counter()
+        gru_launches = run_gru_las(tmp, train_wavs, paths, data_config, host_audio, audio_s)
+        for name in ("ce_vocab_fwd", "ce_vocab_bwd"):
+            launches[name] += gru_launches.pop(name)
+        launches.update(gru_launches)
+        print(f"  phase 4e: {time.perf_counter() - t_phase:.1f} s")
         print("== phase 5: DeepSpeech2 through run.train and run.inference (bf16, B=128)")
         ds2_paths = write_ds2_tsvs(tmp, np.random.default_rng(2))
         k6 = {"ctc_emissions_fwd": em_mod.ctc_emissions_fwd, "ctc_emissions_bwd": em_mod.ctc_emissions_bwd}
@@ -2651,6 +3127,18 @@ def main():
         time_decode(wav_dir, data_config, moe_weights, "deepspeech_moe.yml", T_DS2, "DS2-MoE")
         check_train_f32(moe_cfg, [*k6_plain, k10_plain], "DS2-MoE")
         check_moe_forms(gen)
+        print("== phase 5c: DeepSpeech2 with rnn_type: rnn and recurrent_dropout: 0.1 through run.train and "
+              "run.inference (bf16, B=128)")
+        t_phase = time.perf_counter()
+        rnn_config = write_model_variant(tmp, "deepspeech.yml", rnn_type="rnn", recurrent_dropout=0.1)
+        rnn_launches, rnn_cfg, _ = run_model_train_path(
+            tmp, train_wavs, ds2_paths, data_config, rnn_config, "DS2-RNN", {**k6, **k10},
+            {**k6_expected, "rnn_sequence": 0}, {"rnn_sequence": {"greedy": 0, "beam8": 0}},
+            flags=["--on-device-frontend"])
+        for name in k6:
+            launches[name] += rnn_launches[name]
+        time_train_step(rnn_cfg, f"DS2-RNN with recurrent dropout 0.1 (T'={T_DS2}; plain recurrent loops)")
+        print(f"  phase 5c: {time.perf_counter() - t_phase:.1f} s")
         print("== phase 6: Conformer-CTC through run.train and run.inference (bf16, B=128)")
         k7 = {"mhsa_fwd": attn_mod.mhsa_fwd, "mhsa_bwd": attn_mod.mhsa_bwd}
         k7_expected = {"mhsa_fwd": CONF_BLOCKS * (TRAIN_STEPS + 1), "mhsa_bwd": CONF_BLOCKS * TRAIN_STEPS}
@@ -2730,6 +3218,8 @@ def main():
         launches["rnn_sequence_gru"] += eval_launches["DS2"] + eval_launches["DS2-MoE"]
         for name, n in launches.items():
             kernels[name]["launches"] = n
+        for name, row in kernels.items():
+            check(row.get("launches", 0) > 0, f"{name} launched {row.get('launches', 0)} times on the main path")
     except Exception:
         traceback.print_exc()
         fail_now("a phase raised")

@@ -70,7 +70,7 @@ class TrainConfig:
     skip_epochs: int = 0
     # device to use: "GPU" (the default) or "CPU"
     device: str = "GPU"
-    # profile N training steps (not ported yet: the train CLI refuses it)
+    # capture a torch.profiler trace of N training steps into <output>/profile
     profile_steps: Optional[int] = None
     # compute the audio features (and SpecAugment) on the device from padded
     # raw audio; None and False both mean the host pipeline computes them
@@ -80,9 +80,12 @@ class TrainConfig:
     bucket_boundaries: Optional[str] = None
     # resume from the newest checkpoint in <output>/models automatically
     auto_resume: bool = False
-    # tensor-parallel degree, gradient accumulation, FSDP and the
-    # multi-process bootstrap: only the single-device defaults are ported
+    # tensor-parallel degree, FSDP and the multi-process bootstrap: only the
+    # single-device defaults are ported
     model_parallel: int = 1
+    # accumulate gradients over N train steps before each optimizer update
+    # (optax.MultiSteps semantics): effective batch = N * batch_size.  The LR
+    # schedule advances per optimizer update
     grad_accum_steps: int = 1
     fsdp: bool = False
     coordinator_address: Optional[str] = None

@@ -1,11 +1,13 @@
 """Host data pipeline: the port's copies of speech_recognition_tpu/data/ (numpy,
-the native C++ audio decoders and the sentencepiece tokenizer).  Features are
+the native C++ audio decoders, the TFRecord reader and the sentencepiece tokenizer).  Features are
 the port's own (:mod:`speech_recognition_tpu_torch.ops.features`)."""
 
 from .audio import decode_pcm, decode_wav, load_audio_file
 from .dataset import (
+    bucket_batch,
     filter_example,
     get_dataset,
+    get_tfrecord_dataset,
     padded_batch,
     parallel_map_stream,
     prefetch_stream,
@@ -20,10 +22,12 @@ from .tokenizer import SentencePieceTokenizer
 
 __all__ = [
     "SentencePieceTokenizer",
+    "bucket_batch",
     "decode_pcm",
     "decode_wav",
     "filter_example",
     "get_dataset",
+    "get_tfrecord_dataset",
     "load_audio_file",
     "padded_batch",
     "parallel_map_stream",

@@ -1,23 +1,25 @@
 """Host-side dataset pipeline: the port's copy of the parts of
 speech_recognition_tpu/data/dataset.py that the port runs.
 
-tsv readers, the length policies, padded batching (static shapes when pad
-lengths are given) and the streams around them: parallel audio decode +
-tokenize on the host, shuffle, repeat and prefetch, and the raw-audio
-batcher of the on-device frontend.  TFRecord reading and length bucketing
-are not ported.
+tsv and TFRecord readers, the length policies, padded batching (static
+shapes when pad lengths are given), length-bucketed batching and the streams
+around them: parallel audio decode + tokenize on the host, shuffle, repeat
+and prefetch, and the raw-audio batcher of the on-device frontend.
 """
 
 import csv
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import get_logger
 from ..utils.io import glob, is_remote, open_file
 from .audio import load_audio_file
+
+logger = get_logger(__name__)
 
 
 def read_tsv_rows(dataset_path: str) -> List[Tuple[str, str]]:
@@ -90,6 +92,15 @@ def get_dataset(
             continue
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
             yield from pool.map(_load, rows)
+
+
+def get_tfrecord_dataset(dataset_paths: str, skip: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Stream (features float32 [T,F,1], tokens int32 [N]) from TFRecords
+    (``run.make_tfrecord``'s files).  ``skip`` drops the first N records before
+    the nested TensorProto parse (the records are still read and CRC-framed)."""
+    from .tfrecord import read_example_dataset
+
+    return read_example_dataset(dataset_paths, skip=skip)
 
 
 # ------------------------------------------------------------- length policies
@@ -331,6 +342,63 @@ def prefetch_stream(dataset: Iterable, size: int = 2) -> Iterator:
         if isinstance(item, _PrefetchError):
             raise item.exc
         yield item
+
+
+def bucket_batch(
+    dataset: Iterable,
+    batch_size: int,
+    bucket_boundaries: Sequence[int],
+    token_pad_length: Optional[int],
+    drop_remainder: bool = False,
+    over_boundary: str = "drop",
+    with_lengths: bool = False,
+    audio_dtype=np.float32,
+) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Length-bucketed padded batching: an example with T <= boundary[i]
+    (ascending) lands in bucket i, and a full bucket is emitted padded to its
+    boundary, so there are only ``len(bucket_boundaries)`` audio shapes.
+
+    :param over_boundary: examples longer than the largest boundary are
+        dropped ("drop", filter semantics; a count is logged at the end) or
+        truncated into the last bucket ("clamp", slice semantics)
+    :param drop_remainder: drop the partial buckets left at the end
+    """
+    if over_boundary not in ("drop", "clamp"):
+        raise ValueError(f"over_boundary must be 'drop' or 'clamp', got {over_boundary!r}")
+    boundaries = sorted(bucket_boundaries)
+    buckets: List[List[Tuple[np.ndarray, np.ndarray]]] = [[] for _ in boundaries]
+    dropped = 0
+
+    def _emit(idx):
+        batch = buckets[idx]
+        audio = _stack_padded([a for a, _ in batch], boundaries[idx], audio_dtype)
+        t_len = token_pad_length or max(t.shape[0] for _, t in batch)
+        tokens = _stack_padded([t for _, t in batch], t_len, np.int32)
+        lengths = np.asarray([a.shape[0] for a, _ in batch], np.int32)
+        buckets[idx] = []
+        return (audio, lengths, tokens) if with_lengths else (audio, tokens)
+
+    for audio, tokens in dataset:
+        if audio.shape[0] > boundaries[-1]:
+            if over_boundary == "drop":
+                dropped += 1
+                continue
+            audio = audio[: boundaries[-1]]
+        for i, boundary in enumerate(boundaries):
+            if audio.shape[0] <= boundary:
+                buckets[i].append((audio, tokens))
+                if len(buckets[i]) == batch_size:
+                    yield _emit(i)
+                break
+    if not drop_remainder:
+        for i in range(len(boundaries)):
+            if buckets[i]:
+                yield _emit(i)
+    if dropped:
+        logger.warning(
+            f"bucket_batch dropped {dropped} examples longer than the largest "
+            f"bucket boundary ({boundaries[-1]}); raise the boundary or use slice policy"
+        )
 
 
 def repeat_stream(make_dataset: Callable[..., Iterable], first_skip: int = 0) -> Iterator:

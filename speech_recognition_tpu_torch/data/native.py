@@ -1,10 +1,10 @@
 """ctypes binding to the native C++ data-path library (``native/asr_native.cpp``
 at the repository root): the port's copy of speech_recognition_tpu/data/native.py,
-with the FLAC and PCM16 wav decoders (the TFRecord CRC is not ported).
+with the TFRecord framing's crc32c and the FLAC and PCM16 wav decoders.
 
 Builds on demand with ``make -C native`` (g++) and caches the handle.  Each
-decoder has a Python fallback (flac.py / audio.py), so the pipeline works
-without a compiler.
+function has a Python path (tfrecord.py's numpy crc32c, flac.py / audio.py),
+so the pipeline works without a compiler.
 """
 
 import ctypes
@@ -45,6 +45,8 @@ def _load() -> Optional[ctypes.CDLL]:
         _build_failed = True
         return None
 
+    lib.asr_crc32c.restype = ctypes.c_uint32
+    lib.asr_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
     lib.asr_flac_decode.restype = ctypes.c_int64
     lib.asr_flac_decode.argtypes = [
         ctypes.c_char_p,
@@ -69,6 +71,14 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def crc32c_native(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of ``data`` via C++ (``asr_crc32c``)."""
+    lib = _load()
+    if lib is None:
+        raise ImportError("native library unavailable")
+    return int(lib.asr_crc32c(data, len(data)))
 
 
 def flac_decode_native(path: str) -> Tuple[np.ndarray, int]:

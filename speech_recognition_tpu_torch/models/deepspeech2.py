@@ -16,7 +16,9 @@ carried over from JAX:
   include the zeroed pad frames;
 - the hidden states are masked before the vocab projection, while CTC
   takes the full padded T' as every row's logit length;
-- training: Keras input dropout in every BiRNN, batch statistics;
+- training: Keras input dropout in every BiRNN, and recurrent dropout
+  (``recurrent_dropout`` > 0: one [B, H] mask a direction and a layer, on h
+  before the recurrent product, ``ops/rnn.py plain_scan``), batch statistics;
 - ``moe_experts > 0``: a residual Switch-routed MoE FFN (``models/moe.py``,
   ``moe{i}``) after each layer's batch norm, hidden width ``moe_hidden_dim``
   or 8 x units, routing the frames the trunk's mask keeps; in training each
@@ -24,8 +26,8 @@ carried over from JAX:
   (``take_aux_loss``), as JAX sows it.
 
 The loss goes through ``measure.ctc_loss_from_hidden`` (kernel K6, in
-``models/ctc.py``, shared with the Conformer).  ``rnn_type: rnn`` and
-recurrent dropout are not ported yet.
+``models/ctc.py``, shared with the Conformer).  ``rnn_type`` is lstm, gru
+or rnn (``ops/rnn.py BIDIRECTIONAL``).
 """
 
 from typing import Optional
@@ -34,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.rnn import BiGRU, BiLSTM
+from ..ops.rnn import BIDIRECTIONAL
 from .ctc import CTCModel
 from .layers import BatchNorm, audio_frame_lengths, init_weights
 from .moe import MoELayer
@@ -75,10 +77,12 @@ class Convolution(nn.Module):
 class Recurrent(nn.Module):
     """N x (BiRNN -> BatchNorm) with final-state threading (JAX ``Recurrent``, deepspeech2.py:70-121)."""
 
-    def __init__(self, rnn_type: str, in_dim: int, num_layers: int, units: int, moe=None):
+    def __init__(self, rnn_type: str, in_dim: int, num_layers: int, units: int, moe=None,
+                 recurrent_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
-        birnn = {"gru": BiGRU, "lstm": BiLSTM}[rnn_type]
+        self.recurrent_dropout = recurrent_dropout
+        birnn = BIDIRECTIONAL[rnn_type]
         for i in range(num_layers):
             self.add_module(f"reccurent_layer{i}", birnn(in_dim, units))
             self.add_module(f"batch_normalization{i}", BatchNorm(2 * units))
@@ -89,10 +93,13 @@ class Recurrent(nn.Module):
 
     def forward(self, x, mask, dtype, training: bool = False, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None):
-        """-> (outputs [B, T', 2H], the MoE layers' weighted aux losses in layer order)."""
+        """-> (outputs [B, T', 2H], the MoE layers' weighted aux losses in layer order).
+        ``training`` also turns the recurrent dropout on."""
         states, aux = None, []
+        rec_rate = self.recurrent_dropout if training else 0.0
         for i in range(self.num_layers):
-            output, *states = getattr(self, f"reccurent_layer{i}")(x, mask, states, dtype, dropout_rate, generator)
+            output, *states = getattr(self, f"reccurent_layer{i}")(x, mask, states, dtype, dropout_rate, generator,
+                                                                   rec_rate)
             x = getattr(self, f"batch_normalization{i}")(output, training)
             if self.has_moe:
                 x, layer_aux = getattr(self, f"moe{i}")(x, mask, dtype)
@@ -111,11 +118,6 @@ class DeepSpeech2(CTCModel):
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        unported = [(config.rnn_type == "rnn", "rnn_type 'rnn'"),
-                    (config.recurrent_dropout > 0, "recurrent_dropout > 0")]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"DeepSpeech2 with {what} is not ported yet to torch")
         self.compute_dtype = dtype
         self.vocab_size = config.vocab_size
         self.blank_index = config.blank_index
@@ -127,7 +129,8 @@ class DeepSpeech2(CTCModel):
         if config.moe_experts > 0:
             moe = (config.moe_experts, config.moe_hidden_dim or 8 * config.hidden_dim, config.moe_k,
                    config.moe_capacity_factor, config.moe_aux_weight)
-        self.recurrent = Recurrent(config.rnn_type, rnn_in, config.num_reccurent_layers, config.hidden_dim, moe)
+        self.recurrent = Recurrent(config.rnn_type, rnn_in, config.num_reccurent_layers, config.hidden_dim, moe,
+                                   config.recurrent_dropout)
         self.fully_connected = nn.Linear(2 * config.hidden_dim, config.vocab_size)
         init_weights(self, generator)
         for module in self.modules():

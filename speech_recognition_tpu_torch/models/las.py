@@ -8,15 +8,21 @@ and ``dtype=bfloat16``.  Reference semantics carried over from JAX:
 
 - the listener's mask reduces the valid length by ceil(L/4), clamped to
   the conv output length (JAX ``Listener``, las.py:183-193);
-- a single (h, c) pair is threaded through every decoder cell in turn
-  (las.py:299-325), and a pad previous token freezes the state;
+- ``rnn_type`` lstm, gru or rnn in the listener and the speller; the
+  listener's bridge into the speller is ``hidden_states_proj`` over [fwd_h,
+  bwd_h], and for the LSTM also ``cell_states_proj`` over [fwd_c, bwd_c]
+  (las.py:210-221);
+- a single state ((h, c), or (h,)) is threaded through every decoder cell in
+  turn (las.py:299-325), and a pad previous token freezes the state;
 - the key projection is hoisted out of the decode loop;
 - training: elementwise dropout after each conv, Keras input dropout in the
   BiLSTMs, per-call decoder masks (``make_dropout_masks``), batch norm on
   batch statistics, and a teacher-forcing coin drawn once per batch, on the
-  host (las.py:519-532).  The teacher-forced decoder loop is
-  ``ops/decoder.decoder_scan_lstm`` (kernels K2 / K3), the feedback branch a
-  plain loop, and the vocab projection + CE is ``ops/ce_vocab`` (kernel K1).
+  host (las.py:519-532).  The teacher-forced decoder loop of an LSTM speller
+  is ``ops/decoder.decoder_scan_lstm`` (kernels K2 / K3); of a GRU or RNN
+  speller, as in JAX (las.py:623-629), a plain loop over ``step_hidden``.  The
+  feedback branch is a plain loop, and the vocab projection + CE is
+  ``ops/ce_vocab`` (kernel K1).
 
 Random draws come from explicit ``torch.Generator``s: the JAX package's
 threefry streams cannot be reproduced, so tests compare at dropout 0.
@@ -31,7 +37,7 @@ from torch import nn
 from ..measure import sparse_categorical_accuracy, sparse_categorical_crossentropy
 from ..ops.ce_vocab import fused_ce_vocab
 from ..ops.decoder import decoder_scan_lstm
-from ..ops.rnn import BiLSTM, LSTMCellParams, lstm_cell
+from ..ops.rnn import BIDIRECTIONAL, CELL_PARAMS, cell_step, keep_mask, split_bias
 from .layers import BatchNorm, audio_frame_lengths, dense, dropout, init_weights
 
 
@@ -44,23 +50,25 @@ class Listener(nn.Module):
     -> state bridge into the decoder width (JAX ``Listener``, las.py:145-221)."""
 
     def __init__(self, frequency_dim: int, feature_dim: int, encoder_hidden_dim: int, decoder_hidden_dim: int,
-                 num_encoder_layers: int):
+                 num_encoder_layers: int, rnn_type: str = "lstm"):
         super().__init__()
+        self.rnn_type = rnn_type
         self.num_encoder_layers = num_encoder_layers
         self.conv1 = nn.Conv2d(feature_dim, 32, 3, stride=2)
         self.conv2 = nn.Conv2d(32, 32, 3, stride=2)
         in_dim = _conv_out(_conv_out(frequency_dim)) * 32
         for i in range(num_encoder_layers):
-            self.add_module(f"encoder_layer{i}", BiLSTM(in_dim, encoder_hidden_dim))
+            self.add_module(f"encoder_layer{i}", BIDIRECTIONAL[rnn_type](in_dim, encoder_hidden_dim))
             self.add_module(f"projection{i}", nn.Linear(2 * encoder_hidden_dim, 2 * encoder_hidden_dim))
             self.add_module(f"batch_normalization{i}", BatchNorm(2 * encoder_hidden_dim))
             in_dim = 2 * encoder_hidden_dim
         self.hidden_states_proj = nn.Linear(2 * encoder_hidden_dim, decoder_hidden_dim)
-        self.cell_states_proj = nn.Linear(2 * encoder_hidden_dim, decoder_hidden_dim)
+        if rnn_type == "lstm":
+            self.cell_states_proj = nn.Linear(2 * encoder_hidden_dim, decoder_hidden_dim)
 
     def forward(self, audio: torch.Tensor, dtype: torch.dtype, lengths: Optional[torch.Tensor] = None,
                 training: bool = False, dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None):
-        """audio [B, T, F, C] -> (encoded [B, T', 2E], mask [B, T'] bool, h [B, H], c [B, H]).
+        """audio [B, T, F, C] -> (encoded [B, T', 2E], mask [B, T'] bool, h [B, H], and for the LSTM c [B, H]).
 
         ``lengths`` [B] are the true frame counts when the caller knows them
         (the batcher's ``with_lengths``); otherwise the last non-zero frame
@@ -84,6 +92,9 @@ class Listener(nn.Module):
             x, *states = getattr(self, f"encoder_layer{i}")(x, mask, states, dtype, dropout_rate, generator)
             x = dense(getattr(self, f"projection{i}"), x, dtype)
             x = torch.relu(getattr(self, f"batch_normalization{i}")(x, training))
+        if self.rnn_type != "lstm":
+            fwd_h, bwd_h = states
+            return x, mask, dense(self.hidden_states_proj, torch.cat([fwd_h, bwd_h], dim=-1), dtype)
         fwd_h, fwd_c, bwd_h, bwd_c = states
         h = dense(self.hidden_states_proj, torch.cat([fwd_h, bwd_h], dim=-1), dtype)
         c = dense(self.cell_states_proj, torch.cat([fwd_c, bwd_c], dim=-1), dtype)
@@ -115,8 +126,9 @@ class AttendAndSpeller(nn.Module):
     """Single-step LAS decoder (JAX ``AttendAndSpeller``, las.py:224-380)."""
 
     def __init__(self, vocab_size: int, hidden_dim: int, value_dim: int, num_decoder_layers: int, pad_id: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, rnn_type: str = "lstm"):
         super().__init__()
+        self.rnn_type = rnn_type
         self.pad_id = pad_id
         self.hidden_dim = hidden_dim
         self.dropout_rate = dropout_rate
@@ -125,7 +137,7 @@ class AttendAndSpeller(nn.Module):
         self.attention = Attention(hidden_dim, value_dim)
         in_dim = hidden_dim + value_dim
         for i in range(num_decoder_layers):
-            self.add_module(f"decoder_layer{i}", LSTMCellParams(in_dim, hidden_dim))
+            self.add_module(f"decoder_layer{i}", CELL_PARAMS[rnn_type](in_dim, hidden_dim))
             in_dim = hidden_dim
         self.feedforward = nn.Linear(hidden_dim, vocab_size)
 
@@ -138,10 +150,8 @@ class AttendAndSpeller(nn.Module):
     def make_dropout_masks(self, generator, batch: int, context_dim: int, dtype, device):
         """Keras-style per-call dropout masks, constant across decoder steps
         (las.py:249-262): {"emb": [B,H], "out": [B,H], "cells": [[B,in_i]]}."""
-        keep = 1.0 - self.dropout_rate
-
         def mask(width):
-            return (torch.rand(batch, width, generator=generator, device=device) < keep).to(dtype) / keep
+            return keep_mask((batch, width), self.dropout_rate, dtype, generator, device)
 
         masks = {"emb": mask(self.hidden_dim), "out": mask(self.hidden_dim), "cells": []}
         in_dim = self.hidden_dim + context_dim
@@ -155,8 +165,8 @@ class AttendAndSpeller(nn.Module):
         """One decode step up to the vocab projection.
 
         :param decoder_input: [B] previous tokens
-        :param states: (h, c), each [B, H]
-        :return: (hidden [B, H] after output dropout, (h, c))
+        :param states: (h, c) for the LSTM, (h,) otherwise, each [B, H]
+        :return: (hidden [B, H] after output dropout, new states)
         """
         x = self.embedding.weight[decoder_input].to(dtype)
         if dropout_masks is not None:
@@ -167,7 +177,7 @@ class AttendAndSpeller(nn.Module):
 
     def step_beam_hidden(self, audio_output, projected_keys, decoder_input, attention_mask, states, dtype):
         """K-beam step over untiled listener operands: decoder_input [B, K],
-        states of [B*K, H] rows -> (hidden [B*K, H], (h, c))."""
+        states of [B*K, H] rows -> (hidden [B*K, H], new states)."""
         B, K = decoder_input.shape
         flat = decoder_input.reshape(B * K)
         context = self.attention(
@@ -178,29 +188,38 @@ class AttendAndSpeller(nn.Module):
 
     def _speller_cells(self, x, token_mask, states, dtype, dropout_masks=None):
         """The threaded cell stack: each cell starts from the previous cell's
-        (h, c); a pad token neither advances the state nor emits."""
-        h, c = (s.to(dtype) for s in states)
+        state; a pad token neither advances the state nor emits."""
+        states = tuple(s.to(dtype) for s in states)
         m = token_mask[:, None]
         for i, cell in enumerate(self.cells()):
             if dropout_masks is not None:
                 x = x * dropout_masks["cells"][i]
-            z = x @ cell.kernel.to(dtype) + cell.bias.to(dtype) + h @ cell.recurrent_kernel.to(dtype)
-            h_new, c_new = lstm_cell(z, c)
-            h = torch.where(m, h_new, h)
-            c = torch.where(m, c_new, c)
+            input_bias, rb = split_bias(self.rnn_type, cell.bias)
+            h_new, new = cell_step(self.rnn_type, x @ cell.kernel.to(dtype) + input_bias.to(dtype), states,
+                                   cell.recurrent_kernel.to(dtype), None if rb is None else rb.to(dtype),
+                                   self.hidden_dim)
+            states = tuple(torch.where(m, n, o) for n, o in zip(new, states))
             x = h_new * m
         if dropout_masks is not None:
             x = x * dropout_masks["out"]
-        return x, (h, c)
+        return x, states
 
     def step(self, audio_output, projected_keys, decoder_input, attention_mask, states, dtype):
-        """One full decode step: (logits [B, V], (h, c))."""
+        """One full decode step: (logits [B, V], new states)."""
         x, states = self.step_hidden(audio_output, projected_keys, decoder_input, attention_mask, states, dtype)
         return dense(self.feedforward, x, dtype), states
 
     def teacher_forced(self, audio_output, projected_keys, tokens, attention_mask, states, dtype, dropout_masks):
         """Decoder steps 1..N-1 fed the given tokens [B, N-1]: hidden [N-1, B, H],
-        through ``decoder_scan_lstm`` (kernels K2 / K3) (las.py:551-621)."""
+        through ``decoder_scan_lstm`` (kernels K2 / K3) for an LSTM speller
+        (las.py:551-621), a plain loop over ``step_hidden`` otherwise (las.py:623-629)."""
+        if self.rnn_type != "lstm":
+            hiddens = []
+            for tok in tokens.t():
+                hidden, states = self.step_hidden(audio_output, projected_keys, tok, attention_mask, states, dtype,
+                                                  dropout_masks)
+                hiddens.append(hidden)
+            return torch.stack(hiddens)
         B = tokens.shape[0]
         H, Dv = self.hidden_dim, audio_output.shape[-1]
         emb = self.embedding.weight[tokens.t()].to(dtype)  # [N-1, B, He]
@@ -262,8 +281,7 @@ class LAS(nn.Module):
     def __init__(self, config, frequency_dim: int, feature_dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.rnn_type != "lstm":
-            raise NotImplementedError(f"rnn_type {config.rnn_type!r} is not ported yet (lstm only)")
+        self.rnn_type = config.rnn_type
         self.compute_dtype = dtype
         self.vocab_size = config.vocab_size
         self.pad_id = config.pad_id
@@ -271,16 +289,17 @@ class LAS(nn.Module):
         self.dropout_rate = config.dropout
         self.teacher_forcing_rate = config.teacher_forcing_rate
         self.listener = Listener(
-            frequency_dim, feature_dim, config.encoder_hidden_dim, config.decoder_hidden_dim, config.num_encoder_layers
+            frequency_dim, feature_dim, config.encoder_hidden_dim, config.decoder_hidden_dim, config.num_encoder_layers,
+            config.rnn_type,
         )
         self.attend_and_speller = AttendAndSpeller(
             config.vocab_size, config.decoder_hidden_dim, 2 * config.encoder_hidden_dim, config.num_decoder_layers,
-            config.pad_id, config.dropout,
+            config.pad_id, config.dropout, config.rnn_type,
         )
         init_weights(self, generator)
 
     def encode(self, audio, lengths=None):
-        """audio [B, T, F, C] -> (encoded [B, T', Dv], mask [B, T'], h [B, H], c [B, H])."""
+        """audio [B, T, F, C] -> (encoded [B, T', Dv], mask [B, T'], *states [B, H]: (h, c) for the LSTM, h otherwise)."""
         return self.listener(audio, self.compute_dtype, lengths)
 
     def project_keys(self, audio_output):
@@ -316,7 +335,7 @@ class LAS(nn.Module):
         B, N = decoder_input.shape
         rate = self.dropout_rate if training else 0.0
         aas = self.attend_and_speller
-        audio_output, mask, h, c = self.listener(audio, dt, lengths, training, rate, generator)
+        audio_output, mask, *states = self.listener(audio, dt, lengths, training, rate, generator)
         projected_keys = aas.project_keys(audio_output, dt)
         masks = None
         if rate > 0.0:
@@ -326,7 +345,8 @@ class LAS(nn.Module):
             # drawn on the host: a device draw would sync every step
             teacher_forcing = bool(torch.rand((), generator=coin_generator) < self.teacher_forcing_rate)
 
-        hidden0, states = aas.step_hidden(audio_output, projected_keys, decoder_input[:, 0], mask, (h, c), dt, masks)
+        hidden0, states = aas.step_hidden(audio_output, projected_keys, decoder_input[:, 0], mask, tuple(states), dt,
+                                          masks)
         if N <= 1:
             return hidden0[None]
         if teacher_forcing:

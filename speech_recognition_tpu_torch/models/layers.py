@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.rnn import GRUCellParams, LSTMCellParams
+from ..ops.rnn import GRUCellParams, LSTMCellParams, RNNCellParams
 
 
 def audio_frame_lengths(audio: torch.Tensor) -> torch.Tensor:
@@ -99,7 +99,7 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) 
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     for module in model.modules():
-        if isinstance(module, (LSTMCellParams, GRUCellParams)):
+        if isinstance(module, (LSTMCellParams, GRUCellParams, RNNCellParams)):
             fan_in, fan_out = module.kernel.shape
             limit = math.sqrt(6.0 / (fan_in + fan_out))
             module.kernel.copy_((torch.rand(module.kernel.shape, generator=generator) * 2 - 1) * limit)

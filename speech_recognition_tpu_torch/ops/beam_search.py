@@ -115,10 +115,17 @@ def beam_select_plain(hidden, vw, vb, tokens, logp, ended, eoslen, step: int, eo
     """The end of a plain K11 step from its hidden rows [B*K, H] (compute type): the vocab projection's top-K
     and logsumexp (bf16(bf16(dot) + b) in bf16), the K*K candidates, the top-K and the re-gathered histories:
     (tokens, logp, ended, eoslen)."""
-    B, K, L = tokens.shape
     rounding = ROUND_TWICE if hidden.dtype == torch.bfloat16 else ROUND_NONE
-    top, idx, lse = vocab_topk_plain(hidden, vw, vb, K, rounding)
+    top, idx, lse = vocab_topk_plain(hidden, vw, vb, tokens.shape[1], rounding)
+    return beam_update(top, idx, lse, tokens, logp, ended, eoslen, step, eos_id, pad_id, alpha, beta)
 
+
+def beam_update(top, idx, lse, tokens, logp, ended, eoslen, step: int, eos_id: int, pad_id: int, alpha: float,
+                beta: float):
+    """The beam update of a step from the K5 results of its B*K rows (``top`` [B*K, K] float32 values on the
+    rounded grid, ``idx`` [B*K, K], ``lse`` [B*K]): the K*K candidates, the top-K and the re-gathered histories
+    (search.py:294-322): (tokens, logp, ended, eoslen)."""
+    B, K, L = tokens.shape
     step_lp = torch.where(ended[:, :, None], 0.0, (top - lse[:, None]).reshape(B, K, K))
     cand_lp = (logp[:, :, None] + step_lp).reshape(B, K * K)  # parent-major flat index p*K + t
     length = torch.where(ended, eoslen, float(step + 1))

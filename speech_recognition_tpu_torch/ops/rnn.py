@@ -1,24 +1,34 @@
-"""Masked LSTM and GRU recurrences (counterpart of speech_recognition_tpu/ops/rnn.py).
+"""Masked LSTM, GRU and simple-RNN recurrences (counterpart of speech_recognition_tpu/ops/rnn.py).
 
 Parameters keep the Keras layout of the JAX package, so the weight bridge
 copies them unchanged: LSTM ``kernel [in, 4H]``, ``recurrent_kernel [H, 4H]``,
 ``bias [4H]``, gates in i,f,c,o order; GRU (reset_after) ``kernel [in, 3H]``,
 ``recurrent_kernel [H, 3H]``, ``bias [2, 3H]`` (input bias, then recurrent
-bias), gates in z,r,h order.  As in JAX:
+bias), gates in z,r,h order; the simple RNN (``rnn_type: rnn``, ``h' =
+tanh(x_proj + h @ R)``) ``kernel [in, H]``, ``recurrent_kernel [H, H]``,
+``bias [H]``.  As in JAX:
 
 - the input projection ``x @ kernel + bias`` is hoisted out of the time loop;
 - at a masked step the state is frozen and the output is zero, which makes
   the reverse direction start at each sequence's last valid frame;
 - in training, Keras input dropout: one ``[B, 1, D]`` mask per sequence and
   per direction, shared across time (ops/rnn.py:352-356);
-- the gradient is ``_lstm_scan``'s / ``_gru_scan``'s custom VJP
+- in training, recurrent dropout (``recurrent_dropout`` > 0): one ``[B, H]``
+  mask per call and per direction, applied to ``h`` before the recurrent
+  product (ops/rnn.py:359-364);
+- the LSTM's and the GRU's gradient is ``_lstm_scan``'s / ``_gru_scan``'s custom VJP
   (ops/rnn.py:145-304) as a ``torch.autograd.Function``: the backward loop
   emits only the gate gradients (``dz``; the GRU's ``d_inner``) and the dh
   chain, and ``dR`` (and the GRU's recurrent bias gradient) is one product
-  over the saved trajectory after the loop.
+  over the saved trajectory after the loop.  Where JAX's custom VJP is off
+  (the simple RNN, and any type under recurrent dropout, ops/rnn.py:393-440)
+  the port runs JAX's plain scan body too, ``plain_scan``, under autograd.
 
-Without autograd, a CUDA tensor's whole sequence runs in one launch of
-kernel K10 (``ops/rnn_sequence.py``, every direction together).  The
+Without autograd, a CUDA tensor's LSTM or GRU sequence runs in one launch of
+kernel K10 (``ops/rnn_sequence.py``, every direction together); the simple
+RNN has no kernel in either package (JAX's K10 takes the LSTM and the GRU
+only) and its loop is plain on every device.  ``rnn_scan`` routes by type
+and by the recurrent mask.  The
 training loops, and every loop of a CPU tensor, are plain PyTorch: one
 ``[2, B, H] x [2, H, G*H]`` batched matmul per step runs the forward and the
 (time-flipped) backward direction together.  On the card the training
@@ -26,9 +36,8 @@ loops, forward and backward, replay as CUDA graphs (``GRAPHS``,
 ``ops/graphs.py``) once a shape repeats.  ``LSTM`` is the unidirectional layer (JAX ``RNN("lstm")``,
 ops/rnn.py:307-420: the transducer's prediction network) on the same scan,
 and ``cell_step`` (ops/rnn.py:100-135) one recurrence step for the
-decoders.  ``rnn_type: rnn`` and recurrent dropout are not ported yet.  The
-JAX package computes the same loop as a ``lax.scan`` outside any Pallas
-kernel.
+decoders.  The JAX package computes the same loops as ``lax.scan``s
+outside any Pallas kernel.
 """
 
 from typing import Optional, Tuple
@@ -67,6 +76,37 @@ class GRUCellParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(2, 3 * units))
 
 
+class RNNCellParams(nn.Module):
+    """Keras-layout parameters of one simple-RNN direction or decoder cell: one
+    bias row (initialized by ``models.layers.init_weights``)."""
+
+    def __init__(self, in_dim: int, units: int):
+        super().__init__()
+        self.units = units
+        self.kernel = nn.Parameter(torch.zeros(in_dim, units))
+        self.recurrent_kernel = nn.Parameter(torch.zeros(units, units))
+        self.bias = nn.Parameter(torch.zeros(units))
+
+
+CELL_PARAMS = {"lstm": LSTMCellParams, "gru": GRUCellParams, "rnn": RNNCellParams}
+
+
+def num_states(rnn_type: str) -> int:
+    """The state tensors a type carries: (h, c) for the LSTM, (h,) otherwise."""
+    return 2 if rnn_type == "lstm" else 1
+
+
+def split_bias(rnn_type: str, bias: torch.Tensor):
+    """(input bias, recurrent bias or None) of a cell's Keras ``bias``: the GRU keeps two rows."""
+    return (bias[0], bias[1]) if rnn_type == "gru" else (bias, None)
+
+
+def keep_mask(shape, rate: float, dtype, generator, device) -> torch.Tensor:
+    """A Keras dropout mask: 1 / (1 - rate) where kept, 0 where dropped."""
+    keep = 1.0 - rate
+    return (torch.rand(shape, generator=generator, device=device) < keep).to(dtype) / keep
+
+
 def lstm_cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gate pre-activations ``z [.., 4H]`` (i,f,c,o) and cell state -> (h_new, c_new)."""
     zi, zf, zc, zo = z.chunk(4, dim=-1)
@@ -79,10 +119,7 @@ def cell_step(rnn_type: str, x_proj_t, state, recurrent_kernel, recurrent_bias, 
     projection, input bias included; returns (output, new state tuple)."""
     if rnn_type == "lstm":
         h, c = state
-        z = x_proj_t + h @ recurrent_kernel
-        zi, zf, zc, zo = z.chunk(4, dim=-1)
-        c_new = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zc)
-        h_new = torch.sigmoid(zo) * torch.tanh(c_new)
+        h_new, c_new = lstm_cell(x_proj_t + h @ recurrent_kernel, c)
         return h_new, (h_new, c_new)
     if rnn_type == "gru":
         (h,) = state
@@ -279,91 +316,123 @@ def gru_scan(x_proj, mask, rk, rb, h0):
     return _gru_scan_core(x_proj, mask, rk, rb, h0, save=False)[:2]
 
 
+def plain_scan(rnn_type: str, x_proj, mask, rk, rb, state, rec_mask=None):
+    """JAX's plain scan body (ops/rnn.py:425-440) over time-major ``x_proj
+    [T, D, B, G*H]`` (input bias included; D directions, each in its own time
+    order), ``mask [T, D, B, 1]`` bool, ``rk [D, H, G*H]``, ``rb [D, 1, G*H]``
+    or None, ``state`` a tuple of ``[D, B, H]`` and ``rec_mask [D, B, H]`` or
+    None: the recurrent dropout mask, multiplied into h before each step's
+    recurrent product; a masked step keeps the state and emits zero.  Autograd
+    differentiates it.  Returns (out [T, D, B, H], final state tuple)."""
+    H = rk.shape[1]
+    outs = []
+    for t in range(x_proj.shape[0]):
+        h_state = state if rec_mask is None else (state[0] * rec_mask, *state[1:])
+        h_new, new_state = cell_step(rnn_type, x_proj[t], h_state, rk, rb, H)
+        m = mask[t]
+        state = tuple(torch.where(m, ns, os) for ns, os in zip(new_state, state))
+        outs.append(h_new * m.to(h_new.dtype))
+    return torch.stack(outs), state
+
+
+def rnn_scan(rnn_type: str, x_proj, mask, rk, rb, state, rec_mask=None):
+    """The masked recurrence of a type (``plain_scan``'s contract): the simple RNN
+    and any recurrence under recurrent dropout run ``plain_scan``; otherwise the
+    LSTM takes ``lstm_scan`` and the GRU ``gru_scan`` (their custom gradients,
+    and K10 for a CUDA tensor without autograd)."""
+    if rnn_type == "rnn" or rec_mask is not None:
+        return plain_scan(rnn_type, x_proj, mask, rk, rb, state, rec_mask)
+    if rnn_type == "lstm":
+        out, h, c = lstm_scan(x_proj, mask, rk, *state)
+        return out, (h, c)
+    out, h = gru_scan(x_proj, mask, rk, rb, state[0])
+    return out, (h,)
+
+
 class _BiRNN(nn.Module):
     """Bidirectional masked recurrence (JAX ``BiRNN``): a ``forward_rnn`` and a
     ``backward_rnn``, each holding its ``cell``; the backward direction runs
-    on the time-flipped sequence, batched with the forward one."""
+    on the time-flipped sequence, batched with the forward one.
 
-    cell_type = None
+    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (forward states,
+    then backward states: (fwd_h, fwd_c, bwd_h, bwd_c) for the LSTM, (fwd_h,
+    bwd_h) otherwise) or None) -> (outputs [B,T,2H], *forward states,
+    *backward states).  ``dropout`` > 0 applies the training input dropout and
+    ``recurrent_dropout`` > 0 the recurrent one, drawn from ``generator``.
+    """
+
+    rnn_type = None
 
     def __init__(self, in_dim: int, units: int):
         super().__init__()
         self.units = units
+        cell_type = CELL_PARAMS[self.rnn_type]
         self.forward_rnn = nn.Module()
-        self.forward_rnn.cell = self.cell_type(in_dim, units)
+        self.forward_rnn.cell = cell_type(in_dim, units)
         self.backward_rnn = nn.Module()
-        self.backward_rnn.cell = self.cell_type(in_dim, units)
+        self.backward_rnn.cell = cell_type(in_dim, units)
 
-    def _stacked_inputs(self, inputs, mask, dtype, dropout, generator, input_bias):
+    def _stacked_inputs(self, inputs, mask, dtype, dropout, generator):
         """Hoisted input projections, time-major ``[T, 2, B, G*H]`` with direction 1
         time-flipped (loop step t reads frame t forward and frame T-1-t
-        backward), the matching mask ``[T, 2, B, 1]`` and ``rk [2, H, G*H]``.
-        ``dropout`` > 0 applies Keras input dropout: one ``[B, 1, D]`` mask per
-        direction, drawn from ``generator``."""
+        backward), the matching mask ``[T, 2, B, 1]``, ``rk [2, H, G*H]`` and the
+        GRU's ``rb [2, 1, 3H]`` (None otherwise).  ``dropout`` > 0 applies Keras
+        input dropout: one ``[B, 1, D]`` mask per direction, drawn from ``generator``."""
         B, T, D = inputs.shape
         cells = (self.forward_rnn.cell, self.backward_rnn.cell)
         x = inputs.to(dtype)
         xs = [x, x]
         if dropout > 0.0:
-            keep = 1.0 - dropout
-            for d in range(2):
-                drop = torch.rand(B, 1, D, generator=generator, device=x.device) < keep
-                xs[d] = x * drop.to(dtype) / keep
-        proj = [xs[d] @ c.kernel.to(dtype) + input_bias(c).to(dtype) for d, c in enumerate(cells)]
+            xs = [x * keep_mask((B, 1, D), dropout, dtype, generator, x.device) for _ in range(2)]
+        biases = [split_bias(self.rnn_type, c.bias) for c in cells]
+        proj = [xs[d] @ c.kernel.to(dtype) + biases[d][0].to(dtype) for d, c in enumerate(cells)]
         x_proj = torch.stack([proj[0], proj[1].flip(1)]).permute(2, 0, 1, 3).contiguous()
         m_all = torch.stack([mask, mask.flip(1)]).permute(2, 0, 1)[..., None]
         rk = torch.stack([c.recurrent_kernel.to(dtype) for c in cells])
-        return x_proj, m_all, rk
+        rb = None if biases[0][1] is None else torch.stack([b[1] for b in biases]).to(dtype)[:, None, :]
+        return x_proj, m_all, rk, rb
 
     @staticmethod
     def _outputs(out):
         """[T, 2, B, H] (direction 1 time-flipped) -> [B, T, 2H]."""
         return torch.cat([out[:, 0].transpose(0, 1), out[:, 1].flip(0).transpose(0, 1)], dim=-1)
 
+    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None, recurrent_dropout: float = 0.0):
+        x_proj, m_all, rk, rb = self._stacked_inputs(inputs, mask, dtype, dropout, generator)
+        B, n = inputs.shape[0], num_states(self.rnn_type)
+        if initial_state is None:
+            state = tuple(torch.zeros(2, B, self.units, dtype=dtype, device=inputs.device) for _ in range(n))
+        else:
+            state = tuple(torch.stack([f.to(dtype), b.to(dtype)])
+                          for f, b in zip(initial_state[:n], initial_state[n:2 * n]))
+        rec_mask = None
+        if recurrent_dropout > 0.0:
+            rec_mask = keep_mask((2, B, self.units), recurrent_dropout, dtype, generator, inputs.device)
+        out, state = rnn_scan(self.rnn_type, x_proj, m_all, rk, rb, state, rec_mask)
+        return (self._outputs(out), *(s[0] for s in state), *(s[1] for s in state))
+
 
 class BiLSTM(_BiRNN):
-    """Bidirectional masked LSTM (JAX ``BiRNN`` with rnn_type="lstm").
+    """Bidirectional masked LSTM (JAX ``BiRNN`` with rnn_type="lstm"):
+    (outputs [B,T,2H], fwd_h, fwd_c, bwd_h, bwd_c)."""
 
-    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (fwd_h, fwd_c,
-    bwd_h, bwd_c) or None) -> (outputs [B,T,2H], fwd_h, fwd_c, bwd_h, bwd_c).
-    """
-
-    cell_type = LSTMCellParams
-
-    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
-                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
-        """``dropout`` > 0 applies the training input dropout, drawn from ``generator``."""
-        x_proj, m_all, rk = self._stacked_inputs(inputs, mask, dtype, dropout, generator, lambda c: c.bias)
-        if initial_state is None:
-            h = torch.zeros(2, inputs.shape[0], self.units, dtype=dtype, device=inputs.device)
-            c = torch.zeros_like(h)
-        else:
-            fh, fc, bh, bc = (s.to(dtype) for s in initial_state)
-            h, c = torch.stack([fh, bh]), torch.stack([fc, bc])
-        out, h, c = lstm_scan(x_proj, m_all, rk, h, c)
-        return self._outputs(out), h[0], c[0], h[1], c[1]
+    rnn_type = "lstm"
 
 
 class BiGRU(_BiRNN):
-    """Bidirectional masked GRU (JAX ``BiRNN`` with rnn_type="gru").
+    """Bidirectional masked GRU (JAX ``BiRNN`` with rnn_type="gru"): (outputs [B,T,2H], fwd_h, bwd_h)."""
 
-    Call: (inputs [B,T,D], mask [B,T] bool, initial_state (fwd_h, bwd_h) or
-    None) -> (outputs [B,T,2H], fwd_h, bwd_h).
-    """
+    rnn_type = "gru"
 
-    cell_type = GRUCellParams
 
-    def forward(self, inputs: torch.Tensor, mask: torch.Tensor, initial_state=None, dtype=torch.float32,
-                dropout: float = 0.0, generator: Optional[torch.Generator] = None):
-        """``dropout`` > 0 applies the training input dropout, drawn from ``generator``."""
-        x_proj, m_all, rk = self._stacked_inputs(inputs, mask, dtype, dropout, generator, lambda c: c.bias[0])
-        rb = torch.stack([self.forward_rnn.cell.bias[1], self.backward_rnn.cell.bias[1]]).to(dtype)[:, None, :]
-        if initial_state is None:
-            h = torch.zeros(2, inputs.shape[0], self.units, dtype=dtype, device=inputs.device)
-        else:
-            h = torch.stack([s.to(dtype) for s in initial_state])
-        out, h = gru_scan(x_proj, m_all, rk, rb, h)
-        return self._outputs(out), h[0], h[1]
+class BiRNN(_BiRNN):
+    """Bidirectional masked simple RNN (JAX ``BiRNN`` with rnn_type="rnn"): (outputs [B,T,2H], fwd_h, bwd_h)."""
+
+    rnn_type = "rnn"
+
+
+BIDIRECTIONAL = {"lstm": BiLSTM, "gru": BiGRU, "rnn": BiRNN}
 
 
 class LSTM(nn.Module):
@@ -386,9 +455,7 @@ class LSTM(nn.Module):
         B, T, D = inputs.shape
         x = inputs.to(dtype)
         if dropout > 0.0:
-            keep = 1.0 - dropout
-            drop = torch.rand(B, 1, D, generator=generator, device=x.device) < keep
-            x = x * drop.to(dtype) / keep
+            x = x * keep_mask((B, 1, D), dropout, dtype, generator, x.device)
         x_proj = (x @ self.cell.kernel.to(dtype) + self.cell.bias.to(dtype)).transpose(0, 1)[:, None].contiguous()
         if initial_state is None:
             h = torch.zeros(1, B, self.units, dtype=dtype, device=inputs.device)

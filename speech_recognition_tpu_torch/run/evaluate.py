@@ -2,8 +2,11 @@
 
 Same flags, the same log lines and the same TSV (``Prediction, Target, WER,
 CER``) as ``speech_recognition_tpu.run.evaluate``.  Rows are read, decoded and
-tokenized by the port's host pipeline.  With ``--on-device-frontend`` (the
-default for ``--device GPU``) the raw audio is batched with
+tokenized by the port's host pipeline, or, with ``--use-tfrecord``, read as
+precomputed features and tokens from ``run.make_tfrecord``'s files (delta-
+accelerate applied here when the data config asks for it; the on-device
+frontend is off for them).  With ``--on-device-frontend`` (the default for
+``--device GPU`` tsv runs) the raw audio is batched with
 ``quantized_padded_raw_batch`` and the card computes the features
 (``ops/frontend.py``); otherwise the host computes them and they are batched
 with ``quantized_padded_batch`` (the JAX CLI's non-TPU shapes).  Batches are
@@ -33,7 +36,7 @@ parser.add_argument("--sp-model-path", type=str, required=True, help="sentencepi
 parser.add_argument("--output-path", help="output tsv file path to save generated sentences")
 parser.add_argument("--batch-size", type=int, default=512)
 parser.add_argument("--beam-size", type=int, default=0, help="not given, use greedy search else beam search with this value as beam size")
-parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset (not ported yet)")
+parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset")
 parser.add_argument("--mixed-precision", action="store_true", help="Use mixed precision")
 parser.add_argument("--device", type=str, default="GPU", help="device to run on (GPU | CPU)")
 parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features on device (default: on for GPU tsv runs)")
@@ -46,12 +49,11 @@ def main(args: argparse.Namespace):
     from ..configs import DataConfig, get_model_config
     from ..data import (SentencePieceTokenizer, get_dataset, prefetch_stream, quantized_padded_batch,
                         quantized_padded_raw_batch)
-    from ..ops.features import make_feature_fn
+    from ..data import get_tfrecord_dataset
+    from ..ops.features import delta_accelerate, make_feature_fn
     from .common import (compute_dtype, create_model, frontend_decode_fn, load_weights, make_searcher,
                          pipelined_decode, select_device, to_device, use_raw_frontend)
 
-    if args.use_tfrecord:
-        raise NotImplementedError("--use-tfrecord is not ported yet: the port reads tsv datasets")
     device = select_device(args.device)
     raw_mode = use_raw_frontend(args.on_device_frontend, args.device, args.use_tfrecord)
     if args.mixed_precision:
@@ -64,11 +66,18 @@ def main(args: argparse.Namespace):
 
     logger.info(f"[+] Load Data Config from {args.data_config}")
     config = DataConfig.from_yaml(args.data_config)
-    logger.info(f"[+] Load dataset from {args.dataset_paths}")
-    if raw_mode:
+    if args.use_tfrecord:
+        logger.info(f"[+] Load TFRecord dataset from {args.dataset_paths}")
+        stream = get_tfrecord_dataset(args.dataset_paths)
+        if config.use_delta_accelerate:
+            logger.info("[+] Use delta and deltas accelerate")
+            stream = ((delta_accelerate(a), t) for a, t in stream)
+    elif raw_mode:
+        logger.info(f"[+] Load dataset from {args.dataset_paths}")
         logger.info("[+] Fused on-device audio frontend")
         stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer)
     else:
+        logger.info(f"[+] Load dataset from {args.dataset_paths}")
         feature_fn = make_feature_fn(config)  # delta and accel included when the config asks for them
         stream = get_dataset(args.dataset_paths, config.file_format, config.sample_rate, tokenizer,
                              map_fn=lambda audio, tokens: (feature_fn(audio), tokens))

@@ -6,16 +6,30 @@ Same flags and the same ``--from-file`` YAML (CLI keys override file keys) as
 policies, shuffling, batching and prefetching are the port's copies of the
 JAX package's host modules; features are the port's host numpy chain, or,
 with ``--on-device-frontend``, the port's device chain inside the step
-(``ops/frontend.py``: padded raw audio goes to the card); SpecAugment
-(``spec_augment.enable`` in the data config, ``ops/spec_augment.py``) runs on
-the host stream before delta-accelerate, or in the device chain; the model,
-the train step and Adam are the port's.  LAS and the transducer
+(``ops/frontend.py``: padded raw audio goes to the card), or, with
+``--use-tfrecord``, ``run.make_tfrecord``'s precomputed features (no
+tokenizer, no raw mode); SpecAugment (``spec_augment.enable`` in the data
+config, ``ops/spec_augment.py``) runs on the host stream before
+delta-accelerate, or in the device chain; the model, the train step and Adam
+are the port's.  LAS and the transducer
 (token-conditioned models) are fed ``((audio, lengths), tokens[:, :-1])``
 against ``tokens[:, 1:]``; a CTC model
 (DeepSpeech2, the Conformer) ``(audio, lengths)`` against the full tokens.  Each epoch ends
 with a dev pass and a ``.pt`` checkpoint named as the JAX package names its
 checkpoints, which ``--pretrained-model-path`` and the port's
 ``run.inference --model-path`` load.
+
+The JAX CLI's single-device options, with its semantics and log lines:
+``--grad-accum-steps N`` (``train/state.py``: N micro-steps' mean gradient,
+one Adam update, the schedule counting updates), ``--bucket-boundaries``
+(``data/dataset.py bucket_batch`` on the train and dev batches: over-long
+clips clamped under ``--max-over-policy slice``, dropped otherwise),
+``--auto-resume`` (the newest ``.pt`` under ``<output>/models`` as the
+pretrained weights, ``--skip-epochs`` from its ``model-<N>epoch`` name) and
+``--profile-steps N`` (a ``torch.profiler`` trace, CPU and on the card CUDA
+activity, of steps 2..N+1 of the first epoch, written to
+``<output>/profile``).  ``--model-parallel > 1``, ``--fsdp`` and the
+multi-process flags are refused (parallelism is not ported).
 
     python -m speech_recognition_tpu_torch.run.train --data-config ... --model-config ... \\
         --sp-model-path sp.model --train-dataset-paths train.tsv --dev-dataset-paths dev.tsv \\
@@ -24,6 +38,8 @@ checkpoints, which ``--pretrained-model-path`` and the port's
 """
 
 import argparse
+import os
+import re
 import sys
 import time
 
@@ -57,18 +73,18 @@ parser.add_argument("--dev-batch-size", type=int)
 parser.add_argument("--shuffle-buffer-size", type=int, help="shuffle buffer size")
 parser.add_argument("--max-over-policy", type=str, choices=["filter", "slice"], help="policy for sequence whose length is over max")
 
-parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset (not ported yet)")
+parser.add_argument("--use-tfrecord", action="store_true", help="use tfrecord dataset")
 parser.add_argument("--tensorboard-update-freq", type=int)
 parser.add_argument("--mixed-precision", action="store_true", help="use mixed precision (bfloat16)")
 parser.add_argument("--seed", type=int, help="Set random seed")
 parser.add_argument("--skip-epochs", type=int, help="skip first N epochs and start N + 1 epoch")
 parser.add_argument("--device", type=str, choices=["CPU", "GPU", "TPU"], help="device to use (GPU, the default, or CPU; TPU is the JAX package's)")
-parser.add_argument("--profile-steps", type=int, help="profile N training steps (not ported yet)")
+parser.add_argument("--profile-steps", type=int, help="capture a torch.profiler trace of N training steps into <output>/profile")
 parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features (and SpecAugment) on device from padded raw audio (default: off)")
-parser.add_argument("--bucket-boundaries", type=str, help="audio-length bucket boundaries (not ported yet)")
-parser.add_argument("--auto-resume", action="store_true", help="resume from the newest checkpoint (not ported yet)")
+parser.add_argument("--bucket-boundaries", type=str, help="comma-separated audio-length bucket boundaries for bucketed batching, e.g. 512,1024,2048")
+parser.add_argument("--auto-resume", action="store_true", help="resume from the newest checkpoint in <output>/models (sets pretrained path + skip-epochs)")
 parser.add_argument("--model-parallel", type=int, help="tensor-parallel degree (only 1 is ported)")
-parser.add_argument("--grad-accum-steps", type=int, help="gradient accumulation steps (only 1 is ported)")
+parser.add_argument("--grad-accum-steps", type=int, help="accumulate gradients over N train steps before each optimizer update (effective batch = N * batch-size; the LR schedule counts optimizer updates)")
 parser.add_argument("--fsdp", action="store_true", help="fully-sharded data parallelism (not ported yet)")
 parser.add_argument("--coordinator-address", type=str, help="multi-process bootstrap (not ported yet)")
 parser.add_argument("--num-processes", type=int, help="multi-process bootstrap (not ported yet)")
@@ -82,11 +98,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
         (cfg.model_parallel > 1, "--model-parallel > 1"),
         (cfg.fsdp, "--fsdp"),
         (cfg.coordinator_address, "--coordinator-address"),
-        (cfg.use_tfrecord, "--use-tfrecord"),
-        (cfg.auto_resume, "--auto-resume"),
-        (cfg.grad_accum_steps > 1, "--grad-accum-steps > 1"),
-        (cfg.bucket_boundaries, "--bucket-boundaries"),
-        (cfg.profile_steps, "--profile-steps"),
     ]
     for bad, what in unported:
         if bad:
@@ -101,20 +112,23 @@ def max_raw_samples(data_config) -> int:
 def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
     """A callable ``factory(skip=0)`` producing the (features, tokens) stream, or
     in raw mode (``--on-device-frontend``) the (raw audio, tokens) stream
-    (run/train.py:62-154 without the TFRecord branch).  Host features are
-    computed in the decode thread pool; with SpecAugment on, the pool leaves
-    out delta-accelerate and the stream augments each example with draws from a
-    CPU generator seeded ``seed * 1000 + calls so far``, then applies delta, as
-    the JAX stream does with its key."""
-    from ..data import filter_example, get_dataset, slice_example
+    (run/train.py:62-154).  Host features are computed in the decode thread
+    pool, or read from TFRecords (``--use-tfrecord``: features without delta,
+    ``skip`` records dropped before their parse); with SpecAugment on, the pool
+    leaves out delta-accelerate and the stream augments each example with
+    draws from a CPU generator seeded ``seed * 1000 + calls so far``, then
+    applies delta, as the JAX stream does with its key."""
+    from ..data import filter_example, get_dataset, get_tfrecord_dataset, slice_example
     from ..ops.features import delta_accelerate, make_feature_fn
     from ..ops.spec_augment import augment_clip
 
     data_config = cfg.data_config
     paths = cfg.train_dataset_paths if train else cfg.dev_dataset_paths
-    raw_mode = bool(cfg.on_device_frontend)
+    raw_mode = bool(cfg.on_device_frontend) and not cfg.use_tfrecord
     sa = data_config.spec_augment if train and data_config.spec_augment.enable and not raw_mode else None
-    feature_fn = None if raw_mode else make_feature_fn(data_config, delta=sa is None)
+    feature_fn = None if raw_mode or cfg.use_tfrecord else make_feature_fn(data_config, delta=sa is None)
+    # delta-accelerate on the stream: after SpecAugment, and for TFRecords, whose features carry none
+    stream_delta = data_config.use_delta_accelerate and (sa is not None or cfg.use_tfrecord)
     calls = {"n": 0}
 
     def raw_policy(stream):
@@ -131,24 +145,27 @@ def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
             yield audio, tokens
 
     def factory(skip: int = 0):
-        stream = get_dataset(
-            paths,
-            data_config.file_format,
-            data_config.sample_rate,
-            tokenizer,
-            shuffle=train and cfg.shuffle_buffer_size > 1,
-            skip=skip,
-            map_fn=None if raw_mode else (lambda audio, tokens: (feature_fn(audio), tokens)),
-        )
-        if raw_mode:
-            return raw_policy(stream)
+        if cfg.use_tfrecord:
+            stream = get_tfrecord_dataset(paths, skip=skip)
+        else:
+            stream = get_dataset(
+                paths,
+                data_config.file_format,
+                data_config.sample_rate,
+                tokenizer,
+                shuffle=train and cfg.shuffle_buffer_size > 1,
+                skip=skip,
+                map_fn=None if raw_mode else (lambda audio, tokens: (feature_fn(audio), tokens)),
+            )
+            if raw_mode:
+                return raw_policy(stream)
         if sa is not None:
             import torch
 
             gen = torch.Generator().manual_seed((cfg.seed or 0) * 1000 + calls["n"])
             stream = ((augment_clip(a, sa, gen), t) for a, t in stream)
-            if data_config.use_delta_accelerate:
-                stream = ((delta_accelerate(a), t) for a, t in stream)
+        if stream_delta:
+            stream = ((delta_accelerate(a), t) for a, t in stream)
         if cfg.max_over_policy == "filter":
             stream = filter_example(data_config.max_audio_length, data_config.max_token_length)(stream)
         elif cfg.max_over_policy == "slice":
@@ -194,6 +211,39 @@ def _summary_writer(log_dir: str, logger):
     return SummaryWriter(log_dir)
 
 
+def start_profiler(device):
+    """A started ``torch.profiler`` of the CPU and, on the card, CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def save_profile(profiler, device, profile_dir: str, name: str) -> str:
+    """Stop ``profiler`` once the card has finished the traced steps and write its
+    Chrome trace to ``profile_dir/name`` (a gs:// directory by way of a local file)."""
+    import tempfile
+
+    import torch
+
+    from ..utils import copy, is_remote
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    makedirs(profile_dir)
+    path = path_join(profile_dir, name)
+    if not is_remote(path):
+        profiler.export_chrome_trace(path)
+        return path
+    with tempfile.TemporaryDirectory() as local:
+        profiler.export_chrome_trace(os.path.join(local, name))
+        copy(os.path.join(local, name), path)
+    return path
+
+
 def main(cfg: TrainConfig):
     """Train; returns one record per epoch (train / dev metrics and the checkpoint path)."""
     logger = get_logger("train")
@@ -203,10 +253,11 @@ def main(cfg: TrainConfig):
 
     from ..utils import copy as copy_file
 
-    from ..data import SentencePieceTokenizer, padded_batch, prefetch_stream, repeat_stream, shuffle_stream
+    from ..data import (SentencePieceTokenizer, bucket_batch, padded_batch, prefetch_stream, repeat_stream,
+                        shuffle_stream)
     from ..models import LAS, Transducer
-    from ..train import (AsyncMetricAccumulator, TrainState, checkpoint_path, linear_warmup_decay, make_adam,
-                         make_eval_step, make_train_step, save_weights)
+    from ..train import (AsyncMetricAccumulator, TrainState, checkpoint_path, latest_checkpoint, linear_warmup_decay,
+                         make_adam, make_eval_step, make_train_step, save_weights)
     from .common import compute_dtype, count_params, create_model, load_weights, select_device
 
     device = select_device(cfg.device)
@@ -229,9 +280,11 @@ def main(cfg: TrainConfig):
     if cfg.mixed_precision:
         logger.info("[+] Use Mixed Precision (bfloat16)")
 
-    logger.info(f"[+] Load Tokenizer from {cfg.sp_model_path}")
-    with open_file(cfg.sp_model_path, "rb") as f:
-        tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
+    tokenizer = None
+    if not cfg.use_tfrecord:
+        logger.info(f"[+] Load Tokenizer from {cfg.sp_model_path}")
+        with open_file(cfg.sp_model_path, "rb") as f:
+            tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
     logger.info(f"[+] Load train dataset from {cfg.train_dataset_paths}")
     train_factory = build_dataset_factory(cfg, tokenizer, train=True)
     logger.info(f"[+] Load dev dataset from {cfg.dev_dataset_paths}")
@@ -242,16 +295,28 @@ def main(cfg: TrainConfig):
     model = create_model(cfg.model_config, cfg.data_config, dtype, device,
                          generator=torch.Generator().manual_seed(seed), train=True)
     logger.info(f"[+] Parameters: {count_params(model):,}")
+    if cfg.auto_resume and not cfg.pretrained_model_path:
+        newest = latest_checkpoint(path_join(cfg.output_path, "models"))
+        if newest:
+            cfg.pretrained_model_path = newest
+            done = re.search(r"model-(\d+)epoch", os.path.basename(newest))
+            if done and not cfg.skip_epochs:
+                cfg.skip_epochs = int(done.group(1))
+            logger.info(f"[+] Auto-resume from {newest} (skip_epochs={cfg.skip_epochs})")
     if cfg.pretrained_model_path:
         logger.info("[+] Load weights of model")
         load_weights(model, cfg.pretrained_model_path)
 
-    schedule = linear_warmup_decay(cfg.total_steps, cfg.learning_rate, cfg.min_learning_rate, cfg.warmup_rate,
-                                   cfg.warmup_steps, cfg.offset_steps)
-    state = TrainState(model, make_adam(model, schedule), schedule)
+    accum = max(cfg.grad_accum_steps, 1)
+    schedule = linear_warmup_decay(cfg.total_steps // accum, cfg.learning_rate, cfg.min_learning_rate,
+                                   cfg.warmup_rate, cfg.warmup_steps, cfg.offset_steps // accum)
+    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum)
+    if accum > 1:
+        # the mean gradient of N micro-steps, applied once: the schedule steps per update
+        logger.info(f"[+] Gradient accumulation over {accum} steps")
     # models whose input is (features, decoder / prediction tokens)
     token_conditioned = isinstance(model, (LAS, Transducer))
-    raw_mode = bool(cfg.on_device_frontend)
+    raw_mode = bool(cfg.on_device_frontend) and not cfg.use_tfrecord
     train_preprocess = eval_preprocess = None
     if raw_mode:
         logger.info("[+] Fused on-device audio frontend")
@@ -275,6 +340,7 @@ def main(cfg: TrainConfig):
         skip_count %= cfg.train_dataset_size
     skip_examples = {"count": skip_count}
     pin = device.type == "cuda"
+    boundaries = [int(b) for b in str(cfg.bucket_boundaries).split(",")] if cfg.bucket_boundaries else None
 
     def batch_iterator(factory, batch_size, train: bool, epoch: int = 0):
         skip = skip_examples.pop("count", 0) if train else 0
@@ -282,8 +348,13 @@ def main(cfg: TrainConfig):
         if train and cfg.shuffle_buffer_size > 1:
             stream = shuffle_stream(stream, cfg.shuffle_buffer_size, seed=None if cfg.seed is None else cfg.seed + epoch)
         # raw mode: padded raw audio and sample counts, which the frontend turns into frame counts
-        for audio, lengths, tokens in padded_batch(stream, batch_size, audio_pad, token_pad, pad_to_batch=static,
-                                                   with_lengths=True):
+        if boundaries and not raw_mode:
+            batches = bucket_batch(stream, batch_size, boundaries, token_pad,
+                                   over_boundary="clamp" if cfg.max_over_policy == "slice" else "drop",
+                                   with_lengths=True)
+        else:
+            batches = padded_batch(stream, batch_size, audio_pad, token_pad, pad_to_batch=static, with_lengths=True)
+        for audio, lengths, tokens in batches:
             audio, lengths, tokens = (torch.from_numpy(np.ascontiguousarray(a)) for a in (audio, lengths, tokens))
             if pin:  # in the prefetch thread, so the copy to the card can be asynchronous
                 audio, lengths, tokens = audio.pin_memory(), lengths.pin_memory(), tokens.pin_memory()
@@ -318,6 +389,7 @@ def main(cfg: TrainConfig):
                 writer.add_scalar("train/loss", value, step)
             pending.clear()
 
+    profiler = None
     records = []
     for epoch in range(cfg.skip_epochs, cfg.epochs):
         epoch_start = time.time()
@@ -327,10 +399,18 @@ def main(cfg: TrainConfig):
         train_iter = persistent_train_iter or prefetch_stream(
             batch_iterator(train_factory, cfg.batch_size, train=True, epoch=epoch), size=2)
         for model_input, y_true in train_iter:
+            if cfg.profile_steps and epoch == cfg.skip_epochs and steps == 1:
+                # steps 2..N+1: the first step's warm-up (CUDA graph capture, allocator growth) stays out
+                profiler = start_profiler(device)
+                logger.info("[+] Started torch.profiler trace")
             model_input, y_true = to_device(model_input, y_true)
             metrics = train_step(state, model_input, y_true, dropout_gen, coin_gen)
             steps += 1
             global_step += 1
+            if profiler is not None and steps >= 1 + cfg.profile_steps:
+                trace = save_profile(profiler, device, path_join(cfg.output_path, "profile"), "trace.json")
+                profiler = None
+                logger.info(f"[+] Saved profiler trace to {trace}")
             running.push(metrics)
             if writer and global_step % cfg.tensorboard_update_freq == 0:
                 tb_pending.append((global_step, metrics["loss"]))
@@ -341,6 +421,10 @@ def main(cfg: TrainConfig):
                     flush_tensorboard(tb_pending)
             if cfg.steps_per_epoch and steps >= cfg.steps_per_epoch:
                 break
+        if profiler is not None:  # the epoch ended first
+            trace = save_profile(profiler, device, path_join(cfg.output_path, "profile"), "trace.json")
+            profiler = None
+            logger.info(f"[+] Saved profiler trace to {trace}")
         train_metrics = running.totals()
         if writer:
             flush_tensorboard(tb_pending)

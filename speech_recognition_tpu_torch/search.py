@@ -17,7 +17,15 @@ steps 2..L-1 as one call of kernel K11 (``ops/beam_search.py``), whose
 arithmetic is that of the TPU beam kernel (``beam_kernel.py
 _beam_step_math``; the same as the XLA loop's in float32, bf16 rounded at
 other places) and which stops once every beam has ended, as the XLA loop
-does.  The speller is LSTM only, as the TPU kernel requires.
+does.  That is the LSTM speller, the only one the TPU kernels take.  A GRU
+or RNN speller runs the JAX package's XLA loops (search.py:150-178,
+258-333) as host-driven step loops: greedy on the model's plain step
+(float32 log-softmax, argmax, the ended bookkeeping), checking every
+``GREEDY_CHECK`` steps whether a row is still live (an ended row's steps
+change nothing); beam on the model's plain K-beam step with every step's
+vocab projection, top-K and logsumexp through K5 and the loop condition
+tested every step (a step after the last beam ended is not a no-op: a row
+of ended beams would collapse onto its best one).
 
 ``DeepSpeechSearcher`` (search.py:336-512) decodes a CTC model's log-softmax
 outputs in plain PyTorch, as the JAX package does it outside any Pallas
@@ -35,10 +43,13 @@ from typing import Tuple
 import torch
 
 from .models.las import LAS
-from .ops.beam_search import beam_search
-from .ops.greedy_search import greedy_search, seq_lengths
+from .ops.beam_search import _initial_flags, beam_search, beam_update
+from .ops.greedy_search import finish, greedy_search, seq_lengths
 from .ops.rnn import cell_step
 from .ops.vocab_topk import ROUND_NONE, ROUND_TWICE, vocab_topk
+
+
+GREEDY_CHECK = 8  # steps of a GRU / RNN speller's greedy loop between its host checks for a live row
 
 
 def _topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -57,6 +68,7 @@ class LASSearcher:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self._params = None
+        self.steps_run = 0  # steps of the last greedy / beam loop of a GRU or RNN speller after the first
 
     @torch.no_grad()
     def decoder_params(self):
@@ -79,18 +91,44 @@ class LASSearcher:
         return self._params
 
     def _encode(self, audio):
-        enc_out, mask, h, c = self.model.encode(audio)
-        return enc_out, self.model.project_keys(enc_out), mask, (h, c)
+        enc_out, mask, *states = self.model.encode(audio)
+        return enc_out, self.model.project_keys(enc_out), mask, tuple(states)
 
     @torch.no_grad()
     def greedy_search(self, audio: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """audio [B,T,F,C] -> (tokens [B, max_token_length], perplexity [B])."""
-        enc_out, keys, mask, (h, c) = self._encode(audio)
+        enc_out, keys, mask, states = self._encode(audio)
+        if self.model.rnn_type != "lstm":
+            return self._greedy_steps(enc_out, keys, mask, states)
+        h, c = states
         emb, qw, qb, cells, vw, vb = self.decoder_params()
         return greedy_search(
             keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells, h, c,
             self.max_token_length, self.bos_id, self.eos_id, self.pad_id,
         )
+
+    def _greedy_steps(self, enc_out, keys, mask, states):
+        """The XLA greedy loop (search.py:150-178) on the model's plain step."""
+        B, L = enc_out.shape[0], self.max_token_length
+        dev = enc_out.device
+        tokens = torch.full((B, L), self.pad_id, dtype=torch.long, device=dev)
+        tokens[:, 0] = self.bos_id
+        ended = torch.zeros(B, dtype=torch.bool, device=dev)
+        logp = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.steps_run = 0
+        for step in range(1, L):
+            if step % GREEDY_CHECK == 1 and step > 1 and bool(ended.all()):
+                break
+            logits, states = self.model.decode_step(enc_out, keys, tokens[:, step - 1], mask, states)
+            log_probs = torch.log_softmax(logits.float(), dim=-1)
+            new = log_probs.argmax(dim=-1)
+            top = log_probs.gather(1, new[:, None])[:, 0]
+            logp = torch.where(ended, logp, logp + top)
+            new = torch.where(ended, self.pad_id, new)
+            ended = ended | (new == self.eos_id)
+            tokens[:, step] = new
+            self.steps_run += 1
+        return finish(tokens, logp, self.eos_id)
 
     @torch.no_grad()
     def beam_search(self, audio: torch.Tensor, beam_size: int, alpha: float = 1.0, beta: int = 32):
@@ -111,13 +149,38 @@ class LASSearcher:
         tokens = torch.full((B, K, L), self.pad_id, dtype=torch.long, device=dev)
         tokens[:, :, 0] = self.bos_id
         tokens[:, :, 1] = top_tokens
-        h0, c0 = (s.repeat_interleave(K, dim=0) for s in states0)  # [B*K, H], beam-major rows
+        states0 = tuple(s.repeat_interleave(K, dim=0) for s in states0)  # [B*K, H], beam-major rows
+        if self.model.rnn_type != "lstm":
+            tokens, logp = self._beam_steps(enc_out, keys, mask, states0, tokens, logp, vw, vb, rounding, alpha, beta)
+            return self._finish_beams(tokens, logp)
+        h0, c0 = states0
 
         # steps 2..L-1: one call, kernel K11 on the card (ops/beam_search.py)
         tokens, logp = beam_search(keys.contiguous(), enc_out.contiguous(), mask, qw, qb, emb, vw, vb, cells, h0, c0,
                                    tokens, logp, self.eos_id, self.pad_id, alpha, beta)
+        return self._finish_beams(tokens, logp)
+
+    def _beam_steps(self, enc_out, keys, mask, states, tokens, logp, vw, vb, rounding, alpha, beta):
+        """Steps 2..L-1 of the XLA beam loop (search.py:258-333): the model's plain K-beam step, then K5 over
+        the B*K hidden rows; stops where the loop's condition fails (no beam left without EOS)."""
+        K, L = tokens.shape[1], tokens.shape[2]
+        ended, eoslen = _initial_flags(tokens, self.eos_id)
+        self.steps_run = 0
+        for step in range(2, L):
+            if bool(ended.all()):
+                break
+            hidden, states = self.model.decode_step_beam_hidden(enc_out, keys, tokens[:, :, step - 1], mask, states)
+            top, idx, lse = vocab_topk(hidden.contiguous(), vw, vb, K, rounding)
+            tokens, logp, ended, eoslen = beam_update(top, idx, lse, tokens, logp, ended, eoslen, step, self.eos_id,
+                                                      self.pad_id, alpha, beta)
+            self.steps_run += 1
+        return tokens, logp
+
+    def _finish_beams(self, tokens, logp):
+        """Pad after each beam's EOS; perplexity exp(logP)^(-1/len)."""
+        L = tokens.shape[2]
         lens = seq_lengths(tokens, L, self.eos_id)
-        pos = torch.arange(L, device=dev)[None, None, :]
+        pos = torch.arange(L, device=tokens.device)[None, None, :]
         tokens = torch.where(pos < lens[:, :, None], tokens, self.pad_id)
         return tokens, torch.exp(logp) ** (-1.0 / lens.float())
 

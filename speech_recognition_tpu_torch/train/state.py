@@ -26,6 +26,13 @@ update is the same formula).  optax reads the schedule at the update count
 *before* the increment, so update k (from 0) uses ``schedule(k)``: the step
 sets the learning rate itself before every update rather than through an
 ``LRScheduler``.
+
+With ``TrainState.accum_steps`` N > 1 the step follows ``optax.MultiSteps``
+(``run/train.py --grad-accum-steps``): each micro-step folds its gradients
+into their running mean (Welford, ``acc + (g - acc) / (n + 1)``), batch-norm
+statistics update on every micro-step as the forward runs, and only every
+N-th step applies Adam to the mean, so the parameters do not move between
+updates and the schedule counts updates.
 """
 
 from dataclasses import dataclass
@@ -40,6 +47,33 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0  # optimizer updates done
+    accum_steps: int = 1  # micro-steps per optimizer update
+    micro_step: int = 0  # micro-steps folded into acc_grads since the last update
+    acc_grads: Optional[list] = None  # running mean of the micro-steps' gradients, per optimizer parameter
+
+
+@torch.no_grad()
+def _accumulate(state: TrainState) -> bool:
+    """Fold this micro-step's gradients into their running mean; True when the
+    mean is due as the update's gradients, which it then puts in ``.grad``."""
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    if state.acc_grads is None:
+        state.acc_grads = [None] * len(params)
+    n = state.micro_step
+    for i, p in enumerate(params):
+        acc, g = state.acc_grads[i], p.grad
+        if g is None and acc is None:
+            continue
+        g = torch.zeros_like(acc) if g is None else g
+        acc = torch.zeros_like(g) if acc is None else acc
+        state.acc_grads[i] = acc + (g - acc) / (n + 1)
+    state.micro_step += 1
+    if state.micro_step < state.accum_steps:
+        return False
+    for p, acc in zip(params, state.acc_grads):
+        p.grad = acc
+    state.micro_step, state.acc_grads = 0, None
+    return True
 
 
 def make_adam(model: torch.nn.Module, schedule: Callable[[int], float]) -> torch.optim.Adam:
@@ -105,11 +139,12 @@ def make_train_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optiona
         loss = _with_aux_loss(model, loss)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
+        if state.accum_steps <= 1 or _accumulate(state):
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
+            state.step += 1
         metrics = {"loss": loss.detach()}
         if outputs is not None and metric_fns:
             _add_metrics(metrics, metric_fns, y_true, outputs.detach(), fused, getattr(model, "pad_id", 0))

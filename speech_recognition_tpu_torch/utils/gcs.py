@@ -205,9 +205,10 @@ def write_bytes(path: str, data: bytes) -> None:
         resp.read()
 
 
-def list_objects(bucket: str, prefix: str) -> List[str]:
-    """The names of all objects under ``prefix``."""
-    names, page_token = [], None
+def list_objects_meta(bucket: str, prefix: str) -> List[dict]:
+    """All objects under ``prefix`` with their JSON-API metadata (name, and,
+    when the server provides it, the ``updated`` RFC3339 timestamp)."""
+    items, page_token = [], None
     while True:
         qs = {"prefix": prefix}
         if page_token:
@@ -215,10 +216,27 @@ def list_objects(bucket: str, prefix: str) -> List[str]:
         url = f"{_endpoint()}/storage/v1/b/{bucket}/o?{urllib.parse.urlencode(qs)}"
         with _request(url) as resp:
             payload = json.load(resp)
-        names += [item["name"] for item in payload.get("items", [])]
+        items += payload.get("items", [])
         page_token = payload.get("nextPageToken")
         if not page_token:
-            return names
+            return items
+
+
+def list_objects(bucket: str, prefix: str) -> List[str]:
+    """The names of all objects under ``prefix``."""
+    return [item["name"] for item in list_objects_meta(bucket, prefix)]
+
+
+def parse_rfc3339(ts: str) -> float:
+    """RFC3339 ('2024-01-02T03:04:05.678Z') -> epoch seconds; 0.0 if absent."""
+    if not ts:
+        return 0.0
+    import datetime
+
+    try:
+        return datetime.datetime.fromisoformat(ts.replace("Z", "+00:00")).timestamp()
+    except ValueError:
+        return 0.0
 
 
 def _glob_regex(pattern: str):

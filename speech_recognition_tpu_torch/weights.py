@@ -12,7 +12,10 @@ renamed and the layout changed where PyTorch's modules differ:
   ``weight``/``bias``/``running_mean``/``running_var``;
 - LSTM cells keep ``kernel``/``recurrent_kernel``/``bias`` and the Keras gate
   order i,f,c,o: the port's cell uses that order, so nothing is reordered.
-  (cuDNN's ``nn.LSTM`` would want i,f,g,o; the port does not use it.)
+  (cuDNN's ``nn.LSTM`` would want i,f,g,o; the port does not use it.)  GRU
+  cells keep their z,r,h order and ``bias [2, 3H]``, simple-RNN cells their
+  one ``bias [H]``; a LAS tree whose ``rnn_type`` is gru or rnn has no
+  ``listener.cell_states_proj``, and the port's model has none either.
 - LayerNorm ``scale``/``bias`` <-> ``weight``/``bias`` (the batch-norm rule);
 - the Conformer's ``depthwise_kernel`` keeps Flax's [K, 1, C] layout and name;
 - the transducer's top-level ``joint_kernel`` [J, V] and ``joint_bias`` keep

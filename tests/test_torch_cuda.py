@@ -434,6 +434,7 @@ def _scaled_decoder_operands(cuda, N, B, S, H, He, Dv, n_cells, seed):
 
 
 @pytest.mark.parametrize("N, B, S, H, He, Dv, n_cells", [(9, 128, 255, 256, 256, 512, 2),  # LAS-small's widths
+                                                         (9, 128, 127, 256, 256, 512, 2),  # a 512-frame bucket
                                                          (4, 16, 64, 1024, 1024, 2048, 2),  # LAS-large's widths
                                                          (5, 70, 37, 48, 32, 80, 3)])
 def test_decoder_split_route(cuda, N, B, S, H, He, Dv, n_cells):
@@ -949,6 +950,7 @@ def test_rnn_sequence_wide_route_matches_plain(cuda, rnn_type, dtype, D, T, H):
     ("lstm", 1, 40, 160, 768),  # two 128-row chunks, the second ragged
     ("gru", 2, 33, 40, 520),  # a ragged last CTA (520 = 32 x 16 + 8 units)
     ("gru", 1, 255, 128, 1024),
+    ("gru", 2, 255, 128, 1024),  # a LAS-large-width GRU listener layer (rnn_type: gru)
     ("lstm", 2, 9, 1, 600),  # one batch row
 ])
 def test_rnn_sequence_persistent_route(cuda, rnn_type, D, T, B, H):
@@ -977,6 +979,7 @@ def test_rnn_sequence_persistent_route(cuda, rnn_type, D, T, B, H):
 @pytest.mark.parametrize("rnn_type, D, T, B, H", [
     ("lstm", 2, 108, 128, 256),  # LAS-small's listener width (16 CTAs of 16 units)
     ("gru", 2, 108, 128, 128),  # a DeepSpeech2 BiGRU layer (16 CTAs of 8 units)
+    ("gru", 2, 255, 128, 256),  # LAS-small's listener with rnn_type: gru (16 CTAs of 16 units)
     ("lstm", 1, 108, 128, 320),  # the prediction net's width (14 CTAs of 24 units, K = 336)
     ("lstm", 2, 1, 5, 8),  # a cluster of one CTA, one step
     ("gru", 1, 2, 1, 8),

@@ -12,8 +12,9 @@ train step) vs the JAX package, float32 on the CPU.
 - Three Adam steps of the DS2 train step (fused CTC route, plain K6) vs JAX
   ``make_train_step`` with ``optax.adam(schedule, eps=1e-7)`` at dropout 0:
   loss rtol 1e-5, batch statistics atol 1e-6, parameters atol 1e-5.
-- The weight bridge round trip, training dropout, and the options that are
-  not ported yet (the MoE trunk is held in tests/test_torch_moe.py).
+- The weight bridge round trip and training dropout (the MoE trunk is held
+  in tests/test_torch_moe.py, ``rnn_type: rnn`` and recurrent dropout in
+  tests/test_torch_rnn_types.py).
 """
 
 import dataclasses
@@ -84,11 +85,12 @@ def test_gru_scan_matches_jax_forward_and_reverse():
     np.testing.assert_allclose(t_h0.grad.numpy(), np.asarray(j_grads[3]), **tol)
 
 
-def ds2_twins(dropout=0.0, seed=0):
+def ds2_twins(dropout=0.0, seed=0, **overrides):
     """(flax model, numpy variables, torch DS2) on deepspeech_mini_for_test.yml's
-    model with the same weights; biases and batch-norm statistics perturbed
-    from a numpy seed, so the bridge moves non-trivial values."""
-    model = jax_model_config(TEST_DS_CONFIG).create_model().clone(dropout=dropout)
+    model (with ``overrides`` of its config keys, e.g. ``rnn_type``) with the
+    same weights; biases and batch-norm statistics perturbed from a numpy
+    seed, so the bridge moves non-trivial values."""
+    model = jax_model_config(TEST_DS_CONFIG).create_model().clone(dropout=dropout, **overrides)
     variables = model.init({"params": jax.random.PRNGKey(seed)}, jnp.zeros((1, FRAMES, FREQ, CHANNELS)))
     variables = jax.tree_util.tree_map(np.asarray, {k: variables[k] for k in ("params", "batch_stats")})
     rng = np.random.default_rng(seed + 1)
@@ -105,7 +107,8 @@ def ds2_twins(dropout=0.0, seed=0):
                 tree[name] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
 
     perturb(variables)
-    port = DeepSpeech2(dataclasses.replace(get_model_config(TEST_DS_CONFIG), dropout=dropout), FREQ, CHANNELS)
+    port = DeepSpeech2(dataclasses.replace(get_model_config(TEST_DS_CONFIG), dropout=dropout, **overrides), FREQ,
+                       CHANNELS)
     port.load_state_dict(params_from_jax(variables))
     return model, variables, port
 
@@ -204,10 +207,3 @@ def test_training_dropout_draws_masks():
         again = port.hidden_states(inputs, True, torch.Generator().manual_seed(1))
         evaluated = port.hidden_states(inputs, False)
     assert torch.equal(train, again) and not torch.allclose(train, evaluated)
-
-
-@pytest.mark.parametrize("override", [dict(rnn_type="rnn"), dict(recurrent_dropout=0.1)])
-def test_unported_options_raise(override):
-    config = dataclasses.replace(get_model_config(TEST_DS_CONFIG), **override)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DeepSpeech2(config, FREQ, CHANNELS)

@@ -9,7 +9,8 @@ transducer's joint kernel x16, so no token sits on a near-tie of the
 random-init logits.  Both CLIs decode tests/data/wav_dataset.tsv in float32
 with ``--device CPU`` and must write the same TSV: header and every row
 (prediction, target, WER, CER).  LAS and DeepSpeech2 greedy and beam-2, the
-Conformer and the transducer greedy.
+Conformer and the transducer greedy; and with ``--use-tfrecord`` (LAS greedy,
+DeepSpeech2 beam-2) on records of the same tsv.
 """
 
 import csv
@@ -22,6 +23,7 @@ import torch
 
 from speech_recognition_tpu.configs import DataConfig, get_model_config
 from speech_recognition_tpu.run import evaluate as jax_evaluate
+from speech_recognition_tpu.run import make_tfrecord as jax_make_tfrecord
 from speech_recognition_tpu.run.common import build_variables, create_model
 from speech_recognition_tpu.train import save_weights
 from speech_recognition_tpu_torch.run import evaluate
@@ -87,12 +89,32 @@ def test_tsv_rows_match_the_jax_cli(tmp_path, checkpoints, model_config, beam):
     assert all(0.0 <= float(row[2]) and 0.0 <= float(row[3]) for row in got[1:])
 
 
-@pytest.mark.parametrize("flag", ["--use-tfrecord"])
-def test_unported_flags_raise(tmp_path, checkpoints, flag):
-    args = evaluate.parser.parse_args(_args(TEST_DS_CONFIG, checkpoints[TEST_DS_CONFIG][1], tmp_path / "x.tsv", 0)
-                                      + [flag])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        evaluate.main(args)
+@pytest.mark.parametrize("model_config, beam", [(TEST_LAS_CONFIG, 0), (TEST_DS_CONFIG, 2)])
+def test_tfrecord_rows_match_the_jax_cli(tmp_path, checkpoints, model_config, beam):
+    """``--use-tfrecord`` on records of the tsv written by the JAX package's ``run.make_tfrecord``: both CLIs
+    read the features and tokens from them (delta-accelerate applied on read) and write the same TSV."""
+    jax_make_tfrecord.main(jax_make_tfrecord.parser.parse_args(
+        ["--data-config", MINI_CONFIG, "--dataset-paths", WAV_DATASET_PATH, "--output-dir", str(tmp_path),
+         "--sp-model-path", SP_MODEL_LIBRI]))
+    records = str(tmp_path / "wav_dataset.tfrecord")
+    jax_ckpt, pt = checkpoints[model_config]
+
+    def args(weights, out):
+        argv = _args(model_config, weights, tmp_path / out, beam) + ["--use-tfrecord"]
+        argv[argv.index("--dataset-paths") + 1] = records
+        return argv
+
+    jax_evaluate.main(jax_evaluate.parser.parse_args(args(jax_ckpt, "jax.tsv")))
+    assert evaluate.main(evaluate.parser.parse_args(args(pt, "port.tsv"))) == 0
+    got = _rows(tmp_path / "port.tsv")
+    assert len(got) == 3 and got == _rows(tmp_path / "jax.tsv")
+    assert got[1:] == _rows_of_tsv(tmp_path, model_config, pt, beam)[1:]
+
+
+def _rows_of_tsv(tmp_path, model_config, pt, beam):
+    """The port's rows for the tsv itself, host features: the records hold the same features."""
+    evaluate.main(evaluate.parser.parse_args(_args(model_config, pt, tmp_path / "tsv.tsv", beam)))
+    return _rows(tmp_path / "tsv.tsv")
 
 
 def test_device_defaults_to_the_gpu():

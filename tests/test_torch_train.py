@@ -21,9 +21,10 @@ run/train.py) vs the JAX package, float32 on the CPU.
   noise into updates of up to lr, so they are held to atol 1e-3 (3 steps,
   lr <= 1e-3).
 - The ``run.train`` CLI on the tests/data fixtures writes a ``.pt`` that the
-  port's ``run.inference`` loads and decodes with; options whose paths are
-  not ported raise (SpecAugment and the on-device frontend run:
-  tests/test_torch_spec_augment.py).
+  port's ``run.inference`` loads and decodes with; the parallelism options,
+  which are not ported, raise (SpecAugment and the on-device frontend run:
+  tests/test_torch_spec_augment.py; TFRecords, accumulation, bucketing,
+  auto-resume and profiling: tests/test_torch_host_options.py).
 """
 
 import csv
@@ -264,8 +265,6 @@ def test_train_cli_parses_the_jax_flags():
 
 @pytest.mark.parametrize("override", [
     dict(model_parallel=2), dict(fsdp=True), dict(coordinator_address="localhost:1234"),
-    dict(use_tfrecord=True), dict(auto_resume=True), dict(grad_accum_steps=2),
-    dict(bucket_boundaries="64,128"), dict(profile_steps=2),
 ])
 def test_train_cli_refuses_unported_options(tmp_path, override):
     cfg = _train_config(tmp_path, **override)

@@ -60,9 +60,9 @@ def make_audio(batch=8, frames=24, seed=0):
     return audio
 
 
-def las_twins(vocab=V, seed=0, dtype=jnp.float32, vocab_scale=1.0):
+def las_twins(vocab=V, seed=0, dtype=jnp.float32, vocab_scale=1.0, rnn_type="lstm"):
     """(flax model, flax variables as numpy, torch LAS) sharing one set of weights."""
-    model = JaxLAS("lstm", vocab, H, H, ENC_LAYERS, DEC_LAYERS, 0.0, 1.0, dtype=dtype)
+    model = JaxLAS(rnn_type, vocab, H, H, ENC_LAYERS, DEC_LAYERS, 0.0, 1.0, dtype=dtype)
     variables = model.init(
         {"params": jax.random.PRNGKey(seed)},
         (jnp.zeros((1, 24, FREQ, CHANNELS)), jnp.zeros((1, 8), jnp.int32)),
@@ -84,7 +84,7 @@ def las_twins(vocab=V, seed=0, dtype=jnp.float32, vocab_scale=1.0):
     perturb(variables)
     ff = variables["params"]["attend_and_speller"]["feedforward"]
     ff["kernel"] = ff["kernel"] * np.float32(vocab_scale)
-    config = LASConfig(rnn_type="lstm", vocab_size=vocab, encoder_hidden_dim=H, decoder_hidden_dim=H,
+    config = LASConfig(rnn_type=rnn_type, vocab_size=vocab, encoder_hidden_dim=H, decoder_hidden_dim=H,
                        num_encoder_layers=ENC_LAYERS, num_decoder_layers=DEC_LAYERS, dropout=0.0,
                        teacher_forcing_rate=1.0, pad_id=0)
     torch_dtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
@@ -101,7 +101,9 @@ def test_port_imports_no_jax(tmp_path):
     LAS mini checkpoint, and trains one step through
     ``run.train`` of the LAS, Conformer and pruned RNN-Transducer mini configs,
     of LAS with SpecAugment (the warp and both masks) in the on-device
-    frontend, and of the DeepSpeech2-MoE mini config, all on the CPU.
+    frontend, and of the DeepSpeech2-MoE mini config, then writes the tsv's
+    TFRecords through ``run.make_tfrecord`` and trains LAS one step from them
+    (``--use-tfrecord``), all on the CPU.
     The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
     code = r"""
@@ -118,11 +120,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
-             "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp"):
+             "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp", "run.make_tfrecord", "data.tfrecord"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
-from speech_recognition_tpu_torch.run import evaluate, inference, train
+from speech_recognition_tpu_torch.run import evaluate, inference, make_tfrecord, train
 from speech_recognition_tpu_torch.run.common import create_model
 
 out, data_config, las_config, conformer_config, transducer_config, moe_config, sp_model, tsv, wav = sys.argv[1:]
@@ -151,6 +153,14 @@ for model_config, spec_augment in ((las_config, False), (conformer_config, False
             cfg.data_config.spec_augment, enable=True, W=5))
     records = train.main(cfg)
     steps.append(records[0]["steps"])
+make_tfrecord.main(make_tfrecord.parser.parse_args([
+    "--data-config", data_config, "--dataset-paths", tsv, "--output-dir", out, "--sp-model-path", sp_model]))
+cfg = TrainConfig(
+    data_config=data_config, model_config=las_config, sp_model_path=sp_model, train_dataset_paths=out + "/wav_dataset.tfrecord",
+    dev_dataset_paths=out + "/wav_dataset.tfrecord", train_dataset_size=2, output_path=out + "/train_tfrecord", epochs=1,
+    steps_per_epoch=1, learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
+    device="CPU", seed=1, use_tfrecord=True)
+steps.append(train.main(cfg)[0]["steps"])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names), sum(steps))
 """
@@ -162,7 +172,7 @@ print(len(names), sum(steps))
                          timeout=600)
     assert out.returncode == 0, out.stderr
     n_modules, steps = out.stdout.split()[-2:]
-    assert int(n_modules) >= 30 and int(steps) == 5
+    assert int(n_modules) >= 30 and int(steps) == 6
     assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
     assert (tmp_path / "scored.tsv").read_text().startswith("Prediction\tTarget\tWER\tCER")
 

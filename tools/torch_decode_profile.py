@@ -2,14 +2,16 @@
 """Where the decode time goes in the PyTorch port (LAS, DeepSpeech2, Conformer-CTC or RNN-Transducer, one CUDA GPU).
 
     python3 tools/torch_decode_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
-        [--out build/decode_profile.json]
+        [--rnn-type gru] [--out build/decode_profile.json]
 
 Random seeded weights of the model config and random non-zero features of
 1024 frames, bf16.  Times, with CUDA events after a warm-up (median of 3).
 LAS (``las_small.yml``): the listener (``encode`` + key projection), the
 greedy decode loop (kernel K4) on the same encoder outputs, and the whole
 ``greedy_search`` / ``beam_search`` (its first step a plain decoder step +
-kernel K5, steps 2..L-1 one call of kernel K11).  DeepSpeech2
+kernel K5, steps 2..L-1 one call of kernel K11); with ``--rnn-type gru`` or
+``rnn`` (a GRU / RNN speller) the listener and the whole searches, whose
+loops are plain steps (K5 in every beam step).  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``, its blocks'
 attention through kernel K7): the model's log-probs (trunk, vocab
 projection, log-softmax), and the whole CTC greedy / prefix beam-8 search;
@@ -24,6 +26,7 @@ time.  Prints the card's name and power limit first; writes everything to
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -82,6 +85,7 @@ def main():
                         help="las_small.yml, deepspeech.yml, conformer_small.yml or transducer_small.yml "
                              "(relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--rnn-type", choices=["lstm", "gru", "rnn"], help="override the config's rnn_type (LAS, DS2)")
     parser.add_argument("--out", default="build/decode_profile.json")
     args = parser.parse_args()
 
@@ -101,12 +105,15 @@ def main():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     data_config = DataConfig.from_yaml(os.path.join(root, "resources/configs/libri_config.yml"))
     model_config = get_model_config(os.path.join(root, args.model_config))
+    if args.rnn_type:
+        model_config = dataclasses.replace(model_config, rnn_type=args.rnn_type)
     model = create_model(model_config, data_config, torch.bfloat16, torch.device("cpu"),
                          generator=torch.Generator().manual_seed(0)).to(dev)
     B, L = args.batch, data_config.max_token_length
     g = torch.Generator().manual_seed(1)
     audio = (torch.randn(B, 1024, 80, 3, generator=g) + 5.0).to(dev)
-    result = {"card": card, "model_config": args.model_config, "batch": B, "frames": 1024, "dtype": "bfloat16"}
+    result = {"card": card, "model_config": args.model_config, "rnn_type": getattr(model_config, "rnn_type", None),
+              "batch": B, "frames": 1024, "dtype": "bfloat16"}
 
     with torch.no_grad():
         if isinstance(model_config, TransducerConfig):
@@ -123,6 +130,13 @@ def main():
             result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
             result["greedy_loop_ms"] = result["greedy_search_ms"] - result["log_probs_ms"]
             result["beam8_loop_ms"] = result["beam8_search_ms"] - result["log_probs_ms"]
+        elif model_config.rnn_type != "lstm":  # a GRU / RNN speller: plain step loops, K5 in the beam
+            searcher = LASSearcher(model, L, bos_id=1, eos_id=2)
+            result["encode_ms"] = cuda_ms(lambda: searcher._encode(audio))
+            result["greedy_search_ms"] = cuda_ms(lambda: searcher.greedy_search(audio))
+            result["beam8_search_ms"] = cuda_ms(lambda: searcher.beam_search(audio, 8))
+            result["greedy_loop_ms"] = result["greedy_search_ms"] - result["encode_ms"]
+            result["beam8_loop_ms"] = result["beam8_search_ms"] - result["encode_ms"]
         else:
             searcher = LASSearcher(model, L, bos_id=1, eos_id=2)
             enc_out, keys, mask, (h, c) = searcher._encode(audio)

@@ -3,12 +3,13 @@
 RNN-Transducer, one CUDA GPU).
 
     python3 tools/torch_train_profile.py [--model-config resources/configs/las_small.yml] [--batch 128] \
-        [--out build/train_profile.json]
+        [--rnn-type gru] [--recurrent-dropout 0.1] [--out build/train_profile.json]
 
 Random seeded weights of the model config (dropout as configured), random
 non-zero features of 1024 frames with true lengths, and random tokens of
 128 positions with pad tails, bf16.  LAS (``las_small.yml`` or ``las_large.yml``): N = 127
-decoder positions, the teacher-forced branch.  DeepSpeech2
+decoder positions, the teacher-forced branch (with ``--rnn-type gru`` or ``rnn``
+a plain speller loop where the LSTM runs K2 / K3).  DeepSpeech2
 (``deepspeech.yml``) and the Conformer (``conformer_small.yml``): labels of
 at most 48 tokens, so every CTC row is feasible at T' = 108 / 255.  The
 RNN-Transducer (``transducer_small.yml``, pruned S=4; or
@@ -38,6 +39,7 @@ Prints the card's name and power limit first; writes everything to
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -115,12 +117,12 @@ def staged_step(model, state, inputs, y_true, gen):
     leaf = lambda t: t.detach().requires_grad_(True)
 
     events[0].record()
-    enc, mask, h, c = model.listener(audio, dt, lengths, True, rate, gen)
+    enc, mask, *bridged = model.listener(audio, dt, lengths, True, rate, gen)  # (h, c), or (h,) for a GRU / RNN
     pk = aas.project_keys(enc, dt)
     events[1].record()
-    enc_l, pk_l, h_l, c_l = (leaf(t) for t in (enc, pk, h, c))
+    enc_l, pk_l, *bridged_l = (leaf(t) for t in (enc, pk, *bridged))
     masks = aas.make_dropout_masks(gen, dec_in.shape[0], enc.shape[-1], dt, enc.device)
-    hidden0, states = aas.step_hidden(enc_l, pk_l, dec_in[:, 0], mask, (h_l, c_l), dt, masks)
+    hidden0, states = aas.step_hidden(enc_l, pk_l, dec_in[:, 0], mask, tuple(bridged_l), dt, masks)
     rest = aas.teacher_forced(enc_l, pk_l, dec_in[:, 1:], mask, states, dt, masks)
     hid = torch.cat([hidden0[None], rest], dim=0)
     events[2].record()
@@ -132,7 +134,7 @@ def staged_step(model, state, inputs, y_true, gen):
     events[4].record()
     hid.backward(hid_l.grad)
     events[5].record()
-    torch.autograd.backward([enc, pk, h, c], [enc_l.grad, pk_l.grad, h_l.grad, c_l.grad])
+    torch.autograd.backward([enc, pk, *bridged], [enc_l.grad, pk_l.grad, *(t.grad for t in bridged_l)])
     events[6].record()
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedule(state.step)
@@ -276,6 +278,8 @@ def main():
                              "transducer_small.yml or "
                              "transducer_small_dense.yml (relative to the repository root)")
     parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--rnn-type", choices=["lstm", "gru", "rnn"], help="override the config's rnn_type (LAS, DS2)")
+    parser.add_argument("--recurrent-dropout", type=float, help="override DS2's recurrent_dropout")
     parser.add_argument("--out", default="build/train_profile.json")
     args = parser.parse_args()
 
@@ -295,6 +299,9 @@ def main():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     data_config = DataConfig.from_yaml(os.path.join(root, "resources/configs/libri_config.yml"))
     model_config = get_model_config(os.path.join(root, args.model_config))
+    overrides = {k: v for k, v in (("rnn_type", args.rnn_type), ("recurrent_dropout", args.recurrent_dropout))
+                 if v is not None}
+    model_config = dataclasses.replace(model_config, **overrides)
     las = isinstance(model_config, LASConfig)
     family = "las" if las else "conformer" if isinstance(model_config, ConformerConfig) else "ds2"
     if isinstance(model_config, TransducerConfig):
@@ -307,7 +314,8 @@ def main():
     B, L, frames = args.batch, data_config.max_token_length, 1024
     inputs, y_true = make_batch(B, frames, L, torch.Generator().manual_seed(1), dev, las or "transducer" in family)
     gen = torch.Generator(device=dev).manual_seed(2)
-    result = {"card": card, "model_config": args.model_config, "batch": B, "frames": frames, "dtype": "bfloat16"}
+    result = {"card": card, "model_config": args.model_config, **overrides, "batch": B, "frames": frames,
+              "dtype": "bfloat16"}
 
     times = []
     torch.cuda.reset_peak_memory_stats(dev)
