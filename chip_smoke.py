@@ -142,7 +142,31 @@ Phases, in order; any failure exits non-zero without printing a result:
    Transducer-S with the checkpoints of phases 4-7 and beam-8 for LAS-small
    (K11 once) and DeepSpeech2: 128 rows, finite WER / CER, the predictions equal to
    ``run.inference``'s on the same clips and weights, K10's and K11's
-   launches counted, and the decode ms of the batch.
+   launches counted, and the decode ms of the batch;
+9. ``run.train`` over ``torch.distributed`` (``run_distributed``): (9a)
+   LAS-small as phase 4, as a one-process NCCL job (``--coordinator-address
+   127.0.0.1:<port> --num-processes 1 --process-id 0``), K1, K2, K3 and K10
+   counted on their routes, the per-step losses bit for bit with phase 4's
+   (an all-reduce over one rank is the identity); (9b) the same with
+   ``--fsdp`` (FSDP2), its losses bit for bit with 9a's, its peak memory,
+   its gathered checkpoint decoded greedy by a one-process ``run.inference``
+   (K4, K10 counted), and the plain, one-rank and FSDP2 steps timed in
+   turns; (9c) two spawned ranks sharing the card over gloo (each joins the
+   job over gloo before ``run.train``, which keeps that group: NCCL refuses
+   two ranks on one card) with the on-device frontend: LAS-small
+   data-parallel at B=128 (64 rows a rank) against a one-process run fed the
+   same global batches, then DeepSpeech2-MoE with ``--model-parallel 2`` (the
+   vocab projection in shards, the experts split over the two ranks) in
+   float32 with its capacity free and its aux weight 0
+   (``moe_capacity_free``: per-shard routing then drops nothing and the
+   one-process step is the same function) against a one-process run of that
+   config; LAS-small's losses at every step and its dev loss within
+   ``DIST_LOSS_RTOL``, DS2-MoE's first two steps' within ``DIST_LOSS_RTOL_F32``
+   (past its second update rounding grows ~70x a step; the later steps are
+   printed), the first step's gradient norms, global and
+   each parameter's, within ``GRAD_TOL_BF16`` / ``GRAD_TOL_F32`` of the
+   one-process run's (``check_grad_norms``), both ranks' losses equal,
+   K6 and K10 counted, each rank's bf16 step timed (DS2-MoE's as shipped).
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
@@ -1772,8 +1796,10 @@ def run_train_path(tmp, wav_dir, paths, data_config):
         fn.launches = 0
     decoder_fwd.tc_launches = decoder_bwd.tc_launches = rnn_sequence.cluster_tc_launches = 0
     t0 = time.perf_counter()
-    records = train.main(cfg)
+    with LossRecorder() as rec:  # each step's loss, for phase 9a's comparison
+        records = train.main(cfg)
     wall = time.perf_counter() - t0
+    PHASE4_LOSSES[:] = rec.losses()
     launches = {"ce_vocab_fwd": ce_fwd.launches, "ce_vocab_bwd": ce_bwd.launches,
                 "las_decoder_fwd": decoder_fwd.launches, "las_decoder_bwd": decoder_bwd.launches}
     print(f"  run.train: {wall:.1f} s for {TRAIN_STEPS} steps + a dev pass + the checkpoint; {records}")
@@ -2276,15 +2302,18 @@ def one_batch(cfg, n_rows):
     return (audio, lengths), tokens
 
 
-def train_setup(cfg, batch=B, accum_steps=1, data=None):
+def train_setup(cfg, batch=B, accum_steps=1, data=None, mesh=None, fsdp=False):
     """A bf16 model, Adam and train step of ``cfg`` with its first batch of ``batch`` rows on the card (or
     ``data``, such a batch), after 2 warm-up steps (``accum_steps`` micro-steps an update): (a function running
     one step and returning its metrics, the peak device memory of the setup and those steps in GiB above what
-    was allocated before)."""
+    was allocated before).  On a ``mesh`` (phase 9) the model is placed as run.train places it (tensor- and
+    expert-parallel shards, FSDP2 with ``fsdp``) and the step takes this rank's rows of the batch."""
     import torch
 
+    from speech_recognition_tpu_torch.parallel.shard import apply_fsdp, shard_experts, shard_tensor_parallel
     from speech_recognition_tpu_torch.run.common import create_model
     from speech_recognition_tpu_torch.train import TrainState, linear_warmup_decay, make_adam, make_train_step
+    from speech_recognition_tpu_torch.train.state import LossRoute
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2292,10 +2321,24 @@ def train_setup(cfg, batch=B, accum_steps=1, data=None):
     base = torch.cuda.memory_allocated()
     model = create_model(cfg.model_config, cfg.data_config, torch.bfloat16, torch.device("cuda"),
                          generator=torch.Generator().manual_seed(0), train=True)
+    route, fsdp_params = None, set()
+    if mesh is not None:
+        shard_tensor_parallel(model, mesh)
+        shard_experts(model, mesh)
+        if fsdp:
+            route = LossRoute(model, model.get_loss_fn(), model.get_metrics())
+            fsdp_params = apply_fsdp(route, model, mesh)
     schedule = linear_warmup_decay(100, 1e-3, 1e-5, 0.0, 2)
-    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum_steps)
+    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum_steps, mesh=mesh, route=route,
+                       fsdp_params=fsdp_params)
     step = make_train_step(model, model.get_loss_fn(), model.get_metrics())
     inputs, y = data or one_batch(cfg, batch)
+    if mesh is not None and mesh.data > 1:
+        n = y.shape[0] // mesh.data
+        rows = lambda t: t[mesh.data_index * n : (mesh.data_index + 1) * n]
+        inputs = (tuple(rows(t) for t in inputs[0]), rows(inputs[1])) if token_conditioned(cfg) \
+            else tuple(rows(t) for t in inputs)
+        y = rows(y)
     gen = torch.Generator(device="cuda").manual_seed(0)
     run = lambda: step(state, inputs, y, gen)
     for _ in range(2):
@@ -2354,10 +2397,11 @@ def time_accumulation(cfg, rounds=3):
               f"{', '.join(f'{x:.2f}' for x in t)})")
 
 
-def time_train_steps_in_turns(cfgs, names, rounds=3):
+def time_train_steps_in_turns(cfgs, names, rounds=3, options=None):
     """The bf16 train steps of several configs at B=128 timed in turns (a b, b a, a b, ...), each after its
-    2 warm-up steps; the median of each and its peak device memory (model, Adam and steps)."""
-    setups = [train_setup(cfg) for cfg in cfgs]
+    2 warm-up steps (``options``: each setup's ``train_setup`` keywords); the median of each and its peak device
+    memory (model, Adam and steps)."""
+    setups = [train_setup(cfg, **opts) for cfg, opts in zip(cfgs, options or [{}] * len(cfgs))]
     times = [[] for _ in cfgs]
     for r in range(rounds):
         for i in (range(len(cfgs)) if r % 2 == 0 else reversed(range(len(cfgs)))):
@@ -2941,6 +2985,447 @@ def run_evaluate_path(tmp, wav_dir, dev_tsv, data_config, checkpoints):
     return launches, k11
 
 
+# ---------------------------------------------------------------- phase 9
+PHASE4_LOSSES = []  # phase 4's per-step losses: the plain run phase 9a is held against
+DIST_TIMEOUT = 240  # seconds the spawned ranks of phase 9c may take
+DIST_LOSS_RTOL = 1e-4  # phase 9c's LAS-small per-step and dev losses (bf16), ranks against the one-process run
+DIST_LOSS_RTOL_F32, MOE_HELD_STEPS = 1e-5, 2  # phase 9c's DS2-MoE (float32): its first two steps' losses
+# phase 9c's first-step gradient norms (the global norm's rtol, each parameter's rtol, and its atol as a share of the
+# global norm): LAS-small in bf16 (each weight gradient rounded to bf16), DS2-MoE in float32
+GRAD_TOL_BF16, GRAD_TOL_F32 = (1e-3, 1e-2, 1e-4), (1e-6, 1e-6, 1e-7)
+
+
+def grad_squares(model):
+    """[(name, shard)] of ``model``'s parameters, ``name`` the one in the whole state_dict and ``shard`` True for a
+    tensor- or expert-parallel shard, and their gradients' squared norms [P] as they entered the update (on the
+    card): a shard's is this rank's part, every other parameter's whole on every rank."""
+    import torch
+
+    from speech_recognition_tpu_torch.parallel.shard import local_only
+
+    shards = local_only(model)
+    names, squares = [], []
+    for name, p in model.named_parameters():
+        names.append((re.sub(r"(^|\.)parametrizations\.(\w+)\.original$", r"\1\2", name), p in shards))
+        squares.append(torch.zeros((), device=p.device) if p.grad is None else p.grad.float().pow(2).sum())
+    return names, torch.stack(squares)
+
+
+class LossRecorder:
+    """While active, every train step built by ``train.make_train_step`` keeps its loss (on the card), and with
+    ``grads`` its gradients' squared norms (``grad_squares``)."""
+
+    def __init__(self, grads=False):
+        self.grads = grads
+
+    def __enter__(self):
+        import speech_recognition_tpu_torch.train as train_pkg
+
+        self._pkg, self._make, self._losses, self._grads = train_pkg, train_pkg.make_train_step, [], []
+        self._names = []
+
+        def recording(*args, **kwargs):
+            step = self._make(*args, **kwargs)
+
+            def run(state, *a, **kw):
+                metrics = step(state, *a, **kw)
+                self._losses.append(metrics["loss"])
+                if self.grads:
+                    self._names, squares = grad_squares(state.model)
+                    self._grads.append(squares)
+                return metrics
+
+            return run
+
+        train_pkg.make_train_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._pkg.make_train_step = self._make
+
+    def losses(self):
+        import torch
+
+        return torch.stack(self._losses).tolist() if self._losses else []
+
+    def grad_squares(self):
+        """{"names": [(name, shard)], "steps": [[squared norm of each parameter's gradient] a step]}."""
+        import torch
+
+        return {"names": self._names, "steps": torch.stack(self._grads).tolist() if self._grads else []}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def set_flag(args, flag, value=None):
+    """``args`` with ``flag``'s value replaced, or the flag (and its value) added."""
+    args = list(args)
+    if flag in args and value is not None:
+        args[args.index(flag) + 1] = value
+    elif flag not in args:
+        args += [flag] + ([] if value is None else [value])
+    return args
+
+
+LAS_COUNTED = (("ce_vocab_fwd", "ce_vocab", "ce_fwd"), ("ce_vocab_bwd", "ce_vocab", "ce_bwd"),
+               ("las_decoder_fwd", "decoder_kernel", "decoder_fwd"), ("las_decoder_bwd", "decoder_kernel", "decoder_bwd"),
+               ("rnn_sequence", "rnn_sequence", "rnn_sequence"))
+DS2_COUNTED = (("ctc_emissions_fwd", "ctc_emissions", "ctc_emissions_fwd"),
+               ("ctc_emissions_bwd", "ctc_emissions", "ctc_emissions_bwd"), ("rnn_sequence", "rnn_sequence", "rnn_sequence"))
+JOB = ["--num-processes", "1", "--process-id", "0"]
+
+
+def counted_train(args, counted, grads=False):
+    """run.train.main on ``args`` with the counters of ``counted`` ((name, ops module, wrapper)) and the K2 / K3 / K10
+    route counters set to 0 just before and read just after: {records, launches, routes, losses (per step), grads
+    (per step, ``grad_squares`` when asked), wall, peak_gib}, the peak the card's allocator reached in the run."""
+    import importlib
+
+    import torch
+
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.ops.decoder_kernel import decoder_bwd, decoder_fwd
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.run import train
+
+    fns = {name: getattr(importlib.import_module(f"speech_recognition_tpu_torch.ops.{mod}"), fn)
+           for name, mod, fn in counted}
+    cfg = TrainConfig(**vars(train.parser.parse_args(args)))
+    for fn in (*fns.values(), decoder_fwd, decoder_bwd, rnn_sequence):
+        fn.launches = 0
+    decoder_fwd.tc_launches = decoder_bwd.tc_launches = rnn_sequence.cluster_tc_launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LossRecorder(grads) as rec:
+        records = train.main(cfg)
+    routes = {"K2": [decoder_fwd.tc_launches, decoder_fwd.launches], "K3": [decoder_bwd.tc_launches, decoder_bwd.launches],
+              "K10": [rnn_sequence.cluster_tc_launches, rnn_sequence.launches]}
+    return dict(records=records, launches={name: fn.launches for name, fn in fns.items()}, routes=routes,
+                losses=rec.losses(), grads=rec.grad_squares(), wall=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def time_ranked_steps(args, dp, mp, port, rank, world):
+    """This rank's bf16 train step of ``args``' config on a ``dp`` x ``mp`` mesh over gloo: CUDA events around
+    each of TIMED_STEPS steps after 2 warm-ups (the whole job steps together), the median and the peak GiB."""
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.parallel import get_device_mesh, init_process_group, set_active_mesh
+    from speech_recognition_tpu_torch.run import train
+
+    import torch.distributed as dist
+
+    cfg = TrainConfig(**vars(train.parser.parse_args(args)))
+    init_process_group(f"tcp://127.0.0.1:{port}", world, rank, "GPU", "gloo")
+    try:
+        run, peak = train_setup(cfg, mesh=get_device_mesh(dp, mp, "cuda"))
+        times = [step_ms(run)[0] for _ in range(TIMED_STEPS)]
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+    return dict(ms=float(np.median(times)), times=times, peak_gib=peak)
+
+
+def dist_rank(rank, world, jobs, out):
+    """A spawned rank of phase 9c: for each job, run.train as ``rank`` of ``world`` (``counted_train``), then its
+    train step timed on the same mesh; the results to ``out``.  NCCL refuses two ranks on one card, so the rank
+    joins the job over gloo before run.train, which keeps the process group it finds."""
+    sys.path.insert(0, REPO)
+    from speech_recognition_tpu_torch.parallel import init_process_group
+
+    results = []
+    for job in jobs:
+        address = f"127.0.0.1:{job['ports'][0]}"
+        init_process_group(f"tcp://{address}", world, rank, "GPU", "gloo")
+        args = job["args"] + ["--coordinator-address", address, "--num-processes", str(world), "--process-id",
+                              str(rank)]
+        result = counted_train(args, job["counted"], grads=True)
+        result["timed"] = time_ranked_steps(job.get("timed_args", job["args"]), job["dp"], job["mp"],
+                                            job["ports"][1], rank, world)
+        results.append(result)
+    with open(out, "w") as f:
+        json.dump(results, f)
+
+
+def spawn_ranks(world, jobs, tmp):
+    """``world`` processes of ``dist_rank`` on the one card, under DIST_TIMEOUT together; every one is stopped
+    before this returns.  Returns each rank's results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    for job in jobs:
+        job["ports"] = [free_port(), free_port()]
+    outs = [os.path.join(tmp, f"dist_rank{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=dist_rank, args=(r, world, jobs, outs[r])) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world or not all(os.path.exists(o) for o in outs):
+        raise RuntimeError(f"phase 9c: the ranks exited with {codes}")
+    results = []
+    for o in outs:
+        with open(o) as f:
+            results.append(json.load(f))
+    return results
+
+
+def moe_capacity_free(tmp):
+    """deepspeech_moe.yml with capacity factor E (no token can be dropped: an expert's capacity is every token) and
+    aux weight 0, written under ``tmp``.  The expert-parallel path routes each source shard at its own capacity and
+    averages the per-shard aux losses (JAX's semantics); with nothing dropped and no aux term, its step is the
+    one-process step on the same rows, so phase 9c holds the two to the same limits as the data-parallel run."""
+    import yaml
+
+    with open(os.path.join(REPO, "resources/configs/deepspeech_moe.yml")) as f:
+        config = yaml.safe_load(f)
+    config.update(moe_capacity_factor=float(config["moe_experts"]), moe_aux_weight=0.0)
+    path = os.path.join(tmp, "deepspeech_moe_capacity_free.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def whole_grad_squares(results):
+    """Per step, {name: the squared norm of the whole parameter's gradient} from the records of the ranks of one
+    ``data`` position (a shard's squares summed over the ranks, every other parameter's from the first)."""
+    first = results[0]["grads"]
+    return [{name: sum(r["grads"]["steps"][s][i] for r in results) if shard else first["steps"][s][i]
+             for i, (name, shard) in enumerate(first["names"])} for s in range(len(first["steps"]))]
+
+
+def check_grad_norms(ranks, ref, what, global_rtol, rtol, atol):
+    """The first step's gradients (before any update) of a run on the ranks of one ``data`` position (``model`` >
+    1) or of a pure data-parallel mesh against the one-process run's: the global norm within ``global_rtol``, each
+    parameter's norm within ``rtol`` of the reference's plus ``atol`` of the global norm (a gradient that cancels to
+    near zero, as a bias before a batch norm, keeps only rounding).  A gradient left unaveraged over ``data``, a
+    shard's gradient lost, or a wrong exchange's backward shows here, where Adam's scale invariance hides it from
+    the losses.  The later steps' global norms are printed, not held: past Adam's first, sign-like update, rounding
+    in the near-zero gradients grows from step to step."""
+    got, want = whole_grad_squares(ranks), whole_grad_squares([ref])
+    check(len(got) == len(want) == TRAIN_STEPS and all(set(g) == set(w) for g, w in zip(got, want)),
+          f"{what}: {len(got)} steps' gradients of the same {len(want[0]) if want else 0} parameters as the "
+          f"one-process run's")
+    if not got or len(got) != len(want):
+        return
+    norms = [[float(np.sqrt(sum(step.values()))) for step in run] for run in (got, want)]
+    check(max_rel(norms[0][:1], norms[1][:1]) <= global_rtol,
+          f"{what}: the first step's global gradient norm {norms[0][0]:.6f} against {norms[1][0]:.6f} (rtol "
+          f"{global_rtol}; "
+          f"relative difference {max_rel(norms[0][:1], norms[1][:1]):.3g}); the later steps' "
+          f"{[round(x, 6) for x in norms[0][1:]]} against {[round(x, 6) for x in norms[1][1:]]} (relative "
+          f"differences {', '.join(f'{abs(a - b) / b:.3g}' for a, b in zip(norms[0][1:], norms[1][1:]))}, not held)")
+    diff = {name: abs(np.sqrt(got[0][name]) - np.sqrt(w)) for name, w in want[0].items()}
+    share = {name: d / (rtol * np.sqrt(want[0][name]) + atol * norms[1][0]) for name, d in diff.items()}
+    worst = sorted(share, key=share.get, reverse=True)[:3]
+    check(share[worst[0]] <= 1.0,
+          f"{what}: the first step's {len(share)} per-parameter gradient norms within rtol {rtol} + {atol} of the "
+          f"global norm; the nearest to the limit (difference / limit): " + ", ".join(
+              f"{name} {share[name]:.3g} ({np.sqrt(got[0][name]):.6g} against {np.sqrt(want[0][name]):.6g})"
+              for name in worst))
+
+
+def max_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def check_steps(got, want, rtol, what, held=None):
+    """Per-step losses ``got`` against ``want``: TRAIN_STEPS of each, the first ``held`` (default: all) within
+    ``rtol`` (0: bit for bit), the rest printed with their differences."""
+    held = TRAIN_STEPS if held is None else held
+    ok = len(got) == len(want) == TRAIN_STEPS and (got[:held] == want[:held] if rtol == 0
+                                                  else max_rel(got[:held], want[:held]) <= rtol)
+    diff = max_rel(got[:held], want[:held]) if len(got) == len(want) and got else float("nan")
+    rest = "" if held >= len(got) or len(got) != len(want) else (
+        f"; steps {held + 1}-{len(got)} not held, relative differences "
+        + ", ".join(f"{abs(x - y) / abs(y):.3g}" for x, y in zip(got[held:], want[held:])))
+    check(ok, f"{what}: per-step losses {[round(x, 5) for x in got]} against {[round(x, 5) for x in want]} "
+              f"({'bit for bit' if rtol == 0 else f'rtol {rtol}'} over the first {held}; largest relative difference "
+              f"{diff:.3g}{rest})")
+
+
+def check_counts(result, expected, what, routes=True):
+    """The counted launches of a run against ``expected`` ({name: n}, or None: at least one), and with ``routes``
+    (a bf16 run) each K2 / K3 / K10 launch on its tensor-core route."""
+    for name, n in result["launches"].items():
+        want = expected.get(name)
+        check(n == want if want is not None else n > 0,
+              f"{name} launched {n} times in {what}" + ("" if want is None else f" (expected {want})"))
+    for name, (tc, n) in result["routes"].items() if routes else ():
+        check(tc == n, f"every {name} launch of {what} took its route on the card ({tc} of {n})")
+
+
+def interleaved_tsv(path, out, ranks):
+    """The rows of a TSV in the order ``ranks`` stride-sharded ranks feed them, per batch of ``B``: rank 0's B / ranks
+    rows, then rank 1's, ... (the order of the global batch a multi-process run assembles)."""
+    with open(path) as f:
+        header, *rows = f.read().splitlines(keepends=True)
+    per = B // ranks
+    shards = [rows[r::ranks] for r in range(ranks)]
+    ordered = []
+    for start in range(0, len(rows) // ranks, per):
+        for shard in shards:
+            ordered += shard[start : start + per]
+    with open(out, "w") as f:
+        f.write(header + "".join(ordered))
+    return out
+
+
+def run_distributed(tmp, paths, ds2_paths, data_config, wav_dir):
+    """Phase 9: run.train over torch.distributed on the card.  9a: one process over NCCL
+    (``--coordinator-address --num-processes 1 --process-id 0``), LAS-small as phase 4, held bit for bit to phase
+    4's losses; 9b: the same with ``--fsdp`` (FSDP2), its gathered checkpoint decoded greedy by a one-process
+    run.inference; the plain, one-rank and FSDP2 steps timed in turns.  9c: two ranks sharing the card over gloo
+    (on-device frontend): LAS-small at B=128 (64 a rank) against a one-process run of the same global batches,
+    then DS2-MoE with ``--model-parallel 2`` (the vocab projection's shards and the experts over the two ranks)
+    against a one-process run, both in float32 with the capacity free and aux weight 0 (``moe_capacity_free``);
+    losses and gradient norms held per step; each rank's bf16 step timed (DS2-MoE's as shipped).  Returns the
+    launches of the phase."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.parallel import get_device_mesh, init_process_group, set_active_mesh
+    from speech_recognition_tpu_torch.run import inference
+
+    import torch.distributed as dist
+
+    launches = {}
+    las = {"ce_vocab_fwd": "ce_vocab_fwd", "ce_vocab_bwd": "ce_vocab_bwd", "las_decoder_fwd": "las_decoder_fwd",
+           "las_decoder_bwd": "las_decoder_bwd", "rnn_sequence": "rnn_sequence_lstm"}
+    ds2 = {"ctc_emissions_fwd": "ctc_emissions_fwd", "ctc_emissions_bwd": "ctc_emissions_bwd",
+           "rnn_sequence": "rnn_sequence_gru"}
+
+    def add(result, names):
+        for name, n in result["launches"].items():
+            launches[names[name]] = launches.get(names[name], 0) + n
+
+    las_run = {"ce_vocab_fwd": TRAIN_STEPS + 1, "ce_vocab_bwd": TRAIN_STEPS, "las_decoder_fwd": TRAIN_STEPS + 1,
+               "las_decoder_bwd": TRAIN_STEPS, "rnn_sequence": LAS_LAYERS}
+    ds2_run = {"ctc_emissions_fwd": TRAIN_STEPS + 1, "ctc_emissions_bwd": TRAIN_STEPS, "rnn_sequence": DS2_LAYERS}
+    print("== phase 9a: LAS-small through run.train as a one-process NCCL job (bf16, B=128)")
+    t_phase = time.perf_counter()
+    a = counted_train(train_args(tmp, paths, data_config, out="dist_a_out") + JOB + [
+        "--coordinator-address", f"127.0.0.1:{free_port()}"], LAS_COUNTED)
+    check_counts(a, las_run, "the NCCL run")
+    add(a, las)
+    check_steps(a["losses"], PHASE4_LOSSES, 0, "9a against phase 4's plain run (an all-reduce over one rank is the "
+                                               "identity)")
+    print(f"  9a: run.train {a['wall']:.1f} s, peak {a['peak_gib']:.2f} GiB; {time.perf_counter() - t_phase:.1f} s")
+    print("== phase 9b: the same with --fsdp (FSDP2 over the one rank), its checkpoint through run.inference")
+    t_phase = time.perf_counter()
+    b = counted_train(train_args(tmp, paths, data_config, out="dist_b_out") + JOB + [
+        "--fsdp", "--coordinator-address", f"127.0.0.1:{free_port()}"], LAS_COUNTED)
+    check_counts(b, las_run, "the FSDP run")
+    add(b, las)
+    check_steps(b["losses"], a["losses"], 0, "9b (FSDP2 over one rank) against 9a")
+    print(f"  9b: run.train {b['wall']:.1f} s, peak device memory {b['peak_gib']:.2f} GiB (9a {a['peak_gib']:.2f})")
+    (rec,) = b["records"]
+    state = torch.load(rec["checkpoint"], weights_only=True)
+    check(not any(".parametrizations." in k for k in state) and "listener.batch_normalization0.running_mean" in state,
+          f"the FSDP checkpoint holds the whole state_dict under the model's names ({len(state)} entries)")
+    out = os.path.join(tmp, "fsdp_greedy.tsv")
+    greedy_search.launches = rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
+    inference.main(inference.parser.parse_args([
+        "--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
+        "--audio-files", os.path.join(wav_dir, "clip0*.wav"), "--model-path", rec["checkpoint"],
+        "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
+        "--output-path", out, "--mixed-precision", "--device", "GPU", "--batch-size", str(B)]))
+    with open(out) as f:
+        n_rows = len(f.read().splitlines()) - 1
+    check(n_rows == 100, f"run.inference decoded {n_rows} clips with the FSDP checkpoint (loaded with strict=True)")
+    check(greedy_search.launches == L - 1 and rnn_sequence.launches == LAS_LAYERS,
+          f"that decode launched K4 {greedy_search.launches} times and K10 {rnn_sequence.launches} times (expected "
+          f"{L - 1}, one a step, and {LAS_LAYERS})")
+    check_k10_route("the FSDP checkpoint's decode")
+    launches["las_greedy"] = greedy_search.launches
+    launches["rnn_sequence_lstm"] += rnn_sequence.launches
+    # the plain step against the same step on the one-rank NCCL mesh and under FSDP2, in turns
+    from speech_recognition_tpu_torch.configs import TrainConfig
+    from speech_recognition_tpu_torch.run import train
+
+    cfg = TrainConfig(**vars(train.parser.parse_args(train_args(tmp, paths, data_config))))
+    init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, "GPU")
+    try:
+        mesh = get_device_mesh(1, 1, "cuda")
+        time_train_steps_in_turns([cfg] * 3, ["9 LAS-small plain", "9a LAS-small one-rank NCCL", "9b LAS-small FSDP2"],
+                                  options=[{}, {"mesh": mesh}, {"mesh": mesh, "fsdp": True}])
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+    print(f"  9b: {time.perf_counter() - t_phase:.1f} s")
+
+    print("== phase 9c: two ranks sharing the card over gloo (on-device frontend): LAS-small DP (B=128, 64 a rank) "
+          "and DS2-MoE --model-parallel 2")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    raw = lambda args: set_flag(set_flag(args, "--shuffle-buffer-size", "1"), "--on-device-frontend")
+    # the one-process reference reads the rows in the order of the two ranks' global batch
+    ref_paths = dict(paths, train=interleaved_tsv(paths["train"], os.path.join(tmp, "train_2ranks.tsv"), 2))
+    las_ref = counted_train(raw(train_args(tmp, ref_paths, data_config, out="dist_ref_out")), LAS_COUNTED, grads=True)
+    # DS2-MoE in float32 with its capacity free and aux weight 0 (``moe_capacity_free``): the one-process step is the
+    # same function, and no bf16 rounding flips Adam's first, sign-like update where a gradient is near zero
+    moe_args = raw(train_args(tmp, ds2_paths, data_config, moe_capacity_free(tmp), out="dist_moe_ref"))
+    moe_args.remove("--mixed-precision")
+    # run.train takes cuDNN's deterministic algorithms on a model group, whose replicas must compute one gradient;
+    # so does the reference here: the default convolution weight gradient in float32 is not reproducible
+    torch.backends.cudnn.deterministic = True
+    try:
+        moe_ref = counted_train(moe_args, DS2_COUNTED, grads=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for result, names in ((las_ref, las), (moe_ref, ds2)):
+        add(result, names)
+    moe_shipped = raw(train_args(tmp, ds2_paths, data_config, "deepspeech_moe.yml", out="dist_moe_timed"))
+    jobs = [{"args": raw(train_args(tmp, paths, data_config, out="dist_c_out")), "counted": LAS_COUNTED, "dp": 2,
+             "mp": 1},
+            {"args": set_flag(moe_args, "--output-path", os.path.join(tmp, "dist_moe_out")) + ["--model-parallel", "2"],
+             "counted": DS2_COUNTED, "dp": 1, "mp": 2, "timed_args": set_flag(moe_shipped, "--model-parallel", "2")}]
+    ranks = spawn_ranks(2, jobs, tmp)
+    for r, (las_rank, moe_rank) in enumerate(ranks):
+        check_counts(las_rank, las_run, f"LAS-small rank {r} of the gloo job")
+        check_counts(moe_rank, ds2_run, f"DS2-MoE rank {r} of the gloo job (float32)", routes=False)
+        add(las_rank, las)
+        add(moe_rank, ds2)
+    check_counts(las_ref, las_run, "the one-process LAS-small reference")
+    check_counts(moe_ref, ds2_run, "the one-process DS2-MoE reference (float32)", routes=False)
+    (las0, moe0), (las1, moe1) = ranks
+    for tag, (r0, r1) in (("LAS-small", (las0, las1)), ("DS2-MoE", (moe0, moe1))):
+        check(r0["losses"] == r1["losses"], f"9c {tag}: both gloo ranks hold the same losses (the global batch's): "
+                                            f"{r0['losses']} / {r1['losses']}")
+    check_steps(las0["losses"], las_ref["losses"], DIST_LOSS_RTOL, "9c LAS-small over two gloo ranks against the "
+                                                                   "one-process run of the same global batches")
+    check_grad_norms((las0, las1), las_ref, "9c LAS-small over two gloo ranks", *GRAD_TOL_BF16)
+    val = [las0["records"][0]["val_loss"], las1["records"][0]["val_loss"], las_ref["records"][0]["val_loss"]]
+    check(abs(val[0] - val[2]) <= DIST_LOSS_RTOL * abs(val[2]) and val[0] == val[1],
+          f"9c LAS-small dev losses {val[0]:.6f} / {val[1]:.6f} (ranks) against {val[2]:.6f} (one process; rtol "
+          f"{DIST_LOSS_RTOL}, relative difference {abs(val[0] - val[2]) / abs(val[2]):.3g})")
+    # past the second update the float32 rounding of the expert products' sums grows ~70x a step (the updates
+    # amplify it, perhaps through the routers' top-1 choices), so the later steps are printed
+    check_steps(moe0["losses"], moe_ref["losses"], DIST_LOSS_RTOL_F32, "9c DS2-MoE --model-parallel 2 against the "
+                "one-process run (float32, capacity free, aux weight 0)", held=MOE_HELD_STEPS)
+    check_grad_norms((moe0, moe1), moe_ref, "9c DS2-MoE --model-parallel 2 (float32)", *GRAD_TOL_F32)
+    for tag, res in (("LAS-small DP, 64 rows a rank", (las0, las1)),
+                     ("DS2-MoE --model-parallel 2 (deepspeech_moe.yml, bf16)", (moe0, moe1))):
+        print(f"  9c {tag}: step {[round(x['timed']['ms'], 2) for x in res]} ms (ranks 0, 1; median of "
+              f"{TIMED_STEPS}: {', '.join(f'{t:.2f}' for t in res[0]['timed']['times'])}), peak "
+              f"{[round(x['timed']['peak_gib'], 2) for x in res]} GiB; run.train {[round(x['wall'], 1) for x in res]} s")
+    print(f"  9c: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -3216,6 +3701,10 @@ def main():
         launches["rnn_sequence_lstm"] += eval_launches["LAS-small"]
         launches["las_beam"] += eval_k11
         launches["rnn_sequence_gru"] += eval_launches["DS2"] + eval_launches["DS2-MoE"]
+        t_phase = time.perf_counter()
+        for name, n in run_distributed(tmp, paths, ds2_paths, data_config, wav_dir).items():
+            launches[name] += n
+        print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
         for name, n in launches.items():
             kernels[name]["launches"] = n
         for name, row in kernels.items():

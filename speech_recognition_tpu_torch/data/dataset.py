@@ -52,6 +52,7 @@ def get_dataset(
     num_workers: int = 8,
     skip: int = 0,
     map_fn: Optional[Callable] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Stream (pcm_audio float32 [T], tokens int32 [N]) pairs from tsv files.
 
@@ -67,11 +68,17 @@ def get_dataset(
     feature extraction parallelizes with decode instead of serializing in
     the consumer generator.
 
+    ``shard=(index, count)`` keeps only global rows ``g`` with
+    ``g % count == index`` — the multi-process data split (each rank of the
+    ``data`` axis feeds a disjoint stride of the dataset).  Ownership is
+    computed over the canonical glob order, so the file-order shuffle is
+    skipped when sharding (example-level shuffling still happens downstream
+    in ``shuffle_stream``).  ``skip`` then counts LOCAL (post-shard) rows.
     """
     dataset_list = glob(dataset_paths)
     if not dataset_list:
         raise FileNotFoundError(f"no dataset files match {dataset_paths!r}")
-    if shuffle:
+    if shuffle and shard is None:
         random.shuffle(dataset_list)
 
     load_fn = load_audio_file(sample_rate, file_format, resample)
@@ -81,8 +88,14 @@ def get_dataset(
         example = load_fn(path), np.asarray(tokenizer.tokenize(text), np.int32)
         return map_fn(*example) if map_fn is not None else example
 
+    offset = 0  # global rows seen, for cross-file stride continuity
     for tsv in dataset_list:
         rows = read_tsv_rows(tsv)
+        if shard is not None:
+            index, count = shard
+            start = (index - offset) % count
+            offset += len(rows)
+            rows = rows[start::count]
         if skip:
             if skip >= len(rows):
                 skip -= len(rows)
@@ -94,13 +107,16 @@ def get_dataset(
             yield from pool.map(_load, rows)
 
 
-def get_tfrecord_dataset(dataset_paths: str, skip: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+def get_tfrecord_dataset(dataset_paths: str, skip: int = 0,
+                         shard: Optional[Tuple[int, int]] = None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Stream (features float32 [T,F,1], tokens int32 [N]) from TFRecords
     (``run.make_tfrecord``'s files).  ``skip`` drops the first N records before
-    the nested TensorProto parse (the records are still read and CRC-framed)."""
+    the nested TensorProto parse (the records are still read and CRC-framed).
+    ``shard=(index, count)`` keeps every count-th record (the multi-process
+    split; see ``get_dataset``); skip counts local records."""
     from .tfrecord import read_example_dataset
 
-    return read_example_dataset(dataset_paths, skip=skip)
+    return read_example_dataset(dataset_paths, skip=skip, shard=shard)
 
 
 # ------------------------------------------------------------- length policies

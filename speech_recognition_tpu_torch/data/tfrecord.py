@@ -255,18 +255,28 @@ def write_records(path: str, records: Iterable[bytes]) -> None:
             f.write(struct.pack("<I", _masked_crc(data)))
 
 
-def read_example_dataset(paths, skip: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+def read_example_dataset(paths, skip: int = 0, shard=None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Read (features float32 [T,F,1], tokens int32 [N]) pairs from TFRecords.
 
     ``skip`` drops the first N records before the (expensive) nested
     TensorProto parse — cheap epoch-resume fast-forwarding.
+    ``shard=(index, count)`` keeps only global records ``g`` with
+    ``g % count == index`` (the multi-process split): records of other ranks
+    are still CRC-framed through (a sequential container) but never parsed.
+    ``skip`` then counts local (post-shard) records.
     """
     from ..utils.io import glob
 
     if isinstance(paths, str):
         paths = glob(paths)
+    index, count = shard if shard is not None else (0, 1)
+    g = 0
     for path in paths:
         for record in read_records(path):
+            owned = (g % count) == index
+            g += 1
+            if not owned:
+                continue
             if skip:
                 skip -= 1
                 continue

@@ -177,6 +177,37 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_DTENSOR = None  # torch.distributed.tensor.DTensor, imported on the first check
+
+
+def is_dtensor(t) -> bool:
+    """True for a DTensor: a parameter that FSDP2 holds sharded."""
+    global _DTENSOR
+    if _DTENSOR is None:
+        from torch.distributed.tensor import DTensor
+
+        _DTENSOR = DTensor
+    return isinstance(t, _DTENSOR)
+
+
+def _dtensors(items):
+    for t in items:
+        if isinstance(t, (list, tuple)):
+            yield from _dtensors(t)
+        elif is_dtensor(t):
+            yield t
+
+
+def plain_route(*operands) -> bool:
+    """True when a wrapper takes its kernel's plain version: its first operand
+    lies on the CPU.  A DTensor operand (a parameter left sharded by FSDP)
+    raises, on either route and before any launch: every kernel, and its plain
+    version, reads the whole plain tensor, gathered before the call."""
+    if any(True for _ in _dtensors(operands)):
+        raise TypeError("a kernel operand is a DTensor: gather it into a plain tensor before the call")
+    return operands[0].device.type == "cpu"
+
+
 def check_operands(dtypes, device=None, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of one of ``dtypes``
     (and on ``device``, when given)."""

@@ -3,12 +3,18 @@ cross-entropy and accuracy over logits, and the CTC loss with its dynamic
 programme in plain PyTorch (the JAX package computes it outside any Pallas
 kernel).
 
-Reductions are float32 whatever the compute type, as in JAX.
+Reductions are float32 whatever the compute type, as in JAX.  Under data
+parallelism each loss is this rank's share of the global batch's: its own
+numerator over the denominator summed over the ``data`` axis
+(``parallel.data_sum``), so the shares add up to the loss JAX takes over the
+whole batch, and so do their gradients.
 """
 
 from typing import Tuple
 
 import torch
+
+from .parallel.mesh import data_sum
 
 
 def sparse_categorical_crossentropy(y_true, logits, ignore_index: int = 0) -> torch.Tensor:
@@ -17,7 +23,7 @@ def sparse_categorical_crossentropy(y_true, logits, ignore_index: int = 0) -> to
     lse = torch.logsumexp(logits.float(), dim=-1)
     gathered = logits.gather(-1, y_true[..., None].long())[..., 0].float()
     mask = (y_true != ignore_index).float()
-    return ((lse - gathered) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ((lse - gathered) * mask).sum() / data_sum(mask.sum()).clamp_min(1.0)
 
 
 def sparse_categorical_accuracy(y_true, logits, ignore_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,7 +86,7 @@ def _ctc_normalize(per_seq, label_lengths):
     (measure.py:161-164): all-pad rows are batch padding."""
     valid_row = (label_lengths > 0).float()
     per_seq = per_seq / label_lengths.clamp_min(1.0) * valid_row
-    return per_seq.sum() / valid_row.sum().clamp_min(1.0)
+    return per_seq.sum() / data_sum(valid_row.sum()).clamp_min(1.0)
 
 
 def ctc_loss(y_true, logits, blank_index: int, pad_index: int = 0):

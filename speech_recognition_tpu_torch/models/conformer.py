@@ -12,7 +12,8 @@ are cast to ``compute_dtype`` at use.  The JAX model's semantics carried over:
   layer norm (``layers.LayerNorm``) and hash dropout at every site
   (``ops/dropout.fast_dropout``, one seed per site from the generator);
 - MHSA with RoPE on q and k, always through ``ops/attention.fused_mhsa``
-  (kernel K7 on CUDA, at any T'), per-example seeds from the generator;
+  (kernel K7 on CUDA, at any T'), per-example seeds from the generator
+  (drawn at the global batch under data parallelism, this rank's rows kept);
 - the conv module's GLU, then the mask, then the depthwise conv with XLA's
   SAME padding (``ops/dw_conv.py``);
 - ``hidden_states`` pads T' up to a multiple of ``TIME_PAD_MULTIPLE`` once
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import NEG_INF, fused_mhsa
 from ..ops.dropout import fast_dropout
 from ..ops.dw_conv import depthwise_conv1d
+from ..parallel.mesh import batch_draw
 from .ctc import CTCModel
 from .layers import LayerNorm, audio_frame_lengths, dense, init_weights
 
@@ -124,7 +126,9 @@ class MHSA(nn.Module):
         p_drop = rate if training else 0.0
         bias = torch.zeros(B, T, dtype=torch.float32, device=x.device).masked_fill_(~mask, NEG_INF)
         if p_drop > 0.0:
-            seeds = torch.randint(0, 2**31 - 1, (B,), generator=generator, device=x.device, dtype=torch.int32)
+            # drawn at the global batch, this rank's rows kept
+            seeds = batch_draw(lambda shape: torch.randint(0, 2**31 - 1, shape, generator=generator, device=x.device,
+                                                           dtype=torch.int32), (B,))
         else:
             seeds = torch.zeros(B, dtype=torch.int32, device=x.device)
         ctx = fused_mhsa(q, k, v, bias, seeds, H, float(1.0 / np.sqrt(d)), p_drop)
@@ -223,6 +227,11 @@ class Conformer(CTCModel):
                                                         config.conv_kernel_size, config.ffn_expansion))
         self.fully_connected = nn.Linear(config.encoder_dim, config.vocab_size)
         init_weights(self, generator)
+
+    def fsdp_blocks(self):
+        """The blocks FSDP2 shards one at a time (``parallel/shard.py apply_fsdp``), each
+        called through its ``forward`` in a train step: the Conformer blocks."""
+        return [getattr(self, f"block{i}") for i in range(self.num_layers)]
 
     def hidden_states(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
         """Forward up to the vocab projection: [B, T', D], zero on masked frames.

@@ -138,6 +138,11 @@ class DeepSpeech2(CTCModel):
                 module.init_weights(generator)
         self._aux_loss = []
 
+    def fsdp_blocks(self):
+        """The blocks FSDP2 shards one at a time (``parallel/shard.py apply_fsdp``), each
+        called through its ``forward`` in a train step: the BiRNN layers."""
+        return [getattr(self.recurrent, f"reccurent_layer{i}") for i in range(self.recurrent.num_layers)]
+
     def hidden_states(self, inputs, training: bool = False, generator: Optional[torch.Generator] = None):
         """Forward up to the vocab projection: [B, T', 2H], zero on masked frames.
 

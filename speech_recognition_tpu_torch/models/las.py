@@ -37,7 +37,7 @@ from torch import nn
 from ..measure import sparse_categorical_accuracy, sparse_categorical_crossentropy
 from ..ops.ce_vocab import fused_ce_vocab
 from ..ops.decoder import decoder_scan_lstm
-from ..ops.rnn import BIDIRECTIONAL, CELL_PARAMS, cell_step, keep_mask, split_bias
+from ..ops.rnn import BIDIRECTIONAL, CELL_PARAMS, batch_keep_mask, cell_step, split_bias
 from .layers import BatchNorm, audio_frame_lengths, dense, dropout, init_weights
 
 
@@ -150,8 +150,8 @@ class AttendAndSpeller(nn.Module):
     def make_dropout_masks(self, generator, batch: int, context_dim: int, dtype, device):
         """Keras-style per-call dropout masks, constant across decoder steps
         (las.py:249-262): {"emb": [B,H], "out": [B,H], "cells": [[B,in_i]]}."""
-        def mask(width):
-            return keep_mask((batch, width), self.dropout_rate, dtype, generator, device)
+        def mask(width):  # drawn at the global batch, this rank's rows kept
+            return batch_keep_mask((batch, width), self.dropout_rate, dtype, generator, device)
 
         masks = {"emb": mask(self.hidden_dim), "out": mask(self.hidden_dim), "cells": []}
         in_dim = self.hidden_dim + context_dim
@@ -297,6 +297,11 @@ class LAS(nn.Module):
             config.pad_id, config.dropout, config.rnn_type,
         )
         init_weights(self, generator)
+
+    def fsdp_blocks(self):
+        """The blocks FSDP2 shards one at a time (``parallel/shard.py apply_fsdp``), each
+        called through its ``forward`` in a train step: the listener's BiRNN layers."""
+        return [getattr(self.listener, f"encoder_layer{i}") for i in range(self.listener.num_encoder_layers)]
 
     def encode(self, audio, lengths=None):
         """audio [B, T, F, C] -> (encoded [B, T', Dv], mask [B, T'], *states [B, H]: (h, c) for the LSTM, h otherwise)."""

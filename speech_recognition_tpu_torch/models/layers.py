@@ -10,6 +10,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rnn import GRUCellParams, LSTMCellParams, RNNCellParams
+from ..parallel.comm import all_reduce_sum
+from ..parallel.mesh import batch_draw, get_active_mesh
 
 
 def audio_frame_lengths(audio: torch.Tensor) -> torch.Tensor:
@@ -31,6 +33,11 @@ class BatchNorm(nn.Module):
     ``max(E[x^2] - E[x]^2, 0)``; the running averages move as
     ``ra = 0.99 * ra + 0.01 * batch`` (Flax's convention, not
     ``nn.BatchNorm1d``'s).  In eval the running averages are used.
+
+    When the active mesh's ``data`` axis has more than one rank, the
+    statistics are those of the global batch, as JAX's SPMD batch norm takes
+    them: the per-channel sums of x and x^2 are summed over ``data`` (with
+    their backward), so the running averages come out the same on every rank.
     """
 
     def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.99):
@@ -46,8 +53,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mesh = get_active_mesh()
+            if mesh is not None and mesh.data > 1:
+                sums = all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), mesh.data_group)
+                count = float(xf.numel() // xf.shape[-1] * mesh.data)
+                mean = sums[0] / count
+                var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(axes)
+                var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean + (1.0 - self.momentum) * mean)
                 self.running_var.copy_(self.momentum * self.running_var + (1.0 - self.momentum) * var)
@@ -82,9 +96,10 @@ class LayerNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Elementwise dropout as Flax's ``nn.Dropout``: x / keep where kept, else 0."""
+    """Elementwise dropout as Flax's ``nn.Dropout``: x / keep where kept, else 0.
+    The mask is drawn at the global batch and sliced to this rank's rows (axis 0)."""
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = batch_draw(lambda shape: torch.rand(shape, generator=generator, device=x.device), x.shape) < keep
     return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops.rnn import LSTM
 from ..ops.transducer import transducer_loss
+from ..parallel.mesh import data_sum
 from .conformer import TIME_PAD_GATE, TIME_PAD_MULTIPLE, ConformerBlock, ConvSubsampler, run_block
 from .layers import dense, init_weights
 
@@ -71,6 +72,12 @@ class Transducer(nn.Module):
 
     def pred_layers(self):
         return [getattr(self, f"pred_layer{i}") for i in range(self.num_pred_layers)]
+
+    def fsdp_blocks(self):
+        """The blocks FSDP2 shards one at a time (``parallel/shard.py apply_fsdp``), each
+        called through its ``forward`` in a train step: the Conformer blocks and the
+        prediction net's LSTM layers."""
+        return [getattr(self, f"block{i}") for i in range(self.num_encoder_layers)] + self.pred_layers()
 
     def encode(self, audio_input, training: bool = False, generator: Optional[torch.Generator] = None):
         """[B, T, F, C] (or (features, lengths)) -> (enc_proj [B, T', J] pre-tanh joint input,
@@ -131,7 +138,7 @@ class Transducer(nn.Module):
             per_seq = transducer_loss(lpb, lpe, frame_lens, label_lens)
             valid = (label_lens > 0) & (per_seq < 1e29)
             normed = torch.where(valid, per_seq / label_lens.clamp(min=1), 0.0)
-            return normed.sum() / valid.sum().clamp(min=1)
+            return normed.sum() / data_sum(valid.sum()).clamp(min=1)
 
         return loss_fn
 

@@ -60,6 +60,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..kernels import plain_route
 from .greedy_search import MAX_CELLS, attention_bias
 from .las_step import ROUTE_SPLIT, interleave_cell, step_plan
 from .vocab_bwd import sm_count
@@ -202,7 +203,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
     on the card use them).  A CPU tensor takes the plain version; a CUDA
     tensor launches kernel K11 (one host call, no host sync) or raises.
     """
-    if pk.device.type == "cpu":
+    if plain_route(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0):
         return beam_loop_plain(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, init_tokens, init_logp, eos_id,
                                pad_id, alpha, beta, step0, n_steps, return_states)
     from ..kernels import check_operands, error_string, library, stream

@@ -27,6 +27,9 @@ V = 16000, H = 256 the backward is three 133 GFLOP products.
 
 import torch
 
+from ..kernels import plain_route
+from ..parallel.mesh import data_sum
+
 from .vocab_topk import ROUND_NONE, alloc_partials, launch_args, vocab_logits_plain
 
 
@@ -65,7 +68,7 @@ def ce_fwd(hid, W, b, y):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    if hid.device.type == "cpu":
+    if plain_route(hid, W, b, y):
         return ce_fwd_plain(hid, W, b, y)
     from ..kernels import error_string, library, stream
 
@@ -94,7 +97,7 @@ def ce_bwd(hid, W, b, y, lse, dnll):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels.
     """
-    if hid.device.type == "cpu":
+    if plain_route(hid, W, b, y, lse, dnll):
         return ce_bwd_plain(hid, W, b, y, lse, dnll)
     from .ctc_emissions import launch_emissions_bwd
 
@@ -120,7 +123,7 @@ class _FusedCE(torch.autograd.Function):
         y = y_true.reshape(N * B).to(torch.int32).contiguous()
         lse, lab, preds = ce_fwd(flat, Wc, bc, y)
         mask = (y != ignore_index).float()
-        count = mask.sum().clamp_min(1.0)
+        count = data_sum(mask.sum()).clamp_min(1.0)  # the global batch's, under data parallelism
         loss = ((lse - lab) * mask).sum() / count
         ctx.save_for_backward(flat, Wc, bc, y, lse, mask, count)
         ctx.shapes = (hid.shape, W.dtype, b.dtype)

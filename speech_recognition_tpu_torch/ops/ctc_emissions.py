@@ -34,6 +34,7 @@ forward and 340 backward: bound by operations at the bf16 tensor-core peak.
 
 import torch
 
+from ..kernels import plain_route
 from .vocab_topk import ROUND_NONE, alloc_partials, launch_args, vocab_logits_plain
 
 
@@ -76,7 +77,7 @@ def ctc_emissions_fwd(hid, W, b, ids):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    if hid.device.type == "cpu":
+    if plain_route(hid, W, b, ids):
         return ctc_emissions_fwd_plain(hid, W, b, ids)
     from ..kernels import error_string, library, stream
 
@@ -142,7 +143,7 @@ def ctc_emissions_bwd(hid, W, b, ids, lse, dvals):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels.
     """
-    if hid.device.type == "cpu":
+    if plain_route(hid, W, b, ids, lse, dvals):
         return ctc_emissions_bwd_plain(hid, W, b, ids, lse, dvals)
     out = launch_emissions_bwd(hid, W, b, ids, lse, dvals)
     ctc_emissions_bwd.launches += 1

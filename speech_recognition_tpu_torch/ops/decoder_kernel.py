@@ -47,6 +47,7 @@ from typing import Sequence
 
 import torch
 
+from ..kernels import plain_route
 from .las_step import (GATES, deinterleave_gates, deinterleave_units, interleave_cell, reverse_cell_weights,
                        reverse_plan, split_plan)
 from .vocab_bwd import PANEL, pad_to
@@ -292,7 +293,7 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     bf16 the split route (``decoder_fwd.tc_launches`` counts it; shapes its
     plan refuses raise), in float32 the per-row kernel.
     """
-    if emb.device.type == "cpu":
+    if plain_route(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases, cell_masks, out_mask, h0, c0):
         return decoder_fwd_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases,
                                  cell_masks, out_mask, h0, c0)
     from ..kernels import check_operands, error_string, library, stream
@@ -386,7 +387,7 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     bf16 the split reverse step (``decoder_bwd.tc_launches`` counts it; shapes
     its plan refuses raise), in float32 the per-row kernel.
     """
-    if dhidden.device.type == "cpu":
+    if plain_route(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels, cell_masks, out_mask, zs, c_ps):
         return decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels,
                                  rkernels, cell_masks, out_mask, zs, c_ps, He)
     from ..kernels import check_operands, error_string, library, stream

@@ -19,7 +19,10 @@ overflow.
 - ``fast_dropout(x, rate, training, generator)``: one int32 seed per call
   from the ``torch.Generator``, as ``FastDropout`` (dropout.py:108-126) draws
   one from the Flax rng.  The seeds differ from JAX's threefry draws, so the
-  tests hand both packages the same seeds.
+  tests hand both packages the same seeds.  Under data parallelism the batch
+  coordinate (axis 0) counts from this rank's first global row
+  (``row_offset``), so a rank's mask is its rows of the global batch's mask,
+  as JAX's SPMD program hashes global coordinates.
 
 The masks are plain PyTorch elementwise passes over int64 (about 15 per
 dropout site, again in the backward); a fused pass is later work.
@@ -29,6 +32,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import batch_offset
 
 __all__ = ["hash_uniform", "hash_dropout", "fast_dropout", "hash_bits", "mul32", "fmix32_", "keep_threshold"]
 
@@ -63,8 +68,9 @@ def _seed_u32(seed, device) -> torch.Tensor:
     return torch.as_tensor(seed, device=device).to(torch.int64) & M32
 
 
-def hash_bits(seed, shape, salt: int = 0, device=None) -> torch.Tensor:
-    """The hash of every coordinate of ``shape``: int64 in [0, 2**32).
+def hash_bits(seed, shape, salt: int = 0, device=None, row_offset: int = 0) -> torch.Tensor:
+    """The hash of every coordinate of ``shape``: int64 in [0, 2**32).  Axis 0's
+    coordinates start at ``row_offset``.
 
     The per-axis terms are small vectors; only the last axis's sum and the
     avalanche run over the whole shape.
@@ -73,7 +79,8 @@ def hash_bits(seed, shape, salt: int = 0, device=None) -> torch.Tensor:
     x = mul32(_seed_u32(seed, device), SEED_MUL) + mul32(int(salt) & M32, SALT_MUL)
     rank = len(shape)
     for axis, n in enumerate(shape):
-        term = mul32(torch.arange(n, device=device, dtype=torch.int64), _COEF[axis % len(_COEF)])
+        start = row_offset if axis == 0 else 0
+        term = mul32(torch.arange(start, start + n, device=device, dtype=torch.int64), _COEF[axis % len(_COEF)])
         x = x + term.view([n if a == axis else 1 for a in range(rank)])
     return fmix32_(x.bitwise_and_(M32))  # x is a new tensor of the full shape
 
@@ -89,40 +96,42 @@ def keep_threshold(rate: float) -> int:
     return math.ceil(float(np.float32(rate)) * (1 << 24))
 
 
-def _keep(seed, shape, rate: float, device) -> torch.Tensor:
-    return (hash_bits(seed, shape, 0, device) & 0x00FFFFFF) >= keep_threshold(rate)
+def _keep(seed, shape, rate: float, device, row_offset: int = 0) -> torch.Tensor:
+    return (hash_bits(seed, shape, 0, device, row_offset) & 0x00FFFFFF) >= keep_threshold(rate)
 
 
 class _HashDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate):
+    def forward(ctx, x, seed, rate, row_offset):
         ctx.save_for_backward(seed)
-        ctx.rate = rate
-        return _apply(x, seed, rate)
+        ctx.rate, ctx.row_offset = rate, row_offset
+        return _apply(x, seed, rate, row_offset)
 
     @staticmethod
     def backward(ctx, dout):
         (seed,) = ctx.saved_tensors
-        return _apply(dout, seed, ctx.rate), None, None
+        return _apply(dout, seed, ctx.rate, ctx.row_offset), None, None, None
 
 
-def _apply(x, seed, rate):
-    keep = _keep(seed, x.shape, rate, x.device)
+def _apply(x, seed, rate, row_offset=0):
+    keep = _keep(seed, x.shape, rate, x.device, row_offset)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)  # rounded to x's type, as in JAX
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
-    """dropout(x) with keep mask ``hash_uniform(seed, x.shape) >= rate``; ``seed`` an int32 scalar."""
+def hash_dropout(x: torch.Tensor, seed, rate: float, row_offset: int = 0) -> torch.Tensor:
+    """dropout(x) with keep mask ``hash_uniform(seed, x.shape) >= rate``; ``seed`` an int32 scalar,
+    axis 0's coordinates counted from ``row_offset``."""
     if rate <= 0.0:
         return x
     seed = torch.as_tensor(seed, dtype=torch.int32, device=x.device)
-    return _HashDropout.apply(x, seed, float(rate))
+    return _HashDropout.apply(x, seed, float(rate), int(row_offset))
 
 
 def fast_dropout(x: torch.Tensor, rate: float, training: bool, generator=None) -> torch.Tensor:
-    """``FastDropout``: one seed in [0, 2**31 - 1) from ``generator`` (on x's device), then ``hash_dropout``."""
+    """``FastDropout``: one seed in [0, 2**31 - 1) from ``generator`` (on x's device), then
+    ``hash_dropout`` with x's batch axis (0) counted from this rank's first global row."""
     if rate == 0.0 or not training:
         return x
     seed = torch.randint(0, 2**31 - 1, (), generator=generator, device=x.device, dtype=torch.int32)
-    return hash_dropout(x, seed, rate)
+    return hash_dropout(x, seed, rate, batch_offset(x.shape[0]))

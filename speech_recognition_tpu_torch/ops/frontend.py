@@ -21,8 +21,22 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import batch_offset, data_axis_size
 from .features import delta_accelerate_device
 from .spec_augment import SpecAugmentDraws, apply_spec_augment, draw_spec_augment
+
+
+def draw_batch_rows(sa, batch: int, num_time: int, v: int, generator, device) -> SpecAugmentDraws:
+    """``draw_spec_augment`` at the global batch (the local one times the data
+    degree), this rank's rows kept, so that a rank augments its rows as the
+    one-process run augments them."""
+    dp = data_axis_size()
+    if dp == 1:
+        return draw_spec_augment(sa, batch, num_time, v, generator, device)
+    full = draw_spec_augment(sa, batch * dp, num_time, v, generator, device)
+    lo = batch_offset(batch)
+    rows = lambda t: None if t is None else t[lo : lo + batch]
+    return SpecAugmentDraws(*(rows(getattr(full, k)) for k in SpecAugmentDraws.__dataclass_fields__))
 
 
 def make_batch_frontend(config, spec_augment: bool = False) -> Callable:
@@ -45,7 +59,7 @@ def make_batch_frontend(config, spec_augment: bool = False) -> Callable:
         feats = feats * frame_mask
         if sa is not None and (generator is not None or draws is not None):
             if draws is None:
-                draws = draw_spec_augment(sa, feats.shape[0], feats.shape[1], feats.shape[2], generator, feats.device)
+                draws = draw_batch_rows(sa, feats.shape[0], feats.shape[1], feats.shape[2], generator, feats.device)
             feats = apply_spec_augment(feats, draws) * frame_mask
         if config.use_delta_accelerate:
             # the delta at the first pad frame is not zero: zero the pads again

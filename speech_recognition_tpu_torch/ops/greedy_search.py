@@ -38,6 +38,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..kernels import plain_route
 from .las_step import MAX_CELLS, ROUTE_SPLIT, interleave_cell, step_plan
 from .vocab_bwd import sm_count
 from .vocab_topk import ROUND_NONE, ROUND_ONCE, alloc_partials, launch_args, vocab_topk_plain
@@ -233,7 +234,7 @@ def greedy_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0,
     once per step, L-1 steps (no early exit: after EOS a row feeds pad,
     which freezes its state and emits pad, so outputs are unchanged).
     """
-    if pk.device.type == "cpu":
+    if plain_route(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0):
         return greedy_search_plain(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, max_token_length, bos_id,
                                    eos_id, pad_id)
     loop = GreedyKernelLoop(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, max_token_length, bos_id, eos_id,

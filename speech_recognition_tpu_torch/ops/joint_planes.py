@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import plain_route
 from .transducer import joint_planes_bwd_plain, joint_planes_fwd_plain
 from .transducer_pruned import banded_planes_bwd_plain, banded_planes_fwd_plain
 from .vocab_bwd import N_SM, PANEL, WG_ROWS, cdiv
@@ -175,7 +176,7 @@ def banded_planes_fwd(enc, pred, W, b, ids, p, s_range: int, blank: int):
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``tc_launches`` counts the bf16 launches on the vocab tile pass).
     """
-    if enc.device.type == "cpu":
+    if plain_route(enc, pred, W, b, ids):
         return banded_planes_fwd_plain(enc, pred, W, b, ids, p, s_range, blank)
     *out, route = _launch_fwd(enc, pred, W, b, ids, p, s_range, blank)
     banded_planes_fwd.launches += 1
@@ -186,7 +187,7 @@ def banded_planes_fwd(enc, pred, W, b, ids, p, s_range: int, blank: int):
 def banded_planes_bwd(enc, pred, W, b, ids, p, s_range: int, blank: int, lse, dlpb, dlpe):
     """K8 backward for band cotangents [B, T, S] float32: (denc [B, T, J], dpred [B, U+1, J]
     in enc's type, dW [J, V], db [V] float32)."""
-    if enc.device.type == "cpu":
+    if plain_route(enc, pred, W, b, ids, lse, dlpb, dlpe):
         return banded_planes_bwd_plain(enc, pred, W, b, ids, p, s_range, blank, lse, dlpb, dlpe)
     out = _launch_bwd(enc, pred, W, b, ids, p, s_range, blank, lse, dlpb, dlpe)
     banded_planes_bwd.launches += 1
@@ -196,7 +197,7 @@ def banded_planes_bwd(enc, pred, W, b, ids, p, s_range: int, blank: int, lse, dl
 def joint_planes_fwd(enc, pred, W, b, ids, blank: int):
     """K9 forward: (lp_blank, lp_emit, lse) [B, T, U+1] float32 at every node; lp_emit's
     column u = U has no target.  CPU: the plain version; CUDA: the kernel (``tc_launches`` as K8's)."""
-    if enc.device.type == "cpu":
+    if plain_route(enc, pred, W, b, ids):
         return joint_planes_fwd_plain(enc, pred, W, b, ids, blank)
     *out, route = _launch_fwd(enc, pred, W, b, ids, None, pred.shape[1], blank)
     joint_planes_fwd.launches += 1
@@ -206,7 +207,7 @@ def joint_planes_fwd(enc, pred, W, b, ids, blank: int):
 
 def joint_planes_bwd(enc, pred, W, b, ids, blank: int, lse, dlpb, dlpe):
     """K9 backward for cotangents [B, T, U+1] float32: (denc, dpred, dW, db) as K8's."""
-    if enc.device.type == "cpu":
+    if plain_route(enc, pred, W, b, ids, lse, dlpb, dlpe):
         return joint_planes_bwd_plain(enc, pred, W, b, ids, blank, lse, dlpb, dlpe)
     out = _launch_bwd(enc, pred, W, b, ids, None, pred.shape[1], blank, lse, dlpb, dlpe)
     joint_planes_bwd.launches += 1

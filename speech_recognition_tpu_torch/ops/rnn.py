@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import batch_draw
 from .graphs import CudaGraphs
 from .rnn_sequence import rnn_sequence
 
@@ -105,6 +106,13 @@ def keep_mask(shape, rate: float, dtype, generator, device) -> torch.Tensor:
     """A Keras dropout mask: 1 / (1 - rate) where kept, 0 where dropped."""
     keep = 1.0 - rate
     return (torch.rand(shape, generator=generator, device=device) < keep).to(dtype) / keep
+
+
+def batch_keep_mask(shape, rate: float, dtype, generator, device, batch_axis: int = 0) -> torch.Tensor:
+    """``keep_mask`` drawn at the global batch (``parallel.batch_draw``) and sliced to
+    this rank's rows of ``batch_axis``: under data parallelism a rank's mask is its
+    rows of the one-process run's."""
+    return batch_draw(lambda s: keep_mask(s, rate, dtype, generator, device), shape, batch_axis)
 
 
 def lstm_cell(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -383,7 +391,7 @@ class _BiRNN(nn.Module):
         x = inputs.to(dtype)
         xs = [x, x]
         if dropout > 0.0:
-            xs = [x * keep_mask((B, 1, D), dropout, dtype, generator, x.device) for _ in range(2)]
+            xs = [x * batch_keep_mask((B, 1, D), dropout, dtype, generator, x.device) for _ in range(2)]
         biases = [split_bias(self.rnn_type, c.bias) for c in cells]
         proj = [xs[d] @ c.kernel.to(dtype) + biases[d][0].to(dtype) for d, c in enumerate(cells)]
         x_proj = torch.stack([proj[0], proj[1].flip(1)]).permute(2, 0, 1, 3).contiguous()
@@ -408,7 +416,8 @@ class _BiRNN(nn.Module):
                           for f, b in zip(initial_state[:n], initial_state[n:2 * n]))
         rec_mask = None
         if recurrent_dropout > 0.0:
-            rec_mask = keep_mask((2, B, self.units), recurrent_dropout, dtype, generator, inputs.device)
+            rec_mask = batch_keep_mask((2, B, self.units), recurrent_dropout, dtype, generator, inputs.device,
+                                       batch_axis=1)
         out, state = rnn_scan(self.rnn_type, x_proj, m_all, rk, rb, state, rec_mask)
         return (self._outputs(out), *(s[0] for s in state), *(s[1] for s in state))
 
@@ -455,7 +464,7 @@ class LSTM(nn.Module):
         B, T, D = inputs.shape
         x = inputs.to(dtype)
         if dropout > 0.0:
-            x = x * keep_mask((B, 1, D), dropout, dtype, generator, x.device)
+            x = x * batch_keep_mask((B, 1, D), dropout, dtype, generator, x.device)
         x_proj = (x @ self.cell.kernel.to(dtype) + self.cell.bias.to(dtype)).transpose(0, 1)[:, None].contiguous()
         if initial_state is None:
             h = torch.zeros(1, B, self.units, dtype=dtype, device=inputs.device)

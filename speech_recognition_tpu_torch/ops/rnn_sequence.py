@@ -51,6 +51,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import plain_route
 from .las_step import deinterleave_gates, interleave_gates
 from .vocab_bwd import ALIGN, N_SM, PANEL, SMEM_LIMIT, W_PANEL, cdiv, pad_to
 
@@ -271,7 +272,7 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     tensor-core route (bf16 up to H = 384), ``rnn_sequence.persistent_launches``
     those of the persistent route (bf16 above H = 512).
     """
-    if x_proj.device.type == "cpu":
+    if plain_route(x_proj, mask, rk, rb, h0, c0):
         return rnn_sequence_plain(rnn_type, x_proj, mask, rk, rb, h0, c0)
     from ..kernels import check_operands, error_string, library, stream
     from .vocab_bwd import sm_count

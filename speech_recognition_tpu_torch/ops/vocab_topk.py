@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import plain_route
 from .vocab_bwd import ALIGN, N_SM, PANEL, ROW_BYTES, SMEM_LIMIT, W_PANEL, WG_ROWS, cdiv, sm_count
 
 ROUND_NONE, ROUND_ONCE, ROUND_TWICE = 0, 1, 2
@@ -230,7 +231,7 @@ def vocab_topk(hid, W, b, k: int, rounding: int):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    if hid.device.type == "cpu":
+    if plain_route(hid, W, b):
         return vocab_topk_plain(hid, W, b, k, rounding)
     from ..kernels import check_operands, error_string, library, stream
 

@@ -28,8 +28,24 @@ clips clamped under ``--max-over-policy slice``, dropped otherwise),
 pretrained weights, ``--skip-epochs`` from its ``model-<N>epoch`` name) and
 ``--profile-steps N`` (a ``torch.profiler`` trace, CPU and on the card CUDA
 activity, of steps 2..N+1 of the first epoch, written to
-``<output>/profile``).  ``--model-parallel > 1``, ``--fsdp`` and the
-multi-process flags are refused (parallelism is not ported).
+``<output>/profile``).
+
+Parallel training, with JAX's checks and log lines (run/train.py:198-347,
+413-424, 566-651): ``--coordinator-address host:port --num-processes N
+--process-id i`` starts one process per device on ``torch.distributed``
+(NCCL on the card, gloo with ``--device CPU``); the ranks form a ``('data', 'model')`` mesh
+(``parallel/mesh.py``), the data-parallel degree being the process count over
+``--model-parallel``.  Each data rank reads its stride of the train set
+(``process_shard``) and feeds ``batch-size / data`` rows; every rank reads the
+whole dev set and takes its rows of each global dev batch.  The step is JAX's
+SPMD step over the global batch (``train/state.py``); ``--fsdp`` shards the
+large parameters and their Adam moments over ``data`` with FSDP2;
+``--model-parallel N`` stores the vocab-dimension parameters as shards over
+``model`` and, when ``N`` divides the MoE experts, shards the experts
+(``parallel/shard.py``, ``parallel/expert.py``).  Rank 0 alone writes the
+TensorBoard logs and the gathered checkpoint, which a one-process
+``run.inference --model-path`` loads.  ``--auto-resume`` reads the shared
+output directory on every rank.
 
     python -m speech_recognition_tpu_torch.run.train --data-config ... --model-config ... \\
         --sp-model-path sp.model --train-dataset-paths train.tsv --dev-dataset-paths dev.tsv \\
@@ -83,25 +99,54 @@ parser.add_argument("--profile-steps", type=int, help="capture a torch.profiler 
 parser.add_argument("--on-device-frontend", action=argparse.BooleanOptionalAction, help="compute audio features (and SpecAugment) on device from padded raw audio (default: off)")
 parser.add_argument("--bucket-boundaries", type=str, help="comma-separated audio-length bucket boundaries for bucketed batching, e.g. 512,1024,2048")
 parser.add_argument("--auto-resume", action="store_true", help="resume from the newest checkpoint in <output>/models (sets pretrained path + skip-epochs)")
-parser.add_argument("--model-parallel", type=int, help="tensor-parallel degree (only 1 is ported)")
+parser.add_argument("--model-parallel", type=int, help="tensor-parallel degree: shard vocab-dimension parameters over the mesh's 'model' axis (default 1 = pure data parallelism)")
 parser.add_argument("--grad-accum-steps", type=int, help="accumulate gradients over N train steps before each optimizer update (effective batch = N * batch-size; the LR schedule counts optimizer updates)")
-parser.add_argument("--fsdp", action="store_true", help="fully-sharded data parallelism (not ported yet)")
-parser.add_argument("--coordinator-address", type=str, help="multi-process bootstrap (not ported yet)")
-parser.add_argument("--num-processes", type=int, help="multi-process bootstrap (not ported yet)")
-parser.add_argument("--process-id", type=int, help="multi-process bootstrap (not ported yet)")
+parser.add_argument("--fsdp", action="store_true", help="fully-sharded data parallelism: shard large parameters and optimizer state over the 'data' mesh axis (ZeRO-3)")
+parser.add_argument("--coordinator-address", type=str, help="multi-process bootstrap: host:port of process 0's torch.distributed store (requires --num-processes and --process-id)")
+parser.add_argument("--num-processes", type=int, help="multi-process bootstrap: total number of processes in the job")
+parser.add_argument("--process-id", type=int, help="multi-process bootstrap: this process's index in [0, num-processes)")
 # fmt: on
 
 
-def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise on the options whose paths are not ported yet (ROADMAP Queue 1)."""
-    unported = [
-        (cfg.model_parallel > 1, "--model-parallel > 1"),
-        (cfg.fsdp, "--fsdp"),
-        (cfg.coordinator_address, "--coordinator-address"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet to the torch training path")
+def bootstrap(cfg: TrainConfig, logger):
+    """Join the job of ``--coordinator-address`` (before any CUDA work) and return
+    this rank's device: ``cuda:(rank % cards)`` over NCCL on the card, the CPU
+    over gloo with ``--device CPU``.  A caller that has joined the job already
+    (``torch.distributed`` initialized as this rank of this many processes)
+    keeps its process group: a harness that puts two ranks on one card joins
+    over gloo itself, since NCCL refuses that."""
+    import torch.distributed as dist
+
+    from ..parallel import init_process_group, rank_device
+
+    if dist.is_initialized():
+        joined = (dist.get_rank(), dist.get_world_size())
+        if joined != (cfg.process_id, cfg.num_processes):
+            raise ValueError(f"this process joined its job as process {joined[0]}/{joined[1]}, "
+                             f"not {cfg.process_id}/{cfg.num_processes}")
+        device = rank_device(cfg.process_id, cfg.device)
+    else:
+        device = init_process_group(f"tcp://{cfg.coordinator_address}", cfg.num_processes, cfg.process_id, cfg.device)
+    logger.info(f"[+] Distributed: process {cfg.process_id}/{cfg.num_processes} via {cfg.coordinator_address}")
+    return device
+
+
+def plan_mesh(cfg: TrainConfig, procs: int, static: bool) -> int:
+    """The data-parallel degree, with JAX's checks (run/train.py:321-347): the
+    model degree divides the processes, needs static shapes, as does any
+    multi-process run, and the data degree (the processes over the model
+    degree, so that the mesh spans every process) divides both batch sizes."""
+    mp = cfg.model_parallel
+    if procs % mp:
+        raise ValueError(f"model_parallel={mp} does not divide the {procs} devices")
+    if mp > 1 and not static:
+        raise ValueError("model_parallel requires static shapes (set max-over-policy or TPU)")
+    if procs > 1 and not static:
+        raise ValueError("multi-host training requires static shapes (set max-over-policy or TPU)")
+    dp = procs // mp
+    if cfg.batch_size % dp or cfg.dev_batch_size % dp:
+        raise ValueError(f"no data-parallel degree <= {dp} divides the batch sizes while spanning all {procs} processes")
+    return dp
 
 
 def max_raw_samples(data_config) -> int:
@@ -109,7 +154,7 @@ def max_raw_samples(data_config) -> int:
     return (data_config.max_audio_length - 1) * data_config.frame_step + data_config.frame_length
 
 
-def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
+def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool, shard=None):
     """A callable ``factory(skip=0)`` producing the (features, tokens) stream, or
     in raw mode (``--on-device-frontend``) the (raw audio, tokens) stream
     (run/train.py:62-154).  Host features are computed in the decode thread
@@ -146,7 +191,7 @@ def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
 
     def factory(skip: int = 0):
         if cfg.use_tfrecord:
-            stream = get_tfrecord_dataset(paths, skip=skip)
+            stream = get_tfrecord_dataset(paths, skip=skip, shard=shard)
         else:
             stream = get_dataset(
                 paths,
@@ -156,6 +201,7 @@ def build_dataset_factory(cfg: TrainConfig, tokenizer, train: bool):
                 shuffle=train and cfg.shuffle_buffer_size > 1,
                 skip=skip,
                 map_fn=None if raw_mode else (lambda audio, tokens: (feature_fn(audio), tokens)),
+                shard=shard,
             )
             if raw_mode:
                 return raw_policy(stream)
@@ -245,7 +291,26 @@ def save_profile(profiler, device, profile_dir: str, name: str) -> str:
 
 
 def main(cfg: TrainConfig):
-    """Train; returns one record per epoch (train / dev metrics and the checkpoint path)."""
+    """Train; returns one record per epoch (train / dev metrics and the checkpoint path).
+    A multi-process run leaves no process group, active mesh or cuDNN setting behind."""
+    import torch
+
+    from ..parallel import set_active_mesh
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        return _main_impl(cfg)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        set_active_mesh(None)
+        if cfg.coordinator_address:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _main_impl(cfg: TrainConfig):
     logger = get_logger("train")
 
     import numpy as np
@@ -256,12 +321,37 @@ def main(cfg: TrainConfig):
     from ..data import (SentencePieceTokenizer, bucket_batch, padded_batch, prefetch_stream, repeat_stream,
                         shuffle_stream)
     from ..models import LAS, Transducer
+    from ..parallel import get_device_mesh, process_shard
+    from ..parallel.shard import (apply_fsdp, full_state_dict, is_main_process, shard_experts,
+                                  shard_tensor_parallel)
     from ..train import (AsyncMetricAccumulator, TrainState, checkpoint_path, latest_checkpoint, linear_warmup_decay,
                          make_adam, make_eval_step, make_train_step, save_weights)
+    from ..train.state import LossRoute
     from .common import compute_dtype, count_params, create_model, load_weights, select_device
 
     device = select_device(cfg.device)
-    refuse_unported(cfg)
+    # JAX's checks (run/train.py:205-206, 253-264, 321-347), made before joining
+    # the job so that a refused rank leaves no peer waiting in a collective
+    procs = 1
+    if cfg.coordinator_address:
+        if cfg.num_processes is None or cfg.process_id is None:
+            raise ValueError("--coordinator-address requires --num-processes and --process-id")
+        procs = cfg.num_processes
+    if procs > 1:
+        if cfg.batch_size % procs or cfg.dev_batch_size % procs:
+            raise ValueError(
+                f"batch sizes ({cfg.batch_size}/{cfg.dev_batch_size}) must divide "
+                f"by the process count {procs} for multi-host training"
+            )
+        if not cfg.steps_per_epoch:
+            # without a fixed step count per epoch, ranks whose shards round
+            # to different batch counts would deadlock the collectives
+            raise ValueError("multi-host training requires --steps-per-epoch")
+    # static shapes whenever lengths are bounded by a policy
+    static = cfg.max_over_policy is not None
+    dp = plan_mesh(cfg, procs, static)
+    if cfg.coordinator_address:
+        device = bootstrap(cfg, logger)
     if cfg.seed:
         set_random_seed(cfg.seed)
         torch.manual_seed(cfg.seed)
@@ -285,9 +375,24 @@ def main(cfg: TrainConfig):
         logger.info(f"[+] Load Tokenizer from {cfg.sp_model_path}")
         with open_file(cfg.sp_model_path, "rb") as f:
             tokenizer = SentencePieceTokenizer(f.read(), add_bos=True, add_eos=True)
+    if procs > 1:
+        logger.info(f"[+] Multi-host: process {cfg.process_id}/{procs}, dataset stride shard")
+    mesh = None
+    if cfg.coordinator_address:
+        mesh = get_device_mesh(dp, cfg.model_parallel, device.type)
+        if mesh.size > 1:
+            logger.info(f"[+] SPMD over mesh {mesh.shape}")
+        if mesh.model > 1:
+            # the ranks of a model group each compute the replicated parameters' gradients, which stay one
+            # model only if every kernel is deterministic: cuDNN's default convolution weight gradient is not
+            # (tools/torch_determinism.py)
+            torch.backends.cudnn.deterministic = True
     logger.info(f"[+] Load train dataset from {cfg.train_dataset_paths}")
-    train_factory = build_dataset_factory(cfg, tokenizer, train=True)
+    train_factory = build_dataset_factory(cfg, tokenizer, train=True, shard=process_shard())
     logger.info(f"[+] Load dev dataset from {cfg.dev_dataset_paths}")
+    # dev is NOT stride-sharded: every rank reads the full dev set and takes
+    # its own rows of each GLOBAL batch, so all ranks run the same number of
+    # eval steps
     dev_factory = build_dataset_factory(cfg, tokenizer, train=False)
 
     logger.info("[+] Model Initialize")
@@ -307,10 +412,19 @@ def main(cfg: TrainConfig):
         logger.info("[+] Load weights of model")
         load_weights(model, cfg.pretrained_model_path)
 
+    route, fsdp_params = None, set()
+    if mesh is not None:
+        shard_tensor_parallel(model, mesh)
+        shard_experts(model, mesh)
+        if cfg.fsdp:
+            logger.info("[+] FSDP: parameters + optimizer state sharded over 'data'")
+            route = LossRoute(model, model.get_loss_fn(), model.get_metrics())
+            fsdp_params = apply_fsdp(route, model, mesh)
     accum = max(cfg.grad_accum_steps, 1)
     schedule = linear_warmup_decay(cfg.total_steps // accum, cfg.learning_rate, cfg.min_learning_rate,
                                    cfg.warmup_rate, cfg.warmup_steps, cfg.offset_steps // accum)
-    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum)
+    state = TrainState(model, make_adam(model, schedule), schedule, accum_steps=accum, mesh=mesh, route=route,
+                       fsdp_params=fsdp_params)
     if accum > 1:
         # the mean gradient of N micro-steps, applied once: the schedule steps per update
         logger.info(f"[+] Gradient accumulation over {accum} steps")
@@ -329,8 +443,6 @@ def main(cfg: TrainConfig):
     dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
     coin_gen = torch.Generator().manual_seed(seed + 2)
 
-    # static shapes whenever lengths are bounded by a policy
-    static = cfg.max_over_policy is not None
     audio_pad = token_pad = None
     if static:
         audio_pad = max_raw_samples(cfg.data_config) if raw_mode else cfg.audio_pad_length
@@ -338,7 +450,9 @@ def main(cfg: TrainConfig):
     skip_count = (cfg.steps_per_epoch or 0) * cfg.skip_epochs * cfg.batch_size
     if skip_count and cfg.train_dataset_size:
         skip_count %= cfg.train_dataset_size
-    skip_examples = {"count": skip_count}
+    # sharded streams skip local rows (global stride / data degree)
+    skip_examples = {"count": skip_count // dp}
+    local_batch_size, local_dev_batch_size = cfg.batch_size // dp, cfg.dev_batch_size // dp
     pin = device.type == "cuda"
     boundaries = [int(b) for b in str(cfg.bucket_boundaries).split(",")] if cfg.bucket_boundaries else None
 
@@ -349,7 +463,8 @@ def main(cfg: TrainConfig):
             stream = shuffle_stream(stream, cfg.shuffle_buffer_size, seed=None if cfg.seed is None else cfg.seed + epoch)
         # raw mode: padded raw audio and sample counts, which the frontend turns into frame counts
         if boundaries and not raw_mode:
-            batches = bucket_batch(stream, batch_size, boundaries, token_pad,
+            # across processes a partial bucket remainder would leave the ranks' step counts apart: dropped
+            batches = bucket_batch(stream, batch_size, boundaries, token_pad, drop_remainder=procs > 1,
                                    over_boundary="clamp" if cfg.max_over_policy == "slice" else "drop",
                                    with_lengths=True)
         else:
@@ -372,13 +487,15 @@ def main(cfg: TrainConfig):
         return ((put(audio), put(lengths)), put(dec_in).long()), put(y_true)
 
     logger.info("[+] Start training")
-    writer = _summary_writer(path_join(cfg.output_path, "logs"), logger)
+    # multi-process: only rank 0 writes TensorBoard events
+    writer = _summary_writer(path_join(cfg.output_path, "logs"), logger) if is_main_process() else None
     global_step = 0
     persistent_train_iter = None
     if cfg.steps_per_epoch:
         # epochs advance continuously through one repeated stream
         persistent_train_iter = prefetch_stream(
-            batch_iterator(lambda skip=0: repeat_stream(train_factory, first_skip=skip), cfg.batch_size, train=True),
+            batch_iterator(lambda skip=0: repeat_stream(train_factory, first_skip=skip), local_batch_size,
+                           train=True),
             size=2,
         )
 
@@ -397,7 +514,7 @@ def main(cfg: TrainConfig):
         tb_pending = []
         steps = 0
         train_iter = persistent_train_iter or prefetch_stream(
-            batch_iterator(train_factory, cfg.batch_size, train=True, epoch=epoch), size=2)
+            batch_iterator(train_factory, local_batch_size, train=True, epoch=epoch), size=2)
         for model_input, y_true in train_iter:
             if cfg.profile_steps and epoch == cfg.skip_epochs and steps == 1:
                 # steps 2..N+1: the first step's warm-up (CUDA graph capture, allocator growth) stays out
@@ -434,6 +551,14 @@ def main(cfg: TrainConfig):
         val_steps = 0
         for model_input, y_true in prefetch_stream(batch_iterator(dev_factory, cfg.dev_batch_size, train=False),
                                                    size=2):
+            if dp > 1:
+                # every rank iterates the full dev set at the GLOBAL batch
+                # size; this rank takes its rows of each batch
+                lo = mesh.data_index * local_dev_batch_size
+                rows = lambda t: t[lo : lo + local_dev_batch_size]
+                model_input = (tuple(rows(t) for t in model_input[0]), rows(model_input[1])) \
+                    if token_conditioned else tuple(rows(t) for t in model_input)
+                y_true = rows(y_true)
             val_running.push(eval_step(state, *to_device(model_input, y_true)))
             val_steps += 1
         val_metrics = val_running.totals()
@@ -452,8 +577,15 @@ def main(cfg: TrainConfig):
 
         # ---------------------------------------------------------- checkpoint
         path = checkpoint_path(cfg.output_path, model, epoch + 1, summary["val_loss"], summary.get("val_accuracy", 0.0))
-        save_weights(path, model)
-        logger.info(f"[+] Saved checkpoint to {path}")
+        if mesh is None:
+            save_weights(path, model)
+        else:
+            # gathering the shards is collective: every rank takes part, rank 0 writes
+            whole = full_state_dict(model)
+            if is_main_process():
+                save_weights(path, model, whole)
+        if is_main_process():
+            logger.info(f"[+] Saved checkpoint to {path}")
         records.append({"epoch": epoch + 1, "steps": steps, **summary, "checkpoint": path})
 
     if writer:

@@ -27,10 +27,13 @@ def checkpoint_path(output_path: str, model, epoch: int, val_loss: float, val_ac
     return path_join(output_path, "models", name + ".pt")
 
 
-def save_weights(path: str, model) -> None:
+def save_weights(path: str, model, state_dict=None) -> None:
+    """Write ``model``'s ``state_dict`` (or the given one: a multi-process run's
+    gathered ``parallel/shard.py full_state_dict``) to ``path``."""
     makedirs(path.rsplit("/", 1)[0])
     buffer = io.BytesIO()
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, buffer)
+    state_dict = model.state_dict() if state_dict is None else state_dict
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, buffer)
     with open_file(path, "wb") as f:
         f.write(buffer.getvalue())
 

@@ -33,12 +33,31 @@ into their running mean (Welford, ``acc + (g - acc) / (n + 1)``), batch-norm
 statistics update on every micro-step as the forward runs, and only every
 N-th step applies Adam to the mean, so the parameters do not move between
 updates and the schedule counts updates.
+
+On a mesh (``TrainState.mesh``, ``run.train``'s multi-process flags) the step
+is JAX's SPMD step over the global batch, written out: each ``data`` rank's
+loss is its share of the global loss (``measure.py``, ``parallel.data_sum``),
+its backward is scaled by the data degree, and the gradients are averaged
+over ``data`` once per optimizer update (after the micro-steps' mean), so
+they are the global batch's; the printed loss and the accuracy counts are
+summed over ``data``.  The gradients that FSDP2 does not reduce go through
+one flat all-reduce per dtype (``parallel/shard.py reduce_gradients``): a
+DDP reducer would all-reduce every backward, micro-steps included, and
+prepares in a ``forward`` the fused loss route does not take.  Under FSDP2
+(``--fsdp``) the loss route runs as the forward of one module
+(``LossRoute``), the FSDP root, so that its all-gathers see every parameter
+the route reads, and micro-steps before the last skip FSDP's reduce-scatter
+(``set_requires_gradient_sync``); the sum it reduces on the last, folded
+once, is the same mean.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+from torch import nn
+
+from ..parallel.mesh import Mesh, data_sum, get_active_mesh
 
 
 @dataclass
@@ -50,6 +69,9 @@ class TrainState:
     accum_steps: int = 1  # micro-steps per optimizer update
     micro_step: int = 0  # micro-steps folded into acc_grads since the last update
     acc_grads: Optional[list] = None  # running mean of the micro-steps' gradients, per optimizer parameter
+    mesh: Optional[Mesh] = None  # the ('data', 'model') mesh of a multi-process run
+    route: Optional[nn.Module] = None  # the FSDP2 root (``LossRoute``) under --fsdp
+    fsdp_params: set = field(default_factory=set)  # parameters whose gradients FSDP2 reduces
 
 
 @torch.no_grad()
@@ -77,8 +99,32 @@ def _accumulate(state: TrainState) -> bool:
 
 
 def make_adam(model: torch.nn.Module, schedule: Callable[[int], float]) -> torch.optim.Adam:
-    """Adam with optax's defaults and the Keras epsilon (run/train.py:310)."""
-    return torch.optim.Adam(model.parameters(), lr=schedule(0), betas=(0.9, 0.999), eps=1e-7)
+    """Adam with optax's defaults and the Keras epsilon (run/train.py:310).  FSDP2's
+    sharded parameters (DTensors) form a group of their own: a multi-tensor update
+    takes one kind of tensor; each moment is allocated like its parameter, shard for shard."""
+    from ..kernels import is_dtensor
+
+    plain, sharded = [], []
+    for p in model.parameters():
+        (sharded if is_dtensor(p) else plain).append(p)
+    groups = [{"params": g} for g in (plain, sharded) if g]
+    return torch.optim.Adam(groups, lr=schedule(0), betas=(0.9, 0.999), eps=1e-7)
+
+
+class LossRoute(nn.Module):
+    """The whole loss route as one module's ``forward`` (``hidden_states`` then
+    ``loss_from_hidden``, or the forward then ``loss_fn``): the FSDP2 root, whose
+    forward all-gathers every parameter the route reads."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable, metric_fns=()):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+        self.fused = _fused_loss_wanted(model, metric_fns)
+
+    def forward(self, model_input, y_true, training: bool, generator=None, coin_generator=None):
+        return _forward_loss(self.model, model_input, y_true, self.loss_fn, self.fused, training, generator,
+                             coin_generator)
 
 
 def _fused_loss_wanted(model, metric_fns=()) -> bool:
@@ -135,11 +181,22 @@ def make_train_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optiona
         model_input = _preprocessed(preprocess, model_input)
         if time_major:
             y_true = y_true.t()  # [N, B]
-        loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, True, generator, coin_generator)
+        if state.route is not None:
+            loss, outputs = state.route(model_input, y_true, True, generator, coin_generator)
+        else:
+            loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, True, generator,
+                                          coin_generator)
         loss = _with_aux_loss(model, loss)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if state.route is not None:  # FSDP reduce-scatters on the update's micro-step only
+            state.route.set_requires_gradient_sync(state.micro_step + 1 >= state.accum_steps)
+        dp = 1 if state.mesh is None else state.mesh.data
+        (loss * dp if dp > 1 else loss).backward()
         if state.accum_steps <= 1 or _accumulate(state):
+            if state.mesh is not None:
+                from ..parallel.shard import reduce_gradients
+
+                reduce_gradients((p for p in model.parameters() if p not in state.fsdp_params), state.mesh)
             lr = state.schedule(state.step)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
@@ -148,9 +205,19 @@ def make_train_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optiona
         metrics = {"loss": loss.detach()}
         if outputs is not None and metric_fns:
             _add_metrics(metrics, metric_fns, y_true, outputs.detach(), fused, getattr(model, "pad_id", 0))
-        return metrics
+        return _global_metrics(metrics)
 
     return train_step
+
+
+def _global_metrics(metrics):
+    """The metrics of the global batch: each rank's loss share and counts summed
+    over ``data``, in one all-reduce (the metrics themselves without a data group)."""
+    mesh = get_active_mesh()
+    if mesh is None or mesh.data_group is None:
+        return metrics
+    summed = data_sum(torch.stack([v.float().reshape(()) for v in metrics.values()]))
+    return dict(zip(metrics.keys(), summed.unbind(0)))
 
 
 def _add_metrics(metrics, metric_fns, y_true, outputs, fused, pad_id=0):
@@ -178,10 +245,13 @@ def make_eval_step(model, loss_fn: Callable, metric_fns=(), preprocess: Optional
         model_input = _preprocessed(preprocess, model_input)
         if time_major:
             y_true = y_true.t()
-        loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, False)
+        if state.route is not None:
+            loss, outputs = state.route(model_input, y_true, False)
+        else:
+            loss, outputs = _forward_loss(model, model_input, y_true, loss_fn, fused, False)
         metrics = {"loss": loss}
         if outputs is not None and metric_fns:
             _add_metrics(metrics, metric_fns, y_true, outputs, fused, getattr(model, "pad_id", 0))
-        return metrics
+        return _global_metrics(metrics)
 
     return eval_step

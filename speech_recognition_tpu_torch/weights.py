@@ -107,6 +107,20 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
+def jax_axis_order(name: str, tensor) -> tuple:
+    """The dimensions of the port's ``state_dict`` entry ``name`` in the order of
+    the JAX leaf's axes (conv weight OIHW is JAX's HWIO, a Dense weight JAX's
+    kernel transposed, everything else the same layout)."""
+    *mods, leaf = name.split(".")
+    parent = mods[-1] if mods else ""
+    if leaf == "weight" and not _is_rnn_cell(parent) and parent != "embedding":
+        if tensor.dim() == 4:
+            return (2, 3, 1, 0)
+        if tensor.dim() == 2:
+            return (1, 0)
+    return tuple(range(tensor.dim()))
+
+
 def params_to_jax(state_dict: Dict[str, torch.Tensor], scan_layers: bool = False):
     """torch ``state_dict`` -> Flax ``{"params", "batch_stats"}`` of numpy arrays
     (the Conformer's blocks stacked as ``scan_layers=True`` lays them out, when asked)."""

@@ -263,11 +263,20 @@ def test_train_cli_parses_the_jax_flags():
                           "mixed_precision": True, "device": "GPU"}
 
 
-@pytest.mark.parametrize("override", [
-    dict(model_parallel=2), dict(fsdp=True), dict(coordinator_address="localhost:1234"),
-])
-def test_train_cli_refuses_unported_options(tmp_path, override):
+_COORD = dict(coordinator_address="127.0.0.1:1", num_processes=2, process_id=0)
+
+
+@pytest.mark.parametrize("override, message", [
+    (dict(coordinator_address="127.0.0.1:1"), "requires --num-processes and --process-id"),
+    (dict(model_parallel=2), "model_parallel=2 does not divide the 1 devices"),
+    (dict(_COORD, model_parallel=2, max_over_policy=None), "model_parallel requires static shapes"),
+    (dict(_COORD, steps_per_epoch=None), "multi-host training requires --steps-per-epoch"),
+    (dict(_COORD, batch_size=3), "must divide by the process count 2"),
+], ids=[f"override{i}" for i in range(5)])
+def test_train_cli_refuses_unported_options(tmp_path, override, message):
+    """The parallel options' checks are JAX's (run/train.py:205-206, 253-264,
+    321-347), made before the process joins the job: nothing is written."""
     cfg = _train_config(tmp_path, **override)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match=message):
         train_cli.main(cfg)
     assert not (tmp_path / "out").exists()

@@ -103,7 +103,8 @@ def test_port_imports_no_jax(tmp_path):
     of LAS with SpecAugment (the warp and both masks) in the on-device
     frontend, and of the DeepSpeech2-MoE mini config, then writes the tsv's
     TFRecords through ``run.make_tfrecord`` and trains LAS one step from them
-    (``--use-tfrecord``), all on the CPU.
+    (``--use-tfrecord``), and LAS one step as a one-process ``--fsdp`` job over
+    gloo (``parallel/``), all on the CPU.
     The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
     code = r"""
@@ -120,7 +121,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
-             "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp", "run.make_tfrecord", "data.tfrecord"):
+             "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp", "run.make_tfrecord", "data.tfrecord",
+             "parallel", "parallel.mesh", "parallel.comm", "parallel.expert", "parallel.shard"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
@@ -161,6 +163,16 @@ cfg = TrainConfig(
     steps_per_epoch=1, learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
     device="CPU", seed=1, use_tfrecord=True)
 steps.append(train.main(cfg)[0]["steps"])
+import socket
+with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+cfg = TrainConfig(
+    data_config=data_config, model_config=las_config, sp_model_path=sp_model, train_dataset_paths=tsv,
+    dev_dataset_paths=tsv, train_dataset_size=2, output_path=out + "/train_fsdp", epochs=1, steps_per_epoch=1,
+    learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
+    device="CPU", seed=1, fsdp=True, coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0)
+steps.append(train.main(cfg)[0]["steps"])  # one process over gloo, FSDP2 and the gathered checkpoint
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names), sum(steps))
 """
@@ -172,7 +184,7 @@ print(len(names), sum(steps))
                          timeout=600)
     assert out.returncode == 0, out.stderr
     n_modules, steps = out.stdout.split()[-2:]
-    assert int(n_modules) >= 30 and int(steps) == 6
+    assert int(n_modules) >= 30 and int(steps) == 7
     assert (tmp_path / "decoded.tsv").read_text().startswith("AudioPath\tDecodedSentence")
     assert (tmp_path / "scored.tsv").read_text().startswith("Prediction\tTarget\tWER\tCER")
 
