@@ -166,7 +166,26 @@ Phases, in order; any failure exits non-zero without printing a result:
    printed), the first step's gradient norms, global and
    each parameter's, within ``GRAD_TOL_BF16`` / ``GRAD_TOL_F32`` of the
    one-process run's (``check_grad_norms``), both ranks' losses equal,
-   K6 and K10 counted, each rank's bf16 step timed (DS2-MoE's as shipped).
+   K6 and K10 counted, each rank's bf16 step timed (DS2-MoE's as shipped);
+10. the parallel paths no flag of the CLIs reaches, and the decode CLIs'
+    split over devices: (10a) ``parallel/pipeline.py gpipe`` over
+    ``[cuda:0] * S`` (S = 2, 3; M = 4, 8 microbatches) on six BiGRU layers at
+    DeepSpeech2's trunk width (H = 128, B = 128, T' = 108, bf16, no grad): K10
+    launched 6 x M times on the cluster tensor-core route, the output bit for
+    bit the sequential stack's at the microbatch size and within phase 2's
+    K10 tolerance of the whole batch's, both forwards timed in turns; a
+    float32 training forward and backward (S = 3, M = 4) through the graphed
+    ``_GRUScan`` against the sequential stack; K10 held against its plain
+    version at the microbatches' 32 and 16 rows (``rnn_sequence_gru_mb32`` /
+    ``_mb16``); (10b) ``make_sp_batch_frontend`` over a ``model`` group of two
+    gloo ranks sharing the card (phase 9c's harness) on B = 128 of phase 4's
+    clips: the features and frame lengths within rtol / atol 1e-5 of the
+    one-process frontend, plain and with LD's masks drawn alike, both timed;
+    (10c) ``run/common.py sharded_decode_fn`` over ``[cuda:0, cuda:0]`` (two
+    shards of 64 rows): LAS-small greedy (K4 127 launches a shard) and beam-8
+    (K5 and K11 once a shard) and DS2 greedy, K10 per layer per shard, the
+    tokens equal to the unsharded decode's, both timed; ``run.inference`` on
+    the one card logs no SPMD line and writes phase 3's TSV.
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
@@ -1384,8 +1403,8 @@ def cudnn_rnn_ms(rnn_type, ops, iters=5):
     return None, None, None
 
 
-def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
-    """K10 vs plain at a main-path shape, B=128 (``rnn_operands``), bf16 and float32:
+def check_rnn_sequence(gen, rnn_type, D, T, H, tag, Bsz=B):
+    """K10 vs plain at a main-path shape, B=128 unless ``Bsz`` is given (``rnn_operands``), bf16 and float32:
     the outputs and final states in bf16 within 2e-2 x max|ref| (a float32 sum
     in another order can move one rounding, and the loop carries it on), in
     float32 rtol 1e-5 / atol 1e-6 (sums in another order); masked steps emit
@@ -1407,12 +1426,12 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
     G = GATES[rnn_type]
     timed = None
     for dtype in (torch.bfloat16, torch.float32):
-        ops = rnn_operands(gen, rnn_type, dtype, D, T, B, H)
+        ops = rnn_operands(gen, rnn_type, dtype, D, T, Bsz, H)
         before, before_tc = rnn_sequence.persistent_launches, rnn_sequence.cluster_tc_launches
         got, want = rnn_sequence(rnn_type, *ops), rnn_sequence_plain(rnn_type, *ops)
         torch.cuda.synchronize()
-        name = f"{tag} {str(dtype).replace('torch.', '')} D={D} T={T} B={B} H={H}"
-        route = rnn_plan(rnn_type, H, dtype, D, B, torch.cuda.get_device_properties(0).multi_processor_count).route
+        name = f"{tag} {str(dtype).replace('torch.', '')} D={D} T={T} B={Bsz} H={H}"
+        route = rnn_plan(rnn_type, H, dtype, D, Bsz, torch.cuda.get_device_properties(0).multi_processor_count).route
         check(rnn_sequence.persistent_launches - before == int(route == ROUTE_PERSISTENT) and
               rnn_sequence.cluster_tc_launches - before_tc == int(route == ROUTE_CLUSTER_TC),
               f"{name}: the {route} route launched")
@@ -1439,12 +1458,12 @@ def check_rnn_sequence(gen, rnn_type, D, T, H, tag):
     valid = int(ops[1].sum())
     present = lambda ts: [t for t in ts if t is not None]
     b_ms, b_by = bound(2 * valid * H * G * H, nbytes(present(ops), present(got)))
-    floor_ops = rnn_operands(gen, rnn_type, torch.bfloat16, D, T, B, 8)
+    floor_ops = rnn_operands(gen, rnn_type, torch.bfloat16, D, T, Bsz, 8)
     floor_ms, _ = timed_pair(lambda: rnn_sequence(rnn_type, *floor_ops), lambda: None, 5)
-    floor_route = rnn_plan(rnn_type, 8, torch.bfloat16, D, B).route
+    floor_route = rnn_plan(rnn_type, 8, torch.bfloat16, D, Bsz).route
     lib = "n/a" if lib_ms is None else (f"{lib_ms:.4f} ms ({lib_type}; less its identity input product "
                                         f"{id_ms:.4f} ms: {lib_ms - id_ms:.4f} ms)")
-    print(f"  {tag} bf16 D={D} T={T} B={B} H={H}: kernel {k_ms:.4f} ms = {k_ms / T * 1e3:.2f} us a step, plain "
+    print(f"  {tag} bf16 D={D} T={T} B={Bsz} H={H}: kernel {k_ms:.4f} ms = {k_ms / T * 1e3:.2f} us a step, plain "
           f"{p_ms:.3f} ms, cuDNN {lib}, bound {b_ms:.4f} ms ({b_by}); latency floor (K10 at H=8, "
           f"{floor_route} route) {floor_ms:.4f} ms = {T} x {floor_ms / T * 1e3:.2f} us")
     return err, k_ms, p_ms, b_ms, b_by, lib_ms
@@ -1878,7 +1897,11 @@ def run_las_large_train(tmp, wav_dir, paths, data_config):
 
 # ---------------------------------------------------------------- phase 4d
 class LogLines:
-    """The lines the ``train`` logger writes while active (a handler of its own; run.train's goes to stdout)."""
+    """The lines a logger (``train`` unless named) writes while active (a handler of its own; run.train's goes to
+    stdout)."""
+
+    def __init__(self, name="train"):
+        self.name = name
 
     def __enter__(self):
         import io
@@ -1886,13 +1909,13 @@ class LogLines:
 
         self.buffer, self.handler = io.StringIO(), logging.StreamHandler()
         self.handler.setStream(self.buffer)
-        logging.getLogger("train").addHandler(self.handler)
+        logging.getLogger(self.name).addHandler(self.handler)
         return self
 
     def __exit__(self, *exc):
         import logging
 
-        logging.getLogger("train").removeHandler(self.handler)
+        logging.getLogger(self.name).removeHandler(self.handler)
 
     def text(self):
         return self.buffer.getvalue()
@@ -3425,6 +3448,273 @@ def run_distributed(tmp, paths, ds2_paths, data_config, wav_dir):
     print(f"  9c: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+# ---------------------------------------------------------------- phase 10
+GPIPE_LAYERS, GPIPE_WIDTH = 6, 128  # BiGRU layers of phase 10a's trunk, units (DS2's: 256 wide)
+GPIPE_SCHEDULES = ((2, 4), (2, 8), (3, 4), (3, 8))  # (stages, microbatches) of the no-grad forwards
+GPIPE_TRAIN = (3, 4)  # the float32 training forward and backward
+F32_RTOL = 1e-5  # float32 loss, GPipe against the sequential stack (the same sums, microbatched)
+F32_GRAD_TOL = 1e-4  # float32 gradients: max abs error over max|ref| (the weight gradients' row sums in another order)
+SP_TOL = 1e-5  # 10b: the sequence-parallel features against the one-process frontend (rtol and atol)
+SP_TIMEOUT = 180  # seconds the spawned ranks of phase 10b may take
+LD_MASKS = dict(enable=True, W=None, F=27, m_F=2, T=100, p=1.0, m_T=2)  # LibriSpeech's LD policy without the warp
+
+
+def gpipe_trunk(gen):
+    """Phase 10a's six port BiGRU layers at DeepSpeech2's trunk width (H = 128, 256 wide; JAX's
+    tests/test_pipeline_parallel.py pipelines ``BiRNN`` layers without the trunk's batch norms), float32
+    parameters at a model's scale (kernel ~ N(0, 1/256), recurrent kernel ~ N(0, 1/H), biases ~ N(0, 0.01)),
+    on the card."""
+    import torch
+
+    from speech_recognition_tpu_torch.ops.rnn import BiGRU
+
+    scales = {"kernel": (2 * GPIPE_WIDTH) ** -0.5, "recurrent_kernel": GPIPE_WIDTH ** -0.5, "bias": 0.1}
+    layers = []
+    for _ in range(GPIPE_LAYERS):
+        layer = BiGRU(2 * GPIPE_WIDTH, GPIPE_WIDTH)
+        with torch.no_grad():
+            for name, p in layer.named_parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * scales[name.split(".")[-1]])
+        layers.append(layer.cuda())
+    return layers
+
+
+def run_gpipe(gen):
+    """Phase 10a: ``parallel/pipeline.py gpipe`` over ``[cuda:0] * S`` (one card: each hand-off a copy on the
+    device) on the six-layer BiGRU trunk, B = 128 rows of T' = 108 frames (DS2's), a frame mask as ``const``.
+    No grad, bf16, at every (S, M) of ``GPIPE_SCHEDULES``: K10 launched 6 x M times on the cluster tensor-core
+    route (counters set to 0 just before), the output bit for bit the sequential stack's run at the microbatch
+    size and within phase 2's bf16 K10 tolerance (2e-2 x max|ref|) of the whole-batch sequential stack; the
+    GPipe and whole-batch sequential forwards timed in turns.  Then a float32 training forward and backward at
+    ``GPIPE_TRAIN`` through the graphed ``_GRUScan``, against the sequential stack: the loss within rtol
+    ``F32_RTOL``, every gradient (input, kernels, biases) within ``F32_GRAD_TOL`` x its max|ref|.  K10 is also
+    held against its plain version at the microbatches' 32 and 16 rows (``check_rnn_sequence``).  Returns
+    (launches by microbatch rows, the K10 records at 32 and 16 rows)."""
+    import functools
+
+    import torch
+
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.parallel import gpipe, stack_params, stack_stage_fn
+
+    dev = torch.device("cuda", 0)
+    layers = gpipe_trunk(gen)
+    x = torch.randn(B, T_DS2, 2 * GPIPE_WIDTH, generator=gen).to(dev)
+    lengths = torch.randint(T_DS2 // 2, T_DS2 + 1, (B,), generator=gen)
+    lengths[0] = T_DS2
+    mask = (torch.arange(T_DS2)[None, :] < lengths[:, None]).to(dev)
+    layer_fn = lambda dtype: lambda layer, h, m: layer(h, m, dtype=dtype)[0]
+    bf16, f32 = layer_fn(torch.bfloat16), layer_fn(torch.float32)
+    sequential = lambda fn, xs, ms: functools.reduce(lambda h, layer: fn(layer, h, ms), layers, xs)
+    launches = {}
+    with torch.no_grad():
+        whole = sequential(bf16, x, mask)
+        for S, M in GPIPE_SCHEDULES:
+            stages = stack_params(layers, S)
+            run = lambda: gpipe(stack_stage_fn(bf16), stages, x, M, [dev] * S, const=(mask,))
+            rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
+            got = run()
+            torch.cuda.synchronize()
+            n = rnn_sequence.launches
+            what = f"10a GPipe S={S} M={M} ({B // M} rows a microbatch)"
+            check(n == GPIPE_LAYERS * M, f"{what}: K10 launched {n} times (expected {GPIPE_LAYERS} x {M})")
+            check_k10_route(what)
+            launches[B // M] = launches.get(B // M, 0) + n
+            micro = torch.cat([sequential(bf16, xc, mc) for xc, mc in zip(x.chunk(M), mask.chunk(M))])
+            check(torch.equal(got, micro), f"{what}: bit for bit the sequential stack run at {B // M} rows")
+            err, ref = (got.float() - whole.float()).abs().max().item(), whole.float().abs().max().item()
+            check(err <= 2e-2 * ref, f"{what}: within 2e-2 x max|ref| of the whole-batch sequential stack (max abs "
+                                     f"err {err:.3g}, max|ref| {ref:.3g})")
+            g_ms, s_ms = timed_pair(run, lambda: sequential(bf16, x, mask), 5)
+            print(f"  {what}: GPipe forward {g_ms:.3f} ms, sequential B={B} {s_ms:.3f} ms (in turns; one card, so "
+                  f"no stage overlaps another)")
+    S, M = GPIPE_TRAIN
+
+    def trained(pipelined):
+        xs = x.clone().requires_grad_()
+        if pipelined:
+            y = gpipe(stack_stage_fn(f32), stack_params(layers, S), xs, M, [dev] * S, const=(mask,))
+        else:
+            y = sequential(f32, xs, mask)
+        loss = (y ** 2).mean()
+        params = [p for layer in layers for p in layer.parameters()]
+        return loss.item(), torch.autograd.grad(loss, [xs] + params)
+
+    loss, grads = trained(True)
+    ref_loss, ref_grads = trained(False)
+    check(abs(loss - ref_loss) <= F32_RTOL * abs(ref_loss),
+          f"10a float32 training GPipe S={S} M={M}: loss {loss:.8f} against the sequential stack's {ref_loss:.8f} "
+          f"(rtol {F32_RTOL})")
+    worst = max((g - r).abs().max().item() / max(r.abs().max().item(), 1e-30) for g, r in zip(grads, ref_grads))
+    check(worst <= F32_GRAD_TOL, f"10a float32 training: every gradient (input and {len(grads) - 1} parameters) "
+                                 f"within {F32_GRAD_TOL} x max|ref| of the sequential stack's (worst {worst:.3g})")
+    records = {rows: check_rnn_sequence(gen, "gru", 2, T_DS2, GPIPE_WIDTH, "rnn_sequence GPipe microbatch", Bsz=rows)
+               for rows in sorted(launches)}
+    return launches, records
+
+
+def sp_rank(rank, world, port, data_config, wav_dir, out):
+    """A spawned rank of phase 10b: joins a gloo job on the card, a ``model`` group of ``world``; the
+    sequence-parallel frontend against the one-process frontend on B = 128 of phase 4's clips, plain and with
+    LD's masks drawn alike on every rank (a device generator seeded alike), both timed in turns."""
+    sys.path.insert(0, REPO)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from speech_recognition_tpu_torch.configs import DataConfig
+    from speech_recognition_tpu_torch.ops.frontend import make_batch_frontend, make_sp_batch_frontend
+    from speech_recognition_tpu_torch.ops.spec_augment import draw_spec_augment
+    from speech_recognition_tpu_torch.parallel import get_device_mesh, init_process_group, set_active_mesh
+
+    init_process_group(f"tcp://127.0.0.1:{port}", world, rank, "GPU", "gloo")
+    results = {}
+    try:
+        mesh = get_device_mesh(1, world, "cuda")
+        cfg = DataConfig.from_yaml(data_config)
+        audio, lengths = raw_batch(wav_dir, B)
+        for tag, augment in (("plain", False), ("LD masks", True)):
+            c = dataclasses.replace(cfg, spec_augment=dataclasses.replace(cfg.spec_augment, **LD_MASKS)) \
+                if augment else cfg
+            kwargs = {}
+            if augment:
+                frames = (audio.shape[1] - c.frame_length) // c.frame_step + 1
+                gen = torch.Generator(device=audio.device).manual_seed(77)
+                kwargs["draws"] = draw_spec_augment(c.spec_augment, B, frames, c.frequency_dim, gen, audio.device)
+            sp, base = make_sp_batch_frontend(c, mesh, spec_augment=augment), make_batch_frontend(c, augment)
+            feats, valid = sp(audio, lengths, **kwargs)
+            want, want_valid = base(audio, lengths, **kwargs)
+            sp_ms, base_ms = timed_pair(lambda: sp(audio, lengths, **kwargs), lambda: base(audio, lengths, **kwargs), 3)
+            results[tag] = dict(close=bool(torch.allclose(feats, want, rtol=SP_TOL, atol=SP_TOL)),
+                                valid=bool(torch.equal(valid, want_valid)), shape=list(feats.shape),
+                                err=(feats - want).abs().max().item(), zeros=int((want == 0).sum()),
+                                sp_ms=sp_ms, base_ms=base_ms)
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(results, f)
+
+
+def run_sp_frontend(tmp, data_config, train_wavs):
+    """Phase 10b: two spawned ranks sharing the card over gloo (phase 9c's harness: NCCL refuses two ranks on one
+    card), a ``model`` group of 2, each running ``sp_rank``; every one is stopped before this returns."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    world, port = 2, free_port()
+    outs = [os.path.join(tmp, f"sp_rank{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=sp_rank, args=(r, world, port, data_config, train_wavs, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world or not all(os.path.exists(o) for o in outs):
+        raise RuntimeError(f"phase 10b: the ranks exited with {codes}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        for tag, got in res.items():
+            check(got["close"] and got["valid"],
+                  f"10b rank {r} of a model group of 2, {tag}: sequence-parallel features {got['shape']} within "
+                  f"rtol / atol {SP_TOL} of the one-process frontend (max abs err {got['err']:.3g}), frame lengths "
+                  f"equal")
+            print(f"  10b rank {r} {tag}: sequence-parallel frontend {got['sp_ms']:.3f} ms, one-process "
+                  f"{got['base_ms']:.3f} ms (in turns; the gathers go through host memory over gloo)")
+    check(ranks[0]["LD masks"]["zeros"] > ranks[0]["plain"]["zeros"], "10b: LD's masks zeroed features")
+
+
+def run_sharded_decode(tmp, wav_dir, data_config, host_audio, las_weights, ds2_weights):
+    """Phase 10c: ``run/common.py sharded_decode_fn`` over ``[cuda:0, cuda:0]`` (two shards of 64 rows, one model)
+    on phase 3's 128 clips (host features, bf16): LAS-small greedy and beam-8 with phase 3's weights, DS2 greedy
+    with phase 5's checkpoint.  K4 127 launches a shard (one loop), K5 and K11 one each a shard, K10 one per layer
+    per shard (counters set to 0 just before each sharded decode); the tokens equal to the unsharded B = 128
+    decode's (the beam, should a bf16 tie flip, held to >= 0.99 of its token slots and printed); both decodes
+    timed in turns.  Then ``run.inference`` greedy on the one-card machine: no SPMD line logged, the TSV phase
+    3's.  Returns the launches of the sharded decodes."""
+    import torch
+
+    from speech_recognition_tpu_torch.configs import DataConfig, get_model_config
+    from speech_recognition_tpu_torch.ops.beam_search import beam_search
+    from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.ops.vocab_topk import vocab_topk
+    from speech_recognition_tpu_torch.run import inference
+    from speech_recognition_tpu_torch.run.common import (create_model, load_weights, make_searcher,
+                                                         replica_decode_factory, sharded_decode_fn)
+
+    dev = torch.device("cuda", 0)
+    cfg = DataConfig.from_yaml(data_config)
+    feats = host_audio.cpu().numpy()
+    counters = {"las_greedy": greedy_search, "vocab_topk": vocab_topk, "las_beam": beam_search, "K10": rnn_sequence}
+    launches = {}
+    for tag, config, weights, beam, expected in (
+            ("LAS-small greedy", "las_small.yml", las_weights, 0, {"las_greedy": L - 1, "K10": LAS_LAYERS}),
+            ("LAS-small beam-8", "las_small.yml", las_weights, BEAM, {"vocab_topk": 1, "las_beam": 1,
+                                                                     "K10": LAS_LAYERS}),
+            ("DS2 greedy", "deepspeech.yml", ds2_weights, 0, {"K10": DS2_LAYERS})):
+        model_config = get_model_config(os.path.join(REPO, "resources/configs", config))
+        model = create_model(model_config, cfg, torch.bfloat16, dev)
+        load_weights(model, weights)
+
+        def build(replica, device, model_config=model_config, beam=beam):
+            searcher = make_searcher(replica, model_config, cfg, 1, 2)
+            search = (lambda f: searcher.beam_search(f, beam)[0][:, 0, :]) if beam else \
+                (lambda f: searcher.greedy_search(f)[0])
+            return lambda batch: search(torch.from_numpy(batch).to(device))
+
+        factory = replica_decode_factory(model, build)
+        sharded, used = sharded_decode_fn(factory, B, dev, [dev, dev])
+        whole = factory(dev)
+        check(used == [dev, dev], f"10c {tag}: two shards of {B // 2} rows on {used}")
+        for c in counters.values():
+            c.launches = 0
+        rnn_sequence.cluster_tc_launches = 0
+        got = sharded(feats)
+        torch.cuda.synchronize()
+        counts = {name: c.launches for name, c in counters.items()}
+        for name, n in expected.items():
+            check(counts[name] == 2 * n, f"10c {tag}: {name} launched {counts[name]} times (expected {n} a shard, "
+                                         "2 shards)")
+        check_k10_route(f"the 10c {tag} decode")
+        for name in ("las_greedy", "vocab_topk", "las_beam"):
+            launches[name] = launches.get(name, 0) + counts[name]
+        k10 = "rnn_sequence_gru" if config == "deepspeech.yml" else "rnn_sequence_lstm"
+        launches[k10] = launches.get(k10, 0) + counts["K10"]
+        want = whole(feats)
+        same = (got == want).float().mean().item()
+        if beam:
+            check(same >= 0.99, f"10c {tag}: {same:.4f} of the token slots equal to the unsharded decode's "
+                                "(free running; gate >= 0.99)")
+        else:
+            check(torch.equal(got, want), f"10c {tag}: tokens {tuple(got.shape)} equal to the unsharded decode's")
+        s_ms, w_ms = timed_pair(lambda: sharded(feats), lambda: whole(feats), 2)
+        print(f"  10c {tag}: sharded over two shards {s_ms:.2f} ms, unsharded B={B} {w_ms:.2f} ms a batch (in "
+              f"turns, the features' host-to-device copy included; one card, so no gain expected); token slots "
+              f"equal {same:.4f}")
+    out = os.path.join(tmp, "greedy_one_card.tsv")
+    args = ["--data-config", data_config, "--model-config", os.path.join(REPO, "resources/configs/las_small.yml"),
+            "--audio-files", os.path.join(wav_dir, "*.wav"), "--model-path", las_weights,
+            "--sp-model-path", os.path.join(REPO, "resources/sp-models/sp_model_unigram_16K_libri.model"),
+            "--mixed-precision", "--device", "GPU", "--batch-size", str(B), "--output-path", out]
+    with LogLines("inference") as log:
+        inference.main(inference.parser.parse_args(args))
+    with open(out) as f, open(os.path.join(tmp, "greedy.tsv")) as g:
+        same = f.read() == g.read()
+    check("SPMD" not in log.text() and same, f"10c run.inference --device GPU on {torch.cuda.device_count()} card: no "
+                                             f"SPMD line logged, the TSV equal to phase 3's greedy one ({same})")
+    return launches
+
 
 def main():
     import torch
@@ -3470,7 +3760,9 @@ def main():
                    ("las_decoder_bwd_large", "las_split.cu", "decoder_kernel.py:477"),  # LAS-large's K3
                    ("rnn_sequence_gru_las", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-small's GRU listener
                    ("rnn_sequence_gru_wide", "rnn_sequence.cu", "rnn_kernel.py:100"),  # LAS-large-width GRU listener
-                   ("vocab_topk_gru_beam", "vocab_topk.cu", "topk_kernel.py:176"))}  # every step of a GRU beam
+                   ("vocab_topk_gru_beam", "vocab_topk.cu", "topk_kernel.py:176"),  # every step of a GRU beam
+                   ("rnn_sequence_gru_mb32", "rnn_sequence.cu", "rnn_kernel.py:100"),  # GPipe microbatches of 32 rows
+                   ("rnn_sequence_gru_mb16", "rnn_sequence.cu", "rnn_kernel.py:100"))}  # GPipe microbatches of 16
 
     def record(name, measured):
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured
@@ -3705,6 +3997,25 @@ def main():
         for name, n in run_distributed(tmp, paths, ds2_paths, data_config, wav_dir).items():
             launches[name] += n
         print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+        print(f"== phase 10a: GPipe over [cuda:0] * S on a BiGRU trunk at DS2's width ({GPIPE_LAYERS} layers, "
+              f"H={GPIPE_WIDTH}, B={B}, T'={T_DS2}; bf16 forwards, a float32 training step)")
+        t_phase = time.perf_counter()
+        gpipe_launches, gpipe_records = run_gpipe(gen)
+        for rows in (32, 16):
+            record(f"rnn_sequence_gru_mb{rows}", gpipe_records[rows])
+            launches[f"rnn_sequence_gru_mb{rows}"] = gpipe_launches[rows]
+        print(f"  phase 10a: {time.perf_counter() - t_phase:.1f} s")
+        print("== phase 10b: the sequence-parallel frontend over a model group of two gloo ranks sharing the card "
+              f"(B={B}, libri config)")
+        t_phase = time.perf_counter()
+        run_sp_frontend(tmp, data_config, train_wavs)
+        print(f"  phase 10b: {time.perf_counter() - t_phase:.1f} s")
+        print("== phase 10c: run/common.py sharded_decode_fn over [cuda:0, cuda:0] (LAS-small greedy and beam-8, "
+              "DS2 greedy; bf16, B=128)")
+        t_phase = time.perf_counter()
+        for name, n in run_sharded_decode(tmp, wav_dir, data_config, host_audio, weights, ds2_weights).items():
+            launches[name] += n
+        print(f"  phase 10c: {time.perf_counter() - t_phase:.1f} s")
         for name, n in launches.items():
             kernels[name]["launches"] = n
         for name, row in kernels.items():

@@ -11,9 +11,11 @@ import every module of the port.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` after its launches; the Python wrappers
-raise when that is not 0.
+call it through ``launch``, which makes the operands' device the current one
+for the call and raises when that is not 0.
 """
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -175,6 +177,29 @@ def error_string(code: int) -> str:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_scope(device) -> contextlib.AbstractContextManager:
+    """A block with ``device`` the current CUDA device (for a CPU device, a block
+    that changes nothing).  Work placed on a card other than the current one runs
+    in such a block: a kernel's entry point, a CUDA graph's capture and replay
+    and ``torch.cuda.Stream()`` all take the current device, not their operands'."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and ``device``'s current
+    stream, ``device`` made the current CUDA device for the call; raise if it
+    returns an error.  Every kernel wrapper launches through here: the entry
+    points set their kernels' shared-memory attributes, read the device's
+    limits (``cudaGetDevice``) and launch on the current device, so an operand
+    on another card than the current one would otherwise go to the wrong one."""
+    lib = library()
+    with device_scope(device):
+        err = getattr(lib, name)(*args, stream(device))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: {error_string(err)}")
 
 
 _DTENSOR = None  # torch.distributed.tensor.DTensor, imported on the first check

@@ -206,7 +206,7 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
     if plain_route(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0):
         return beam_loop_plain(pk, value, mask, qw, qb, emb, vw, vb, cells, h0, c0, init_tokens, init_logp, eos_id,
                                pad_id, alpha, beta, step0, n_steps, return_states)
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
 
     dt = pk.dtype
     B, S, H = pk.shape
@@ -263,30 +263,23 @@ def beam_search(pk, value, mask, qw, qb, emb, vw, vb, cells: Sequence, h0, c0, i
         q = torch.empty(R, H, dtype=torch.float32, device=dev)
         scores = torch.empty(R, S, dtype=torch.float32, device=dev)
         x0 = torch.empty(R, He + Dv, dtype=dt, device=dev)
-        err = library().las_beam_search_split(
+        launch("las_beam_search_split", dev,
             *[t.data_ptr() for t in (pk, value, bias, qw, qb, emb, vw, vb)], len(cells),
             *[ctypes.cast(p, ctypes.c_void_p) for p in ptrs],
             *[t.data_ptr() for t in (h, c, hq, q, scores, x0, xs, tokens, logp, ended, eoslen, live, hidden,
                                      part_val, part_idx, part_max, part_sum)],
             B, K, S, H, He, Dv, route.Hu, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha),
-            float(1.0 + beta), *route.query.args(), *route.cell.args(), *launch_args(R, H, V, K, hidden), stream(dev),
-        )
-        if err:
-            raise RuntimeError(f"las_beam_search_split kernel launch failed: {error_string(err)}")
+            float(1.0 + beta), *route.query.args(), *route.cell.args(), *launch_args(R, H, V, K, hidden))
         beam_search.launches += 1
         beam_search.tc_launches += 1
         return (tokens.long(), logp, h, c) if return_states else (tokens.long(), logp)
     cell_ptrs = [(ctypes.c_void_p * len(cells))(*[cell[j].data_ptr() for cell in cells]) for j in range(3)]
-    err = library().las_beam_search(
+    launch("las_beam_search", dev,
         *[t.data_ptr() for t in (pk, value, bias, qw, qb, emb, vw, vb)],
         len(cells), *[ctypes.cast(p, ctypes.c_void_p) for p in cell_ptrs],
         *[t.data_ptr() for t in (h, c, tokens, logp, ended, eoslen, live, hidden, part_val, part_idx, part_max,
                                  part_sum)],
-        B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta), kbs,
-        stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"las_beam_search kernel launch failed: {error_string(err)}")
+        B, K, S, H, He, Dv, V, L, steps.start, len(steps), eos_id, pad_id, float(alpha), float(1.0 + beta), kbs)
     beam_search.launches += 1
     return (tokens.long(), logp, h, c) if return_states else (tokens.long(), logp)
 

@@ -70,7 +70,7 @@ def ce_fwd(hid, W, b, y):
     """
     if plain_route(hid, W, b, y):
         return ce_fwd_plain(hid, W, b, y)
-    from ..kernels import error_string, library, stream
+    from ..kernels import launch
 
     _check(hid, W, b, y)
     R, H = hid.shape
@@ -81,13 +81,10 @@ def ce_fwd(hid, W, b, y):
     lse = torch.empty(R, dtype=torch.float32, device=dev)
     lab = torch.empty(R, dtype=torch.float32, device=dev)
     pred = torch.empty(R, dtype=torch.int32, device=dev)
-    err = library().ce_vocab_fwd(
+    launch("ce_vocab_fwd", dev,
         int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), y.data_ptr(), R, H, V,
         *plan, part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(),
-        lse.data_ptr(), lab.data_ptr(), pred.data_ptr(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"ce_vocab_fwd kernel launch failed: {error_string(err)}")
+        lse.data_ptr(), lab.data_ptr(), pred.data_ptr())
     ce_fwd.launches += 1
     return lse, lab, pred.long()
 

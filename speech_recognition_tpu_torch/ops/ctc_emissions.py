@@ -79,7 +79,7 @@ def ctc_emissions_fwd(hid, W, b, ids):
     """
     if plain_route(hid, W, b, ids):
         return ctc_emissions_fwd_plain(hid, W, b, ids)
-    from ..kernels import error_string, library, stream
+    from ..kernels import launch
 
     _check(hid, W, b, ids)
     B, T, H = hid.shape
@@ -90,13 +90,10 @@ def ctc_emissions_fwd(hid, W, b, ids):
     id_list = torch.empty(B, 2, K, dtype=torch.int32, device=dev)  # each row's ids in (id, k) order, then their k
     lse = torch.empty(B, T, dtype=torch.float32, device=dev)
     vals = torch.empty(B, T, K, dtype=torch.float32, device=dev)
-    err = library().ctc_emissions_fwd(
+    launch("ctc_emissions_fwd", dev,
         int(hid.dtype == torch.bfloat16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), R, T, K, H, V,
         *plan, id_list.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(),
-        part_sum.data_ptr(), lse.data_ptr(), vals.data_ptr(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"ctc_emissions_fwd kernel launch failed: {error_string(err)}")
+        part_sum.data_ptr(), lse.data_ptr(), vals.data_ptr())
     ctc_emissions_fwd.launches += 1
     return lse, vals
 
@@ -107,7 +104,7 @@ def launch_emissions_bwd(hid, W, b, ids, lse, dvals):
     :param hid: [B,T,H]; ``ids`` [B,K] int32; ``lse`` [B,T] and ``dvals`` [B,T,K] float32
     :return: (dhid [B,T,H] in hid's type, dW [H,V] f32, db [V] f32)
     """
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
     from .vocab_bwd import bwd_plan, engine_args, sm_count
 
     _check(hid, W, b, ids)
@@ -127,14 +124,11 @@ def launch_emissions_bwd(hid, W, b, ids, lse, dvals):
         lab = torch.empty(B, 2, K, dtype=torch.int32, device=dev)
         dW_part, db_part = f32(plan.n_parts, H, V), f32(plan.n_parts, V)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = library().ctc_emissions_bwd(
+    launch("ctc_emissions_bwd", dev,
         int(bf16), hid.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(), lse.data_ptr(), dvals.data_ptr(),
         R, T, K, H, V, *(engine_args(plan) if plan else (0,) * 5),
         merged.data_ptr(), ids_first.data_ptr(), dlse.data_ptr(), ptr(lab), ptr(dW_part), ptr(db_part),
-        dhid.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"ctc_emissions_bwd kernel launch failed: {error_string(err)}")
+        dhid.data_ptr(), dW.data_ptr(), db.data_ptr())
     return dhid, dW, db
 
 

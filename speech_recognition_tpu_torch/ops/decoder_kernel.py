@@ -296,7 +296,7 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     if plain_route(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases, cell_masks, out_mask, h0, c0):
         return decoder_fwd_plain(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels, biases,
                                  cell_masks, out_mask, h0, c0)
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
 
     dt, dev = emb.dtype, emb.device
     N, B, He = emb.shape
@@ -320,21 +320,18 @@ def decoder_fwd(emb, token_mask, pk, value, attn_bias, qw, qb, kernels, rkernels
     cps = [new(N, B, H) for _ in kernels]
     h_last, c_last = new(B, H), new(B, H)
     arrays = [_ptr_array(ts) for ts in (kernels, rkernels, biases, cell_masks, zs, cps)]  # alive for the call
-    err = library().las_decoder_fwd(
+    launch("las_decoder_fwd", dev,
         emb.data_ptr(), tm.data_ptr(), pk.data_ptr(), value.data_ptr(), bias.data_ptr(),
         qw.data_ptr(), qb.data_ptr(), len(kernels), *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
         out_mask.data_ptr(), h0.data_ptr(), c0.data_ptr(), hidden.data_ptr(), h_start.data_ptr(), c_in0.data_ptr(),
-        h_last.data_ptr(), c_last.data_ptr(), N, B, S, H, He, Dv, stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"las_decoder_fwd kernel launch failed: {error_string(err)}")
+        h_last.data_ptr(), c_last.data_ptr(), N, B, S, H, He, Dv)
     decoder_fwd.launches += 1
     return (h_last, c_last), (hidden, h_start, c_in0, tuple(zs), tuple(cps))
 
 
 def _decoder_fwd_split(emb, tm, pk, value, bias, qw, qb, kernels, rkernels, biases, cell_masks, out_mask, h0, c0):
     """K2 in bf16 on the split step (checked operands; ``tm`` [N,B] and ``bias`` [B,S] float32)."""
-    from ..kernels import error_string, library, stream
+    from ..kernels import launch
     from .vocab_bwd import sm_count
 
     dt, dev = emb.dtype, emb.device
@@ -360,15 +357,12 @@ def _decoder_fwd_split(emb, tm, pk, value, bias, qw, qb, kernels, rkernels, bias
     scores = torch.empty(B, S, dtype=torch.float32, device=dev)
     x0, xs = new(B, He + Dv), new(2, B, H)
     arrays = [_ptr_array(ts) for ts in (ws, biases, out_masks, zs, cps)]  # alive for the call
-    err = library().las_decoder_fwd_split(
+    launch("las_decoder_fwd_split", dev,
         emb_rows.data_ptr(), rows.data_ptr(), tm.data_ptr(), pk.data_ptr(), value.data_ptr(), bias.data_ptr(),
         qw.data_ptr(), qb.data_ptr(), len(kernels), *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
         cm0.data_ptr() + He * cm0.element_size(), He + Dv,
         *[t.data_ptr() for t in (h, c, hq, q, scores, x0, xs, hidden, h_state, c_state)],
-        N, B, S, H, He, Dv, plan.Hu, *plan.query.args(), *plan.cell.args(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"las_decoder_fwd_split kernel launch failed: {error_string(err)}")
+        N, B, S, H, He, Dv, plan.Hu, *plan.query.args(), *plan.cell.args())
     decoder_fwd.launches += 1
     decoder_fwd.tc_launches += 1
     return (h_state[N], c_state[N]), (hidden, h_state[:N], c_state[:N], tuple(zs), tuple(cps))
@@ -390,7 +384,7 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     if plain_route(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels, rkernels, cell_masks, out_mask, zs, c_ps):
         return decoder_bwd_plain(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, qw, kernels,
                                  rkernels, cell_masks, out_mask, zs, c_ps, He)
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
 
     dt, dev = dhidden.dtype, dhidden.device
     N, B, H = dhidden.shape
@@ -417,15 +411,12 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
     demb, dctx, dscores, dq = new(N, B, He), new(N, B, Dv), new(N, B, S), new(N, B, H)
     dh0, dc0 = new(B, H), new(B, H)
     arrays = [_ptr_array(ts) for ts in (kts, rts, cell_masks, zs, c_ps, dzs)]  # alive for the call
-    err = library().las_decoder_bwd(
+    launch("las_decoder_bwd", dev,
         dhidden.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), tm.data_ptr(), probs.data_ptr(),
         c_in0.data_ptr(), pk.data_ptr(), value.data_ptr(), qw_t.data_ptr(), len(kernels),
         *[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
         out_mask.data_ptr(), demb.data_ptr(), dctx.data_ptr(), dscores.data_ptr(), dq.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), N, B, S, H, He, Dv, stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"las_decoder_bwd kernel launch failed: {error_string(err)}")
+        dc0.data_ptr(), N, B, S, H, He, Dv)
     decoder_bwd.launches += 1
     return dh0, dc0, tuple(dzs), demb, dctx, dscores, dq
 
@@ -433,7 +424,7 @@ def decoder_bwd(dhidden, dh_last, dc_last, token_mask, probs, c_in0, pk, value, 
 def _decoder_bwd_split(dhidden, dh_last, dc_last, tm, probs, c_in0, pk, value, qw, kernels, rkernels, cell_masks,
                        out_mask, zs, c_ps, He):
     """K3 in bf16 on the split reverse step (checked operands; ``tm`` [N,B] float32)."""
-    from ..kernels import error_string, library, stream
+    from ..kernels import launch
     from .vocab_bwd import sm_count
 
     dt, dev = dhidden.dtype, dhidden.device
@@ -453,16 +444,13 @@ def _decoder_bwd_split(dhidden, dh_last, dc_last, tm, probs, c_in0, pk, value, q
     dh0, dc0 = new(B, H), new(B, H)
     scratch = [torch.empty(*shape, dtype=torch.float32, device=dev) for shape in ((B, H), (B, H), (B, Dv), (B, S))]
     arrays = [_ptr_array(ts) for ts in (ws, cell_masks, zs, c_ps, dzs)]  # alive for the call
-    err = library().las_decoder_bwd_split(
+    launch("las_decoder_bwd_split", dev,
         dhidden.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), tm.data_ptr(), probs.data_ptr(),
         c_in0.data_ptr(), pk.data_ptr(), value.data_ptr(), qw_t.data_ptr(), len(kernels),
         *[ctypes.cast(a, ctypes.c_void_p) for a in arrays], out_mask.data_ptr(),
         *[t.data_ptr() for t in (demb, dctx, dscores, dq, dh0, dc0)],
         *[t.data_ptr() for t in scratch],  # dh, dc, dctx_f, dprobs
-        N, B, S, H, He, Dv, *plan.query.args(), *plan.cell0.args(), *plan.cell.args(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"las_decoder_bwd_split kernel launch failed: {error_string(err)}")
+        N, B, S, H, He, Dv, *plan.query.args(), *plan.cell0.args(), *plan.cell.args())
     decoder_bwd.launches += 1
     decoder_bwd.tc_launches += 1
     return dh0, dc0, tuple(dzs), demb, dctx, dscores, dq

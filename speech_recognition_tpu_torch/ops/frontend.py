@@ -12,8 +12,9 @@ Padding: features at frames past each clip's valid length are set to exactly
 0.0, so the models' pad detection (``models/las.py audio_frame_lengths``)
 sees the zero padding the host per-example path produces; the chain is mask
 the pads, augment, mask again, delta, mask again.  The augment sees the
-padded frame count (``ops/spec_augment.py``).  The sequence-parallel variant
-(``make_sp_batch_frontend``) is not ported yet.
+padded frame count (``ops/spec_augment.py``).  ``make_sp_batch_frontend``
+is the sequence-parallel variant: the sample -> feature chain split in time
+over the ``model`` ranks (``parallel/sequence.py``).
 """
 
 from typing import Callable, Optional
@@ -46,7 +47,12 @@ def make_batch_frontend(config, spec_augment: bool = False) -> Callable:
     With ``spec_augment`` and ``config.spec_augment.enable``, a call given a
     ``generator`` (on the audio's device) draws and applies SpecAugment; given
     ``draws`` (``SpecAugmentDraws``), it applies those."""
-    feature_fn = config.make_audio_feature_fn()
+    return _frontend(config, spec_augment, config.make_audio_feature_fn())
+
+
+def _frontend(config, spec_augment: bool, feature_fn: Callable) -> Callable:
+    """``make_batch_frontend``'s fn over ``feature_fn(audio [B, S]) -> [B, T, F, 1]``: the pads masked, then
+    SpecAugment, delta-accelerate and the masks again."""
     frame_length, frame_step = config.frame_length, config.frame_step
     sa = config.spec_augment if spec_augment and config.spec_augment.enable else None
 
@@ -67,6 +73,45 @@ def make_batch_frontend(config, spec_augment: bool = False) -> Callable:
         return feats, valid
 
     return frontend
+
+
+def make_sp_batch_frontend(config, mesh=None, spec_augment: bool = False) -> Callable:
+    """Sequence-parallel variant of :func:`make_batch_frontend` (JAX's
+    ``make_sp_batch_frontend``, ops/frontend.py:69-140), the same contract.
+
+    The sample -> feature chain (framing, the STFT's products, mel / MFCC:
+    the FLOPs) runs time-sharded over the ``model`` ranks of ``mesh`` (default:
+    the active mesh) with a sample halo of ``frame_length - frame_step`` from
+    the right neighbour (``parallel/sequence.py time_sharded``); every rank of
+    the group then holds the whole features.  The masks, SpecAugment
+    (``draw_batch_rows``: every rank of a group draws the same masks from a
+    generator in the same state) and delta-accelerate run on the assembled
+    features, as in the base frontend.
+
+    Requires ``frame_length % frame_step == 0`` (every shipped config: 320 /
+    160), so that each shard owns whole step blocks.
+    """
+    from ..parallel.mesh import get_active_mesh
+    from ..parallel.sequence import time_sharded
+
+    fl, fs = config.frame_length, config.frame_step
+    if fl % fs:
+        raise ValueError("sequence-parallel frontend requires frame_length % frame_step == 0")
+    sp_features = time_sharded(config.make_audio_feature_fn(), mesh, time_axis=1, halo_right=fl - fs)
+
+    def features(audio: torch.Tensor) -> torch.Tensor:
+        m = mesh if mesh is not None else get_active_mesh()
+        n = 1 if m is None else m.model
+        S = audio.shape[1]
+        # pad so that every shard owns an equal whole number of step blocks; the
+        # spurious tail frames (zero-halo windows past the signal) are cut after assembly
+        blocks = -(-S // fs)
+        blocks_pad = -(-blocks // n) * n
+        if blocks_pad * fs != S:
+            audio = torch.nn.functional.pad(audio, (0, blocks_pad * fs - S))
+        return sp_features(audio)[:, :(S - fl) // fs + 1]
+
+    return _frontend(config, spec_augment, features)
 
 
 def pad_audio_batch(audios, max_samples: int):

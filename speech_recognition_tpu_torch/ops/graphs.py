@@ -36,6 +36,10 @@ class CudaGraphs:
         dev = inputs[0].device
         if dev.type != "cuda":
             return fn(*inputs)
+        with torch.cuda.device(dev):  # the capture and replay take the current device's streams
+            return self._run(fn, dev, inputs)
+
+    def _run(self, fn, dev, inputs):
         key = (fn.__name__, dev) + tuple((tuple(t.shape), t.dtype) for t in inputs)
         if key not in self._graphs:
             if key not in self._seen:

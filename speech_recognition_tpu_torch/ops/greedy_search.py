@@ -186,12 +186,12 @@ class GreedyKernelLoop:
             self.xs = torch.empty(2, B, H, dtype=dt, device=dev)
 
     def step(self, n: int) -> None:
-        from ..kernels import error_string, library, stream
+        from ..kernels import launch
 
         B, S, H, He, Dv, V = self.dims
         if self.route.route == ROUTE_SPLIT:
             r = self.route
-            err = library().las_greedy_step_split(
+            launch("las_greedy_step_split", self.h.device,
                 *[t.data_ptr() for t in self.operands], len(self.cells),
                 *[ctypes.cast(p, ctypes.c_void_p) for p in self._split_ptrs],
                 *[t.data_ptr() for t in (self.h, self.c, self.hq, self.q, self.scores, self.x0, self.xs)],
@@ -199,25 +199,18 @@ class GreedyKernelLoop:
                 *[t.data_ptr() for t in (self.prev, self.ended, self.logp, self.tokens)], n, self.L,
                 self.hidden.data_ptr(),
                 *[t.data_ptr() for t in (self.part_val, self.part_idx, self.part_max, self.part_sum)],
-                B, S, H, He, Dv, r.Hu, V, self.eos_id, self.pad_id, *r.query.args(), *r.cell.args(), *self.plan,
-                stream(self.h.device),
-            )
-            if err:
-                raise RuntimeError(f"las_greedy_step_split kernel launch failed: {error_string(err)}")
+                B, S, H, He, Dv, r.Hu, V, self.eos_id, self.pad_id, *r.query.args(), *r.cell.args(), *self.plan)
             self.parity ^= len(self.cells) & 1
             greedy_search.launches += 1
             greedy_search.tc_launches += 1
             return
-        err = library().las_greedy_step(
+        launch("las_greedy_step", self.h.device,
             *[t.data_ptr() for t in self.operands],
             len(self.cells), *[ctypes.cast(p, ctypes.c_void_p) for p in self._cell_ptrs],
             *[t.data_ptr() for t in (self.h, self.c, self.prev, self.ended, self.logp, self.tokens)],
             n, self.L, self.hidden.data_ptr(),
             *[t.data_ptr() for t in (self.part_val, self.part_idx, self.part_max, self.part_sum)],
-            B, S, H, He, Dv, V, self.eos_id, self.pad_id, stream(self.h.device),
-        )
-        if err:
-            raise RuntimeError(f"las_greedy_step kernel launch failed: {error_string(err)}")
+            B, S, H, He, Dv, V, self.eos_id, self.pad_id)
         greedy_search.launches += 1
 
     def result(self) -> Tuple[torch.Tensor, torch.Tensor]:

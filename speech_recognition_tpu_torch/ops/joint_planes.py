@@ -115,7 +115,7 @@ def _check(enc, pred, W, b, ids, p, S: int, blank: int):
 
 def _launch_fwd(enc, pred, W, b, ids, p, S: int, blank: int):
     """(lpb, lpe, lse, route) of one forward launch."""
-    from ..kernels import error_string, library, stream
+    from ..kernels import launch
     from .vocab_bwd import sm_count
 
     _check(enc, pred, W, b, ids, p, S, blank)
@@ -123,18 +123,15 @@ def _launch_fwd(enc, pred, W, b, ids, p, S: int, blank: int):
     U1, V = pred.shape[1], W.shape[1]
     plan = joint_fwd_plan(B * T * S, J, V, enc.dtype, sm_count(enc.device))
     lpb, lpe, lse = (torch.empty(B, T, S, dtype=torch.float32, device=enc.device) for _ in range(3))
-    err = library().transducer_joint_fwd(
+    launch("transducer_joint_fwd", enc.device,
         int(enc.dtype == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(),
         ids.data_ptr(), None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank, plan.wgs, plan.stage_k,
-        plan.tiles_per_block, lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr(), stream(enc.device),
-    )
-    if err:
-        raise RuntimeError(f"transducer_joint_fwd kernel launch failed: {error_string(err)}")
+        plan.tiles_per_block, lpb.data_ptr(), lpe.data_ptr(), lse.data_ptr())
     return lpb, lpe, lse, plan.route
 
 
 def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
     from .vocab_bwd import bwd_plan, engine_args, f32_row_splits, sm_count
 
     _check(enc, pred, W, b, ids, p, S, blank)
@@ -156,14 +153,11 @@ def _launch_bwd(enc, pred, W, b, ids, p, S: int, blank: int, lse, dlpb, dlpe):
         hbuf, n_split, engine = torch.empty(R, J, dtype=dt, device=dev), f32_row_splits(R), (0,) * 4
         dW_part, db_part = (f32(n_split, J, V), f32(n_split, V)) if n_split > 1 else (dW, db)
     denc, dpred = torch.empty(B, T, J, dtype=dt, device=dev), torch.empty(B, U1, J, dtype=dt, device=dev)
-    err = library().transducer_joint_bwd(
+    launch("transducer_joint_bwd", dev,
         int(dt == torch.bfloat16), enc.data_ptr(), pred.data_ptr(), W.data_ptr(), b.data_ptr(), ids.data_ptr(),
         None if p is None else p.data_ptr(), B, T, U1, S, J, V, blank, lse.data_ptr(), dlpb.data_ptr(),
         dlpe.data_ptr(), n_split, *engine, hbuf.data_ptr(), dpre.data_ptr(), dW_part.data_ptr(), db_part.data_ptr(),
-        denc.data_ptr(), dpred.data_ptr(), dW.data_ptr(), db.data_ptr(), stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"transducer_joint_bwd kernel launch failed: {error_string(err)}")
+        denc.data_ptr(), dpred.data_ptr(), dW.data_ptr(), db.data_ptr())
     return denc, dpred, dW, db
 
 

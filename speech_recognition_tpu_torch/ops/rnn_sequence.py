@@ -274,7 +274,7 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
     """
     if plain_route(x_proj, mask, rk, rb, h0, c0):
         return rnn_sequence_plain(rnn_type, x_proj, mask, rk, rb, h0, c0)
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
     from .vocab_bwd import sm_count
 
     T, D, B, GH = x_proj.shape
@@ -303,36 +303,26 @@ def rnn_sequence(rnn_type: str, x_proj, mask, rk, rb, h0, c0):
         mt = mask.reshape(T, D, B).view(torch.uint8)
         mt = torch.nn.functional.pad(mt, (0, mask_pitch - B)) if mask_pitch != B else mt
         xt, mt = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xt, mt))
-        err = library().rnn_sequence_cluster_tc(
+        launch("rnn_sequence_cluster_tc", dev,
             int(not lstm), xt.data_ptr(), mt.data_ptr(), mask_pitch, rk.data_ptr(),
             0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
-            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, plan.units, plan.cluster, plan.stages,
-            stream(dev),
-        )
-        if err:
-            raise RuntimeError(f"rnn_sequence_cluster_tc kernel launch failed: {error_string(err)}")
+            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, plan.units, plan.cluster, plan.stages)
         rnn_sequence.cluster_tc_launches += 1
     elif plan.route == ROUTE_PERSISTENT:
         w = interleave_recurrent(rk, plan)
         hbuf = torch.zeros(2, D, B, w.shape[1], dtype=x_proj.dtype, device=dev)  # h0 in plane 0, zeros past H
         hbuf[0, ..., :H] = h0
         done = torch.zeros(D, dtype=torch.int32, device=dev)
-        err = library().rnn_sequence_persistent(
+        launch("rnn_sequence_persistent", dev,
             int(not lstm), x_proj.data_ptr(), mask.data_ptr(), w.data_ptr(), 0 if lstm else rb.data_ptr(),
             c0.data_ptr() if lstm else 0, hbuf.data_ptr(), done.data_ptr(), out.data_ptr(), h_last.data_ptr(),
-            c_last.data_ptr() if lstm else 0, T, D, B, H, plan.ctas, plan.slice_rows, stream(dev),
-        )
-        if err:
-            raise RuntimeError(f"rnn_sequence_persistent kernel launch failed: {error_string(err)}")
+            c_last.data_ptr() if lstm else 0, T, D, B, H, plan.ctas, plan.slice_rows)
         rnn_sequence.persistent_launches += 1
     else:
-        err = library().rnn_sequence(
+        launch("rnn_sequence", dev,
             int(x_proj.dtype == torch.bfloat16), int(not lstm), x_proj.data_ptr(), mask.data_ptr(), rk.data_ptr(),
             0 if lstm else rb.data_ptr(), h0.data_ptr(), c0.data_ptr() if lstm else 0, out.data_ptr(),
-            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H, stream(dev),
-        )
-        if err:
-            raise RuntimeError(f"rnn_sequence kernel launch failed: {error_string(err)}")
+            h_last.data_ptr(), c_last.data_ptr() if lstm else 0, T, D, B, H)
     rnn_sequence.launches += 1
     return out, h_last, c_last
 

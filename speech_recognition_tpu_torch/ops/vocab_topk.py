@@ -233,7 +233,7 @@ def vocab_topk(hid, W, b, k: int, rounding: int):
     """
     if plain_route(hid, W, b):
         return vocab_topk_plain(hid, W, b, k, rounding)
-    from ..kernels import check_operands, error_string, library, stream
+    from ..kernels import check_operands, launch
 
     R, H = hid.shape
     V = W.shape[1]
@@ -248,14 +248,11 @@ def vocab_topk(hid, W, b, k: int, rounding: int):
     vals = torch.empty(R, k, dtype=torch.float32, device=dev)
     idx = torch.empty(R, k, dtype=torch.int32, device=dev)
     lse = torch.empty(R, dtype=torch.float32, device=dev)
-    err = library().vocab_topk(
+    launch("vocab_topk", dev,
         int(hid.dtype == torch.bfloat16), int(b.dtype == torch.float32),
         hid.data_ptr(), W.data_ptr(), b.data_ptr(), R, H, V, k, rounding, *plan,
         part_val.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(), part_sum.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), None, stream(dev),
-    )
-    if err:
-        raise RuntimeError(f"vocab_topk kernel launch failed: {error_string(err)}")
+        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), None)
     vocab_topk.launches += 1
     return vals, idx.long(), lse
 

@@ -11,7 +11,9 @@ frontend is off for them).  With ``--on-device-frontend`` (the default for
 (``ops/frontend.py``); otherwise the host computes them and they are batched
 with ``quantized_padded_batch`` (the JAX CLI's non-TPU shapes).  Batches are
 decoded through the family's searcher (``run/common.py make_searcher``): LAS,
-DeepSpeech2, the Conformer and the RNN-Transducer.  Weights are a ``.pt``
+DeepSpeech2, the Conformer and the RNN-Transducer; with more than one
+visible card, each batch's rows split over them (``run/common.py
+sharded_decode_fn``).  Weights are a ``.pt``
 state_dict (``weights.params_from_jax`` converts a Flax tree).  Runs on the
 GPU unless ``--device CPU`` is given; returns 0 when the set produced
 outputs, 1 when it produced none.
@@ -51,8 +53,8 @@ def main(args: argparse.Namespace):
                         quantized_padded_raw_batch)
     from ..data import get_tfrecord_dataset
     from ..ops.features import delta_accelerate, make_feature_fn
-    from .common import (compute_dtype, create_model, frontend_decode_fn, load_weights, make_searcher,
-                         pipelined_decode, select_device, to_device, use_raw_frontend)
+    from .common import (cli_decode_fn, compute_dtype, create_model, load_weights, pipelined_decode, select_device,
+                         use_raw_frontend)
 
     device = select_device(args.device)
     raw_mode = use_raw_frontend(args.on_device_frontend, args.device, args.use_tfrecord)
@@ -86,20 +88,16 @@ def main(args: argparse.Namespace):
     model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
     logger.info(f"[+] Load weights of model from {args.model_path}")
     load_weights(model, args.model_path)
-    searcher = make_searcher(model, model_config, config, bos_id, eos_id)
 
     logger.info("[+] Start Inference")
-    if args.beam_size > 0:
-        search = lambda features: searcher.beam_search(features, args.beam_size)[0][:, 0, :]
-    else:
-        search = lambda features: searcher.greedy_search(features)[0]
     if raw_mode:
         batches = prefetch_stream(
             quantized_padded_raw_batch(stream, args.batch_size, config.frame_length, config.frame_step), size=2)
-        decode_fn = frontend_decode_fn(config, search, device)
     else:
         batches = prefetch_stream(quantized_padded_batch(stream, args.batch_size), size=2)
-        decode_fn = lambda features: search(to_device(features, device))
+    # more than one device: each batch's rows split over them (SPMD decode)
+    decode_fn = cli_decode_fn(model, model_config, config, bos_id, eos_id, args.beam_size, raw_mode, device,
+                              args.batch_size, logger)
     outputs = []
     for batch_output, batch_tokens, n_valid in pipelined_decode(batches, decode_fn):
         outputs.extend(zip(batch_output[:n_valid], batch_tokens[:n_valid]))

@@ -9,7 +9,8 @@ default for ``--device CPU``, or ``--no-on-device-frontend``).  An LAS model
 decodes through ``LASSearcher`` (kernels K4 greedy; K5 and K11 beam), an
 RNN-Transducer through ``TransducerSearcher`` (K7 in its encoder, K5 in the
 beam), a CTC model (DeepSpeech2, the Conformer) through
-``DeepSpeechSearcher``.  Weights are a ``.pt`` state_dict
+``DeepSpeechSearcher``; with more than one visible card, each batch's
+rows split over them (``run/common.py sharded_decode_fn``).  Weights are a ``.pt`` state_dict
 (``weights.params_from_jax`` converts a Flax tree).
 Runs on the GPU unless ``--device CPU`` is given.
 
@@ -48,8 +49,8 @@ def main(args: argparse.Namespace):
     from ..data import (SentencePieceTokenizer, load_audio_file, parallel_map_stream, prefetch_stream,
                         quantized_padded_batch, quantized_padded_raw_batch)
     from ..ops.features import make_feature_fn
-    from .common import (compute_dtype, create_model, frontend_decode_fn, load_weights, make_searcher,
-                         pipelined_decode, select_device, to_device, use_raw_frontend)
+    from .common import (cli_decode_fn, compute_dtype, create_model, load_weights, pipelined_decode, select_device,
+                         use_raw_frontend)
 
     device = select_device(args.device)
     raw_mode = use_raw_frontend(args.on_device_frontend, args.device, False)
@@ -74,24 +75,20 @@ def main(args: argparse.Namespace):
     model = create_model(model_config, config, compute_dtype(args.mixed_precision), device)
     load_weights(model, args.model_path)
     logger.info(f"Loaded weights of model from {args.model_path}")
-    searcher = make_searcher(model, model_config, config, bos_id, eos_id)
 
     logger.info("Start Inference")
     # decode (and the host features, unless the card computes them) in a thread pool
     examples = parallel_map_stream(dataset_files, load_fn if raw_mode else lambda path: feature_fn(load_fn(path)))
     dummy_tokens = ((x, np.zeros(1, np.int32)) for x in examples)
-    if args.beam_size > 0:
-        search = lambda features: searcher.beam_search(features, args.beam_size)[0][:, 0, :]
-    else:
-        search = lambda features: searcher.greedy_search(features)[0]
     if raw_mode:
         logger.info("[+] Fused on-device audio frontend")
         batches = prefetch_stream(
             quantized_padded_raw_batch(dummy_tokens, args.batch_size, config.frame_length, config.frame_step), size=2)
-        decode_fn = frontend_decode_fn(config, search, device)
     else:
         batches = prefetch_stream(quantized_padded_batch(dummy_tokens, args.batch_size), size=2)
-        decode_fn = lambda features: search(to_device(features, device))
+    # more than one device: each batch's rows split over them (SPMD decode)
+    decode_fn = cli_decode_fn(model, model_config, config, bos_id, eos_id, args.beam_size, raw_mode, device,
+                              args.batch_size, logger)
 
     outputs = []
     for decoded, _, n_valid in pipelined_decode(batches, decode_fn):

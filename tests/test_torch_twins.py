@@ -97,14 +97,17 @@ def test_port_imports_no_jax(tmp_path):
     """Every module of the port imports with jax/flax/optax/orbax and the JAX
     package (``speech_recognition_tpu``) blocked, and so do the imports that
     happen inside functions: the same process decodes the wav fixture through
-    ``run.inference`` and scores the tsv fixture through ``run.evaluate`` with a
-    LAS mini checkpoint, and trains one step through
+    ``run.inference`` (once more with each batch's rows split over two CPU
+    shards, ``run/common.py sharded_decode_fn``: the same TSV) and scores the
+    tsv fixture through ``run.evaluate`` with a LAS mini checkpoint, and trains
+    one step through
     ``run.train`` of the LAS, Conformer and pruned RNN-Transducer mini configs,
     of LAS with SpecAugment (the warp and both masks) in the on-device
     frontend, and of the DeepSpeech2-MoE mini config, then writes the tsv's
     TFRecords through ``run.make_tfrecord`` and trains LAS one step from them
     (``--use-tfrecord``), and LAS one step as a one-process ``--fsdp`` job over
-    gloo (``parallel/``), all on the CPU.
+    gloo (``parallel/``), all on the CPU.  ``parallel.pipeline`` and
+    ``parallel.sequence`` are among the imported.
     The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
     code = r"""
@@ -122,7 +125,8 @@ for name in names:
     importlib.import_module(name)
 for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
              "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp", "run.make_tfrecord", "data.tfrecord",
-             "parallel", "parallel.mesh", "parallel.comm", "parallel.expert", "parallel.shard"):
+             "parallel", "parallel.mesh", "parallel.comm", "parallel.expert", "parallel.shard", "parallel.pipeline",
+             "parallel.sequence"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
@@ -137,6 +141,21 @@ inference.main(inference.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded.tsv", "--batch-size", "2",
     "--device", "CPU"]))
+from speech_recognition_tpu_torch.run import common
+shards, real_split = [], common.sharded_decode_fn
+def split_spy(*a, **k):
+    fn, devices = real_split(*a, **k)
+    shards.append(devices)
+    return fn, devices
+common.sharded_decode_fn, real_devices = split_spy, common.decode_devices
+common.decode_devices = lambda device: [device, device]  # two CPU shards of one row each
+inference.main(inference.parser.parse_args([
+    "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
+    out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded_sharded.tsv", "--batch-size", "2",
+    "--device", "CPU"]))
+common.sharded_decode_fn, common.decode_devices = real_split, real_devices
+assert shards == [[torch.device("cpu")] * 2], shards
+assert open(out + "/decoded_sharded.tsv").read() == open(out + "/decoded.tsv").read()
 assert evaluate.main(evaluate.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--dataset-paths", tsv, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/scored.tsv", "--batch-size", "2",

@@ -1,11 +1,12 @@
-"""Spawned gloo ranks for the port's parallel tests (tests/test_torch_parallel_*.py).
+"""Gloo ranks for the port's parallel tests (tests/test_torch_parallel_*.py).
 
-``run_ranks(fn, world, tmp_path, *args)`` starts ``world`` processes (spawn),
-each joining a gloo job through a ``file://`` store under ``tmp_path`` (no
-port, so parallel test workers never collide), runs ``fn(rank, world,
-*args)`` and returns each rank's result; every rank runs under its own
+``run_ranks(fn, world, tmp_path, *args)`` starts ``world`` processes (forked
+from a fork server that has imported torch and the port), each joining a
+gloo job through a ``file://`` store under ``tmp_path`` (no port, so
+parallel test workers never collide), runs ``fn(rank, world, *args)`` and
+returns each rank's result; every rank runs under its own
 timeout, and a rank that fails or hangs fails the call.  Nothing here imports
-JAX: a spawned rank imports this module and the port only.
+JAX: a rank imports this module and the port only.
 
 ``train_steps(spec, mesh)`` runs the port's train step on a model built from
 numpy variables, on every rank the same global batches (each rank takes its
@@ -14,6 +15,7 @@ parallelism; with ``mesh=None`` it is the one-process run of the same spec.
 """
 
 import os
+import tempfile
 import time
 import traceback
 
@@ -24,13 +26,14 @@ import torch.multiprocessing as mp
 RANK_TIMEOUT = 120.0
 
 
-def _entry(fn, rank, world, store, out, args):
+def _entry(fn, rank, world, store, out, args_path):
     import torch.distributed as dist
 
     from speech_recognition_tpu_torch.parallel import init_process_group
 
     torch.set_num_threads(1)
     try:
+        args = torch.load(args_path, weights_only=False)
         init_process_group(f"file://{store}", world, rank, "CPU")
         result = fn(rank, world, *args)
         dist.barrier()
@@ -41,12 +44,35 @@ def _entry(fn, rank, world, store, out, args):
         raise
 
 
+_CTX = None
+
+
+def _context():
+    """The ranks' start method: a fork server that has imported torch, numpy, this module and the
+    port's parallel package once per test process (each rank forks from it, where a spawned rank
+    would import them anew: ~3 s a rank).  The server listens on a unix socket at
+    ``<temp dir>/pymp-XXXXXXXX/listener-XXXXXXXX``, which must fit a socket address (107 bytes);
+    under a longer temp dir the ranks are spawned."""
+    global _CTX
+    if _CTX is None:
+        if len(tempfile.gettempdir()) + len("/pymp-XXXXXXXX/listener-XXXXXXXX") <= 107:
+            _CTX = mp.get_context("forkserver")
+            _CTX.set_forkserver_preload([__name__, "speech_recognition_tpu_torch.parallel"])
+        else:
+            _CTX = mp.get_context("spawn")
+    return _CTX
+
+
 def run_ranks(fn, world, tmp_path, *args, timeout: float = RANK_TIMEOUT):
-    """``[fn(rank, world, *args) for rank in range(world)]``, one spawned gloo process each."""
+    """``[fn(rank, world, *args) for rank in range(world)]``, one gloo process each."""
     out = str(tmp_path / f"ranks_{fn.__name__}_{time.monotonic_ns()}")
     os.makedirs(out)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, os.path.join(out, "store"), out, args), daemon=True)
+    # the arguments go through a file: a new process reads its pickled arguments only once it has started,
+    # so a start() handing over more than a pipe holds would wait for it, and the ranks would start one by one
+    args_path = os.path.join(out, "args.pt")
+    torch.save(args, args_path)
+    ctx = _context()
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, os.path.join(out, "store"), out, args_path), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -167,3 +193,82 @@ def assert_runs_match(got, want, loss_rtol=1e-5, rtol=1e-4, atol=1e-5):
     assert set(got["state"]) == set(want["state"])
     for key, value in want["state"].items():
         np.testing.assert_allclose(got["state"][key], value, rtol=rtol, atol=atol, err_msg=key)
+
+
+# ------------------------------------------------- GPipe, sequence parallelism
+
+
+def dense_layer(params, x):
+    """The dense tanh layer of the GPipe tests (tests/test_pipeline_parallel.py ``_dense_layer``)."""
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def pipeline_dp_worker(rank, world, layers, x, n_stages, n_micro):
+    """One ``data`` rank of GPipe composed with data parallelism: this rank's rows
+    of ``x`` through ``gpipe`` over ``[cpu] * n_stages``, and the gradients of the
+    global ``sum(y ** 2)`` (each rank's share, summed over ``data`` as the train
+    step sums them)."""
+    from speech_recognition_tpu_torch.parallel import (data_sum, get_device_mesh, gpipe, set_active_mesh,
+                                                       stack_params, stack_stage_fn)
+
+    mesh = get_device_mesh(world, 1, "cpu")
+    try:
+        params = [{k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()} for layer in layers]
+        n = x.shape[0] // world
+        rows = torch.from_numpy(x[mesh.data_index * n:(mesh.data_index + 1) * n])
+        y = gpipe(stack_stage_fn(dense_layer), stack_params(params, n_stages), rows, n_micro,
+                  [torch.device("cpu")] * n_stages)
+        grads = torch.autograd.grad((y ** 2).sum(), [p[k] for p in params for k in ("w", "b")])
+        return {"y": y.detach().numpy(), "grads": [data_sum(g).numpy() for g in grads]}
+    finally:
+        set_active_mesh(None)
+
+
+def sequence_parallel_worker(rank, world, halo, frontends):
+    """The sequence-parallel checks of one rank (tests/test_torch_sequence_parallel.py).
+
+    ``halo``: (x [1, T], left, right, cotangent of each rank's extended block):
+    this rank's extended block over the world group and its block's gradient.
+    ``frontends``: dicts with the data config path, a ``dp`` x ``mp`` mesh, the
+    whole batch's ``audio`` / ``lengths``, and optional ``draws`` (numpy fields
+    of SpecAugmentDraws for the whole batch) or ``seed`` (a generator's, the same
+    on every rank): this rank's rows through ``make_sp_batch_frontend``."""
+    import torch.distributed as dist
+
+    from speech_recognition_tpu_torch.configs import DataConfig
+    from speech_recognition_tpu_torch.ops.frontend import make_sp_batch_frontend
+    from speech_recognition_tpu_torch.ops.spec_augment import SpecAugmentDraws
+    from speech_recognition_tpu_torch.parallel import get_device_mesh, halo_exchange, set_active_mesh
+
+    x, left, right, cotangents = halo
+    n = x.shape[1] // world
+    block = torch.from_numpy(x[:, rank * n:(rank + 1) * n]).requires_grad_()
+    ext = halo_exchange(block, dist.group.WORLD, 1, left, right)
+    (grad,) = torch.autograd.grad((ext * torch.from_numpy(cotangents[rank])).sum(), block)
+    out = {"halo": ext.detach().numpy(), "halo_grad": grad.numpy(), "frontends": []}
+    meshes = {}  # one mesh (and its process groups, slow to make) per shape
+    for case in frontends:
+        shape = (case["dp"], case["mp"])
+        if shape not in meshes:
+            meshes[shape] = get_device_mesh(*shape, "cpu")
+        mesh = meshes[shape]
+        set_active_mesh(mesh)
+        try:
+            cfg = DataConfig.from_yaml(case["config"])
+            cfg.spec_augment.W = None  # masks only: the warp's solve is held elsewhere (test_torch_spec_augment.py)
+            cfg.spec_augment.enable = cfg.spec_augment.enable or "seed" in case
+            B = case["audio"].shape[0] // mesh.data
+            lo = mesh.data_index * B
+            kwargs = {}
+            if "draws" in case:
+                kwargs["draws"] = SpecAugmentDraws(**{k: None if v is None else torch.from_numpy(v[lo:lo + B])
+                                                      for k, v in case["draws"].items()})
+            elif "seed" in case:
+                kwargs["generator"] = torch.Generator().manual_seed(case["seed"])
+            sp = make_sp_batch_frontend(cfg, mesh, spec_augment=bool(kwargs))
+            feats, valid = sp(torch.from_numpy(case["audio"][lo:lo + B]), torch.from_numpy(case["lengths"][lo:lo + B]),
+                              **kwargs)
+            out["frontends"].append({"feats": feats.numpy(), "valid": valid.numpy(), "rows": (lo, B)})
+        finally:
+            set_active_mesh(None)
+    return out
