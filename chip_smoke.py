@@ -186,6 +186,14 @@ Phases, in order; any failure exits non-zero without printing a result:
     (K5 and K11 once a shard) and DS2 greedy, K10 per layer per shard, the
     tokens equal to the unsharded decode's, both timed; ``run.inference`` on
     the one card logs no SPMD line and writes phase 3's TSV.
+11. reference TF2 checkpoints without TensorFlow (``run_reference_checkpoints``):
+    phase 3's LAS-small ``.pt`` and phase 5's DeepSpeech2 checkpoint exported
+    through ``compat/tf_checkpoint.py``'s command line and converted back, bit
+    for bit after the float32 cast; ``run.inference`` greedy with each
+    converted ``.pt`` (LAS-small on phase 3's clips, DS2 on phase 5's), K10
+    and K4 counted, the tokens bit for bit with the original ``.pt``'s and the
+    TSV equal to phase 3's / phase 5's; the checkpoints' bytes and the export
+    and convert host seconds printed.
 
 K10 (the whole masked LSTM / GRU sequence, ``check_rnn_sequence`` in phase 2
 at DeepSpeech2's BiGRU, LAS-small's listener BiLSTM and the transducer's
@@ -3716,6 +3724,101 @@ def run_sharded_decode(tmp, wav_dir, data_config, host_audio, las_weights, ds2_w
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+class DecodedTokens:
+    """While active, the token rows each ``run/common.py pipelined_decode`` yields (``run.inference`` decodes
+    through it), its padding rows dropped."""
+
+    def __enter__(self):
+        from speech_recognition_tpu_torch.run import common
+
+        self._common, self._real, self.rows = common, common.pipelined_decode, []
+
+        def recording(*args, **kwargs):
+            for out, *rest in self._real(*args, **kwargs):
+                self.rows.extend(out[: rest[-1]])
+                yield (out, *rest)
+
+        common.pipelined_decode = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._common.pipelined_decode = self._real
+
+    def tokens(self):
+        return np.stack([np.asarray(r) for r in self.rows])
+
+
+def run_reference_checkpoints(tmp, wav_dir, train_wavs, data_config, las_weights, ds2_weights):
+    """Phase 11: reference TF2 checkpoints on the card's machine, which has no TensorFlow.  Phase 3's LAS-small
+    ``.pt`` and phase 5's DeepSpeech2 checkpoint go through ``compat/tf_checkpoint.py``'s command line to a
+    reference checkpoint and back to a ``.pt``: every tensor bit for bit with the original's after the float32
+    cast.  ``run.inference`` greedy (bf16, B=128) then decodes with the converted ``.pt`` and with the original,
+    LAS-small on phase 3's 128 clips, DS2 on the 100 clips phase 5 decoded, with K10 and (LAS) K4 counted from 0
+    just before each decode: the tokens bit for bit and the TSV equal to phase 3's / phase 5's greedy one.  Prints
+    the checkpoints' bytes and the export and convert host seconds.  Returns the converted decodes' launches."""
+    import torch
+
+    from speech_recognition_tpu_torch.compat import tf_checkpoint
+    from speech_recognition_tpu_torch.ops.greedy_search import greedy_search
+    from speech_recognition_tpu_torch.ops.rnn_sequence import rnn_sequence
+    from speech_recognition_tpu_torch.run import inference
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi failed"
+    check("tensorflow" not in sys.modules, "phase 11 runs with TensorFlow not imported")
+    launches = {"las_greedy": 0, "rnn_sequence_lstm": 0, "rnn_sequence_gru": 0}
+    for tag, config, weights, clips, phase_tsv, layers, k10 in (
+            ("LAS-small", "las_small.yml", las_weights, os.path.join(wav_dir, "*.wav"), "greedy.tsv", LAS_LAYERS,
+             "rnn_sequence_lstm"),
+            ("DS2", "deepspeech.yml", ds2_weights, os.path.join(train_wavs, "clip0*.wav"), "ds2_greedy.tsv",
+             DS2_LAYERS, "rnn_sequence_gru")):
+        model_config = os.path.join(REPO, "resources/configs", config)
+        prefix = os.path.join(tmp, "reference", tag.lower(), "ckpt")
+        converted = prefix + ".pt"
+        t0 = time.perf_counter()
+        tf_checkpoint.main(["--export", weights, "--model-config", model_config, "--data-config", data_config,
+                            "--output", prefix])
+        t1 = time.perf_counter()
+        tf_checkpoint.main(["--checkpoint", prefix, "--model-config", model_config, "--data-config", data_config])
+        t2 = time.perf_counter()
+        want = torch.load(weights, map_location="cpu", weights_only=True)
+        got = torch.load(converted, map_location="cpu", weights_only=True)
+        same = set(got) == set(want) and all(torch.equal(got[k], want[k].float()) for k in want)
+        n_bytes = {f: os.path.getsize(os.path.join(os.path.dirname(prefix), f))
+                   for f in sorted(os.listdir(os.path.dirname(prefix))) if not f.endswith(".pt")}
+        check(same, f"11 {tag}: the .pt through a reference checkpoint and back, {len(want)} tensors bit for bit "
+                    "after the float32 cast")
+        print(f"  11 {tag}: reference checkpoint {n_bytes} bytes ({os.path.getsize(weights)} bytes of .pt); "
+              f"export {t1 - t0:.3f} s, convert back {t2 - t1:.3f} s on the host ({card})")
+        tokens, tsv = {}, {}
+        for name, path in (("converted", converted), ("original", weights)):
+            out = os.path.join(tmp, f"reference_{tag.lower()}_{name}.tsv")
+            greedy_search.launches = 0
+            rnn_sequence.launches = rnn_sequence.cluster_tc_launches = 0
+            with DecodedTokens() as rec:
+                inference.main(inference.parser.parse_args(decode_args(data_config, config, clips, path, out, 0)))
+            tokens[name] = rec.tokens()
+            with open(out) as f:
+                tsv[name] = f.read().splitlines()[1:]
+            if name == "converted":
+                k4 = greedy_search.launches
+                check(rnn_sequence.launches == layers and (k4 == L - 1 if tag == "LAS-small" else k4 == 0),
+                      f"11 {tag} greedy with the converted .pt: K10 launched {rnn_sequence.launches} times (expected "
+                      f"{layers}), K4 {k4} times (expected {L - 1 if tag == 'LAS-small' else 0})")
+                check_k10_route(f"the 11 {tag} decode")
+                launches[k10] += rnn_sequence.launches
+                launches["las_greedy"] += k4
+        with open(os.path.join(tmp, phase_tsv)) as f:
+            phase_rows = f.read().splitlines()[1:]
+        check(tokens["converted"].shape == tokens["original"].shape
+              and np.array_equal(tokens["converted"], tokens["original"]),
+              f"11 {tag}: greedy tokens {tokens['converted'].shape} with the converted .pt equal to the original's")
+        check(tsv["converted"] == phase_rows, f"11 {tag}: the {len(phase_rows)} decoded rows equal to {phase_tsv}'s")
+    return launches
+
+
 def main():
     import torch
 
@@ -4016,6 +4119,13 @@ def main():
         for name, n in run_sharded_decode(tmp, wav_dir, data_config, host_audio, weights, ds2_weights).items():
             launches[name] += n
         print(f"  phase 10c: {time.perf_counter() - t_phase:.1f} s")
+        print("== phase 11: reference TF2 checkpoints through compat/tf_checkpoint.py (LAS-small, DS2) and "
+              "run.inference greedy with the converted .pt (bf16, B=128)")
+        t_phase = time.perf_counter()
+        for name, n in run_reference_checkpoints(tmp, wav_dir, train_wavs, data_config, weights,
+                                                 ds2_weights).items():
+            launches[name] += n
+        print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
         for name, n in launches.items():
             kernels[name]["launches"] = n
         for name, row in kernels.items():

@@ -243,18 +243,53 @@ def make_frontend_preprocess(cfg: TrainConfig, token_conditioned: bool, generato
 
 
 def _summary_writer(log_dir: str, logger):
-    """A TensorBoard writer when ``torch.utils.tensorboard`` works here, else None."""
+    """A TensorBoard writer when ``torch.utils.tensorboard`` works here, else None.
+
+    A gs:// log dir stages its event files in a local temporary directory
+    (removed at exit) and uploads, on each ``flush``, the files whose size or
+    modification time changed since their last upload."""
     from ..utils import is_remote
 
-    if is_remote(log_dir):
-        logger.info("[!] TensorBoard logs to a remote path are not ported yet; not writing them")
-        return None
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError as e:
         logger.info(f"[!] TensorBoard is not installed ({e}); not writing its logs")
         return None
-    return SummaryWriter(log_dir)
+    if not is_remote(log_dir):
+        return SummaryWriter(log_dir)
+
+    import atexit
+    import shutil
+    import tempfile
+
+    from ..utils import copy, walk_files
+
+    local = tempfile.mkdtemp(prefix="srt-tb-")
+    atexit.register(shutil.rmtree, local, ignore_errors=True)
+
+    class RemoteWriter:
+        def __init__(self):
+            self._writer = SummaryWriter(local)
+            self._uploaded = {}  # local path -> (size, mtime) at its last upload
+
+        def add_scalar(self, tag, value, step):
+            self._writer.add_scalar(tag, value, step)
+
+        def flush(self):
+            self._writer.flush()
+            for f in walk_files(local):
+                stat = os.stat(f)
+                signature = (stat.st_size, stat.st_mtime_ns)
+                if self._uploaded.get(f) != signature:
+                    copy(f, path_join(log_dir, f[len(local) + 1 :]))
+                    self._uploaded[f] = signature
+
+        def close(self):
+            self._writer.close()
+            self.flush()
+            shutil.rmtree(local, ignore_errors=True)
+
+    return RemoteWriter()
 
 
 def start_profiler(device):
@@ -574,6 +609,7 @@ def _main_impl(cfg: TrainConfig):
             for k in ("val_loss", "val_accuracy"):
                 if k in summary:
                     writer.add_scalar(f"val/{k}", summary[k], global_step)
+            writer.flush()  # once an epoch: a remote log dir's upload
 
         # ---------------------------------------------------------- checkpoint
         path = checkpoint_path(cfg.output_path, model, epoch + 1, summary["val_loss"], summary.get("val_accuracy", 0.0))

@@ -8,7 +8,7 @@ from typing import Iterable, Union
 
 import numpy as np
 
-from .io import copy, exists, glob, is_remote, makedirs, open_file, path_join
+from .io import copy, copy_tree, exists, glob, is_remote, makedirs, open_file, path_join, walk_files
 
 __all__ = [
     "get_logger",
@@ -19,8 +19,10 @@ __all__ = [
     "glob",
     "makedirs",
     "copy",
+    "copy_tree",
     "exists",
     "is_remote",
+    "walk_files",
 ]
 
 

@@ -4,7 +4,7 @@ port's copy of speech_recognition_tpu/utils/io.py.
 Local paths use the stdlib; ``gs://`` paths go to the stdlib GCS client in
 :mod:`.gcs` when it can authenticate (emulator, explicit token, metadata
 server, application default credentials), and raise otherwise.  The JAX
-module's ``tf.io.gfile`` fallback and its tree walk/copy are not ported.
+module's ``tf.io.gfile`` fallback is not ported: it needs TensorFlow.
 """
 
 import glob as _glob
@@ -66,3 +66,38 @@ def exists(path: str) -> bool:
     if is_remote(path):
         return _gcs().exists(path)
     return os.path.exists(path)
+
+
+def walk_files(directory: str) -> List[str]:
+    """All file paths under ``directory``, recursively (full paths).
+
+    For gs:// this is one objects.list over the prefix (zero-byte directory
+    marker objects are skipped); locally it is os.walk.
+    """
+    directory = directory.rstrip("/")
+    if is_remote(directory):
+        gcs = _gcs()
+        bucket, prefix = gcs._split(directory)
+        # bucket root has an empty prefix; "/" would match nothing
+        list_prefix = prefix + "/" if prefix else ""
+        return sorted(
+            f"gs://{bucket}/{name}" for name in gcs.list_objects(bucket, list_prefix) if not name.endswith("/")
+        )
+    out = []
+    for root, _dirs, files in os.walk(directory):
+        out += [os.path.join(root, f) for f in files]
+    return sorted(out)
+
+
+def copy_tree(src: str, dst: str) -> None:
+    """Recursively copy the file tree at ``src`` to ``dst``; either side may be local or gs://."""
+    src = src.rstrip("/")
+    dst = dst.rstrip("/")
+    if not is_remote(dst):
+        os.makedirs(dst, exist_ok=True)
+    for f in walk_files(src):
+        rel = f[len(src) + 1 :]
+        target = path_join(dst, rel)
+        if not is_remote(target):
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+        copy(f, target)

@@ -107,16 +107,25 @@ def test_port_imports_no_jax(tmp_path):
     TFRecords through ``run.make_tfrecord`` and trains LAS one step from them
     (``--use-tfrecord``), and LAS one step as a one-process ``--fsdp`` job over
     gloo (``parallel/``), all on the CPU.  ``parallel.pipeline`` and
-    ``parallel.sequence`` are among the imported.
+    ``parallel.sequence`` are among the imported.  TensorFlow is blocked too:
+    the LAS mini checkpoint goes to a reference TF checkpoint and back through
+    ``compat/tf_checkpoint.py``'s command line, bit for bit.
     The transducer's modules (``models/transducer.py``,
     ``ops/transducer*.py``, ``ops/joint_planes.py``) are among the imported."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.machinery, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "speech_recognition_tpu")
+ABSENT = ("tensorflow",)  # torch._dynamo probes its spec: found, with no origin, and fails to import
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
+        if name.split(".")[0] in ABSENT:
+            return importlib.machinery.ModuleSpec(name, self)
+    def create_module(self, spec):
+        raise ImportError("blocked: " + spec.name)
+    def exec_module(self, module):
+        pass
 sys.meta_path.insert(0, Block())
 import torch
 import speech_recognition_tpu_torch as pkg
@@ -126,7 +135,7 @@ for name in names:
 for name in ("models.transducer", "ops.transducer", "ops.transducer_pruned", "ops.joint_planes", "ops.rnn_sequence",
              "run.evaluate", "models.moe", "ops.spec_augment", "ops.warp", "run.make_tfrecord", "data.tfrecord",
              "parallel", "parallel.mesh", "parallel.comm", "parallel.expert", "parallel.shard", "parallel.pipeline",
-             "parallel.sequence"):
+             "parallel.sequence", "compat", "compat.tensor_bundle", "compat.tf_checkpoint"):
     assert pkg.__name__ + "." + name in names, name
 
 from speech_recognition_tpu_torch.configs import DataConfig, TrainConfig, get_model_config
@@ -137,6 +146,13 @@ out, data_config, las_config, conformer_config, transducer_config, moe_config, s
 model = create_model(get_model_config(las_config), DataConfig.from_yaml(data_config), torch.float32,
                      torch.device("cpu"), generator=torch.Generator().manual_seed(0))
 torch.save(model.state_dict(), out + "/las.pt")
+from speech_recognition_tpu_torch.compat import tf_checkpoint
+tf_checkpoint.main(["--export", out + "/las.pt", "--model-config", las_config, "--data-config", data_config,
+                    "--output", out + "/tf/ckpt"])
+tf_checkpoint.main(["--checkpoint", out + "/tf/ckpt", "--model-config", las_config, "--data-config", data_config,
+                    "--output", out + "/las_from_tf.pt"])
+back, want = torch.load(out + "/las_from_tf.pt"), model.state_dict()
+assert set(back) == set(want) and all(torch.equal(back[k], want[k]) for k in want)
 inference.main(inference.parser.parse_args([
     "--data-config", data_config, "--model-config", las_config, "--audio-files", wav, "--model-path",
     out + "/las.pt", "--sp-model-path", sp_model, "--output-path", out + "/decoded.tsv", "--batch-size", "2",
@@ -192,7 +208,7 @@ cfg = TrainConfig(
     learning_rate=1e-3, batch_size=2, dev_batch_size=2, shuffle_buffer_size=1, max_over_policy="slice",
     device="CPU", seed=1, fsdp=True, coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0)
 steps.append(train.main(cfg)[0]["steps"])  # one process over gloo, FSDP2 and the gathered checkpoint
-assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED + ABSENT]
 print(len(names), sum(steps))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -24,10 +24,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def default_data_config(checkpoint: str) -> str:
-    """``<output>/data-config.yml`` for a checkpoint at ``<output>/models/<name>``."""
-    return os.path.join(os.path.dirname(os.path.dirname(checkpoint.rstrip("/"))), "data-config.yml")
+from speech_recognition_tpu_torch.compat.tf_checkpoint import default_data_config  # noqa: E402
 
 
 def convert(checkpoint: str, model_config: str, data_config: str = None, output: str = None) -> str:
